@@ -1,4 +1,4 @@
-"""alluxio_tpu_torch: the warm-tier device data plane on PyTorch and CUDA.
+"""alluxio_tpu_torch: the device data plane and its model on PyTorch + CUDA.
 
 The PyTorch port of ``alluxio_tpu``'s device layer, for an NVIDIA Hopper
 card (sm_90a). Module paths mirror the JAX package so each counterpart is
@@ -12,7 +12,15 @@ easy to find:
 - ``ops/reduce_kernel.py``: ``scaled_sum``, a hand-written CUDA kernel
   (``ops/csrc/reduce_kernel.cu``) with its plain PyTorch version;
 - ``ops/decode.py``: record decode in plain PyTorch;
-- ``convert.py``: device-tier state carried over from numpy pages.
+- ``parallel/{ring_attention,moe}.py``: single-card attention and the
+  top-1 mixture-of-experts FFN;
+- ``models/transformer.py``: the flagship ViT (``nn.Module`` with the JAX
+  tree's parameter names) and ``images_to_tokens``;
+- ``models/train.py``: the single-card train step with an AdamW that
+  follows ``optax.adamw``, and ``sgd``;
+- ``models/checkpoint.py``: train-state checkpoints in the JAX layout;
+- ``convert.py``: device-tier pages and the model's train state carried
+  over from numpy.
 
 The port imports ``torch`` and numpy, never ``jax`` and nothing of
 ``alluxio_tpu``. Entry points run on ``cuda`` unless the caller passes
@@ -29,6 +37,11 @@ _LAZY = {
     "scaled_sum": "alluxio_tpu_torch.ops.reduce_kernel",
     "decode_image_records": "alluxio_tpu_torch.ops.decode",
     "hbm_store_from_numpy": "alluxio_tpu_torch.convert",
+    "TransformerConfig": "alluxio_tpu_torch.models.transformer",
+    "Transformer": "alluxio_tpu_torch.models.transformer",
+    "images_to_tokens": "alluxio_tpu_torch.models.transformer",
+    "make_train_state": "alluxio_tpu_torch.models.train",
+    "make_train_step": "alluxio_tpu_torch.models.train",
 }
 
 

@@ -19,10 +19,26 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    warm-tier scan), checked against the same chain on the plain version;
 3. decode: four 32 MiB blocks of 64x64x3 records through
    ``batched_device_iterator`` and ``decode_image_records`` on the card,
-   checked bit for bit against the same decode on the CPU.
+   checked bit for bit against the same decode on the CPU;
+4. train: ``bench.py``'s e2e path on the same four blocks, served from
+   the loader's device tier: 3 epochs of linear-softmax SGD (85 batches
+   x 128, float32), then 3 epochs of the flagship ViT (4 layers, d_model
+   256, bf16, AdamW 3e-4; 170 batches x 64, ``images_to_tokens``, one
+   train step a batch). Before the first step, the same weights are
+   carried to the CPU and the first batch's loss, float32 logits and
+   every gradient leaf on the card are held against the CPU's
+   (``FIRST_STEP_TOL``, ``FIRST_STEP_LOSS_ATOL``). It fails on that, on
+   a non-finite loss, and on a ViT whose last-epoch mean loss is not
+   below its first.
+   It prints per-step ms (CUDA events), records/s, GB/s into the step,
+   each path's bound, and, from ``torch.profiler`` over 20 more steps,
+   launches per step and the card's busy share. Then the ViT's train
+   state is saved to a directory-backed namespace, restored into a fresh
+   model, and must be bit-identical and give the same next-step loss.
 
-It prints the card's name and power limit, one ``{"kernels": [...]}``
-line, and last ``{"ok": true, "device": {...}}``. Any failed phase exits
+It prints the card's name and power limit, one ``{"train": {...}}``
+line, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
+"device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
 exits non-zero and prints no result. All data is made from a seed.
 """
@@ -53,11 +69,37 @@ H = W = 64
 C = 3
 BATCH = 128
 
+#: train phase (bench.py's e2e): epochs over the four record blocks, the
+#: linear model's batch is BATCH, the ViT's VIT_BATCH
+EPOCHS = 3
+VIT_BATCH = 64
+PATCH = 16
+#: the flagship's widths (bench.py:821-824), at its full depth
+VIT_WIDTHS = dict(d_model=256, n_heads=8, d_ff=1024, n_layers=4)
+N_CLASSES = 1000
+LINEAR_LR = 1e-3
+VIT_LR = 3e-4
+PROFILE_STEPS = 20
+#: the first ViT step on the card against the same step on the CPU (same
+#: weights, same batch, both bf16). The two backends run the same bf16
+#: ops but sum the matmuls in another order, so a result moves by a few
+#: bf16 ulps. The float32 logits and each gradient leaf are held to
+#: 2**-5 of the tensor's largest magnitude, the bf16 measure of the CPU
+#: parity tests against JAX (tests/test_torch_transformer.py). At
+#: initialisation the loss is near ln(1000) = 6.9078 whatever the
+#: forward does, so it is held tighter: 1e-3 absolute, 28x the 3.5e-5
+#: measured on an H100 and a twentieth of its distance from ln(1000).
+FIRST_STEP_TOL = 2.0 ** -5
+FIRST_STEP_LOSS_ATOL = 1e-3
+
 #: H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the
 #: CUDA-core rate (67 TFLOP/s float32; the table has no int32 entry, so
-#: the kernel's integer multiply-adds are held against it)
+#: the kernel's integer multiply-adds and the linear model's float32
+#: matmuls are held against it), and the bf16 dense tensor-core rate for
+#: the ViT's matmuls
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 
 def fail(msg: str) -> None:
@@ -311,19 +353,14 @@ def main_path(device, workdir: str, num_blocks: int, block_bytes: int,
 
 
 # -- decode -------------------------------------------------------------------
-def decode_phase(device, workdir: str, num_blocks: int,
-                 block_bytes: int) -> None:
-    import torch
-
-    from alluxio_tpu_torch.client.torch_io import (DeviceBlockLoader,
-                                                   batched_device_iterator)
-    from alluxio_tpu_torch.ops.decode import (decode_image_records,
-                                              encode_image_records,
+def record_files(workdir: str, num_blocks: int, block_bytes: int) -> dict:
+    """``bench.py``'s e2e layout: blocks of 64x64x3 records with a 4-byte
+    label, padded to the block size; returns path -> (file id, file)."""
+    from alluxio_tpu_torch.ops.decode import (encode_image_records,
                                               image_record_bytes)
 
     rng = np.random.default_rng(SEED + 2)
-    rec_bytes = image_record_bytes(H, W, C)
-    per_block = block_bytes // rec_bytes
+    per_block = block_bytes // image_record_bytes(H, W, C)
     files = {}
     for i in range(num_blocks):
         imgs = rng.integers(0, 255, size=(per_block, H, W, C),
@@ -334,6 +371,20 @@ def decode_phase(device, workdir: str, num_blocks: int,
         path = os.path.join(workdir, f"e2e-{i}.blk")
         Path(path).write_bytes(raw)
         files[f"/bench/e2e-{i}"] = (1000 + i, path)
+    return files
+
+
+def decode_phase(device, files: dict, num_blocks: int,
+                 block_bytes: int) -> None:
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import (DeviceBlockLoader,
+                                                   batched_device_iterator)
+    from alluxio_tpu_torch.ops.decode import (decode_image_records,
+                                              image_record_bytes)
+
+    rec_bytes = image_record_bytes(H, W, C)
+    per_block = block_bytes // rec_bytes
     loader = DeviceBlockLoader(ShardSource(files), list(files),
                                device=device,
                                hbm_bytes=num_blocks * block_bytes
@@ -365,6 +416,421 @@ def decode_phase(device, workdir: str, num_blocks: int,
           f"CPU", flush=True)
 
 
+# -- train phase --------------------------------------------------------------
+class DirFS:
+    """A directory standing in for the namespace: the three calls the
+    checkpoints make, on files under ``root``."""
+
+    def __init__(self, root: str) -> None:
+        self._root = root
+
+    def _at(self, path: str) -> str:
+        return os.path.join(self._root, path.lstrip("/"))
+
+    def write_all(self, path: str, data, **_kw) -> None:
+        os.makedirs(os.path.dirname(self._at(path)), exist_ok=True)
+        Path(self._at(path)).write_bytes(bytes(data))
+
+    def read_all(self, path: str) -> bytes:
+        return Path(self._at(path)).read_bytes()
+
+    def list_status(self, path: str):
+        return [SimpleNamespace(name=n) for n in os.listdir(self._at(path))]
+
+
+def vit_flops_per_step(cfg, batch: int, tokens: int) -> float:
+    """Matmul operations of one train step: the layers' projections, the
+    head on the pooled rows and the two attention products at 3x their
+    forward (forward, input and weight gradients); the embed product at
+    2x, since the tokens are an input and need no gradient."""
+    d, f = cfg.d_model, cfg.d_ff
+    embed = 2 * batch * tokens * cfg.vocab_or_patch_dim * d
+    fwd = 2 * batch * tokens * cfg.n_layers * (3 * d * d + d * d
+                                               + 2 * d * f)
+    fwd += 2 * batch * d * cfg.n_classes
+    fwd += cfg.n_layers * 2 * 2 * batch * cfg.n_heads * tokens * tokens \
+        * cfg.d_head
+    return 3.0 * fwd + 2.0 * embed
+
+
+def linear_softmax_loss(params, images, labels):
+    """``bench.py``'s linear-softmax model: ``params = {"w": (H*W*C,
+    n_classes), "b": (n_classes,)}``, float32; images are flattened and
+    cast to float32. ``bench.py``'s loss sums ``log_softmax * one_hot``;
+    picking the label's entry is the same value."""
+    import torch
+
+    x = images.reshape(images.shape[0], -1).float()
+    logits = x @ params["w"] + params["b"]
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, 1, labels.long()[:, None]).mean()
+
+
+def make_linear_train_step(tx):
+    """``step(params, opt_state, images, labels) -> (params, opt_state,
+    loss)`` for :func:`linear_softmax_loss`; ``params`` require grad."""
+    import torch
+
+    from alluxio_tpu_torch.utils.pytree import tree_leaves
+    from alluxio_tpu_torch.utils.tracing import annotate
+
+    def step(params, opt_state, images, labels):
+        leaves = tree_leaves(params)
+        with annotate("atpu.train.forward"):
+            loss = linear_softmax_loss(params, images, labels)
+        with annotate("atpu.train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
+        with annotate("atpu.train.update"):
+            opt_state = tx.update(grads, opt_state, leaves)
+        return params, opt_state, loss.detach()
+
+    return step
+
+
+def first_step_check(model, cpu_model, tokens, labels) -> dict:
+    """The first ViT step's loss, float32 logits and gradients on the card
+    against the CPU, from the same weights and batch; fails beyond
+    ``FIRST_STEP_TOL``/``FIRST_STEP_LOSS_ATOL``."""
+    import torch
+
+    from alluxio_tpu_torch.models.transformer import forward, loss_fn
+
+    def run(m, tok, lab):
+        with torch.no_grad():
+            logits = forward(m, tok)
+        loss = loss_fn(m, tok, lab)
+        grads = torch.autograd.grad(loss, m.leaves())
+        return (float(loss.detach()), logits.cpu(),
+                [g.float().cpu() for g in grads])
+
+    def rel(a, b):  # max |a - b| over the largest |b|
+        d, scale = float((a - b).abs().max()), float(b.abs().max())
+        return d / scale if scale > 0 else (0.0 if d == 0 else float("inf"))
+
+    card_loss, card_logits, card_grads = run(model, tokens, labels)
+    cpu_loss, cpu_logits, cpu_grads = run(cpu_model, tokens.cpu(),
+                                          labels.cpu())
+    logits_rel = rel(card_logits, cpu_logits)
+    grads_rel = [rel(a, b) for a, b in zip(card_grads, cpu_grads)]
+    worst = max(range(len(grads_rel)), key=grads_rel.__getitem__)
+    out = {"card_loss": card_loss, "cpu_loss": cpu_loss,
+           "loss_abs_diff": abs(card_loss - cpu_loss),
+           "loss_atol": FIRST_STEP_LOSS_ATOL, "logits_rel": logits_rel,
+           "grads_rel_max": grads_rel[worst], "grads_rel_max_leaf": worst,
+           "grad_leaves": len(grads_rel), "tol": FIRST_STEP_TOL}
+    print(f"vit first step, card vs CPU: loss {card_loss:.6f} vs "
+          f"{cpu_loss:.6f} (|diff| {out['loss_abs_diff']:.3e}, tolerance "
+          f"{FIRST_STEP_LOSS_ATOL:g}); logits max diff / max |logit| "
+          f"{logits_rel:.3e}; worst of {len(grads_rel)} gradient leaves "
+          f"(leaf {worst}) {grads_rel[worst]:.3e} (tolerance "
+          f"{FIRST_STEP_TOL:.3e})", flush=True)
+    if not out["loss_abs_diff"] <= FIRST_STEP_LOSS_ATOL:
+        fail(f"vit first step: card loss {card_loss} vs CPU {cpu_loss}")
+    if not logits_rel <= FIRST_STEP_TOL:
+        fail(f"vit first step: logits differ by {logits_rel} of their "
+             f"largest magnitude")
+    if not grads_rel[worst] <= FIRST_STEP_TOL:
+        fail(f"vit first step: gradient leaf {worst} differs by "
+             f"{grads_rel[worst]} of its largest magnitude")
+    return out
+
+
+def bound_ms(flops: float, flop_rate: float, nbytes: float) -> dict:
+    ops_ms = flops / flop_rate * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def run_epochs(name: str, loader, step, batch: int, epochs: int,
+               state: tuple) -> tuple:
+    """``epochs`` passes over the device tier; one ``step(state, imgs,
+    labels) -> (state, loss)`` per decoded batch. Returns (state, per-epoch
+    stats)."""
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import batched_device_iterator
+    from alluxio_tpu_torch.ops.decode import (decode_image_records,
+                                              image_record_bytes)
+
+    rec_bytes = image_record_bytes(H, W, C)
+    stats = []
+    for e in range(epochs):
+        losses = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for recs in batched_device_iterator(loader, record_bytes=rec_bytes,
+                                            batch_size=batch):
+            imgs, labels = decode_image_records(recs, height=H, width=W,
+                                                channels=C)
+            state, loss = step(state, imgs, labels)
+            losses.append(loss)
+        end.record()
+        end.synchronize()
+        dt = time.perf_counter() - t0
+        losses = torch.stack(losses).float().cpu()
+        if not bool(torch.isfinite(losses).all()):
+            fail(f"{name} epoch {e + 1}: a loss is not finite")
+        n = losses.numel()
+        stats.append({
+            "epoch": e + 1, "steps": n, "s": dt,
+            "step_ms": start.elapsed_time(end) / n,
+            "records_per_s": n * batch / dt,
+            "gb_per_s_into_step": n * batch * rec_bytes / dt / 1e9,
+            "mean_loss": float(losses.mean())})
+        print(f"{name} epoch {e + 1}: {n} steps x {batch} records in "
+              f"{dt:.3f} s, {stats[-1]['step_ms']:.4f} ms/step (CUDA "
+              f"events), {stats[-1]['records_per_s']:.0f} records/s, "
+              f"{stats[-1]['gb_per_s_into_step']:.3f} GB/s into the step, "
+              f"mean loss {stats[-1]['mean_loss']:.5f}", flush=True)
+    return state, stats
+
+
+def profile_steps(loader, step, batch: int, n_steps: int, state):
+    """``n_steps`` more steps under ``torch.profiler``: kernel launches
+    per step and the share of the window in which the card was busy
+    (the union of its kernel and copy intervals over the window)."""
+    import itertools
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from alluxio_tpu_torch.client.torch_io import batched_device_iterator
+    from alluxio_tpu_torch.ops.decode import (decode_image_records,
+                                              image_record_bytes)
+
+    batches = itertools.islice(batched_device_iterator(
+        loader, record_bytes=image_record_bytes(H, W, C),
+        batch_size=batch), n_steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for recs in batches:
+            with record_function("atpu.decode"):
+                imgs, labels = decode_image_records(recs, height=H,
+                                                    width=W, channels=C)
+            state, _ = step(state, imgs, labels)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    # the named regions also appear on the device timeline, spanning the
+    # kernels inside them: they are neither launches nor busy time
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("atpu.")]
+    if not dev:
+        return state, None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = max(e.time_range.end for e in events) - \
+        min(e.time_range.start for e in events)
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy",
+                                                         "Memset"))]
+    averages = prof.key_averages()
+    top = sorted((a for a in averages if a.device_type == DeviceType.CUDA
+                  and not a.key.startswith("atpu.")),
+                 key=lambda a: a.self_device_time_total, reverse=True)[:8]
+    # host time per step of each named region (CPU clock, profiler on)
+    host_ms = {}
+    for e in events:
+        if e.name.startswith("atpu.") and e.device_type == DeviceType.CPU:
+            host_ms[e.name] = host_ms.get(e.name, 0.0) + \
+                (e.time_range.end - e.time_range.start) / n_steps / 1e3
+    return state, {
+        "steps": n_steps, "launches_per_step": len(kernels) / n_steps,
+        "host_ms_per_step": host_ms,
+        "device_busy_us_per_step": busy / n_steps,
+        "window_us_per_step": window / n_steps,
+        "busy_share": busy / window if window > 0 else None,
+        "top": [(a.key, a.count / n_steps,
+                 a.self_device_time_total / n_steps) for a in top]}
+
+
+def train_phase(device, workdir: str, files: dict) -> dict:
+    """bench.py's e2e path through the port: device tier -> batches ->
+    decode -> (a) linear-softmax SGD, (b) the flagship ViT under AdamW;
+    then the ViT's checkpoint round trip."""
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import (DeviceBlockLoader,
+                                                   batched_device_iterator)
+    from alluxio_tpu_torch.models.checkpoint import (latest_step,
+                                                     load_train_state,
+                                                     save_train_state)
+    from alluxio_tpu_torch.models.train import (make_train_state,
+                                                make_train_step, sgd)
+    from alluxio_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig,
+                                                      images_to_tokens)
+    from alluxio_tpu_torch.ops.decode import (decode_image_records,
+                                              image_record_bytes)
+    from alluxio_tpu_torch.utils.bf16 import bits
+    from alluxio_tpu_torch.utils.pytree import tree_leaves
+
+    rec_bytes = image_record_bytes(H, W, C)
+    n_records = len(files) * (BLOCK_BYTES // rec_bytes)
+    print(f"train phase: {len(files)} x {BLOCK_BYTES >> 20} MiB blocks, "
+          f"{n_records} records; TF32 matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    loader = DeviceBlockLoader(ShardSource(files), list(files),
+                               device=device,
+                               hbm_bytes=len(files) * BLOCK_BYTES
+                               + (8 << 20))
+    out = {}
+    try:
+        # (a) linear softmax, float32, SGD (bench.py:758-810)
+        feat = H * W * C
+        rng = np.random.default_rng(SEED + 3)
+        params = {
+            "w": torch.from_numpy((rng.standard_normal((feat, N_CLASSES))
+                                   * 0.01).astype(np.float32)).to(device)
+            .requires_grad_(),
+            "b": torch.zeros(N_CLASSES, device=device, requires_grad=True)}
+        tx = sgd(LINEAR_LR)
+        lin_step = make_linear_train_step(tx)
+
+        def linear(state, imgs, labels):
+            p, o = state
+            p, o, loss = lin_step(p, o, imgs, labels)
+            return (p, o), loss
+
+        _, lin_stats = run_epochs("linear", loader, linear, BATCH,
+                                     EPOCHS, (params, tx.init(params)))
+        lin_flops = 2.0 * 2 * BATCH * feat * N_CLASSES  # logits, grad w
+        lin_bytes = 2 * 4 * (feat + 1) * N_CLASSES + BATCH * rec_bytes
+        out["linear"] = {"epochs": lin_stats, **bound_ms(
+            lin_flops, CORE_OPS_PER_S, lin_bytes)}
+
+        # (b) the flagship ViT, bf16, AdamW 3e-4 (bench.py:820-869)
+        cfg = TransformerConfig(
+            vocab_or_patch_dim=PATCH * PATCH * C, n_classes=N_CLASSES,
+            max_len=(H // PATCH) * (W // PATCH), **VIT_WIDTHS)
+        model, opt, tx = make_train_state(cfg, device=device,
+                                          learning_rate=VIT_LR, seed=0)
+        cpu_model = Transformer(cfg, device="cpu", seed=1)
+        cpu_model.load_param_tree(model.param_tree())  # carried over
+        # the first batch of the first epoch, as the train loop sees it
+        batches = batched_device_iterator(loader, record_bytes=rec_bytes,
+                                          batch_size=VIT_BATCH)
+        imgs, labels = decode_image_records(next(batches), height=H,
+                                            width=W, channels=C)
+        batches.close()
+        tokens = images_to_tokens(imgs, patch=PATCH)
+        first = first_step_check(model, cpu_model, tokens, labels)
+        vit_step = make_train_step(cfg, tx)
+
+        def vit(state, imgs, labels):
+            m, o = state
+            m, o, loss = vit_step(m, o, images_to_tokens(imgs, patch=PATCH),
+                                  labels)
+            return (m, o), loss
+
+        (model, opt), vit_stats = run_epochs(
+            "vit", loader, vit, VIT_BATCH, EPOCHS, (model, opt))
+        if not vit_stats[-1]["mean_loss"] < vit_stats[0]["mean_loss"]:
+            fail(f"vit loss did not fall: epoch 1 mean "
+                 f"{vit_stats[0]['mean_loss']}, epoch {EPOCHS} mean "
+                 f"{vit_stats[-1]['mean_loss']}")
+        n_params = sum(p.numel() for p in model.leaves())
+        # each input read once, each output written once: params, mu and
+        # nu (in and out, bf16) and the batch's records
+        vit_bytes = 2 * 3 * 2 * n_params + VIT_BATCH * rec_bytes
+        out["vit"] = {
+            "params": n_params,
+            "first_step": first,
+            "epochs": vit_stats, **bound_ms(
+                vit_flops_per_step(cfg, VIT_BATCH, cfg.max_len),
+                BF16_FLOPS_PER_S, vit_bytes)}
+        print(f"vit bound per step: {out['vit']['bound_ms'] * 1e3:.2f} us "
+              f"({out['vit']['bound_by']}; operations "
+              f"{out['vit']['ops_ms'] * 1e3:.2f} us, bytes "
+              f"{out['vit']['bytes_ms'] * 1e3:.2f} us); linear "
+              f"{out['linear']['bound_ms'] * 1e3:.2f} us "
+              f"({out['linear']['bound_by']})", flush=True)
+
+        # launches and busy share over PROFILE_STEPS more steps, each path
+        (model, opt), vprof = profile_steps(loader, vit, VIT_BATCH,
+                                            PROFILE_STEPS, (model, opt))
+        _, lprof = profile_steps(loader, linear, BATCH, PROFILE_STEPS,
+                                 (params, ()))
+        for name, prof in (("vit", vprof), ("linear", lprof)):
+            out[name]["profile"] = prof
+            if prof is not None:
+                # the kernels' time against the unprofiled step (last
+                # epoch), since the profiler slows the host
+                prof["busy_share_of_step"] = \
+                    prof["device_busy_us_per_step"] / 1e3 \
+                    / out[name]["epochs"][-1]["step_ms"]
+            if prof is None:
+                print(f"{name} profile: the profiler showed no device "
+                      f"events; launches and busy share not measured",
+                      flush=True)
+                continue
+            print(f"{name} profile over {prof['steps']} steps: "
+                  f"{prof['launches_per_step']:.1f} launches/step, device "
+                  f"busy {prof['device_busy_us_per_step']:.1f} us of "
+                  f"{prof['window_us_per_step']:.1f} us per step "
+                  f"(busy share {prof['busy_share']:.4f}; of the "
+                  f"unprofiled step {prof['busy_share_of_step']:.4f}); "
+                  f"host ms/step "
+                  f"under the profiler: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in
+                              sorted(prof["host_ms_per_step"].items())),
+                  flush=True)
+            for key, count, dev_us in prof["top"]:
+                print(f"  {name} kernel: {dev_us:.1f} us/step in "
+                      f"{count:g} launches/step  {key[:100]}", flush=True)
+
+        # checkpoint round trip through a directory-backed namespace
+        fs = DirFS(os.path.join(workdir, "ckpt"))
+        at = EPOCHS * vit_stats[0]["steps"] + PROFILE_STEPS
+        t0 = time.perf_counter()
+        save_train_state(fs, f"/vit/step-{at}", model.param_tree(), opt,
+                         step=at)
+        t1 = time.perf_counter()
+        fresh = Transformer(cfg, device=device, seed=2)
+        params2, opt2, got_at = load_train_state(
+            fs, f"/vit/step-{latest_step(fs, '/vit')}",
+            like_params=fresh.param_tree(), like_opt=tx.init(fresh.leaves()))
+        fresh.load_param_tree(params2)
+        t2 = time.perf_counter()
+        if got_at != at:
+            fail(f"checkpoint step {got_at} != {at}")
+        for a, b in zip(tree_leaves((model.param_tree(), opt)),
+                        tree_leaves((fresh.param_tree(), opt2))):
+            if a.device != b.device or not torch.equal(bits(a), bits(b)):
+                fail("checkpoint round trip: a restored leaf differs")
+        _, _, loss_a = vit_step(model, opt, tokens, labels)
+        _, _, loss_b = vit_step(fresh, opt2, tokens, labels)
+        if float(loss_a) != float(loss_b):
+            fail(f"checkpoint round trip: next-step loss {float(loss_b)} "
+                 f"!= {float(loss_a)}")
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, names in os.walk(os.path.join(workdir,
+                                                             "ckpt"))
+                     for f in names)
+        out["checkpoint"] = {"bytes": nbytes, "save_s": t1 - t0,
+                             "restore_s": t2 - t1,
+                             "next_step_loss": float(loss_a)}
+        print(f"checkpoint: {nbytes} bytes saved in {t1 - t0:.3f} s, "
+              f"restored in {t2 - t1:.3f} s, every leaf bit-identical, "
+              f"next-step loss {float(loss_a):.6f} on both", flush=True)
+    finally:
+        loader.close()
+    return out
+
+
 def main() -> int:
     if importlib.util.find_spec("alluxio_tpu_torch") is None:
         print("chip_smoke.py: the alluxio_tpu_torch package is not beside "
@@ -384,9 +850,19 @@ def main() -> int:
                         + DECODE_BLOCKS * BLOCK_BYTES)
     try:
         launches = main_path(device, workdir, NUM_BLOCKS, BLOCK_BYTES, K)
-        decode_phase(device, workdir, DECODE_BLOCKS, BLOCK_BYTES)
+        files = record_files(workdir, DECODE_BLOCKS, BLOCK_BYTES)
+        decode_phase(device, files, DECODE_BLOCKS, BLOCK_BYTES)
+        # the train path runs no kernel of the port (the JAX e2e path
+        # reaches no Pallas kernel): its count is read all the same
+        from alluxio_tpu_torch.ops import reduce_kernel as rk
+        rk.launches = 0
+        train = train_phase(device, workdir, files)
+        train["kernel_launches"] = {"scaled_sum": rk.launches}
+        print(f"train path: scaled_sum launched {rk.launches} times (the "
+              f"path has no kernel of its own)", flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "scaled_sum", "route": "cuda",
         "source": "alluxio_tpu_torch/ops/csrc/reduce_kernel.cu",
@@ -400,9 +876,10 @@ def main() -> int:
         "float_sum_ms": kern["float_sum_ms"],
     }]}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
+    # the run drives one card, whatever else the machine shows
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

@@ -115,3 +115,70 @@ def test_loader_chain_on_card(cuda, tmp_path):
             assert np.array_equal(b.cpu().numpy(), want)
     finally:
         loader.close()
+
+
+def _small_vit(device, seed=0):
+    from alluxio_tpu_torch.models.train import make_train_state
+    from alluxio_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(vocab_or_patch_dim=48, d_model=32, n_heads=4,
+                            d_ff=64, n_layers=2, n_classes=10, max_len=16)
+    return cfg, make_train_state(cfg, device=device, seed=seed)
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """Three bf16 train steps of a small ViT on the card and on the CPU
+    from the same weights. The loss, near ln(10) whatever a forward does
+    at initialisation, is held to 1e-3 absolute at each step. The
+    parameters after the steps are held as ``test_torch_train.py`` holds
+    them against JAX: per tensor, the norm of the difference within
+    2**-5 of the tensor's norm, and per element within Adam's step bound
+    (2 x lr a step)."""
+    from alluxio_tpu_torch.models.train import make_train_step
+
+    cfg, (model, opt, tx) = _small_vit(cuda)
+    _, (host, host_opt, _) = _small_vit("cpu")
+    assert model.embed.device.type == "cuda"
+    step = make_train_step(cfg, tx)
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        x = torch.from_numpy(rng.standard_normal((4, 16, 48)).astype(
+            np.float32)).to(torch.bfloat16)
+        y = torch.from_numpy(rng.integers(0, 10, 4).astype(np.int32))
+        model, opt, loss = step(model, opt, x.to(cuda), y.to(cuda))
+        host, host_opt, want = step(host, host_opt, x, y)
+        assert loss.device.type == "cuda"
+        assert abs(float(loss) - float(want)) <= 1e-3
+    assert int(opt.count) == 3 and opt.mu[0].device.type == "cuda"
+    for got, want in zip(model.leaves(), host.leaves()):
+        got, want = got.detach().float().cpu(), want.detach().float()
+        diff = got - want
+        assert float(diff.norm()) <= 2.0 ** -5 * float(want.norm())
+        assert float(diff.abs().max()) <= 2 * tx.learning_rate * 3
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    from alluxio_tpu_torch.models.checkpoint import (load_train_state,
+                                                     save_train_state)
+    from alluxio_tpu_torch.utils.bf16 import bits
+    from alluxio_tpu_torch.utils.pytree import tree_leaves
+
+    class Dir:
+        def write_all(self, path, data, **_kw):
+            (tmp_path / path.strip("/")).parent.mkdir(parents=True,
+                                                      exist_ok=True)
+            (tmp_path / path.strip("/")).write_bytes(bytes(data))
+
+        def read_all(self, path):
+            return (tmp_path / path.strip("/")).read_bytes()
+
+    _, (model, opt, _) = _small_vit(cuda)
+    save_train_state(Dir(), "/c", model.param_tree(), opt, step=1)
+    _, (like, like_opt, _) = _small_vit(cuda, seed=5)
+    params, got_opt, step = load_train_state(
+        Dir(), "/c", like_params=like.param_tree(), like_opt=like_opt)
+    assert step == 1
+    for a, b in zip(tree_leaves((model.param_tree(), opt)),
+                    tree_leaves((params, got_opt))):
+        assert b.device == a.device
+        assert torch.equal(bits(a), bits(b))

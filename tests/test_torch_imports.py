@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``alluxio_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, and its entry points
-run on the card unless the caller asks for the CPU."""
+``chip_smoke.py``) imports JAX, optax, ml_dtypes or the JAX package, and
+its entry points run on the card unless the caller asks for the CPU."""
 
 import ast
 import subprocess
@@ -24,18 +24,24 @@ def _module_names():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "alluxio_tpu")
+    return top in FORBIDDEN
+
+
+FORBIDDEN = ("jax", "jaxlib", "optax", "ml_dtypes", "alluxio_tpu")
 
 
 def test_importing_every_module_loads_no_jax():
     mods = list(_module_names())
-    assert "alluxio_tpu_torch.ops.reduce_kernel" in mods
+    for m in ("ops.reduce_kernel", "parallel.ring_attention",
+              "parallel.moe", "models.transformer", "models.train",
+              "models.checkpoint"):
+        assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'alluxio_tpu'))\n"
+        f"{FORBIDDEN!r})\n"
         "print(repr(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -80,7 +86,12 @@ def test_default_device_raises_without_a_card():
         pytest.skip("a CUDA card is present: the default device is valid")
     from alluxio_tpu_torch.client.cache.hbm_store import HbmPageStore
     from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
-    from alluxio_tpu_torch.convert import hbm_store_from_numpy
+    from alluxio_tpu_torch.convert import (hbm_store_from_numpy,
+                                           transformer_params_from_numpy)
+    from alluxio_tpu_torch.models.train import make_train_state
+    from alluxio_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    from alluxio_tpu_torch.parallel.moe import init_moe_params
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         HbmPageStore(1024)
@@ -88,5 +99,16 @@ def test_default_device_raises_without_a_card():
         DeviceBlockLoader(object(), [])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         hbm_store_from_numpy({}, capacity_bytes=1024)
+    cfg = TransformerConfig(vocab_or_patch_dim=8, d_model=8, n_heads=2,
+                            d_ff=8, n_layers=1, n_classes=2, max_len=2)
+    for entry in (lambda: Transformer(cfg), lambda: make_train_state(cfg),
+                  lambda: transformer_params_from_numpy({}, cfg),
+                  lambda: init_moe_params(torch.Generator(), n_experts=2,
+                                          d_model=8, d_ff=8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
     # asked for explicitly, the CPU is fine
     assert HbmPageStore(1024, device="cpu").device.type == "cpu"
+    assert Transformer(cfg, device="cpu").embed.device.type == "cpu"
+    assert init_moe_params(torch.Generator(), n_experts=2, d_model=8,
+                           d_ff=8, device="cpu")["gate"].device.type == "cpu"
