@@ -12,13 +12,22 @@ easy to find:
 - ``ops/reduce_kernel.py``: ``scaled_sum``, a hand-written CUDA kernel
   (``ops/csrc/reduce_kernel.cu``) with its plain PyTorch version;
 - ``ops/decode.py``: record decode in plain PyTorch;
-- ``parallel/{ring_attention,moe}.py``: single-card attention and the
-  top-1 mixture-of-experts FFN;
+- ``parallel/mesh.py``: the mesh on ``torch.distributed`` (one process
+  per card; NCCL on cards, gloo for CPU tensors), layouts,
+  ``shard_host_batch``; ``parallel/tensor_parallel.py``: the Megatron
+  copy-to/reduce-from autograd Functions;
+- ``parallel/ici_store.py``: ``MeshBlockCache``, warm blocks sharded
+  over a mesh axis and read by collectives;
+- ``parallel/{ring_attention,moe,pipeline}.py``: attention on one card
+  and ring attention across ranks, the top-1 mixture-of-experts FFN
+  (expert-parallel under a mesh), the GPipe pipeline;
 - ``models/transformer.py``: the flagship ViT (``nn.Module`` with the JAX
-  tree's parameter names) and ``images_to_tokens``;
-- ``models/train.py``: the single-card train step with an AdamW that
-  follows ``optax.adamw``, and ``sgd``;
-- ``models/checkpoint.py``: train-state checkpoints in the JAX layout;
+  tree's parameter names, sharded dp x tp under a mesh) and
+  ``images_to_tokens``;
+- ``models/train.py``: the train step, on one card or dp x tp, with an
+  AdamW that follows ``optax.adamw``, and ``sgd``;
+- ``models/checkpoint.py``: train-state checkpoints in the JAX layout,
+  whole on disk whatever the mesh;
 - ``convert.py``: device-tier pages and the model's train state carried
   over from numpy.
 
@@ -42,6 +51,9 @@ _LAZY = {
     "images_to_tokens": "alluxio_tpu_torch.models.transformer",
     "make_train_state": "alluxio_tpu_torch.models.train",
     "make_train_step": "alluxio_tpu_torch.models.train",
+    "make_sharded_train_state": "alluxio_tpu_torch.models.train",
+    "make_mesh": "alluxio_tpu_torch.parallel.mesh",
+    "MeshBlockCache": "alluxio_tpu_torch.parallel.ici_store",
 }
 
 

@@ -11,6 +11,7 @@
   ``AdamState`` (:func:`opt_state_from_numpy`). A bf16 leaf may come as
   an ``ml_dtypes.bfloat16`` array or as its ``uint16`` view; either way
   its 16-bit words are reinterpreted, never converted through float.
+  Under a mesh each rank takes its shards of the whole leaves.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from alluxio_tpu_torch.client.cache.hbm_store import HbmPageStore
 from alluxio_tpu_torch.client.cache.meta import PageId
 from alluxio_tpu_torch.device import resolve_device
+from alluxio_tpu_torch.parallel.mesh import shard
 from alluxio_tpu_torch.utils.bf16 import numpy_to_tensor
 from alluxio_tpu_torch.utils.pytree import tree_leaves
 
@@ -32,9 +34,9 @@ if TYPE_CHECKING:
                                                       TransformerConfig)
 
 
-def _array_to_tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
-    """A numpy leaf as a ``dtype`` tensor on ``device``; bf16 through its
-    16-bit words. Raises ``ValueError`` on any other dtype change."""
+def _array_to_tensor(arr, dtype: torch.dtype) -> torch.Tensor:
+    """A numpy leaf as a ``dtype`` CPU tensor; bf16 through its 16-bit
+    words. Raises ``ValueError`` on any other dtype change."""
     arr = np.asarray(arr)
     bf16 = dtype == torch.bfloat16
     if bf16 and arr.dtype.name != "bfloat16" and arr.dtype != np.uint16:
@@ -43,36 +45,55 @@ def _array_to_tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
     t = numpy_to_tensor(arr, bf16=bf16)
     if t.dtype != dtype:
         raise ValueError(f"leaf dtype {t.dtype} != {dtype}")
-    return t.to(device)
+    return t
 
 
 def transformer_params_from_numpy(tree, cfg: TransformerConfig, *,
-                                  device=None) -> Transformer:
+                                  mesh=None, device=None) -> Transformer:
     """A port ``Transformer`` for ``cfg`` on ``device`` (``None``: the
-    card) holding the JAX ``init_params`` tree ``tree`` (numpy leaves)."""
+    card) holding the JAX ``init_params`` tree ``tree`` (numpy leaves);
+    with ``mesh``, this rank's shards of it on the mesh's device."""
     from alluxio_tpu_torch.models.transformer import Transformer
 
-    device = resolve_device(device)
-    model = Transformer(cfg, device=device)
+    if mesh is None:
+        device = resolve_device(device)
+    model = Transformer(cfg, device=device, mesh=mesh)
     leaves = tree_leaves(tree)
     mine = model.leaves()
     if len(leaves) != len(mine):
         raise ValueError(f"tree has {len(leaves)} leaves; {cfg} has "
                          f"{len(mine)}")
-    model.load_param_tree([_array_to_tensor(a, p.dtype, device)
-                           for a, p in zip(leaves, mine)])
+    model.load_param_tree([
+        _part(a, p, lay, mesh)
+        for a, p, lay in zip(leaves, mine, model.layouts())])
     return model
 
 
-def opt_state_from_numpy(tree, params) -> AdamState:
+def _part(arr, like: torch.Tensor, lay, mesh) -> torch.Tensor:
+    """``arr`` as ``like``'s dtype on its device: whole, or this rank's
+    shard under ``lay`` with ``mesh``."""
+    t = _array_to_tensor(arr, like.dtype)
+    if mesh is not None:
+        t = shard(t, lay, mesh)
+    return t.to(like.device)
+
+
+def opt_state_from_numpy(tree, params, *, mesh=None,
+                         shardings=None) -> AdamState:
     """The port's ``AdamState`` for ``params`` (a model's ``leaves()``)
     from an ``optax.adamw`` state with numpy leaves: ``(ScaleByAdamState
     (count, mu, nu), EmptyState(), EmptyState())``, or the
     ``ScaleByAdamState`` alone. Each moment takes the dtype and device
-    of its parameter, as optax's do with ``mu_dtype=None``."""
+    of its parameter, as optax's do with ``mu_dtype=None``. With
+    ``mesh``, ``shardings`` (``param_shardings(cfg)``) says how to take
+    this rank's shard of each whole moment."""
     from alluxio_tpu_torch.models.train import AdamState
 
     params = tree_leaves(params)
+    if mesh is not None and shardings is None:
+        raise ValueError("a sharded state needs the parameters' shardings")
+    layouts = tree_leaves(shardings) if mesh is not None \
+        else [None] * len(params)
     adam = tree if hasattr(tree, "mu") else tree[0]
 
     def moments(sub):
@@ -80,8 +101,8 @@ def opt_state_from_numpy(tree, params) -> AdamState:
         if len(arrays) != len(params):
             raise ValueError(f"state has {len(arrays)} moments; there are "
                              f"{len(params)} parameters")
-        return [_array_to_tensor(a, p.dtype, p.device)
-                for a, p in zip(arrays, params)]
+        return [_part(a, p, lay, mesh)
+                for a, p, lay in zip(arrays, params, layouts)]
 
     count = torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32,
                          device=params[0].device)

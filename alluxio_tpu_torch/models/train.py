@@ -1,11 +1,17 @@
-"""Single-card training step for the flagship model.
+"""Training step for the flagship model, on one card or dp x tp.
 
-The port of ``alluxio_tpu/models/train.py`` for one card: the forward
-and backward are PyTorch autograd, the update is :func:`adamw`, which
-follows ``optax.adamw`` step for step (not ``torch.optim.AdamW``: torch
-decays ``p`` before the Adam step and defaults to weight decay 1e-2).
-The JAX step's mesh, dp x tp shardings and sequence-parallel option
-(ring attention over the data axis) wait for the NCCL slice.
+The port of ``alluxio_tpu/models/train.py``: the forward and backward
+are PyTorch autograd, the update is :func:`adamw`, which follows
+``optax.adamw`` step for step (not ``torch.optim.AdamW``: torch decays
+``p`` before the Adam step and defaults to weight decay 1e-2).
+
+Under a mesh (:func:`make_sharded_train_state`) the batch is split over
+``data`` and the parameters over ``model`` (``param_shardings``). Each
+rank takes the mean loss of its rows; the gradients are summed over the
+``data`` group and divided by its size, the gradient of the global-batch
+mean that JAX's jit computes. AdamW runs on the local shards, so its
+state is sharded like the parameters. The JAX step's sequence-parallel
+option is not ported: it raises in the JAX package (ROADMAP).
 
 Also here: :func:`sgd` (``optax.sgd``), for ``bench.py``'s linear-softmax
 model.
@@ -17,10 +23,15 @@ import dataclasses
 from typing import ClassVar, List, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from alluxio_tpu_torch.models.transformer import (Transformer,
                                                   TransformerConfig,
-                                                  forward, loss_fn)
+                                                  forward, loss_fn,
+                                                  param_shardings)
+from alluxio_tpu_torch.parallel.mesh import (DATA_AXIS, REPLICATED,
+                                             group_mean)
+from alluxio_tpu_torch.utils.pytree import tree_leaves
 from alluxio_tpu_torch.utils.tracing import annotate
 
 _INT32_MAX = 2**31 - 1
@@ -34,6 +45,13 @@ class AdamState(NamedTuple):
     count: torch.Tensor
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+
+
+def adam_shardings(shardings) -> AdamState:
+    """The layout tree of the AdamW state of parameters laid out by
+    ``shardings``: the count whole, each moment as its parameter."""
+    layouts = tree_leaves(shardings)
+    return AdamState(REPLICATED, list(layouts), list(layouts))
 
 
 def _as(x: float, dtype) -> float:
@@ -133,33 +151,75 @@ def make_train_state(cfg: TransformerConfig, *, device=None,
     return model, tx.init(model.leaves()), tx
 
 
-def make_train_step(cfg: TransformerConfig, tx):
+def make_sharded_train_state(cfg: TransformerConfig, mesh, *,
+                             learning_rate: float = 1e-3, seed: int = 0):
+    """(model, opt_state, tx, shardings): this rank's shards of the
+    model drawn from ``seed`` (the same whole weights at any mesh shape),
+    its AdamW state, and the layout tree ``param_shardings(cfg)``."""
+    tx = adamw(learning_rate)
+    model = Transformer(cfg, mesh=mesh, seed=seed)
+    return model, tx.init(model.leaves()), tx, param_shardings(cfg)
+
+
+def _check(model: Transformer, cfg: TransformerConfig, mesh) -> None:
+    if model.cfg != cfg:
+        raise ValueError("the model was built for another config")
+    if model.mesh is not mesh:
+        raise ValueError("the model was built for another mesh")
+
+
+def _mean_grads(grads, group):
+    """The gradients summed over ``group`` and divided by its size, in
+    one all-reduce of the flattened gradients."""
+    grads = list(grads)
+    flat = group_mean(torch.cat([g.reshape(-1) for g in grads]), group)
+    return [part.view_as(g) for part, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def make_train_step(cfg: TransformerConfig, tx, *, mesh=None):
     """``step(model, opt_state, tokens, labels) -> (model, opt_state,
     loss)``: loss and gradients, then ``tx``'s update in place. The three
     parts are named regions (``atpu.train.{forward,backward,update}``)
-    on a ``torch.profiler`` timeline."""
+    on a ``torch.profiler`` timeline.
+
+    With ``mesh``, ``tokens`` and ``labels`` are this rank's rows (its
+    part of the batch over ``data``), and the loss returned is the mean
+    over the whole batch."""
     def step(model: Transformer, opt_state, tokens, labels):
-        if model.cfg != cfg:
-            raise ValueError("the model was built for another config")
+        _check(model, cfg, mesh)
         params = model.leaves()
         with annotate("atpu.train.forward"):
             loss = loss_fn(model, tokens, labels)
         with annotate("atpu.train.backward"):
             grads = torch.autograd.grad(loss, params)
+            loss = loss.detach()
+            if mesh is not None:
+                data = mesh.get_group(DATA_AXIS)
+                grads = _mean_grads(grads, data)
+                loss = group_mean(loss, data)
         with annotate("atpu.train.update"):
             opt_state = tx.update(grads, opt_state, params)
-        return model, opt_state, loss.detach()
+        return model, opt_state, loss
 
     return step
 
 
-def make_eval_step(cfg: TransformerConfig):
-    """``step(model, tokens) -> logits`` without autograd."""
+def make_eval_step(cfg: TransformerConfig, *, mesh=None):
+    """``step(model, tokens) -> logits`` without autograd; with ``mesh``,
+    ``tokens`` are this rank's rows and the logits are the whole
+    batch's, gathered over ``data`` in rank order."""
     @torch.no_grad()
     def step(model: Transformer, tokens):
-        if model.cfg != cfg:
-            raise ValueError("the model was built for another config")
-        return forward(model, tokens)
+        _check(model, cfg, mesh)
+        logits = forward(model, tokens)
+        if mesh is None:
+            return logits
+        group = mesh.get_group(DATA_AXIS)
+        out = torch.empty((dist.get_world_size(group) * logits.shape[0],
+                           *logits.shape[1:]), dtype=logits.dtype,
+                          device=logits.device)
+        dist.all_gather_into_tensor(out, logits.contiguous(), group=group)
+        return out
 
     return step
-

@@ -15,8 +15,18 @@ The forward mirrors the JAX one's dtype steps: tokens are cast to
 ``cfg.dtype`` before the embed product, ``x + pos`` stays in that dtype,
 RMS norm takes its variance in float32 and casts back before the scale,
 attention runs in float32 inside, GELU is the tanh form, and the logits
-are cast to float32. The tensor-parallel shardings (``param_shardings``)
-and the sequence-parallel attention wait for the mesh.
+are cast to float32.
+
+Under a mesh (``Transformer(cfg, mesh=...)``) each rank holds its shards
+of the parameters as :func:`param_shardings` lays them out: attention
+split by heads over ``model`` (``wqkv`` on dim 2, ``wo`` on dim 0), the
+dense FFN by ``w1`` columns and ``w2`` rows, the MoE by experts, the
+rest whole. Each split product takes its input through
+``copy_to_group`` and sums its partial output with
+``reduce_from_group``. The batch is split over ``data``: each rank runs
+its own rows, and the MoE balance loss takes its means over the whole
+batch. The sequence-parallel option of the JAX package is not ported:
+its train step does not run (ROADMAP).
 """
 
 from __future__ import annotations
@@ -29,9 +39,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from alluxio_tpu_torch.device import resolve_device
+from alluxio_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                             REPLICATED, Layout, mesh_device,
+                                             shard)
 from alluxio_tpu_torch.parallel.moe import (init_moe_params,
-                                            load_balance_loss, moe_ffn)
+                                            load_balance_loss, moe_ffn,
+                                            moe_param_specs)
 from alluxio_tpu_torch.parallel.ring_attention import reference_attention
+from alluxio_tpu_torch.parallel.tensor_parallel import (copy_to_group,
+                                                        reduce_from_group)
 from alluxio_tpu_torch.utils.pytree import tree_leaves
 
 #: weight of the Switch-style balance loss in the training objective
@@ -55,6 +71,31 @@ class TransformerConfig:
     @property
     def d_head(self) -> int:
         return self.d_model // self.n_heads
+
+
+def param_shardings(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The layout of each parameter, as a tree shaped like
+    ``Transformer.param_tree()``: tensor-parallel over heads and FF
+    columns (``model`` axis), experts as :func:`moe_param_specs`, the
+    rest whole (the JAX package's ``param_shardings``)."""
+    layer = {
+        "ln1": {"scale": REPLICATED},
+        "wqkv": Layout(2, MODEL_AXIS),
+        "wo": Layout(0, MODEL_AXIS),
+        "ln2": {"scale": REPLICATED},
+    }
+    if cfg.moe_experts > 0:
+        layer["moe"] = moe_param_specs()
+    else:
+        layer["w1"] = Layout(1, MODEL_AXIS)
+        layer["w2"] = Layout(0, MODEL_AXIS)
+    return {
+        "embed": REPLICATED,
+        "pos": REPLICATED,
+        "head": REPLICATED,
+        "final_ln": {"scale": REPLICATED},
+        "layers": [layer for _ in range(cfg.n_layers)],
+    }
 
 
 def _scale_dict(cfg: TransformerConfig, device) -> nn.ParameterDict:
@@ -95,13 +136,28 @@ class Transformer(nn.Module):
     """The flagship model on ``device`` (``None``: the card). Weights are
     normal x 0.02 (MoE experts: as ``init_moe_params``), drawn in float32
     from a CPU ``torch.Generator`` seeded with ``seed`` and cast to
-    ``cfg.dtype``, so one seed gives the same weights on every device."""
+    ``cfg.dtype``, so one seed gives the same weights on every device.
 
-    def __init__(self, cfg: TransformerConfig, *, device=None,
+    With ``mesh`` the model holds this rank's shards on the mesh's
+    device: the whole tensors are drawn as above on the CPU, then sliced
+    by :func:`param_shardings`, so one seed gives the same whole weights
+    at every mesh shape. ``device`` must then be None or that device."""
+
+    def __init__(self, cfg: TransformerConfig, *, device=None, mesh=None,
                  seed: int = 0) -> None:
         super().__init__()
         self.cfg = cfg
-        device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            target = mesh_device(mesh)
+            asked = torch.device(device if device is not None else target)
+            if asked.type != target.type or asked.index not in (
+                    None, target.index):
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{target}")
+            device = torch.device("cpu")
+        else:
+            device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
 
         def dense(shape):
@@ -115,6 +171,10 @@ class Transformer(nn.Module):
         self.final_ln = _scale_dict(cfg, device)
         self.layers = nn.ModuleList(_Layer(cfg, dense, gen, device)
                                     for _ in range(cfg.n_layers))
+        if mesh is not None:
+            with torch.no_grad():
+                for p, lay in zip(self.leaves(), self.layouts()):
+                    p.data = shard(p.data, lay, mesh).to(target)
 
     def param_tree(self) -> Dict[str, Any]:
         """The parameters as the JAX ``init_params`` tree (same keys,
@@ -126,6 +186,10 @@ class Transformer(nn.Module):
     def leaves(self):
         """The parameters in ``jax.tree_util`` flatten order."""
         return tree_leaves(self.param_tree())
+
+    def layouts(self):
+        """Each leaf's :class:`Layout`, in the order of :meth:`leaves`."""
+        return tree_leaves(param_shardings(self.cfg))
 
     @torch.no_grad()
     def load_param_tree(self, tree) -> None:
@@ -154,35 +218,50 @@ def _rms_norm(x, scale):
     return (x * torch.rsqrt(var + 1e-6)).to(x.dtype) * scale
 
 
-def _attention(x, layer: _Layer):
-    qkv = torch.einsum("btd,dshk->sbthk", x, layer.wqkv)
+def _split_in(x, mesh):
+    """The input of a product split over ``model``."""
+    return x if mesh is None else \
+        copy_to_group(x, mesh.get_group(MODEL_AXIS))
+
+
+def _split_out(y, mesh):
+    """The partial output of a product split over ``model``, summed."""
+    return y if mesh is None else \
+        reduce_from_group(y, mesh.get_group(MODEL_AXIS))
+
+
+def _attention(x, layer: _Layer, mesh):
+    qkv = torch.einsum("btd,dshk->sbthk", _split_in(x, mesh), layer.wqkv)
     out = reference_attention(qkv[0], qkv[1], qkv[2], causal=False)
-    return torch.einsum("bthk,hkd->btd", out, layer.wo)
+    return _split_out(torch.einsum("bthk,hkd->btd", out, layer.wo), mesh)
 
 
-def _mlp(x, layer: _Layer):
+def _mlp(x, layer: _Layer, mesh):
     if hasattr(layer, "moe"):
-        return moe_ffn(layer.moe, x)
-    h = torch.einsum("btd,df->btf", x, layer.w1)
+        return moe_ffn(layer.moe, x, mesh=mesh)
+    h = torch.einsum("btd,df->btf", _split_in(x, mesh), layer.w1)
     h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
-    return torch.einsum("btf,fd->btd", h, layer.w2)
+    return _split_out(torch.einsum("btf,fd->btd", h, layer.w2), mesh)
 
 
 def forward_with_aux(model: Transformer, tokens):
     """tokens: (B, T, vocab_or_patch_dim) float inputs (flattened patches
     from decode). Returns ((B, n_classes) float32 logits, aux) where
-    ``aux`` is the summed MoE load-balance loss (0 when dense)."""
-    cfg = model.cfg
+    ``aux`` is the summed MoE load-balance loss (0 when dense). Under a
+    mesh, ``tokens`` are this rank's rows and so are the logits."""
+    cfg, mesh = model.cfg, model.mesh
+    data = None if mesh is None else mesh.get_group(DATA_AXIS)
     x = torch.einsum("btp,pd->btd", tokens.to(cfg.dtype), model.embed)
     t = x.shape[1]
     x = x + model.pos[:t][None]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
-        x = x + _attention(_rms_norm(x, layer.ln1["scale"]), layer)
+        x = x + _attention(_rms_norm(x, layer.ln1["scale"]), layer, mesh)
         ffn_in = _rms_norm(x, layer.ln2["scale"])
         if hasattr(layer, "moe"):
-            aux = aux + load_balance_loss(layer.moe, ffn_in).float()
-        x = x + _mlp(ffn_in, layer)
+            aux = aux + load_balance_loss(layer.moe, ffn_in,
+                                          group=data).float()
+        x = x + _mlp(ffn_in, layer, mesh)
     x = _rms_norm(x, model.final_ln["scale"])
     pooled = x.mean(dim=1)
     logits = torch.einsum("bd,dc->bc", pooled, model.head).float()
@@ -194,7 +273,8 @@ def forward(model: Transformer, tokens) -> torch.Tensor:
 
 
 def loss_fn(model: Transformer, tokens, labels) -> torch.Tensor:
-    """Mean cross-entropy (float32) plus ``MOE_AUX_WEIGHT`` x aux."""
+    """Mean cross-entropy (float32) plus ``MOE_AUX_WEIGHT`` x aux; under
+    a mesh, the mean over this rank's rows."""
     logits, aux = forward_with_aux(model, tokens)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, 1, labels.long()[:, None]).mean()

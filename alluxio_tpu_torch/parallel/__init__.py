@@ -1,6 +1,8 @@
-"""Attention and mixture-of-experts pieces of the flagship model.
+"""The parallel layer: the port of ``alluxio_tpu/parallel``.
 
-The port of ``alluxio_tpu/parallel``'s single-card functions. The parts
-that run across cards (the mesh, ring attention's rotation, the sharded
-expert layout, the pipeline, ``ici_store``) come with the NCCL slice.
+The mesh on ``torch.distributed`` (``mesh.py``), the tensor-parallel
+autograd Functions (``tensor_parallel.py``), the mesh data plane
+(``ici_store.py``), attention and ring attention
+(``ring_attention.py``), the mixture-of-experts FFN (``moe.py``) and the
+pipeline (``pipeline.py``).
 """

@@ -35,10 +35,24 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    launches per step and the card's busy share. Then the ViT's train
    state is saved to a directory-backed namespace, restored into a fresh
    model, and must be bit-identical and give the same next-step loss.
+5. mesh: the mesh layer over an NCCL group of one rank (one card), a
+   ``{"data": 1, "model": 1}`` mesh: (a) ``MeshBlockCache.load_global``
+   over the main path's 64 x 32 MiB shard files, then ``global_batch``
+   of 64 seeded indices, ``ring_shift(1)``, ``gather_all``,
+   ``replicate`` and a 2-row ``turnover``, each byte for byte against
+   the files, ``global_batch`` timed against its bytes bound and
+   profiled for host<->device copies (there must be none); (b) 3 dp x tp
+   steps of the flagship ViT against the single-card steps from the same
+   weights and batches, (c) one step of its MoE variant, both bit for
+   bit (loss, logits, every parameter and moment); (d) ``ring_attention``
+   against ``reference_attention``; (e) ``pipeline_apply`` with one
+   stage against the stage applied in sequence. At one rank every
+   collective is a copy through NCCL, so these check the mesh code on
+   the card, not NVLink rates.
 
 It prints the card's name and power limit, one ``{"train": {...}}``
-line, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
-"device": {...}}``. Any failed phase exits
+line, one ``{"mesh": {...}}`` line, one ``{"kernels": [...]}`` line,
+and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
 exits non-zero and prints no result. All data is made from a seed.
 """
@@ -91,6 +105,23 @@ PROFILE_STEPS = 20
 #: measured on an H100 and a twentieth of its distance from ln(1000).
 FIRST_STEP_TOL = 2.0 ** -5
 FIRST_STEP_LOSS_ATOL = 1e-3
+
+#: mesh phase: global indices in one global_batch, ViT steps held
+#: against one card (dense, then MoE), ring-attention cases
+#: ([B, T, H, D], dtype), pipeline microbatches (M, rows, width)
+MESH_BATCH = 64
+MESH_STEPS = 3
+MOE_STEPS = 1
+MOE_EXPERTS = 4
+RING_CASES = (((64, 16, 8, 32), "bfloat16"), ((1, 8192, 8, 64), "float32"))
+#: ring attention against reference_attention: float32 within 1e-5
+#: absolute, the CPU parity tests' bound (the same products, summed
+#: blockwise in another order); bf16 within 2**-7 of the largest
+#: |output|, one bf16 step at the largest binade, since both round a
+#: float32 result and may round it apart
+RING_ATOL = 1e-5
+RING_BF16_TOL = 2.0 ** -7
+PIPE_SHAPE = (8, 1024, 256)
 
 #: H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the
 #: CUDA-core rate (67 TFLOP/s float32; the table has no int32 entry, so
@@ -157,6 +188,22 @@ def setup() -> None:
 
 
 # -- kernel phase -------------------------------------------------------------
+def recheck(x, scale, want: int) -> str:
+    """After a kernel/plain mismatch: the plain version once more on the
+    same, unmodified input, and the host's sum of a copy of it. If they
+    disagree with ``want``, the card did not read one input back the same
+    way twice, and the fault is not the kernel's."""
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    s = int(scale)
+    again = int(rk.scaled_sum_reference(x, scale))
+    total = int((x.cpu().numpy().astype(np.int64) * s).sum()) & 0xFFFFFFFF
+    host = total - (1 << 32) if total >= 1 << 31 else total
+    verdict = ("the input reads back stably" if again == want == host
+               else "the input does NOT read back stably")
+    return f"plain again {again}, host sum of a copy {host}: {verdict}"
+
+
 def kernel_phase(device, big_n: int) -> dict:
     import torch
 
@@ -168,16 +215,18 @@ def kernel_phase(device, big_n: int) -> dict:
     sizes += [7 * 512 * rk._LANES, big_n]
     max_err = 0
     big = None
+    first = None
     for n in sizes:
         x = random_int32(n, gen, device)
         for scale in (1, 3, -2):
             s = torch.tensor([scale], dtype=torch.int32, device=device)
             got = int(rk.scaled_sum(x, s))
             want = int(rk.scaled_sum_reference(x, s))
+            first = first or f"n={n} scale={scale}: {got}"
             max_err = max(max_err, abs(got - want))
             if got != want:
                 fail(f"scaled_sum n={n} scale={scale}: kernel {got} != "
-                     f"plain {want}")
+                     f"plain {want}; {recheck(x, s, want)}")
         if n == big_n:
             big = x
         else:
@@ -188,9 +237,10 @@ def kernel_phase(device, big_n: int) -> dict:
     want = int(rk.scaled_sum_reference(wrap, 3))
     max_err = max(max_err, abs(got - want))
     if got != want:
-        fail(f"scaled_sum wraparound: kernel {got} != plain {want}")
+        fail(f"scaled_sum wraparound: kernel {got} != plain {want}; "
+             f"{recheck(wrap, 3, want)}")
     print(f"kernel phase: {len(sizes) * 3 + 1} comparisons exact "
-          f"(sizes {sizes})", flush=True)
+          f"(sizes {sizes}; first {first})", flush=True)
 
     s = torch.tensor([3], dtype=torch.int32, device=device)
     kernel_ms = time_ms(lambda: rk.scaled_sum(big, s), reps=20)
@@ -264,8 +314,9 @@ def block_dir(need_bytes: int) -> str:
 
 # -- main path ----------------------------------------------------------------
 def main_path(device, workdir: str, num_blocks: int, block_bytes: int,
-              k: int) -> int:
-    """Drives the main path; returns the kernel launches it made."""
+              k: int) -> tuple:
+    """Drives the main path; returns the kernel launches it made and its
+    block files (path -> (file id, file))."""
     import torch
 
     from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
@@ -349,7 +400,7 @@ def main_path(device, workdir: str, num_blocks: int, block_bytes: int,
           f"{t2 - t1:.4f} s, {num_blocks} hits; warm-tier scan K={k}: "
           f"{chain_ms:.2f} ms, {k * total / chain_ms / 1e6:.1f} GB/s, "
           f"acc {got} == plain; launches {launches}", flush=True)
-    return launches
+    return launches, files
 
 
 # -- decode -------------------------------------------------------------------
@@ -831,6 +882,349 @@ def train_phase(device, workdir: str, files: dict) -> dict:
     return out
 
 
+# -- mesh phase ---------------------------------------------------------------
+def same_bits(a, b) -> bool:
+    import torch
+
+    from alluxio_tpu_torch.utils.bf16 import bits
+
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        torch.equal(bits(a), bits(b))
+
+
+def timed(fn) -> tuple:
+    """``fn()``'s result and its time on the card in ms (CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    end.synchronize()
+    return result, start.elapsed_time(end)
+
+
+def check_rows(name: str, got, globals_, views) -> None:
+    """Each row of ``got`` (on the card) against the file bytes of the
+    global block it should hold."""
+    host = got.cpu().numpy()
+    for row, g in zip(host, globals_):
+        if not np.array_equal(row, views[g]):
+            fail(f"data plane {name}: row for block {g} differs from its "
+                 f"file")
+
+
+def profile_once(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: its device events, the
+    names of its host<->device copies, device µs by kernel, and the
+    calls and host ms of each collective (the ``nccl:*`` regions that
+    ``torch.distributed`` records)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("atpu.")]
+    averages = prof.key_averages()
+    kernels = sorted(((a.key[:80], a.self_device_time_total)
+                      for a in averages if a.device_type == DeviceType.CUDA
+                      and not a.key.startswith("atpu.")),
+                     key=lambda kv: kv[1], reverse=True)
+    collectives = {a.key: (a.count, a.cpu_time_total / 1e3)
+                   for a in averages if a.key.startswith("nccl:")}
+    return {"device_events": dev,
+            "host_copies": [n for n in dev if "HtoD" in n or "DtoH" in n],
+            "kernels_us": kernels[:6], "collectives": collectives}
+
+
+def data_plane_check(device, mesh, workdir: str, files: dict) -> dict:
+    """(a): the main path's shard files through ``MeshBlockCache``."""
+    import torch
+
+    from alluxio_tpu_torch.parallel.ici_store import MeshBlockCache
+
+    views = [np.memmap(path, np.uint8, "r") for _, path in files.values()]
+    n = len(views)
+    cache = MeshBlockCache(mesh, block_bytes=BLOCK_BYTES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cached = cache.load_global(ShardSource(files), list(files), report=False)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check_rows("load_global", cached, range(n), views)
+
+    rng = np.random.default_rng(SEED + 4)
+    idx_host = rng.integers(0, n, MESH_BATCH)
+    idx = torch.from_numpy(idx_host).to(device)
+    check_rows("global_batch", cache.global_batch(cached, idx), idx_host,
+               views)
+    # rank d receives rank (d + 1)'s shard: at one rank, its own
+    check_rows("ring_shift", cache.ring_shift(cached, 1), range(n), views)
+    check_rows("gather_all", cache.gather_all(cached), range(n), views)
+    hot = int(rng.integers(0, n))
+    check_rows("replicate", cache.replicate(cached, hot)[None], [hot],
+               views)
+
+    batch_ms = time_ms(lambda: cache.global_batch(cached, idx), reps=10)
+    batch_bytes = 2 * MESH_BATCH * BLOCK_BYTES  # rows read, batch written
+    prof = profile_once(lambda: cache.global_batch(cached, idx))
+    events, copies = prof["device_events"], prof["host_copies"]
+    if not events:
+        fail("data plane: the profiler saw no device events in "
+             "global_batch")
+    if copies:
+        fail(f"data plane: global_batch copied between host and card: "
+             f"{sorted(set(copies))}")
+
+    # turnover: two rows take two new files; the rest keep theirs
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 5)
+    new = dict(files)
+    rows = {3: "/bench/fresh-0", n - 5: "/bench/fresh-1"}
+    for i, path in enumerate(rows.values()):
+        at = os.path.join(workdir, f"fresh-{i}.blk")
+        random_int32(BLOCK_BYTES // 4, gen, device).cpu().numpy().tofile(at)
+        new[path] = (NUM_BLOCKS + 1 + i, at)
+    ptr = cached.data_ptr()
+    cached = cache.turnover(cached, ShardSource(new),
+                            {g: (p, 0) for g, p in rows.items()},
+                            report=False)
+    if cached.data_ptr() != ptr:
+        fail("data plane: turnover did not update the shard in place")
+    views += [np.memmap(new[p][1], np.uint8, "r") for p in rows.values()]
+    want = [n + list(rows).index(g) if g in rows else g for g in range(n)]
+    check_rows("turnover", cached, want, views)
+    bound = batch_bytes / HBM_BYTES_PER_S * 1e3
+    out = {"blocks": n, "block_bytes": BLOCK_BYTES, "load_global_s": load_s,
+           "load_gb_per_s": n * BLOCK_BYTES / load_s / 1e9,
+           "global_batch_rows": MESH_BATCH, "global_batch_ms": batch_ms,
+           "global_batch_bound_ms": bound,
+           "global_batch_device_events": len(events),
+           "global_batch_host_copies": len(copies),
+           "global_batch_kernels_us": prof["kernels_us"]}
+    print(f"mesh data plane: load_global {n} x {BLOCK_BYTES >> 20} MiB in "
+          f"{load_s:.3f} s ({out['load_gb_per_s']:.2f} GB/s); "
+          f"global_batch, ring_shift, gather_all, replicate, turnover byte "
+          f"for byte against the files; global_batch of {MESH_BATCH} rows "
+          f"{batch_ms:.4f} ms (CUDA events) against a {bound:.4f} ms bytes "
+          f"bound; {len(events)} device events, no host<->device copy; "
+          f"device µs by kernel {prof['kernels_us']}", flush=True)
+    return out
+
+
+def train_batches(device, files: dict, n_batches: int) -> list:
+    """The first ``n_batches`` ViT batches of the train phase, as tokens
+    and labels on the card."""
+    from alluxio_tpu_torch.client.torch_io import (DeviceBlockLoader,
+                                                   batched_device_iterator)
+    from alluxio_tpu_torch.models.transformer import images_to_tokens
+    from alluxio_tpu_torch.ops.decode import (decode_image_records,
+                                              image_record_bytes)
+
+    loader = DeviceBlockLoader(ShardSource(files), list(files),
+                               device=device, hbm_bytes=0)
+    out = []
+    try:
+        batches = batched_device_iterator(
+            loader, record_bytes=image_record_bytes(H, W, C),
+            batch_size=VIT_BATCH)
+        for recs in batches:
+            imgs, labels = decode_image_records(recs, height=H, width=W,
+                                                channels=C)
+            out.append((images_to_tokens(imgs, patch=PATCH), labels))
+            if len(out) == n_batches:
+                break
+        batches.close()
+    finally:
+        loader.close()
+    return out
+
+
+def sharded_step_check(device, mesh, cfg, batches, lr: float) -> dict:
+    """(b)/(c): the dp x tp train step on ``mesh`` against the single-card
+    step from the same seed and batches: loss, logits, every parameter
+    and moment bit for bit."""
+    import torch
+
+    from alluxio_tpu_torch.models.checkpoint import (gather_opt_state,
+                                                     gather_param_tree)
+    from alluxio_tpu_torch.models.train import (make_eval_step,
+                                                make_sharded_train_state,
+                                                make_train_state,
+                                                make_train_step)
+    from alluxio_tpu_torch.parallel.mesh import shard_host_batch
+    from alluxio_tpu_torch.utils.pytree import tree_leaves
+
+    one, one_opt, tx = make_train_state(cfg, device=device,
+                                        learning_rate=lr, seed=0)
+    sh, sh_opt, stx, _ = make_sharded_train_state(cfg, mesh,
+                                                  learning_rate=lr, seed=0)
+    step_one = make_train_step(cfg, tx)
+    step_mesh = make_train_step(cfg, stx, mesh=mesh)
+    losses, ms_one, ms_mesh = [], [], []
+    for i, (tokens, labels) in enumerate(batches):
+        (one, one_opt, loss_one), ms = timed(
+            lambda: step_one(one, one_opt, tokens, labels))
+        ms_one.append(ms)
+        (sh, sh_opt, loss_mesh), ms = timed(
+            lambda: step_mesh(sh, sh_opt, shard_host_batch(mesh, tokens),
+                              shard_host_batch(mesh, labels)))
+        ms_mesh.append(ms)
+        if not same_bits(loss_one, loss_mesh):
+            fail(f"mesh step {i + 1} (moe_experts={cfg.moe_experts}): loss "
+                 f"{float(loss_mesh)} != single card {float(loss_one)}")
+        losses.append(float(loss_one))
+    tokens = batches[-1][0]
+    logits_one = make_eval_step(cfg)(one, tokens)
+    logits_mesh = make_eval_step(cfg, mesh=mesh)(
+        sh, shard_host_batch(mesh, tokens))
+    if not same_bits(logits_one, logits_mesh):
+        fail(f"mesh eval (moe_experts={cfg.moe_experts}): logits differ "
+             f"from the single card's")
+    mine = tree_leaves((gather_param_tree(sh), gather_opt_state(sh_opt, sh)))
+    want = tree_leaves((one.param_tree(), one_opt))
+    bad = [i for i, (a, b) in enumerate(zip(mine, want))
+           if not same_bits(a, b)]
+    if len(mine) != len(want) or bad:
+        fail(f"mesh steps (moe_experts={cfg.moe_experts}): leaves {bad} of "
+             f"the parameters and moments differ from the single card's")
+    # one more step of each under the profiler, after the comparison
+    profiles = {}
+    for name, run in (
+            ("one_card", lambda: step_one(one, one_opt, tokens, labels)),
+            ("mesh", lambda: step_mesh(sh, sh_opt,
+                                       shard_host_batch(mesh, tokens),
+                                       shard_host_batch(mesh, labels)))):
+        prof = profile_once(run)
+        profiles[name] = {"device_events": len(prof["device_events"]),
+                          "collectives": prof["collectives"]}
+    print(f"mesh dp x tp, moe_experts={cfg.moe_experts}: {len(batches)} "
+          f"step(s) bit-identical to one card (losses {losses}; logits and "
+          f"{len(mine)} parameter and moment leaves); step ms one card "
+          f"{ms_one}, mesh {ms_mesh}; one profiled step: {profiles}",
+          flush=True)
+    return {"moe_experts": cfg.moe_experts, "steps": len(batches),
+            "losses": losses, "leaves": len(mine), "bit_identical": True,
+            "step_ms_one_card": ms_one, "step_ms_mesh": ms_mesh,
+            "profiled_step": profiles}
+
+
+def ring_check(device, mesh) -> list:
+    """(d): ring_attention over ``data`` against reference_attention."""
+    import torch
+
+    from alluxio_tpu_torch.parallel.ring_attention import (
+        reference_attention, ring_attention)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 6)
+    out = []
+    for shape, dtype in RING_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device=device)
+                   .to(getattr(torch, dtype)) for _ in range(3))
+        for causal in (True, False):
+            got = ring_attention(q, k, v, mesh=mesh, axis="data",
+                                 causal=causal)
+            want = reference_attention(q, k, v, causal=causal)
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            ms = time_ms(lambda: ring_attention(q, k, v, mesh=mesh,
+                                                axis="data", causal=causal),
+                         reps=3, warmup=1)
+            ref_ms = time_ms(lambda: reference_attention(q, k, v,
+                                                         causal=causal),
+                             reps=3, warmup=1)
+            case = {"shape": list(shape), "dtype": dtype, "causal": causal,
+                    "max_abs_err": err, "max_abs_ref": scale,
+                    "tol": RING_ATOL if dtype == "float32"
+                    else RING_BF16_TOL * scale, "ms": ms,
+                    "reference_ms": ref_ms}
+            out.append(case)
+            print(f"mesh ring_attention {list(shape)} {dtype} causal="
+                  f"{causal}: max |diff| {err:.3e} (tolerance "
+                  f"{case['tol']:.3e}), {ms:.4f} ms, reference {ref_ms:.4f} "
+                  f"ms", flush=True)
+            if not err <= case["tol"]:
+                fail(f"ring_attention {list(shape)} {dtype} causal={causal}"
+                     f": differs by {err} from reference_attention")
+        del q, k, v
+    return out
+
+
+def pipeline_check(device, mesh, shape) -> dict:
+    """(e): pipeline_apply over a one-stage ``pipe`` axis against the
+    stage applied in sequence, bit for bit."""
+    import torch
+
+    from alluxio_tpu_torch.parallel.pipeline import pipeline_apply
+
+    m, rows, d = shape
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 7)
+    params = {"w": torch.randn((1, d, d), generator=gen, device=device)
+              * d ** -0.5,
+              "b": torch.randn((1, d), generator=gen, device=device) * 0.1}
+    micro = torch.randn(shape, generator=gen, device=device)
+
+    def stage(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    got = pipeline_apply(stage, params, micro, mesh=mesh)
+    want = torch.stack([stage({k: v[0] for k, v in params.items()}, x)
+                        for x in micro])
+    if not same_bits(got, want):
+        fail("pipeline_apply differs from the stage applied in sequence")
+    print(f"mesh pipeline_apply, 1 stage, {m} microbatches of {rows} x {d}: "
+          f"bit-identical to the stage in sequence", flush=True)
+    return {"stages": 1, "microbatches": m, "shape": list(shape),
+            "bit_identical": True}
+
+
+def mesh_phase(device, workdir: str, shard_files: dict,
+               records: dict) -> dict:
+    """The mesh layer over an NCCL group of one rank on this card."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from alluxio_tpu_torch.models.transformer import TransformerConfig
+    from alluxio_tpu_torch.parallel.mesh import make_mesh
+
+    store = dist.FileStore(os.path.join(workdir, "nccl-store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = make_mesh({"data": 1, "model": 1})
+        nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+        print(f"mesh phase: backend {dist.get_backend()}, NCCL {nccl}, "
+              f"world 1, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+              f"on {torch.device('cuda', torch.cuda.current_device())}",
+              flush=True)
+        out = {"backend": dist.get_backend(), "nccl": nccl, "world": 1,
+               "data_plane": data_plane_check(device, mesh, workdir,
+                                              shard_files)}
+        cfg = TransformerConfig(
+            vocab_or_patch_dim=PATCH * PATCH * C, n_classes=N_CLASSES,
+            max_len=(H // PATCH) * (W // PATCH), **VIT_WIDTHS)
+        batches = train_batches(device, records, MESH_STEPS)
+        out["vit"] = sharded_step_check(device, mesh, cfg, batches, VIT_LR)
+        out["moe"] = sharded_step_check(
+            device, mesh, dataclasses.replace(cfg, moe_experts=MOE_EXPERTS),
+            batches[:MOE_STEPS], VIT_LR)
+        out["ring_attention"] = ring_check(device, mesh)
+        out["pipeline"] = pipeline_check(
+            device, make_mesh({"pipe": 1}), PIPE_SHAPE)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     if importlib.util.find_spec("alluxio_tpu_torch") is None:
         print("chip_smoke.py: the alluxio_tpu_torch package is not beside "
@@ -849,7 +1243,8 @@ def main() -> int:
     workdir = block_dir(NUM_BLOCKS * BLOCK_BYTES
                         + DECODE_BLOCKS * BLOCK_BYTES)
     try:
-        launches = main_path(device, workdir, NUM_BLOCKS, BLOCK_BYTES, K)
+        launches, shard_files = main_path(device, workdir, NUM_BLOCKS,
+                                          BLOCK_BYTES, K)
         files = record_files(workdir, DECODE_BLOCKS, BLOCK_BYTES)
         decode_phase(device, files, DECODE_BLOCKS, BLOCK_BYTES)
         # the train path runs no kernel of the port (the JAX e2e path
@@ -860,9 +1255,13 @@ def main() -> int:
         train["kernel_launches"] = {"scaled_sum": rk.launches}
         print(f"train path: scaled_sum launched {rk.launches} times (the "
               f"path has no kernel of its own)", flush=True)
+        rk.launches = 0
+        mesh = mesh_phase(device, workdir, shard_files, files)
+        mesh["kernel_launches"] = {"scaled_sum": rk.launches}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "scaled_sum", "route": "cuda",
         "source": "alluxio_tpu_torch/ops/csrc/reduce_kernel.cu",

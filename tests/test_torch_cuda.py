@@ -47,6 +47,22 @@ def test_kernel_matches_reference(cuda, rows):
         assert int(got) == int(rk.scaled_sum_reference(x, s))
 
 
+def test_kernel_matches_host_over_random_inputs(cuda):
+    """Many seeded (size, scale) cases, each held against both the plain
+    version on the card and numpy's sum of a host copy, so that a wrong
+    answer shows whether the kernel or the input read was at fault."""
+    rng = np.random.default_rng(20261016)
+    for case in range(1000):
+        rows = int(rng.choice([512, 1024, 2048, 3584, 4096]))
+        scale = int(rng.choice([1, 3, -2, 12345]))
+        x = _random_int32(rows * rk._LANES, case, cuda)
+        got = int(rk.scaled_sum(x, scale))
+        plain = int(rk.scaled_sum_reference(x, scale))
+        total = int((x.cpu().numpy().astype(np.int64) * scale).sum())
+        host = (total + (1 << 31)) % (1 << 32) - (1 << 31)
+        assert (got, plain) == (host, host), (case, rows, scale)
+
+
 def test_unaligned_view_takes_the_scalar_path(cuda):
     base = _random_int32(2 * _BLOCK + 1, 11, cuda)
     x = base[1:]  # 4 bytes past a 16-byte boundary
@@ -182,3 +198,38 @@ def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
                     tree_leaves((params, got_opt))):
         assert b.device == a.device
         assert torch.equal(bits(a), bits(b))
+
+
+def test_world_one_nccl_mesh_matches_one_card(cuda, tmp_path):
+    """Over an NCCL group of one rank on the card, ``chip_smoke.py``'s
+    checks (b) and (e) at a small size: 3 dp x tp steps of a small ViT
+    bit for bit against the single-card steps, and a one-stage pipeline
+    bit for bit against the stage in sequence."""
+    import importlib.util
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from alluxio_tpu_torch.parallel.mesh import make_mesh
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg, _ = _small_vit("cpu")
+    rng = np.random.default_rng(4)
+    batches = [(torch.from_numpy(rng.standard_normal((4, 16, 48)).astype(
+        np.float32)).to(torch.bfloat16).to(cuda),
+        torch.from_numpy(rng.integers(0, 10, 4).astype(np.int32)).to(cuda))
+        for _ in range(3)]
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh({"data": 1, "model": 1})
+        assert dist.get_backend() == "nccl"
+        out = smoke.sharded_step_check(cuda, mesh, cfg, batches, 1e-3)
+        assert out["bit_identical"] and out["steps"] == 3
+        assert smoke.pipeline_check(cuda, make_mesh({"pipe": 1}),
+                                    (4, 32, 64))["bit_identical"]
+    finally:
+        dist.destroy_process_group()

@@ -33,8 +33,9 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "ml_dtypes", "alluxio_tpu")
 def test_importing_every_module_loads_no_jax():
     mods = list(_module_names())
     for m in ("ops.reduce_kernel", "parallel.ring_attention",
-              "parallel.moe", "models.transformer", "models.train",
-              "models.checkpoint"):
+              "parallel.moe", "parallel.mesh", "parallel.tensor_parallel",
+              "parallel.ici_store", "parallel.pipeline", "utils.wire",
+              "models.transformer", "models.train", "models.checkpoint"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -112,3 +113,41 @@ def test_default_device_raises_without_a_card():
     assert Transformer(cfg, device="cpu").embed.device.type == "cpu"
     assert init_moe_params(torch.Generator(), n_experts=2, d_model=8,
                            d_ff=8, device="cpu")["gate"].device.type == "cpu"
+
+
+def test_mesh_entry_points_do_not_fall_back(tmp_path):
+    """No group: ``make_mesh`` raises. Under a gloo group and no card, a
+    mesh (and so a sharded model or train state) must ask for the CPU;
+    with ``device_type="cpu"`` it runs there, and a model cannot be put
+    on another device than its mesh's."""
+    import torch.distributed as dist
+
+    from alluxio_tpu_torch.models.train import make_sharded_train_state
+    from alluxio_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    from alluxio_tpu_torch.parallel.mesh import make_mesh
+    from tests.testutils.torch_dist import cpu_group
+
+    sizes = {"data": 1, "model": 1}
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        make_mesh(sizes)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default mesh is valid")
+    cfg = TransformerConfig(vocab_or_patch_dim=8, d_model=8, n_heads=2,
+                            d_ff=8, n_layers=1, n_classes=2, max_len=2)
+    cpu_group(tmp_path / "store")
+    try:
+        for entry in (lambda: make_mesh(sizes),
+                      lambda: Transformer(cfg, mesh=make_mesh(sizes)),
+                      lambda: make_sharded_train_state(cfg,
+                                                       make_mesh(sizes))):
+            with pytest.raises(RuntimeError, match="device_type='cpu'"):
+                entry()
+        with pytest.raises(RuntimeError, match="nccl"):
+            make_mesh(sizes, device_type="cuda")
+        mesh = make_mesh(sizes, device_type="cpu")
+        assert Transformer(cfg, mesh=mesh).embed.device.type == "cpu"
+        with pytest.raises(ValueError, match="mesh"):
+            Transformer(cfg, mesh=mesh, device="cuda")
+    finally:
+        dist.destroy_process_group()
