@@ -8,7 +8,15 @@ easy to find:
 - ``client/torch_io.py``: ``DeviceBlockLoader`` (host -> device with
   prefetch) and ``batched_device_iterator``;
 - ``client/cache/hbm_store.py``: the device page store (pin leases,
-  ``adopt()`` with no second transfer, evict-drops-reference);
+  ``adopt()`` with no second transfer, evict-drops-reference, pages
+  filled on a side stream carry their copy's event);
+- ``client/cache/{meta,page_store,manager,stream}.py``: the client page
+  cache, ``LocalCacheManager`` with the device store above its host tier
+  (``get_device``), the JAX package's on-disk page layout, and
+  ``CachingFileInStream``;
+- ``prefetch/``: the clairvoyant prefetch loop (``PrefetchService``: a
+  seeded oracle, a budgeted scheduler and an agent that fills the
+  loader's device tier ahead of the consumer), on ``heartbeat/``;
 - ``ops/reduce_kernel.py``: ``scaled_sum``, a hand-written CUDA kernel
   (``ops/csrc/reduce_kernel.cu``) with its plain PyTorch version;
 - ``ops/decode.py``: record decode in plain PyTorch;
@@ -43,6 +51,8 @@ _LAZY = {
     "DeviceBlockLoader": "alluxio_tpu_torch.client.torch_io",
     "batched_device_iterator": "alluxio_tpu_torch.client.torch_io",
     "HbmPageStore": "alluxio_tpu_torch.client.cache.hbm_store",
+    "LocalCacheManager": "alluxio_tpu_torch.client.cache.manager",
+    "PrefetchService": "alluxio_tpu_torch.prefetch.service",
     "scaled_sum": "alluxio_tpu_torch.ops.reduce_kernel",
     "decode_image_records": "alluxio_tpu_torch.ops.decode",
     "hbm_store_from_numpy": "alluxio_tpu_torch.convert",

@@ -23,6 +23,10 @@ class CacheEvictor:
     def update_on_delete(self, page_id: PageId) -> None:
         raise NotImplementedError
 
+    def evict(self) -> Optional[PageId]:
+        """The next victim (not removed; caller calls update_on_delete)."""
+        raise NotImplementedError
+
     def evict_matching(self, pred) -> Optional[PageId]:
         """First victim IN POLICY ORDER satisfying ``pred`` — lets a
         caller skip pages it cannot evict (e.g. pinned) without
@@ -58,6 +62,10 @@ class LRUCacheEvictor(CacheEvictor):
         with self._lock:
             self._order.pop(page_id, None)
 
+    def evict(self) -> Optional[PageId]:
+        with self._lock:
+            return next(iter(self._order)) if self._order else None
+
     def evict_matching(self, pred) -> Optional[PageId]:
         with self._lock:
             return next((p for p in self._order if pred(p)), None)
@@ -80,6 +88,12 @@ class LFUCacheEvictor(CacheEvictor):
     def update_on_delete(self, page_id: PageId) -> None:
         with self._lock:
             self._counts.pop(page_id, None)
+
+    def evict(self) -> Optional[PageId]:
+        with self._lock:
+            if not self._counts:
+                return None
+            return min(self._counts, key=self._counts.get)
 
     def evict_matching(self, pred) -> Optional[PageId]:
         with self._lock:

@@ -11,13 +11,18 @@ Eviction only drops the store's reference; the store never ``resize_``s,
 ``set_``s or overwrites a page, so a consumer that holds the tensor keeps
 valid memory, and PyTorch frees it when the last reference dies.
 
-CUDA stream hazard: the caching allocator may hand freed memory to a new
-allocation as soon as the work queued on the page's *allocation stream*
-has been ordered before it. Pages here are allocated and filled on the
-caller's current stream (``host_to_device``) and consumed on that same
-stream, so that ordering holds. A caller that fills a page on a side copy
-stream must make the consuming stream wait on it and call
-``tensor.record_stream(consumer_stream)`` before ``adopt()``.
+CUDA streams: a page is filled either on the caller's current stream
+(``put``, ``host_to_device``) and read on that same stream, which needs
+nothing more, or on a side copy stream by another thread (the prefetch
+agent's adopt thread, through :func:`side_copy`). Such a page is adopted
+with the event recorded after its copy, and the store keeps that event
+with the page; every lease carries it. Before a consumer reads the page
+it calls :meth:`DevicePageLease.wait` (or :func:`order_after` with the
+lease's ``ready``) on its own thread: its current stream waits on the
+event, so it cannot read the page before the copy lands, and
+``record_stream`` tells the caching allocator about that stream, so the
+memory is not handed to a new allocation on the copy stream while the
+consumer's queued work still reads it. No call synchronises the host.
 """
 
 from __future__ import annotations
@@ -53,14 +58,53 @@ def host_to_device(host: np.ndarray, device):
     return staging.to(device, non_blocking=True)
 
 
-class DevicePageLease:
-    """A pinned device page; ``array`` is the tensor. Close to unpin."""
+def side_copy(host: np.ndarray, device, stream) -> tuple:
+    """``host_to_device`` on ``stream`` (a copy stream on ``device`` that
+    the caller owns), under ``device``'s guard whatever device the
+    calling thread has set. Returns ``(tensor, ready)``: ``ready`` is the
+    CUDA event recorded after the copy, for :func:`order_after`."""
+    import torch
 
-    def __init__(self, store: "HbmPageStore", page_id: PageId, array) -> None:
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        tensor = host_to_device(host, device)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return tensor, ready
+
+
+def order_after(tensor, ready):
+    """Make the calling thread's current stream on ``tensor``'s device
+    wait on ``ready`` (the event of a side-stream copy that filled
+    ``tensor``) and record that stream on ``tensor`` for the caching
+    allocator. No-op when ``ready`` is None (the page was filled on the
+    consumer's own stream). Returns ``tensor``."""
+    if ready is None:
+        return tensor
+    import torch
+
+    current = torch.cuda.current_stream(tensor.device)
+    current.wait_event(ready)
+    tensor.record_stream(current)
+    return tensor
+
+
+class DevicePageLease:
+    """A pinned device page; ``array`` is the tensor, ``ready`` the event
+    of the side-stream copy that filled it (None if it was filled on the
+    consumer's stream). Close to unpin."""
+
+    def __init__(self, store: "HbmPageStore", page_id: PageId, array,
+                 ready=None) -> None:
         self._store = store
         self.page_id = page_id
         self.array = array
+        self.ready = ready
         self._closed = False
+
+    def wait(self):
+        """The tensor, ordered after its fill on the caller's current
+        stream (see :func:`order_after`)."""
+        return order_after(self.array, self.ready)
 
     def close(self) -> None:
         if not self._closed:
@@ -89,6 +133,8 @@ class HbmPageStore:
         self._pages: Dict[PageId, object] = {}
         self._sizes: Dict[PageId, int] = {}
         self._pins: Dict[PageId, int] = {}
+        #: fill events of pages copied on a side stream
+        self._ready: Dict[PageId, object] = {}
         self._used = 0
         self._lock = threading.RLock()
         self._evictor = evictor if not isinstance(evictor, str) \
@@ -130,10 +176,12 @@ class HbmPageStore:
                 return False  # precheck: skip a doomed transfer
             return self.adopt(page_id, host_to_device(arr, self._device))
 
-    def adopt(self, page_id: PageId, tensor) -> bool:
+    def adopt(self, page_id: PageId, tensor, ready=None) -> bool:
         """Retain an ALREADY device-resident tensor (e.g. the loader just
-        copied it for a consumer) without a second transfer. Returns False
-        when it cannot fit after eviction."""
+        copied it for a consumer) without a second transfer. ``ready`` is
+        the event of the side-stream copy that filled it (see
+        :func:`side_copy`), None if it was filled on the consumer's
+        stream. Returns False when it cannot fit after eviction."""
         if tensor.device != self._device:
             raise ValueError(f"page on {tensor.device}, store on "
                              f"{self._device}")
@@ -145,19 +193,24 @@ class HbmPageStore:
                 return False
             self._pages[page_id] = tensor
             self._sizes[page_id] = size
+            if ready is not None:
+                self._ready[page_id] = ready
             self._used += size
             self._evictor.update_on_put(page_id)
             return True
 
     def get(self, page_id: PageId) -> Optional[DevicePageLease]:
-        """Warm hit: the device tensor itself, pinned until lease close."""
+        """Warm hit: the device tensor itself, pinned until lease close.
+        A consumer reads it after :meth:`DevicePageLease.wait` on its
+        own thread."""
         with self._lock:
             arr = self._pages.get(page_id)
             if arr is None:
                 return None
             self._pins[page_id] = self._pins.get(page_id, 0) + 1
             self._evictor.update_on_get(page_id)
-            return DevicePageLease(self, page_id, arr)
+            return DevicePageLease(self, page_id, arr,
+                                   self._ready.get(page_id))
 
     def _unpin(self, page_id: PageId) -> None:
         with self._lock:
@@ -178,6 +231,7 @@ class HbmPageStore:
                 return False
             self._used -= self._sizes.pop(page_id, 0)
             self._pins.pop(page_id, None)
+            self._ready.pop(page_id, None)
             self._evictor.update_on_delete(page_id)
             return True
 

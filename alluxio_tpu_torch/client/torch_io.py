@@ -13,6 +13,11 @@ A producer thread does all host-side work (stream opens, mmap setup, page
 pre-fault) ahead of the consumer; the consumer issues the host->device
 copies, which run asynchronously on its current stream, and keeps
 ``prefetch`` of them in flight while it computes.
+
+With a prefetch service, the agent's adopt thread fills the device tier
+ahead of the consumer through :meth:`DeviceBlockLoader.prefetch_into_hbm`,
+on a copy stream the loader owns; the consumer's current stream waits on
+each such page's copy event before the page is handed out.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 
 from alluxio_tpu_torch.client.cache.hbm_store import (HbmPageStore,
-                                                      host_to_device)
+                                                      host_to_device,
+                                                      order_after, side_copy)
 from alluxio_tpu_torch.client.cache.meta import PageId
 from alluxio_tpu_torch.device import resolve_device
 from alluxio_tpu_torch.metrics import metrics
@@ -254,7 +260,14 @@ class DeviceBlockLoader:
         self._epoch_lock = threading.Lock()
         self._current_stop: Optional[threading.Event] = None
         self._closed = False
+        #: the adopt thread's copy stream (a CUDA device tier fed by a
+        #: prefetch service only)
+        self._copy_stream = None
         if self._svc is not None and self._hbm is not None:
+            if self._device.type == "cuda":
+                import torch
+
+                self._copy_stream = torch.cuda.Stream(device=self._device)
             self._svc.bind_hbm(self.prefetch_into_hbm)
 
     def __len__(self) -> int:
@@ -321,8 +334,10 @@ class DeviceBlockLoader:
             return arr
 
     def prefetch_into_hbm(self, ref) -> bool:
-        """Prefetch-agent hook: host-read one block and adopt it into
-        the device tier ahead of its consume."""
+        """Prefetch-agent hook (the agent's adopt thread): host-read one
+        block and adopt it into the device tier ahead of its consume. On
+        a CUDA device the copy runs on the loader's copy stream, under the
+        loader's device, and the page keeps the copy's event."""
         if self._hbm is None or self._closed:
             return False
         info = self._infos.get(ref.path)
@@ -331,7 +346,10 @@ class DeviceBlockLoader:
         if self._hbm.has(pid):
             return True
         host = self._host_bytes(ref.path, ref.block_index)
-        return self._hbm.adopt(pid, host_to_device(host, self._device))
+        if self._copy_stream is None:
+            return self._hbm.adopt(pid, host_to_device(host, self._device))
+        arr, ready = side_copy(host, self._device, self._copy_stream)
+        return self._hbm.adopt(pid, arr, ready=ready)
 
     def load_block(self, plan_index: int):
         """One block as a device tensor (device-tier cached across epochs)."""
@@ -342,7 +360,7 @@ class DeviceBlockLoader:
             lease = self._hbm.get(pid)
             if lease is not None:
                 self._m.counter("Client.JaxHbmHits").inc()
-                arr = lease.array
+                arr = lease.wait()
                 # safe to unpin before returning: eviction only drops the
                 # store's reference, so the consumer's tensor stays valid
                 lease.close()
@@ -399,7 +417,7 @@ class DeviceBlockLoader:
                         lease = self._hbm.get(pid)
                         if lease is not None:
                             self._m.counter("Client.JaxHbmHits").inc()
-                            arr = lease.array
+                            arr, ready = lease.array, lease.ready
                             lease.close()
                             if ref is not None:
                                 out = self._svc.on_consume(
@@ -407,8 +425,10 @@ class DeviceBlockLoader:
                                     generation=gen)
                                 if out != "stale":
                                     self._svc.release(ref)
+                            # the consumer orders its own stream after
+                            # ``ready``: this thread's stream is not its
                             self._put(q, stop, (pid, arr, True, "hbm",
-                                                arr.nbytes))
+                                                arr.nbytes, ready))
                             continue
                     outcome = None
                     if ref is not None:
@@ -432,7 +452,7 @@ class DeviceBlockLoader:
                             self._svc.record_stall(
                                 _time.monotonic() - t0)
                     self._put(q, stop, (pid, host, False, bucket,
-                                        host.nbytes))
+                                        host.nbytes, None))
             except BaseException as e:  # noqa: BLE001 re-raised in consumer
                 # a read failure must FAIL the epoch, not silently end
                 # it short (a truncated epoch looks complete downstream)
@@ -485,7 +505,7 @@ class DeviceBlockLoader:
                     break
                 if item[0] == "__error__":
                     raise item[1]
-                pid, data, on_device, bucket, nbytes = item
+                pid, data, on_device, bucket, nbytes, ready = item
                 now = _time.monotonic()
                 self.step_stats.record(bucket, now - wait_t0, nbytes,
                                        now - last_item_t)
@@ -494,7 +514,7 @@ class DeviceBlockLoader:
                 if outer is not None:
                     outer.phase("drain", (now - wait_t0) * 1000.0)
                 if on_device:
-                    arr = data
+                    arr = order_after(data, ready)
                 else:
                     arr = self._to_device(data)
                     if self._hbm is not None:

@@ -1,0 +1,331 @@
+"""Prefetch agent: heartbeat loop that executes placement plans.
+
+A copy of ``alluxio_tpu/prefetch/agent.py``. Each tick: observe
+completions first (frees budget), then pull the next plan from the
+scheduler and issue it — DRAM placements as async worker-tier loads
+followed by an eviction pin, so the worker cannot drop the block before
+its consume; device-tier placements through the consumer loader's adopt
+hook, on a thread of their own. A tick never waits on a transfer.
+
+The executors are duck-typed over ``block_master`` (``get_worker_infos``,
+``get_block_info``, ``get_block_infos``), ``worker_client_fn(address)``
+(``async_cache``, ``prefetch_pin``, ``prefetch_unpin``) and, for
+:class:`JobServiceExecutor`, a ``job_client`` (``run``, ``get_status``).
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Tuple
+
+from alluxio_tpu_torch.heartbeat import HeartbeatExecutor
+from alluxio_tpu_torch.metrics import metrics
+from alluxio_tpu_torch.prefetch.oracle import BlockRef
+from alluxio_tpu_torch.prefetch.scheduler import (
+    PlacementAction, PrefetchScheduler, TIER_HBM,
+)
+from alluxio_tpu_torch.utils.tracing import annotate
+
+LOG = logging.getLogger(__name__)
+
+
+class WorkerTierExecutor:
+    """Makes blocks resident in a worker's DRAM/MEM tier and pins them.
+
+    Issues ``async_cache`` against a target worker chosen local-first,
+    then polls the block master for the commit to land; once resident,
+    takes a prefetch pin so eviction pressure cannot undo the placement
+    before the consume.
+    """
+
+    def __init__(self, block_master, worker_client_fn: Callable,
+                 *, local_host: str = "",
+                 load_timeout_s: float = 60.0) -> None:
+        self._bm = block_master
+        self._client_fn = worker_client_fn
+        self._local_host = local_host
+        self._load_timeout_s = load_timeout_s
+        self._lock = threading.Lock()
+        #: block_id -> (ref, issue time) awaiting commit
+        self._pending: Dict[int, tuple] = {}
+        #: block_id -> (worker address, refcount). Refcounted: the
+        #: cross-epoch lookahead can re-pin a block for epoch e+1 while
+        #: epoch e's consume is between classify and release
+        self._pinned: Dict[int, tuple] = {}
+        #: placements that completed synchronously (already resident);
+        #: drained by the next poll() so the scheduler learns of them
+        self._completed: List[int] = []
+        self._m = metrics()
+
+    def _pick_worker(self):
+        infos = self._bm.get_worker_infos()
+        if not infos:
+            return None
+        for w in infos:
+            if self._local_host and \
+                    w.address.tiered_identity.value("host") == \
+                    self._local_host:
+                return w.address
+        return infos[0].address
+
+    def _resident_or_source(self, ref: BlockRef) -> str:
+        """Shared submit preamble: ``"done"`` (already resident, pinned
+        and queued for poll), ``"cold"`` (has a UFS source to load
+        from), or ``"unavailable"`` (cannot be placed right now)."""
+        try:
+            info = self._bm.get_block_info(ref.block_id)
+        except Exception:  # noqa: BLE001 master transition
+            return "unavailable"
+        if info.locations and self._pin(ref.block_id,
+                                        info.locations[0].address):
+            with self._lock:
+                self._completed.append(ref.block_id)
+            return "done"
+        if not (ref.persisted and ref.ufs_path):
+            return "unavailable"  # no UFS source to load from
+        return "cold"
+
+    def submit(self, ref: BlockRef) -> bool:
+        """Start one placement; returns False when it cannot even be
+        issued (no worker / no cold source and not cached anywhere)."""
+        state = self._resident_or_source(ref)
+        if state != "cold":
+            return state == "done"
+        addr = self._pick_worker()
+        if addr is None:
+            return False
+        try:
+            # tagged PREFETCH: speculative loads drain after on-demand
+            # reads and client-issued fills on a worker with QoS on
+            self._client_fn(addr).async_cache(
+                ref.block_id, ref.ufs_path, ref.offset, ref.length,
+                ref.mount_id, qos_class="PREFETCH")
+        except Exception:  # noqa: BLE001 worker transition: report failed
+            LOG.debug("async_cache submit failed for block %d",
+                      ref.block_id, exc_info=True)
+            return False
+        with self._lock:
+            self._pending[ref.block_id] = (ref, time.monotonic())
+        self._m.counter("Client.PrefetchLoadsIssued").inc()
+        return True
+
+    def _pin(self, block_id: int, addr) -> bool:
+        try:
+            if not self._client_fn(addr).prefetch_pin(block_id):
+                return False
+        except Exception:  # noqa: BLE001
+            LOG.debug("prefetch pin failed for block %d", block_id,
+                      exc_info=True)
+            return False
+        with self._lock:
+            prev = self._pinned.get(block_id)
+            # the worker-side pin is one TTL slot (a re-pin refreshes
+            # it); the refcount is client-side bookkeeping only
+            self._pinned[block_id] = (addr, prev[1] + 1 if prev else 1)
+        self._m.counter("Client.PrefetchBlocksPinned").inc()
+        return True
+
+    def poll(self) -> "Tuple[List[int], List[int]]":
+        """``(done, failed)`` block ids since the last poll. A block is
+        done only once it is BOTH committed and pinned. Pin failures
+        retry next tick; a placement that does not land within the
+        timeout is failed (the scheduler releases its budget and backs
+        off)."""
+        now = time.monotonic()
+        with self._lock:
+            pending = list(self._pending.items())
+            done: List[int] = self._completed
+            self._completed = []
+        failed: List[int] = []
+        if not pending:
+            return done, failed
+        # ONE batched master RPC per tick
+        try:
+            infos = {i.block_id: i for i in self._bm.get_block_infos(
+                [bid for bid, _ in pending])}
+        except Exception:  # noqa: BLE001 master transition
+            infos = {}
+        for bid, (_ref, issued_at) in pending:
+            # the timeout covers the WHOLE placement — commit AND pin
+            info = infos.get(bid)
+            if info is not None and info.locations and \
+                    self._pin(bid, info.locations[0].address):
+                with self._lock:
+                    self._pending.pop(bid, None)
+                done.append(bid)
+            elif now - issued_at > self._load_timeout_s:
+                with self._lock:
+                    self._pending.pop(bid, None)
+                failed.append(bid)
+            # else: retry next tick
+        return done, failed
+
+    def unpin(self, block_id: int) -> None:
+        """Drop one hold on the eviction pin; the worker-side pin goes
+        only when the last hold does (no-op if not held)."""
+        with self._lock:
+            entry = self._pinned.get(block_id)
+            if entry is None:
+                return
+            addr, count = entry
+            if count > 1:
+                self._pinned[block_id] = (addr, count - 1)
+                return
+            del self._pinned[block_id]
+        try:
+            self._client_fn(addr).prefetch_unpin(block_id)
+        except Exception:  # noqa: BLE001 worker gone: pin died with it
+            LOG.debug("prefetch unpin failed for block %d", block_id,
+                      exc_info=True)
+
+    def pinned_blocks(self) -> List[int]:
+        with self._lock:
+            return list(self._pinned)
+
+    def close(self) -> None:
+        # force-release regardless of refcount: nothing consumes after
+        # close, and the TTL would otherwise hold the blocks for minutes
+        with self._lock:
+            pinned = dict(self._pinned)
+            self._pinned.clear()
+        for bid, (addr, _count) in pinned.items():
+            try:
+                self._client_fn(addr).prefetch_unpin(bid)
+            except Exception:  # noqa: BLE001
+                LOG.debug("prefetch unpin failed for block %d", bid,
+                          exc_info=True)
+
+
+class JobServiceExecutor(WorkerTierExecutor):
+    """DRAM placements through the job service instead of direct worker
+    RPCs: one load plan per distinct file path, fanned out by the job
+    master to workers co-located with the data. Block readiness and
+    pinning stay per-block via the block master."""
+
+    def __init__(self, block_master, worker_client_fn, job_client, *,
+                 local_host: str = "") -> None:
+        super().__init__(block_master, worker_client_fn,
+                         local_host=local_host)
+        self._job = job_client
+        #: path -> running load job id (finished jobs are dropped so a
+        #: later eviction can trigger a fresh plan)
+        self._jobs: Dict[str, int] = {}
+
+    def submit(self, ref: BlockRef) -> bool:
+        state = self._resident_or_source(ref)
+        if state != "cold":
+            return state == "done"
+        with self._lock:
+            job_id = self._jobs.get(ref.path)
+        if job_id is None:
+            try:
+                job_id = self._job.run({"type": "load", "path": ref.path,
+                                        "replication": 1})
+            except Exception:  # noqa: BLE001 job master transition
+                LOG.debug("load job submit failed for %s", ref.path,
+                          exc_info=True)
+                return False
+            with self._lock:
+                self._jobs[ref.path] = job_id
+            self._m.counter("Client.PrefetchLoadJobs").inc()
+        with self._lock:
+            self._pending[ref.block_id] = (ref, time.monotonic())
+        return True
+
+    def poll(self) -> "Tuple[List[int], List[int]]":
+        done, failed = super().poll()
+        with self._lock:
+            jobs = list(self._jobs.items())
+        for path, jid in jobs:
+            try:
+                status = self._job.get_status(jid).status
+            except Exception:  # noqa: BLE001
+                continue
+            if status in ("COMPLETED", "FAILED", "CANCELED"):
+                with self._lock:
+                    self._jobs.pop(path, None)
+        return done, failed
+
+
+class PrefetchAgent(HeartbeatExecutor):
+    """One control-loop tick: completions -> plan -> issue.
+
+    ``hbm_adopt`` (when bound) is the loader's hook that host-reads a
+    block and adopts it into the device page store. The host read can be
+    slow, so adopts run on a dedicated thread (``prefetch-hbm-adopt``) —
+    the tick itself never waits on a transfer. The hook owns the CUDA
+    stream discipline of that thread's copies (see
+    ``DeviceBlockLoader.prefetch_into_hbm``). Without the hook,
+    device-tier placements degrade to DRAM placements.
+    """
+
+    def __init__(self, scheduler: PrefetchScheduler,
+                 executor: WorkerTierExecutor,
+                 hbm_adopt: Optional[Callable[[BlockRef], bool]] = None
+                 ) -> None:
+        self._scheduler = scheduler
+        self._executor = executor
+        self._hbm_adopt = hbm_adopt
+        self._hbm_pool: Optional[ThreadPoolExecutor] = None
+        self._m = metrics()
+
+    def bind_hbm(self, fn: Optional[Callable[[BlockRef], bool]]) -> None:
+        self._hbm_adopt = fn
+
+    def heartbeat(self) -> None:
+        with annotate("atpu.prefetch.tick"):
+            done, failed = self._executor.poll()
+            for bid in done:
+                self._scheduler.on_loaded(bid)
+            for bid in failed:
+                self._scheduler.on_load_failed(bid)
+            for action in self._scheduler.plan():
+                self._issue(action)
+
+    def _issue(self, action: PlacementAction) -> None:
+        ref = action.ref
+        with annotate("atpu.prefetch.place"):
+            if action.tier == TIER_HBM and self._hbm_adopt is not None:
+                if self._hbm_pool is None:
+                    self._hbm_pool = ThreadPoolExecutor(
+                        max_workers=1,
+                        thread_name_prefix="prefetch-hbm-adopt")
+                self._hbm_pool.submit(self._adopt, ref)
+                return
+            if not self._executor.submit(ref):
+                self._scheduler.on_load_failed(ref.block_id)
+
+    def _adopt(self, ref: BlockRef) -> None:
+        """Device-tier placement body (adopt thread): blocking host read
+        + asynchronous copy + page-store adopt, then the scheduler
+        callback either way."""
+        with annotate("atpu.prefetch.hbm_adopt"):
+            adopt = self._hbm_adopt
+            try:
+                ok = adopt is not None and adopt(ref)
+            except Exception:  # noqa: BLE001 loader closed mid-adopt
+                LOG.debug("hbm adopt failed for block %d", ref.block_id,
+                          exc_info=True)
+                ok = False
+        if ok:
+            self._m.counter("Client.PrefetchHbmAdopted").inc()
+            self._scheduler.on_loaded(ref.block_id)
+        else:
+            # the port's own counter: a run that must place every block
+            # (chip_smoke.py) reads it to see that none failed
+            self._m.counter("Client.PrefetchHbmAdoptFailures").inc()
+            self._scheduler.on_load_failed(ref.block_id)
+
+    def unpin(self, block_id: int) -> None:
+        self._executor.unpin(block_id)
+
+    def close(self) -> None:
+        if self._hbm_pool is not None:
+            # don't run queued adopts at shutdown; the in-flight one
+            # finishes (its loader hook checks closed-ness itself)
+            self._hbm_pool.shutdown(wait=True, cancel_futures=True)
+            self._hbm_pool = None
+        self._executor.close()

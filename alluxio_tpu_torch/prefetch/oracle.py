@@ -1,0 +1,160 @@
+"""Access oracle: the exact future block-access order from a seeded shuffle.
+
+A copy of ``alluxio_tpu/prefetch/oracle.py``. A training run that
+shuffles with a known seed visits blocks in a sequence that is a pure
+function of ``(manifest, seed, epoch)``. The oracle materializes that
+sequence per host shard and answers "what are the next *k* accesses
+after cursor position *p*" — including across the epoch boundary, so
+the tail of epoch *e* already prefetches the head of epoch *e+1*.
+
+The permutation is numpy's (``SeedSequence([seed, epoch])``), never a
+``torch.Generator``: the port's epochs are the JAX package's epochs, so
+a job that moves from one package to the other keeps its order.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Iterator, List, Sequence, Tuple
+
+import numpy as np
+
+#: epoch sequences kept hot: the live epoch plus a lookahead window
+#: several epochs deep (planner) plus the previous epoch (stragglers)
+_EPOCH_CACHE_SIZE = 12
+
+
+@dataclass(frozen=True)
+class BlockRef:
+    """One block of the dataset, with everything an executor needs to
+    make it resident (UFS source for cold loads, identity for pins)."""
+
+    path: str
+    block_index: int
+    block_id: int
+    length: int
+    offset: int = 0
+    file_id: int = 0
+    ufs_path: str = ""
+    mount_id: int = 0
+    persisted: bool = False
+
+
+@dataclass(frozen=True)
+class DatasetManifest:
+    """Immutable block-level view of the dataset, in file order."""
+
+    blocks: Tuple[BlockRef, ...] = field(default_factory=tuple)
+    #: the resolved (path, FileInfo) pairs behind ``blocks`` — kept so
+    #: a consumer wiring a loader to the same paths reuses them
+    #: instead of paying a second get_status round per file
+    file_infos: Tuple = field(default_factory=tuple)
+
+    @classmethod
+    def from_fs(cls, fs, paths: Sequence[str]) -> "DatasetManifest":
+        """Resolve paths into block refs. ``fs`` is duck-typed:
+        ``get_status(path)`` gives ``.path``, ``.file_id``,
+        ``.ufs_path``, ``.mount_id`` and ``.persisted``;
+        ``fs.fs_master.get_file_block_info_list(path)`` gives each
+        block's ``.block_info.block_id``, ``.block_info.length`` and
+        ``.offset``."""
+        blocks: List[BlockRef] = []
+        file_infos: List[tuple] = []
+        for path in paths:
+            info = fs.get_status(path)
+            file_infos.append((str(path), info))
+            fbis = fs.fs_master.get_file_block_info_list(info.path)
+            for i, fbi in enumerate(fbis):
+                blocks.append(BlockRef(
+                    path=info.path, block_index=i,
+                    block_id=fbi.block_info.block_id,
+                    length=fbi.block_info.length,
+                    offset=fbi.offset, file_id=info.file_id,
+                    ufs_path=info.ufs_path, mount_id=info.mount_id,
+                    persisted=info.persisted))
+        return cls(blocks=tuple(blocks), file_infos=tuple(file_infos))
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(b.length for b in self.blocks)
+
+    def __len__(self) -> int:
+        return len(self.blocks)
+
+    def __iter__(self) -> Iterator[BlockRef]:
+        return iter(self.blocks)
+
+
+class AccessOracle:
+    """Per-host exact access sequences for every epoch.
+
+    The permutation for epoch *e* is drawn from
+    ``np.random.SeedSequence([seed, e])`` — independent of process,
+    cursor state, or call order, so every host (and the scheduler, and a
+    re-started agent) derives the identical sequence. Hosts consume
+    disjoint strided shards of the global permutation (host *h* of *H*
+    takes positions ``h, h+H, h+2H, ...``).
+    """
+
+    def __init__(self, manifest: DatasetManifest, seed: int, *,
+                 num_hosts: int = 1, host_index: int = 0) -> None:
+        if not 0 <= host_index < num_hosts:
+            raise ValueError(
+                f"host_index {host_index} out of range for {num_hosts} hosts")
+        self.manifest = manifest
+        self.seed = int(seed)
+        self.num_hosts = num_hosts
+        self.host_index = host_index
+        self._lock = threading.Lock()
+        #: LRU of generated epoch sequences, keyed on use: the planner's
+        #: window walks several epochs ahead of the consumer each tick
+        self._cache: "OrderedDict[int, List[BlockRef]]" = OrderedDict()
+
+    # -- sequences ----------------------------------------------------------
+    def epoch_sequence(self, epoch: int) -> List[BlockRef]:
+        """This host's exact access order for ``epoch`` (stable across
+        calls, processes and the two packages)."""
+        with self._lock:
+            seq = self._cache.get(epoch)
+            if seq is not None:
+                self._cache.move_to_end(epoch)
+                return seq
+            rng = np.random.default_rng(
+                np.random.SeedSequence([self.seed, int(epoch)]))
+            perm = rng.permutation(len(self.manifest.blocks))
+            seq = [self.manifest.blocks[i]
+                   for i in perm[self.host_index::self.num_hosts]]
+            self._cache[epoch] = seq
+            while len(self._cache) > _EPOCH_CACHE_SIZE:
+                self._cache.popitem(last=False)
+            return seq
+
+    def epoch_len(self) -> int:
+        """Accesses this host makes per epoch."""
+        n, h = len(self.manifest.blocks), self.num_hosts
+        return (n - self.host_index + h - 1) // h
+
+    def global_seq(self, epoch: int, pos: int) -> int:
+        """Monotone global sequence number of access ``pos`` in ``epoch``
+        (the deadline currency the scheduler tracks lateness in)."""
+        return epoch * self.epoch_len() + pos
+
+    def window(self, epoch: int, pos: int,
+               k: int) -> List[Tuple[int, BlockRef]]:
+        """The next ``k`` accesses at-or-after ``(epoch, pos)`` as
+        ``(global_seq, ref)`` pairs, continuing into subsequent epochs —
+        the clairvoyant lookahead the scheduler plans from."""
+        out: List[Tuple[int, BlockRef]] = []
+        per_epoch = self.epoch_len()
+        if per_epoch == 0:
+            return out
+        e, p = epoch, pos
+        while len(out) < k:
+            seq = self.epoch_sequence(e)
+            while p < len(seq) and len(out) < k:
+                out.append((self.global_seq(e, p), seq[p]))
+                p += 1
+            e, p = e + 1, 0
+        return out

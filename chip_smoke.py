@@ -17,6 +17,20 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    moves them host -> device, epoch 2 must be all device-tier hits; then
    ``K`` chained ``scaled_sum`` calls over the device-resident set (the
    warm-tier scan), checked against the same chain on the plain version;
+2a. prefetch: the port's ``PrefetchService`` over the main path's files
+   (seed ``SEED``, lookahead 16, a 16-block budget, every placement in
+   the device tier, a 100 ms heartbeat thread) feeds a fresh loader whose
+   consumer runs on a side stream; after the warm-up gate, epoch 0 must
+   follow ``epoch_sequence(0)`` with every block equal to its file, hits
+   + late + misses = 64 and no failed adopt; epoch 1 must be 64
+   device-tier hits in ``epoch_sequence(1)``'s order; then ``K`` chained
+   ``scaled_sum`` calls over the shuffled epoch must give the main path's
+   chained value and the plain chain's;
+2b. page cache: ``LocalCacheManager`` with a 512 MB host tier of 1 MiB
+   pages on disk (LRU) below a device tier: two passes of ``get_device``
+   over all 2048 pages of the main path's files (2048 promotions, then
+   2048 device hits), each file's pages equal to its device block, and
+   one ``scaled_sum`` over all pages equal to the main path's set's;
 3. decode: four 32 MiB blocks of 64x64x3 records through
    ``batched_device_iterator`` and ``decode_image_records`` on the card,
    checked bit for bit against the same decode on the CPU;
@@ -50,7 +64,8 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    collective is a copy through NCCL, so these check the mesh code on
    the card, not NVLink rates.
 
-It prints the card's name and power limit, one ``{"train": {...}}``
+It prints the card's name and power limit, one ``{"prefetch": {...}}``
+line, one ``{"page_cache": {...}}`` line, one ``{"train": {...}}``
 line, one ``{"mesh": {...}}`` line, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
@@ -78,6 +93,14 @@ SEED = 20261016
 BLOCK_BYTES = 32 << 20   # bench.py's shard size
 NUM_BLOCKS = 64          # 64 x 32 MiB = the 2 GiB device working set
 K = 100                  # chained warm-tier scans on the main path
+#: prefetch phase: the JAX defaults' lookahead (16 blocks), a budget of
+#: that many blocks, every placement in the device tier (the one cut
+#: from the defaults: there is no worker for a DRAM placement)
+PREFETCH_LOOKAHEAD = 16
+PREFETCH_HEARTBEAT_S = 0.1
+#: page-cache phase, at the JAX defaults: 1 MiB pages, a 512 MB host tier
+PAGE_BYTES = 1 << 20
+PAGE_CACHE_BYTES = 512 << 20
 DECODE_BLOCKS = 4
 H = W = 64
 C = 3
@@ -269,14 +292,35 @@ def kernel_phase(device, big_n: int) -> dict:
 # -- the worker stand-in ------------------------------------------------------
 class ShardSource:
     """Stands in for a same-host worker until the cluster client is
-    ported: each path is one block file, read by short circuit."""
+    ported: each path is one block file, read by short circuit. For the
+    prefetch service it also answers the master's block listing (one
+    block a file: id ``file id << 24``, the file's length, offset 0) and
+    stands in for a block master with no worker, so no DRAM placement
+    can be made."""
 
     def __init__(self, files: dict) -> None:
         self._files = files  # path -> (file id, block file)
+        self.fs_master = SimpleNamespace(
+            get_file_block_info_list=self._block_infos)
+        self.block_master = SimpleNamespace(
+            get_worker_infos=lambda: [],
+            get_block_info=lambda bid: SimpleNamespace(block_id=bid,
+                                                       locations=[]),
+            get_block_infos=lambda bids: [])
 
     def get_status(self, path):
         fid, _ = self._files[path]
-        return SimpleNamespace(file_id=fid, block_ids=[fid << 24])
+        return SimpleNamespace(path=path, file_id=fid, block_ids=[fid << 24],
+                               ufs_path="", mount_id=0, persisted=False)
+
+    def _block_infos(self, path):
+        fid, block_file = self._files[path]
+        return [SimpleNamespace(offset=0, block_info=SimpleNamespace(
+            block_id=fid << 24, length=os.path.getsize(block_file)))]
+
+    @staticmethod
+    def worker_client(address):
+        fail(f"the stand-in has no worker; asked for {address}")
 
     def open_file(self, path, info=None, max_open_streams=1):
         return _ShardFile(self._files[path][1])
@@ -313,10 +357,23 @@ def block_dir(need_bytes: int) -> str:
 
 
 # -- main path ----------------------------------------------------------------
+def chain(fn, x, k: int):
+    """``k`` chained ``fn(x, scale)`` calls, each scale taken from the
+    last result on the device (no host sync); returns the 0-d result."""
+    import torch
+
+    acc = torch.zeros((), dtype=torch.int32, device=x.device)
+    for _ in range(k):
+        acc = torch.remainder(fn(x, torch.remainder(acc, 3) + 1) + acc,
+                              1000003)
+    return acc
+
+
 def main_path(device, workdir: str, num_blocks: int, block_bytes: int,
-              k: int) -> tuple:
-    """Drives the main path; returns the kernel launches it made and its
-    block files (path -> (file id, file))."""
+              k: int) -> dict:
+    """Drives the main path; returns the kernel launches it made, its
+    block files (path -> (file id, file)), the device blocks in file
+    order, the chained value and epoch 1's time."""
     import torch
 
     from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
@@ -364,16 +421,7 @@ def main_path(device, workdir: str, num_blocks: int, block_bytes: int,
         # module (lazy loading, tens of ms): pay it for the chain's
         # elementwise ops outside the timed region
         torch.remainder(torch.remainder(acc, 3) + 1 + acc, 1000003)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(k):
-            acc = torch.remainder(
-                rk.scaled_sum(x, torch.remainder(acc, 3) + 1) + acc,
-                1000003)
-        end.record()
-        end.synchronize()
-        chain_ms = start.elapsed_time(end)
+        acc, chain_ms = timed(lambda: chain(rk.scaled_sum, x, k))
         launches = rk.launches
         got = int(acc)
     finally:
@@ -387,20 +435,267 @@ def main_path(device, workdir: str, num_blocks: int, block_bytes: int,
         host = torch.from_numpy(np.fromfile(path[1], dtype=np.int32))
         if not torch.equal(blocks[i].cpu(), host):
             fail(f"block {i} on the device differs from its file")
-    ref = torch.zeros((), dtype=torch.int32, device=device)
-    for _ in range(k):
-        ref = torch.remainder(
-            rk.scaled_sum_reference(x, torch.remainder(ref, 3) + 1) + ref,
-            1000003)
-    if got != int(ref):
-        fail(f"chained scan: kernel chain {got} != plain chain {int(ref)}")
+    ref = int(chain(rk.scaled_sum_reference, x, k))
+    if got != ref:
+        fail(f"chained scan: kernel chain {got} != plain chain {ref}")
     total = num_blocks * block_bytes
     print(f"main path: epoch 1 (host->device) {t1 - t0:.3f} s "
           f"({total / (t1 - t0) / 1e9:.2f} GB/s), epoch 2 (device tier) "
           f"{t2 - t1:.4f} s, {num_blocks} hits; warm-tier scan K={k}: "
           f"{chain_ms:.2f} ms, {k * total / chain_ms / 1e6:.1f} GB/s, "
           f"acc {got} == plain; launches {launches}", flush=True)
-    return launches, files
+    return {"launches": launches, "files": files, "blocks": blocks,
+            "chain": got, "epoch1_s": t1 - t0}
+
+
+# -- prefetch phase -----------------------------------------------------------
+def check_order(name: str, got: list, want_refs: list, main: dict) -> None:
+    """Each yielded block against the main path's device block of the
+    file the oracle put at its position (those were held against their
+    files): the order and the bytes in one comparison, on the card."""
+    import torch
+
+    index = {path: i for i, path in enumerate(main["files"])}
+    if len(got) != len(want_refs):
+        fail(f"{name}: {len(got)} blocks, want {len(want_refs)}")
+    for pos, (block, ref) in enumerate(zip(got, want_refs)):
+        if not torch.equal(block, main["blocks"][index[ref.path]]):
+            fail(f"{name}: block {pos} is not {ref.path}, the oracle's "
+                 f"choice for that position, byte for byte")
+
+
+def prefetch_phase(device, main: dict, k: int) -> dict:
+    """(2a): the clairvoyant prefetch loop feeding a loader's device tier
+    ahead of a consumer on a side stream, then the warm scan over the
+    shuffled epoch."""
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.prefetch import PrefetchService
+
+    files = main["files"]
+    n = len(files)
+    src = ShardSource(files)
+    m = metrics()
+    adopted = m.counter("Client.PrefetchHbmAdopted")
+    adopt_failures = m.counter("Client.PrefetchHbmAdoptFailures")
+    hbm_hits = m.counter("Client.JaxHbmHits")
+    svc = PrefetchService.from_fs(
+        src, list(files), seed=SEED, lookahead_blocks=PREFETCH_LOOKAHEAD,
+        budget_bytes=PREFETCH_LOOKAHEAD * BLOCK_BYTES, hbm_fraction=1.0,
+        heartbeat_interval_s=PREFETCH_HEARTBEAT_S,
+        worker_client_fn=src.worker_client)
+    side = torch.cuda.Stream(device=device)
+    if side == torch.cuda.default_stream(device):
+        fail("prefetch phase: the side stream is the default stream")
+    loader = None
+    try:
+        # the loader binds its adopt hook first, so no tick finds the
+        # service without one
+        loader = DeviceBlockLoader(src, list(files), device=device,
+                                   hbm_bytes=n * BLOCK_BYTES + (64 << 20),
+                                   prefetch=2, dtype=np.int32,
+                                   prefetch_service=svc)
+        adopted0, failures0 = adopted.count, adopt_failures.count
+        t0 = time.perf_counter()
+        svc.start()
+        if not svc.wait_ready(PREFETCH_LOOKAHEAD, timeout_s=60.0):
+            fail(f"prefetch phase: {PREFETCH_LOOKAHEAD} placements not "
+                 f"ready within 60 s: {svc.stats()}")
+        warm_s = time.perf_counter() - t0
+        warm_adopted = adopted.count - adopted0
+        rk.launches = 0
+        epochs = []
+        for e in range(2):
+            base, hits0, adopted_e = svc.stats(), hbm_hits.count, \
+                adopted.count
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.cuda.stream(side):
+                blocks = list(loader.epoch())
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            st = svc.stats()
+            out = {"epoch": e, "s": dt,
+                   "gb_per_s": n * BLOCK_BYTES / dt / 1e9,
+                   "hits": st["hits"] - base["hits"],
+                   "late": st["late"] - base["late"],
+                   "misses": st["misses"] - base["misses"],
+                   "device_tier_hits": hbm_hits.count - hits0,
+                   "adopted": adopted.count - adopted_e}
+            epochs.append(out)
+            if e == 0:  # epoch 0's samples alone: epoch 1 adds 64 zeros
+                ready = m.timer("Client.PrefetchBlockReady").snapshot()
+            check_order(f"prefetch epoch {e}", blocks,
+                        svc.oracle.epoch_sequence(e), main)
+            if out["hits"] + out["late"] + out["misses"] != n:
+                fail(f"prefetch epoch {e}: hits {out['hits']} + late "
+                     f"{out['late']} + misses {out['misses']} != {n}")
+        e0, e1 = epochs
+        placed = adopted.count - adopted0
+        if warm_adopted < PREFETCH_LOOKAHEAD or placed < e0["hits"]:
+            fail(f"prefetch epoch 0: {placed} adopts ({warm_adopted} "
+                 f"before the gate) for {e0['hits']} hits")
+        if adopt_failures.count != failures0:
+            fail(f"prefetch phase: {adopt_failures.count - failures0} "
+                 f"device-tier adopts failed")
+        if e1["device_tier_hits"] != n or e1["hits"] != n:
+            fail(f"prefetch epoch 1: {e1['device_tier_hits']} device-tier "
+                 f"hits, {e1['hits']} scheduler hits, want {n}")
+        # the warm scan over the shuffled epoch, on the consumer's stream
+        with torch.cuda.stream(side):
+            x = torch.cat(blocks)
+            acc, scan_ms = timed(lambda: chain(rk.scaled_sum, x, k))
+            launches = rk.launches
+            got = int(acc)
+            plain = int(chain(rk.scaled_sum_reference, x, k))
+        stats = svc.stats()
+    finally:
+        svc.close()  # stops the heartbeat and the adopt thread first
+        if loader is not None:
+            loader.close()
+    if launches != k:
+        fail(f"prefetch phase launched scaled_sum {launches} times, want "
+             f"{k}")
+    if not got == main["chain"] == plain:
+        fail(f"prefetch scan: kernel chain {got}, main path's chain "
+             f"{main['chain']}, plain chain {plain}")
+    out = {"blocks": n, "block_bytes": BLOCK_BYTES, "seed": SEED,
+           "lookahead_blocks": PREFETCH_LOOKAHEAD,
+           "budget_bytes": PREFETCH_LOOKAHEAD * BLOCK_BYTES,
+           "hbm_fraction": 1.0, "heartbeat_s": PREFETCH_HEARTBEAT_S,
+           "warm_up_s": warm_s, "warm_up_adopts": warm_adopted,
+           "adopts": placed, "epochs": epochs,
+           "main_path_epoch1_s": main["epoch1_s"],
+           "epoch0_block_ready_p50_s": ready["p50"],
+           "epoch0_block_ready_p99_s": ready["p99"],
+           "late_arrivals": stats["late_arrivals"],
+           "scan_ms": scan_ms, "scan_launches": launches, "chain": got}
+    print(f"prefetch: warm-up gate ({PREFETCH_LOOKAHEAD} placements) "
+          f"{warm_s:.3f} s; epoch 0 in the oracle's order, consumer on a "
+          f"side stream: {e0['s']:.3f} s ({e0['gb_per_s']:.2f} GB/s) "
+          f"against the main path's epoch 1 {main['epoch1_s']:.3f} s over "
+          f"the same files; hit/late/miss {e0['hits']}/{e0['late']}/"
+          f"{e0['misses']}, {placed} adopts; epoch 1 {e1['s']:.4f} s, "
+          f"{e1['device_tier_hits']} device-tier hits; epoch 0's block "
+          f"ready p50 "
+          f"{ready['p50'] * 1e3:.3f} ms, p99 {ready['p99'] * 1e3:.3f} ms; "
+          f"scan K={k} over the shuffled epoch {scan_ms:.2f} ms, acc {got} "
+          f"== main path == plain; launches {launches}", flush=True)
+    return out
+
+
+# -- page-cache phase ---------------------------------------------------------
+def page_cache_phase(device, workdir: str, main: dict) -> dict:
+    """(2b): ``LocalCacheManager.get_device`` over every page of the main
+    path's files, the host tier evicting below a device tier that holds
+    them all."""
+    import torch
+
+    from alluxio_tpu_torch.client.cache.hbm_store import HbmPageStore
+    from alluxio_tpu_torch.client.cache.manager import LocalCacheManager
+    from alluxio_tpu_torch.client.cache.meta import PageId
+    from alluxio_tpu_torch.client.cache.page_store import LocalPageStore
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    files = main["files"]
+    per_file = BLOCK_BYTES // PAGE_BYTES
+    n_pages = len(files) * per_file
+    m = metrics()
+    hits = m.counter("Client.HbmPageHits")
+    promotions = m.counter("Client.HbmPagePromotions")
+    evictions = m.counter("Client.PagesEvicted")
+    views = {p: np.memmap(f, np.uint8, "r") for p, (_, f) in files.items()}
+    cache = LocalCacheManager(
+        LocalPageStore(os.path.join(workdir, "pc")),
+        capacity_bytes=PAGE_CACHE_BYTES, page_size=PAGE_BYTES,
+        evictor="LRU",
+        hbm_store=HbmPageStore(len(files) * BLOCK_BYTES + (64 << 20),
+                               device=device))
+    # pass 1's host time, split by the store calls it spends it in (the
+    # device put's share is its host side: staging copy and enqueue)
+    spent = {"page_file_write": 0.0, "page_file_delete": 0.0,
+             "device_put": 0.0}
+
+    def clocked(fn, key):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return run
+
+    store, hbm = cache._store, cache.hbm
+    store.put = clocked(store.put, "page_file_write")
+    store.delete = clocked(store.delete, "page_file_delete")
+    hbm.put = clocked(hbm.put, "device_put")
+    passes = []
+    try:
+        for p in range(2):
+            if p == 1:  # pass 2 unclocked (it calls none of them)
+                del store.put, store.delete, hbm.put
+            h0, p0, e0 = hits.count, promotions.count, evictions.count
+            pages = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for path, (fid, _) in files.items():
+                for i in range(per_file):
+                    lease = cache.get_device(
+                        PageId(f"{fid:x}", i),
+                        host_fallback=lambda v=views[path], i=i:
+                        v[i * PAGE_BYTES:(i + 1) * PAGE_BYTES])
+                    if lease is None or lease.array.device != device:
+                        fail(f"page cache pass {p + 1}: page {i} of {path} "
+                             f"not served from the device tier")
+                    pages.append(lease.array)
+                    lease.close()
+            torch.cuda.synchronize()
+            passes.append({"pass": p + 1, "s": time.perf_counter() - t,
+                           "hits": hits.count - h0,
+                           "promotions": promotions.count - p0,
+                           "host_evictions": evictions.count - e0})
+        one, two = passes
+        if (one["promotions"], one["hits"]) != (n_pages, 0) or \
+                (two["promotions"], two["hits"]) != (0, n_pages):
+            fail(f"page cache: passes {passes}, want {n_pages} promotions "
+                 f"then {n_pages} device hits")
+        for j, path in enumerate(files):
+            got = torch.cat(pages[j * per_file:(j + 1) * per_file])
+            if not torch.equal(got.view(torch.int32), main["blocks"][j]):
+                fail(f"page cache: the pages of {path} differ from its "
+                     f"device block")
+        rk.launches = 0
+        got = int(rk.scaled_sum(torch.cat(pages).view(torch.int32), 1))
+        launches = rk.launches
+        stats = cache.stats()
+    finally:
+        cache.close()
+    whole = torch.cat(main["blocks"])
+    kernel, plain = int(rk.scaled_sum(whole, 1)), \
+        int(rk.scaled_sum_reference(whole, 1))
+    if not got == kernel == plain:
+        fail(f"page cache scan: {got}, main path's set: kernel {kernel}, "
+             f"plain {plain}")
+    one["ms_per_page"] = {k: v * 1e3 / n_pages for k, v in spent.items()}
+    one["ms_per_page"]["rest"] = \
+        (one["s"] - sum(spent.values())) * 1e3 / n_pages
+    out = {"pages": n_pages, "page_bytes": PAGE_BYTES,
+           "host_capacity_bytes": PAGE_CACHE_BYTES, "evictor": "LRU",
+           "passes": passes, "host_bytes_after": stats["host_bytes"],
+           "scan_launches": launches, "scaled_sum": got}
+    print(f"page cache: {n_pages} pages of {PAGE_BYTES >> 20} MiB, host "
+          f"tier {PAGE_CACHE_BYTES >> 20} MiB LRU; pass 1 {one['s']:.3f} s "
+          f"({one['promotions']} promotions, {one['host_evictions']} host "
+          f"evictions; ms a page: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in one["ms_per_page"].items())
+          + f"), pass 2 {two['s']:.4f} s ({two['hits']} device hits); "
+          f"every file's pages equal its device block; scaled_sum {got} "
+          f"== main path's set (kernel and plain)", flush=True)
+    return out
 
 
 # -- decode -------------------------------------------------------------------
@@ -1241,10 +1536,13 @@ def main() -> int:
     setup()
     kern = kernel_phase(device, NUM_BLOCKS * BLOCK_BYTES // 4)
     workdir = block_dir(NUM_BLOCKS * BLOCK_BYTES
-                        + DECODE_BLOCKS * BLOCK_BYTES)
+                        + DECODE_BLOCKS * BLOCK_BYTES + PAGE_CACHE_BYTES)
     try:
-        launches, shard_files = main_path(device, workdir, NUM_BLOCKS,
-                                          BLOCK_BYTES, K)
+        main = main_path(device, workdir, NUM_BLOCKS, BLOCK_BYTES, K)
+        shard_files = main["files"]
+        prefetch = prefetch_phase(device, main, K)
+        page_cache = page_cache_phase(device, workdir, main)
+        del main["blocks"]
         files = record_files(workdir, DECODE_BLOCKS, BLOCK_BYTES)
         decode_phase(device, files, DECODE_BLOCKS, BLOCK_BYTES)
         # the train path runs no kernel of the port (the JAX e2e path
@@ -1260,13 +1558,22 @@ def main() -> int:
         mesh["kernel_launches"] = {"scaled_sum": rk.launches}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({"prefetch": prefetch}), flush=True)
+    print(json.dumps({"page_cache": page_cache}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "scaled_sum", "route": "cuda",
         "source": "alluxio_tpu_torch/ops/csrc/reduce_kernel.cu",
         "replaces": "alluxio_tpu/ops/reduce_kernel.py:51",
-        "launches": launches,
+        "launches": main["launches"],
+        # each path's own run, its count set to 0 just before it
+        "launches_by_path": {
+            "main": main["launches"],
+            "prefetch": prefetch["scan_launches"],
+            "page_cache": page_cache["scan_launches"],
+            "train": train["kernel_launches"]["scaled_sum"],
+            "mesh": mesh["kernel_launches"]["scaled_sum"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

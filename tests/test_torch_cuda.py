@@ -133,6 +133,121 @@ def test_loader_chain_on_card(cuda, tmp_path):
         loader.close()
 
 
+def _smoke():
+    """``chip_smoke.py`` as a module (its stand-in worker and checks)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _prefetching_loader(tmp_path, device, n=4, words=1 << 21):
+    """n block files of ``words`` int32 behind chip_smoke's stand-in
+    worker, a port PrefetchService placing every block in the device
+    tier, and a loader on ``device`` bound to it."""
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.prefetch import PrefetchService
+
+    files = {}
+    for i in range(n):
+        path = tmp_path / f"p{i}"
+        _random_int32(words, 200 + i, "cpu").numpy().tofile(path)
+        files[f"/p{i}"] = (i + 1, str(path))
+    src = _smoke().ShardSource(files)
+    svc = PrefetchService.from_fs(src, list(files), seed=3,
+                                  lookahead_blocks=n,
+                                  budget_bytes=n * words * 4,
+                                  hbm_fraction=1.0,
+                                  worker_client_fn=src.worker_client)
+    loader = DeviceBlockLoader(src, list(files), device=device,
+                               hbm_bytes=n * words * 4 + (1 << 20),
+                               dtype=np.int32, prefetch_service=svc)
+    return files, svc, loader
+
+
+def test_adopted_pages_read_on_a_side_stream(cuda, tmp_path):
+    """Pages adopted by the prefetch agent's thread on the loader's copy
+    stream, whose copies are held back by a busy kernel queued there
+    first, are read by a consumer on a side stream: every block equals
+    its file, since the consumer's stream waits on each copy's event."""
+    files, svc, loader = _prefetching_loader(tmp_path, cuda)
+    side = torch.cuda.Stream(device=cuda)
+    try:
+        with torch.cuda.stream(loader._copy_stream):
+            torch.cuda._sleep(200_000_000)  # about 0.1 s of spinning
+        assert svc.wait_ready(len(files), timeout_s=60.0, tick=True)
+        for pid in [p for (_, _, p) in loader._plan]:
+            with loader._hbm.get(pid) as lease:
+                assert isinstance(lease.ready, torch.cuda.Event)
+        with torch.cuda.stream(side):
+            blocks = list(loader.epoch())
+            host = [b.cpu() for b in blocks]  # ordered on the side stream
+        assert svc.stats()["hits"] == len(files)
+        for ref, got in zip(svc.oracle.epoch_sequence(0), host):
+            want = np.fromfile(files[ref.path][1], dtype=np.int32)
+            assert np.array_equal(got.numpy(), want), ref.path
+    finally:
+        svc.close()
+        loader.close()
+
+
+def test_get_device_on_the_card(cuda):
+    """``LocalCacheManager.get_device`` on a CUDA store: a promotion
+    gives a CUDA tensor with the page's bytes, and the second call is a
+    device hit."""
+    from alluxio_tpu_torch.client.cache.hbm_store import HbmPageStore
+    from alluxio_tpu_torch.client.cache.manager import LocalCacheManager
+    from alluxio_tpu_torch.client.cache.meta import PageId
+    from alluxio_tpu_torch.client.cache.page_store import MemPageStore
+    from alluxio_tpu_torch.metrics import metrics
+
+    page = np.random.default_rng(2).integers(0, 256, 1 << 20,
+                                             dtype=np.uint8)
+    cache = LocalCacheManager(MemPageStore(), capacity_bytes=4 << 20,
+                              hbm_store=HbmPageStore(4 << 20))
+    hits = metrics().counter("Client.HbmPageHits")
+    promotions = metrics().counter("Client.HbmPagePromotions")
+    try:
+        h0, p0 = hits.count, promotions.count
+        with cache.get_device(PageId("f", 0),
+                              host_fallback=lambda: page) as lease:
+            assert lease.array.device.type == "cuda"
+            assert np.array_equal(lease.array.cpu().numpy(), page)
+        assert (hits.count - h0, promotions.count - p0) == (0, 1)
+        with cache.get_device(PageId("f", 0)) as lease:
+            assert lease.array.device.type == "cuda"
+        assert (hits.count - h0, promotions.count - p0) == (1, 1)
+    finally:
+        cache.close()
+
+
+def test_adopt_thread_copies_on_the_loaders_device(cuda, tmp_path):
+    """The adopt thread sets no device of its own: its copies run under
+    the loader's device on the loader's copy stream. With several cards
+    the loader sits on the last one; with one, the copy stream's device
+    and every adopted page's are the loader's."""
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    files, svc, loader = _prefetching_loader(tmp_path, dev, words=1 << 18)
+    try:
+        assert loader._copy_stream.device == dev
+        assert svc.wait_ready(len(files), timeout_s=60.0, tick=True)
+        for pid in [p for (_, _, p) in loader._plan]:
+            with loader._hbm.get(pid) as lease:
+                assert lease.array.device == dev
+        blocks = list(loader.epoch())
+        assert all(b.device == dev for b in blocks)
+        for ref, got in zip(svc.oracle.epoch_sequence(0), blocks):
+            want = np.fromfile(files[ref.path][1], dtype=np.int32)
+            assert np.array_equal(got.cpu().numpy(), want)
+    finally:
+        svc.close()
+        loader.close()
+
+
 def _small_vit(device, seed=0):
     from alluxio_tpu_torch.models.train import make_train_state
     from alluxio_tpu_torch.models.transformer import TransformerConfig
@@ -205,17 +320,11 @@ def test_world_one_nccl_mesh_matches_one_card(cuda, tmp_path):
     checks (b) and (e) at a small size: 3 dp x tp steps of a small ViT
     bit for bit against the single-card steps, and a one-stage pipeline
     bit for bit against the stage in sequence."""
-    import importlib.util
-    from pathlib import Path
-
     import torch.distributed as dist
 
     from alluxio_tpu_torch.parallel.mesh import make_mesh
 
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _smoke()
     cfg, _ = _small_vit("cpu")
     rng = np.random.default_rng(4)
     batches = [(torch.from_numpy(rng.standard_normal((4, 16, 48)).astype(

@@ -35,7 +35,13 @@ def test_importing_every_module_loads_no_jax():
     for m in ("ops.reduce_kernel", "parallel.ring_attention",
               "parallel.moe", "parallel.mesh", "parallel.tensor_parallel",
               "parallel.ici_store", "parallel.pipeline", "utils.wire",
-              "models.transformer", "models.train", "models.checkpoint"):
+              "models.transformer", "models.train", "models.checkpoint",
+              "heartbeat", "heartbeat.core", "prefetch", "prefetch.oracle",
+              "prefetch.scheduler", "prefetch.agent", "prefetch.service",
+              "client.cache", "client.cache.meta",
+              "client.cache.page_store", "client.cache.manager",
+              "client.cache.stream", "client.cache.hbm_store",
+              "client.cache.evictor"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -98,6 +104,11 @@ def test_default_device_raises_without_a_card():
         HbmPageStore(1024)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DeviceBlockLoader(object(), [])
+    from alluxio_tpu_torch.client.cache.manager import LocalCacheManager
+    from alluxio_tpu_torch.client.cache.page_store import MemPageStore
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LocalCacheManager(MemPageStore(), hbm_store=HbmPageStore(1024))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         hbm_store_from_numpy({}, capacity_bytes=1024)
     cfg = TransformerConfig(vocab_or_patch_dim=8, d_model=8, n_heads=2,

@@ -257,3 +257,68 @@ class TestPrefetchService:
             finally:
                 loader.close()
                 svc.close()
+
+    def test_port_service_on_scheduled_timers(self, tmp_path):
+        """The port's own service, its heartbeat thread forced onto a
+        scheduled timer and ticked by hand: each tick plans the window
+        and the adopt thread fills the port loader's device store, and
+        the epoch is the oracle's order as device-tier hits, the same
+        order the JAX oracle gives for the seed."""
+        from alluxio_tpu.prefetch import AccessOracle as JaxAccessOracle
+        from alluxio_tpu.prefetch import DatasetManifest as JaxManifest
+        from alluxio_tpu.stress.cluster import write_cold_corpus
+        from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+        from alluxio_tpu_torch.heartbeat import (HeartbeatContext,
+                                                 HeartbeatScheduler,
+                                                 HeartbeatThread)
+        from alluxio_tpu_torch.prefetch import PrefetchService
+
+        from alluxio_tpu.conf import Keys
+
+        name = HeartbeatContext.CLIENT_PREFETCH_AGENT
+        with LocalCluster(
+                str(tmp_path), num_workers=1, block_size=BLOCK,
+                start_worker_heartbeats=True,
+                conf_overrides={
+                    Keys.WORKER_BLOCK_HEARTBEAT_INTERVAL: "50ms",
+                    Keys.MASTER_WORKER_TIMEOUT: "10000min",
+                }) as c:
+            fs = c.file_system()
+            rng = np.random.default_rng(1)
+            corpus = {f"/pf-sched/f-{i}": rng.integers(
+                0, 255, size=3 * BLOCK, dtype=np.uint8).tobytes()
+                for i in range(2)}
+            write_cold_corpus(fs, c.block_client(), corpus)
+            paths = list(corpus)
+            svc = PrefetchService.from_fs(fs, paths, seed=42,
+                                          lookahead_blocks=4,
+                                          budget_bytes=4 * BLOCK,
+                                          hbm_fraction=1.0)
+            loader = DeviceBlockLoader(fs, paths, device="cpu",
+                                       hbm_bytes=16 << 20,
+                                       prefetch_service=svc)
+            HeartbeatThread.use_scheduled_timers(name)
+            try:
+                svc.start()
+                HeartbeatScheduler.execute(name)
+                assert svc.wait_ready(4, timeout_s=30.0), svc.stats()
+                assert loader.hbm_stats()["hbm_pages"] == 4
+                HeartbeatScheduler.execute(name)  # budget full: no plans
+                assert svc.stats()["inflight_blocks"] == 0
+                order = svc.oracle.epoch_sequence(0)
+                want = JaxAccessOracle(JaxManifest.from_fs(fs, paths),
+                                       seed=42).epoch_sequence(0)
+                assert [r.block_id for r in order] == \
+                    [r.block_id for r in want]
+                hits0 = _hbm_hits()
+                out = [_bytes(b) for b in loader.epoch()]
+                assert out == [corpus[r.path][
+                    r.block_index * BLOCK:(r.block_index + 1) * BLOCK]
+                    for r in order]
+                assert _hbm_hits() - hits0 >= 4
+                assert svc.stats()["hits"] >= 4
+            finally:
+                HeartbeatThread.reset_timer_policy()
+                loader.close()
+                svc.close()
+                HeartbeatScheduler.clear()
