@@ -1,20 +1,36 @@
-"""Per-block data streams: the short-circuit rung.
+"""Per-block data streams: the port of
+``alluxio_tpu/client/block_streams.py``.
 
-The port of ``alluxio_tpu/client/block_streams.py``'s ``BlockInStream``
-base and ``LocalBlockInStream``: a block cached on a same-host worker is
-read by mmap-ing its file and handing out a zero-copy numpy view. The
-lease (the block file's path and length) is handed in; obtaining it over
-the worker RPC comes with the cluster-client port.
+Re-design of ``core/client/fs/src/main/java/alluxio/client/block/stream/
+{BlockInStream.java:97,LocalFileDataReader.java:41,GrpcDataReader.java:49,
+LocalFileDataWriter,GrpcDataWriter}.java``:
+
+- ``LocalBlockInStream`` — block cached on a same-host worker: lease the
+  file path (``open_local_block``) and mmap it; zero RPC per byte, and a
+  zero-copy numpy view for the host -> device copy. The lease (the
+  worker's shared block lock) is held until :meth:`close`.
+- ``GrpcBlockInStream`` — cached on a remote worker, or cold with a UFS
+  descriptor the worker reads through: gRPC chunk streams.
+- ``LocalBlockOutStream`` / ``GrpcBlockOutStream`` — the write side:
+  a short-circuit temp-file write committed by RPC, or a client stream.
+
+The JAX remote stream's striped multi-replica read and its ``read_many``
+batching are not ported: every remote read takes the single-stream path.
 """
 
 from __future__ import annotations
 
 import mmap
+import os
+import queue
+import threading
+from concurrent import futures
 from typing import Callable, Optional
 
 import numpy as np
 
 from alluxio_tpu_torch.metrics import metrics
+from alluxio_tpu_torch.utils.exceptions import UnavailableError
 
 
 def _record_read(bucket: str, nbytes: int) -> None:
@@ -65,17 +81,36 @@ class BlockInStream:
 
 
 class LocalBlockInStream(BlockInStream):
-    """Short-circuit: mmap a same-host worker's block file.
+    """Short-circuit: mmap the worker's block file via a path lease
+    (reference: ``LocalFileDataReader.java:41``). ``worker`` is a
+    ``WorkerClient``; the lease is released in :meth:`close`."""
 
-    ``path`` and ``length`` are the lease the worker granted; ``on_close``
-    (optional) releases it."""
+    source = "LOCAL"
 
-    def __init__(self, path: str, length: int, *, block_id: int = 0,
-                 on_close: Optional[Callable[[], None]] = None) -> None:
-        super().__init__(block_id, length)
+    def __init__(self, worker, session_id: int, block_id: int) -> None:
+        lease = worker.open_local_block(session_id, block_id)
+        self._worker = worker
+        self._session = session_id
+        self._on_close: Optional[Callable[[], None]] = None
+        self._map(lease["path"], lease["length"], block_id)
+
+    @classmethod
+    def from_path(cls, path: str, length: int, *, block_id: int = 0,
+                  on_close: Optional[Callable[[], None]] = None
+                  ) -> "LocalBlockInStream":
+        """A stream over a block file whose lease the caller holds by
+        other means; ``on_close`` (optional) releases it."""
+        self = cls.__new__(cls)
+        self._worker = None
+        self._session = 0
+        self._on_close = on_close
+        self._map(path, length, block_id)
+        return self
+
+    def _map(self, path: str, length: int, block_id: int) -> None:
+        BlockInStream.__init__(self, block_id, length)
         self.last_source = "SHM"
         self._path = path
-        self._on_close = on_close
         self._f = open(path, "rb")
         self._mm = mmap.mmap(self._f.fileno(), 0, prot=mmap.PROT_READ) \
             if length > 0 else None
@@ -95,6 +130,8 @@ class LocalBlockInStream(BlockInStream):
         return np.frombuffer(self._mm, dtype=dtype)
 
     def close(self) -> None:
+        if self._f.closed:
+            return
         if self._mm is not None:
             try:
                 self._mm.close()
@@ -105,6 +142,198 @@ class LocalBlockInStream(BlockInStream):
                 pass
             self._mm = None
         self._f.close()
+        if self._worker is not None:
+            try:
+                self._worker.close_local_block(self._session, self.block_id)
+            except Exception:  # noqa: BLE001 - lease expires with session
+                pass
         if self._on_close is not None:
             on_close, self._on_close = self._on_close, None
             on_close()
+
+
+class GrpcBlockInStream(BlockInStream):
+    """Remote read over gRPC chunk streams, one stream a read
+    (reference: ``GrpcDataReader.java:49``). ``ufs``: the block's UFS
+    descriptor (``ufs_path``, ``offset``, ``length``, ``mount_id``) for a
+    worker read-through when the block is cold; ``cache``: whether that
+    read-through caches it."""
+
+    source = "REMOTE"
+
+    def __init__(self, worker, block_id: int, length: int, *,
+                 ufs: Optional[dict] = None, cache: bool = True,
+                 chunk_size: int = 1 << 20) -> None:
+        super().__init__(block_id, length)
+        self._worker = worker
+        self._ufs = ufs
+        self._cache = cache
+        self._chunk = chunk_size
+
+    def _read(self, offset: int, n: int) -> bytearray:
+        n = max(0, min(n, self.length - offset))
+        out = bytearray(n)
+        view = memoryview(out)
+        got = 0
+        source = None
+        for msg in self._worker.read_block(
+                self.block_id, offset=offset, length=n,
+                chunk_size=self._chunk, ufs=self._ufs, cache=self._cache):
+            data = msg["data"]
+            view[got:got + len(data)] = data
+            got += len(data)
+            source = msg.get("source", source)
+        if got != n:
+            raise UnavailableError(
+                f"short read of block {self.block_id}: {got} of {n} bytes")
+        # a worker that tags no source still served from its cache (cold
+        # reads raise without a UFS descriptor, and with one it tags UFS)
+        self.last_source = source or "REMOTE"
+        _record_read(self.source_bucket(), n)
+        return out
+
+    def pread(self, offset: int, n: int) -> bytes:
+        return bytes(self._read(offset, n))
+
+    def read_all_view(self) -> memoryview:
+        """The whole block as a buffer view, with no copy past the one
+        the chunks land in."""
+        return memoryview(self._read(0, self.length))
+
+    @property
+    def is_ufs_fallback(self) -> bool:
+        return self._ufs is not None
+
+
+class BlockOutStream:
+    def __init__(self, block_id: int) -> None:
+        self.block_id = block_id
+        self.written = 0
+
+    def write(self, data: bytes) -> None:
+        raise NotImplementedError
+
+    def close(self, cancel: bool = False) -> None:
+        raise NotImplementedError
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        self.close(cancel=exc_type is not None)
+        return False
+
+
+class LocalBlockOutStream(BlockOutStream):
+    """Short-circuit write: append straight to the worker's temp file,
+    then commit (or abort) it by RPC (reference: ``LocalFileDataWriter`` +
+    ``CreateLocalBlock`` lease)."""
+
+    def __init__(self, worker, session_id: int, block_id: int,
+                 *, size_hint: int, tier: str = "", pinned: bool = False):
+        super().__init__(block_id)
+        self._worker = worker
+        self._session = session_id
+        self._pinned = pinned
+        path = worker.create_local_block(session_id, block_id,
+                                         size_hint=size_hint, tier=tier)
+        self._f = open(path, "wb")
+        self._closed = False
+
+    def write(self, data) -> None:
+        """``data``: any buffer (bytes, memoryview, a numpy array)."""
+        n = self._f.write(data)
+        self.written += n
+
+    def close(self, cancel: bool = False) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self._f.close()
+        self._worker.complete_local_block(self._session, self.block_id,
+                                          cancel=cancel, pinned=self._pinned)
+
+
+class GrpcBlockOutStream(BlockOutStream):
+    """Remote write: chunks ride the client-stream as they are produced —
+    a bounded queue feeds the in-flight RPC so network transfer overlaps
+    the producer and peak memory stays ~queue-depth chunks, not a whole
+    block (reference: ``GrpcDataWriter`` chunked flow control)."""
+
+    _QUEUE_DEPTH = 4
+    _CHUNK = 1 << 20
+
+    def __init__(self, worker, session_id: int, block_id: int,
+                 *, tier: str = "", pinned: bool = False,
+                 chunk_size: Optional[int] = None) -> None:
+        super().__init__(block_id)
+        self._worker = worker
+        self._session = session_id
+        self._tier = tier
+        self._pinned = pinned
+        self._chunk = max(1, chunk_size) if chunk_size else self._CHUNK
+        self._queue: "queue.Queue" = queue.Queue(maxsize=self._QUEUE_DEPTH)
+        self._result: "futures.Future" = futures.Future()
+        self._sender = threading.Thread(target=self._send, daemon=True,
+                                        name=f"block-writer-{block_id}")
+        self._sender.start()
+        self._closed = False
+
+    def _send(self) -> None:
+        def gen():
+            yield {"block_id": self.block_id, "session_id": self._session,
+                   "tier": self._tier, "pinned": self._pinned}
+            while True:
+                item = self._queue.get()
+                if item is None:
+                    return
+                yield item
+                if "cancel" in item:
+                    return
+
+        try:
+            resp = self._worker._channel.call_stream_in(
+                self._worker.service, "write_block", gen())
+            self._result.set_result(resp["length"])
+        except BaseException as e:  # noqa: BLE001 - delivered on close()
+            self._result.set_exception(e)
+            # unblock a producer stuck on a full queue
+            while True:
+                try:
+                    self._queue.get_nowait()
+                except queue.Empty:
+                    break
+
+    def write(self, data) -> None:
+        """``data``: any contiguous buffer; chunks and ``written`` count
+        its bytes, whatever its item size."""
+        view = memoryview(data).cast("B")
+        for i in range(0, len(view), self._chunk):
+            if self._result.done():  # sender died: surface its error
+                self._result.result()
+            self._queue.put({"data": bytes(view[i:i + self._chunk])})
+        self.written += len(view)
+
+    def close(self, cancel: bool = False) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        if cancel:
+            # the worker aborts its temp block on a cancel message and
+            # fails the RPC; ending the stream instead would commit the
+            # bytes sent so far
+            self._queue.put({"cancel": True})
+            try:
+                self._result.result(timeout=30)
+            except Exception:  # noqa: BLE001 - the abort's own error
+                pass
+            return
+        self._queue.put(None)
+        n = self._result.result(timeout=300)
+        if n != self.written:
+            raise UnavailableError(
+                f"short write: {n} of {self.written} bytes for block "
+                f"{self.block_id}")
+        self._sender.join()

@@ -1,0 +1,8 @@
+"""Typed configuration (a copy of ``alluxio_tpu/conf``, with the keys the
+port reads)."""
+
+from alluxio_tpu_torch.conf.property_key import (  # noqa: F401
+    Keys, KeyType, PropertyKey, REGISTRY, Templates, parse_bytes,
+    parse_duration_s,
+)
+from alluxio_tpu_torch.conf.configuration import Configuration  # noqa: F401

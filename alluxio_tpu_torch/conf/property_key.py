@@ -1,0 +1,325 @@
+"""Typed configuration property keys: a copy of the part of
+``alluxio_tpu/conf/property_key.py`` that the worker slice reads.
+
+The machinery (typed keys, a registry with aliases, ``Template`` families
+such as the per-tier worker settings, the duration and byte parsers) is
+the JAX package's. The catalog holds only the keys the port reads — the
+``atpu.worker.*`` keys of the store, the tiers, the async cache and the
+RPC, and the ``atpu.user.rpc.retry.*`` keys of the worker client — with
+the JAX names, types and defaults, so one properties file configures
+either package.
+"""
+
+from __future__ import annotations
+
+import enum
+import re
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional
+
+
+class Scope(enum.Flag):
+    """Which process types consume a key (reference: ``conf/Scope.java``)."""
+
+    MASTER = enum.auto()
+    WORKER = enum.auto()
+    CLIENT = enum.auto()
+    JOB_MASTER = enum.auto()
+    JOB_WORKER = enum.auto()
+    SERVER = MASTER | WORKER | JOB_MASTER | JOB_WORKER
+    ALL = SERVER | CLIENT
+    NONE = 0
+
+
+_DURATION_RE = re.compile(r"^\s*(-?\d+(?:\.\d+)?)\s*(ms|s|sec|m|min|h|hr|d|day)?\s*$")
+_BYTES_RE = re.compile(
+    r"^\s*(\d+(?:\.\d+)?)\s*(b|kb|mb|gb|tb|pb|k|m|g|t|p|ki|mi|gi|ti|pi)?\s*$",
+    re.I)
+
+_DURATION_UNITS = {
+    None: 0.001,  # bare numbers are milliseconds, matching the reference
+    "ms": 0.001,
+    "s": 1.0,
+    "sec": 1.0,
+    "m": 60.0,
+    "min": 60.0,
+    "h": 3600.0,
+    "hr": 3600.0,
+    "d": 86400.0,
+    "day": 86400.0,
+}
+
+_BYTE_UNITS = {
+    None: 1,
+    "b": 1,
+    # "ki/mi/gi" are the Kubernetes quantity spellings — accepted so
+    # chart values flow into ATPU_* env vars verbatim
+    "k": 1 << 10, "kb": 1 << 10, "ki": 1 << 10,
+    "m": 1 << 20, "mb": 1 << 20, "mi": 1 << 20,
+    "g": 1 << 30, "gb": 1 << 30, "gi": 1 << 30,
+    "t": 1 << 40, "tb": 1 << 40, "ti": 1 << 40,
+    "p": 1 << 50, "pb": 1 << 50, "pi": 1 << 50,
+}
+
+
+def parse_duration_s(value: Any) -> float:
+    """Parse ``"5s"``, ``"100ms"``, ``"1h"`` (or a bare ms count) to seconds."""
+    if isinstance(value, (int, float)):
+        return float(value) / 1000.0
+    m = _DURATION_RE.match(str(value))
+    if not m:
+        raise ValueError(f"cannot parse duration: {value!r}")
+    return float(m.group(1)) * _DURATION_UNITS[m.group(2)]
+
+
+def parse_bytes(value: Any) -> int:
+    """Parse ``"64MB"``, ``"1g"`` (or a bare byte count) to bytes."""
+    if isinstance(value, int):
+        return value
+    if isinstance(value, float):
+        return int(value)
+    m = _BYTES_RE.match(str(value))
+    if not m:
+        raise ValueError(f"cannot parse byte size: {value!r}")
+    unit = m.group(2).lower() if m.group(2) else None
+    return int(float(m.group(1)) * _BYTE_UNITS[unit])
+
+
+def parse_bool(value: Any) -> bool:
+    if isinstance(value, bool):
+        return value
+    s = str(value).strip().lower()
+    if s in ("true", "1", "yes", "on"):
+        return True
+    if s in ("false", "0", "no", "off"):
+        return False
+    raise ValueError(f"cannot parse bool: {value!r}")
+
+
+class KeyType(enum.Enum):
+    STRING = "string"
+    INT = "int"
+    FLOAT = "float"
+    BOOL = "bool"
+    BYTES = "bytes"        # human sizes: "64MB"
+    DURATION = "duration"  # human durations: "5s" -> seconds (float)
+    LIST = "list"          # comma separated
+    ENUM = "enum"
+
+
+_PARSERS: Dict[KeyType, Callable[[Any], Any]] = {
+    KeyType.STRING: str,
+    KeyType.INT: lambda v: int(str(v), 0) if not isinstance(v, int) else v,
+    KeyType.FLOAT: float,
+    KeyType.BOOL: parse_bool,
+    KeyType.BYTES: parse_bytes,
+    KeyType.DURATION: parse_duration_s,
+    KeyType.LIST: lambda v: list(v) if isinstance(v, (list, tuple)) else [p for p in str(v).split(",") if p],
+}
+
+
+@dataclass(frozen=True)
+class PropertyKey:
+    """One typed configuration key."""
+
+    name: str
+    key_type: KeyType = KeyType.STRING
+    default: Any = None
+    description: str = ""
+    scope: Scope = Scope.ALL
+    aliases: tuple = ()
+    choices: tuple = ()  # for ENUM
+
+    def parse(self, raw: Any) -> Any:
+        if raw is None:
+            return None
+        if self.key_type is KeyType.ENUM:
+            s = str(raw).upper()
+            if self.choices and s not in self.choices:
+                raise ValueError(
+                    f"{self.name}: invalid value {raw!r}; choices: {self.choices}")
+            return s
+        return _PARSERS[self.key_type](raw)
+
+    def __str__(self) -> str:
+        return self.name
+
+
+class KeyRegistry:
+    """Global catalog of defined keys, with alias resolution."""
+
+    def __init__(self) -> None:
+        self._keys: Dict[str, PropertyKey] = {}
+        self._aliases: Dict[str, str] = {}
+
+    def register(self, key: PropertyKey) -> PropertyKey:
+        existing = self._keys.get(key.name)
+        if existing is not None:
+            return existing
+        self._keys[key.name] = key
+        for a in key.aliases:
+            self._aliases[a] = key.name
+        return key
+
+    def get(self, name: str) -> Optional[PropertyKey]:
+        if name in self._keys:
+            return self._keys[name]
+        canonical = self._aliases.get(name)
+        if canonical:
+            return self._keys[canonical]
+        return None
+
+    def is_valid(self, name: str) -> bool:
+        return self.get(name) is not None or Template.match(name) is not None
+
+
+REGISTRY = KeyRegistry()
+
+
+def _k(name: str, key_type: KeyType = KeyType.STRING, default: Any = None,
+       description: str = "", scope: Scope = Scope.ALL,
+       aliases: tuple = (), choices: tuple = ()) -> PropertyKey:
+    return REGISTRY.register(PropertyKey(
+        name=name, key_type=key_type, default=default, description=description,
+        scope=scope, aliases=aliases, choices=choices))
+
+
+@dataclass(frozen=True)
+class Template:
+    """A parameterized key family, e.g. per-tier worker storage settings.
+
+    Reference: ``conf/PropertyKey.java:5668`` (``Template`` enum with regex
+    matching).  ``WORKER_TIER_DIRS_PATH.format(0)`` mints the concrete key.
+    """
+
+    pattern: str  # str.format pattern with {} placeholders
+    regex: str
+    key_type: KeyType = KeyType.STRING
+    default_fn: Callable[..., Any] = lambda *a: None
+    scope: Scope = Scope.ALL
+
+    _ALL: "list[Template]" = field(default_factory=list, repr=False)
+
+    def format(self, *args) -> PropertyKey:
+        name = self.pattern.format(*args)
+        existing = REGISTRY.get(name)
+        if existing:
+            return existing
+        return REGISTRY.register(PropertyKey(
+            name=name, key_type=self.key_type, default=self.default_fn(*args),
+            scope=self.scope))
+
+    @classmethod
+    def match(cls, name: str) -> Optional["Template"]:
+        for t in _TEMPLATES:
+            if re.fullmatch(t.regex, name):
+                return t
+        return None
+
+
+_TEMPLATES: list = []
+
+
+def _template(pattern: str, regex: str, key_type: KeyType = KeyType.STRING,
+              default_fn: Callable[..., Any] = lambda *a: None,
+              scope: Scope = Scope.ALL) -> Template:
+    t = Template(pattern=pattern, regex=regex, key_type=key_type,
+                 default_fn=default_fn, scope=scope)
+    _TEMPLATES.append(t)
+    return t
+
+
+class Keys:
+    # --- worker: store, tiers, async cache, RPC ---
+    TIERED_IDENTITY = _k(
+        "atpu.locality.identity", KeyType.LIST, default=None,
+        description="Ordered locality tiers 'host=h,slice=s,pod=p' "
+                    "(reference: wire/TieredIdentity.java:36; TPU twist: "
+                    "host < ICI slice < pod < DCN).")
+    WORKER_HOSTNAME = _k("atpu.worker.hostname", default="localhost")
+    WORKER_RPC_PORT = _k("atpu.worker.rpc.port", KeyType.INT, default=29999)
+    WORKER_DATA_FOLDER = _k("atpu.worker.data.folder", default="/tmp/alluxio_tpu/worker")
+    WORKER_RAMDISK_SIZE = _k("atpu.worker.ramdisk.size", KeyType.BYTES, default="1GB")
+    WORKER_TIERED_STORE_LEVELS = _k("atpu.worker.tieredstore.levels", KeyType.INT,
+                                    default=2, scope=Scope.WORKER)
+    WORKER_BLOCK_HEARTBEAT_INTERVAL = _k(
+        "atpu.worker.block.heartbeat.interval", KeyType.DURATION, default="1s",
+        scope=Scope.WORKER)
+    WORKER_ALLOCATOR_CLASS = _k("atpu.worker.allocator.class", KeyType.ENUM,
+                                default="MAX_FREE",
+                                choices=("MAX_FREE", "ROUND_ROBIN", "GREEDY"),
+                                scope=Scope.WORKER)
+    WORKER_ANNOTATOR_CLASS = _k("atpu.worker.block.annotator.class", KeyType.ENUM,
+                                default="LRU", choices=("LRU", "LRFU"),
+                                scope=Scope.WORKER)
+    WORKER_LRFU_STEP_FACTOR = _k("atpu.worker.block.annotator.lrfu.step.factor",
+                                 KeyType.FLOAT, default=0.25, scope=Scope.WORKER)
+    WORKER_LRFU_ATTENUATION_FACTOR = _k(
+        "atpu.worker.block.annotator.lrfu.attenuation.factor", KeyType.FLOAT,
+        default=2.0, scope=Scope.WORKER)
+    WORKER_SHM_DIR = _k("atpu.worker.shm.dir", default="/dev/shm/alluxio_tpu",
+                        scope=Scope.WORKER,
+                        description="Backing dir for the MEM tier; files here are "
+                                    "mmap-able by same-host clients for the "
+                                    "short-circuit zero-copy read path.")
+    WORKER_ASYNC_CACHE_QUEUE_MAX = _k(
+        "atpu.worker.async.cache.queue.max", KeyType.INT, default=512,
+        scope=Scope.WORKER,
+        description="Pending passive-cache requests held before new "
+                    "submissions are rejected (counted in "
+                    "Worker.AsyncCacheRejected). Passive caching is "
+                    "advisory; an unbounded backlog only delays it "
+                    "past usefulness.")
+    WORKER_ASYNC_CACHE_THREADS = _k(
+        "atpu.worker.async.cache.threads", KeyType.INT, default=2,
+        scope=Scope.WORKER,
+        description="Worker threads draining the passive-cache queue "
+                    "(reference: alluxio.worker.network.async.cache."
+                    "manager.threads.max).")
+    WORKER_QOS_ENABLED = _k(
+        "atpu.worker.qos.enabled", KeyType.BOOL, default=False,
+        scope=Scope.WORKER,
+        description="Priority-class scheduling + per-tenant quotas on "
+                    "the worker data plane: the per-mount UFS stripe "
+                    "executors and the async cache queue drain "
+                    "ON_DEMAND > ASYNC_FILL > PREFETCH (on-demand "
+                    "reads overtake QUEUED background work; in-flight "
+                    "work is never interrupted), and per-tenant "
+                    "concurrency caps apply. Also authenticates worker "
+                    "RPCs (SIMPLE metadata identity) so requests carry "
+                    "a principal. Off: FIFO drain, no caps — "
+                    "byte-identical to a build without QoS.")
+
+    # --- client / user: the worker client's RPC retries ---
+    USER_RPC_RETRY_MAX_DURATION = _k(
+        "atpu.user.rpc.retry.max.duration", KeyType.DURATION,
+        default="30s", scope=Scope.CLIENT,
+        aliases=("atpu.user.rpc.retry.duration",),
+        description="Wall-clock budget a client RPC retries transient "
+                    "errors within before giving up (reference: "
+                    "alluxio.user.rpc.retry.max.duration). The 30s "
+                    "default matches the previously hard-coded client "
+                    "behavior; overload drills shorten it so flooded "
+                    "clients fail fast instead of piling 30s of "
+                    "backoff behind a shedding master.")
+    USER_RPC_RETRY_BASE_SLEEP = _k("atpu.user.rpc.retry.base.sleep", KeyType.DURATION,
+                                   default="50ms", scope=Scope.CLIENT)
+    USER_RPC_RETRY_MAX_SLEEP = _k("atpu.user.rpc.retry.max.sleep", KeyType.DURATION,
+                                  default="3s", scope=Scope.CLIENT)
+
+
+# Parameterized families (reference: PropertyKey.Template, PropertyKey.java:5668)
+class Templates:
+    WORKER_TIER_ALIAS = _template(
+        "atpu.worker.tieredstore.level{}.alias",
+        r"atpu\.worker\.tieredstore\.level(\d+)\.alias",
+        KeyType.STRING, lambda lvl: {0: "MEM", 1: "SSD", 2: "HDD"}.get(int(lvl)),
+        Scope.WORKER)
+    WORKER_TIER_DIRS_PATH = _template(
+        "atpu.worker.tieredstore.level{}.dirs.path",
+        r"atpu\.worker\.tieredstore\.level(\d+)\.dirs\.path",
+        KeyType.LIST, lambda lvl: None, Scope.WORKER)
+    WORKER_TIER_DIRS_QUOTA = _template(
+        "atpu.worker.tieredstore.level{}.dirs.quota",
+        r"atpu\.worker\.tieredstore\.level(\d+)\.dirs\.quota",
+        KeyType.LIST, lambda lvl: None, Scope.WORKER)

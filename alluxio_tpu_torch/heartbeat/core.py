@@ -19,6 +19,9 @@ class HeartbeatContext:
     """Heartbeat names, as the JAX package's catalog spells them (only
     the ones the port runs)."""
 
+    WORKER_BLOCK_SYNC = "Worker.BlockSync"
+    WORKER_PIN_LIST_SYNC = "Worker.PinListSync"
+    WORKER_STORAGE_HEALTH = "Worker.StorageHealth"
     CLIENT_PREFETCH_AGENT = "Client.PrefetchAgent"
 
 

@@ -1,0 +1,317 @@
+"""RPC core: msgpack-over-gRPC with typed error propagation.
+
+A copy of ``alluxio_tpu/rpc/core.py`` (re-design of the reference's
+``core/common/.../grpc/{GrpcServerBuilder,GrpcChannelBuilder,
+GrpcConnectionPool.java:46}``): generic gRPC handlers keyed by method
+name carry msgpack bodies, so the messages are the same dicts the wire
+types serialize to. Method paths (``/<service>/<method>``), the message
+encoding, the 64 MiB message limits and the typed-error trailer are the
+JAX package's, so a client of either package talks to a server of the
+other.
+
+Errors: a handler raising ``AlluxioTpuError`` becomes a gRPC status plus
+the serialized typed payload in trailing metadata; clients re-raise the
+same exception class (reference: ``exception/status`` <->
+``io.grpc.Status``).
+
+Left out with the features that need them: request authentication and
+admission control (QoS), trace-context propagation across the wire (a
+server span is still recorded when tracing is on), the master fast path
+and domain sockets.
+"""
+
+from __future__ import annotations
+
+import getpass
+import logging
+import threading
+from concurrent import futures
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+
+import grpc
+import msgpack
+
+from alluxio_tpu_torch.utils.exceptions import (AlluxioTpuError,
+                                                 UnavailableError)
+from alluxio_tpu_torch.utils.tracing import tracer
+
+LOG = logging.getLogger(__name__)
+
+_ERROR_KEY = "atpu-error-bin"
+#: the JAX transport's message limits, both directions
+MAX_MESSAGE_BYTES = 64 << 20
+
+_CODE_TO_GRPC = {
+    "NOT_FOUND": grpc.StatusCode.NOT_FOUND,
+    "ALREADY_EXISTS": grpc.StatusCode.ALREADY_EXISTS,
+    "INVALID_ARGUMENT": grpc.StatusCode.INVALID_ARGUMENT,
+    "PERMISSION_DENIED": grpc.StatusCode.PERMISSION_DENIED,
+    "UNAUTHENTICATED": grpc.StatusCode.UNAUTHENTICATED,
+    "FAILED_PRECONDITION": grpc.StatusCode.FAILED_PRECONDITION,
+    "RESOURCE_EXHAUSTED": grpc.StatusCode.RESOURCE_EXHAUSTED,
+    "UNAVAILABLE": grpc.StatusCode.UNAVAILABLE,
+    "DEADLINE_EXCEEDED": grpc.StatusCode.DEADLINE_EXCEEDED,
+    "CANCELLED": grpc.StatusCode.CANCELLED,
+    "ABORTED": grpc.StatusCode.ABORTED,
+    "UNIMPLEMENTED": grpc.StatusCode.UNIMPLEMENTED,
+    "INTERNAL": grpc.StatusCode.INTERNAL,
+}
+
+
+def pack(obj: Any) -> bytes:
+    return msgpack.packb(obj, use_bin_type=True)
+
+
+def unpack(data: bytes) -> Any:
+    return msgpack.unpackb(data, raw=False, strict_map_key=False)
+
+
+def _abort_typed(context: grpc.ServicerContext, e: AlluxioTpuError) -> None:
+    context.set_trailing_metadata(((_ERROR_KEY, pack(e.to_wire())),))
+    context.abort(_CODE_TO_GRPC.get(e.code, grpc.StatusCode.INTERNAL), str(e))
+
+
+def _wrap_unary(fn: Callable[[dict], Any], span_name: str) -> Callable:
+    def handler(request: dict, context: grpc.ServicerContext):
+        try:
+            with tracer().span(span_name):
+                return fn(request or {})
+        except AlluxioTpuError as e:
+            _abort_typed(context, e)
+        except Exception as e:  # noqa: BLE001 - the RPC boundary
+            LOG.exception("unhandled error in RPC handler")
+            context.abort(grpc.StatusCode.INTERNAL, f"{type(e).__name__}: {e}")
+
+    return handler
+
+
+def _wrap_stream_out(fn: Callable[[dict], Iterator[Any]],
+                     span_name: str) -> Callable:
+    def handler(request: dict, context: grpc.ServicerContext):
+        try:
+            with tracer().span(span_name):
+                yield from fn(request or {})
+        except AlluxioTpuError as e:
+            _abort_typed(context, e)
+        except Exception as e:  # noqa: BLE001 - the RPC boundary
+            LOG.exception("unhandled error in streaming RPC handler")
+            context.abort(grpc.StatusCode.INTERNAL, f"{type(e).__name__}: {e}")
+
+    return handler
+
+
+def _wrap_stream_in(fn: Callable[[Iterator[Any]], Any],
+                    span_name: str) -> Callable:
+    def handler(request_iterator, context: grpc.ServicerContext):
+        try:
+            with tracer().span(span_name):
+                return fn(request_iterator)
+        except AlluxioTpuError as e:
+            _abort_typed(context, e)
+        except Exception as e:  # noqa: BLE001 - the RPC boundary
+            LOG.exception("unhandled error in client-streaming RPC handler")
+            context.abort(grpc.StatusCode.INTERNAL, f"{type(e).__name__}: {e}")
+
+    return handler
+
+
+class ServiceDefinition:
+    """A named service: method name -> (callable, kind)."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.methods: Dict[str, Tuple[Callable, str]] = {}
+
+    def unary(self, method: str, fn: Callable[[dict], Any]) -> None:
+        self.methods[method] = (fn, "unary")
+
+    def stream_out(self, method: str,
+                   fn: Callable[[dict], Iterator[Any]]) -> None:
+        self.methods[method] = (fn, "stream_out")
+
+    def stream_in(self, method: str,
+                  fn: Callable[[Iterator[Any]], Any]) -> None:
+        self.methods[method] = (fn, "stream_in")
+
+
+class _GenericHandler(grpc.GenericRpcHandler):
+    def __init__(self, services: Dict[str, ServiceDefinition]) -> None:
+        self._services = services
+
+    def service(self, handler_call_details):
+        # method path: /<service>/<method>
+        _, _, rest = handler_call_details.method.partition("/")
+        service_name, _, method = rest.partition("/")
+        svc = self._services.get(service_name)
+        entry = svc.methods.get(method) if svc is not None else None
+        if entry is None:
+            return None
+        fn, kind = entry
+        span = f"{service_name}.{method}"
+        if kind == "unary":
+            return grpc.unary_unary_rpc_method_handler(
+                _wrap_unary(fn, span), request_deserializer=unpack,
+                response_serializer=pack)
+        if kind == "stream_out":
+            return grpc.unary_stream_rpc_method_handler(
+                _wrap_stream_out(fn, span), request_deserializer=unpack,
+                response_serializer=pack)
+        return grpc.stream_unary_rpc_method_handler(
+            _wrap_stream_in(fn, span), request_deserializer=unpack,
+            response_serializer=pack)
+
+
+class RpcServer:
+    """gRPC server hosting ServiceDefinitions
+    (reference: ``GrpcServerBuilder`` + ``GrpcDataServer.java:50``)."""
+
+    def __init__(self, bind_host: str = "0.0.0.0", port: int = 0,
+                 max_workers: int = 16) -> None:
+        self._services: Dict[str, ServiceDefinition] = {}
+        options = [
+            ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
+            ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
+            ("grpc.so_reuseport", 0),
+        ]
+        self._server = grpc.server(
+            futures.ThreadPoolExecutor(max_workers=max_workers),
+            options=options)
+        self._bind = f"{bind_host}:{port}"
+        self.port = port
+        self._started = False
+
+    def add_service(self, svc: ServiceDefinition) -> None:
+        self._services[svc.name] = svc
+
+    def start(self) -> int:
+        """Bind and serve; returns the bound port (an ephemeral one for
+        port 0). Raises when the address cannot be bound."""
+        self._server.add_generic_rpc_handlers(
+            (_GenericHandler(self._services),))
+        self.port = self._server.add_insecure_port(self._bind)
+        if self.port == 0:
+            raise UnavailableError(f"cannot bind the RPC server to "
+                                   f"{self._bind}")
+        self._server.start()
+        self._started = True
+        return self.port
+
+    def stop(self, grace_s: float = 0.5) -> None:
+        if self._started:
+            self._started = False
+            self._server.stop(grace_s).wait(timeout=5)
+
+
+def _raise_typed(err: grpc.RpcError) -> None:
+    md = dict(err.trailing_metadata() or ())
+    blob = md.get(_ERROR_KEY)
+    if blob is not None:
+        raise AlluxioTpuError.from_wire(unpack(blob)) from None
+    if err.code() == grpc.StatusCode.UNAVAILABLE:
+        raise UnavailableError(err.details() or "server unavailable") from None
+    raise AlluxioTpuError(f"{err.code().name}: {err.details()}") from None
+
+
+def default_client_metadata() -> Tuple[Tuple[str, str], ...]:
+    """Identity attached to calls when the caller supplies none: the OS
+    user (reference: LoginUser under SIMPLE auth)."""
+    return (("atpu-user", getpass.getuser()),)
+
+
+class StreamCall:
+    """A cancellable server-stream: iterate for decoded messages, call
+    :meth:`cancel` to abort the underlying HTTP/2 stream mid-flight. A
+    self-cancelled stream ends iteration quietly; every other gRPC error
+    is re-raised typed like :meth:`RpcChannel.call_stream`."""
+
+    __slots__ = ("_call", "cancelled")
+
+    def __init__(self, call) -> None:
+        self._call = call
+        self.cancelled = False
+
+    def cancel(self) -> None:
+        self.cancelled = True
+        self._call.cancel()
+
+    def __iter__(self) -> Iterator[Any]:
+        try:
+            yield from self._call
+        except grpc.RpcError as e:
+            if self.cancelled and e.code() == grpc.StatusCode.CANCELLED:
+                return
+            _raise_typed(e)
+
+
+class RpcChannel:
+    """A pooled channel + method invokers: one channel per address,
+    shared by every client in the process (grpc-python multiplexes
+    streams on one HTTP/2 connection). ``metadata``: identity tuples
+    attached to every call."""
+
+    _pool: Dict[str, grpc.Channel] = {}
+    _pool_lock = threading.Lock()
+
+    def __init__(self, address: str,
+                 metadata: Optional[Tuple[Tuple[str, str], ...]] = None
+                 ) -> None:
+        self.address = address
+        self.metadata = tuple(metadata) if metadata is not None \
+            else default_client_metadata()
+        with RpcChannel._pool_lock:
+            ch = RpcChannel._pool.get(address)
+            if ch is None:
+                ch = grpc.insecure_channel(address, options=[
+                    ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
+                    ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
+                ])
+                RpcChannel._pool[address] = ch
+            self._channel = ch
+
+    def call(self, service: str, method: str, request: dict,
+             timeout: Optional[float] = 30.0) -> Any:
+        fn = self._channel.unary_unary(
+            f"/{service}/{method}", request_serializer=pack,
+            response_deserializer=unpack)
+        try:
+            return fn(request, timeout=timeout, metadata=self.metadata)
+        except grpc.RpcError as e:
+            _raise_typed(e)
+
+    def call_stream(self, service: str, method: str, request: dict,
+                    timeout: Optional[float] = 300.0) -> Iterator[Any]:
+        fn = self._channel.unary_stream(
+            f"/{service}/{method}", request_serializer=pack,
+            response_deserializer=unpack)
+        try:
+            yield from fn(request, timeout=timeout, metadata=self.metadata)
+        except grpc.RpcError as e:
+            _raise_typed(e)
+
+    def open_stream(self, service: str, method: str, request: dict,
+                    timeout: Optional[float] = 300.0) -> StreamCall:
+        """Like :meth:`call_stream` but returns the live call as a
+        :class:`StreamCall`, so the caller can ``cancel()`` it."""
+        fn = self._channel.unary_stream(
+            f"/{service}/{method}", request_serializer=pack,
+            response_deserializer=unpack)
+        return StreamCall(fn(request, timeout=timeout,
+                             metadata=self.metadata))
+
+    def call_stream_in(self, service: str, method: str,
+                       requests: Iterator[dict],
+                       timeout: Optional[float] = 300.0) -> Any:
+        fn = self._channel.stream_unary(
+            f"/{service}/{method}", request_serializer=pack,
+            response_deserializer=unpack)
+        try:
+            return fn(requests, timeout=timeout, metadata=self.metadata)
+        except grpc.RpcError as e:
+            _raise_typed(e)
+
+    @classmethod
+    def shutdown_pool(cls) -> None:
+        with cls._pool_lock:
+            for ch in cls._pool.values():
+                ch.close()
+            cls._pool.clear()

@@ -1,0 +1,103 @@
+"""Per-block client read/write locks.
+
+A copy of ``alluxio_tpu/worker/lock_manager.py``.
+
+Re-design of ``core/server/worker/.../block/{BlockLockManager.java,
+ClientRWLock.java}``: readers hold shared locks while a block is being
+served (or mmap'd by a short-circuit client); remove/move/evict need the
+exclusive lock. ``try_`` variants let eviction skip in-use blocks instead
+of blocking the allocation path.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+from alluxio_tpu_torch.utils.locks import RWLock
+
+
+class BlockLock:
+    """A held lock lease; close() releases."""
+
+    def __init__(self, manager: "BlockLockManager", block_id: int,
+                 write: bool) -> None:
+        self._manager = manager
+        self.block_id = block_id
+        self.write = write
+        self._released = False
+
+    def close(self) -> None:
+        if not self._released:
+            self._released = True
+            self._manager._release(self.block_id, self.write)
+
+    def __enter__(self) -> "BlockLock":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+
+class BlockLockManager:
+    def __init__(self) -> None:
+        self._locks: Dict[int, RWLock] = {}
+        self._refs: Dict[int, int] = {}
+        self._meta_lock = threading.Lock()
+
+    def _get(self, block_id: int) -> RWLock:
+        with self._meta_lock:
+            lock = self._locks.get(block_id)
+            if lock is None:
+                lock = RWLock()
+                self._locks[block_id] = lock
+            self._refs[block_id] = self._refs.get(block_id, 0) + 1
+            return lock
+
+    def _release(self, block_id: int, write: bool) -> None:
+        with self._meta_lock:
+            lock = self._locks.get(block_id)
+        if lock is None:
+            return
+        if write:
+            lock.release_write()
+        else:
+            lock.release_read()
+        with self._meta_lock:
+            self._refs[block_id] -= 1
+            if self._refs[block_id] <= 0:
+                self._refs.pop(block_id, None)
+                self._locks.pop(block_id, None)
+
+    def _drop_ref(self, block_id: int) -> None:
+        with self._meta_lock:
+            self._refs[block_id] -= 1
+            if self._refs[block_id] <= 0:
+                self._refs.pop(block_id, None)
+                self._locks.pop(block_id, None)
+
+    def lock_read(self, block_id: int, timeout: Optional[float] = None
+                  ) -> Optional[BlockLock]:
+        lock = self._get(block_id)
+        if lock.acquire_read(timeout):
+            return BlockLock(self, block_id, write=False)
+        self._drop_ref(block_id)
+        return None
+
+    def lock_write(self, block_id: int, timeout: Optional[float] = None
+                   ) -> Optional[BlockLock]:
+        lock = self._get(block_id)
+        if lock.acquire_write(timeout):
+            return BlockLock(self, block_id, write=True)
+        self._drop_ref(block_id)
+        return None
+
+    def try_lock_write(self, block_id: int) -> Optional[BlockLock]:
+        """Non-blocking exclusive attempt (eviction uses this to skip
+        blocks currently pinned by readers)."""
+        return self.lock_write(block_id, timeout=0.0)
+
+    def active_locks(self) -> int:
+        with self._meta_lock:
+            return len(self._locks)

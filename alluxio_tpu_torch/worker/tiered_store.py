@@ -1,0 +1,528 @@
+"""TieredBlockStore: the worker's cache of block files across storage tiers.
+
+A copy of ``alluxio_tpu/worker/tiered_store.py``.
+
+Re-design of ``core/server/worker/.../block/TieredBlockStore.java:85`` (lock
+hierarchy documented ``:58-83``): temp-block create/commit/abort lifecycle,
+eviction-on-allocation in annotator order with cascade demotion to the next
+tier, move/free, and lock-guarded reads.
+
+Storage layout: one file per block, ``<dir>/<block_id>``; temp blocks at
+``<dir>/.tmp/<session>_<block_id>``. The MEM tier sits on ``/dev/shm`` so a
+same-host client can ``mmap`` the committed file and hand the pages to XLA
+without a copy (the short-circuit read path; reference:
+``OpenLocalBlock`` leases in ``block_worker.proto:18-21``).
+
+The JAX store's SHM-lease pins (``pin_shm``) belong to the SHM plane,
+which the port has not taken yet; everything else is the same.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+from typing import Callable, Dict, List, Optional, Set, Tuple
+
+from alluxio_tpu_torch.metrics import metrics
+from alluxio_tpu_torch.worker.allocator import ANY_TIER, Allocator
+from alluxio_tpu_torch.worker.annotator import BlockAnnotator
+from alluxio_tpu_torch.worker.lock_manager import BlockLock, BlockLockManager
+from alluxio_tpu_torch.worker.meta import (
+    BlockMeta, BlockMetadataManager, StorageDir, TempBlockMeta,
+)
+from alluxio_tpu_torch.utils.exceptions import (
+    AlreadyExistsError, BlockDoesNotExistError, InvalidArgumentError,
+    WorkerOutOfSpaceError, best_effort,
+)
+
+LOG = logging.getLogger(__name__)
+
+
+class BlockWriter:
+    """Appender for a temp block file."""
+
+    def __init__(self, temp: TempBlockMeta, store: "TieredBlockStore") -> None:
+        self._temp = temp
+        self._store = store
+        self._f = open(temp.path, "ab")
+        self.written = os.path.getsize(temp.path)
+
+    def append(self, data: bytes) -> int:
+        needed = self.written + len(data) - self._temp.bytes_reserved
+        if needed > 0:
+            self._store.request_space(self._temp.session_id,
+                                      self._temp.block_id, needed)
+        self._f.write(data)
+        self.written += len(data)
+        return len(data)
+
+    def close(self) -> None:
+        if not self._f.closed:
+            self._f.flush()
+            os.fsync(self._f.fileno())
+            self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+class BlockReader:
+    """Positioned reader over a committed block file, holding a read lock."""
+
+    def __init__(self, meta: BlockMeta, lock: BlockLock) -> None:
+        self._meta = meta
+        self._lock = lock
+        self._fd = os.open(meta.path, os.O_RDONLY)
+        self.length = meta.length
+        self.path = meta.path
+        self.tier_alias = meta.tier_alias
+
+    def read(self, offset: int, length: int) -> bytes:
+        return os.pread(self._fd, length, offset)
+
+    def close(self) -> None:
+        try:
+            os.close(self._fd)
+        except OSError:
+            pass
+        self._lock.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+class CacheFill:
+    """Incremental read-through fill: a temp block the UFS fetch
+    pipeline appends to as stripes land (in frontier order), committed
+    when the block completes. Best-effort like every cache fill: any
+    failure aborts the temp block and reports False — the fetch keeps
+    serving waiters from its own buffer."""
+
+    def __init__(self, store: "TieredBlockStore", session_id: int,
+                 block_id: int, writer: BlockWriter) -> None:
+        self._store = store
+        self._session = session_id
+        self._block_id = block_id
+        self._writer: Optional[BlockWriter] = writer
+
+    def append(self, data: bytes) -> bool:
+        if self._writer is None:
+            return False
+        try:
+            self._writer.append(data)
+            return True
+        except Exception:  # noqa: BLE001 - cache fill is best-effort
+            LOG.debug("cache-fill append for block %s failed",
+                      self._block_id, exc_info=True)
+            self.abort()
+            return False
+
+    def commit(self) -> bool:
+        if self._writer is None:
+            return False
+        try:
+            self._writer.close()
+            self._writer = None
+            self._store.commit_block(self._session, self._block_id)
+            return True
+        except Exception:  # noqa: BLE001 - cache fill is best-effort
+            LOG.debug("cache-fill commit for block %s failed",
+                      self._block_id, exc_info=True)
+            self.abort()
+            return False
+
+    def abort(self) -> None:
+        w, self._writer = self._writer, None
+        if w is not None:
+            best_effort("cache-fill writer close", w.close)
+        best_effort("cache-fill abort", self._store.abort_block,
+                    self._session, self._block_id)
+
+
+class TieredBlockStore:
+    def __init__(self, meta: BlockMetadataManager, allocator: Allocator,
+                 annotator: BlockAnnotator,
+                 eviction_retries: int = 3) -> None:
+        self.meta = meta
+        self._allocator = allocator
+        self.annotator = annotator
+        self._locks = BlockLockManager()
+        self._eviction_retries = eviction_retries
+        #: commit-time pins (commit_block(pinned=True))
+        self.pinned_blocks: Set[int] = set()
+        #: master-driven pins, wholesale-replaced by PinListSync each tick
+        self.master_pinned_blocks: Set[int] = set()
+        #: prefetch-agent pins: block_id -> expiry (monotonic). Soon-
+        #: needed blocks the clairvoyant scheduler placed ahead of the
+        #: consumer; eviction must not undo a placement before its
+        #: consume (prefetch/agent.py). TTL-bounded, NOT session-bound:
+        #: a SIGKILLed client can never unpin, and a permanent pin
+        #: would make the block unevictable forever — expiry is the
+        #: worker-side reclamation path.
+        self.prefetch_pinned_blocks: Dict[int, float] = {}
+        #: serialized allocation/eviction decisions (metadata lock; IO and
+        #: reads proceed outside it — mirroring the reference's hierarchy)
+        self._alloc_lock = threading.RLock()
+        self._listeners: List[Callable[[str, int], None]] = []
+        self._m = metrics()
+
+    # -- observability ------------------------------------------------------
+    def add_listener(self, fn: Callable[[str, int], None]) -> None:
+        """fn(event, block_id); events: committed/removed/moved/evicted."""
+        self._listeners.append(fn)
+
+    def _emit(self, event: str, block_id: int) -> None:
+        for fn in self._listeners:
+            best_effort("block-event listener", fn, event, block_id)
+
+    # -- write path ---------------------------------------------------------
+    def create_block(self, session_id: int, block_id: int, *,
+                     initial_bytes: int, tier_alias: str = ANY_TIER
+                     ) -> TempBlockMeta:
+        """Allocate a temp block, evicting on demand
+        (reference: ``createBlock`` + ``freeSpace``, TieredBlockStore.java:80-82)."""
+        with self._alloc_lock:
+            if self.meta.get_block(block_id) is not None or \
+                    self.meta.get_temp(block_id) is not None:
+                raise AlreadyExistsError(f"block {block_id} already exists")
+            d = self._allocate_with_eviction(initial_bytes, tier_alias)
+            temp = TempBlockMeta(block_id=block_id, session_id=session_id,
+                                 dir=d, bytes_reserved=initial_bytes)
+            d.reserve(initial_bytes)
+            d.add_temp(temp)
+        # touch the file outside the metadata lock
+        open(temp.path, "wb").close()
+        return temp
+
+    def get_temp_writer(self, session_id: int, block_id: int) -> BlockWriter:
+        temp = self.meta.get_temp(block_id)
+        if temp is None or temp.session_id != session_id:
+            raise BlockDoesNotExistError(
+                f"no temp block {block_id} for session {session_id}")
+        return BlockWriter(temp, self)
+
+    def request_space(self, session_id: int, block_id: int,
+                      additional: int) -> None:
+        with self._alloc_lock:
+            temp = self.meta.get_temp(block_id)
+            if temp is None or temp.session_id != session_id:
+                raise BlockDoesNotExistError(f"no temp block {block_id}")
+            if not temp.dir.reserve(additional):
+                freed = self._free_space_in_dir(temp.dir, additional)
+                if not temp.dir.reserve(additional):
+                    raise WorkerOutOfSpaceError(
+                        f"cannot reserve {additional}B in "
+                        f"{temp.dir.tier.alias}:{temp.dir.index} "
+                        f"(freed {freed}B)")
+            temp.bytes_reserved += additional
+
+    def commit_block(self, session_id: int, block_id: int,
+                     pinned: bool = False, emit: bool = True) -> BlockMeta:
+        """Temp -> committed: rename into place, fix accounting, annotate.
+
+        ``emit=False``: suppress the "committed" listener event; the caller
+        emits it after the master acknowledges the commit. Otherwise the
+        heartbeat delta can reach the master BEFORE the synchronous
+        commit RPC, and the master frees the "orphan" (reference split:
+        onCommitBlockToLocal vs onCommitBlockToMaster)."""
+        with self._alloc_lock:
+            temp = self.meta.get_temp(block_id)
+            if temp is None:
+                raise BlockDoesNotExistError(f"no temp block {block_id}")
+            if temp.session_id != session_id:
+                raise InvalidArgumentError(
+                    f"temp block {block_id} belongs to another session")
+            length = os.path.getsize(temp.path)
+            final = BlockMeta(block_id=block_id, length=length, dir=temp.dir)
+            os.replace(temp.path, final.path)
+            temp.dir.remove_temp(block_id)
+            # reconcile reservation with the actual on-disk size: release
+            # over-reservation; for short-circuit writes that overshot the
+            # reservation, force-account the shortfall (the bytes are already
+            # on disk) and restore headroom by freeing
+            delta = temp.bytes_reserved - length
+            if delta > 0:
+                temp.dir.release(delta)
+            elif delta < 0:
+                if not temp.dir.reserve(-delta):
+                    temp.dir.force_reserve(-delta)
+                    overshoot = temp.dir.used_bytes - temp.dir.capacity_bytes
+                    if overshoot > 0:
+                        self._free_space_in_dir(temp.dir, overshoot)
+            temp.dir.add_block(final)
+            if pinned:
+                self.pinned_blocks.add(block_id)
+        self.annotator.on_commit(block_id)
+        self._m.counter("Worker.BlocksCommitted").inc()
+        if emit:
+            self._emit("committed", block_id)
+        return final
+
+    def abort_block(self, session_id: int, block_id: int) -> None:
+        with self._alloc_lock:
+            temp = self.meta.get_temp(block_id)
+            if temp is None:
+                raise BlockDoesNotExistError(f"no temp block {block_id}")
+            if temp.session_id != session_id:
+                raise InvalidArgumentError("wrong session")
+            temp.dir.remove_temp(block_id)
+            temp.dir.release(temp.bytes_reserved)
+        if os.path.exists(temp.path):
+            os.remove(temp.path)
+
+    def cleanup_session(self, session_id: int) -> None:
+        """Abort all of a dead session's temp blocks
+        (reference: ``SessionCleaner``)."""
+        for tier in self.meta.tiers:
+            for d in tier.dirs:
+                for temp in d.temp_blocks_of_session(session_id):
+                    best_effort("session temp-block abort",
+                                self.abort_block, session_id,
+                                temp.block_id)
+
+    # -- read path ----------------------------------------------------------
+    def get_reader(self, block_id: int) -> BlockReader:
+        from alluxio_tpu_torch.utils.tracing import current_span
+
+        sp = current_span()
+        if sp is None:
+            lock = self._locks.lock_read(block_id)
+        else:
+            import time as _time
+
+            t0 = _time.perf_counter()
+            lock = self._locks.lock_read(block_id)
+            sp.phase("lock_wait", (_time.perf_counter() - t0) * 1000.0)
+        try:
+            meta = self.meta.get_block(block_id)
+            if meta is None:
+                raise BlockDoesNotExistError(f"block {block_id} not cached")
+            reader = BlockReader(meta, lock)
+        except BaseException:
+            lock.close()  # never leak the read lock (unremovable block)
+            raise
+        self.annotator.on_access(block_id)
+        self._m.counter("Worker.BlocksAccessed").inc()
+        # per-tier access split: the input doctor's worker-side view of
+        # which tier actually serves reads (MEM on /dev/shm ~= host DRAM)
+        self._m.counter(f"Worker.BlocksAccessed.{meta.tier_alias}").inc()
+        return reader
+
+    def pin_block(self, block_id: int) -> Optional[BlockLock]:
+        """Shared-lock lease without opening the file — backs the
+        short-circuit read lease so eviction cannot unlink a file a client
+        is mmapping (reference: OpenLocalBlock holds a block lock for the
+        stream's lifetime)."""
+        lock = self._locks.lock_read(block_id)
+        if self.meta.get_block(block_id) is None:
+            lock.close()
+            raise BlockDoesNotExistError(f"block {block_id} not cached")
+        self.annotator.on_access(block_id)
+        return lock
+
+    def pin_prefetch(self, block_id: int, ttl_s: float = 600.0) -> bool:
+        """Shield a committed block from eviction until the prefetch
+        consumer reads it. Unlike :meth:`pin_block` this holds no lock
+        object a remote caller would have to keep alive — it is an
+        expiring entry the evictor respects, dropped by
+        :meth:`unpin_prefetch`, block removal, or TTL expiry (the
+        backstop for clients that die without unpinning)."""
+        import time
+
+        with self._alloc_lock:
+            if self.meta.get_block(block_id) is None:
+                return False
+            self.prefetch_pinned_blocks[block_id] = \
+                time.monotonic() + ttl_s
+        self.annotator.on_access(block_id)
+        return True
+
+    def unpin_prefetch(self, block_id: int) -> None:
+        with self._alloc_lock:
+            self.prefetch_pinned_blocks.pop(block_id, None)
+
+    def active_locks(self) -> int:
+        """Blocks with a held (or awaited) client lock: read leases,
+        open readers, removals and moves in progress."""
+        return self._locks.active_locks()
+
+    def get_block_meta(self, block_id: int) -> Optional[BlockMeta]:
+        return self.meta.get_block(block_id)
+
+    def has_block(self, block_id: int) -> bool:
+        return self.meta.get_block(block_id) is not None
+
+    def access_block(self, block_id: int) -> None:
+        self.annotator.on_access(block_id)
+
+    def open_cache_fill(self, block_id: int, length: int,
+                        tier_alias: str = "") -> Optional[CacheFill]:
+        """Start an incremental read-through fill for a cold block the
+        fetch pipeline is streaming (reserves the full length up front
+        so per-stripe appends never allocate). None when the block
+        already exists, is being filled, or space cannot be found —
+        the fetch then serves without caching."""
+        from alluxio_tpu_torch.utils import ids as id_utils
+
+        session = id_utils.create_session_id()
+        try:
+            self.create_block(session, block_id,
+                              initial_bytes=max(1, length),
+                              tier_alias=tier_alias)
+            return CacheFill(self, session, block_id,
+                             self.get_temp_writer(session, block_id))
+        except AlreadyExistsError:
+            return None
+        except Exception:  # noqa: BLE001 - cache fill is best-effort
+            LOG.debug("cache fill for block %s failed to start",
+                      block_id, exc_info=True)
+            best_effort("cache-fill abort", self.abort_block,
+                        session, block_id)
+            return None
+
+    # -- removal / movement -------------------------------------------------
+    def remove_block(self, block_id: int, timeout: Optional[float] = 5.0) -> None:
+        lock = self._locks.lock_write(block_id, timeout)
+        if lock is None:
+            raise InvalidArgumentError(f"block {block_id} is busy")
+        try:
+            with self._alloc_lock:
+                meta = self.meta.get_block(block_id)
+                if meta is None:
+                    raise BlockDoesNotExistError(f"block {block_id} not cached")
+                meta.dir.remove_block(block_id)
+                meta.dir.release(meta.length)
+                self.pinned_blocks.discard(block_id)
+                self.master_pinned_blocks.discard(block_id)
+                self.prefetch_pinned_blocks.pop(block_id, None)
+            if os.path.exists(meta.path):
+                os.remove(meta.path)
+        finally:
+            lock.close()
+        self.annotator.on_remove(block_id)
+        self._emit("removed", block_id)
+
+    def move_block(self, block_id: int, dst_tier_alias: str) -> BlockMeta:
+        """Move a committed block to another tier (promote/demote)."""
+        lock = self._locks.lock_write(block_id, 5.0)
+        if lock is None:
+            raise InvalidArgumentError(f"block {block_id} is busy")
+        try:
+            with self._alloc_lock:
+                meta = self.meta.get_block(block_id)
+                if meta is None:
+                    raise BlockDoesNotExistError(f"block {block_id} not cached")
+                if meta.tier_alias == dst_tier_alias:
+                    return meta
+                dst = self._allocate_with_eviction(meta.length, dst_tier_alias)
+                new_meta = BlockMeta(block_id=block_id, length=meta.length,
+                                     dir=dst)
+                dst.reserve(meta.length)
+                os.replace(meta.path, new_meta.path)
+                meta.dir.remove_block(block_id)
+                meta.dir.release(meta.length)
+                dst.add_block(new_meta)
+            self._emit("moved", block_id)
+            return new_meta
+        finally:
+            lock.close()
+
+    # -- eviction -----------------------------------------------------------
+    def _allocate_with_eviction(self, size: int, tier_alias: str) -> StorageDir:
+        d = self._allocator.allocate(size, tier_alias)
+        for _ in range(self._eviction_retries):
+            if d is not None:
+                return d
+            freed = self._free_space_on_tier(size, tier_alias)
+            d = self._allocator.allocate(size, tier_alias)
+            if freed == 0 and d is None:
+                break
+        if d is None:
+            raise WorkerOutOfSpaceError(
+                f"cannot allocate {size}B on tier {tier_alias or 'ANY'}")
+        return d
+
+    def _free_space_on_tier(self, size: int, tier_alias: str) -> int:
+        tiers = self.meta.tiers if tier_alias == ANY_TIER else \
+            [self.meta.get_tier(tier_alias)]
+        freed = 0
+        for tier in tiers:
+            for d in tier.dirs:
+                freed += self._free_space_in_dir(d, size)
+                if freed >= size:
+                    return freed
+        return freed
+
+    def _free_space_in_dir(self, d: StorageDir, need: int) -> int:
+        """Evict coldest blocks from one dir; demote to the tier below when
+        it has room, else drop (re-fetchable cache by design)."""
+        import time
+
+        victims = self.annotator.sorted_blocks(d.block_ids())
+        freed = 0
+        below = self.meta.tier_below(d.tier.alias)
+        now = time.monotonic()
+        for bid in victims:
+            if freed >= need:
+                break
+            if bid in self.pinned_blocks or \
+                    bid in self.master_pinned_blocks:
+                continue
+            expiry = self.prefetch_pinned_blocks.get(bid)
+            if expiry is not None:
+                if expiry > now:
+                    continue
+                del self.prefetch_pinned_blocks[bid]  # expired: reclaim
+            lock = self._locks.try_lock_write(bid)
+            if lock is None:
+                continue  # in use by a reader; skip (reference retries)
+            try:
+                meta = d.get_block(bid)
+                if meta is None:
+                    continue
+                demoted = False
+                if below is not None:
+                    for dst in below.dirs:
+                        if dst.available_bytes >= meta.length and \
+                                dst.reserve(meta.length):
+                            new_meta = BlockMeta(block_id=bid,
+                                                 length=meta.length, dir=dst)
+                            os.replace(meta.path, new_meta.path)
+                            dst.add_block(new_meta)
+                            demoted = True
+                            break
+                if not demoted and os.path.exists(meta.path):
+                    os.remove(meta.path)
+                d.remove_block(bid)
+                d.release(meta.length)
+                freed += meta.length
+                if not demoted:
+                    self.annotator.on_remove(bid)
+                    self._emit("evicted", bid)
+                    self._m.counter("Worker.BlocksEvicted").inc()
+                else:
+                    self._emit("moved", bid)
+            finally:
+                lock.close()
+        return freed
+
+    def free_space(self, tier_alias: str, bytes_to_free: int) -> int:
+        """Explicit free (Free command from master / watermark restore)."""
+        with self._alloc_lock:
+            return self._free_space_on_tier(bytes_to_free, tier_alias)
+
+    # -- reporting ----------------------------------------------------------
+    def block_report(self) -> Dict[str, List[int]]:
+        return self.meta.blocks_on_tiers()
+
+    def store_meta(self) -> Tuple[Dict[str, int], Dict[str, int]]:
+        return self.meta.capacity_on_tiers(), self.meta.used_on_tiers()

@@ -31,6 +31,27 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    over all 2048 pages of the main path's files (2048 promotions, then
    2048 device hits), each file's pages equal to its device block, and
    one ``scaled_sum`` over all pages equal to the main path's set's;
+2c. worker: the port's ``BlockWorker`` (one MEM tier of the working set
+   plus 8 blocks, in ``/dev/shm`` when it has room) behind its
+   ``RpcServer`` on 127.0.0.1, with a block master and a file master
+   standing in (the block master frees a block a heartbeat reports
+   before its commit, as the JAX one does): (i) the 64 shards written by
+   short circuit (``LocalBlockOutStream``), 64 commits; (ii) a fresh
+   loader reads them through ``open_local_block`` leases into the device
+   tier (64 short-circuit blocks, every lease held while the loader is
+   open and released by ``close()``), epoch 2 is 64 device-tier hits,
+   then ``K`` chained ``scaled_sum`` calls equal the main path's chain
+   and the plain chain; then epoch 1 of four fresh loaders in turns
+   (stand-in files, leases, leases, stand-in files); (iii) 8 blocks over
+   gRPC (``GrpcBlockInStream``,
+   the loader's streamed route), equal to their files; (iv) the
+   prefetch loop at the JAX defaults (``hbm_fraction`` 0.25: DRAM
+   placements through the worker's ``async_cache`` from the block files
+   as UFS, pinned against eviction) over fresh block ids on the tier as
+   (i)-(iii) left it: two epochs in the oracle's order with every block
+   equal to its file, hits + late + misses = 64, at least one DRAM
+   placement, no failed placement, evictions but no pinned block among
+   them, and no pin left after the service closes;
 3. decode: four 32 MiB blocks of 64x64x3 records through
    ``batched_device_iterator`` and ``decode_image_records`` on the card,
    checked bit for bit against the same decode on the CPU;
@@ -65,7 +86,8 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    the card, not NVLink rates.
 
 It prints the card's name and power limit, one ``{"prefetch": {...}}``
-line, one ``{"page_cache": {...}}`` line, one ``{"train": {...}}``
+line, one ``{"page_cache": {...}}`` line, one ``{"worker": {...}}``
+line, one ``{"train": {...}}``
 line, one ``{"mesh": {...}}`` line, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
@@ -94,13 +116,24 @@ BLOCK_BYTES = 32 << 20   # bench.py's shard size
 NUM_BLOCKS = 64          # 64 x 32 MiB = the 2 GiB device working set
 K = 100                  # chained warm-tier scans on the main path
 #: prefetch phase: the JAX defaults' lookahead (16 blocks), a budget of
-#: that many blocks, every placement in the device tier (the one cut
-#: from the defaults: there is no worker for a DRAM placement)
+#: that many blocks, every placement in the device tier (2a keeps this
+#: cut from the defaults so its numbers stay comparable across runs; 2c
+#: runs the defaults' DRAM placements on the port's worker)
 PREFETCH_LOOKAHEAD = 16
 PREFETCH_HEARTBEAT_S = 0.1
 #: page-cache phase, at the JAX defaults: 1 MiB pages, a 512 MB host tier
 PAGE_BYTES = 1 << 20
 PAGE_CACHE_BYTES = 512 << 20
+#: worker phase: a MEM tier of the working set and eight blocks more
+#: (bench.py's worker_mem_bytes, 2 GiB + 256 MiB at full size), a 100 ms
+#: block heartbeat, the mount id of the block files' UFS, the blocks read
+#: over gRPC, and the container ids the prefetch step's fresh blocks
+#: start after
+WORKER_SPARE_BLOCKS = 8
+WORKER_HEARTBEAT_S = 0.1
+WORKER_MOUNT_ID = 1
+GRPC_BLOCKS = 8
+PREFETCH_CONTAINER_BASE = 100
 DECODE_BLOCKS = 4
 H = W = 64
 C = 3
@@ -337,7 +370,7 @@ class _ShardFile:
         if index != 0:
             fail(f"shard files hold one block, asked for {index}")
         if self._stream is None:
-            self._stream = LocalBlockInStream(
+            self._stream = LocalBlockInStream.from_path(
                 self._block_file, os.path.getsize(self._block_file))
         return self._stream
 
@@ -695,6 +728,553 @@ def page_cache_phase(device, workdir: str, main: dict) -> dict:
           + f"), pass 2 {two['s']:.4f} s ({two['hits']} device hits); "
           f"every file's pages equal its device block; scaled_sum {got} "
           f"== main path's set (kernel and plain)", flush=True)
+    return out
+
+
+# -- worker phase -------------------------------------------------------------
+class StandInBlockMaster:
+    """Stands in for the block master until its slice is ported: the calls
+    a worker makes (``get_worker_id``, ``register``, ``heartbeat``,
+    ``commit_block``) and those of the prefetch executor
+    (``get_worker_infos``, ``get_block_info(s)``), answered from what the
+    worker told it. Like the JAX master it knows a block from a commit or
+    from a persisted file (``know_blocks``) only: a heartbeat that reports
+    an unknown block gets a FREE for it, so a delta that outran its commit
+    would lose the block."""
+
+    def __init__(self) -> None:
+        import threading
+
+        self._lock = threading.Lock()
+        self.address = None
+        self.capacity = {}
+        self.used = {}
+        self.lengths = {}     # known blocks: id -> length
+        self.locations = {}   # located blocks: id -> tier
+        self.commits = 0
+        self.freed = []       # blocks a heartbeat reported before commit
+
+    def get_worker_id(self, address) -> int:
+        self.address = address
+        return 1
+
+    def register(self, worker_id, capacity, used, blocks, address=None):
+        with self._lock:
+            self.capacity, self.used = dict(capacity), dict(used)
+            self.locations = {b: t for t, ids in blocks.items()
+                              for b in ids if b in self.lengths}
+
+    def heartbeat(self, worker_id, used, added, removed,
+                  metrics_snapshot=None) -> dict:
+        with self._lock:
+            self.used = dict(used)
+            for b in removed:
+                self.locations.pop(b, None)
+            free = [b for ids in added.values() for b in ids
+                    if b not in self.lengths]
+            self.locations.update((b, t) for t, ids in added.items()
+                                  for b in ids if b in self.lengths)
+            self.freed += free
+        if free:
+            return {"command": "FREE", "data": free}
+        return {"command": "NOTHING", "data": []}
+
+    def commit_block(self, worker_id, used_on_tier, tier, block_id,
+                     length) -> None:
+        with self._lock:
+            self.lengths[block_id] = length
+            self.locations[block_id] = tier
+            self.used[tier] = used_on_tier
+            self.commits += 1
+
+    def know_blocks(self, lengths: dict) -> None:
+        with self._lock:
+            self.lengths.update(lengths)
+
+    def get_worker_infos(self):
+        from alluxio_tpu_torch.utils.wire import WorkerInfo
+
+        with self._lock:
+            return [WorkerInfo(
+                id=1, address=self.address,
+                capacity_bytes=sum(self.capacity.values()),
+                used_bytes=sum(self.used.values()),
+                capacity_bytes_on_tiers=dict(self.capacity),
+                used_bytes_on_tiers=dict(self.used),
+                block_count=len(self.locations))]
+
+    def get_block_info(self, block_id):
+        from alluxio_tpu_torch.utils.wire import BlockInfo, BlockLocation
+
+        with self._lock:
+            tier = self.locations.get(block_id)
+            return BlockInfo(
+                block_id=block_id, length=self.lengths.get(block_id, 0),
+                locations=[] if tier is None else [BlockLocation(
+                    worker_id=1, address=self.address, tier_alias=tier)])
+
+    def get_block_infos(self, block_ids):
+        return [self.get_block_info(b) for b in block_ids]
+
+
+class WorkerFS:
+    """Stands in for the file master and the client's block routing until
+    their slices: each path is one block (id ``block_id(container, 0)``
+    from the port's ``utils/ids``), persisted at its block file under
+    mount ``WORKER_MOUNT_ID``. A block the master locates on the worker
+    is read by short circuit (``LocalBlockInStream`` over an
+    ``open_local_block`` lease), any other through the worker by gRPC
+    with its UFS descriptor (``GrpcBlockInStream``): the JAX client's
+    ladder without its SHM rung. ``route="grpc"`` reads every block over
+    gRPC, the loader's streamed route."""
+
+    def __init__(self, files: dict, first_container: int, master, client,
+                 *, route: str = "lease", chunk_size: int = 1 << 20) -> None:
+        from alluxio_tpu_torch.utils import ids
+
+        self._ids = ids
+        self._files = {path: (first_container + i, block_file)
+                       for i, (path, (_, block_file)) in
+                       enumerate(files.items())}
+        self.block_master = master
+        self.fs_master = SimpleNamespace(
+            get_file_block_info_list=self._block_infos)
+        self._client = client
+        self._route = route
+        self._chunk = chunk_size
+        self.session_id = ids.create_session_id()
+        self.lease_opens = 0
+        self.lease_open_s = 0.0
+
+    def block_id(self, path: str) -> int:
+        return self._ids.block_id(self._files[path][0], 0)
+
+    def block_lengths(self) -> dict:
+        return {self.block_id(p): os.path.getsize(f)
+                for p, (_, f) in self._files.items()}
+
+    def get_status(self, path):
+        cid, block_file = self._files[path]
+        return SimpleNamespace(
+            path=path, file_id=self._ids.file_id_from_container(cid),
+            block_ids=[self.block_id(path)], ufs_path=block_file,
+            mount_id=WORKER_MOUNT_ID, persisted=True,
+            length=os.path.getsize(block_file))
+
+    def _block_infos(self, path):
+        return [SimpleNamespace(offset=0, block_info=SimpleNamespace(
+            block_id=self.block_id(path),
+            length=os.path.getsize(self._files[path][1])))]
+
+    def block_stream(self, path: str):
+        from alluxio_tpu_torch.client.block_streams import (
+            GrpcBlockInStream, LocalBlockInStream)
+
+        bid = self.block_id(path)
+        block_file = self._files[path][1]
+        if self._route == "lease" and \
+                self.block_master.get_block_info(bid).locations:
+            t = time.perf_counter()
+            stream = LocalBlockInStream(self._client, self.session_id, bid)
+            self.lease_open_s += time.perf_counter() - t
+            self.lease_opens += 1
+            return stream
+        length = os.path.getsize(block_file)
+        return GrpcBlockInStream(
+            self._client, bid, length, chunk_size=self._chunk,
+            ufs={"ufs_path": block_file, "offset": 0, "length": length,
+                 "mount_id": WORKER_MOUNT_ID})
+
+    def open_file(self, path, info=None, max_open_streams=1):
+        return _WorkerFile(self, path)
+
+
+class _WorkerFile:
+    def __init__(self, fs: WorkerFS, path: str) -> None:
+        self._fs = fs
+        self._path = path
+        self._stream = None
+
+    def block_stream(self, index: int):
+        if index != 0:
+            fail(f"{self._path} holds one block, asked for {index}")
+        if self._stream is None:
+            self._stream = self._fs.block_stream(self._path)
+        return self._stream
+
+    def close(self) -> None:
+        if self._stream is not None:
+            self._stream.close()
+            self._stream = None
+
+
+def start_worker(workdir: str, tier_dir: str, tier_bytes: int, master):
+    """The port's worker (one MEM tier of ``tier_bytes`` in ``tier_dir``,
+    the main path's block files as its UFS) behind the port's RPC
+    server on 127.0.0.1; returns (worker, server, client)."""
+    from alluxio_tpu_torch.conf import Configuration, Keys, Templates
+    from alluxio_tpu_torch.rpc.clients import WorkerClient
+    from alluxio_tpu_torch.rpc.core import RpcServer
+    from alluxio_tpu_torch.rpc.worker_service import worker_service
+    from alluxio_tpu_torch.underfs.registry import UfsManager
+    from alluxio_tpu_torch.worker.process import BlockWorker
+
+    conf = Configuration(load_env=False)
+    conf.set(Keys.WORKER_TIERED_STORE_LEVELS, 1)
+    conf.set(Keys.WORKER_HOSTNAME, "localhost")
+    conf.set(Keys.WORKER_SHM_DIR, tier_dir)
+    conf.set(Templates.WORKER_TIER_DIRS_PATH.format(0),
+             os.path.join(tier_dir, "mem"))
+    conf.set(Templates.WORKER_TIER_DIRS_QUOTA.format(0), str(tier_bytes))
+    conf.set(Keys.WORKER_BLOCK_HEARTBEAT_INTERVAL,
+             f"{int(WORKER_HEARTBEAT_S * 1000)}ms")
+    ufs = UfsManager()
+    ufs.add_mount(WORKER_MOUNT_ID, workdir)
+    worker = BlockWorker(conf, master, ufs_manager=ufs)
+    server = RpcServer(bind_host="127.0.0.1", port=0)
+    server.add_service(worker_service(worker))
+    worker.address.rpc_port = worker.address.data_port = server.start()
+    worker.start()  # registers, then heartbeats
+    return worker, server, WorkerClient(f"127.0.0.1:{worker.address.rpc_port}")
+
+
+def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
+    """(2c): the port's worker serves the main path's blocks: a cold
+    write-through by short circuit, a warm read by lease into a fresh
+    loader and the warm scan, the streamed route over gRPC, and the
+    prefetch loop at the JAX defaults, its DRAM placements landing in the
+    worker's MEM tier."""
+    import torch
+
+    from alluxio_tpu_torch.client.block_streams import LocalBlockOutStream
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.rpc.core import RpcChannel
+
+    files = main["files"]
+    n = len(files)
+    # 2b's page files are not read again: give their room back
+    shutil.rmtree(os.path.join(workdir, "pc"), ignore_errors=True)
+    tier_bytes = (n + WORKER_SPARE_BLOCKS) * BLOCK_BYTES
+    shm_free = None
+    if Path("/dev/shm").is_dir():
+        st = os.statvfs("/dev/shm")
+        shm_free = st.f_bavail * st.f_frsize
+    print(f"worker phase: /dev/shm free {shm_free} bytes; MEM tier "
+          f"{tier_bytes} bytes", flush=True)
+    tier_dir = block_dir(tier_bytes)
+    master = StandInBlockMaster()
+    worker, server, client = start_worker(workdir, tier_dir, tier_bytes,
+                                          master)
+    m = metrics()
+    out = {"blocks": n, "block_bytes": BLOCK_BYTES, "tier_dir": tier_dir,
+           "tier_bytes": tier_bytes, "dev_shm_free_bytes": shm_free,
+           "heartbeat_s": WORKER_HEARTBEAT_S}
+    try:
+        # (i) cold write-through by short circuit
+        fs = WorkerFS(files, 1, master, client)
+        views = {p: np.memmap(f, np.uint8, "r") for p, (_, f) in files.items()}
+        t = time.perf_counter()
+        for path in files:
+            with LocalBlockOutStream(client, fs.session_id,
+                                     fs.block_id(path),
+                                     size_hint=BLOCK_BYTES) as stream:
+                stream.write(views[path])
+        write_s = time.perf_counter() - t
+        del views
+        time.sleep(3 * WORKER_HEARTBEAT_S)  # deltas reach the master
+        report = worker.store.block_report()["MEM"]
+        if sorted(report) != sorted(fs.block_lengths()) or \
+                master.commits != n or master.freed:
+            fail(f"worker cold write: {len(report)} blocks on the worker, "
+                 f"{master.commits} commits, freed as orphans "
+                 f"{master.freed}; want {n}, {n}, none")
+        out["cold_write"] = {"s": write_s,
+                             "gb_per_s": n * BLOCK_BYTES / write_s / 1e9,
+                             "commits": master.commits}
+
+        # (ii) warm read by short circuit, then the warm scan
+        sc = m.counter("Client.JaxShortCircuitBlocks")
+        hits = m.counter("Client.JaxHbmHits")
+        sc0 = sc.count
+        loader = DeviceBlockLoader(fs, list(files), device=device,
+                                   hbm_bytes=n * BLOCK_BYTES + (64 << 20),
+                                   prefetch=2, dtype=np.int32)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = list(loader.epoch())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            hits0 = hits.count
+            blocks = list(loader.epoch())
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            held = worker.store.active_locks(), \
+                len(worker._short_circuit_leases)
+            if sc.count - sc0 != n or fs.lease_opens != n:
+                fail(f"worker read: {sc.count - sc0} short-circuit blocks, "
+                     f"{fs.lease_opens} leases, want {n}")
+            if held != (n, n):
+                fail(f"worker read: {held[0]} read locks and {held[1]} "
+                     f"leases held while the loader is open, want {n}")
+            if hits.count - hits0 != n or \
+                    any(a is not b for a, b in zip(first, blocks)):
+                fail(f"worker read epoch 2: {hits.count - hits0} "
+                     f"device-tier hits, want {n}")
+            check_order("worker read", blocks, [SimpleNamespace(path=p)
+                                                for p in files], main)
+            del first
+            x = torch.cat(blocks)
+            rk.launches = 0
+            acc, scan_ms = timed(lambda: chain(rk.scaled_sum, x, k))
+            launches = rk.launches
+            got = int(acc)
+        finally:
+            loader.close()
+        released = worker.store.active_locks(), \
+            len(worker._short_circuit_leases)
+        if released != (0, 0):
+            fail(f"worker read: {released[0]} read locks and {released[1]} "
+                 f"leases left after the loader closed")
+        if launches != k:
+            fail(f"worker phase launched scaled_sum {launches} times, "
+                 f"want {k}")
+        plain = int(chain(rk.scaled_sum_reference, x, k))
+        del x, blocks
+        if not got == main["chain"] == plain:
+            fail(f"worker scan: kernel chain {got}, main path's chain "
+                 f"{main['chain']}, plain chain {plain}")
+        out["lease_read"] = {
+            "epoch1_s": t1 - t0, "epoch2_s": t2 - t1,
+            "gb_per_s": n * BLOCK_BYTES / (t1 - t0) / 1e9,
+            "main_path_epoch1_s": main["epoch1_s"],
+            "short_circuit_blocks": n, "device_tier_hits": n,
+            "lease_open_ms": fs.lease_open_s * 1e3 / n,
+            "scan_ms": scan_ms, "scan_launches": launches, "chain": got}
+
+        out["route_turns"] = route_turns(device, files, master, client)
+
+        # (iii) the streamed route: GrpcBlockInStream, the worker's cache
+        grpc_files = dict(list(files.items())[:GRPC_BLOCKS])
+        gfs = WorkerFS(grpc_files, 1, master, client, route="grpc")
+        streamed = m.counter("Client.JaxStreamedBlocks")
+        s0 = streamed.count
+        loader = DeviceBlockLoader(gfs, list(grpc_files), device=device,
+                                   prefetch=2, dtype=np.int32)
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got_blocks = list(loader.epoch())
+            torch.cuda.synchronize()
+            grpc_s = time.perf_counter() - t
+        finally:
+            loader.close()
+        if streamed.count - s0 != GRPC_BLOCKS:
+            fail(f"worker gRPC route: {streamed.count - s0} streamed "
+                 f"blocks, want {GRPC_BLOCKS}")
+        check_order("worker gRPC route", got_blocks,
+                    [SimpleNamespace(path=p) for p in grpc_files], main)
+        del got_blocks
+        out["grpc_read"] = {
+            "blocks": GRPC_BLOCKS, "s": grpc_s,
+            "gb_per_s": GRPC_BLOCKS * BLOCK_BYTES / grpc_s / 1e9}
+        out["prefetch"] = worker_prefetch(device, worker, master, client,
+                                          main, fs)
+        print(f"worker: cold write {n} x {BLOCK_BYTES >> 20} MiB by short "
+              f"circuit {write_s:.3f} s "
+              f"({out['cold_write']['gb_per_s']:.2f} GB/s), {master.commits}"
+              f" commits; lease read epoch 1 {t1 - t0:.3f} s against the "
+              f"main path's {main['epoch1_s']:.3f} s, epoch 2 {t2 - t1:.4f}"
+              f" s ({n} device-tier hits), lease open "
+              f"{out['lease_read']['lease_open_ms']:.3f} ms, open+close RPC"
+              f" {out['prefetch']['lease_rpc_pair_ms']:.3f} ms; scan K={k}"
+              f" {scan_ms:.2f} ms, acc {got} == main path == plain, "
+              f"launches {launches}; gRPC route {GRPC_BLOCKS} blocks "
+              f"{grpc_s:.3f} s ({out['grpc_read']['gb_per_s']:.2f} GB/s)",
+              flush=True)
+    finally:
+        server.stop()
+        worker.stop()  # heartbeats, then the async-cache threads
+        RpcChannel.shutdown_pool()
+        worker.ufs_manager.close()
+        shutil.rmtree(tier_dir, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
+def route_turns(device, files: dict, master, client) -> list:
+    """Epoch 1 of a fresh loader (no device tier) over the same 64
+    blocks, in turns: the stand-in's block files, the worker's leases,
+    the leases again, the stand-in again. Each turn's time and the
+    consumer's wait for the producer (the loader's stall report) say
+    whether the lease route's extra time is on the producer's side."""
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+
+    turns = []
+    for route in ("stand-in", "lease", "lease", "stand-in"):
+        src = ShardSource(files) if route == "stand-in" else \
+            WorkerFS(files, 1, master, client)
+        loader = DeviceBlockLoader(src, list(files), device=device,
+                                   prefetch=2, dtype=np.int32)
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in loader.epoch():
+                pass
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            wait = loader.stall_report()["total_wait_s"]
+        finally:
+            loader.close()
+        turns.append({"route": route, "s": dt, "consumer_wait_s": wait})
+    print("worker route turns (epoch 1, no device tier): " + ", ".join(
+        f"{t['route']} {t['s']:.3f} s (consumer waits {t['consumer_wait_s']:.3f}"
+        f" s)" for t in turns), flush=True)
+    return turns
+
+
+def worker_prefetch(device, worker, master, client, main: dict,
+                    warm_fs: WorkerFS) -> dict:
+    """(2c iv): the prefetch loop at the JAX defaults (a quarter of the
+    budget for device-tier placements, the rest DRAM placements in the
+    worker's MEM tier) over fresh block ids of the main path's files, on
+    the tier as (i)-(iii) left it. After the warm-up gate a second reader
+    leases what is left of (i)'s blocks (``warm_fs``) once each, timing
+    the lease RPCs; that makes the pinned placements the least recently
+    used blocks, so the epoch's evictions reach them first, and the pin
+    veto must keep every one."""
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.prefetch import PrefetchService
+
+    files = main["files"]
+    n = len(files)
+    fs = WorkerFS(files, 1 + PREFETCH_CONTAINER_BASE, master, client)
+    master.know_blocks(fs.block_lengths())  # persisted files' blocks
+    store = worker.store
+    evictions = {"count": 0, "while_pinned": 0, "pinned_victims": []}
+
+    def on_event(event, block_id):  # runs under the store's alloc lock
+        if event == "evicted":
+            evictions["count"] += 1
+            evictions["while_pinned"] += bool(store.prefetch_pinned_blocks)
+            if block_id in store.prefetch_pinned_blocks:
+                evictions["pinned_victims"].append(block_id)
+
+    store.add_listener(on_event)
+    m = metrics()
+    counters = {k: m.counter(f"Client.Prefetch{k}") for k in
+                ("LoadsIssued", "BlocksPinned", "HbmAdopted",
+                 "HbmAdoptFailures")}
+    base = {k: c.count for k, c in counters.items()}
+
+    def worker_client(address):
+        if address.key() != worker.address.key():
+            fail(f"worker prefetch: asked for worker {address.key()}")
+        return client
+
+    svc = PrefetchService.from_fs(
+        fs, list(files), seed=SEED, lookahead_blocks=PREFETCH_LOOKAHEAD,
+        budget_bytes=PREFETCH_LOOKAHEAD * BLOCK_BYTES, hbm_fraction=0.25,
+        heartbeat_interval_s=PREFETCH_HEARTBEAT_S,
+        worker_client_fn=worker_client)
+    failed = []
+    on_load_failed = svc.scheduler.on_load_failed
+
+    def count_failure(block_id):
+        failed.append(block_id)
+        on_load_failed(block_id)
+
+    svc.scheduler.on_load_failed = count_failure
+    side = torch.cuda.Stream(device=device)
+    loader = None
+    epochs = []
+    try:
+        loader = DeviceBlockLoader(fs, list(files), device=device,
+                                   hbm_bytes=n * BLOCK_BYTES + (64 << 20),
+                                   prefetch=2, dtype=np.int32,
+                                   prefetch_service=svc)
+        t0 = time.perf_counter()
+        svc.start()
+        if not svc.wait_ready(PREFETCH_LOOKAHEAD, timeout_s=60.0):
+            fail(f"worker prefetch: {PREFETCH_LOOKAHEAD} placements not "
+                 f"ready within 60 s: {svc.stats()}")
+        warm_s = time.perf_counter() - t0
+        # a second reader of the warm set: one lease of each of (i)'s
+        # blocks still on the worker, open and close RPCs only
+        warm_ids = warm_fs.block_lengths()
+        warm = [b for b in store.block_report()["MEM"] if b in warm_ids]
+        pinned_at_touch = len(store.prefetch_pinned_blocks)
+        t = time.perf_counter()
+        for bid in warm:
+            client.open_local_block(warm_fs.session_id, bid)
+            client.close_local_block(warm_fs.session_id, bid)
+        touch_s = time.perf_counter() - t
+        for e in range(2):
+            st0 = svc.stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.cuda.stream(side):
+                blocks = list(loader.epoch())
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            st = svc.stats()
+            ep = {"epoch": e, "s": dt,
+                  **{k: st[k] - st0[k] for k in ("hits", "late", "misses")}}
+            epochs.append(ep)
+            check_order(f"worker prefetch epoch {e}", blocks,
+                        svc.oracle.epoch_sequence(e), main)
+            if ep["hits"] + ep["late"] + ep["misses"] != n:
+                fail(f"worker prefetch epoch {e}: hits {ep['hits']} + late "
+                     f"{ep['late']} + misses {ep['misses']} != {n}")
+        del blocks
+        stats = svc.stats()
+    finally:
+        svc.close()  # unpins every block it placed
+        if loader is not None:
+            loader.close()
+    placed = {k: c.count - base[k] for k, c in counters.items()}
+    left_pinned = sorted(store.prefetch_pinned_blocks)
+    if placed["BlocksPinned"] < 1 or placed["LoadsIssued"] < 1:
+        fail(f"worker prefetch: no DRAM placement landed in the worker's "
+             f"MEM tier: {placed}")
+    if failed or placed["HbmAdoptFailures"]:
+        fail(f"worker prefetch: placements failed: {failed}, "
+             f"{placed['HbmAdoptFailures']} device-tier adopts")
+    if evictions["pinned_victims"] or left_pinned:
+        fail(f"worker prefetch: pinned blocks evicted "
+             f"{evictions['pinned_victims']}, pins left after close "
+             f"{left_pinned}")
+    if evictions["count"] == 0 or pinned_at_touch == 0:
+        fail(f"worker prefetch: {evictions['count']} evictions, "
+             f"{pinned_at_touch} pins when the warm set was touched: the "
+             f"pin veto went untried")
+    e0 = epochs[0]
+    out = {"hbm_fraction": 0.25, "lookahead_blocks": PREFETCH_LOOKAHEAD,
+           "budget_bytes": PREFETCH_LOOKAHEAD * BLOCK_BYTES,
+           "warm_up_s": warm_s, "epochs": epochs,
+           "dram_loads_issued": placed["LoadsIssued"],
+           "dram_blocks_pinned": placed["BlocksPinned"],
+           "hbm_adopts": placed["HbmAdopted"], "failed_placements": 0,
+           "evictions": evictions["count"],
+           "evictions_while_pinned": evictions["while_pinned"],
+           "pinned_evicted": 0, "late_arrivals": stats["late_arrivals"],
+           "pinned_at_touch": pinned_at_touch, "warm_leases": len(warm),
+           "lease_rpc_pair_ms": touch_s * 1e3 / max(1, len(warm))}
+    print(f"worker prefetch (hbm_fraction 0.25): warm-up gate "
+          f"{warm_s:.3f} s; epoch 0 {e0['s']:.3f} s hit/late/miss "
+          f"{e0['hits']}/{e0['late']}/{e0['misses']}; epoch 1 "
+          f"{epochs[1]['s']:.4f} s; {placed['LoadsIssued']} DRAM loads, "
+          f"{placed['BlocksPinned']} pins, {placed['HbmAdopted']} device "
+          f"adopts, no failure; {evictions['count']} evictions "
+          f"({evictions['while_pinned']} while pins were held), no pinned "
+          f"block evicted, no pin left", flush=True)
     return out
 
 
@@ -1542,6 +2122,7 @@ def main() -> int:
         shard_files = main["files"]
         prefetch = prefetch_phase(device, main, K)
         page_cache = page_cache_phase(device, workdir, main)
+        worker = worker_phase(device, workdir, main, K)
         del main["blocks"]
         files = record_files(workdir, DECODE_BLOCKS, BLOCK_BYTES)
         decode_phase(device, files, DECODE_BLOCKS, BLOCK_BYTES)
@@ -1560,6 +2141,7 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"prefetch": prefetch}), flush=True)
     print(json.dumps({"page_cache": page_cache}), flush=True)
+    print(json.dumps({"worker": worker}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"kernels": [{
@@ -1572,6 +2154,7 @@ def main() -> int:
             "main": main["launches"],
             "prefetch": prefetch["scan_launches"],
             "page_cache": page_cache["scan_launches"],
+            "worker": worker["launches"],
             "train": train["kernel_launches"]["scaled_sum"],
             "mesh": mesh["kernel_launches"]["scaled_sum"]},
         "max_abs_err": kern["max_abs_err"],

@@ -104,7 +104,8 @@ def test_loader_chain_on_card(cuda, tmp_path):
             return SimpleNamespace(file_id=fid, block_ids=[fid])
 
         def open_file(self, p, info=None, max_open_streams=1):
-            stream = LocalBlockInStream(files[p], os.path.getsize(files[p]))
+            stream = LocalBlockInStream.from_path(files[p],
+                                                  os.path.getsize(files[p]))
             return SimpleNamespace(block_stream=lambda i: stream,
                                    close=stream.close)
 
@@ -133,16 +134,22 @@ def test_loader_chain_on_card(cuda, tmp_path):
         loader.close()
 
 
-def _smoke():
-    """``chip_smoke.py`` as a module (its stand-in worker and checks)."""
+def _module(name, relpath):
+    """A file of the repository as a module, loaded by its path (so that
+    a package named ``tests`` installed elsewhere cannot shadow it)."""
     import importlib.util
     from pathlib import Path
 
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
+    path = Path(__file__).resolve().parents[1] / relpath
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _smoke():
+    """``chip_smoke.py`` as a module (its stand-in worker and checks)."""
+    return _module("chip_smoke", "chip_smoke.py")
 
 
 def _prefetching_loader(tmp_path, device, n=4, words=1 << 21):
@@ -342,3 +349,8 @@ def test_world_one_nccl_mesh_matches_one_card(cuda, tmp_path):
                                     (4, 32, 64))["bit_identical"]
     finally:
         dist.destroy_process_group()
+
+
+def test_worker_lease_loader_on_card(cuda, tmp_path):
+    _module("torch_worker", "tests/testutils/torch_worker.py") \
+        .lease_loader_case(tmp_path, cuda)

@@ -41,7 +41,15 @@ def test_importing_every_module_loads_no_jax():
               "client.cache", "client.cache.meta",
               "client.cache.page_store", "client.cache.manager",
               "client.cache.stream", "client.cache.hbm_store",
-              "client.cache.evictor"):
+              "client.cache.evictor", "client.block_streams",
+              "utils.exceptions", "utils.ids", "utils.retry", "utils.locks",
+              "utils.fingerprint", "conf", "conf.configuration",
+              "conf.property_key", "qos", "underfs", "underfs.base",
+              "underfs.local", "underfs.registry", "worker", "worker.meta",
+              "worker.lock_manager", "worker.allocator", "worker.annotator",
+              "worker.tiered_store", "worker.ufs_io", "worker.master_sync",
+              "worker.ufs_manager", "worker.process", "rpc", "rpc.core",
+              "rpc.worker_service", "rpc.clients"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -519,3 +519,108 @@ class TestEndToEnd:
         with svc:
             svc.start()
             assert svc.wait_ready(2, timeout_s=30.0)
+
+
+class TestPortWorker:
+    """DRAM placements on the port's own worker (in a JAX cluster with no
+    worker of its own) at the default ``hbm_fraction`` of 0.25: the port's
+    service and loader reach the same outcomes as the JAX service and
+    loader on the same seed, over corpora of the same shape."""
+
+    N_FILES, FILE_BLOCKS = 2, 4
+
+    def _run(self, pkg, fs, paths):
+        """Two tick-driven epochs, each after every placement is ready;
+        returns per-epoch outcomes, the placement split and the bytes."""
+        from alluxio_tpu.metrics import metrics as jax_metrics
+        from alluxio_tpu_torch.metrics import metrics
+
+        n = self.N_FILES * self.FILE_BLOCKS
+        kw = dict(seed=11, lookahead_blocks=n, budget_bytes=n * BLOCK,
+                  hbm_fraction=0.25)
+        if pkg == "jax":
+            from alluxio_tpu.client.jax_io import DeviceBlockLoader
+            from alluxio_tpu.conf import Keys
+
+            conf = fs.conf.copy()
+            conf.set(Keys.PREFETCH_ENABLED, True)
+            conf.set(Keys.PREFETCH_LOOKAHEAD_BLOCKS, n)
+            conf.set(Keys.PREFETCH_BUDGET_BYTES, n * BLOCK)
+            conf.set(Keys.PREFETCH_HBM_FRACTION, 0.25)
+            svc = jp.PrefetchService.from_conf(conf, fs, paths, seed=11)
+            loader = DeviceBlockLoader(fs, paths, hbm_bytes=4 * n * BLOCK,
+                                       prefetch_service=svc)
+            m = jax_metrics()
+        else:
+            svc = PrefetchService.from_fs(fs, paths, **kw)
+            loader = _loader(fs, paths, hbm_bytes=4 * n * BLOCK,
+                             prefetch_service=svc)
+            m = metrics()
+        loads = m.counter("Client.PrefetchLoadsIssued")
+        adopts = m.counter("Client.PrefetchHbmAdopted")
+        loads0, adopts0 = loads.count, adopts.count
+        out = {"epochs": [], "bytes": []}
+        try:
+            for epoch in (0, 1):
+                _tick_until_ready(svc, n)
+                base = svc.stats()
+                if epoch == 0:
+                    out["dram_loads"] = loads.count - loads0
+                    out["hbm_adopts"] = adopts.count - adopts0
+                    out["pinned"] = len(svc.agent._executor.pinned_blocks())
+                blocks = [np.asarray(b).tobytes() for b in loader.epoch()]
+                st = svc.stats()
+                out["epochs"].append({k: st[k] - base[k]
+                                      for k in ("hits", "late", "misses")})
+                out["bytes"].append(blocks)
+        finally:
+            loader.close()
+            svc.close()
+        return out
+
+    def test_dram_placements_on_port_worker_match_jax(self, tmp_path):
+        from alluxio_tpu.conf import Keys
+
+        from tests.testutils.torch_worker import PortWorker
+
+        with LocalCluster(
+                str(tmp_path), num_workers=0, block_size=BLOCK,
+                start_worker_heartbeats=True,
+                conf_overrides={Keys.USER_SHM_ENABLED: False,
+                                Keys.MASTER_WORKER_TIMEOUT: "10000min"}
+        ) as cluster:
+            pw = PortWorker(cluster, str(tmp_path), heartbeat_s=0.05)
+            try:
+                fs = cluster.file_system()
+                size = self.FILE_BLOCKS * BLOCK
+                runs = {}
+                for pkg in ("jax", "port"):
+                    paths = _write_cold_corpus(cluster, fs, self.N_FILES,
+                                               size, base=f"/pf-{pkg}")
+                    # _write_cold_corpus's payloads (reading the files
+                    # back would cache them and spoil the cold start)
+                    rng = np.random.default_rng(0)
+                    want = [rng.integers(0, 255, size=size,
+                                         dtype=np.uint8).tobytes()
+                            for _ in paths]
+                    runs[pkg] = self._run(pkg, fs, paths)
+                    order = [(r.path, r.block_index) for r in AccessOracle(
+                        DatasetManifest.from_fs(fs, paths),
+                        seed=11).epoch_sequence(0)]
+                    files = dict(zip(paths, want))
+                    assert runs[pkg]["bytes"][0] == [
+                        files[p][i * BLOCK:(i + 1) * BLOCK]
+                        for p, i in order]
+                    assert not pw.worker.store.prefetch_pinned_blocks
+            finally:
+                pw.stop()
+        jax_run, port_run = runs["jax"], runs["port"]
+        # DRAM placements landed on the port's worker, and device-tier
+        # adopts, in both runs
+        assert port_run["dram_loads"] > 0 and port_run["hbm_adopts"] > 0
+        summary = {k: (jax_run[k], port_run[k]) for k in
+                   ("epochs", "dram_loads", "hbm_adopts", "pinned")}
+        for key in ("epochs", "dram_loads", "hbm_adopts", "pinned"):
+            assert port_run[key] == jax_run[key], summary
+        assert [len(e) for e in port_run["bytes"]] == \
+            [len(e) for e in jax_run["bytes"]]

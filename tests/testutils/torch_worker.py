@@ -1,0 +1,163 @@
+"""The port's worker in a JAX ``LocalCluster``: a port ``BlockWorker``
+behind a port ``RpcServer``, registered with the cluster's master through
+the JAX master clients, as ``LocalCluster._start_worker`` registers a JAX
+worker. Shared by the port's worker and prefetch tests.
+
+``lease_loader_case`` drives the port's worker alone (an in-memory
+block master, no JAX) on a given device; the card tests and the CPU
+stream tests both run it."""
+
+import os
+
+
+class PortWorker:
+    def __init__(self, cluster, base: str, *, mem_bytes: int = 4 << 20,
+                 heartbeat_s: float = 0.0) -> None:
+        """``heartbeat_s`` > 0 starts the worker's heartbeats at that
+        interval; 0 registers it only (tests then tick it by hand)."""
+        from alluxio_tpu.rpc.clients import BlockMasterClient, FsMasterClient
+        from alluxio_tpu_torch.conf import Configuration, Keys
+        from alluxio_tpu_torch.rpc.core import RpcServer
+        from alluxio_tpu_torch.rpc.worker_service import worker_service
+        from alluxio_tpu_torch.utils.wire import (TieredIdentity,
+                                                  WorkerNetAddress)
+        from alluxio_tpu_torch.worker.process import BlockWorker
+        from alluxio_tpu_torch.worker.ufs_manager import WorkerUfsManager
+
+        wdir = os.path.join(base, "port-worker")
+        conf = Configuration(load_env=False)
+        conf.set(Keys.WORKER_DATA_FOLDER, wdir)
+        conf.set(Keys.WORKER_SHM_DIR, os.path.join(wdir, "shm"))
+        conf.set(Keys.WORKER_RAMDISK_SIZE, mem_bytes)
+        conf.set(Keys.WORKER_HOSTNAME, "localhost")
+        if heartbeat_s > 0:
+            conf.set(Keys.WORKER_BLOCK_HEARTBEAT_INTERVAL,
+                     f"{int(heartbeat_s * 1000)}ms")
+        address = WorkerNetAddress(
+            host="localhost", rpc_port=0,
+            shm_dir=os.path.join(wdir, "shm"),
+            tiered_identity=TieredIdentity.from_spec(
+                "host=localhost-port,slice=slice0"))
+        fs_client = FsMasterClient(cluster.master.address)
+        self.worker = BlockWorker(
+            conf, BlockMasterClient(cluster.master.address), fs_client,
+            ufs_manager=WorkerUfsManager(fs_client), address=address)
+        self.server = RpcServer(bind_host="127.0.0.1", port=0)
+        self.server.add_service(worker_service(self.worker))
+        self.port = self.server.start()
+        address.rpc_port = address.data_port = self.port
+        if heartbeat_s > 0:
+            self.worker.start()
+        else:
+            self.worker.register_with_master()
+
+    def stop(self) -> None:
+        self.server.stop()
+        self.worker.stop()
+
+
+class StandInMaster:
+    """The block-master calls a worker makes, answered in memory."""
+
+    def __init__(self):
+        self.commits = []
+
+    def get_worker_id(self, address):
+        return 1
+
+    def register(self, *args):
+        pass
+
+    def heartbeat(self, *args):
+        return {"command": "NOTHING", "data": []}
+
+    def commit_block(self, worker_id, used, tier, block_id, length):
+        self.commits.append(block_id)
+
+
+def lease_loader_case(tmp_path, device, n=3, words=1 << 20):
+    """Blocks written through ``LocalBlockOutStream`` into the port's
+    worker, read into the loader on ``device`` through short-circuit
+    leases: each device block equals its file, and every host -> device
+    copy finds its block's lease held until the staging copy is done."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from alluxio_tpu_torch.client import torch_io
+    from alluxio_tpu_torch.client.block_streams import (LocalBlockInStream,
+                                                        LocalBlockOutStream)
+    from alluxio_tpu_torch.conf import Configuration, Keys, Templates
+    from alluxio_tpu_torch.rpc.clients import WorkerClient
+    from alluxio_tpu_torch.rpc.core import RpcServer
+    from alluxio_tpu_torch.rpc.worker_service import worker_service
+    from alluxio_tpu_torch.utils import ids
+    from alluxio_tpu_torch.worker.process import BlockWorker
+
+    conf = Configuration(load_env=False)
+    conf.set(Keys.WORKER_TIERED_STORE_LEVELS, 1)
+    conf.set(Templates.WORKER_TIER_DIRS_PATH.format(0), str(tmp_path / "mem"))
+    conf.set(Templates.WORKER_TIER_DIRS_QUOTA.format(0),
+             str(2 * n * words * 4))
+    master = StandInMaster()
+    worker = BlockWorker(conf, master)
+    server = RpcServer(bind_host="127.0.0.1", port=0)
+    server.add_service(worker_service(worker))
+    worker.address.rpc_port = server.start()
+    worker.register_with_master()
+    client = WorkerClient(f"127.0.0.1:{worker.address.rpc_port}")
+    session = ids.create_session_id()
+    files, held = {}, []
+    try:
+        for i in range(n):
+            bid = ids.block_id(i + 1, 0)
+            data = np.random.default_rng(300 + i).integers(
+                -2**31, 2**31 - 1, size=words, dtype=np.int32)
+            with LocalBlockOutStream(client, session, bid,
+                                     size_hint=data.nbytes) as out:
+                out.write(data)
+            files[f"/w{i}"] = (bid, data)
+        assert sorted(master.commits) == sorted(b for b, _ in files.values())
+
+        class Source:
+            def get_status(self, p):
+                return SimpleNamespace(file_id=files[p][0] >> 24,
+                                       block_ids=[files[p][0]])
+
+            def open_file(self, p, info=None, max_open_streams=1):
+                stream = LocalBlockInStream(client, session, files[p][0])
+                return SimpleNamespace(block_stream=lambda i: stream,
+                                       close=stream.close)
+
+        copy = torch_io.host_to_device
+
+        def watched(host, dev):
+            # the lease's read lock is held across the staging copy
+            before = worker.store.active_locks()
+            out = copy(host, dev)
+            held.append((len(held), before, worker.store.active_locks()))
+            return out
+
+        torch_io.host_to_device = watched
+        loader = torch_io.DeviceBlockLoader(Source(), list(files),
+                                            device=device,
+                                            hbm_bytes=2 * n * words * 4,
+                                            dtype=np.int32)
+        try:
+            blocks = list(loader.epoch())
+            for block, (_, data) in zip(blocks, files.values()):
+                assert block.device.type == torch.device(device).type
+                assert torch.equal(block.cpu(), torch.from_numpy(data))
+            assert worker.store.active_locks() == n
+        finally:
+            loader.close()
+            torch_io.host_to_device = copy
+        # the i-th copy (in file order) finds at least its own block's
+        # lease and those before it held, before and after it
+        assert len(held) == n
+        assert all(a > i and b > i for i, a, b in held)
+        assert worker.store.active_locks() == 0
+    finally:
+        server.stop()
+        worker.stop()
