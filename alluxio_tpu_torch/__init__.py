@@ -4,7 +4,16 @@ The PyTorch port of ``alluxio_tpu``'s device layer, for an NVIDIA Hopper
 card (sm_90a). Module paths mirror the JAX package so each counterpart is
 easy to find:
 
-- ``client/block_streams.py``: the short-circuit mmap block stream;
+- ``client/block_store.py``: ``BlockStoreClient``, the ladder that opens
+  a block's stream (the SHM plane of ``client/shm_transport.py``, the
+  short-circuit lease, the striped remote read of
+  ``client/remote_read.py``, the UFS read-through);
+- ``client/block_streams.py``: the short-circuit mmap, remote and write
+  block streams;
+- ``worker/``, ``rpc/``: the block worker (tiered store, SHM leases) and
+  its gRPC data server and client;
+- ``native/``: the host C++ runtime (the page pre-fault, the small-read
+  plan executor), built with g++ at first use;
 - ``client/torch_io.py``: ``DeviceBlockLoader`` (host -> device with
   prefetch) and ``batched_device_iterator``;
 - ``client/cache/hbm_store.py``: the device page store (pin leases,

@@ -31,6 +31,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from alluxio_tpu_torch import native
 from alluxio_tpu_torch.client.cache.hbm_store import (HbmPageStore,
                                                       host_to_device,
                                                       order_after, side_copy)
@@ -440,8 +441,9 @@ class DeviceBlockLoader:
                     with annotate("atpu.loader.host_read"):
                         host = self._host_bytes(path, index)
                         if host.size:
-                            # pre-fault mmap pages off the consumer's clock
-                            host[::4096].max()
+                            # pre-fault every page off the consumer's
+                            # clock (natively: GIL-free, a byte a page)
+                            native.prefault(host)
                     bucket = getattr(self._tls, "last_bucket", "unknown")
                     if ref is not None:
                         if outcome != "stale":

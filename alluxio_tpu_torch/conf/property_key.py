@@ -1,13 +1,14 @@
 """Typed configuration property keys: a copy of the part of
-``alluxio_tpu/conf/property_key.py`` that the worker slice reads.
+``alluxio_tpu/conf/property_key.py`` that the port reads.
 
 The machinery (typed keys, a registry with aliases, ``Template`` families
 such as the per-tier worker settings, the duration and byte parsers) is
 the JAX package's. The catalog holds only the keys the port reads — the
-``atpu.worker.*`` keys of the store, the tiers, the async cache and the
-RPC, and the ``atpu.user.rpc.retry.*`` keys of the worker client — with
-the JAX names, types and defaults, so one properties file configures
-either package.
+``atpu.worker.*`` keys of the store, the tiers, the async cache, the RPC
+and the SHM leases, the ``atpu.user.rpc.retry.*`` keys of the worker
+client, and the client's SHM, remote-read, batch-read and native
+fastpath keys — with the JAX names, types and defaults, so one
+properties file configures either package.
 """
 
 from __future__ import annotations
@@ -289,6 +290,22 @@ class Keys:
                     "RPCs (SIMPLE metadata identity) so requests carry "
                     "a principal. Off: FIFO drain, no caps — "
                     "byte-identical to a build without QoS.")
+    WORKER_SHM_LEASE_TTL = _k(
+        "atpu.worker.shm.lease.ttl", KeyType.DURATION, default="30s",
+        scope=Scope.WORKER,
+        description="TTL of a client's SHM segment lease. The lease pins "
+                    "the block against eviction; clients renew lazily "
+                    "(shm_renew) while a segment stays mapped, and a "
+                    "crashed client's pins self-expire after one TTL — "
+                    "the crash-safe reclamation path needs no death "
+                    "detection.")
+    WORKER_SHM_MAX_LEASES = _k(
+        "atpu.worker.shm.max.leases", KeyType.INT, default=1024,
+        scope=Scope.WORKER,
+        description="Concurrent SHM leases the worker grants before "
+                    "denying shm_open (clients fall back to the remote "
+                    "path) — bounds how much of the MEM tier client pins "
+                    "can hold unevictable.")
 
     # --- client / user: the worker client's RPC retries ---
     USER_RPC_RETRY_MAX_DURATION = _k(
@@ -307,6 +324,97 @@ class Keys:
     USER_RPC_RETRY_MAX_SLEEP = _k("atpu.user.rpc.retry.max.sleep", KeyType.DURATION,
                                   default="3s", scope=Scope.CLIENT)
 
+    # --- client / user: the SHM plane, remote reads, batches ---
+    USER_SHM_ENABLED = _k(
+        "atpu.user.shm.enabled", KeyType.BOOL, default=True,
+        scope=Scope.CLIENT,
+        description="Same-host zero-copy SHM transport: when the serving "
+                    "worker is co-located, the client leases the block's "
+                    "MEM-tier segment (shm_open RPC), mmaps it, and reads "
+                    "through a memoryview with no RPC, serialization, or "
+                    "copy per read. Fallback to the remote path is "
+                    "transparent (segment unavailable, lease denied, "
+                    "worker restart). Off: reads are byte-identical to a "
+                    "build without the subsystem.")
+    USER_SHM_SEGMENT_CACHE_MAX = _k(
+        "atpu.user.shm.segment.cache.max", KeyType.INT, default=64,
+        scope=Scope.CLIENT,
+        description="Mapped SHM segments held per client process (LRU); "
+                    "evicting a segment unmaps it and releases its worker "
+                    "lease. Bounds client address-space use, not "
+                    "correctness — a miss re-leases on next read.")
+    USER_SHM_LEASE_RENEW_FRACTION = _k(
+        "atpu.user.shm.lease.renew.fraction", KeyType.FLOAT, default=0.5,
+        scope=Scope.CLIENT,
+        description="A cached segment whose lease has consumed this "
+                    "fraction of its TTL is renewed lazily on the next "
+                    "read touching it (one shm_renew RPC amortized over "
+                    "many zero-copy reads).")
+    USER_REMOTE_READ_STRIPE_SIZE = _k(
+        "atpu.user.remote.read.stripe.size", KeyType.BYTES, default="4MB",
+        scope=Scope.CLIENT,
+        description="Stripe size for parallel remote (DCN) block reads: a "
+                    "read larger than one stripe is split into ranges "
+                    "fetched over concurrent read_block streams across "
+                    "replicas / pooled channels. 0 disables striping "
+                    "(byte-identical legacy single-stream reads).")
+    USER_REMOTE_READ_CONCURRENCY = _k(
+        "atpu.user.remote.read.concurrency", KeyType.INT, default=4,
+        scope=Scope.CLIENT,
+        description="Stripes of one remote read in flight concurrently; "
+                    "also bounds the pooled-channel fan-out to a single "
+                    "worker.")
+    USER_REMOTE_READ_WINDOW_BYTES = _k(
+        "atpu.user.remote.read.window.bytes", KeyType.BYTES, default="32MB",
+        scope=Scope.CLIENT,
+        description="In-flight window for striped remote reads: stripes "
+                    "are only issued while their offset is within this "
+                    "many bytes of the consumer's drain point, capping "
+                    "readahead past the contiguous frontier. 0 removes "
+                    "the cap (concurrency still bounds in-flight "
+                    "stripes).")
+    USER_REMOTE_READ_HEDGE_QUANTILE = _k(
+        "atpu.user.remote.read.hedge.quantile", KeyType.FLOAT, default=0.95,
+        scope=Scope.CLIENT,
+        description="A stripe outliving this latency quantile of its "
+                    "worker's rolling EWMA is re-issued to another "
+                    "replica/channel; first answer wins, the loser is "
+                    "cancelled. 0 disables hedging.")
+    USER_BATCH_READ_ENABLED = _k(
+        "atpu.user.batch.read.enabled", KeyType.BOOL, default=True,
+        scope=Scope.CLIENT,
+        description="Scatter/gather batch reads: read_many coalesces a "
+                    "batch of small same-block reads into ONE read_many "
+                    "RPC landing in one preallocated buffer (one "
+                    "serialize + one wire round-trip instead of N). Off: "
+                    "each read is an individual RPC, byte-identical to "
+                    "today's per-op path.")
+    USER_BATCH_READ_MAX_OP_BYTES = _k(
+        "atpu.user.batch.read.max.op.bytes", KeyType.BYTES, default="64KB",
+        scope=Scope.CLIENT,
+        description="Reads at or below this size are eligible for "
+                    "read_many coalescing; larger ops route to the "
+                    "striped remote-read path where per-op RPC cost is "
+                    "already amortized.")
+    USER_BATCH_READ_MAX_OPS = _k(
+        "atpu.user.batch.read.max.ops", KeyType.INT, default=256,
+        scope=Scope.CLIENT,
+        description="Ops coalesced into one read_many RPC; a larger "
+                    "batch is split into ceil(n/max) RPCs so one "
+                    "response message stays bounded.")
+    USER_NATIVE_FASTPATH_ENABLED = _k(
+        "atpu.user.native.fastpath.enabled", KeyType.BOOL, default=True,
+        scope=Scope.CLIENT,
+        description="Native (C++) fastpath for assembled small-read "
+                    "plans: SHM batch copies, read_many response "
+                    "scatter, and stripe commits execute as one packed "
+                    "op table per batch with the GIL released for the "
+                    "whole call (docs/native.md). Takes effect only "
+                    "when the on-demand g++ build succeeds; a missing "
+                    "toolchain or any native error falls back to the "
+                    "byte-identical pure-Python path and counts "
+                    "Client.NativeFallbacks. Off: the client is "
+                    "byte-identical to a build without the subsystem.")
 
 # Parameterized families (reference: PropertyKey.Template, PropertyKey.java:5668)
 class Templates:

@@ -10,8 +10,10 @@ path come with the master clients' slice.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional
+import threading
+from typing import Dict, Iterator, List, Optional
 
+import alluxio_tpu_torch.shm  # noqa: F401 - registers the typed SHM errors
 from alluxio_tpu_torch.rpc.core import RpcChannel, StreamCall
 from alluxio_tpu_torch.rpc.worker_service import WORKER_SERVICE
 from alluxio_tpu_torch.utils.retry import ExponentialTimeBoundedRetry, retry
@@ -45,9 +47,34 @@ class _BaseClient:
 
 class WorkerClient(_BaseClient):
     """Data-plane client for one worker (reference: block streams +
-    short-circuit RPCs in ``client/block/stream``)."""
+    short-circuit RPCs in ``client/block/stream``).
+
+    Beyond the default channel, the client mints **pooled channels** —
+    distinct TCP connections to the same worker — so the striped read
+    path fans stripes of one block out over several connections instead
+    of serializing them behind one HTTP/2 flow-control window."""
 
     service = WORKER_SERVICE
+
+    def __init__(self, address: str, *, conf=None, metadata=None) -> None:
+        super().__init__(address, conf=conf, metadata=metadata)
+        self._pooled: Dict[int, RpcChannel] = {}
+        self._pooled_lock = threading.Lock()
+
+    def pooled_channel(self, index: int) -> RpcChannel:
+        """Channel for pool slot ``index`` (0 = the default channel),
+        created lazily and kept for the client's life; the process-wide
+        channel pool shares it with other clients of the address."""
+        if index == 0:
+            return self._channel
+        with self._pooled_lock:
+            ch = self._pooled.get(index)
+            if ch is None:
+                ch = RpcChannel(self.address,
+                                metadata=self._channel.metadata,
+                                pool_index=index)
+                self._pooled[index] = ch
+            return ch
 
     def read_block(self, block_id: int, *, offset: int = 0, length: int = -1,
                    chunk_size: int = 1 << 20,
@@ -59,16 +86,45 @@ class WorkerClient(_BaseClient):
 
     def read_block_stream(self, block_id: int, *, offset: int = 0,
                           length: int = -1, chunk_size: int = 1 << 20,
-                          ufs: Optional[dict] = None,
-                          cache: bool = True) -> StreamCall:
-        """Cancellable ``read_block`` range stream."""
-        return self._channel.open_stream(self.service, "read_block", {
-            "block_id": block_id, "offset": offset, "length": length,
-            "chunk_size": chunk_size, "ufs": ufs, "cache": cache})
+                          ufs: Optional[dict] = None, cache: bool = True,
+                          channel: int = 0) -> StreamCall:
+        """Cancellable ``read_block`` range stream over pool slot
+        ``channel``: the striped read path's transport (it aborts hedge
+        losers mid-transfer, which plain ``read_block`` cannot)."""
+        return self.pooled_channel(channel).open_stream(
+            self.service, "read_block", {
+                "block_id": block_id, "offset": offset, "length": length,
+                "chunk_size": chunk_size, "ufs": ufs, "cache": cache})
 
     def read_block_bytes(self, block_id: int, **kwargs) -> bytes:
         return b"".join(msg["data"] for msg in
                         self.read_block(block_id, **kwargs))
+
+    def read_many(self, block_id: int, offsets, sizes) -> dict:
+        """Scatter/gather batch read: N small reads of one block in ONE
+        RPC — ``{data: <concatenated bytes>, lengths: [..], source}``."""
+        return self._call("read_many", {
+            "block_id": block_id, "offsets": list(offsets),
+            "sizes": list(sizes)})
+
+    def shm_open(self, session_id: int, block_id: int) -> dict:
+        """Lease the block's same-host SHM segment:
+        ``{lease_id, path, length, ttl_s}``. Raises the typed
+        ``ShmLeaseDeniedError`` / ``ShmSegmentUnavailableError``, the
+        caller's cue to take a lower rung (``shm/``)."""
+        return self._call("shm_open", {"session_id": session_id,
+                                       "block_id": block_id})
+
+    def shm_renew(self, session_id: int, lease_id: int) -> dict:
+        return self._call("shm_renew", {"session_id": session_id,
+                                        "lease_id": lease_id})
+
+    def shm_release(self, session_id: int, lease_id: int) -> None:
+        # advisory like close_local_block: the worker's TTL reclaims it
+        # anyway — short deadline, no retry against a dead worker
+        self._channel.call(self.service, "shm_release",
+                           {"session_id": session_id,
+                            "lease_id": lease_id}, timeout=2.0)
 
     def write_block(self, block_id: int, session_id: int, data: bytes, *,
                     tier: str = "", chunk_size: int = 1 << 20,

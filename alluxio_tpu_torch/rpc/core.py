@@ -246,26 +246,36 @@ class StreamCall:
 class RpcChannel:
     """A pooled channel + method invokers: one channel per address,
     shared by every client in the process (grpc-python multiplexes
-    streams on one HTTP/2 connection). ``metadata``: identity tuples
-    attached to every call."""
+    streams on one HTTP/2 connection) — except for the striped read
+    path, where ``pool_index`` > 0 mints additional channels with their
+    own subchannel pool, i.e. their own TCP connections, so stripes are
+    not serialized behind one connection's flow-control window.
+    ``metadata``: identity tuples attached to every call."""
 
     _pool: Dict[str, grpc.Channel] = {}
     _pool_lock = threading.Lock()
 
     def __init__(self, address: str,
-                 metadata: Optional[Tuple[Tuple[str, str], ...]] = None
-                 ) -> None:
+                 metadata: Optional[Tuple[Tuple[str, str], ...]] = None,
+                 pool_index: int = 0) -> None:
         self.address = address
         self.metadata = tuple(metadata) if metadata is not None \
             else default_client_metadata()
+        key = address if pool_index == 0 else f"{address}#{pool_index}"
         with RpcChannel._pool_lock:
-            ch = RpcChannel._pool.get(address)
+            ch = RpcChannel._pool.get(key)
             if ch is None:
-                ch = grpc.insecure_channel(address, options=[
+                options = [
                     ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
                     ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
-                ])
-                RpcChannel._pool[address] = ch
+                ]
+                if pool_index:
+                    # opt out of gRPC's global subchannel sharing:
+                    # identical-args channels would otherwise coalesce
+                    # onto the same TCP connection, defeating the pool
+                    options.append(("grpc.use_local_subchannel_pool", 1))
+                ch = grpc.insecure_channel(address, options=options)
+                RpcChannel._pool[key] = ch
             self._channel = ch
 
     def call(self, service: str, method: str, request: dict,

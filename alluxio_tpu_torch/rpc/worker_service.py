@@ -19,11 +19,12 @@ under the JAX service's name and method names, with its message dicts:
   until the lease closes.
 - ``create_local_block`` / ``complete_local_block``: the short-circuit
   write lease (a temp-block path) and its commit or abort.
+- ``read_many``: a batch of small reads of one block in one RPC.
+- ``shm_open`` / ``shm_renew`` / ``shm_release``: the same-host SHM
+  lease plane (``worker/shm_store.py``).
 - ``async_cache``, ``prefetch_pin`` / ``prefetch_unpin``,
   ``remove_block``, ``move_block``, ``persist_file``,
   ``cleanup_session``: unary control ops.
-
-Not ported: ``read_many`` and the ``shm_*`` lease plane.
 """
 
 from __future__ import annotations
@@ -130,6 +131,46 @@ def worker_service(worker: BlockWorker) -> ServiceDefinition:
             served.inc(len(piece))
 
     svc.stream_out("read_block", read_block)
+
+    # -------------------------------------------------- scatter/gather read
+    def read_many(req: dict) -> dict:
+        """Batch of small reads against ONE block, served in one RPC:
+        ``{block_id, offsets: [..], sizes: [..]}`` -> one concatenated
+        payload + per-op lengths, in request order. One reader open, one
+        block lock, one serialization; an op past EOF yields a short
+        slice, as the same per-op ``read_block`` calls would."""
+        block_id = req["block_id"]
+        offsets = req["offsets"]
+        sizes = req["sizes"]
+        if len(offsets) != len(sizes):
+            raise InvalidArgumentError(
+                f"read_many: {len(offsets)} offsets vs {len(sizes)} sizes")
+        m = metrics()
+        lengths = []
+        parts = []
+        with worker.open_reader(block_id) as r:
+            tier = r.tier_alias or "MEM"
+            served = m.counter(f"Worker.BytesServed.{tier}")
+            for off, size in zip(offsets, sizes):
+                data = r.read(off, max(0, size))
+                parts.append(data)
+                lengths.append(len(data))
+                served.inc(len(data))
+        m.counter(f"Worker.BlocksServed.{tier}").inc()
+        m.counter("Worker.BatchReadOps").inc(len(offsets))
+        return {"data": b"".join(parts), "lengths": lengths,
+                "source": tier}
+
+    svc.unary("read_many", read_many)
+
+    # ------------------------------------------------------ shm lease plane
+    shm = worker.shm_store
+    svc.unary("shm_open", lambda r: shm.open(r["session_id"],
+                                             r["block_id"]))
+    svc.unary("shm_renew", lambda r: shm.renew(r["session_id"],
+                                               r["lease_id"]))
+    svc.unary("shm_release", lambda r: {"released": shm.release(
+        r["session_id"], r["lease_id"])})
 
     # ---------------------------------------------------------- write stream
     def write_block(requests: Iterator[dict]) -> dict:

@@ -1,8 +1,8 @@
 """Wire types crossing RPC boundaries: a copy of the part of
-``alluxio_tpu/utils/wire.py`` that the worker's data plane speaks —
-``LocalityTier``, ``TieredIdentity`` (with ``from_spec``),
-``WorkerNetAddress``, ``BlockLocation``, ``BlockInfo`` and ``WorkerInfo``
-(reference: ``core/common/src/main/java/alluxio/wire/``).
+``alluxio_tpu/utils/wire.py`` that the worker's data plane and the
+client's block routing speak — ``LocalityTier``, ``TieredIdentity``
+(with ``from_spec``), ``WorkerNetAddress``, ``BlockLocation``,
+``BlockInfo``, ``WorkerInfo`` and ``FileBlockInfo`` (reference: ``core/common/src/main/java/alluxio/wire/``).
 
 Each type serializes to and from plain dicts (msgpack-friendly) through
 ``to_wire``/``from_wire`` exactly as the JAX package's do, field for
@@ -258,3 +258,14 @@ class WorkerInfo:
 
 
 _NESTED[("WorkerInfo", "address")] = WorkerNetAddress
+
+
+@_wire_dataclass
+@dataclass
+class FileBlockInfo:
+    block_info: BlockInfo = field(default_factory=BlockInfo)
+    offset: int = 0
+    ufs_locations: List[str] = field(default_factory=list)
+
+
+_NESTED[("FileBlockInfo", "block_info")] = BlockInfo

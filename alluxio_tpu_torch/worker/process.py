@@ -10,8 +10,8 @@ drive the same object.
 
 Not ported yet, each with its own module in the JAX package: the
 striped, coalescing cold fetch (``worker/ufs_fetch.py``; cold reads here
-are one whole-block UFS read), the SHM lease plane
-(``worker/shm_store.py``), tier management (``worker/management.py``),
+are one whole-block UFS read, shared by the reads of that block that
+overlap it), tier management (``worker/management.py``),
 the web endpoint, the metrics heartbeat and its sinks, fault injection
 and QoS gauges.
 """
@@ -33,6 +33,7 @@ from alluxio_tpu_torch.worker.master_sync import (
     BlockMasterSync, PinListSync, StorageChecker,
 )
 from alluxio_tpu_torch.worker.meta import BlockMetadataManager
+from alluxio_tpu_torch.worker.shm_store import ShmStore
 from alluxio_tpu_torch.worker.tiered_store import BlockReader, TieredBlockStore
 from alluxio_tpu_torch.worker.ufs_io import (
     AsyncCacheManager, UfsBlockDescriptor, UfsBlockReader,
@@ -124,6 +125,12 @@ class BlockWorker:
             if fs_master_client is not None else None
         self._storage_checker = StorageChecker(self.store)
         self._ufs_reader = UfsBlockReader(self.store)
+        # same-host zero-copy plane: lease registry over the MEM tier's
+        # /dev/shm segments (shm/)
+        self.shm_store = ShmStore(
+            self.store,
+            lease_ttl_s=conf.get_duration_s(Keys.WORKER_SHM_LEASE_TTL),
+            max_leases=conf.get_int(Keys.WORKER_SHM_MAX_LEASES))
         self.async_cache = AsyncCacheManager(
             self.store, lambda mount_id: self.ufs_manager.get(mount_id),
             num_threads=conf.get_int(Keys.WORKER_ASYNC_CACHE_THREADS),
@@ -229,7 +236,8 @@ class BlockWorker:
     def read_ufs_block(self, desc: UfsBlockDescriptor, *,
                        cache: bool = True) -> bytes:
         """Cold read-through, whole block at once (reference:
-        UnderFileSystemBlockReader), caching it when ``cache``."""
+        UnderFileSystemBlockReader), caching it when ``cache``; the
+        stripes of one cold block share one UFS read."""
         ufs = self.ufs_manager.get(desc.mount_id)
         return self._ufs_reader.read_block(ufs, desc, cache=cache)
 
@@ -254,4 +262,5 @@ class BlockWorker:
         return ufs.get_fingerprint(ufs_path).serialize()
 
     def cleanup_session(self, session_id: int) -> None:
+        self.shm_store.close_session(session_id)
         self.store.cleanup_session(session_id)

@@ -9,12 +9,10 @@ tier, move/free, and lock-guarded reads.
 
 Storage layout: one file per block, ``<dir>/<block_id>``; temp blocks at
 ``<dir>/.tmp/<session>_<block_id>``. The MEM tier sits on ``/dev/shm`` so a
-same-host client can ``mmap`` the committed file and hand the pages to XLA
-without a copy (the short-circuit read path; reference:
-``OpenLocalBlock`` leases in ``block_worker.proto:18-21``).
-
-The JAX store's SHM-lease pins (``pin_shm``) belong to the SHM plane,
-which the port has not taken yet; everything else is the same.
+same-host client can ``mmap`` the committed file and copy from its pages
+(the short-circuit read path; reference: ``OpenLocalBlock`` leases in
+``block_worker.proto:18-21``), and the SHM plane's leases pin such a
+file against eviction (``pin_shm``).
 """
 
 from __future__ import annotations
@@ -169,6 +167,13 @@ class TieredBlockStore:
         #: would make the block unevictable forever — expiry is the
         #: worker-side reclamation path.
         self.prefetch_pinned_blocks: Dict[int, float] = {}
+        #: SHM-lease pins: block_id -> expiry (monotonic). A same-host
+        #: client holding an shm lease (shm/) has the MEM-tier file
+        #: mmapped; eviction must not demote/unlink it mid-read. Same
+        #: crash-safety shape as prefetch pins — TTL-bounded, NOT
+        #: session-bound: a killed client's pins self-expire one lease
+        #: TTL later, no death detection needed.
+        self.shm_leased_blocks: Dict[int, float] = {}
         #: serialized allocation/eviction decisions (metadata lock; IO and
         #: reads proceed outside it — mirroring the reference's hierarchy)
         self._alloc_lock = threading.RLock()
@@ -350,6 +355,27 @@ class TieredBlockStore:
         with self._alloc_lock:
             self.prefetch_pinned_blocks.pop(block_id, None)
 
+    def pin_shm(self, block_id: int, ttl_s: float) -> bool:
+        """Shield a committed block from eviction while a same-host
+        client has its segment mmapped (shm lease). Renewal extends the
+        expiry; expiry never moves backwards, so a stale renewal racing
+        a fresh grant cannot shorten the pin. False when the block is
+        gone (the lease grant then fails)."""
+        import time
+
+        with self._alloc_lock:
+            if self.meta.get_block(block_id) is None:
+                return False
+            expiry = time.monotonic() + ttl_s
+            prev = self.shm_leased_blocks.get(block_id, 0.0)
+            self.shm_leased_blocks[block_id] = max(prev, expiry)
+        self.annotator.on_access(block_id)
+        return True
+
+    def unpin_shm(self, block_id: int) -> None:
+        with self._alloc_lock:
+            self.shm_leased_blocks.pop(block_id, None)
+
     def active_locks(self) -> int:
         """Blocks with a held (or awaited) client lock: read leases,
         open readers, removals and moves in progress."""
@@ -404,6 +430,7 @@ class TieredBlockStore:
                 self.pinned_blocks.discard(block_id)
                 self.master_pinned_blocks.discard(block_id)
                 self.prefetch_pinned_blocks.pop(block_id, None)
+                self.shm_leased_blocks.pop(block_id, None)
             if os.path.exists(meta.path):
                 os.remove(meta.path)
         finally:
@@ -482,6 +509,11 @@ class TieredBlockStore:
                 if expiry > now:
                     continue
                 del self.prefetch_pinned_blocks[bid]  # expired: reclaim
+            shm_expiry = self.shm_leased_blocks.get(bid)
+            if shm_expiry is not None:
+                if shm_expiry > now:
+                    continue
+                del self.shm_leased_blocks[bid]  # expired: reclaim
             lock = self._locks.try_lock_write(bid)
             if lock is None:
                 continue  # in use by a reader; skip (reference retries)

@@ -1,6 +1,10 @@
 """Worker-side UFS block IO: cold reads with concurrent caching.
 
 A copy of ``alluxio_tpu/worker/ufs_io.py`` without the striped fetcher.
+In its place, concurrent reads of one cold block share one UFS read
+(:class:`UfsBlockReader`): a striped client asks for every stripe of a
+cold block at once, and the JAX worker merges those requests in its
+fetcher.
 
 Re-design of ``core/server/worker/.../block/{UnderFileSystemBlockStore.java,
 UnderFileSystemBlockReader.java:50}`` + the async cache manager
@@ -21,7 +25,9 @@ from typing import Callable, Dict, Optional
 
 from alluxio_tpu_torch.underfs.base import UnderFileSystem
 from alluxio_tpu_torch.utils import ids as id_utils
-from alluxio_tpu_torch.utils.exceptions import AlreadyExistsError, best_effort
+from alluxio_tpu_torch.utils.exceptions import (
+    AlreadyExistsError, BlockDoesNotExistError, best_effort,
+)
 from alluxio_tpu_torch.worker.tiered_store import TieredBlockStore
 
 LOG = logging.getLogger(__name__)
@@ -40,20 +46,72 @@ class UfsBlockDescriptor:
     mount_id: int = 0
 
 
+class _UfsFlight:
+    """One UFS read of a block in progress; reads of the same block that
+    arrive meanwhile wait for its bytes."""
+
+    __slots__ = ("done", "data", "error")
+
+    def __init__(self) -> None:
+        self.done = threading.Event()
+        self.data: Optional[bytes] = None
+        self.error: Optional[BaseException] = None
+
+
 class UfsBlockReader:
     """Single-range read-through: serve from UFS while caching into the
-    local store. This is the *unstriped* path — one blocking connection,
-    first byte after the last — kept as the striped pipeline's fallback
-    and as the bench baseline; the hot cold-read path is
-    ``ufs_fetch.UfsBlockFetcher``."""
+    local store, one blocking read of the whole block. Reads of one
+    block that overlap in time share a single UFS read, and a read that
+    finds the block cached by the one before it is served from the
+    store, so the stripes of one cold block cost one UFS read and one
+    cache fill."""
 
     def __init__(self, store: TieredBlockStore) -> None:
         self._store = store
+        self._flights_lock = threading.Lock()
+        self._flights: Dict[tuple, _UfsFlight] = {}
 
     def read_block(self, ufs: UnderFileSystem, desc: UfsBlockDescriptor, *,
                    cache: bool = True, tier_alias: str = "") -> bytes:
         """Fetch the whole block (the TPU read path wants whole pages into
         a staging buffer, not tiny chunks)."""
+        key = (desc.mount_id, desc.ufs_path, desc.offset, desc.length,
+               desc.block_id, cache, tier_alias)
+        with self._flights_lock:
+            flight = self._flights.get(key)
+            leader = flight is None
+            if leader:
+                flight = self._flights[key] = _UfsFlight()
+        if not leader:
+            flight.done.wait()
+            if flight.error is not None:
+                raise flight.error
+            return flight.data
+        try:
+            data = self._cached(desc.block_id) if cache else None
+            if data is None:
+                data = self._fetch(ufs, desc, cache, tier_alias)
+            flight.data = data
+            return data
+        except BaseException as e:
+            flight.error = e
+            raise
+        finally:
+            with self._flights_lock:
+                del self._flights[key]
+            flight.done.set()
+
+    def _cached(self, block_id: int) -> Optional[bytes]:
+        """The block's bytes when a read just before this one cached it
+        (the caller saw it missing before that read committed)."""
+        try:
+            with self._store.get_reader(block_id) as r:
+                return r.read(0, r.length)
+        except BlockDoesNotExistError:
+            return None
+
+    def _fetch(self, ufs: UnderFileSystem, desc: UfsBlockDescriptor,
+               cache: bool, tier_alias: str) -> bytes:
         from alluxio_tpu_torch.metrics import metrics
         from alluxio_tpu_torch.utils.tracing import tracer
 

@@ -32,26 +32,41 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    2048 device hits), each file's pages equal to its device block, and
    one ``scaled_sum`` over all pages equal to the main path's set's;
 2c. worker: the port's ``BlockWorker`` (one MEM tier of the working set
-   plus 8 blocks, in ``/dev/shm`` when it has room) behind its
-   ``RpcServer`` on 127.0.0.1, with a block master and a file master
+   plus 8 blocks, in ``/dev/shm`` when it has room, its shm dir) behind
+   its ``RpcServer`` on 127.0.0.1, with a block master and a file master
    standing in (the block master frees a block a heartbeat reports
-   before its commit, as the JAX one does): (i) the 64 shards written by
-   short circuit (``LocalBlockOutStream``), 64 commits; (ii) a fresh
-   loader reads them through ``open_local_block`` leases into the device
-   tier (64 short-circuit blocks, every lease held while the loader is
-   open and released by ``close()``), epoch 2 is 64 device-tier hits,
-   then ``K`` chained ``scaled_sum`` calls equal the main path's chain
-   and the plain chain; then epoch 1 of four fresh loaders in turns
-   (stand-in files, leases, leases, stand-in files); (iii) 8 blocks over
-   gRPC (``GrpcBlockInStream``,
-   the loader's streamed route), equal to their files; (iv) the
-   prefetch loop at the JAX defaults (``hbm_fraction`` 0.25: DRAM
-   placements through the worker's ``async_cache`` from the block files
-   as UFS, pinned against eviction) over fresh block ids on the tier as
-   (i)-(iii) left it: two epochs in the oracle's order with every block
-   equal to its file, hits + late + misses = 64, at least one DRAM
-   placement, no failed placement, evictions but no pinned block among
-   them, and no pin left after the service closes;
+   before its commit, as the JAX one does); every read goes through the
+   port's ``BlockStoreClient.open_block`` ladder (SHM, lease, remote,
+   UFS), each route failing if a block was served by another rung than
+   its own. First the host->device ceiling: one pinned 32 MiB and one
+   pinned 2 GiB copy to the card, no host work. (i) the 64 shards
+   written by short circuit (``LocalBlockOutStream``), 64 commits; (ii)
+   a fresh loader reads them through the lease rung (the client with the
+   SHM plane off) into the device tier (every lease held while the
+   loader is open and released by ``close()``), epoch 2 is 64
+   device-tier hits, then ``K`` chained ``scaled_sum`` calls equal the
+   main path's chain and the plain chain; (ii') the same through the SHM
+   rung (the JAX defaults): 64 leases and 64 SHM pins while the loader
+   is open, none after the loader and then the client close, every block
+   pre-faulted by the native library; then epoch 1 of six fresh loaders
+   in turns (stand-in files, lease, SHM cold, SHM again on the same
+   client with no lease RPC, lease, stand-in files); (iii) 8 blocks
+   through the remote rung, one stream a block, striped at the JAX
+   defaults over pooled channels, one stream again, each equal to its
+   file; one ``pread_many`` of 256 seeded small reads on the remote rung
+   (one ``read_many``) and on the SHM rung (one native plan), equal to
+   the file; (iv) the prefetch loop at the JAX defaults
+   (``hbm_fraction`` 0.25: DRAM placements through the worker's
+   ``async_cache`` from the block files as UFS, pinned against
+   eviction) over fresh block ids on the tier as (i)-(iii) left it: two
+   epochs in the oracle's order with every block equal to its file,
+   hits + late + misses = 64, at least one DRAM placement, no failed
+   placement, evictions but no pinned block among them, and no pin left
+   after the service closes; (v) 8 fresh blocks no worker holds through
+   the UFS rung, one stream a block, then 8 more striped at the JAX
+   defaults, each equal to its file and read from the UFS once by the
+   worker, striped or not. No pre-fault or plan may take the plain
+   path;
 3. decode: four 32 MiB blocks of 64x64x3 records through
    ``batched_device_iterator`` and ``decode_image_records`` on the card,
    checked bit for bit against the same decode on the CPU;
@@ -127,13 +142,18 @@ PAGE_CACHE_BYTES = 512 << 20
 #: worker phase: a MEM tier of the working set and eight blocks more
 #: (bench.py's worker_mem_bytes, 2 GiB + 256 MiB at full size), a 100 ms
 #: block heartbeat, the mount id of the block files' UFS, the blocks read
-#: over gRPC, and the container ids the prefetch step's fresh blocks
-#: start after
+#: through the remote rung, and the container ids the prefetch step's
+#: fresh blocks start after
 WORKER_SPARE_BLOCKS = 8
 WORKER_HEARTBEAT_S = 0.1
 WORKER_MOUNT_ID = 1
 GRPC_BLOCKS = 8
+#: the remote rung's striped turn: the JAX default stripe size
+#: (atpu.user.remote.read.stripe.size), eight stripes a block
+REMOTE_STRIPE_BYTES = 4 << 20
 PREFETCH_CONTAINER_BASE = 100
+#: the cold turns' fresh blocks: a container range per turn
+COLD_CONTAINER_BASE = 200
 DECODE_BLOCKS = 4
 H = W = 64
 C = 3
@@ -232,6 +252,22 @@ def setup() -> None:
     for mod in ("grpc", "msgpack"):
         print(f"importable {mod}: "
               f"{importlib.util.find_spec(mod) is not None}", flush=True)
+
+    # the host's C++ compiler builds the port's native library (and is
+    # nvcc's host compiler): the run fails without it
+    gxx = shutil.which("g++")
+    if gxx is None:
+        fail("g++ is not on PATH: the native library cannot be built")
+    print(subprocess.run([gxx, "--version"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.splitlines()[0],
+          flush=True)
+    from alluxio_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.loaded():
+        fail("the native library did not build or load")
+    print(f"native library {native._lib_path().name} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     from alluxio_tpu_torch.ops import _build
 
@@ -333,6 +369,8 @@ class ShardSource:
 
     def __init__(self, files: dict) -> None:
         self._files = files  # path -> (file id, block file)
+        self.opens = 0       # streams opened, and their host time
+        self.open_s = 0.0
         self.fs_master = SimpleNamespace(
             get_file_block_info_list=self._block_infos)
         self.block_master = SimpleNamespace(
@@ -356,11 +394,12 @@ class ShardSource:
         fail(f"the stand-in has no worker; asked for {address}")
 
     def open_file(self, path, info=None, max_open_streams=1):
-        return _ShardFile(self._files[path][1])
+        return _ShardFile(self, self._files[path][1])
 
 
 class _ShardFile:
-    def __init__(self, block_file: str) -> None:
+    def __init__(self, src: ShardSource, block_file: str) -> None:
+        self._src = src
         self._block_file = block_file
         self._stream = None
 
@@ -370,8 +409,11 @@ class _ShardFile:
         if index != 0:
             fail(f"shard files hold one block, asked for {index}")
         if self._stream is None:
+            t = time.perf_counter()
             self._stream = LocalBlockInStream.from_path(
                 self._block_file, os.path.getsize(self._block_file))
+            self._src.open_s += time.perf_counter() - t
+            self._src.opens += 1
         return self._stream
 
     def close(self) -> None:
@@ -818,18 +860,27 @@ class StandInBlockMaster:
 
 
 class WorkerFS:
-    """Stands in for the file master and the client's block routing until
-    their slices: each path is one block (id ``block_id(container, 0)``
-    from the port's ``utils/ids``), persisted at its block file under
-    mount ``WORKER_MOUNT_ID``. A block the master locates on the worker
-    is read by short circuit (``LocalBlockInStream`` over an
-    ``open_local_block`` lease), any other through the worker by gRPC
-    with its UFS descriptor (``GrpcBlockInStream``): the JAX client's
-    ladder without its SHM rung. ``route="grpc"`` reads every block over
-    gRPC, the loader's streamed route."""
+    """Stands in for the file master until its slice: each path is one
+    block (id ``block_id(container, 0)`` from the port's ``utils/ids``),
+    persisted at its block file under mount ``WORKER_MOUNT_ID``. Each
+    block's stream comes from the port's ``BlockStoreClient`` ladder
+    (``open_block``), given the block master's ``BlockInfo`` and the
+    block's UFS descriptor; the rung that served it is counted and the
+    open timed. ``route``: ``"lease"`` is the client with the SHM plane
+    off (the ladder's disabled path: a located block is leased by short
+    circuit), ``"shm"`` the JAX defaults (a located block is leased and
+    mapped through the SHM plane), ``"grpc"`` short circuit off (a
+    located block is read remotely). An unlocated block takes the UFS
+    rung on every route. ``stripe_size`` overrides the remote rung's
+    stripe size (0: one stream a read)."""
 
-    def __init__(self, files: dict, first_container: int, master, client,
-                 *, route: str = "lease", chunk_size: int = 1 << 20) -> None:
+    RUNGS = {"lease": "lease", "shm": "shm", "grpc": "remote"}
+
+    def __init__(self, files: dict, first_container: int, master, *,
+                 route: str = "lease",
+                 stripe_size: "int | None" = None) -> None:
+        from alluxio_tpu_torch.client.block_store import BlockStoreClient
+        from alluxio_tpu_torch.conf import Configuration, Keys
         from alluxio_tpu_torch.utils import ids
 
         self._ids = ids
@@ -839,12 +890,17 @@ class WorkerFS:
         self.block_master = master
         self.fs_master = SimpleNamespace(
             get_file_block_info_list=self._block_infos)
-        self._client = client
-        self._route = route
-        self._chunk = chunk_size
+        self.route = route
+        conf = Configuration(load_env=False)
+        conf.set(Keys.USER_SHM_ENABLED, route == "shm")
+        if stripe_size is not None:
+            conf.set(Keys.USER_REMOTE_READ_STRIPE_SIZE, stripe_size)
+        self.store = BlockStoreClient.from_conf(
+            master, conf, short_circuit=route != "grpc")
         self.session_id = ids.create_session_id()
-        self.lease_opens = 0
-        self.lease_open_s = 0.0
+        self.rungs = {}
+        self.opens = 0
+        self.open_s = 0.0
 
     def block_id(self, path: str) -> int:
         return self._ids.block_id(self._files[path][0], 0)
@@ -866,27 +922,40 @@ class WorkerFS:
             block_id=self.block_id(path),
             length=os.path.getsize(self._files[path][1])))]
 
-    def block_stream(self, path: str):
-        from alluxio_tpu_torch.client.block_streams import (
-            GrpcBlockInStream, LocalBlockInStream)
+    def block_stream(self, path: str, *, with_ufs: bool = True):
+        """``with_ufs=False`` opens without the UFS descriptor (a remote
+        stream then batches small reads; a cold block has no rung)."""
+        from alluxio_tpu_torch.utils.wire import FileBlockInfo
 
-        bid = self.block_id(path)
         block_file = self._files[path][1]
-        if self._route == "lease" and \
-                self.block_master.get_block_info(bid).locations:
-            t = time.perf_counter()
-            stream = LocalBlockInStream(self._client, self.session_id, bid)
-            self.lease_open_s += time.perf_counter() - t
-            self.lease_opens += 1
-            return stream
         length = os.path.getsize(block_file)
-        return GrpcBlockInStream(
-            self._client, bid, length, chunk_size=self._chunk,
-            ufs={"ufs_path": block_file, "offset": 0, "length": length,
-                 "mount_id": WORKER_MOUNT_ID})
+        info = self.block_master.get_block_info(self.block_id(path))
+        info.length = length  # the file master's length
+        t = time.perf_counter()
+        stream = self.store.open_block(
+            FileBlockInfo(block_info=info),
+            ufs_info={"ufs_path": block_file, "offset": 0, "length": length,
+                      "mount_id": WORKER_MOUNT_ID} if with_ufs else None)
+        self.open_s += time.perf_counter() - t
+        self.opens += 1
+        self.rungs[stream.rung] = self.rungs.get(stream.rung, 0) + 1
+        return stream
+
+    def check_rungs(self, name: str, allowed=None) -> None:
+        """Fail unless every block was served by the route's own rung
+        (or by one of ``allowed``)."""
+        allowed = allowed or {self.RUNGS[self.route]}
+        if not self.rungs or set(self.rungs) - set(allowed):
+            fail(f"{name}: blocks by rung {self.rungs}, want only "
+                 f"{sorted(allowed)}")
 
     def open_file(self, path, info=None, max_open_streams=1):
         return _WorkerFile(self, path)
+
+    def close(self) -> None:
+        """Release the client's leases on the worker (after the loaders
+        reading through it have closed)."""
+        self.store.close()
 
 
 class _WorkerFile:
@@ -938,18 +1007,89 @@ def start_worker(workdir: str, tier_dir: str, tier_bytes: int, master):
     return worker, server, WorkerClient(f"127.0.0.1:{worker.address.rpc_port}")
 
 
-def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
-    """(2c): the port's worker serves the main path's blocks: a cold
-    write-through by short circuit, a warm read by lease into a fresh
-    loader and the warm scan, the streamed route over gRPC, and the
-    prefetch loop at the JAX defaults, its DRAM placements landing in the
-    worker's MEM tier."""
+def h2d_ceiling(device) -> dict:
+    """The host -> device ceiling: one pinned host buffer copied to the
+    card asynchronously, no host work, CUDA-event time, at a block's size
+    and at the working set's."""
     import torch
 
-    from alluxio_tpu_torch.client.block_streams import LocalBlockOutStream
+    out = {}
+    for nbytes, reps in ((BLOCK_BYTES, 20), (NUM_BLOCKS * BLOCK_BYTES, 3)):
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        dev = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        ms = time_ms(lambda: dev.copy_(host, non_blocking=True), reps=reps,
+                     warmup=1)
+        out[f"{nbytes >> 20}MiB"] = {"bytes": nbytes, "ms": ms,
+                                     "gb_per_s": nbytes / ms / 1e6}
+        del host, dev
+    return out
+
+
+def loader_read(name: str, device, fs, files: dict, main: dict, k: int,
+                held, hits) -> dict:
+    """A fresh loader over ``fs`` into the device tier: epoch 1 host ->
+    device, epoch 2 all device-tier hits, then the K chained scans, equal
+    to the main path's chain and the plain chain. ``held()`` reads what
+    the worker holds for the loader while it is open."""
+    import torch
+
     from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
-    from alluxio_tpu_torch.metrics import metrics
     from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    n = len(files)
+    loader = DeviceBlockLoader(fs, list(files), device=device,
+                               hbm_bytes=n * BLOCK_BYTES + (64 << 20),
+                               prefetch=2, dtype=np.int32)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = list(loader.epoch())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hits0 = hits.count
+        blocks = list(loader.epoch())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        held_open = held()
+        if hits.count - hits0 != n or \
+                any(a is not b for a, b in zip(first, blocks)):
+            fail(f"{name} epoch 2: {hits.count - hits0} device-tier hits, "
+                 f"want {n}")
+        check_order(name, blocks, [SimpleNamespace(path=p) for p in files],
+                    main)
+        del first
+        x = torch.cat(blocks)
+        rk.launches = 0
+        acc, scan_ms = timed(lambda: chain(rk.scaled_sum, x, k))
+        launches = rk.launches
+        got = int(acc)
+    finally:
+        loader.close()
+    if launches != k:
+        fail(f"{name} launched scaled_sum {launches} times, want {k}")
+    plain = int(chain(rk.scaled_sum_reference, x, k))
+    del x, blocks
+    if not got == main["chain"] == plain:
+        fail(f"{name} scan: kernel chain {got}, main path's chain "
+             f"{main['chain']}, plain chain {plain}")
+    return {"epoch1_s": t1 - t0, "epoch2_s": t2 - t1,
+            "gb_per_s": n * BLOCK_BYTES / (t1 - t0) / 1e9,
+            "main_path_epoch1_s": main["epoch1_s"], "device_tier_hits": n,
+            "open_ms": fs.open_s * 1e3 / fs.opens, "held": held_open,
+            "scan_ms": scan_ms, "scan_launches": launches, "chain": got}
+
+
+def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
+    """(2c): the port's worker serves the main path's blocks through the
+    port's ``BlockStoreClient`` ladder: a cold write-through by short
+    circuit, warm reads by lease and through the SHM plane into fresh
+    loaders and the warm scan, route turns, the remote rung single-stream
+    and striped, batched small reads on the remote and SHM rungs, the
+    prefetch loop at the JAX defaults, its DRAM placements landing in the
+    worker's MEM tier, and cold reads through the UFS rung."""
+    from alluxio_tpu_torch import native
+    from alluxio_tpu_torch.client.block_streams import LocalBlockOutStream
+    from alluxio_tpu_torch.metrics import metrics
     from alluxio_tpu_torch.rpc.core import RpcChannel
 
     files = main["files"]
@@ -963,6 +1103,12 @@ def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
         shm_free = st.f_bavail * st.f_frsize
     print(f"worker phase: /dev/shm free {shm_free} bytes; MEM tier "
           f"{tier_bytes} bytes", flush=True)
+    ceiling = h2d_ceiling(device)
+    print("host->device ceiling (pinned, no host work): " + ", ".join(
+        f"{key} {c['ms']:.4f} ms ({c['gb_per_s']:.2f} GB/s)"
+        for key, c in ceiling.items()) + f"; main path epoch 1 "
+        f"{main['epoch1_s']:.3f} s "
+        f"({n * BLOCK_BYTES / main['epoch1_s'] / 1e9:.2f} GB/s)", flush=True)
     tier_dir = block_dir(tier_bytes)
     master = StandInBlockMaster()
     worker, server, client = start_worker(workdir, tier_dir, tier_bytes,
@@ -970,10 +1116,10 @@ def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
     m = metrics()
     out = {"blocks": n, "block_bytes": BLOCK_BYTES, "tier_dir": tier_dir,
            "tier_bytes": tier_bytes, "dev_shm_free_bytes": shm_free,
-           "heartbeat_s": WORKER_HEARTBEAT_S}
+           "heartbeat_s": WORKER_HEARTBEAT_S, "h2d_ceiling": ceiling}
     try:
         # (i) cold write-through by short circuit
-        fs = WorkerFS(files, 1, master, client)
+        fs = WorkerFS(files, 1, master)
         views = {p: np.memmap(f, np.uint8, "r") for p, (_, f) in files.items()}
         t = time.perf_counter()
         for path in files:
@@ -994,105 +1140,69 @@ def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
                              "gb_per_s": n * BLOCK_BYTES / write_s / 1e9,
                              "commits": master.commits}
 
-        # (ii) warm read by short circuit, then the warm scan
+        # (ii) warm read by the lease rung, then the warm scan
         sc = m.counter("Client.JaxShortCircuitBlocks")
         hits = m.counter("Client.JaxHbmHits")
         sc0 = sc.count
-        loader = DeviceBlockLoader(fs, list(files), device=device,
-                                   hbm_bytes=n * BLOCK_BYTES + (64 << 20),
-                                   prefetch=2, dtype=np.int32)
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            first = list(loader.epoch())
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            hits0 = hits.count
-            blocks = list(loader.epoch())
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            held = worker.store.active_locks(), \
-                len(worker._short_circuit_leases)
-            if sc.count - sc0 != n or fs.lease_opens != n:
-                fail(f"worker read: {sc.count - sc0} short-circuit blocks, "
-                     f"{fs.lease_opens} leases, want {n}")
-            if held != (n, n):
-                fail(f"worker read: {held[0]} read locks and {held[1]} "
-                     f"leases held while the loader is open, want {n}")
-            if hits.count - hits0 != n or \
-                    any(a is not b for a, b in zip(first, blocks)):
-                fail(f"worker read epoch 2: {hits.count - hits0} "
-                     f"device-tier hits, want {n}")
-            check_order("worker read", blocks, [SimpleNamespace(path=p)
-                                                for p in files], main)
-            del first
-            x = torch.cat(blocks)
-            rk.launches = 0
-            acc, scan_ms = timed(lambda: chain(rk.scaled_sum, x, k))
-            launches = rk.launches
-            got = int(acc)
-        finally:
-            loader.close()
+        read = loader_read("worker lease read", device, fs, files, main, k,
+                           lambda: (worker.store.active_locks(),
+                                    len(worker._short_circuit_leases)),
+                           hits)
+        fs.check_rungs("worker lease read")
+        if sc.count - sc0 != n or read["held"] != (n, n):
+            fail(f"worker lease read: {sc.count - sc0} short-circuit "
+                 f"blocks, {read['held'][0]} read locks and "
+                 f"{read['held'][1]} leases held while the loader is "
+                 f"open, want {n} of each")
         released = worker.store.active_locks(), \
             len(worker._short_circuit_leases)
         if released != (0, 0):
-            fail(f"worker read: {released[0]} read locks and {released[1]} "
-                 f"leases left after the loader closed")
-        if launches != k:
-            fail(f"worker phase launched scaled_sum {launches} times, "
-                 f"want {k}")
-        plain = int(chain(rk.scaled_sum_reference, x, k))
-        del x, blocks
-        if not got == main["chain"] == plain:
-            fail(f"worker scan: kernel chain {got}, main path's chain "
-                 f"{main['chain']}, plain chain {plain}")
-        out["lease_read"] = {
-            "epoch1_s": t1 - t0, "epoch2_s": t2 - t1,
-            "gb_per_s": n * BLOCK_BYTES / (t1 - t0) / 1e9,
-            "main_path_epoch1_s": main["epoch1_s"],
-            "short_circuit_blocks": n, "device_tier_hits": n,
-            "lease_open_ms": fs.lease_open_s * 1e3 / n,
-            "scan_ms": scan_ms, "scan_launches": launches, "chain": got}
+            fail(f"worker lease read: {released[0]} read locks and "
+                 f"{released[1]} leases left after the loader closed")
+        out["lease_read"] = dict(read, short_circuit_blocks=n,
+                                 rungs=dict(fs.rungs))
+        launches = read["scan_launches"]
 
-        out["route_turns"] = route_turns(device, files, master, client)
+        # (ii') the same through the SHM rung, every block pre-faulted
+        # by the native library
+        out["shm_read"] = shm_read(device, files, master, worker, main, k,
+                                   hits)
 
-        # (iii) the streamed route: GrpcBlockInStream, the worker's cache
-        grpc_files = dict(list(files.items())[:GRPC_BLOCKS])
-        gfs = WorkerFS(grpc_files, 1, master, client, route="grpc")
-        streamed = m.counter("Client.JaxStreamedBlocks")
-        s0 = streamed.count
-        loader = DeviceBlockLoader(gfs, list(grpc_files), device=device,
-                                   prefetch=2, dtype=np.int32)
-        try:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            got_blocks = list(loader.epoch())
-            torch.cuda.synchronize()
-            grpc_s = time.perf_counter() - t
-        finally:
-            loader.close()
-        if streamed.count - s0 != GRPC_BLOCKS:
-            fail(f"worker gRPC route: {streamed.count - s0} streamed "
-                 f"blocks, want {GRPC_BLOCKS}")
-        check_order("worker gRPC route", got_blocks,
-                    [SimpleNamespace(path=p) for p in grpc_files], main)
-        del got_blocks
-        out["grpc_read"] = {
-            "blocks": GRPC_BLOCKS, "s": grpc_s,
-            "gb_per_s": GRPC_BLOCKS * BLOCK_BYTES / grpc_s / 1e9}
+        out["route_turns"] = route_turns(device, files, master, worker)
+
+        # (iii) the remote rung, single stream and striped, then batched
+        # small reads on the remote and SHM rungs
+        out["remote_read"] = remote_turns(device, files, master, main)
+        out["pread_many"] = pread_many_check(files, master)
         out["prefetch"] = worker_prefetch(device, worker, master, client,
                                           main, fs)
+        out["cold_read"] = cold_turns(device, files, master, main)
+        fs.close()
+        if native.plain_calls() != {"prefault": 0, "plan": 0}:
+            fail(f"worker phase: native calls took the plain path: "
+                 f"{native.plain_calls()}")
+        lr, sr = out["lease_read"], out["shm_read"]
+        rt = out["remote_read"]
         print(f"worker: cold write {n} x {BLOCK_BYTES >> 20} MiB by short "
               f"circuit {write_s:.3f} s "
               f"({out['cold_write']['gb_per_s']:.2f} GB/s), {master.commits}"
-              f" commits; lease read epoch 1 {t1 - t0:.3f} s against the "
-              f"main path's {main['epoch1_s']:.3f} s, epoch 2 {t2 - t1:.4f}"
-              f" s ({n} device-tier hits), lease open "
-              f"{out['lease_read']['lease_open_ms']:.3f} ms, open+close RPC"
-              f" {out['prefetch']['lease_rpc_pair_ms']:.3f} ms; scan K={k}"
-              f" {scan_ms:.2f} ms, acc {got} == main path == plain, "
-              f"launches {launches}; gRPC route {GRPC_BLOCKS} blocks "
-              f"{grpc_s:.3f} s ({out['grpc_read']['gb_per_s']:.2f} GB/s)",
+              f" commits; lease read epoch 1 {lr['epoch1_s']:.3f} s, SHM "
+              f"read epoch 1 {sr['epoch1_s']:.3f} s, against the main "
+              f"path's {main['epoch1_s']:.3f} s; epoch 2 {lr['epoch2_s']:.4f}"
+              f" / {sr['epoch2_s']:.4f} s ({n} device-tier hits each); open "
+              f"a block: lease {lr['open_ms']:.3f} ms, SHM cold "
+              f"{sr['open_ms']:.3f} ms; open+close lease RPC "
+              f"{out['prefetch']['lease_rpc_pair_ms']:.3f} ms; scan K={k} "
+              f"{lr['scan_ms']:.2f} / {sr['scan_ms']:.2f} ms, acc "
+              f"{lr['chain']} == main path == plain, launches {launches} / "
+              f"{sr['scan_launches']}; remote rung {GRPC_BLOCKS} blocks: "
+              + ", ".join(f"{t['mode']} {t['s']:.3f} s "
+                          f"({t['gb_per_s']:.2f} GB/s)" for t in rt)
+              + f"; cold UFS rung {GRPC_BLOCKS} blocks: "
+              + ", ".join(f"{t['mode']} {t['s']:.3f} s "
+                          f"({t['gb_per_s']:.2f} GB/s, "
+                          f"{t['ufs_reads_per_block']:g} UFS reads a block)"
+                          for t in out["cold_read"]),
               flush=True)
     finally:
         server.stop()
@@ -1104,37 +1214,283 @@ def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
     return out
 
 
-def route_turns(device, files: dict, master, client) -> list:
+def shm_read(device, files: dict, master, worker, main: dict, k: int,
+             hits) -> dict:
+    """(2c ii'): a fresh loader reads the 64 blocks through the SHM rung
+    into the device tier. While it is open the worker holds a lease and
+    an SHM pin a block; after the loader and then the client close, none.
+    The native library pre-faults every block, none on the plain path."""
+    from alluxio_tpu_torch import native
+
+    n = len(files)
+    fs = WorkerFS(files, 1, master, route="shm")
+    native.reset_counts()
+    read = loader_read(
+        "worker SHM read", device, fs, files, main, k,
+        lambda: (worker.shm_store.stats()["live_leases"],
+                 len(worker.store.shm_leased_blocks)), hits)
+    prefaults = native.prefault_calls()
+    fs.check_rungs("worker SHM read")
+    after_loader = worker.shm_store.stats()["live_leases"]
+    fs.close()
+    after = (worker.shm_store.stats()["live_leases"],
+             len(worker.store.shm_leased_blocks))
+    plain = native.plain_calls()
+    if read["held"] != (n, n) or after != (0, 0):
+        fail(f"worker SHM read: leases and SHM pins {read['held']} while "
+             f"the loader is open, {after} after the client closed; want "
+             f"({n}, {n}), then (0, 0)")
+    if not native.loaded() or plain["prefault"] or \
+            prefaults != (n, n * BLOCK_BYTES):
+        fail(f"worker SHM read: native library loaded {native.loaded()}, "
+             f"(pre-faults, bytes) {prefaults}, plain path {plain}; want "
+             f"True, {(n, n * BLOCK_BYTES)}, none")
+    return dict(read, rungs=dict(fs.rungs),
+                leases_after_loader_close=after_loader,
+                leases_after_client_close=0, native_prefaults=n)
+
+
+def route_turns(device, files: dict, master, worker) -> list:
     """Epoch 1 of a fresh loader (no device tier) over the same 64
-    blocks, in turns: the stand-in's block files, the worker's leases,
-    the leases again, the stand-in again. Each turn's time and the
-    consumer's wait for the producer (the loader's stall report) say
-    whether the lease route's extra time is on the producer's side."""
+    blocks, in turns: the stand-in's block files, the lease rung, the
+    SHM rung cold (a lease RPC and a map a block), the SHM rung again on
+    the same client (segment-cache hits, no RPC), the lease rung, the
+    stand-in. Each turn's time, the consumer's wait for the producer (the
+    loader's stall report) and the host ms a block to open a stream; for
+    the SHM turns also the leases the worker granted and, from the
+    loader's host-read spans, the ms a block of the lease RPC and of the
+    map (the turns run with tracing on, all six alike). The SHM client
+    is closed before the turns end, so (iv) sees no SHM pin."""
     import torch
 
     from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.utils import tracing
 
+    n = len(files)
+    shm_fs = WorkerFS(files, 1, master, route="shm")
+    granted = metrics().counter("Worker.ShmLeasesGranted")
     turns = []
-    for route in ("stand-in", "lease", "lease", "stand-in"):
-        src = ShardSource(files) if route == "stand-in" else \
-            WorkerFS(files, 1, master, client)
-        loader = DeviceBlockLoader(src, list(files), device=device,
+    tracing.set_tracing_enabled(True)
+    try:
+        for route in ("stand-in", "lease", "shm", "shm", "lease",
+                      "stand-in"):
+            src = {"stand-in": lambda: ShardSource(files),
+                   "lease": lambda: WorkerFS(files, 1, master),
+                   "shm": lambda: shm_fs}[route]()
+            opens0, open_s0, granted0 = src.opens, src.open_s, granted.count
+            wall0 = time.time() * 1e3
+            loader = DeviceBlockLoader(src, list(files), device=device,
+                                       prefetch=2, dtype=np.int32)
+            try:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in loader.epoch():
+                    pass
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                wait = loader.stall_report()["total_wait_s"]
+            finally:
+                loader.close()
+            opens = src.opens - opens0
+            turn = {"route": route, "s": dt, "consumer_wait_s": wait,
+                    "open_ms_per_block": (src.open_s - open_s0) * 1e3
+                    / opens}
+            if route == "lease":
+                src.check_rungs("worker route turn (lease)")
+                src.close()
+            if route == "shm":
+                calls = granted.count - granted0
+                phases = shm_phases(wall0)
+                cold = len(turns) == 2
+                want = n if cold else 0
+                if calls != want or len(phases["lease_wait"]) != want:
+                    fail(f"worker route turn (SHM, "
+                         f"{'cold' if cold else 'cached'}): {calls} leases "
+                         f"granted, {len(phases['lease_wait'])} lease "
+                         f"RPCs traced, want {want}")
+                turn.update(cached=not cold, shm_open_rpcs=calls)
+                if cold:
+                    turn.update(
+                        shm_open_rpc_ms=sum(phases["lease_wait"]) / n,
+                        map_ms=sum(phases["shm_map"]) / n)
+            turns.append(turn)
+        shm_fs.check_rungs("worker route turns (SHM)")
+    finally:
+        tracing.set_tracing_enabled(False)
+        shm_fs.close()
+    print("worker route turns (epoch 1, no device tier): " + ", ".join(
+        f"{t['route']}{' cached' if t.get('cached') else ''} {t['s']:.3f} "
+        f"s (consumer waits {t['consumer_wait_s']:.3f} s, open "
+        f"{t['open_ms_per_block']:.3f} ms a block)" for t in turns),
+        flush=True)
+    cold = turns[2]
+    print(f"worker SHM cold open a block: shm_open RPC "
+          f"{cold['shm_open_rpc_ms']:.3f} ms, map {cold['map_ms']:.3f} ms, "
+          f"whole open {cold['open_ms_per_block']:.3f} ms; cached open "
+          f"{turns[3]['open_ms_per_block']:.3f} ms, no RPC", flush=True)
+    return turns
+
+
+def shm_phases(since_ms: float) -> dict:
+    """The ``lease_wait`` and ``shm_map`` phases (ms) that the SHM
+    transport recorded in the loader's host-read spans begun after
+    ``since_ms`` (wall clock), one of each a mapped segment."""
+    from alluxio_tpu_torch.utils.tracing import tracer
+
+    out = {"lease_wait": [], "shm_map": []}
+    for span in tracer().snapshot(limit=1 << 16):
+        if span["name"] != "atpu.loader.host_read" or \
+                span["start_ms"] < since_ms:
+            continue
+        for name, ms in span.get("phases", ()):
+            if name in out:
+                out[name].append(ms)
+    return out
+
+
+def remote_turns(device, files: dict, master, main: dict) -> list:
+    """(2c iii): the first ``GRPC_BLOCKS`` blocks through the remote rung
+    (short circuit off) into a loader with no device tier, in turns:
+    one stream a block (stripe size 0), striped at the JAX defaults (4
+    MiB stripes, concurrency 4 over pooled channels), one stream again.
+    Every block must equal its file."""
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.metrics import metrics
+
+    grpc_files = dict(list(files.items())[:GRPC_BLOCKS])
+    streamed = metrics().counter("Client.JaxStreamedBlocks")
+    stripes = metrics().counter("Client.RemoteReadStripes")
+    hedges = metrics().counter("Client.RemoteReadHedges")
+    turns = []
+    for mode, stripe in (("single", 0), ("striped", REMOTE_STRIPE_BYTES),
+                         ("single", 0)):
+        gfs = WorkerFS(grpc_files, 1, master, route="grpc",
+                       stripe_size=stripe)
+        s0, st0, h0 = streamed.count, stripes.count, hedges.count
+        loader = DeviceBlockLoader(gfs, list(grpc_files), device=device,
                                    prefetch=2, dtype=np.int32)
         try:
             torch.cuda.synchronize()
             t = time.perf_counter()
-            for _ in loader.epoch():
-                pass
+            got = list(loader.epoch())
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
-            wait = loader.stall_report()["total_wait_s"]
         finally:
             loader.close()
-        turns.append({"route": route, "s": dt, "consumer_wait_s": wait})
-    print("worker route turns (epoch 1, no device tier): " + ", ".join(
-        f"{t['route']} {t['s']:.3f} s (consumer waits {t['consumer_wait_s']:.3f}"
-        f" s)" for t in turns), flush=True)
+            gfs.close()
+        gfs.check_rungs(f"worker remote rung ({mode})")
+        if streamed.count - s0 != GRPC_BLOCKS:
+            fail(f"worker remote rung ({mode}): {streamed.count - s0} "
+                 f"streamed blocks, want {GRPC_BLOCKS}")
+        n_stripes = stripes.count - st0
+        if (n_stripes > 0) != (mode == "striped"):
+            fail(f"worker remote rung ({mode}): {n_stripes} stripes")
+        check_order(f"worker remote rung ({mode})", got,
+                    [SimpleNamespace(path=p) for p in grpc_files], main)
+        del got
+        turns.append({"mode": mode, "blocks": GRPC_BLOCKS, "s": dt,
+                      "gb_per_s": GRPC_BLOCKS * BLOCK_BYTES / dt / 1e9,
+                      "stripes": n_stripes, "hedges": hedges.count - h0})
     return turns
+
+
+def cold_turns(device, files: dict, master, main: dict) -> list:
+    """(2c v): the first ``GRPC_BLOCKS`` files as fresh block ids no
+    worker holds, through the UFS rung into a loader with no device tier,
+    the worker caching each block as it reads it through: one stream a
+    block, then striped at the JAX defaults, each turn on blocks of its
+    own. Every block must equal its file and cost the worker one UFS
+    read, striped or not."""
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.metrics import metrics
+
+    cold_files = dict(list(files.items())[:GRPC_BLOCKS])
+    ufs_reads = metrics().counter("Worker.UfsBlocksRead")
+    stripes = metrics().counter("Client.RemoteReadStripes")
+    turns = []
+    for i, (mode, stripe) in enumerate((("single", 0),
+                                        ("striped", REMOTE_STRIPE_BYTES))):
+        cfs = WorkerFS(cold_files, 1 + COLD_CONTAINER_BASE + i * GRPC_BLOCKS,
+                       master, stripe_size=stripe)
+        master.know_blocks(cfs.block_lengths())
+        r0, st0 = ufs_reads.count, stripes.count
+        loader = DeviceBlockLoader(cfs, list(cold_files), device=device,
+                                   prefetch=2, dtype=np.int32)
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = list(loader.epoch())
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        finally:
+            loader.close()
+            cfs.close()
+        cfs.check_rungs(f"worker cold read ({mode})", allowed={"ufs"})
+        reads, n_stripes = ufs_reads.count - r0, stripes.count - st0
+        if reads != GRPC_BLOCKS or (n_stripes > 0) != (mode == "striped"):
+            fail(f"worker cold read ({mode}): {reads} UFS reads and "
+                 f"{n_stripes} stripes for {GRPC_BLOCKS} blocks; want "
+                 f"{GRPC_BLOCKS} reads, stripes only when striped")
+        check_order(f"worker cold read ({mode})", got,
+                    [SimpleNamespace(path=p) for p in cold_files], main)
+        del got
+        turns.append({"mode": mode, "blocks": GRPC_BLOCKS, "s": dt,
+                      "gb_per_s": GRPC_BLOCKS * BLOCK_BYTES / dt / 1e9,
+                      "stripes": n_stripes,
+                      "ufs_reads_per_block": reads / GRPC_BLOCKS})
+    return turns
+
+
+def pread_many_check(files: dict, master) -> dict:
+    """(2c iii): one ``pread_many`` of 256 seeded small reads (at most 64
+    KiB each) of the first block on the remote rung (one ``read_many``
+    RPC; opened without the UFS descriptor, since a stream that may have
+    to read a cold block through keeps its reads per op) and on the SHM
+    rung (one native plan), each equal to the file's bytes."""
+    from alluxio_tpu_torch import native
+    from alluxio_tpu_torch.metrics import metrics
+
+    path, (_, block_file) = next(iter(files.items()))
+    rng = np.random.default_rng(SEED + 3)
+    sizes = rng.integers(1, (64 << 10) + 1, 256)
+    offsets = [int(o) for o in rng.integers(0, BLOCK_BYTES - sizes.max(),
+                                            256)]
+    sizes = [int(s) for s in sizes]
+    data = np.fromfile(block_file, dtype=np.uint8)
+    want = [data[o:o + s].tobytes() for o, s in zip(offsets, sizes)]
+    m = metrics()
+    out = {"ops": len(offsets), "bytes": sum(sizes)}
+    for route, counter, rung in (
+            ("grpc", "Client.BatchReadBatches", "remote"),
+            ("shm", "Client.NativeBatches", "shm")):
+        fs = WorkerFS({path: files[path]}, 1, master, route=route)
+        try:
+            stream = fs.block_stream(path, with_ufs=False)
+            c0 = m.counter(counter).count
+            t = time.perf_counter()
+            got = stream.pread_many(offsets, sizes)
+            dt = time.perf_counter() - t
+        finally:
+            fs.close()
+        batches = m.counter(counter).count - c0
+        if stream.rung != rung or got != want or batches != 1:
+            fail(f"pread_many on the {rung} rung: served by "
+                 f"{stream.rung}, bytes equal {got == want}, {batches} "
+                 f"batches ({counter}); want {rung}, True, 1")
+        out[rung] = {"ms": dt * 1e3, "batches": batches}
+    if native.plain_calls()["plan"]:
+        fail(f"pread_many: {native.plain_calls()['plan']} plans took the "
+             f"plain path")
+    print(f"worker pread_many ({out['ops']} ops, {out['bytes']} bytes, "
+          f"equal to the file): remote rung one read_many "
+          f"{out['remote']['ms']:.3f} ms, SHM rung one native plan "
+          f"{out['shm']['ms']:.3f} ms", flush=True)
+    return out
 
 
 def worker_prefetch(device, worker, master, client, main: dict,
@@ -1155,7 +1511,9 @@ def worker_prefetch(device, worker, master, client, main: dict,
 
     files = main["files"]
     n = len(files)
-    fs = WorkerFS(files, 1 + PREFETCH_CONTAINER_BASE, master, client)
+    # the lease route: a block the master has not located (a miss) takes
+    # the UFS rung, striped at the defaults
+    fs = WorkerFS(files, 1 + PREFETCH_CONTAINER_BASE, master)
     master.know_blocks(fs.block_lengths())  # persisted files' blocks
     store = worker.store
     evictions = {"count": 0, "while_pinned": 0, "pinned_victims": []}
@@ -1239,6 +1597,8 @@ def worker_prefetch(device, worker, master, client, main: dict,
         svc.close()  # unpins every block it placed
         if loader is not None:
             loader.close()
+        fs.close()
+    fs.check_rungs("worker prefetch", allowed={"lease", "ufs"})
     placed = {k: c.count - base[k] for k, c in counters.items()}
     left_pinned = sorted(store.prefetch_pinned_blocks)
     if placed["BlocksPinned"] < 1 or placed["LoadsIssued"] < 1:
@@ -1266,6 +1626,7 @@ def worker_prefetch(device, worker, master, client, main: dict,
            "evictions_while_pinned": evictions["while_pinned"],
            "pinned_evicted": 0, "late_arrivals": stats["late_arrivals"],
            "pinned_at_touch": pinned_at_touch, "warm_leases": len(warm),
+           "rungs": dict(fs.rungs),
            "lease_rpc_pair_ms": touch_s * 1e3 / max(1, len(warm))}
     print(f"worker prefetch (hbm_fraction 0.25): warm-up gate "
           f"{warm_s:.3f} s; epoch 0 {e0['s']:.3f} s hit/late/miss "
@@ -2155,6 +2516,7 @@ def main() -> int:
             "prefetch": prefetch["scan_launches"],
             "page_cache": page_cache["scan_launches"],
             "worker": worker["launches"],
+            "worker_shm": worker["shm_read"]["scan_launches"],
             "train": train["kernel_launches"]["scaled_sum"],
             "mesh": mesh["kernel_launches"]["scaled_sum"]},
         "max_abs_err": kern["max_abs_err"],

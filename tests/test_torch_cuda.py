@@ -354,3 +354,8 @@ def test_world_one_nccl_mesh_matches_one_card(cuda, tmp_path):
 def test_worker_lease_loader_on_card(cuda, tmp_path):
     _module("torch_worker", "tests/testutils/torch_worker.py") \
         .lease_loader_case(tmp_path, cuda)
+
+
+def test_worker_shm_loader_on_card(cuda, tmp_path):
+    _module("torch_worker", "tests/testutils/torch_worker.py") \
+        .shm_loader_case(tmp_path, cuda)

@@ -49,7 +49,10 @@ def test_importing_every_module_loads_no_jax():
               "worker.lock_manager", "worker.allocator", "worker.annotator",
               "worker.tiered_store", "worker.ufs_io", "worker.master_sync",
               "worker.ufs_manager", "worker.process", "rpc", "rpc.core",
-              "rpc.worker_service", "rpc.clients"):
+              "rpc.worker_service", "rpc.clients", "native", "shm",
+              "worker.shm_store", "client.fastpath", "client.shm_transport",
+              "utils.striping", "client.remote_read", "client.policy",
+              "client.block_store"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -3,9 +3,9 @@ behind a port ``RpcServer``, registered with the cluster's master through
 the JAX master clients, as ``LocalCluster._start_worker`` registers a JAX
 worker. Shared by the port's worker and prefetch tests.
 
-``lease_loader_case`` drives the port's worker alone (an in-memory
-block master, no JAX) on a given device; the card tests and the CPU
-stream tests both run it."""
+``lease_loader_case`` and ``shm_loader_case`` drive the port's worker
+alone (an in-memory block master, no JAX) on a given device; the card
+tests and the CPU tests both run them."""
 
 import os
 
@@ -158,6 +158,96 @@ def lease_loader_case(tmp_path, device, n=3, words=1 << 20):
         assert len(held) == n
         assert all(a > i and b > i for i, a, b in held)
         assert worker.store.active_locks() == 0
+    finally:
+        server.stop()
+        worker.stop()
+
+
+def shm_loader_case(tmp_path, device, n=3, words=1 << 20):
+    """Blocks written through ``LocalBlockOutStream`` into the port's
+    worker (its shm dir a real directory, so the client sees it on its
+    host), read into the loader on ``device`` through the SHM rung of the
+    port's ``BlockStoreClient``: each device block equals its file, the
+    native library pre-faulted every block, the worker holds a lease and
+    an SHM pin a block while the loader is open, and none after the
+    loader and then the client close."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from alluxio_tpu_torch import native
+    from alluxio_tpu_torch.client import torch_io
+    from alluxio_tpu_torch.client.block_store import BlockStoreClient
+    from alluxio_tpu_torch.client.block_streams import LocalBlockOutStream
+    from alluxio_tpu_torch.conf import Configuration, Keys, Templates
+    from alluxio_tpu_torch.rpc.clients import WorkerClient
+    from alluxio_tpu_torch.rpc.core import RpcServer
+    from alluxio_tpu_torch.rpc.worker_service import worker_service
+    from alluxio_tpu_torch.utils import ids
+    from alluxio_tpu_torch.utils.wire import (BlockInfo, BlockLocation,
+                                              FileBlockInfo)
+    from alluxio_tpu_torch.worker.process import BlockWorker
+
+    conf = Configuration(load_env=False)
+    conf.set(Keys.WORKER_TIERED_STORE_LEVELS, 1)
+    conf.set(Keys.WORKER_SHM_DIR, str(tmp_path))
+    conf.set(Templates.WORKER_TIER_DIRS_PATH.format(0), str(tmp_path / "mem"))
+    conf.set(Templates.WORKER_TIER_DIRS_QUOTA.format(0),
+             str(2 * n * words * 4))
+    worker = BlockWorker(conf, StandInMaster())
+    server = RpcServer(bind_host="127.0.0.1", port=0)
+    server.add_service(worker_service(worker))
+    worker.address.rpc_port = server.start()
+    worker.register_with_master()
+    client = WorkerClient(f"127.0.0.1:{worker.address.rpc_port}")
+    store = BlockStoreClient(SimpleNamespace(get_worker_infos=lambda: []))
+    files, rungs = {}, []
+    try:
+        for i in range(n):
+            bid = ids.block_id(i + 1, 0)
+            data = np.random.default_rng(400 + i).integers(
+                -2**31, 2**31 - 1, size=words, dtype=np.int32)
+            with LocalBlockOutStream(client, store.session_id, bid,
+                                     size_hint=data.nbytes) as out:
+                out.write(data)
+            files[f"/s{i}"] = (bid, data)
+
+        class Source:
+            def get_status(self, p):
+                return SimpleNamespace(file_id=files[p][0] >> 24,
+                                       block_ids=[files[p][0]])
+
+            def open_file(self, p, info=None, max_open_streams=1):
+                bid, data = files[p]
+                stream = store.open_block(FileBlockInfo(block_info=BlockInfo(
+                    block_id=bid, length=data.nbytes,
+                    locations=[BlockLocation(worker_id=1,
+                                             address=worker.address)])))
+                rungs.append(stream.rung)
+                return SimpleNamespace(block_stream=lambda i: stream,
+                                       close=stream.close)
+
+        native.reset_counts()
+        loader = torch_io.DeviceBlockLoader(Source(), list(files),
+                                            device=device,
+                                            hbm_bytes=2 * n * words * 4,
+                                            dtype=np.int32)
+        try:
+            blocks = list(loader.epoch())
+            for block, (_, data) in zip(blocks, files.values()):
+                assert block.device.type == torch.device(device).type
+                assert torch.equal(block.cpu(), torch.from_numpy(data))
+            assert rungs == ["shm"] * n
+            assert worker.shm_store.stats()["live_leases"] == n
+            assert len(worker.store.shm_leased_blocks) == n
+        finally:
+            loader.close()
+            store.close()
+        assert native.loaded()
+        assert native.plain_calls() == {"prefault": 0, "plan": 0}
+        assert worker.shm_store.stats()["live_leases"] == 0
+        assert not worker.store.shm_leased_blocks
     finally:
         server.stop()
         worker.stop()
