@@ -105,6 +105,7 @@ class BlockStoreClient:
         self.shm: Optional[ShmTransport] = ShmTransport(
             self.session_id, cache_max=shm_cache_max,
             renew_fraction=shm_renew_fraction,
+            host=socket.gethostname(),
             native_fastpath=native_fastpath) if shm_enabled else None
         #: scatter/gather coalescing conf shared by every remote stream
         self.batch_read = batch_read if batch_read is not None \

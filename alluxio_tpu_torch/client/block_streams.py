@@ -410,7 +410,7 @@ class GrpcBlockInStream(BlockInStream):
             ops["src_off"][row:row + k] = bounds[row:row + k] - bounds[row]
             row += k
         dest = bytearray(int(bounds[-1]))
-        fastpath.execute_table(ops, dest)
+        fastpath.execute_table(ops, dest, host="batch")
         del keep
         return fastpath.slice_out(dest, bounds.tolist())
 

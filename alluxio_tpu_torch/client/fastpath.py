@@ -13,8 +13,9 @@ Fallback contract: any native problem — library missing, bounds
 rejection, I/O error — surfaces as :exc:`NativeExecError` after counting
 ``Client.NativeFallbacks`` and a plain plan (``native.plain_calls``),
 and the caller re-runs the same batch through its Python path, which
-gives the same bytes. The JAX module's injected poison fault is not
-ported.
+gives the same bytes. Deterministic chaos rides
+``atpu.debug.fault.native.exec.error.rate``: a taken fault poisons ONE
+op mid-table, so the drill exercises a real partial-write batch.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 
 from alluxio_tpu_torch import native
 from alluxio_tpu_torch.metrics import metrics
+from alluxio_tpu_torch.utils import faults
 
 OP_COPY = native.OP_COPY
 OP_PREAD = native.OP_PREAD
@@ -34,6 +36,10 @@ OP_PREAD = native.OP_PREAD
 #: copy: a one-op table costs a few microseconds to build, which only
 #: pays for itself once the GIL-free memcpy is big enough to matter
 MIN_COPY_BYTES = 64 << 10
+
+#: an op kind plan_exec.cpp does not know — the mid-table poison the
+#: fault injector plants to drill genuine partial-write fallbacks
+_POISON_KIND = 0xDEAD
 
 
 class NativeExecError(Exception):
@@ -58,15 +64,30 @@ def note_unavailable() -> None:
     native.note_plain("plan")
 
 
-def execute_table(ops, dest) -> int:
+def _maybe_poison(ops, host: str):
+    """Fault hook: when ``atpu.debug.fault.native.exec.error.rate``
+    takes this batch, poison one op in the MIDDLE of a copy of the
+    table — the native executor writes everything before it, then
+    rejects, so the fallback drill covers a genuinely partial buffer."""
+    if not faults.armed() or \
+            not faults.injector().take_native_exec_error(host):
+        return ops
+    ops = ops.copy()
+    ops["kind"][len(ops) // 2] = _POISON_KIND
+    return ops
+
+
+def execute_table(ops, dest, *, host: str = "") -> int:
     """Run a packed op table against ``dest`` in one GIL-free native
     call. Returns the bytes written; raises :exc:`NativeExecError`
     (after counting the fallback) when the library is unavailable or
     any op fails. ``dest`` may hold partial results after a failure; the
-    fallback overwrites every planned byte."""
+    fallback overwrites every planned byte. ``host`` is the call site's
+    scope for the fault injector."""
     nops = len(ops)
     if nops == 0:
         return 0
+    ops = _maybe_poison(ops, host)
     rc = native.exec_plan(ops, dest)
     if rc is None or rc < 0:
         note_unavailable()
@@ -86,11 +107,12 @@ def slice_out(dest, bounds: Sequence[int]) -> List[bytes]:
     return [bytes(mv[a:b]) for a, b in zip(bounds, bounds[1:])]
 
 
-def copy_into(dest, dst_off: int, src) -> bool:
+def copy_into(dest, dst_off: int, src, *, host: str = "") -> bool:
     """One GIL-free memcpy of ``src`` into ``dest[dst_off:]`` — the
     stripe-commit form. True when the native path ran; False (library
-    missing, no zero-copy address, bounds rejection) means the caller
-    does the plain Python copy, which gives the same bytes."""
+    missing, no zero-copy address, injected fault, bounds rejection)
+    means the caller does the plain Python copy, which gives the same
+    bytes."""
     if not available():
         note_unavailable()
         return False
@@ -104,7 +126,7 @@ def copy_into(dest, dst_off: int, src) -> bool:
     ops = op_table(1)
     ops[0] = (OP_COPY, -1, addr, 0, n, dst_off, n)
     try:
-        execute_table(ops, dest)
+        execute_table(ops, dest, host=host)
     except NativeExecError:
         return False
     finally:

@@ -502,7 +502,7 @@ class StripedRead:
         if not self._conf.native_fastpath or \
                 len(data) < fastpath.MIN_COPY_BYTES:
             return False
-        return fastpath.copy_into(self._buf, dst_off, data)
+        return fastpath.copy_into(self._buf, dst_off, data, host="stripe")
 
     def _note_first_byte(self) -> None:
         if self._first_byte_at is not None:

@@ -37,6 +37,7 @@ from alluxio_tpu_torch import native
 from alluxio_tpu_torch.client import fastpath
 from alluxio_tpu_torch.client.block_streams import BlockInStream, _record_read
 from alluxio_tpu_torch.metrics import metrics
+from alluxio_tpu_torch.utils import faults
 from alluxio_tpu_torch.utils.tracing import current_span
 
 
@@ -82,11 +83,13 @@ class ShmTransport:
     """Per-client segment cache + lease manager."""
 
     def __init__(self, session_id: int, *, cache_max: int = 64,
-                 renew_fraction: float = 0.5,
+                 renew_fraction: float = 0.5, host: str = "",
                  native_fastpath: bool = True) -> None:
         self._session = session_id
         self._cache_max = max(1, int(cache_max))
         self._renew_fraction = min(0.95, max(0.05, float(renew_fraction)))
+        #: the client's host, which the fault injector's scope matches
+        self._host = host
         #: batch pread_many through the native plan executor
         #: (``atpu.user.native.fastpath.enabled``); the per-op Python
         #: loop gives the same bytes
@@ -127,6 +130,10 @@ class ShmTransport:
             sp.phase("lease_wait", (time.perf_counter() - t0) * 1000.0)
         t1 = time.perf_counter()
         try:
+            if faults.armed() and \
+                    faults.injector().take_shm_map_error(self._host):
+                raise OSError(
+                    f"injected shm map fault for block {block_id}")
             if lease["length"] > 0:
                 with open(lease["path"], "rb") as f:
                     mm = mmap.mmap(f.fileno(), 0, prot=mmap.PROT_READ)
@@ -280,7 +287,7 @@ class ShmBlockInStream(BlockInStream):
             ops["src_len"] = n
             ops["dst_off"] = bounds[:-1]
             ops["len"] = lens
-            fastpath.execute_table(ops, dest)
+            fastpath.execute_table(ops, dest, host="shm")
             del keep
         m = metrics()
         m.counter("Client.ShmReads").inc(offs.size)

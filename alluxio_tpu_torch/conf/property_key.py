@@ -4,9 +4,12 @@
 The machinery (typed keys, a registry with aliases, ``Template`` families
 such as the per-tier worker settings, the duration and byte parsers) is
 the JAX package's. The catalog holds only the keys the port reads — the
-``atpu.worker.*`` keys of the store, the tiers, the async cache, the RPC
-and the SHM leases, the ``atpu.user.rpc.retry.*`` keys of the worker
-client, and the client's SHM, remote-read, batch-read and native
+``atpu.worker.*`` keys of the store, the tiers, the async cache, the RPC,
+the SHM leases, the striped cold fetch and its QoS, tier management and
+the web endpoint; the metrics sinks and the worker's metrics heartbeat;
+the authentication keys the worker's authenticator reads; the
+``atpu.debug.fault.*`` hooks; the ``atpu.user.rpc.retry.*`` keys of the
+worker client, and the client's SHM, remote-read, batch-read and native
 fastpath keys — with the JAX names, types and defaults, so one
 properties file configures either package.
 """
@@ -416,6 +419,178 @@ class Keys:
                     "Client.NativeFallbacks. Off: the client is "
                     "byte-identical to a build without the subsystem.")
 
+    # --- worker: the read-only web endpoint ---
+    WORKER_WEB_PORT = _k("atpu.worker.web.port", KeyType.INT, default=30000)
+    WORKER_WEB_ENABLED = _k(
+        "atpu.worker.web.enabled", KeyType.BOOL, default=False,
+        scope=Scope.WORKER,
+        description="Serve the worker's read-only HTTP/JSON state "
+                    "endpoint (reference: AlluxioWorkerRestServiceHandler).")
+    WORKER_WEB_BIND_HOST = _k(
+        "atpu.worker.web.bind.host", default="0.0.0.0",
+        scope=Scope.WORKER)
+
+    # --- worker: tier management ---
+    WORKER_MANAGEMENT_TIER_ALIGN_ENABLED = _k(
+        "atpu.worker.management.tier.align.enabled", KeyType.BOOL, default=True,
+        scope=Scope.WORKER)
+    WORKER_MANAGEMENT_TIER_PROMOTE_ENABLED = _k(
+        "atpu.worker.management.tier.promote.enabled", KeyType.BOOL, default=True,
+        scope=Scope.WORKER)
+    WORKER_MANAGEMENT_TASK_INTERVAL = _k(
+        "atpu.worker.management.task.interval", KeyType.DURATION, default="1s",
+        scope=Scope.WORKER)
+    WORKER_MANAGEMENT_PROMOTE_QUOTA_PERCENT = _k(
+        "atpu.worker.management.tier.promote.quota.percent", KeyType.INT, default=90,
+        scope=Scope.WORKER)
+
+    # --- worker: the striped cold fetch and its QoS ---
+    WORKER_UFS_FETCH_STRIPE_SIZE = _k(
+        "atpu.worker.ufs.fetch.stripe.size", KeyType.BYTES, default="4MB",
+        scope=Scope.WORKER,
+        description="Stripe size for striped parallel cold UFS block "
+                    "fetches; also the streaming read-through's "
+                    "time-to-first-byte unit (a waiter gets its first "
+                    "chunk after one stripe lands, not the whole block).")
+    WORKER_UFS_FETCH_CONCURRENCY = _k(
+        "atpu.worker.ufs.fetch.concurrency", KeyType.INT, default=4,
+        scope=Scope.WORKER,
+        description="Stripes of one block fetched concurrently. "
+                    "Effective parallelism is also bounded by "
+                    "atpu.worker.ufs.fetch.per.mount.limit.")
+    WORKER_UFS_FETCH_PER_MOUNT_LIMIT = _k(
+        "atpu.worker.ufs.fetch.per.mount.limit", KeyType.INT, default=16,
+        scope=Scope.WORKER,
+        description="Concurrent UFS stripe reads per mount across ALL "
+                    "in-flight block fetches — the worker's connection "
+                    "budget against one backing store.")
+    WORKER_UFS_FETCH_TENANT_LIMIT = _k(
+        "atpu.worker.ufs.fetch.tenant.limit", KeyType.INT, default=8,
+        scope=Scope.WORKER,
+        description="With worker QoS on: concurrent UFS stripe tasks "
+                    "one tenant (principal) may occupy per mount; "
+                    "excess work is parked until the tenant frees a "
+                    "slot, so one flooding tenant cannot monopolize "
+                    "the per-mount connection budget. 0 = unlimited.")
+
+    # --- metrics: sinks and the worker's metrics heartbeat ---
+    METRICS_SINKS = _k(
+        "atpu.metrics.sinks", KeyType.STRING, default="",
+        scope=Scope.ALL,
+        description="Comma-separated metric sinks to start (console, "
+                    "csv, jsonl, graphite) — reference: "
+                    "metrics/sink/*Sink.java.")
+    METRICS_SINK_INTERVAL = _k(
+        "atpu.metrics.sink.interval", KeyType.DURATION, default="10s",
+        scope=Scope.ALL)
+    METRICS_SINK_CSV_DIR = _k(
+        "atpu.metrics.sink.csv.dir", KeyType.STRING,
+        default="/tmp/atpu-metrics", scope=Scope.ALL,
+        description="Directory for the CSV sink (one file per metric).")
+    METRICS_SINK_JSONL_PATH = _k(
+        "atpu.metrics.sink.jsonl.path", KeyType.STRING,
+        default="/tmp/atpu-metrics/metrics.jsonl", scope=Scope.ALL)
+    METRICS_SINK_GRAPHITE_ADDRESS = _k(
+        "atpu.metrics.sink.graphite.address", KeyType.STRING,
+        default="", scope=Scope.ALL,
+        description="host:port of the Graphite/Carbon plaintext "
+                    "listener (reference: metrics/sink/"
+                    "GraphiteSink.java).")
+    METRICS_SINK_GRAPHITE_PREFIX = _k(
+        "atpu.metrics.sink.graphite.prefix", KeyType.STRING,
+        default="alluxio-tpu", scope=Scope.ALL)
+    METRICS_SINK_GRAPHITE_TIMEOUT = _k(
+        "atpu.metrics.sink.graphite.timeout", KeyType.DURATION,
+        default="5s", scope=Scope.ALL,
+        description="Connect/send deadline for the Graphite sink. The "
+                    "send also runs on a dedicated sender thread, so a "
+                    "dead carbon host can never stall the shared "
+                    "metrics-sink heartbeat.")
+    WORKER_METRICS_HEARTBEAT_INTERVAL = _k(
+        "atpu.worker.metrics.heartbeat.interval", KeyType.DURATION,
+        default="10s", scope=Scope.WORKER,
+        description="Cadence of worker metric snapshots shipped to the "
+                    "master for cluster aggregation.")
+
+    # --- security: authentication (the worker's authenticator) ---
+    SECURITY_AUTH_TYPE = _k("atpu.security.authentication.type", KeyType.ENUM,
+                            default="SIMPLE", choices=("NOSASL", "SIMPLE", "CUSTOM"))
+    SECURITY_LOGIN_USERNAME = _k("atpu.security.login.username")
+    SECURITY_LOGIN_IMPERSONATION_USERNAME = _k(
+        "atpu.security.login.impersonation.username",
+        description="User to act as; the connecting user must be allowed by "
+                    "the master's impersonation rules.")
+    SECURITY_AUTH_CUSTOM_PROVIDER = _k(
+        "atpu.security.authentication.custom.provider",
+        description="dotted.module:attr of an AuthenticationProvider for "
+                    "CUSTOM auth (reference: AuthenticationProvider SPI).")
+    SECURITY_LOGIN_TOKEN = _k(
+        "atpu.security.login.token",
+        description="Opaque credential forwarded to a CUSTOM provider.")
+
+    # --- fault injection (chaos / self-healing tests; see utils/faults.py)
+    DEBUG_FAULT_READ_LATENCY = _k(
+        "atpu.debug.fault.read.latency", KeyType.DURATION, default="0ms",
+        scope=Scope.WORKER,
+        description="FAULT INJECTION (tests/chaos only): extra latency "
+                    "added to every warm read_block chunk this worker "
+                    "serves — inflates Worker.ReadBlockTime so the p99 "
+                    "regression rule can be exercised end to end.")
+    DEBUG_FAULT_HEARTBEAT_FREEZE = _k(
+        "atpu.debug.fault.worker.heartbeat.freeze", KeyType.BOOL,
+        default=False, scope=Scope.WORKER,
+        description="FAULT INJECTION (tests/chaos only): the worker "
+                    "silently skips its metrics heartbeats — drives the "
+                    "heartbeat-staleness rule without killing the "
+                    "process.")
+    DEBUG_FAULT_UFS_ERROR_RATE = _k(
+        "atpu.debug.fault.ufs.error.rate", KeyType.FLOAT, default=0.0,
+        scope=Scope.WORKER,
+        description="FAULT INJECTION (tests/chaos only): deterministic "
+                    "fraction (0..1) of UFS stripe reads that fail with "
+                    "an injected IOError.")
+    DEBUG_FAULT_RPC_REJECT_RATE = _k(
+        "atpu.debug.fault.rpc.reject.rate", KeyType.FLOAT, default=0.0,
+        scope=Scope.ALL,
+        description="FAULT INJECTION (tests/chaos only): deterministic "
+                    "fraction (0..1) of RPC dispatches shed with the "
+                    "same typed ResourceExhausted + retry-after the "
+                    "admission controller emits — drills shedding and "
+                    "client retry-after honoring without a real "
+                    "flood. The fault scope matches the RPC's "
+                    "service.method key.")
+    DEBUG_FAULT_SHM_MAP_ERROR_RATE = _k(
+        "atpu.debug.fault.shm.map.error.rate", KeyType.FLOAT, default=0.0,
+        scope=Scope.CLIENT,
+        description="FAULT INJECTION (tests/chaos only): deterministic "
+                    "fraction (0..1) of client SHM segment maps that "
+                    "fail with an injected OSError — drills the "
+                    "SHM->remote transparent-fallback path.")
+    DEBUG_FAULT_SHM_LEASE_DENY_RATE = _k(
+        "atpu.debug.fault.shm.lease.deny.rate", KeyType.FLOAT, default=0.0,
+        scope=Scope.WORKER,
+        description="FAULT INJECTION (tests/chaos only): deterministic "
+                    "fraction (0..1) of worker shm_open lease grants "
+                    "denied as if the lease table were full — drills "
+                    "lease-denied fallback without filling "
+                    "atpu.worker.shm.max.leases.")
+    DEBUG_FAULT_NATIVE_EXEC_ERROR_RATE = _k(
+        "atpu.debug.fault.native.exec.error.rate", KeyType.FLOAT,
+        default=0.0, scope=Scope.CLIENT,
+        description="FAULT INJECTION (tests/chaos only): deterministic "
+                    "fraction (0..1) of native fastpath batches that "
+                    "fail mid-table (one op poisoned, earlier ops "
+                    "really write) — drills the byte-identical "
+                    "fallback to the pure-Python read path.")
+    DEBUG_FAULT_SCOPE = _k(
+        "atpu.debug.fault.scope", KeyType.STRING, default="",
+        scope=Scope.WORKER,
+        description="Substring a node's locality host / metrics source "
+                    "must contain for the atpu.debug.fault.* hooks to "
+                    "apply; empty = every node that loaded the conf "
+                    "(in-process miniclusters share one injector).")
+
+
 # Parameterized families (reference: PropertyKey.Template, PropertyKey.java:5668)
 class Templates:
     WORKER_TIER_ALIAS = _template(
@@ -431,3 +606,11 @@ class Templates:
         "atpu.worker.tieredstore.level{}.dirs.quota",
         r"atpu\.worker\.tieredstore\.level(\d+)\.dirs\.quota",
         KeyType.LIST, lambda lvl: None, Scope.WORKER)
+    MASTER_IMPERSONATION_USERS = _template(
+        "atpu.master.security.impersonation.{}.users",
+        r"atpu\.master\.security\.impersonation\.([^.]+)\.users",
+        KeyType.LIST, lambda *_: None, Scope.MASTER)
+    MASTER_IMPERSONATION_GROUPS = _template(
+        "atpu.master.security.impersonation.{}.groups",
+        r"atpu\.master\.security\.impersonation\.([^.]+)\.groups",
+        KeyType.LIST, lambda *_: None, Scope.MASTER)

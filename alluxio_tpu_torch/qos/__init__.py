@@ -1,15 +1,31 @@
-"""Worker QoS priority classes and the async-cache queue: a copy of the
-part of ``alluxio_tpu/qos/__init__.py`` that the worker's async cache
-uses. With QoS off (the default) the queue is exact FIFO; admission
-control, the stripe executors and tenant caps are not ported."""
+"""Worker QoS: priority classes, the stripe executor and the async-cache
+queue — a copy of the part of ``alluxio_tpu/qos/__init__.py`` that the
+worker uses.
+
+- :data:`ON_DEMAND` / :data:`ASYNC_FILL` / :data:`PREFETCH` — the
+  priority classes every worker-side request carries;
+- :class:`PriorityExecutor` — a bounded thread pool that drains in
+  priority order with per-tenant concurrency caps (the worker's
+  per-mount UFS stripe executors); queued background work is overtaken
+  by arriving on-demand work, and a queued fetch joined by an on-demand
+  reader is promoted;
+- :class:`PriorityTaskQueue` — the async cache manager's bounded queue.
+
+With QoS off (the default) both drain in exact FIFO order with no caps.
+The token buckets serve the master's admission controller and come with
+the master; the client's per-tenant stripe budget waits for a client
+that names a tenant."""
 
 from __future__ import annotations
 
 import heapq
 import itertools
+import logging
 import threading
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+LOG = logging.getLogger(__name__)
 
 #: Priority classes, lowest number drains first.  ON_DEMAND is a reader
 #: blocked RIGHT NOW; ASYNC_FILL is a client-issued passive cache fill
@@ -29,6 +45,206 @@ def priority_from_name(name: str, default: int = ASYNC_FILL) -> int:
     (an old client naming a class this build dropped must not crash the
     worker)."""
     return _NAME_TO_PRIORITY.get(str(name or "").upper(), default)
+
+
+class _Task:
+    __slots__ = ("priority", "seq", "fn", "args", "tenant", "group",
+                 "stale")
+
+    def __init__(self, priority: int, seq: int, fn, args, tenant: str,
+                 group) -> None:
+        self.priority = priority
+        self.seq = seq
+        self.fn = fn
+        self.args = args
+        self.tenant = tenant
+        self.group = group
+        self.stale = False  # superseded by a promoted copy
+
+    def order(self) -> Tuple[int, int]:
+        return (self.priority, self.seq)
+
+
+class PriorityExecutor:
+    """Bounded thread pool draining a priority queue with per-tenant
+    concurrency caps — the enforcement point the worker's per-mount UFS
+    stripe executors ride.
+
+    Semantics:
+
+    - tasks of a lower priority number run first; within a class,
+      submission order (so ``prioritize=False`` — QoS disabled — is
+      exactly the FIFO ThreadPoolExecutor it replaces);
+    - an arriving ON_DEMAND task overtakes QUEUED background work;
+      in-flight tasks are never interrupted (preempt-queued-only);
+    - :meth:`promote` re-prioritizes queued tasks of a group — the
+      coalescing path upgrades a queued PREFETCH fetch the moment an
+      on-demand reader joins it;
+    - a task whose tenant already runs ``tenant_cap`` tasks is passed
+      over (parked) until one of that tenant's tasks finishes, so one
+      flooding principal cannot occupy every executor slot however
+      early it queued.  Parked work is counted in ``deferred``.
+
+    ``submit`` after :meth:`shutdown` raises ``RuntimeError`` like the
+    stdlib executor it replaces.
+    """
+
+    def __init__(self, max_workers: int, *, thread_name_prefix: str = "qos",
+                 prioritize: bool = True, tenant_cap: int = 0) -> None:
+        self._max_workers = max(1, int(max_workers))
+        self._prefix = thread_name_prefix
+        self._prioritize = bool(prioritize)
+        self.tenant_cap = max(0, int(tenant_cap))
+        self._heap: List[Tuple[Tuple[int, int], _Task]] = []
+        self._parked: Dict[str, List[_Task]] = {}
+        self._running: Dict[str, int] = {}
+        self._threads: List[threading.Thread] = []
+        self._cond = threading.Condition()
+        self._seq = itertools.count()
+        self._closed = False
+        self._idle = 0
+        #: live (non-stale, non-parked) heap entries — maintained so
+        #: submit's spawn decision is O(1) instead of sweeping a
+        #: flood-deep heap under the lock on every submission
+        self._ready = 0
+        self.deferred = 0   # tenant-cap park events
+        self.promoted = 0   # queued tasks re-prioritized
+
+    # ------------------------------------------------------------ submit
+    def submit(self, fn, *args, priority: int = ON_DEMAND,
+               tenant: str = "", group=None) -> None:
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("cannot submit after shutdown")
+            if not self._prioritize:
+                priority, tenant = 0, ""
+            t = _Task(priority, next(self._seq), fn, args, tenant, group)
+            heapq.heappush(self._heap, (t.order(), t))
+            self._ready += 1
+            if len(self._threads) < self._max_workers and \
+                    self._ready > self._idle:
+                th = threading.Thread(
+                    target=self._run, daemon=True,
+                    name=f"{self._prefix}-{len(self._threads)}")
+                self._threads.append(th)
+                th.start()
+            self._cond.notify()
+
+    def promote(self, group, priority: int) -> int:
+        """Raise every queued (and parked) task of ``group`` at a lower
+        priority to ``priority``; returns how many moved.  In-flight
+        tasks are untouched — promotion reorders the queue, it does not
+        preempt."""
+        if not self._prioritize:
+            return 0
+        moved = 0
+        with self._cond:
+            for _, t in list(self._heap):
+                if not t.stale and t.group == group and \
+                        t.priority > priority:
+                    # stale + clone keeps _ready balanced: -1 (stale
+                    # discard pre-counted here) +1 (clone)
+                    t.stale = True
+                    clone = _Task(priority, next(self._seq), t.fn,
+                                  t.args, t.tenant, t.group)
+                    heapq.heappush(self._heap, (clone.order(), clone))
+                    moved += 1
+            for tasks in self._parked.values():
+                for t in tasks:
+                    if t.group == group and t.priority > priority:
+                        # in-place: the unpark path picks the best-
+                        # priority parked task, so this takes effect
+                        # at the tenant's next free slot
+                        t.priority = priority
+                        moved += 1
+            if moved:
+                self.promoted += moved
+                self._cond.notify_all()
+        return moved
+
+    # ------------------------------------------------------------- drain
+    def _tenant_at_cap_locked(self, tenant: str) -> bool:
+        return bool(self.tenant_cap) and tenant != "" and \
+            self._running.get(tenant, 0) >= self.tenant_cap
+
+    def _pop_locked(self) -> Optional[_Task]:
+        """Highest-priority runnable task; tenants at cap are parked
+        (re-queued by priority when one of their tasks ends)."""
+        while self._heap:
+            _, t = heapq.heappop(self._heap)
+            if t.stale:
+                continue  # _ready already dropped when it was staled
+            self._ready -= 1
+            if self._tenant_at_cap_locked(t.tenant):
+                self._parked.setdefault(t.tenant, []).append(t)
+                self.deferred += 1
+                continue
+            return t
+        return None
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                self._idle += 1
+                try:
+                    while True:
+                        task = self._pop_locked()
+                        if task is not None:
+                            break
+                        # like ThreadPoolExecutor.shutdown(wait=False):
+                        # no NEW submits, but already-queued (and
+                        # parked) work still runs — dropping it would
+                        # strand fetch waiters forever
+                        if self._closed and not self._heap and \
+                                not self._parked:
+                            return
+                        self._cond.wait()
+                finally:
+                    self._idle -= 1
+                self._running[task.tenant] = \
+                    self._running.get(task.tenant, 0) + 1
+            try:
+                task.fn(*task.args)
+            except BaseException:  # noqa: BLE001 - stripe loops own errors
+                LOG.debug("priority-executor task raised", exc_info=True)
+            finally:
+                with self._cond:
+                    n = self._running.get(task.tenant, 0) - 1
+                    if n > 0:
+                        self._running[task.tenant] = n
+                    else:
+                        self._running.pop(task.tenant, None)
+                    parked = self._parked.get(task.tenant)
+                    if parked and not self._tenant_at_cap_locked(
+                            task.tenant):
+                        # best (priority, seq) first, NOT FIFO: a
+                        # parked task promoted by a coalescing
+                        # on-demand join must use the tenant's next
+                        # slot ahead of its older background work
+                        t2 = min(parked, key=_Task.order)
+                        parked.remove(t2)
+                        if not parked:
+                            del self._parked[task.tenant]
+                        heapq.heappush(self._heap, (t2.order(), t2))
+                        self._ready += 1
+                    self._cond.notify()
+
+    def queued(self) -> int:
+        with self._cond:
+            return self._ready + \
+                sum(len(v) for v in self._parked.values())
+
+    def running_by_tenant(self) -> Dict[str, int]:
+        with self._cond:
+            return dict(self._running)
+
+    def shutdown(self, wait: bool = False) -> None:
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        if wait:
+            for th in self._threads:
+                th.join(timeout=5)
 
 
 class PriorityTaskQueue:

@@ -14,15 +14,22 @@ the serialized typed payload in trailing metadata; clients re-raise the
 same exception class (reference: ``exception/status`` <->
 ``io.grpc.Status``).
 
-Left out with the features that need them: request authentication and
-admission control (QoS), trace-context propagation across the wire (a
-server span is still recorded when tracing is on), the master fast path
-and domain sockets.
+Authentication: a server given an ``authenticator`` (the worker's with
+QoS on, ``security/authentication.py``) authenticates every RPC's
+metadata and binds the caller for handlers to read through
+``security.authenticated_user()``; without one the server reads no
+metadata. The ``atpu.debug.fault.rpc.reject.rate`` hook sheds a dispatch
+with the typed ``ResourceExhausted`` and retry-after, as the JAX server
+does.
+
+Left out with the features that need them: admission control (the
+master's), trace-context propagation across the wire (a server span is
+still recorded when tracing is on), the master fast path and domain
+sockets.
 """
 
 from __future__ import annotations
 
-import getpass
 import logging
 import threading
 from concurrent import futures
@@ -31,8 +38,9 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 import grpc
 import msgpack
 
-from alluxio_tpu_torch.utils.exceptions import (AlluxioTpuError,
-                                                 UnavailableError)
+from alluxio_tpu_torch.utils.exceptions import (
+    AlluxioTpuError, ResourceExhaustedError, UnavailableError,
+)
 from alluxio_tpu_torch.utils.tracing import tracer
 
 LOG = logging.getLogger(__name__)
@@ -71,46 +79,107 @@ def _abort_typed(context: grpc.ServicerContext, e: AlluxioTpuError) -> None:
     context.abort(_CODE_TO_GRPC.get(e.code, grpc.StatusCode.INTERNAL), str(e))
 
 
-def _wrap_unary(fn: Callable[[dict], Any], span_name: str) -> Callable:
+def _bind_user(context: grpc.ServicerContext, authenticator):
+    """Authenticate request metadata and bind the user contextvar; returns
+    a reset token (or None). Raises AlluxioTpuError on rejection."""
+    if authenticator is None:
+        return None
+    from alluxio_tpu_torch.security.user import set_authenticated_user
+
+    md = {k: v for k, v in (context.invocation_metadata() or ())}
+    user = authenticator.authenticate(md)
+    return set_authenticated_user(user)
+
+
+def _unbind_user(token) -> None:
+    if token is not None:
+        from alluxio_tpu_torch.security.user import reset_authenticated_user
+
+        reset_authenticated_user(token)
+
+
+#: methods the reject drill never sheds (the JAX admission controller's
+#: exemptions, ``alluxio_tpu/qos/admission.py``): shedding registration
+#: and heartbeats would destabilize the cluster the drill observes
+FAULT_EXEMPT = frozenset((
+    "register", "heartbeat", "commit_block", "get_worker_id",
+    "metrics_heartbeat", "file_system_heartbeat", "worker_heartbeat",
+    "register_worker"))
+
+
+def check_reject_fault(method_key: str) -> None:
+    """The conf-gated RPC-reject hook of the JAX dispatch: a taken fault
+    sheds the call with the typed ``ResourceExhaustedError`` carrying
+    ``retry_after_s``."""
+    from alluxio_tpu_torch.utils import faults
+
+    if not faults.armed() or \
+            method_key.rsplit(".", 1)[-1] in FAULT_EXEMPT:
+        return
+    ra = faults.injector().take_rpc_reject(method_key)
+    if ra:
+        err = ResourceExhaustedError(
+            f"injected rpc reject for {method_key}; retry after {ra:.3f}s")
+        err.retry_after_s = ra
+        raise err
+
+
+def _wrap_unary(fn: Callable[[dict], Any], authenticator,
+                span_name: str) -> Callable:
     def handler(request: dict, context: grpc.ServicerContext):
+        token = None
         try:
             with tracer().span(span_name):
+                token = _bind_user(context, authenticator)
+                check_reject_fault(span_name)
                 return fn(request or {})
         except AlluxioTpuError as e:
             _abort_typed(context, e)
         except Exception as e:  # noqa: BLE001 - the RPC boundary
             LOG.exception("unhandled error in RPC handler")
             context.abort(grpc.StatusCode.INTERNAL, f"{type(e).__name__}: {e}")
+        finally:
+            _unbind_user(token)
 
     return handler
 
 
-def _wrap_stream_out(fn: Callable[[dict], Iterator[Any]],
+def _wrap_stream_out(fn: Callable[[dict], Iterator[Any]], authenticator,
                      span_name: str) -> Callable:
     def handler(request: dict, context: grpc.ServicerContext):
+        token = None
         try:
             with tracer().span(span_name):
+                token = _bind_user(context, authenticator)
+                check_reject_fault(span_name)
                 yield from fn(request or {})
         except AlluxioTpuError as e:
             _abort_typed(context, e)
         except Exception as e:  # noqa: BLE001 - the RPC boundary
             LOG.exception("unhandled error in streaming RPC handler")
             context.abort(grpc.StatusCode.INTERNAL, f"{type(e).__name__}: {e}")
+        finally:
+            _unbind_user(token)
 
     return handler
 
 
-def _wrap_stream_in(fn: Callable[[Iterator[Any]], Any],
+def _wrap_stream_in(fn: Callable[[Iterator[Any]], Any], authenticator,
                     span_name: str) -> Callable:
     def handler(request_iterator, context: grpc.ServicerContext):
+        token = None
         try:
             with tracer().span(span_name):
+                token = _bind_user(context, authenticator)
+                check_reject_fault(span_name)
                 return fn(request_iterator)
         except AlluxioTpuError as e:
             _abort_typed(context, e)
         except Exception as e:  # noqa: BLE001 - the RPC boundary
             LOG.exception("unhandled error in client-streaming RPC handler")
             context.abort(grpc.StatusCode.INTERNAL, f"{type(e).__name__}: {e}")
+        finally:
+            _unbind_user(token)
 
     return handler
 
@@ -135,8 +204,10 @@ class ServiceDefinition:
 
 
 class _GenericHandler(grpc.GenericRpcHandler):
-    def __init__(self, services: Dict[str, ServiceDefinition]) -> None:
+    def __init__(self, services: Dict[str, ServiceDefinition],
+                 authenticator=None) -> None:
         self._services = services
+        self._auth = authenticator
 
     def service(self, handler_call_details):
         # method path: /<service>/<method>
@@ -150,15 +221,15 @@ class _GenericHandler(grpc.GenericRpcHandler):
         span = f"{service_name}.{method}"
         if kind == "unary":
             return grpc.unary_unary_rpc_method_handler(
-                _wrap_unary(fn, span), request_deserializer=unpack,
-                response_serializer=pack)
+                _wrap_unary(fn, self._auth, span),
+                request_deserializer=unpack, response_serializer=pack)
         if kind == "stream_out":
             return grpc.unary_stream_rpc_method_handler(
-                _wrap_stream_out(fn, span), request_deserializer=unpack,
-                response_serializer=pack)
+                _wrap_stream_out(fn, self._auth, span),
+                request_deserializer=unpack, response_serializer=pack)
         return grpc.stream_unary_rpc_method_handler(
-            _wrap_stream_in(fn, span), request_deserializer=unpack,
-            response_serializer=pack)
+            _wrap_stream_in(fn, self._auth, span),
+            request_deserializer=unpack, response_serializer=pack)
 
 
 class RpcServer:
@@ -166,8 +237,13 @@ class RpcServer:
     (reference: ``GrpcServerBuilder`` + ``GrpcDataServer.java:50``)."""
 
     def __init__(self, bind_host: str = "0.0.0.0", port: int = 0,
-                 max_workers: int = 16) -> None:
+                 max_workers: int = 16, authenticator=None) -> None:
+        """``authenticator``: a ``security.authentication.Authenticator``;
+        when set, every RPC is authenticated and the resolved user is
+        bound for handlers to read via
+        ``security.authenticated_user()``."""
         self._services: Dict[str, ServiceDefinition] = {}
+        self._authenticator = authenticator
         options = [
             ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
             ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
@@ -187,7 +263,7 @@ class RpcServer:
         """Bind and serve; returns the bound port (an ephemeral one for
         port 0). Raises when the address cannot be bound."""
         self._server.add_generic_rpc_handlers(
-            (_GenericHandler(self._services),))
+            (_GenericHandler(self._services, self._authenticator),))
         self.port = self._server.add_insecure_port(self._bind)
         if self.port == 0:
             raise UnavailableError(f"cannot bind the RPC server to "
@@ -215,7 +291,9 @@ def _raise_typed(err: grpc.RpcError) -> None:
 def default_client_metadata() -> Tuple[Tuple[str, str], ...]:
     """Identity attached to calls when the caller supplies none: the OS
     user (reference: LoginUser under SIMPLE auth)."""
-    return (("atpu-user", getpass.getuser()),)
+    from alluxio_tpu_torch.security.user import get_os_user
+
+    return (("atpu-user", get_os_user()),)
 
 
 class StreamCall:

@@ -9,10 +9,9 @@ under the JAX service's name and method names, with its message dicts:
 
 - ``read_block``: server-stream of chunks (``DEFAULT_CHUNK``); a cold
   block falls back to a UFS read-through when the request carries a UFS
-  descriptor. The JAX worker streams that fallback stripe by stripe
-  through its striped fetcher; the port reads the block whole through
-  ``UfsBlockReader`` and then streams it — the same chunks, later first
-  byte.
+  descriptor, streamed stripe by stripe from the worker's striped,
+  coalescing fetch (``worker/ufs_fetch.py``) as the stripes land, so a
+  client's first byte costs one stripe.
 - ``write_block``: client-stream (header, chunks...) -> length.
 - ``open_local_block`` / ``close_local_block``: short-circuit **path
   leases** for same-host clients; the server holds the shared block lock
@@ -30,20 +29,29 @@ under the JAX service's name and method names, with its message dicts:
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, Iterator, Tuple
 
 from alluxio_tpu_torch.metrics import metrics
 from alluxio_tpu_torch.qos import priority_from_name
 from alluxio_tpu_torch.rpc.core import ServiceDefinition
+from alluxio_tpu_torch.utils import faults
 from alluxio_tpu_torch.utils.exceptions import (
     BlockDoesNotExistError, InvalidArgumentError, best_effort,
 )
+from alluxio_tpu_torch.utils.tracing import current_span
 from alluxio_tpu_torch.worker.process import BlockWorker
 from alluxio_tpu_torch.worker.ufs_io import UfsBlockDescriptor
 
 WORKER_SERVICE = "atpu.BlockWorker"
 
 DEFAULT_CHUNK = 1 << 20
+#: Worker.ReadBlockTime (per-MiB warm produce time) is only sampled for
+#: reads of at least this many bytes served in chunks of at least this
+#: size: below either bound, the fixed per-read-call cost dominates the
+#: normalized figure
+P99_SAMPLE_MIN_BYTES = 1 << 18
+P99_SAMPLE_MIN_CHUNK = 1 << 16
 
 
 class _LeaseRegistry:
@@ -78,6 +86,16 @@ class _LeaseRegistry:
             return len(self._leases)
 
 
+def _principal() -> str:
+    """The authenticated caller's name, for per-tenant QoS accounting;
+    empty (one anonymous tenant) when the worker runs no authenticator
+    (QoS disabled) or the call is in-process."""
+    from alluxio_tpu_torch.security.user import authenticated_user
+
+    user = authenticated_user()
+    return user.name if user is not None else ""
+
+
 def worker_service(worker: BlockWorker) -> ServiceDefinition:
     svc = ServiceDefinition(WORKER_SERVICE)
     leases = _LeaseRegistry()
@@ -87,9 +105,16 @@ def worker_service(worker: BlockWorker) -> ServiceDefinition:
     def read_block(req: dict) -> Iterator[dict]:
         """Chunks carry ``source`` — the serving tier alias (MEM/SSD/...)
         or ``UFS`` for a cold read-through — so clients can attribute
-        every byte to the tier that produced it. The ``with`` releases
-        the block reader's eviction pin as soon as the stream ends or is
-        cancelled."""
+        every byte to the tier that produced it. Warm serving speed is
+        timed into ``Worker.ReadBlockTime`` (one sample a stream,
+        seconds a MiB of the tier reads alone; the injected read
+        latency lands inside it). The ``with`` releases the block
+        reader's eviction pin as soon as the stream ends or is
+        cancelled, and the ``finally`` still records the partial
+        progress."""
+        clock = time.monotonic
+        fault_host = worker.address.tiered_identity.value("host") \
+            or worker.address.host
         block_id = req["block_id"]
         offset = req.get("offset", 0)
         length = req.get("length", -1)
@@ -97,20 +122,52 @@ def worker_service(worker: BlockWorker) -> ServiceDefinition:
         # cached-tier loop forever without advancing pos
         chunk = max(1, req.get("chunk_size", DEFAULT_CHUNK))
         m = metrics()
+        # the server span (opened by the RPC wrapper) stays live across
+        # the generator's resumptions on this thread; phase timings are
+        # accumulated locally and emitted ONCE at stream end
+        sp = current_span()
         if worker.store.has_block(block_id):
-            with worker.open_reader(block_id) as r:
-                tier = r.tier_alias or "MEM"
-                m.counter(f"Worker.BlocksServed.{tier}").inc()
-                served = m.counter(f"Worker.BytesServed.{tier}")
-                end = r.length if length < 0 \
-                    else min(r.length, offset + length)
-                pos = offset
-                while pos < end:  # the reference's hot loop
-                    n = min(chunk, end - pos)
-                    yield {"data": r.read(pos, n), "offset": pos,
-                           "source": tier}
-                    served.inc(n)
-                    pos += n
+            produce_s = 0.0
+            produced_b = 0
+            wire_s = 0.0
+            try:
+                with worker.open_reader(block_id) as r:
+                    tier = r.tier_alias or "MEM"
+                    m.counter(f"Worker.BlocksServed.{tier}").inc()
+                    served = m.counter(f"Worker.BytesServed.{tier}")
+                    end = r.length if length < 0 \
+                        else min(r.length, offset + length)
+                    pos = offset
+                    while pos < end:  # the reference's hot loop
+                        n = min(chunk, end - pos)
+                        t0 = clock()
+                        data = r.read(pos, n)
+                        if faults.armed():
+                            # inside the timed region on purpose: the
+                            # injected straggler must show up in
+                            # Worker.ReadBlockTime like a real one
+                            faults.injector().maybe_sleep_read(
+                                fault_host)
+                        produce_s += clock() - t0
+                        produced_b += len(data)
+                        if sp is None:
+                            yield {"data": data, "offset": pos,
+                                   "source": tier}
+                        else:
+                            t_y = clock()
+                            yield {"data": data, "offset": pos,
+                                   "source": tier}
+                            wire_s += clock() - t_y
+                        served.inc(n)
+                        pos += n
+            finally:
+                if sp is not None:
+                    sp.phase("tier_read", produce_s * 1000.0)
+                    sp.phase("wire", wire_s * 1000.0)
+                if produced_b >= P99_SAMPLE_MIN_BYTES and \
+                        chunk >= P99_SAMPLE_MIN_CHUNK:
+                    m.timer("Worker.ReadBlockTime").update(
+                        produce_s * ((1 << 20) / produced_b))
             return
         ufs = req.get("ufs")
         if not ufs:
@@ -120,15 +177,40 @@ def worker_service(worker: BlockWorker) -> ServiceDefinition:
             block_id=block_id, ufs_path=ufs["ufs_path"],
             offset=ufs["offset"], length=ufs["length"],
             mount_id=ufs.get("mount_id", 0))
-        data = memoryview(worker.read_ufs_block(
-            desc, cache=req.get("cache", True)))
+        # streaming read-through: chunks go out as stripes land, so the
+        # client's first byte costs one stripe, not the whole block; the
+        # tiered-store fill proceeds in parallel inside the fetch.
+        # A blocked reader is ON_DEMAND — it overtakes (and, when
+        # coalescing, promotes) queued background fills — and carries
+        # the caller's principal for the per-tenant stripe caps
+        fetch = worker.open_ufs_fetch(desc, cache=req.get("cache", True),
+                                      tenant=_principal())
         m.counter("Worker.BlocksServed.UFS").inc()
         served = m.counter("Worker.BytesServed.UFS")
-        end = len(data) if length < 0 else min(len(data), offset + length)
-        for pos in range(offset, end, chunk):
-            piece = bytes(data[pos:min(end, pos + chunk)])
-            yield {"data": piece, "offset": pos, "source": "UFS"}
-            served.inc(len(piece))
+        end = desc.length if length < 0 else min(desc.length,
+                                                 offset + length)
+        pos = offset
+        wire_s = 0.0
+        for data in fetch.iter_range(offset, max(0, end - offset),
+                                     chunk_size=chunk):
+            if sp is None:
+                yield {"data": data, "offset": pos, "source": "UFS"}
+            else:
+                t_y = clock()
+                yield {"data": data, "offset": pos, "source": "UFS"}
+                wire_s += clock() - t_y
+            served.inc(len(data))
+            pos += len(data)
+        if sp is not None:
+            sp.phase("wire", wire_s * 1000.0)
+        # the cache-fill commit trails the last stripe; close the
+        # stream only once it lands so "read completed" keeps implying
+        # "block cached" for clients and heartbeats. A fetch that FAILED
+        # after serving this sub-range fails the stream too; a slow
+        # commit alone (timeout, error is None) stays best-effort
+        if not fetch.wait_done(30.0) and fetch.error is not None:
+            raise fetch.error if isinstance(fetch.error, Exception) \
+                else IOError(str(fetch.error))
 
     svc.stream_out("read_block", read_block)
 
@@ -233,13 +315,16 @@ def worker_service(worker: BlockWorker) -> ServiceDefinition:
     # -------------------------------------------------------------- control
     def async_cache(r: dict) -> dict:
         """``qos_class`` (optional wire string, default ASYNC_FILL) lets
-        the prefetch agent tag its speculative loads PREFETCH."""
+        the prefetch agent tag its speculative loads PREFETCH so they
+        drain after client-issued fills and on-demand reads; the
+        caller's principal is the fill's tenant."""
         return {"accepted": worker.async_cache.submit(
             UfsBlockDescriptor(
                 block_id=r["block_id"], ufs_path=r["ufs_path"],
                 offset=r["offset"], length=r["length"],
                 mount_id=r.get("mount_id", 0)),
-            priority=priority_from_name(r.get("qos_class", "")))}
+            priority=priority_from_name(r.get("qos_class", "")),
+            tenant=_principal())}
 
     svc.unary("async_cache", async_cache)
     svc.unary("prefetch_pin", lambda r: {

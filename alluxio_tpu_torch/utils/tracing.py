@@ -1,9 +1,12 @@
 """Span tracing for the device data plane, with a profiler bridge.
 
-The subset of ``alluxio_tpu/utils/tracing.py`` that the loader uses: a
+The subset of ``alluxio_tpu/utils/tracing.py`` that the port uses: a
 process ring of completed spans nested through a contextvar, typed phase
 events inside a span (``Span.phase``), the live span (``current_span``),
-and ``annotate``, which names a host region on the device timeline. Where
+a span finished on another thread than the one that began it
+(``child_span`` + ``Tracer.record``: the worker's cold fetch), the drain
+the worker's metrics heartbeat ships to the master, and ``annotate``,
+which names a host region on the device timeline. Where
 the JAX package used ``jax.profiler.TraceAnnotation``, ``annotate`` enters
 ``torch.profiler.record_function``, so loader stages line up with CUDA
 kernels in a ``torch.profiler`` trace.
@@ -78,9 +81,36 @@ class Tracer:
         """Context manager recording one span (yields None when disabled)."""
         return _SpanCtx(self, name, tags)
 
+    def record(self, span: Span) -> None:
+        """Add a span finished outside the context manager."""
+        self._ring.append(span)
+
     def snapshot(self, limit: int = 500) -> List[dict]:
         """Most-recent-first dump of completed spans."""
         return [s.to_dict() for s in reversed(list(self._ring))][:limit]
+
+    def drain(self, limit: int = 500) -> List[dict]:
+        """Pop up to ``limit`` completed spans, oldest first (the
+        metrics heartbeat ships them to the master)."""
+        out: List[dict] = []
+        while len(out) < limit:
+            try:
+                out.append(self._ring.popleft().to_dict())
+            except IndexError:
+                break
+        return out
+
+
+def child_span(name: str) -> Span:
+    """A new span under the live one (a new trace outside any span),
+    not bound as the live span: the caller finishes it, possibly on
+    another thread, and records it with ``Tracer.record``."""
+    parent = _current_span.get()
+    if parent is not None:
+        trace_id, parent_id = parent.trace_id, parent.span_id
+    else:
+        trace_id, parent_id = f"{_ids.getrandbits(128):032x}", None
+    return Span(name, f"{_ids.getrandbits(64):016x}", parent_id, trace_id)
 
 
 class _SpanCtx:
@@ -97,13 +127,7 @@ class _SpanCtx:
     def __enter__(self) -> Optional[Span]:
         if not self._tracer.enabled:
             return None
-        parent = _current_span.get()
-        if parent is not None:
-            trace_id, parent_id = parent.trace_id, parent.span_id
-        else:
-            trace_id, parent_id = f"{_ids.getrandbits(128):032x}", None
-        self._span = Span(self._name, f"{_ids.getrandbits(64):016x}",
-                          parent_id, trace_id)
+        self._span = child_span(self._name)
         self._span.tags.update({k: str(v) for k, v in self._tags.items()})
         self._token = _current_span.set(self._span)
         self._t0 = time.perf_counter()

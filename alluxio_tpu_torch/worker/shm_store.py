@@ -4,8 +4,9 @@
 Grants, renews, releases and reclaims leases on MEM-tier block files
 (named shared-memory segments under ``atpu.worker.shm.dir``) so a
 co-located client can mmap them and read with zero copies. See
-``alluxio_tpu_torch/shm/`` for the protocol contract. The JAX store's
-injected lease-deny fault is not ported; a full lease table denies.
+``alluxio_tpu_torch/shm/`` for the protocol contract. A full lease
+table denies, and so does the injected fault
+(``atpu.debug.fault.shm.lease.deny.rate``).
 
 Pin integration: a granted lease calls
 :meth:`TieredBlockStore.pin_shm`, which shields the block from eviction
@@ -29,6 +30,7 @@ import time
 from typing import Dict, List, Optional, Set
 
 from alluxio_tpu_torch.metrics import metrics
+from alluxio_tpu_torch.utils import faults
 from alluxio_tpu_torch.shm import (ShmLeaseDeniedError,
                                    ShmSegmentUnavailableError)
 from alluxio_tpu_torch.worker.tiered_store import TieredBlockStore
@@ -49,8 +51,10 @@ class ShmStore:
     """Registry of live SHM segment leases for one worker."""
 
     def __init__(self, store: TieredBlockStore, *, lease_ttl_s: float = 30.0,
-                 max_leases: int = 1024) -> None:
+                 max_leases: int = 1024, host: str = "") -> None:
         self._store = store
+        #: the worker's locality host, which the fault scope matches
+        self._host = host
         self.lease_ttl_s = max(1.0, float(lease_ttl_s))
         self.max_leases = max(1, int(max_leases))
         self._lock = threading.Lock()
@@ -68,10 +72,15 @@ class ShmStore:
     def open(self, session_id: int, block_id: int) -> dict:
         """Grant a lease: ``{lease_id, path, length, ttl_s}``.
 
-        Raises :class:`ShmLeaseDeniedError` (table full) or
-        :class:`ShmSegmentUnavailableError` (no mappable top-tier
-        segment) — both of which the client treats as "serve this read
-        on a lower rung", never as a read failure."""
+        Raises :class:`ShmLeaseDeniedError` (table full / injected
+        fault) or :class:`ShmSegmentUnavailableError` (no mappable
+        top-tier segment) — both of which the client treats as "serve
+        this read on a lower rung", never as a read failure."""
+        if faults.armed() and \
+                faults.injector().take_shm_lease_deny(self._host):
+            self._m.counter("Worker.ShmLeasesDenied").inc()
+            raise ShmLeaseDeniedError(
+                f"shm lease for block {block_id} denied (injected fault)")
         meta = self._store.get_block_meta(block_id)
         if meta is None or meta.tier_alias != self._top_alias:
             raise ShmSegmentUnavailableError(

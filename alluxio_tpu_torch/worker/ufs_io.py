@@ -1,10 +1,11 @@
 """Worker-side UFS block IO: cold reads with concurrent caching.
 
-A copy of ``alluxio_tpu/worker/ufs_io.py`` without the striped fetcher.
-In its place, concurrent reads of one cold block share one UFS read
-(:class:`UfsBlockReader`): a striped client asks for every stripe of a
-cold block at once, and the JAX worker merges those requests in its
-fetcher.
+A copy of ``alluxio_tpu/worker/ufs_io.py``. The worker's cold path is
+the striped, coalescing fetcher (``worker/ufs_fetch.py``), and the async
+cache manager rides it when given one. :class:`UfsBlockReader` is the
+unstriped path beside it (the manager's ``fetcher=None`` branch); unlike
+the JAX reader, concurrent reads of one block through it share one UFS
+read.
 
 Re-design of ``core/server/worker/.../block/{UnderFileSystemBlockStore.java,
 UnderFileSystemBlockReader.java:50}`` + the async cache manager
@@ -161,25 +162,28 @@ class AsyncCacheManager:
     ``Worker.AsyncCacheRejected``) instead of growing the backlog without
     limit — passive caching is advisory, the client already has the bytes.
 
-    The JAX manager can hand fills to the striped, coalescing
-    ``UfsBlockFetcher``; the port has no such fetcher yet, so every fill
-    is one :class:`UfsBlockReader` read of the whole block (the JAX
-    manager's ``fetcher=None`` branch): the same bytes, unstriped.
+    When a ``UfsBlockFetcher`` is wired in, cache fills ride the same
+    coalescing registry as foreground reads, so a background fill never
+    duplicates an in-flight foreground fetch of the same block; without
+    one each fill is one :class:`UfsBlockReader` read of the whole block.
 
     With worker QoS on (``prioritize=True``) the queue drains in
     priority order — client-issued ASYNC_FILL requests before the
-    prefetch agent's speculative PREFETCH loads. Off, the queue is exact
+    prefetch agent's speculative PREFETCH loads — and each request's
+    class and tenant ride into the coalescing fetch, so the per-mount
+    stripe executors see the true originator. Off, the queue is exact
     FIFO."""
 
     def __init__(self, store: TieredBlockStore,
                  ufs_resolver: Callable[[int], UnderFileSystem],
                  num_threads: int = 1, queue_max: int = 512,
-                 prioritize: bool = False) -> None:
+                 fetcher=None, prioritize: bool = False) -> None:
         from alluxio_tpu_torch.qos import PriorityTaskQueue
 
         self._store = store
         self._reader = UfsBlockReader(store)
         self._ufs_resolver = ufs_resolver
+        self._fetcher = fetcher  # Optional[ufs_fetch.UfsBlockFetcher]
         self._queue = PriorityTaskQueue(max(1, queue_max),
                                         prioritize=prioritize)
         self._prioritize = prioritize
@@ -193,7 +197,7 @@ class AsyncCacheManager:
             t.start()
 
     def submit(self, desc: UfsBlockDescriptor, *,
-               priority: Optional[int] = None) -> bool:
+               priority: Optional[int] = None, tenant: str = "") -> bool:
         from alluxio_tpu_torch.metrics import metrics
         from alluxio_tpu_torch.qos import ASYNC_FILL, PRIORITY_NAMES
 
@@ -203,9 +207,15 @@ class AsyncCacheManager:
             if self._closed or desc.block_id in self._inflight or \
                     self._store.has_block(desc.block_id):
                 return False
+            if self._fetcher is not None and \
+                    self._fetcher.caching_in_flight(desc.block_id):
+                # a foreground read-through is already CACHING this
+                # block (an in-flight cache=False fetch is not enough
+                # to stand down — joining it upgrades it instead)
+                return False
             self._inflight[desc.block_id] = True
         try:
-            self._queue.put_nowait(desc, priority)
+            self._queue.put_nowait((desc, priority, tenant), priority)
         except queue.Full:
             with self._lock:
                 self._inflight.pop(desc.block_id, None)
@@ -220,7 +230,7 @@ class AsyncCacheManager:
     def _run(self) -> None:
         while True:
             try:
-                desc = self._queue.get(timeout=0.2)
+                desc, priority, tenant = self._queue.get(timeout=0.2)
             except queue.Empty:
                 if self._closed:
                     return
@@ -234,7 +244,19 @@ class AsyncCacheManager:
                 if self._store.has_block(desc.block_id):
                     continue  # cached while queued
                 ufs = self._ufs_resolver(desc.mount_id)
-                self._reader.read_block(ufs, desc, cache=True)
+                if self._fetcher is not None:
+                    # coalesces with any concurrent fetch of this block;
+                    # joining a cache=False fetch upgrades it, and if
+                    # even that was too late, cache from the bytes.
+                    # The request's class/tenant ride into the stripe
+                    # executor so background fills queue as background
+                    data = self._fetcher.fetch(ufs, desc, cache=True,
+                                               priority=priority,
+                                               tenant=tenant).result()
+                    if not self._store.has_block(desc.block_id):
+                        self._reader.cache_block(desc.block_id, data)
+                else:
+                    self._reader.read_block(ufs, desc, cache=True)
             except Exception:  # noqa: BLE001
                 LOG.debug("async cache of block %s failed", desc.block_id,
                           exc_info=True)

@@ -63,10 +63,31 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    hits + late + misses = 64, at least one DRAM placement, no failed
    placement, evictions but no pinned block among them, and no pin left
    after the service closes; (v) 8 fresh blocks no worker holds through
-   the UFS rung, one stream a block, then 8 more striped at the JAX
-   defaults, each equal to its file and read from the UFS once by the
-   worker, striped or not. No pre-fault or plan may take the plain
-   path;
+   the UFS rung into a device tier, one stream a block, then 8 more
+   striped at the JAX defaults, the worker streaming each from its
+   striped, coalescing fetch: each block equal to its file, fetched once
+   and each byte read from the UFS once, no fallback or failure, the
+   fetch's time to first byte (p50, p99) printed, and ``K`` chained
+   ``scaled_sum`` calls over each turn's blocks equal to the plain chain
+   and the main path's over the same files (the ``worker_cold``
+   launches); (v') four readers, each with its own client, start
+   together on 8 fresh cold blocks: every reader's bytes equal the
+   files, each block one fetch and one UFS read, joins and rungs
+   printed; (vii) those 8 blocks through the SHM route with
+   ``atpu.debug.fault.shm.map.error.rate`` 1.0: every block served by
+   the lease rung into a full device tier, then, the injector reset, by
+   the SHM rung with no fault; the worker runs a JSON-lines metrics
+   sink and its web endpoint, whose info and blocks routes must list
+   the store's blocks and whose sink file must hold
+   ``Worker.UfsBlocksRead``. No pre-fault or plan may take the plain
+   path. (vi) After that worker stopped, a second one with worker QoS on
+   (its authenticator on its server) and a 32-block MEM tier: a
+   "victim" reads 8 fresh cold blocks on demand into a device tier and
+   scans them, then a "flood" tenant queues 16 fresh cold blocks through
+   ``async_cache`` at PREFETCH and the victim reads 8 others; each
+   victim chain the main path's (the ``worker_qos`` launches), every
+   flood block cached and right once the async cache is idle, every
+   block fetched once, the principals the worker saw printed;
 3. decode: four 32 MiB blocks of 64x64x3 records through
    ``batched_device_iterator`` and ``decode_image_records`` on the card,
    checked bit for bit against the same decode on the CPU;
@@ -154,6 +175,23 @@ REMOTE_STRIPE_BYTES = 4 << 20
 PREFETCH_CONTAINER_BASE = 100
 #: the cold turns' fresh blocks: a container range per turn
 COLD_CONTAINER_BASE = 200
+#: (2c v') readers of one set of cold blocks, started together
+COALESCE_READERS = 4
+COALESCE_CONTAINER_BASE = 300
+#: (2c vi) the QoS worker's MEM tier, the flood's blocks, the victim's.
+#: The phase caches 32 blocks; 36 keeps them at 89 % of the tier, under
+#: the 95 % high watermark above which the worker's management heartbeat
+#: evicts down to 70 % once the store is idle (and so would evict flood
+#: blocks before the phase checks that they are cached)
+QOS_TIER_BLOCKS = 36
+QOS_FLOOD_BLOCKS = 16
+QOS_CONTAINER_BASE = 400
+#: the QoS worker's async-cache threads: 8 flood fetches in flight, 4
+#: stripe tasks each, are four times the tenant cap (8 stripe tasks), so
+#: the cap must park flood work
+QOS_ASYNC_CACHE_THREADS = 8
+#: the 2c worker's JSON-lines metrics sink ticks this often
+SINK_INTERVAL = "1s"
 DECODE_BLOCKS = 4
 H = W = 64
 C = 3
@@ -872,7 +910,8 @@ class WorkerFS:
     mapped through the SHM plane), ``"grpc"`` short circuit off (a
     located block is read remotely). An unlocated block takes the UFS
     rung on every route. ``stripe_size`` overrides the remote rung's
-    stripe size (0: one stream a read)."""
+    stripe size (0: one stream a read). The client names the OS user to
+    the worker as its principal."""
 
     RUNGS = {"lease": "lease", "shm": "shm", "grpc": "remote"}
 
@@ -977,14 +1016,23 @@ class _WorkerFile:
             self._stream = None
 
 
-def start_worker(workdir: str, tier_dir: str, tier_bytes: int, master):
+def start_worker(workdir: str, tier_dir: str, tier_bytes: int, master, *,
+                 qos: bool = False, sink_path: "str | None" = None,
+                 web: bool = False):
     """The port's worker (one MEM tier of ``tier_bytes`` in ``tier_dir``,
     the main path's block files as its UFS) behind the port's RPC
-    server on 127.0.0.1; returns (worker, server, client)."""
+    server on 127.0.0.1; returns (worker, server, client). ``qos``: worker
+    QoS on with ``QOS_ASYNC_CACHE_THREADS`` async-cache threads, and the
+    server authenticates every call (the worker's authenticator);
+    ``sink_path``: a JSON-lines metrics sink there, one
+    tick a ``SINK_INTERVAL``; ``web``: the web endpoint on port 0."""
     from alluxio_tpu_torch.conf import Configuration, Keys, Templates
     from alluxio_tpu_torch.rpc.clients import WorkerClient
     from alluxio_tpu_torch.rpc.core import RpcServer
     from alluxio_tpu_torch.rpc.worker_service import worker_service
+    from alluxio_tpu_torch.security.authentication import (
+        worker_authenticator,
+    )
     from alluxio_tpu_torch.underfs.registry import UfsManager
     from alluxio_tpu_torch.worker.process import BlockWorker
 
@@ -997,10 +1045,22 @@ def start_worker(workdir: str, tier_dir: str, tier_bytes: int, master):
     conf.set(Templates.WORKER_TIER_DIRS_QUOTA.format(0), str(tier_bytes))
     conf.set(Keys.WORKER_BLOCK_HEARTBEAT_INTERVAL,
              f"{int(WORKER_HEARTBEAT_S * 1000)}ms")
+    conf.set(Keys.WORKER_QOS_ENABLED, qos)
+    if qos:
+        conf.set(Keys.WORKER_ASYNC_CACHE_THREADS, QOS_ASYNC_CACHE_THREADS)
+    if sink_path is not None:
+        conf.set(Keys.METRICS_SINKS, "jsonl")
+        conf.set(Keys.METRICS_SINK_JSONL_PATH, sink_path)
+        conf.set(Keys.METRICS_SINK_INTERVAL, SINK_INTERVAL)
+    if web:
+        conf.set(Keys.WORKER_WEB_ENABLED, True)
+        conf.set(Keys.WORKER_WEB_PORT, 0)
+        conf.set(Keys.WORKER_WEB_BIND_HOST, "127.0.0.1")
     ufs = UfsManager()
     ufs.add_mount(WORKER_MOUNT_ID, workdir)
     worker = BlockWorker(conf, master, ufs_manager=ufs)
-    server = RpcServer(bind_host="127.0.0.1", port=0)
+    server = RpcServer(bind_host="127.0.0.1", port=0,
+                       authenticator=worker_authenticator(conf))
     server.add_service(worker_service(worker))
     worker.address.rpc_port = worker.address.data_port = server.start()
     worker.start()  # registers, then heartbeats
@@ -1111,8 +1171,10 @@ def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
         f"({n * BLOCK_BYTES / main['epoch1_s'] / 1e9:.2f} GB/s)", flush=True)
     tier_dir = block_dir(tier_bytes)
     master = StandInBlockMaster()
+    sink_path = os.path.join(workdir, "worker-metrics.jsonl")
     worker, server, client = start_worker(workdir, tier_dir, tier_bytes,
-                                          master)
+                                          master, sink_path=sink_path,
+                                          web=True)
     m = metrics()
     out = {"blocks": n, "block_bytes": BLOCK_BYTES, "tier_dir": tier_dir,
            "tier_bytes": tier_bytes, "dev_shm_free_bytes": shm_free,
@@ -1176,7 +1238,15 @@ def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
         out["pread_many"] = pread_many_check(files, master)
         out["prefetch"] = worker_prefetch(device, worker, master, client,
                                           main, fs)
-        out["cold_read"] = cold_turns(device, files, master, main)
+        from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+        rk.launches = 0
+        out["cold_read"] = cold_turns(device, files, master, main, k)
+        out["cold_launches"] = rk.launches
+        out["coalesce"] = coalesce_turn(files, master, worker)
+        out["fault_turn"] = fault_turn(device, files, master, worker,
+                                       out["coalesce"].pop("paths"), main)
+        out["web_and_sink"] = web_and_sink_check(worker, sink_path)
         fs.close()
         if native.plain_calls() != {"prefault": 0, "plan": 0}:
             fail(f"worker phase: native calls took the plain path: "
@@ -1201,7 +1271,8 @@ def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
               + f"; cold UFS rung {GRPC_BLOCKS} blocks: "
               + ", ".join(f"{t['mode']} {t['s']:.3f} s "
                           f"({t['gb_per_s']:.2f} GB/s, "
-                          f"{t['ufs_reads_per_block']:g} UFS reads a block)"
+                          f"{t['ufs_reads_per_block']:g} UFS reads a block, "
+                          f"TTFB p50 {t['ttfb_p50_ms']:.2f} ms)"
                           for t in out["cold_read"]),
               flush=True)
     finally:
@@ -1211,6 +1282,178 @@ def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
         worker.ufs_manager.close()
         shutil.rmtree(tier_dir, ignore_errors=True)
     out["launches"] = launches
+    # (vi) with /dev/shm holding one MEM tier at a time
+    out["qos"] = qos_phase(device, workdir, main, k)
+    return out
+
+
+def qos_phase(device, workdir: str, main: dict, k: int) -> dict:
+    """(2c vi), after the 2c worker stopped: a second port worker with
+    worker QoS on (its authenticator on its server, so every call names
+    a tenant), a MEM tier of ``QOS_TIER_BLOCKS`` blocks and
+    ``QOS_ASYNC_CACHE_THREADS`` async-cache threads. A "victim" (the
+    client's default principal, the OS user) reads 8 fresh cold blocks on
+    demand into a device tier and scans them; then a "flood" tenant
+    queues ``QOS_FLOOD_BLOCKS`` fresh cold blocks through ``async_cache``
+    at PREFETCH, all requests at once, and the victim reads 8 others while the flood drains.
+    The flood's stripe tasks outnumber the tenant cap, so the worker must
+    park some (``Worker.QosFetchDeferred`` > 0). Every flood block must
+    be cached once the async cache is idle, every block fetched from the
+    UFS once, each fetch's span must name the victim's ON_DEMAND or the
+    flood's PREFETCH, the bytes right and each victim chain the main
+    path's. No time limit."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.rpc.clients import WorkerClient
+    from alluxio_tpu_torch.rpc.core import RpcChannel
+    from alluxio_tpu_torch.security.user import get_os_user
+    from alluxio_tpu_torch.utils import tracing
+
+    files = main["files"]
+    paths = list(files)
+    groups = {"flood": paths[:QOS_FLOOD_BLOCKS],
+              "quiet": paths[QOS_FLOOD_BLOCKS:QOS_FLOOD_BLOCKS + 8],
+              "flooded": paths[QOS_FLOOD_BLOCKS + 8:QOS_FLOOD_BLOCKS + 16]}
+    base = {"flood": 1 + QOS_CONTAINER_BASE,
+            "quiet": 1 + QOS_CONTAINER_BASE + QOS_FLOOD_BLOCKS,
+            "flooded": 1 + QOS_CONTAINER_BASE + QOS_FLOOD_BLOCKS + 8}
+    tier_bytes = QOS_TIER_BLOCKS * BLOCK_BYTES
+    tier_dir = block_dir(tier_bytes)
+    master = StandInBlockMaster()
+    worker, server, _ = start_worker(workdir, tier_dir, tier_bytes, master,
+                                     qos=True)
+    m = metrics()
+    victim = get_os_user()
+    classes = ("ON_DEMAND", "ASYNC_FILL", "PREFETCH")
+    out = {"tier_blocks": QOS_TIER_BLOCKS,
+           "flood_blocks": QOS_FLOOD_BLOCKS, "victim_blocks": 8,
+           "async_cache_threads": QOS_ASYNC_CACHE_THREADS}
+
+    def gauges() -> dict:
+        snap = m.snapshot()
+        return {g: snap.get(f"Worker.{g}") for g in (
+            "QosFetchDeferred", "QosFetchQueued", "QosFetchPromotedTotal")}
+
+    def victim_epoch(name: str) -> dict:
+        sub = {p: files[p] for p in groups[name]}
+        fs = WorkerFS(sub, base[name], master)
+        loader = DeviceBlockLoader(fs, list(sub), device=device,
+                                   hbm_bytes=len(sub) * BLOCK_BYTES
+                                   + (64 << 20),
+                                   prefetch=2, dtype=np.int32)
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = list(loader.epoch())
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            fs.check_rungs(f"worker QoS victim ({name})", allowed={"ufs"})
+            check_order(f"worker QoS victim ({name})", got,
+                        [SimpleNamespace(path=p) for p in sub], main)
+            scan = scan_blocks(f"worker QoS victim ({name})", got, main,
+                               list(sub), k)
+            del got
+        finally:
+            loader.close()
+            fs.close()
+        return {"s": dt, "gb_per_s": len(sub) * BLOCK_BYTES / dt / 1e9,
+                **scan}
+
+    tracing.set_tracing_enabled(True)
+    since_ms = time.time() * 1000.0
+    try:
+        flood_fs = WorkerFS({p: files[p] for p in groups["flood"]},
+                            base["flood"], master)
+        for name in groups:
+            master.know_blocks(WorkerFS(
+                {p: files[p] for p in groups[name]}, base[name],
+                master).block_lengths())
+        f0 = fetch_counts()
+        c0 = {c: m.counter(f"Worker.QosFetch.{c}").count for c in classes}
+        rk.launches = 0
+        out["quiet"] = victim_epoch("quiet")
+        flood = WorkerClient(f"127.0.0.1:{worker.address.rpc_port}",
+                             metadata=(("atpu-user", "flood"),))
+        with ThreadPoolExecutor(QOS_FLOOD_BLOCKS) as pool:  # all at once
+            accepted = list(pool.map(lambda p: flood.async_cache(
+                flood_fs.block_id(p), files[p][1], 0, BLOCK_BYTES,
+                mount_id=WORKER_MOUNT_ID, qos_class="PREFETCH"),
+                groups["flood"]))
+        if not all(accepted):
+            fail(f"worker QoS: the async cache refused flood blocks: "
+                 f"{accepted}")
+        out["gauges_flood_queued"] = gauges()
+        out["flooded"] = victim_epoch("flooded")
+        out["gauges"] = gauges()
+        t = time.perf_counter()
+        if not worker.async_cache.wait_idle(600.0):
+            fail("worker QoS: the async cache did not drain the flood")
+        out["flood_drain_s"] = time.perf_counter() - t
+        out["launches"] = rk.launches
+        d = fetch_delta(f0)
+        check_fetch("worker QoS", d, QOS_FLOOD_BLOCKS + 16)
+        for p in groups["flood"]:
+            bid = flood_fs.block_id(p)
+            if not worker.store.has_block(bid):
+                fail(f"worker QoS: flood block {p} is not cached")
+            with worker.store.get_reader(bid) as r:
+                got = np.frombuffer(r.read(0, r.length), dtype=np.uint8)
+            if not np.array_equal(got, np.fromfile(files[p][1],
+                                                   dtype=np.uint8)):
+                fail(f"worker QoS: flood block {p} differs from its file")
+        by_class = {c: m.counter(f"Worker.QosFetch.{c}").count - c0[c]
+                    for c in classes}
+        want_class = {"ON_DEMAND": 16, "ASYNC_FILL": 0,
+                      "PREFETCH": QOS_FLOOD_BLOCKS}
+        if by_class != want_class:
+            fail(f"worker QoS: fetches by class {by_class}, want "
+                 f"{want_class}")
+        seen = {}
+        for span in tracing.tracer().snapshot(limit=1 << 16):
+            if span["name"] == "atpu.worker.ufs_fetch" and \
+                    span["start_ms"] >= since_ms:
+                key = f"{span['tags']['tenant']}/{span['tags']['class']}"
+                seen[key] = seen.get(key, 0) + 1
+        want_seen = {f"{victim}/ON_DEMAND": 16,
+                     "flood/PREFETCH": QOS_FLOOD_BLOCKS}
+        if seen != want_seen:
+            fail(f"worker QoS: fetch spans by principal/class {seen}, "
+                 f"want {want_seen}")
+        time.sleep(worker.ufs_fetcher.QOS_STATS_TTL_S)  # a fresh sweep
+        out["gauges_after_drain"] = gauges()
+        if not out["gauges_after_drain"]["QosFetchDeferred"]:
+            fail(f"worker QoS: the flood's {QOS_ASYNC_CACHE_THREADS} "
+                 f"fetches in flight parked no stripe task at the tenant "
+                 f"cap (gauges {out['gauges_after_drain']})")
+        out.update(fetches_by_class=by_class, fetches_by_principal=seen,
+                   fetches=d["UfsFetchStarted"],
+                   ufs_block_reads=d["UfsBlocksRead"])
+    finally:
+        tracing.set_tracing_enabled(False)
+        server.stop()
+        worker.stop()
+        RpcChannel.shutdown_pool()
+        worker.ufs_manager.close()
+        shutil.rmtree(tier_dir, ignore_errors=True)
+    q, f = out["quiet"], out["flooded"]
+    print(f"worker QoS (tier {QOS_TIER_BLOCKS} blocks, "
+          f"{QOS_ASYNC_CACHE_THREADS} async-cache threads): victim epoch "
+          f"without the flood {q['s']:.3f} s ({q['gb_per_s']:.2f} GB/s), "
+          f"with {QOS_FLOOD_BLOCKS} PREFETCH flood blocks queued "
+          f"{f['s']:.3f} s ({f['gb_per_s']:.2f} GB/s); flood drained "
+          f"{out['flood_drain_s']:.3f} s later, every flood block cached; "
+          f"{out['fetches']} fetches, {out['ufs_block_reads']} UFS block "
+          f"reads; gauges with the flood queued "
+          f"{out['gauges_flood_queued']}, after the victim's epoch "
+          f"{out['gauges']}, after the drain {out['gauges_after_drain']}; "
+          f"fetches by principal/class {out['fetches_by_principal']}; "
+          f"scans K={k} {q['scan_ms']:.2f} / {f['scan_ms']:.2f} ms == main "
+          f"path == plain", flush=True)
     return out
 
 
@@ -1397,29 +1640,99 @@ def remote_turns(device, files: dict, master, main: dict) -> list:
     return turns
 
 
-def cold_turns(device, files: dict, master, main: dict) -> list:
+def pct(samples: list, p: float) -> float:
+    return samples[min(len(samples) - 1, int(p / 100.0 * len(samples)))] \
+        if samples else 0.0
+
+
+def main_chain(main: dict, paths, k: int) -> int:
+    """The plain chain over the main path's device blocks of ``paths``
+    (they were held against their files)."""
+    import torch
+
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    order = {p: i for i, p in enumerate(main["files"])}
+    x = torch.cat([main["blocks"][order[p]] for p in paths])
+    return int(chain(rk.scaled_sum_reference, x, k))
+
+
+def scan_blocks(name: str, blocks: list, main: dict, paths, k: int) -> dict:
+    """``k`` chained ``scaled_sum`` calls over ``blocks`` (the kernel's
+    launches counted), equal to the plain chain over them and to the
+    main path's chain over the same files."""
+    import torch
+
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    x = torch.cat(blocks)
+    l0 = rk.launches
+    acc, scan_ms = timed(lambda: chain(rk.scaled_sum, x, k))
+    launches = rk.launches - l0
+    got = int(acc)
+    plain = int(chain(rk.scaled_sum_reference, x, k))
+    want = main_chain(main, paths, k)
+    if launches != k or not got == plain == want:
+        fail(f"{name} scan: {launches} launches (want {k}), kernel chain "
+             f"{got}, plain chain {plain}, main path's chain over the "
+             f"same files {want}")
+    return {"scan_ms": scan_ms, "scan_launches": launches, "chain": got}
+
+
+def fetch_counts() -> dict:
+    from alluxio_tpu_torch.metrics import metrics
+
+    m = metrics()
+    out = {n: m.counter(f"Worker.{n}").count for n in (
+        "UfsFetchStarted", "UfsFetchBytes", "UfsFetchCoalesced",
+        "UfsFetchFallbacks", "UfsFetchFailures", "UfsBlocksRead")}
+    out["ttfb"] = m.timer("Worker.UfsFetchTtfb").snapshot()["count"]
+    return out
+
+
+def fetch_delta(before: dict) -> dict:
+    after = fetch_counts()
+    return {n: after[n] - before[n] for n in before}
+
+
+def check_fetch(name: str, d: dict, blocks: int) -> None:
+    """The worker fetched each of ``blocks`` cold blocks from the UFS
+    exactly once, every byte once, with no fallback and no failure."""
+    want = {"UfsFetchStarted": blocks, "UfsBlocksRead": blocks,
+            "UfsFetchBytes": blocks * BLOCK_BYTES, "UfsFetchFallbacks": 0,
+            "UfsFetchFailures": 0}
+    got = {n: d[n] for n in want}
+    if got != want:
+        fail(f"{name}: fetch counters {got}, want {want}")
+
+
+def cold_turns(device, files: dict, master, main: dict, k: int) -> list:
     """(2c v): the first ``GRPC_BLOCKS`` files as fresh block ids no
-    worker holds, through the UFS rung into a loader with no device tier,
-    the worker caching each block as it reads it through: one stream a
-    block, then striped at the JAX defaults, each turn on blocks of its
-    own. Every block must equal its file and cost the worker one UFS
-    read, striped or not."""
+    worker holds, through the UFS rung into a loader's device tier, the
+    worker streaming each block from its striped fetch and caching it as
+    it streams: one stream a block, then striped at the JAX defaults,
+    each turn on blocks of its own, then ``k`` chained scans of the
+    turn's blocks. Every block must equal its file, cost the worker one
+    fetch and one UFS read of each byte, and the chain must equal the
+    plain chain and the main path's over the same files."""
     import torch
 
     from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
     from alluxio_tpu_torch.metrics import metrics
 
     cold_files = dict(list(files.items())[:GRPC_BLOCKS])
-    ufs_reads = metrics().counter("Worker.UfsBlocksRead")
     stripes = metrics().counter("Client.RemoteReadStripes")
+    ttfb = metrics().timer("Worker.UfsFetchTtfb")
     turns = []
     for i, (mode, stripe) in enumerate((("single", 0),
                                         ("striped", REMOTE_STRIPE_BYTES))):
         cfs = WorkerFS(cold_files, 1 + COLD_CONTAINER_BASE + i * GRPC_BLOCKS,
                        master, stripe_size=stripe)
         master.know_blocks(cfs.block_lengths())
-        r0, st0 = ufs_reads.count, stripes.count
+        f0, st0 = fetch_counts(), stripes.count
         loader = DeviceBlockLoader(cfs, list(cold_files), device=device,
+                                   hbm_bytes=GRPC_BLOCKS * BLOCK_BYTES
+                                   + (64 << 20),
                                    prefetch=2, dtype=np.int32)
         try:
             torch.cuda.synchronize()
@@ -1427,23 +1740,233 @@ def cold_turns(device, files: dict, master, main: dict) -> list:
             got = list(loader.epoch())
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
+            cfs.check_rungs(f"worker cold read ({mode})", allowed={"ufs"})
+            d, n_stripes = fetch_delta(f0), stripes.count - st0
+            if d["UfsBlocksRead"] != GRPC_BLOCKS or \
+                    (n_stripes > 0) != (mode == "striped"):
+                fail(f"worker cold read ({mode}): {d['UfsBlocksRead']} UFS "
+                     f"reads and {n_stripes} stripes for {GRPC_BLOCKS} "
+                     f"blocks; want {GRPC_BLOCKS} reads, stripes only when "
+                     f"striped")
+            check_fetch(f"worker cold read ({mode})", d, GRPC_BLOCKS)
+            check_order(f"worker cold read ({mode})", got,
+                        [SimpleNamespace(path=p) for p in cold_files], main)
+            scan = scan_blocks(f"worker cold read ({mode})", got, main,
+                               list(cold_files), k)
+            del got
         finally:
             loader.close()
             cfs.close()
-        cfs.check_rungs(f"worker cold read ({mode})", allowed={"ufs"})
-        reads, n_stripes = ufs_reads.count - r0, stripes.count - st0
-        if reads != GRPC_BLOCKS or (n_stripes > 0) != (mode == "striped"):
-            fail(f"worker cold read ({mode}): {reads} UFS reads and "
-                 f"{n_stripes} stripes for {GRPC_BLOCKS} blocks; want "
-                 f"{GRPC_BLOCKS} reads, stripes only when striped")
-        check_order(f"worker cold read ({mode})", got,
-                    [SimpleNamespace(path=p) for p in cold_files], main)
-        del got
+        samples = ttfb.recent(d["ttfb"])  # this turn's own
         turns.append({"mode": mode, "blocks": GRPC_BLOCKS, "s": dt,
                       "gb_per_s": GRPC_BLOCKS * BLOCK_BYTES / dt / 1e9,
+                      "ms_per_block": dt * 1e3 / GRPC_BLOCKS,
                       "stripes": n_stripes,
-                      "ufs_reads_per_block": reads / GRPC_BLOCKS})
+                      "ufs_reads_per_block": d["UfsBlocksRead"]
+                      / GRPC_BLOCKS,
+                      "fetches": d["UfsFetchStarted"],
+                      "fetch_bytes": d["UfsFetchBytes"],
+                      "coalesced": d["UfsFetchCoalesced"],
+                      "ttfb_p50_ms": pct(samples, 50) * 1e3,
+                      "ttfb_p99_ms": pct(samples, 99) * 1e3, **scan})
+    print("worker cold UFS rung through the fetcher: " + "; ".join(
+        f"{t['mode']} {t['s']:.3f} s ({t['gb_per_s']:.2f} GB/s, "
+        f"{t['ms_per_block']:.1f} ms a block, TTFB p50 "
+        f"{t['ttfb_p50_ms']:.2f} ms p99 {t['ttfb_p99_ms']:.2f} ms, "
+        f"{t['fetches']} fetches, {t['coalesced']} coalesced joins, scan "
+        f"K={k} {t['scan_ms']:.2f} ms == main path == plain)"
+        for t in turns), flush=True)
     return turns
+
+
+def coalesce_turn(files: dict, master, worker) -> dict:
+    """(2c v'): ``COALESCE_READERS`` readers, each with its own
+    ``BlockStoreClient``, start together on the same ``GRPC_BLOCKS``
+    fresh cold blocks (read whole, in the same order). Each reader's
+    bytes must equal the files, and whatever the timing the worker reads
+    each block from the UFS once: joins coalesce onto the in-flight
+    fetch, later reads find the block cached."""
+    import threading
+
+    paths = list(files)[GRPC_BLOCKS:2 * GRPC_BLOCKS]
+    sub = {p: files[p] for p in paths}
+    readers = [WorkerFS(sub, 1 + COALESCE_CONTAINER_BASE, master)
+               for _ in range(COALESCE_READERS)]
+    master.know_blocks(readers[0].block_lengths())
+    want = {p: np.fromfile(f, dtype=np.uint8) for p, (_, f) in sub.items()}
+    errors, times = [], [0.0] * COALESCE_READERS
+    start = threading.Barrier(COALESCE_READERS)
+
+    def read(i, fs):
+        try:
+            start.wait(30)
+            t = time.perf_counter()
+            for p in paths:
+                stream = fs.block_stream(p)
+                try:
+                    got = np.frombuffer(stream.pread(0, BLOCK_BYTES),
+                                        dtype=np.uint8)
+                finally:
+                    stream.close()
+                if not np.array_equal(got, want[p]):
+                    errors.append(f"reader {i}: {p} differs from its file")
+            times[i] = time.perf_counter() - t
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"reader {i}: {type(e).__name__}: {e}")
+
+    f0 = fetch_counts()
+    t = time.perf_counter()
+    threads = [threading.Thread(target=read, args=(i, fs))
+               for i, fs in enumerate(readers)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    dt = time.perf_counter() - t
+    rungs = {}
+    for fs in readers:
+        for rung, c in fs.rungs.items():
+            rungs[rung] = rungs.get(rung, 0) + c
+        fs.close()
+    d = fetch_delta(f0)
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"worker coalescing: {errors or 'a reader did not finish'}")
+    check_fetch("worker coalescing", d, GRPC_BLOCKS)
+    if not all(worker.store.has_block(readers[0].block_id(p))
+               for p in paths):
+        fail("worker coalescing: a block was not cached")
+    out = {"readers": COALESCE_READERS, "blocks": GRPC_BLOCKS, "s": dt,
+           "reader_s": times, "coalesced": d["UfsFetchCoalesced"],
+           "fetches": d["UfsFetchStarted"], "rungs": rungs,
+           "gb_per_s": COALESCE_READERS * GRPC_BLOCKS * BLOCK_BYTES
+           / dt / 1e9}
+    print(f"worker coalescing: {COALESCE_READERS} readers x {GRPC_BLOCKS} "
+          f"cold blocks in {dt:.3f} s ({out['gb_per_s']:.2f} GB/s "
+          f"delivered), {d['UfsFetchStarted']} fetches, "
+          f"{d['UfsBlocksRead']} UFS block reads, {d['UfsFetchCoalesced']} "
+          f"coalesced joins; reads by rung {rungs}; every reader's bytes "
+          f"== the files", flush=True)
+    return dict(out, paths=paths)
+
+
+def fault_turn(device, files: dict, master, worker, paths: list,
+               main: dict) -> dict:
+    """(2c vii): the blocks of (v') through the SHM route with
+    ``atpu.debug.fault.shm.map.error.rate`` = 1.0: every map fails, and
+    the ladder serves each block from the lease rung into a loader's
+    device tier, the bytes equal to the files. Then the injector is
+    reset, and the same route maps every block with no fault."""
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.conf import Configuration, Keys
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.utils import faults
+
+    sub = {p: files[p] for p in paths}
+    ids = WorkerFS(sub, 1 + COALESCE_CONTAINER_BASE, master).block_lengths()
+    deadline = time.monotonic() + 30
+    while any(not master.get_block_info(b).locations for b in ids) and \
+            time.monotonic() < deadline:
+        time.sleep(WORKER_HEARTBEAT_S)  # the commits' heartbeat deltas
+    conf = Configuration(load_env=False)
+    conf.set(Keys.DEBUG_FAULT_SHM_MAP_ERROR_RATE, 1.0)
+    failures = metrics().counter("Client.ShmMapFailures")
+    out = {}
+    for turn, armed in (("fault", True), ("after reset", False)):
+        if armed:
+            faults.injector().configure(conf)
+        fs = WorkerFS(sub, 1 + COALESCE_CONTAINER_BASE, master, route="shm")
+        f0 = failures.count
+        injected0 = faults.injector().injected["shm_map_error"]
+        hits = metrics().counter("Client.JaxHbmHits")
+        loader = DeviceBlockLoader(fs, paths, device=device,
+                                   hbm_bytes=len(paths) * BLOCK_BYTES
+                                   + (64 << 20),
+                                   prefetch=2, dtype=np.int32)
+        try:
+            t = time.perf_counter()
+            got = list(loader.epoch())
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            check_order(f"worker fault turn ({turn})", got,
+                        [SimpleNamespace(path=p) for p in paths], main)
+            h0 = hits.count
+            again = list(loader.epoch())
+            if hits.count - h0 != len(paths) or \
+                    any(a is not b for a, b in zip(got, again)):
+                fail(f"worker fault turn ({turn}): the device tier holds "
+                     f"{hits.count - h0} of {len(paths)} blocks")
+            del got, again
+            injected = faults.injector().injected["shm_map_error"] \
+                - injected0
+        finally:
+            loader.close()
+            fs.close()
+            if armed:
+                faults.injector().reset()
+        want_rung = "lease" if armed else "shm"
+        fs.check_rungs(f"worker fault turn ({turn})", allowed={want_rung})
+        if armed and (injected != len(paths)
+                      or failures.count - f0 != len(paths)):
+            fail(f"worker fault turn: {injected} injected map faults, "
+                 f"{failures.count - f0} map failures counted, want "
+                 f"{len(paths)} of each")
+        if not armed and (injected or failures.count - f0 or
+                          faults.armed()):
+            fail("worker fault turn: a fault after the injector was reset")
+        out[turn] = {"s": dt, "rungs": dict(fs.rungs),
+                     "injected_map_faults": injected,
+                     "map_failures": failures.count - f0}
+    if worker.shm_store.stats()["live_leases"]:
+        fail("worker fault turn: SHM leases left after the clients closed")
+    print(f"worker fault turn (SHM map error rate 1.0, {len(paths)} "
+          f"blocks): served by {out['fault']['rungs']} in "
+          f"{out['fault']['s']:.3f} s, {out['fault']['map_failures']} map "
+          f"failures counted, device tier full; after reset "
+          f"{out['after reset']['rungs']} in "
+          f"{out['after reset']['s']:.3f} s, no fault", flush=True)
+    return out
+
+
+def web_and_sink_check(worker, sink_path: str) -> dict:
+    """(2c): the worker's web endpoint lists the store's blocks, and its
+    JSON-lines sink has written the worker's metrics."""
+    import urllib.request
+
+    def get(route):
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{worker.web_port}{route}",
+                timeout=30) as r:
+            return json.loads(r.read())
+
+    info = get("/api/v1/worker/info")
+    listed = get("/api/v1/worker/blocks")["blocks"]
+    report = worker.store.block_report()
+    want = {t: sorted(ids) for t, ids in report.items()}
+    got = {t: sorted(v["sample"]) for t, v in listed.items()}
+    counts = {t: v["count"] for t, v in listed.items()}
+    if got != want or counts != {t: len(v) for t, v in want.items()} or \
+            info.get("tiers") != list(report):
+        fail(f"worker web endpoint: info tiers {info.get('tiers')}, blocks "
+             f"{counts}; the store holds "
+             f"{ {t: len(v) for t, v in want.items()} }")
+    lines = [json.loads(ln) for ln in Path(sink_path).read_text()
+             .splitlines() if ln.strip()]
+    with_reads = [ln for ln in lines
+                  if "Worker.UfsBlocksRead" in ln["metrics"]]
+    if not with_reads:
+        fail(f"worker metrics sink: {len(lines)} lines, none with "
+             f"Worker.UfsBlocksRead")
+    out = {"web_port": worker.web_port, "blocks_listed": counts,
+           "sink_lines": len(lines),
+           "sink_ufs_blocks_read": with_reads[-1]["metrics"][
+               "Worker.UfsBlocksRead"]}
+    print(f"worker web endpoint (port {worker.web_port}): info and blocks "
+          f"list the store's {sum(counts.values())} blocks; JSON-lines "
+          f"sink {len(lines)} lines, Worker.UfsBlocksRead "
+          f"{out['sink_ufs_blocks_read']}", flush=True)
+    return out
 
 
 def pread_many_check(files: dict, master) -> dict:
@@ -2517,6 +3040,8 @@ def main() -> int:
             "page_cache": page_cache["scan_launches"],
             "worker": worker["launches"],
             "worker_shm": worker["shm_read"]["scan_launches"],
+            "worker_cold": worker["cold_launches"],
+            "worker_qos": worker["qos"]["launches"],
             "train": train["kernel_launches"]["scaled_sum"],
             "mesh": mesh["kernel_launches"]["scaled_sum"]},
         "max_abs_err": kern["max_abs_err"],

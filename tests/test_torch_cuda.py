@@ -359,3 +359,11 @@ def test_worker_lease_loader_on_card(cuda, tmp_path):
 def test_worker_shm_loader_on_card(cuda, tmp_path):
     _module("torch_worker", "tests/testutils/torch_worker.py") \
         .shm_loader_case(tmp_path, cuda)
+
+
+def test_worker_cold_fetch_loader_on_card(cuda, tmp_path):
+    """A cold block streamed through the worker's striped fetch into the
+    device tier and scanned by the kernel: the scan equals the plain
+    scan of the same blocks."""
+    _module("torch_worker", "tests/testutils/torch_worker.py") \
+        .cold_fetch_loader_case(tmp_path, cuda)

@@ -52,7 +52,10 @@ def test_importing_every_module_loads_no_jax():
               "rpc.worker_service", "rpc.clients", "native", "shm",
               "worker.shm_store", "client.fastpath", "client.shm_transport",
               "utils.striping", "client.remote_read", "client.policy",
-              "client.block_store"):
+              "client.block_store", "worker.ufs_fetch", "worker.management",
+              "worker.web", "metrics.sinks", "utils.faults",
+              "utils.pause_monitor", "utils.statuspage", "security",
+              "security.user", "security.authentication"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
