@@ -4,6 +4,14 @@ The PyTorch port of ``alluxio_tpu``'s device layer, for an NVIDIA Hopper
 card (sm_90a). Module paths mirror the JAX package so each counterpart is
 easy to find:
 
+- ``master/``, ``journal/``: the single master (journal with native
+  frame scanning, inode tree on the heap metastore, block and file
+  masters, ``MasterProcess`` serving ``rpc/master_service.py`` over gRPC
+  and the ``rpc/fastpath.py`` Unix socket);
+- ``client/file_system.py``, ``client/streams.py``: ``FileSystem``, the
+  user-facing client over the master clients and the block ladder;
+- ``minicluster/local_cluster.py``: ``LocalCluster``, a master and its
+  workers in one process;
 - ``client/block_store.py``: ``BlockStoreClient``, the ladder that opens
   a block's stream (the SHM plane of ``client/shm_transport.py``, the
   short-circuit lease, the striped remote read of
@@ -57,6 +65,8 @@ on demand.
 __version__ = "0.1.0"
 
 _LAZY = {
+    "FileSystem": "alluxio_tpu_torch.client.file_system",
+    "LocalCluster": "alluxio_tpu_torch.minicluster.local_cluster",
     "DeviceBlockLoader": "alluxio_tpu_torch.client.torch_io",
     "batched_device_iterator": "alluxio_tpu_torch.client.torch_io",
     "HbmPageStore": "alluxio_tpu_torch.client.cache.hbm_store",

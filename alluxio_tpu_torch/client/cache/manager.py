@@ -10,9 +10,10 @@ optional device tier above the host tier:
 ``put`` lands pages in the host store; ``get_device`` promotes a host page
 (or the caller's ``host_fallback()`` bytes) into the device tier on
 access and serves device-resident pages on repeat access — a second pass
-over warm pages never touches host memory. The JAX package's
-``from_conf`` is a plain keyword constructor here, with the defaults of
-the JAX keys (512 MB host tier, 1 MiB pages, LRU, no device tier). The
+over warm pages never touches host memory. The keyword constructor has
+the defaults of the JAX keys (512 MB host tier, 1 MiB pages, LRU, no
+device tier); ``from_conf`` reads the ``atpu.user.client.cache.*`` keys
+as the JAX one does (the file-system client's page cache). The
 counters keep the JAX names (``Client.PageCache*``, ``Client.PagesCached``,
 ``Client.PagesEvicted``, ``Client.HbmPage*``).
 """
@@ -44,6 +45,23 @@ class LocalCacheManager:
         self._hbm = hbm_store
         self._lock = threading.RLock()
         self._m = metrics()
+
+    @staticmethod
+    def from_conf(conf) -> "LocalCacheManager":
+        """A cache built from a port ``Configuration``; a device tier of
+        ``atpu.user.client.cache.hbm.size`` bytes on the card when that
+        is above 0."""
+        from alluxio_tpu_torch.conf import Keys
+
+        store = LocalPageStore(conf.get(Keys.USER_CLIENT_CACHE_DIR))
+        hbm_bytes = conf.get_bytes(Keys.USER_CLIENT_CACHE_HBM_SIZE)
+        hbm = HbmPageStore(hbm_bytes) if hbm_bytes > 0 else None
+        return LocalCacheManager(
+            store, capacity_bytes=conf.get_bytes(Keys.USER_CLIENT_CACHE_SIZE),
+            page_size=conf.get_bytes(Keys.USER_CLIENT_CACHE_PAGE_SIZE),
+            evictor=CacheEvictor.create(
+                conf.get(Keys.USER_CLIENT_CACHE_EVICTOR)),
+            hbm_store=hbm)
 
     # -- host-tier put/get ---------------------------------------------------
     def put(self, page_id: PageId, data: bytes) -> bool:

@@ -2,7 +2,9 @@
 port reads)."""
 
 from alluxio_tpu_torch.conf.property_key import (  # noqa: F401
-    Keys, KeyType, PropertyKey, REGISTRY, Templates, parse_bytes,
-    parse_duration_s,
+    ConsistencyLevel, Keys, KeyType, PropertyKey, REGISTRY, Templates,
+    parse_bytes, parse_duration_s,
 )
-from alluxio_tpu_torch.conf.configuration import Configuration  # noqa: F401
+from alluxio_tpu_torch.conf.configuration import (  # noqa: F401
+    Configuration, Source,
+)

@@ -8,10 +8,14 @@ the JAX package's. The catalog holds only the keys the port reads — the
 the SHM leases, the striped cold fetch and its QoS, tier management and
 the web endpoint; the metrics sinks and the worker's metrics heartbeat;
 the authentication keys the worker's authenticator reads; the
-``atpu.debug.fault.*`` hooks; the ``atpu.user.rpc.retry.*`` keys of the
-worker client, and the client's SHM, remote-read, batch-read and native
-fastpath keys — with the JAX names, types and defaults, so one
-properties file configures either package.
+``atpu.debug.fault.*`` hooks; the master's RPC, journal, metastore,
+safe-mode, worker-timeout, UFS path cache, fast-path, TTL and
+lost-worker keys, and the switches of the opt-in master components the
+port refuses; the permission keys; the ``atpu.user.rpc.retry.*`` keys
+of the RPC clients, and the client's file-system, metadata-cache,
+streaming chunk-size, SHM, remote-read, batch-read and native fastpath
+keys — with the JAX names, types, defaults and consistency levels, so
+one properties file configures either package.
 """
 
 from __future__ import annotations
@@ -122,6 +126,16 @@ _PARSERS: Dict[KeyType, Callable[[Any], Any]] = {
 }
 
 
+class ConsistencyLevel(enum.Enum):
+    """Cross-cluster consistency requirement for a key's value; the
+    master's config checker reports conflicts on ENFORCE keys as errors
+    (reference: ``meta/checkconf/ServerConfigurationChecker.java``)."""
+
+    IGNORE = "IGNORE"
+    WARN = "WARN"
+    ENFORCE = "ENFORCE"
+
+
 @dataclass(frozen=True)
 class PropertyKey:
     """One typed configuration key."""
@@ -131,6 +145,7 @@ class PropertyKey:
     default: Any = None
     description: str = ""
     scope: Scope = Scope.ALL
+    consistency: ConsistencyLevel = ConsistencyLevel.IGNORE
     aliases: tuple = ()
     choices: tuple = ()  # for ENUM
 
@@ -182,10 +197,12 @@ REGISTRY = KeyRegistry()
 
 def _k(name: str, key_type: KeyType = KeyType.STRING, default: Any = None,
        description: str = "", scope: Scope = Scope.ALL,
+       consistency: ConsistencyLevel = ConsistencyLevel.IGNORE,
        aliases: tuple = (), choices: tuple = ()) -> PropertyKey:
     return REGISTRY.register(PropertyKey(
         name=name, key_type=key_type, default=default, description=description,
-        scope=scope, aliases=aliases, choices=choices))
+        scope=scope, consistency=consistency, aliases=aliases,
+        choices=choices))
 
 
 @dataclass(frozen=True)
@@ -514,7 +531,8 @@ class Keys:
 
     # --- security: authentication (the worker's authenticator) ---
     SECURITY_AUTH_TYPE = _k("atpu.security.authentication.type", KeyType.ENUM,
-                            default="SIMPLE", choices=("NOSASL", "SIMPLE", "CUSTOM"))
+                            default="SIMPLE", choices=("NOSASL", "SIMPLE", "CUSTOM"),
+                            consistency=ConsistencyLevel.ENFORCE)
     SECURITY_LOGIN_USERNAME = _k("atpu.security.login.username")
     SECURITY_LOGIN_IMPERSONATION_USERNAME = _k(
         "atpu.security.login.impersonation.username",
@@ -590,6 +608,247 @@ class Keys:
                     "apply; empty = every node that loaded the conf "
                     "(in-process miniclusters share one injector).")
 
+    # --- master: RPC, safe mode, worker timeout, heartbeats ---
+    HOME = _k("atpu.home", default="/tmp/alluxio_tpu")
+    MASTER_RPC_PORT = _k("atpu.master.rpc.port", KeyType.INT, default=19998)
+    MASTER_RPC_ADDRESSES = _k(
+        "atpu.master.rpc.addresses", scope=Scope.ALL,
+        description="Comma-separated master addresses for HA deployments; "
+                    "overrides hostname:port when set (reference: "
+                    "alluxio.master.rpc.addresses).")
+    MASTER_SAFEMODE_WAIT = _k("atpu.master.safemode.wait", KeyType.DURATION,
+                              default="5s", scope=Scope.MASTER,
+                              description="Window after primacy during which "
+                                          "client ops are rejected while workers "
+                                          "re-register (reference: DefaultSafeModeManager).")
+    MASTER_WORKER_TIMEOUT = _k("atpu.master.worker.timeout", KeyType.DURATION,
+                               default="5min", scope=Scope.MASTER,
+                               description="Silent-worker expiry "
+                                           "(reference: LostWorkerDetectionHeartbeatExecutor, "
+                                           "DefaultBlockMaster.java:1087).")
+    MASTER_LOST_WORKER_DETECTION_INTERVAL = _k(
+        "atpu.master.lost.worker.detection.interval", KeyType.DURATION, default="10s",
+        scope=Scope.MASTER)
+    MASTER_TTL_CHECK_INTERVAL = _k("atpu.master.ttl.check.interval",
+                                   KeyType.DURATION, default="1h", scope=Scope.MASTER)
+    MASTER_UFS_PATH_CACHE_CAPACITY = _k(
+        "atpu.master.ufs.path.cache.capacity", KeyType.INT, default=100_000,
+        scope=Scope.MASTER)
+    MASTER_MOUNT_TABLE_ROOT_UFS = _k(
+        "atpu.master.mount.table.root.ufs", default="",
+        scope=Scope.MASTER,
+        description="UFS URI mounted at the namespace root (reference: "
+                    "alluxio.master.mount.table.root.ufs). Empty: a "
+                    "local directory under atpu.home.")
+    MASTER_FASTPATH_ENABLED = _k(
+        "atpu.master.fastpath.enabled", KeyType.BOOL, default=True,
+        scope=Scope.MASTER,
+        description="Serve metadata RPCs over a same-host Unix-socket "
+                    "fast path (framed msgpack, no HTTP/2) alongside "
+                    "gRPC; local clients short-circuit onto it and "
+                    "remote ones keep using gRPC (rpc/fastpath.py).")
+    MASTER_FASTPATH_DIR = _k(
+        "atpu.master.fastpath.dir", default="/tmp",
+        description="Directory for the fastpath Unix socket "
+                    "(atpu-master-<rpc_port>.sock); clients probe the "
+                    "same conventional path.")
+
+    # --- master: journal and metastore ---
+    MASTER_JOURNAL_TYPE = _k("atpu.master.journal.type", KeyType.ENUM,
+                             default="LOCAL", choices=("LOCAL", "UFS", "EMBEDDED", "NOOP"),
+                             scope=Scope.MASTER)
+    MASTER_JOURNAL_FOLDER = _k("atpu.master.journal.folder",
+                               default="/tmp/alluxio_tpu/journal", scope=Scope.MASTER)
+    MASTER_JOURNAL_LOG_SIZE_BYTES_MAX = _k(
+        "atpu.master.journal.log.size.bytes.max", KeyType.BYTES, default="64MB",
+        scope=Scope.MASTER)
+    MASTER_JOURNAL_CHECKPOINT_PERIOD_ENTRIES = _k(
+        "atpu.master.journal.checkpoint.period.entries", KeyType.INT,
+        default=2_000_000, scope=Scope.MASTER)
+    MASTER_JOURNAL_FLUSH_BATCH_TIME = _k(
+        "atpu.master.journal.flush.batch.time", KeyType.DURATION, default="5ms",
+        scope=Scope.MASTER,
+        description="Coalescing window of the dedicated journal flusher "
+                    "(group commit, reference: AsyncJournalWriter): the "
+                    "flusher accumulates up to this much arrival time "
+                    "into one file write + fsync; operations block only "
+                    "until their batch's fsync completes. 0 flushes "
+                    "every wakeup without coalescing.")
+    MASTER_JOURNAL_INIT_FROM_BACKUP = _k(
+        "atpu.master.journal.init.from.backup",
+        description="Backup file to seed an EMPTY journal from at boot "
+                    "(reference: initFromBackup, "
+                    "AlluxioMasterProcess.java:173-190).")
+    MASTER_METASTORE = _k("atpu.master.metastore", KeyType.ENUM, default="HEAP",
+                          choices=("HEAP", "SQLITE", "LSM", "CACHING",
+                                   "CACHING:HEAP", "CACHING:SQLITE",
+                                   "CACHING:LSM"), scope=Scope.MASTER,
+                          description="Inode/edge store backend (reference: "
+                                      "HEAP/ROCKS/caching metastore). HEAP "
+                                      "serves from dicts; SQLITE spills to "
+                                      "disk; LSM is the billion-inode "
+                                      "capacity backend (WAL + memtable + "
+                                      "sorted runs, always caching-wrapped); "
+                                      "CACHING[:backing] fronts a backing "
+                                      "store with a write-back LRU.")
+    MASTER_METASTORE_DIR = _k("atpu.master.metastore.dir",
+                              default="/tmp/alluxio_tpu/metastore", scope=Scope.MASTER)
+
+    # --- master: opt-in components the port's master does not have yet (it
+    # refuses to start with one switched on) ---
+    MASTER_RPC_ADMISSION_ENABLED = _k(
+        "atpu.master.rpc.admission.enabled", KeyType.BOOL, default=False,
+        scope=Scope.MASTER,
+        description="Per-principal token-bucket admission control on "
+                    "the master RPC dispatch: calls beyond a "
+                    "principal's rate are shed with a typed "
+                    "ResourceExhausted carrying a retry-after hint "
+                    "(which the client retry policy honors) instead "
+                    "of queuing in the RPC executor. Off: dispatch is "
+                    "byte-identical to a build without admission "
+                    "control.")
+    MASTER_WEB_ENABLED = _k(
+        "atpu.master.web.enabled", KeyType.BOOL, default=False,
+        scope=Scope.MASTER,
+        description="Serve the read-only HTTP/JSON state endpoint "
+                    "(reference: AlluxioMasterRestServiceHandler).")
+    MASTER_UPDATE_CHECK_ENABLED = _k(
+        "atpu.master.update.check.enabled", KeyType.BOOL, default=False,
+        scope=Scope.MASTER,
+        description="Periodically probe for a newer release (reference "
+                    "UpdateChecker.java; OFF by default here — "
+                    "phone-home is opt-in).")
+    MASTER_DAILY_BACKUP_ENABLED = _k("atpu.master.daily.backup.enabled",
+                                     KeyType.BOOL, default=False, scope=Scope.MASTER)
+    MASTER_REMEDIATION_ENABLED = _k(
+        "atpu.master.remediation.enabled", KeyType.BOOL, default=False,
+        scope=Scope.MASTER,
+        description="Act on firing health alerts with bounded, audited "
+                    "remediations (quarantine, targeted re-replication, "
+                    "client retuning pushed on the metrics heartbeat). "
+                    "OFF by default: with it off the cluster behaves "
+                    "exactly as if the engine did not exist. See "
+                    "docs/self_healing.md.")
+
+    # --- security: authorization (the file master's permission checks) ---
+    SECURITY_AUTHORIZATION_PERMISSION_ENABLED = _k(
+        "atpu.security.authorization.permission.enabled", KeyType.BOOL, default=True)
+    SECURITY_AUTHORIZATION_PERMISSION_UMASK = _k(
+        "atpu.security.authorization.permission.umask", KeyType.INT, default=0o022)
+    SECURITY_AUTHORIZATION_PERMISSION_SUPERGROUP = _k(
+        "atpu.security.authorization.permission.supergroup", default="supergroup",
+        description="Members act as superusers (reference: "
+                    "alluxio.security.authorization.permission.supergroup).")
+
+    # --- tracing ---
+    TRACE_ENABLED = _k(
+        "atpu.trace.enabled", KeyType.BOOL, default=False,
+        scope=Scope.ALL,
+        description="Record RPC/operation spans into the in-process "
+                    "trace ring (served at /api/v1/master/trace). "
+                    "Spans carry a W3C-traceparent context across RPC "
+                    "hops, so client/worker/master spans stitch into "
+                    "one trace.")
+
+    # --- client: the file-system client, its streams and metadata cache ---
+    USER_BLOCK_SIZE_BYTES_DEFAULT = _k(
+        "atpu.user.block.size.bytes.default", KeyType.BYTES, default="64MB",
+        description="Default block size for new files "
+                    "(reference: alluxio.user.block.size.bytes.default).")
+    USER_BLOCK_READ_POLICY = _k(
+        "atpu.user.block.read.location.policy", KeyType.ENUM, default="LOCAL_FIRST",
+        choices=("LOCAL_FIRST", "LOCAL_FIRST_AVOID_EVICTION", "MOST_AVAILABLE",
+                 "ROUND_ROBIN", "DETERMINISTIC_HASH", "SPECIFIC_HOST"),
+        scope=Scope.CLIENT)
+    USER_BLOCK_WRITE_POLICY = _k(
+        "atpu.user.block.write.location.policy", KeyType.ENUM, default="LOCAL_FIRST",
+        choices=("LOCAL_FIRST", "LOCAL_FIRST_AVOID_EVICTION", "MOST_AVAILABLE",
+                 "ROUND_ROBIN", "DETERMINISTIC_HASH", "SPECIFIC_HOST"),
+        scope=Scope.CLIENT)
+    USER_BLOCK_WRITE_UNAVAILABLE_WINDOW = _k(
+        "atpu.user.block.write.unavailable.window", KeyType.DURATION,
+        default="15s", scope=Scope.CLIENT,
+        description="How long a block write waits for a live worker before "
+                    "failing. Covers the transient window where the only "
+                    "worker missed heartbeats (host overload) and is "
+                    "re-registering; 0 fails immediately (reference: client "
+                    "UnavailableException retry on write).")
+    USER_SHORT_CIRCUIT_ENABLED = _k("atpu.user.short.circuit.enabled", KeyType.BOOL,
+                                    default=True, scope=Scope.CLIENT)
+    USER_FILE_PASSIVE_CACHE_ENABLED = _k(
+        "atpu.user.file.passive.cache.enabled", KeyType.BOOL, default=True,
+        scope=Scope.CLIENT)
+    USER_FILE_READ_TYPE_DEFAULT = _k(
+        "atpu.user.file.readtype.default", KeyType.ENUM, default="CACHE",
+        choices=("NO_CACHE", "CACHE", "CACHE_PROMOTE"), scope=Scope.CLIENT)
+    USER_FILE_WRITE_TYPE_DEFAULT = _k(
+        "atpu.user.file.writetype.default", KeyType.ENUM, default="ASYNC_THROUGH",
+        choices=("MUST_CACHE", "CACHE_THROUGH", "THROUGH", "ASYNC_THROUGH", "NONE"),
+        scope=Scope.CLIENT)
+    USER_FILE_REPLICATION_MIN = _k("atpu.user.file.replication.min", KeyType.INT,
+                                   default=0, scope=Scope.CLIENT)
+    USER_FILE_REPLICATION_MAX = _k("atpu.user.file.replication.max", KeyType.INT,
+                                   default=-1, scope=Scope.CLIENT)
+    USER_FILE_METADATA_SYNC_INTERVAL = _k(
+        "atpu.user.file.metadata.sync.interval", KeyType.DURATION, default="-1s",
+        scope=Scope.CLIENT,
+        description="-1 = never sync on access, 0 = always, >0 = min interval "
+                    "(reference: common options sync interval, InodeSyncStream).")
+    USER_STREAMING_READER_CHUNK_SIZE = _k(
+        "atpu.user.streaming.reader.chunk.size.bytes", KeyType.BYTES, default="1MB",
+        scope=Scope.CLIENT)
+    USER_STREAMING_WRITER_CHUNK_SIZE = _k(
+        "atpu.user.streaming.writer.chunk.size.bytes", KeyType.BYTES, default="1MB",
+        scope=Scope.CLIENT)
+    USER_CLIENT_CACHE_DIR = _k("atpu.user.client.cache.dir",
+                               default="/tmp/alluxio_tpu/client_cache",
+                               scope=Scope.CLIENT)
+    USER_CLIENT_CACHE_SIZE = _k("atpu.user.client.cache.size", KeyType.BYTES,
+                                default="512MB", scope=Scope.CLIENT)
+    USER_CLIENT_CACHE_PAGE_SIZE = _k("atpu.user.client.cache.page.size",
+                                     KeyType.BYTES, default="1MB", scope=Scope.CLIENT)
+    USER_CLIENT_CACHE_EVICTOR = _k("atpu.user.client.cache.evictor.class",
+                                   KeyType.ENUM, default="LRU",
+                                   choices=("LRU", "LFU"), scope=Scope.CLIENT)
+    USER_CLIENT_CACHE_HBM_SIZE = _k(
+        "atpu.user.client.cache.hbm.size", KeyType.BYTES, default="0",
+        scope=Scope.CLIENT,
+        description="Capacity of the HBM page-cache tier (pages as jax.Array). "
+                    "0 disables the device tier. TPU-native addition; no "
+                    "reference analogue.")
+    USER_CLIENT_CACHE_ENABLED = _k("atpu.user.client.cache.enabled", KeyType.BOOL,
+                                   default=False, scope=Scope.CLIENT)
+    USER_CONF_CLUSTER_DEFAULT_ENABLED = _k(
+        "atpu.user.conf.cluster.default.enabled", KeyType.BOOL, default=True,
+        description="Pull cluster-default configuration from the master at "
+                    "client start (reference: meta_master.proto:196-211).")
+    USER_CONF_SYNC_INTERVAL = _k("atpu.user.conf.sync.interval", KeyType.DURATION,
+                                 default="1min", scope=Scope.CLIENT)
+    USER_METADATA_CACHE_ENABLED = _k(
+        "atpu.user.metadata.cache.enabled", KeyType.BOOL, default=False,
+        scope=Scope.CLIENT,
+        description="Cache GetStatus/ListStatus results client-side in a "
+                    "bounded LRU kept coherent by master-pushed "
+                    "invalidations on the metrics heartbeat (plus the "
+                    "expiration-time TTL as a fallback bound) — warm "
+                    "metadata reads become client-local. See "
+                    "docs/metadata.md.")
+    USER_METADATA_CACHE_EXPIRATION_TIME = _k(
+        "atpu.user.metadata.cache.expiration.time", KeyType.DURATION, default="10min",
+        scope=Scope.CLIENT)
+    USER_METADATA_CACHE_MAX_SIZE = _k("atpu.user.metadata.cache.max.size",
+                                      KeyType.INT, default=10_000,
+                                      scope=Scope.CLIENT,
+                                      description="Entry cap of the client "
+                                                  "metadata cache (LRU).")
+    USER_METRICS_COLLECTION_ENABLED = _k(
+        "atpu.user.metrics.collection.enabled", KeyType.BOOL, default=False,
+        scope=Scope.CLIENT,
+        description="Ship client metric snapshots to the master for "
+                    "cluster aggregation (reference: ClientMasterSync).")
+    USER_METRICS_HEARTBEAT_INTERVAL = _k(
+        "atpu.user.metrics.heartbeat.interval", KeyType.DURATION,
+        default="10s", scope=Scope.CLIENT)
 
 # Parameterized families (reference: PropertyKey.Template, PropertyKey.java:5668)
 class Templates:

@@ -19,12 +19,15 @@ class HeartbeatContext:
     """Heartbeat names, as the JAX package's catalog spells them (only
     the ones the port runs)."""
 
+    MASTER_TTL_CHECK = "Master.TtlCheck"
+    MASTER_LOST_WORKER_DETECTION = "Master.LostWorkerDetection"
     WORKER_METRICS_SINKS = "Worker.MetricsSinks"
     WORKER_BLOCK_SYNC = "Worker.BlockSync"
     WORKER_PIN_LIST_SYNC = "Worker.PinListSync"
     WORKER_STORAGE_HEALTH = "Worker.StorageHealth"
     WORKER_CLIENT_METRICS = "Worker.ClientMetrics"
     WORKER_MANAGEMENT_TASKS = "Worker.ManagementTasks"
+    CLIENT_METRICS_HEARTBEAT = "Client.MetricsHeartbeat"
     CLIENT_PREFETCH_AGENT = "Client.PrefetchAgent"
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import re
 import threading
+import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
@@ -63,6 +64,22 @@ class Timer:
             for i, le in enumerate(self.HISTOGRAM_BUCKETS):
                 if seconds <= le:
                     self._bucket_counts[i] += 1
+
+    class _Ctx:
+        def __init__(self, timer: "Timer") -> None:
+            self._timer = timer
+
+        def __enter__(self):
+            self._t0 = time.monotonic()
+            return self
+
+        def __exit__(self, *exc):
+            self._timer.update(time.monotonic() - self._t0)
+            return False
+
+    def time(self) -> "_Ctx":
+        """A scope whose wall time is one sample."""
+        return Timer._Ctx(self)
 
     def histogram(self) -> "tuple[List[int], float, int]":
         """Lifetime cumulative bucket counts (the last one +Inf) plus

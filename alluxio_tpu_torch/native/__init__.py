@@ -14,9 +14,9 @@ which gives the same bytes. Every time a pre-fault or a plan takes that
 plain path it is counted (:func:`plain_calls`), and every pre-fault is
 counted with its bytes (:func:`prefault_calls`), so a run that must not
 fall back (the card's smoke run) can check :func:`loaded` and the
-counts. Only ``atpu_prefault`` and ``atpu_plan_exec`` are bound here;
-``atpu_crc32`` and ``atpu_scan_frames`` are built in the same library
-and wait for the journal's slice.
+counts. All four entry points are bound: ``atpu_prefault``,
+``atpu_plan_exec``, and the journal's ``atpu_scan_frames`` and
+``atpu_crc32``, whose plain paths are counted the same way.
 """
 
 from __future__ import annotations
@@ -27,9 +27,11 @@ import logging
 import os
 import subprocess
 import tempfile
+import struct
 import threading
+import zlib
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -41,6 +43,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-Wall", "-Werror")
 
 _PROTOTYPES: "Dict[str, Tuple[list, object]]" = {
+    "atpu_crc32": (
+        [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint32],
+        ctypes.c_uint32),
+    "atpu_scan_frames": (
+        [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_size_t,
+         ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint32),
+         ctypes.c_size_t, ctypes.POINTER(ctypes.c_uint64)],
+        ctypes.c_size_t),
     "atpu_prefault": (
         [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_size_t],
         ctypes.c_uint64),
@@ -52,7 +62,7 @@ _PROTOTYPES: "Dict[str, Tuple[list, object]]" = {
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None | bool" = None  # None=untried, False=failed
-_plain = {"prefault": 0, "plan": 0}
+_plain = {"prefault": 0, "plan": 0, "scan": 0, "crc": 0}
 _prefaults = [0, 0]  # calls, bytes
 
 
@@ -124,8 +134,8 @@ def loaded() -> bool:
 
 
 def note_plain(kind: str) -> None:
-    """Count one call that took the plain path (``prefault`` or
-    ``plan``)."""
+    """Count one call that took the plain path (``prefault``, ``plan``,
+    ``scan`` or ``crc``)."""
     with _lock:
         _plain[kind] += 1
 
@@ -205,6 +215,74 @@ def prefault(view, stride: int = 4096) -> int:
         return 0
     total = int(b[::stride].sum(dtype=np.uint64)) + int(b[-1])
     return total & 0xFFFFFFFFFFFFFFFF
+
+
+# ------------------------------------------------------------ journal frames
+
+_HEADER = struct.Struct("<II")  # length, crc32
+_SCAN_CHUNK = 65536  # frames per native call: bounds the offset arrays
+
+
+def scan_frames(view) -> "Tuple[List[Tuple[int, int]], int]":
+    """Scan ``[u32 len][u32 crc32][body]`` frames over a buffer
+    (bytes, bytearray, ndarray or mmap) with no copy of the data.
+    Returns ``([(body_off, body_len), ...], end_off)``: ``end_off`` is
+    the truncation point after the last valid frame. The scan stops at
+    the torn tail (a short header or body, a zero length, a CRC
+    mismatch). Natively it runs in bounded chunks with the GIL
+    released; without the library (or a zero-copy address) the plain
+    path gives the same frames and is counted."""
+    handle = lib()
+    loc = _buffer_address(view) if handle is not None else None
+    if loc is None:
+        note_plain("scan")
+        return _scan_frames_plain(view)
+    addr, n, keepalive = loc
+    if n == 0:
+        return [], 0
+    offs = (ctypes.c_uint64 * _SCAN_CHUNK)()
+    lens = (ctypes.c_uint32 * _SCAN_CHUNK)()
+    end = ctypes.c_uint64(0)
+    frames: List[Tuple[int, int]] = []
+    start = 0
+    while True:
+        got = handle.atpu_scan_frames(addr, n, start, offs, lens,
+                                      _SCAN_CHUNK, ctypes.byref(end))
+        frames.extend((offs[i], lens[i]) for i in range(got))
+        start = end.value
+        if got < _SCAN_CHUNK:
+            break
+    del keepalive
+    return frames, end.value
+
+
+def _scan_frames_plain(view) -> "Tuple[List[Tuple[int, int]], int]":
+    frames: List[Tuple[int, int]] = []
+    pos = 0
+    # the views are released before return: an mmap whose buffer is
+    # still exported cannot be closed
+    with memoryview(view) as mv, mv.cast("B") as data:
+        n = len(data)
+        while pos + _HEADER.size <= n:
+            length, crc = _HEADER.unpack_from(data, pos)
+            start = pos + _HEADER.size
+            with data[start:start + length] as body:
+                if length == 0 or len(body) < length or \
+                        zlib.crc32(body) != crc:
+                    break
+            frames.append((start, length))
+            pos = start + length
+    return frames, pos
+
+
+def crc32(data: bytes, seed: int = 0) -> int:
+    """zlib's CRC-32 of ``data`` continued from ``seed``; natively with
+    the GIL released, else (counted) through ``zlib.crc32``."""
+    handle = lib()
+    if handle is None:
+        note_plain("crc")
+        return zlib.crc32(data, seed)
+    return int(handle.atpu_crc32(data, len(data), seed))
 
 
 # ---------------------------------------------------------------- plan exec

@@ -1,9 +1,10 @@
-"""UFS factory registry + per-process UFS manager: a copy of the part of
-``alluxio_tpu/underfs/registry.py`` the worker uses.
+"""UFS factory registry + per-process UFS manager: a copy of
+``alluxio_tpu/underfs/registry.py`` without its connector discovery.
 
 Re-designs of ``underfs/UnderFileSystemFactoryRegistry.java`` (a plain
 scheme-keyed registry) and ``core/server/common/.../underfs/
-{UfsManager,AbstractUfsManager}.java``: mount-id-keyed cached instances.
+{UfsManager,AbstractUfsManager}.java``: mount-id-keyed cached instances (the
+JAX per-UFS maintenance modes are not ported: nothing sets one).
 The port registers the local UFS only (bare paths and ``file://``); the
 object-store and HDFS connectors are not ported.
 """

@@ -9,6 +9,7 @@ block -> file reverse lookups arithmetic instead of stored.
 
 from __future__ import annotations
 
+import random
 import threading
 import time
 
@@ -39,6 +40,36 @@ def file_id_for_block(bid: int) -> int:
     return file_id_from_container(container_id(bid))
 
 
+def is_file_id(bid: int) -> bool:
+    return sequence_number(bid) == MAX_SEQUENCE
+
+
+class ContainerIdGenerator:
+    """Journaled monotonically-increasing container ids."""
+
+    def __init__(self, next_id: int = 1) -> None:
+        self._next = next_id
+        self._lock = threading.Lock()
+
+    def next_container_id(self) -> int:
+        with self._lock:
+            cid = self._next
+            self._next += 1
+            return cid
+
+    @property
+    def peek(self) -> int:
+        with self._lock:
+            return self._next
+
+    def restore(self, next_id: int) -> None:
+        with self._lock:
+            self._next = max(self._next, next_id)
+
+
+_rng = random.Random()
+
+
 _session_lock = threading.Lock()
 _session_counter = 0
 
@@ -48,3 +79,12 @@ def create_session_id() -> int:
     with _session_lock:
         _session_counter += 1
         return (int(time.time() * 1000) << 20) | (_session_counter & 0xFFFFF)
+
+
+def create_worker_id(host: str, port: int) -> int:
+    """Random-ish but stable-per-boot worker id."""
+    return _rng.getrandbits(62) | 1
+
+
+def create_mount_id() -> int:
+    return _rng.getrandbits(62) | 1

@@ -1,6 +1,7 @@
 """Retry policies: the part of ``alluxio_tpu/utils/retry.py`` the port's
 RPC clients use — ``ExponentialTimeBoundedRetry`` and the functional
-``retry()`` helper that understands the typed exception codes."""
+``retry()`` helper that understands the typed exception codes and the
+master's leader hints."""
 
 from __future__ import annotations
 
@@ -45,11 +46,22 @@ class ExponentialTimeBoundedRetry(RetryPolicy):
         self._rng = rng or _SHARED_RNG
         self._count = 0
         self._retry_after_s = 0.0
+        self._redirect = False
+        self._free_redirects = 3
 
     def note_retry_after(self, hint_s: float) -> None:
         """Server-supplied backoff hint: the NEXT sleep is at least this
         long."""
         self._retry_after_s = max(0.0, float(hint_s))
+
+    def note_redirect(self) -> None:
+        """Leader-hint redirect: the failed attempt named the master to
+        try, so the NEXT attempt runs at once, without sleeping or
+        counting as an attempt. Three a policy: a loop between two
+        masters that each name the other then backs off as usual."""
+        if self._free_redirects > 0:
+            self._free_redirects -= 1
+            self._redirect = True
 
     def attempt(self) -> bool:
         now = self._time_fn()
@@ -58,6 +70,9 @@ class ExponentialTimeBoundedRetry(RetryPolicy):
             return True
         if now >= self._deadline:
             return False
+        if self._redirect:
+            self._redirect = False
+            return True
         backoff = min(self._max_sleep, self._base * (2 ** (self._count - 1)))
         hint, self._retry_after_s = self._retry_after_s, 0.0
         sleep = min(max(hint, backoff * self._rng.random()),
@@ -86,9 +101,12 @@ def retry(fn: Callable[[], T], policy: RetryPolicy,
           retry_on: Callable[[BaseException], bool] = is_retryable) -> T:
     """Run ``fn`` under ``policy``; re-raise the last error when
     exhausted. A typed error carrying ``retry_after_s`` feeds the hint to
-    policies that can honor it (reference: ``retry/RetryUtils.java``)."""
+    policies that can honor it, and one naming the primary
+    (``NotPrimaryError.leader``) is retried there at once (reference:
+    ``retry/RetryUtils.java``)."""
     last: Optional[BaseException] = None
     note = getattr(policy, "note_retry_after", None)
+    note_redirect = getattr(policy, "note_redirect", None)
     while policy.attempt():
         try:
             return fn()
@@ -99,6 +117,8 @@ def retry(fn: Callable[[], T], policy: RetryPolicy,
             hint = getattr(e, "retry_after_s", None)
             if hint and note is not None:
                 note(hint)
+            if getattr(e, "leader", None) and note_redirect is not None:
+                note_redirect()
     if last is None:
         raise RuntimeError("retry policy allowed no attempt")
     raise last

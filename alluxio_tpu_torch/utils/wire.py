@@ -1,8 +1,10 @@
 """Wire types crossing RPC boundaries: a copy of the part of
-``alluxio_tpu/utils/wire.py`` that the worker's data plane and the
-client's block routing speak — ``LocalityTier``, ``TieredIdentity``
+``alluxio_tpu/utils/wire.py`` that the worker's data plane, the
+client's block routing and the master speak — ``LocalityTier``, ``TieredIdentity``
 (with ``from_spec``), ``WorkerNetAddress``, ``BlockLocation``,
-``BlockInfo``, ``WorkerInfo`` and ``FileBlockInfo`` (reference: ``core/common/src/main/java/alluxio/wire/``).
+``BlockInfo``, ``WorkerInfo``, ``FileBlockInfo``, ``FileInfo``,
+``MountPointInfo`` and ``MasterInfo`` (reference:
+``core/common/src/main/java/alluxio/wire/``).
 
 Each type serializes to and from plain dicts (msgpack-friendly) through
 ``to_wire``/``from_wire`` exactly as the JAX package's do, field for
@@ -269,3 +271,67 @@ class FileBlockInfo:
 
 
 _NESTED[("FileBlockInfo", "block_info")] = BlockInfo
+
+
+@_wire_dataclass
+@dataclass
+class FileInfo:
+    file_id: int = 0
+    name: str = ""
+    path: str = ""
+    ufs_path: str = ""
+    length: int = 0
+    block_size_bytes: int = 0
+    creation_time_ms: int = 0
+    last_modification_time_ms: int = 0
+    last_access_time_ms: int = 0
+    completed: bool = False
+    folder: bool = False
+    pinned: bool = False
+    pinned_media: List[str] = field(default_factory=list)
+    cacheable: bool = True
+    persisted: bool = False
+    persistence_state: str = "NOT_PERSISTED"
+    block_ids: List[int] = field(default_factory=list)
+    in_memory_percentage: int = 0
+    ttl: int = -1
+    ttl_action: str = "DELETE"
+    owner: str = ""
+    group: str = ""
+    mode: int = 0o644
+    mount_point: bool = False
+    mount_id: int = 0
+    replication_min: int = 0
+    replication_max: int = -1
+    file_block_infos: List[FileBlockInfo] = field(default_factory=list)
+    xattr: Dict[str, str] = field(default_factory=dict)
+
+
+_NESTED[("FileInfo", "file_block_infos")] = FileBlockInfo
+
+
+@_wire_dataclass
+@dataclass
+class MountPointInfo:
+    alluxio_path: str = ""
+    ufs_uri: str = ""
+    ufs_type: str = ""
+    ufs_capacity_bytes: int = -1
+    ufs_used_bytes: int = -1
+    read_only: bool = False
+    shared: bool = False
+    mount_id: int = 0
+    properties: Dict[str, str] = field(default_factory=dict)
+
+
+@_wire_dataclass
+@dataclass
+class MasterInfo:
+    leader_master_address: str = ""
+    master_addresses: List[str] = field(default_factory=list)
+    rpc_port: int = 0
+    safe_mode: bool = False
+    start_time_ms: int = 0
+    up_time_ms: int = 0
+    version: str = ""
+    cluster_id: str = ""

@@ -7,9 +7,9 @@ BlockHeartbeatReporter.java,PinListSync.java}`` and the storage health check
 (``DefaultBlockWorker.StorageChecker:624``).
 
 The master client is duck-typed (``get_worker_id``, ``register``,
-``heartbeat``, ``commit_block``): the JAX package's gRPC
-``BlockMasterClient`` or any object with that surface — the protocol code
-cannot tell.
+``heartbeat``, ``commit_block``): the port's or the JAX package's gRPC
+``BlockMasterClient``, or any object with that surface — the protocol
+code cannot tell.
 """
 
 from __future__ import annotations
@@ -20,21 +20,12 @@ import threading
 from typing import Dict, List, Optional, Set
 
 from alluxio_tpu_torch.heartbeat import HeartbeatExecutor
+from alluxio_tpu_torch.master.block_master import WorkerCommand
 from alluxio_tpu_torch.utils import ids as id_utils
 from alluxio_tpu_torch.utils.wire import WorkerNetAddress
 from alluxio_tpu_torch.worker.tiered_store import TieredBlockStore
 
 LOG = logging.getLogger(__name__)
-
-
-class WorkerCommand:
-    """Commands piggybacked on heartbeat responses: the JAX block
-    master's strings (reference: ``block_master.proto`` CommandType)."""
-
-    NOTHING = "NOTHING"
-    REGISTER = "REGISTER"
-    FREE = "FREE"
-    DELETE = "DELETE"
 
 
 class BlockHeartbeatReporter:

@@ -196,9 +196,10 @@ class BlockWorker:
         qos_enabled = conf.get_bool(Keys.WORKER_QOS_ENABLED)
         self.async_cache = AsyncCacheManager(
             self.store, lambda mount_id: self.ufs_manager.get(mount_id),
+            self.ufs_fetcher,
             num_threads=conf.get_int(Keys.WORKER_ASYNC_CACHE_THREADS),
             queue_max=conf.get_int(Keys.WORKER_ASYNC_CACHE_QUEUE_MAX),
-            fetcher=self.ufs_fetcher, prioritize=qos_enabled)
+            prioritize=qos_enabled)
         if qos_enabled:
             from alluxio_tpu_torch.metrics import metrics as _metrics
 
@@ -367,13 +368,6 @@ class BlockWorker:
         ufs = self.ufs_manager.get(desc.mount_id)
         return self.ufs_fetcher.fetch(ufs, desc, cache=cache,
                                       priority=priority, tenant=tenant)
-
-    def read_ufs_block(self, desc: UfsBlockDescriptor, *,
-                       cache: bool = True) -> bytes:
-        """Cold read-through, whole block at once (reference:
-        UnderFileSystemBlockReader). Rides the same striped/coalesced
-        pipeline as :meth:`open_ufs_fetch`."""
-        return self.open_ufs_fetch(desc, cache=cache).result()
 
     def persist_file(self, ufs_path: str, block_ids: List[int],
                      mount_id: int) -> str:

@@ -3,7 +3,7 @@ read-through, and in-flight coalescing (a copy of
 ``alluxio_tpu/worker/ufs_fetch.py``).
 
 Replaces the naive cold path (one blocking whole-block ``read_range``
-in ``ufs_io.UfsBlockReader.read_block``) with a fetch pipeline:
+in the JAX ``ufs_io.UfsBlockReader.read_block``) with a fetch pipeline:
 
 - **striped parallel fetch** — a block is split into fixed-size stripes
   fetched concurrently over a per-mount bounded executor, so cold-read

@@ -1,11 +1,10 @@
-"""Worker-side UFS block IO: cold reads with concurrent caching.
+"""Worker-side UFS block IO: the block descriptor, the cache fill and
+the async cache manager.
 
-A copy of ``alluxio_tpu/worker/ufs_io.py``. The worker's cold path is
-the striped, coalescing fetcher (``worker/ufs_fetch.py``), and the async
-cache manager rides it when given one. :class:`UfsBlockReader` is the
-unstriped path beside it (the manager's ``fetcher=None`` branch); unlike
-the JAX reader, concurrent reads of one block through it share one UFS
-read.
+A copy of ``alluxio_tpu/worker/ufs_io.py`` without the unstriped read
+(``UfsBlockReader.read_block``): the worker's cold path is the striped,
+coalescing fetcher (``worker/ufs_fetch.py``), and the async cache
+manager always rides it.
 
 Re-design of ``core/server/worker/.../block/{UnderFileSystemBlockStore.java,
 UnderFileSystemBlockReader.java:50}`` + the async cache manager
@@ -27,7 +26,7 @@ from typing import Callable, Dict, Optional
 from alluxio_tpu_torch.underfs.base import UnderFileSystem
 from alluxio_tpu_torch.utils import ids as id_utils
 from alluxio_tpu_torch.utils.exceptions import (
-    AlreadyExistsError, BlockDoesNotExistError, best_effort,
+    AlreadyExistsError, best_effort,
 )
 from alluxio_tpu_torch.worker.tiered_store import TieredBlockStore
 
@@ -47,84 +46,13 @@ class UfsBlockDescriptor:
     mount_id: int = 0
 
 
-class _UfsFlight:
-    """One UFS read of a block in progress; reads of the same block that
-    arrive meanwhile wait for its bytes."""
-
-    __slots__ = ("done", "data", "error")
-
-    def __init__(self) -> None:
-        self.done = threading.Event()
-        self.data: Optional[bytes] = None
-        self.error: Optional[BaseException] = None
-
-
 class UfsBlockReader:
-    """Single-range read-through: serve from UFS while caching into the
-    local store, one blocking read of the whole block. Reads of one
-    block that overlap in time share a single UFS read, and a read that
-    finds the block cached by the one before it is served from the
-    store, so the stripes of one cold block cost one UFS read and one
-    cache fill."""
+    """The cache fill of a block whose bytes a fetch already holds: the
+    async cache calls it when the block was not cached by the fetch it
+    joined. (The worker's cold reads ride ``worker/ufs_fetch.py``.)"""
 
     def __init__(self, store: TieredBlockStore) -> None:
         self._store = store
-        self._flights_lock = threading.Lock()
-        self._flights: Dict[tuple, _UfsFlight] = {}
-
-    def read_block(self, ufs: UnderFileSystem, desc: UfsBlockDescriptor, *,
-                   cache: bool = True, tier_alias: str = "") -> bytes:
-        """Fetch the whole block (the TPU read path wants whole pages into
-        a staging buffer, not tiny chunks)."""
-        key = (desc.mount_id, desc.ufs_path, desc.offset, desc.length,
-               desc.block_id, cache, tier_alias)
-        with self._flights_lock:
-            flight = self._flights.get(key)
-            leader = flight is None
-            if leader:
-                flight = self._flights[key] = _UfsFlight()
-        if not leader:
-            flight.done.wait()
-            if flight.error is not None:
-                raise flight.error
-            return flight.data
-        try:
-            data = self._cached(desc.block_id) if cache else None
-            if data is None:
-                data = self._fetch(ufs, desc, cache, tier_alias)
-            flight.data = data
-            return data
-        except BaseException as e:
-            flight.error = e
-            raise
-        finally:
-            with self._flights_lock:
-                del self._flights[key]
-            flight.done.set()
-
-    def _cached(self, block_id: int) -> Optional[bytes]:
-        """The block's bytes when a read just before this one cached it
-        (the caller saw it missing before that read committed)."""
-        try:
-            with self._store.get_reader(block_id) as r:
-                return r.read(0, r.length)
-        except BlockDoesNotExistError:
-            return None
-
-    def _fetch(self, ufs: UnderFileSystem, desc: UfsBlockDescriptor,
-               cache: bool, tier_alias: str) -> bytes:
-        from alluxio_tpu_torch.metrics import metrics
-        from alluxio_tpu_torch.utils.tracing import tracer
-
-        with tracer().span("atpu.worker.ufs_read",
-                           block_id=desc.block_id, bytes=desc.length):
-            data = ufs.read_range(desc.ufs_path, desc.offset, desc.length)
-        m = metrics()
-        m.counter("Worker.UfsBlocksRead").inc()
-        m.counter("Worker.UfsBytesRead").inc(len(data))
-        if cache:
-            self.cache_block(desc.block_id, data, tier_alias)
-        return data
 
     def cache_block(self, block_id: int, data: bytes,
                     tier_alias: str = "") -> bool:
@@ -162,10 +90,9 @@ class AsyncCacheManager:
     ``Worker.AsyncCacheRejected``) instead of growing the backlog without
     limit — passive caching is advisory, the client already has the bytes.
 
-    When a ``UfsBlockFetcher`` is wired in, cache fills ride the same
-    coalescing registry as foreground reads, so a background fill never
-    duplicates an in-flight foreground fetch of the same block; without
-    one each fill is one :class:`UfsBlockReader` read of the whole block.
+    Cache fills ride the ``UfsBlockFetcher``'s coalescing registry, as
+    foreground reads do, so a background fill never duplicates an
+    in-flight foreground fetch of the same block.
 
     With worker QoS on (``prioritize=True``) the queue drains in
     priority order — client-issued ASYNC_FILL requests before the
@@ -176,14 +103,14 @@ class AsyncCacheManager:
 
     def __init__(self, store: TieredBlockStore,
                  ufs_resolver: Callable[[int], UnderFileSystem],
-                 num_threads: int = 1, queue_max: int = 512,
-                 fetcher=None, prioritize: bool = False) -> None:
+                 fetcher, num_threads: int = 1, queue_max: int = 512,
+                 prioritize: bool = False) -> None:
         from alluxio_tpu_torch.qos import PriorityTaskQueue
 
         self._store = store
         self._reader = UfsBlockReader(store)
         self._ufs_resolver = ufs_resolver
-        self._fetcher = fetcher  # Optional[ufs_fetch.UfsBlockFetcher]
+        self._fetcher = fetcher  # ufs_fetch.UfsBlockFetcher
         self._queue = PriorityTaskQueue(max(1, queue_max),
                                         prioritize=prioritize)
         self._prioritize = prioritize
@@ -207,8 +134,7 @@ class AsyncCacheManager:
             if self._closed or desc.block_id in self._inflight or \
                     self._store.has_block(desc.block_id):
                 return False
-            if self._fetcher is not None and \
-                    self._fetcher.caching_in_flight(desc.block_id):
+            if self._fetcher.caching_in_flight(desc.block_id):
                 # a foreground read-through is already CACHING this
                 # block (an in-flight cache=False fetch is not enough
                 # to stand down — joining it upgrades it instead)
@@ -244,19 +170,16 @@ class AsyncCacheManager:
                 if self._store.has_block(desc.block_id):
                     continue  # cached while queued
                 ufs = self._ufs_resolver(desc.mount_id)
-                if self._fetcher is not None:
-                    # coalesces with any concurrent fetch of this block;
-                    # joining a cache=False fetch upgrades it, and if
-                    # even that was too late, cache from the bytes.
-                    # The request's class/tenant ride into the stripe
-                    # executor so background fills queue as background
-                    data = self._fetcher.fetch(ufs, desc, cache=True,
-                                               priority=priority,
-                                               tenant=tenant).result()
-                    if not self._store.has_block(desc.block_id):
-                        self._reader.cache_block(desc.block_id, data)
-                else:
-                    self._reader.read_block(ufs, desc, cache=True)
+                # coalesces with any concurrent fetch of this block;
+                # joining a cache=False fetch upgrades it, and if even
+                # that was too late, cache from the bytes. The request's
+                # class/tenant ride into the stripe executor so
+                # background fills queue as background
+                data = self._fetcher.fetch(ufs, desc, cache=True,
+                                           priority=priority,
+                                           tenant=tenant).result()
+                if not self._store.has_block(desc.block_id):
+                    self._reader.cache_block(desc.block_id, data)
             except Exception:  # noqa: BLE001
                 LOG.debug("async cache of block %s failed", desc.block_id,
                           exc_info=True)

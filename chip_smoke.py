@@ -12,20 +12,38 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    wraparound case; CUDA-event times of the kernel, the plain version and
    two one-call full reads of the same bytes (``torch.sum`` to int64, and
    a float32 sum) at 2 GiB;
-2. main path: 64 shards x 32 MiB laid out as block files, served through
-   the port's ``LocalBlockInStream`` to its ``DeviceBlockLoader``; epoch 1
-   moves them host -> device, epoch 2 must be all device-tier hits; then
-   ``K`` chained ``scaled_sum`` calls over the device-resident set (the
-   warm-tier scan), checked against the same chain on the plain version;
-2a. prefetch: the port's ``PrefetchService`` over the main path's files
-   (seed ``SEED``, lookahead 16, a 16-block budget, every placement in
-   the device tier, a 100 ms heartbeat thread) feeds a fresh loader whose
-   consumer runs on a side stream; after the warm-up gate, epoch 0 must
-   follow ``epoch_sequence(0)`` with every block equal to its file, hits
-   + late + misses = 64 and no failed adopt; epoch 1 must be 64
-   device-tier hits in ``epoch_sequence(1)``'s order; then ``K`` chained
-   ``scaled_sum`` calls over the shuffled epoch must give the main path's
-   chained value and the plain chain's;
+2. main path: the port's ``LocalCluster`` (its master and one worker, a
+   MEM tier of the working set plus 256 MiB in ``/dev/shm``, worker
+   heartbeats on) and its ``FileSystem``, as ``bench.py``'s device path
+   runs them: 64 seeded int32 shards x 32 MiB written with
+   ``write_all(..., MUST_CACHE)`` (the cold write rate printed), then a
+   ``DeviceBlockLoader`` over the client: epoch 1 moves them host ->
+   device through the client's block ladder (the opens by rung printed),
+   epoch 2 must be all device-tier hits; then ``K`` chained
+   ``scaled_sum`` calls over the device-resident set (the warm-tier
+   scan), checked against the same chain on the plain version. The
+   shards also go to block files, the source of the phases that keep
+   their stand-ins (2b, 2c, decode, train, mesh);
+2a. prefetch: the port's ``PrefetchService.from_fs`` over the cluster's
+   client and the same paths (seed ``SEED``, lookahead 16, a 16-block
+   budget, every placement in the device tier, a 100 ms heartbeat
+   thread) feeds a fresh loader whose consumer runs on a side stream;
+   after the warm-up gate, epoch 0 must follow ``epoch_sequence(0)``
+   with every block equal to its shard, hits + late + misses = 64 and
+   no failed adopt; epoch 1 must be 64 device-tier hits in
+   ``epoch_sequence(1)``'s order; then ``K`` chained ``scaled_sum``
+   calls over the shuffled epoch must give the main path's chained
+   value and the plain chain's;
+2d. master: on the same cluster, 2 000 empty files in 20 directories
+   beside the 64 shards, half through a gRPC master client and half
+   through one on the same-host fast path: per-call p50/p99 of
+   ``create_file`` + ``complete_file``, ``get_status`` and
+   ``list_status`` on each; then the master restarts on the same journal
+   (replay time printed; the replay must scan its frames natively), the
+   worker re-registers, the 64 shards must resolve to the same block ids
+   and lengths, and one loader epoch over them must scan (``K`` chained
+   ``scaled_sum``) to the main path's value. The cluster then stops and
+   its directory goes, before 2c builds its own tier;
 2b. page cache: ``LocalCacheManager`` with a 512 MB host tier of 1 MiB
    pages on disk (LRU) below a device tier: two passes of ``get_device``
    over all 2048 pages of the main path's files (2048 promotions, then
@@ -121,8 +139,9 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    collective is a copy through NCCL, so these check the mesh code on
    the card, not NVLink rates.
 
-It prints the card's name and power limit, one ``{"prefetch": {...}}``
-line, one ``{"page_cache": {...}}`` line, one ``{"worker": {...}}``
+It prints the card's name and power limit, one ``{"main": {...}}``
+line, one ``{"prefetch": {...}}`` line, one ``{"master": {...}}`` line,
+one ``{"page_cache": {...}}`` line, one ``{"worker": {...}}``
 line, one ``{"train": {...}}``
 line, one ``{"mesh": {...}}`` line, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -158,6 +177,9 @@ K = 100                  # chained warm-tier scans on the main path
 PREFETCH_LOOKAHEAD = 16
 PREFETCH_HEARTBEAT_S = 0.1
 #: page-cache phase, at the JAX defaults: 1 MiB pages, a 512 MB host tier
+#: the master phase (2d): empty files beside the shards, in directories
+MASTER_FILES = 2000
+MASTER_DIRS = 20
 PAGE_BYTES = 1 << 20
 PAGE_CACHE_BYTES = 512 << 20
 #: worker phase: a MEM tier of the working set and eight blocks more
@@ -398,12 +420,14 @@ def kernel_phase(device, big_n: int) -> dict:
 
 # -- the worker stand-in ------------------------------------------------------
 class ShardSource:
-    """Stands in for a same-host worker until the cluster client is
-    ported: each path is one block file, read by short circuit. For the
-    prefetch service it also answers the master's block listing (one
-    block a file: id ``file id << 24``, the file's length, offset 0) and
-    stands in for a block master with no worker, so no DRAM placement
-    can be made."""
+    """Stands in for a same-host worker in the phases that keep their
+    stand-ins (2c's route turns, decode, train, mesh; the main path, 2a
+    and 2d read through the port's cluster) and in the card tests'
+    prefetching loader: each path is one block file, read by short
+    circuit. For a prefetch service it also answers the master's block
+    listing (one block a file: id ``file id << 24``, the file's length,
+    offset 0) and stands in for a block master with no worker, so no
+    DRAM placement can be made."""
 
     def __init__(self, files: dict) -> None:
         self._files = files  # path -> (file id, block file)
@@ -484,13 +508,22 @@ def chain(fn, x, k: int):
 
 def main_path(device, workdir: str, num_blocks: int, block_bytes: int,
               k: int) -> dict:
-    """Drives the main path; returns the kernel launches it made, its
-    block files (path -> (file id, file)), the device blocks in file
-    order, the chained value and epoch 1's time."""
+    """Drives the main path through the port's own cluster: a
+    ``LocalCluster`` (master and one worker, its MEM tier the working set
+    plus 256 MiB) and its ``FileSystem``, as ``bench.py``'s device path
+    does. The shards are written with ``write_all(MUST_CACHE)``, then a
+    ``DeviceBlockLoader`` over the client reads them into the device
+    tier. The shards also go to block files for the phases that keep
+    their stand-ins. Returns the kernel launches it made, the running
+    cluster and its client, the block files (path -> (file id, file)),
+    the device blocks in file order, the chained value and epoch 1's
+    time."""
     import torch
 
+    from alluxio_tpu_torch.client.streams import WriteType
     from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
     from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.minicluster import LocalCluster
     from alluxio_tpu_torch.ops import reduce_kernel as rk
 
     gen = torch.Generator(device=device)
@@ -502,15 +535,41 @@ def main_path(device, workdir: str, num_blocks: int, block_bytes: int,
         random_int32(block_bytes // 4, gen, device).cpu().numpy() \
             .tofile(path)
         files[f"/bench/shard-{i}"] = (i + 1, path)
-    print(f"main path: {num_blocks} x {block_bytes >> 20} MiB block files "
-          f"in {workdir} ({time.perf_counter() - t0:.2f} s)", flush=True)
+    print(f"main path: {num_blocks} x {block_bytes >> 20} MiB shards made "
+          f"from the seed ({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    cluster = LocalCluster(
+        os.path.join(workdir, "cluster"), num_workers=1,
+        block_size=block_bytes,
+        worker_mem_bytes=num_blocks * block_bytes + (256 << 20),
+        start_worker_heartbeats=True).start()
+    fs = cluster.file_system()
+    print(f"main path: LocalCluster (master at {cluster.master.address}, "
+          f"one worker, MEM tier {(num_blocks * block_bytes >> 20) + 256} "
+          f"MiB) up in {time.perf_counter() - t0:.2f} s", flush=True)
+    write_s = 0.0
+    for path, (_, block_file) in files.items():
+        arr = np.fromfile(block_file, dtype=np.int32)
+        t = time.perf_counter()
+        fs.write_all(path, arr, write_type=WriteType.MUST_CACHE)
+        write_s += time.perf_counter() - t
+    total = num_blocks * block_bytes
+    print(f"main path: cold write {num_blocks} x {block_bytes >> 20} MiB "
+          f"write_all(MUST_CACHE) {write_s:.3f} s "
+          f"({total / write_s / 1e9:.2f} GB/s)", flush=True)
 
     paths = list(files)
-    loader = DeviceBlockLoader(ShardSource(files), paths, device=device,
+    m = metrics()
+    rungs = ("shm", "remote", "ufs")
+    opens0 = {r: m.counter(f"Client.BlockOpens.{r}").count for r in rungs}
+    leases = m.counter("Worker.ShmLeasesGranted")
+    leases0 = leases.count
+    loader = DeviceBlockLoader(fs, paths, device=device,
                                hbm_bytes=num_blocks * block_bytes
                                + (64 << 20),
                                prefetch=2, dtype=np.int32)
-    hits = metrics().counter("Client.JaxHbmHits")
+    hits = m.counter("Client.JaxHbmHits")
     try:
         rk.launches = 0
         torch.cuda.synchronize()
@@ -539,26 +598,34 @@ def main_path(device, workdir: str, num_blocks: int, block_bytes: int,
         got = int(acc)
     finally:
         loader.close()
+    opens = {r: m.counter(f"Client.BlockOpens.{r}").count - opens0[r]
+             for r in rungs}
     if launches != k:
         fail(f"main path launched scaled_sum {launches} times, want {k}")
+    if sum(opens.values()) != num_blocks:
+        fail(f"main path: block opens by rung {opens}, want "
+             f"{num_blocks} in all")
 
-    # the loaded bytes are the files' bytes, and the chain's value is
+    # the loaded bytes are the shards' bytes, and the chain's value is
     # the plain version's
     for i, path in enumerate(files.values()):
         host = torch.from_numpy(np.fromfile(path[1], dtype=np.int32))
         if not torch.equal(blocks[i].cpu(), host):
-            fail(f"block {i} on the device differs from its file")
+            fail(f"block {i} on the device differs from its shard")
     ref = int(chain(rk.scaled_sum_reference, x, k))
     if got != ref:
         fail(f"chained scan: kernel chain {got} != plain chain {ref}")
-    total = num_blocks * block_bytes
     print(f"main path: epoch 1 (host->device) {t1 - t0:.3f} s "
-          f"({total / (t1 - t0) / 1e9:.2f} GB/s), epoch 2 (device tier) "
-          f"{t2 - t1:.4f} s, {num_blocks} hits; warm-tier scan K={k}: "
-          f"{chain_ms:.2f} ms, {k * total / chain_ms / 1e6:.1f} GB/s, "
-          f"acc {got} == plain; launches {launches}", flush=True)
+          f"({total / (t1 - t0) / 1e9:.2f} GB/s), block opens by rung "
+          f"{opens} (Client.BlockOpens; the lease rung counts under shm), "
+          f"{leases.count - leases0} SHM leases granted; epoch 2 (device "
+          f"tier) {t2 - t1:.4f} s, {num_blocks} hits; warm-tier scan "
+          f"K={k}: {chain_ms:.2f} ms, {k * total / chain_ms / 1e6:.1f} "
+          f"GB/s, acc {got} == plain; launches {launches}", flush=True)
     return {"launches": launches, "files": files, "blocks": blocks,
-            "chain": got, "epoch1_s": t1 - t0}
+            "chain": got, "epoch1_s": t1 - t0, "cluster": cluster,
+            "fs": fs, "cold_write_s": write_s, "opens": opens,
+            "shm_leases": leases.count - leases0}
 
 
 # -- prefetch phase -----------------------------------------------------------
@@ -580,7 +647,7 @@ def check_order(name: str, got: list, want_refs: list, main: dict) -> None:
 def prefetch_phase(device, main: dict, k: int) -> dict:
     """(2a): the clairvoyant prefetch loop feeding a loader's device tier
     ahead of a consumer on a side stream, then the warm scan over the
-    shuffled epoch."""
+    shuffled epoch; on the main path's cluster, through a new client."""
     import torch
 
     from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
@@ -590,16 +657,16 @@ def prefetch_phase(device, main: dict, k: int) -> dict:
 
     files = main["files"]
     n = len(files)
-    src = ShardSource(files)
+    # a client of its own, as a new job's: it maps every block anew
+    fs = main["cluster"].file_system()
     m = metrics()
     adopted = m.counter("Client.PrefetchHbmAdopted")
     adopt_failures = m.counter("Client.PrefetchHbmAdoptFailures")
     hbm_hits = m.counter("Client.JaxHbmHits")
     svc = PrefetchService.from_fs(
-        src, list(files), seed=SEED, lookahead_blocks=PREFETCH_LOOKAHEAD,
+        fs, list(files), seed=SEED, lookahead_blocks=PREFETCH_LOOKAHEAD,
         budget_bytes=PREFETCH_LOOKAHEAD * BLOCK_BYTES, hbm_fraction=1.0,
-        heartbeat_interval_s=PREFETCH_HEARTBEAT_S,
-        worker_client_fn=src.worker_client)
+        heartbeat_interval_s=PREFETCH_HEARTBEAT_S)
     side = torch.cuda.Stream(device=device)
     if side == torch.cuda.default_stream(device):
         fail("prefetch phase: the side stream is the default stream")
@@ -607,7 +674,7 @@ def prefetch_phase(device, main: dict, k: int) -> dict:
     try:
         # the loader binds its adopt hook first, so no tick finds the
         # service without one
-        loader = DeviceBlockLoader(src, list(files), device=device,
+        loader = DeviceBlockLoader(fs, list(files), device=device,
                                    hbm_bytes=n * BLOCK_BYTES + (64 << 20),
                                    prefetch=2, dtype=np.int32,
                                    prefetch_service=svc)
@@ -669,6 +736,7 @@ def prefetch_phase(device, main: dict, k: int) -> dict:
         svc.close()  # stops the heartbeat and the adopt thread first
         if loader is not None:
             loader.close()
+        fs.close()
     if launches != k:
         fail(f"prefetch phase launched scaled_sum {launches} times, want "
              f"{k}")
@@ -697,6 +765,188 @@ def prefetch_phase(device, main: dict, k: int) -> dict:
           f"{ready['p50'] * 1e3:.3f} ms, p99 {ready['p99'] * 1e3:.3f} ms; "
           f"scan K={k} over the shuffled epoch {scan_ms:.2f} ms, acc {got} "
           f"== main path == plain; launches {launches}", flush=True)
+    return out
+
+
+# -- master phase -------------------------------------------------------------
+def stop_cluster(main: dict) -> None:
+    """Close the main path's client, stop its cluster and remove the
+    cluster's directory (the worker's MEM tier), once."""
+    from alluxio_tpu_torch.conf import Keys
+
+    cluster = main.pop("cluster", None)
+    if cluster is None:
+        return
+    main.pop("fs").close()
+    cluster.stop()
+    shutil.rmtree(cluster.conf.get(Keys.HOME), ignore_errors=True)
+
+
+def _client_latencies(clients: dict, n_dirs: int, per_dir: int) -> dict:
+    """Each client makes ``per_dir`` empty files in each of its own
+    ``n_dirs`` directories (``/meta/<name>/dNN``): create_file +
+    complete_file, get_status of each, list_status of each directory
+    five times; per-call ms (p50, p99) of each, by client. The clients
+    take turns call by call, the first of each pair alternating, after an
+    untimed warm-up of each, so that every client does the same work in
+    the same conditions."""
+    names = list(clients)
+    dirs = {name: [f"/meta/{name}/d{j:02d}" for j in range(n_dirs)]
+            for name in names}
+    ops = ("create_complete", "get_status", "list_status")
+    samples = {name: {op: [] for op in ops} for name in names}
+    for name, client in clients.items():
+        for d in dirs[name]:
+            client.create_directory(d, recursive=True)
+        for _ in range(20):
+            client.get_status(dirs[name][0])
+            client.list_status(dirs[name][0])
+
+    def turns(op: str, i: int, call) -> None:
+        for name in (names if i % 2 == 0 else names[::-1]):
+            t = time.perf_counter()
+            got = call(clients[name], dirs[name])
+            samples[name][op].append(time.perf_counter() - t)
+            if op == "list_status" and len(got) != per_dir:
+                fail(f"master phase: {name} listed {len(got)} entries, "
+                     f"want {per_dir}")
+
+    files = [(d, j) for d in range(n_dirs) for j in range(per_dir)]
+    for i, (d, j) in enumerate(files):
+        turns("create_complete", i, lambda c, ds: (
+            c.create_file(f"{ds[d]}/f-{j:03d}"),
+            c.complete_file(f"{ds[d]}/f-{j:03d}", length=0)))
+    for i, (d, j) in enumerate(files):
+        turns("get_status", i,
+              lambda c, ds: c.get_status(f"{ds[d]}/f-{j:03d}"))
+    for i in range(5 * n_dirs):
+        turns("list_status", i,
+              lambda c, ds: c.list_status(ds[i % n_dirs]))
+    return {name: {op: {"calls": len(v), "p50_ms": pct(sorted(v), 50) * 1e3,
+                        "p99_ms": pct(sorted(v), 99) * 1e3}
+                   for op, v in samples[name].items()}
+            for name in names}
+
+
+def master_phase(device, main: dict, k: int) -> dict:
+    """(2d): the port's master on the main path's cluster at full size —
+    metadata RPC latencies over gRPC and over the same-host fast path, a
+    restart on the same journal, and a loader epoch over the shards by
+    the restarted master's block ids."""
+    import torch
+
+    from alluxio_tpu_torch import native
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.conf import Keys
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.rpc.clients import FsMasterClient
+
+    t_phase = time.perf_counter()
+    cluster, fs = main["cluster"], main["fs"]
+    files = main["files"]
+    before = {p: fs.get_status(p) for p in files}
+    address = cluster.master.address
+    fast_dir = cluster.conf.get(Keys.MASTER_FASTPATH_DIR)
+    clients = {"grpc": FsMasterClient(address, fastpath=False),
+               "fastpath": FsMasterClient(address, fastpath_dir=fast_dir)}
+    n_dirs = MASTER_DIRS // len(clients)
+    per_dir = MASTER_FILES // MASTER_DIRS
+    out = {"files": MASTER_FILES, "dirs": MASTER_DIRS,
+           "files_per_dir": per_dir, "shards": len(files)}
+    try:
+        for name, client in clients.items():
+            if client.transport != name:
+                fail(f"master phase: the {name} client sends over "
+                     f"{client.transport} (fast-path sockets under "
+                     f"{fast_dir})")
+        out.update(_client_latencies(clients, n_dirs, per_dir))
+        for name, client in clients.items():
+            if client.transport != name:
+                fail(f"master phase: the {name} client fell back to "
+                     f"{client.transport}")
+    finally:
+        for client in clients.values():
+            client.close()
+    n_meta = sum(len(fs.list_status(f"/meta/{name}/d{j:02d}"))
+                 for name in clients for j in range(n_dirs))
+    if n_meta != MASTER_FILES:
+        fail(f"master phase: {n_meta} files under /meta, want "
+             f"{MASTER_FILES}")
+    fs.close()
+
+    # restart on the same journal: the new master replays it, the worker
+    # re-registers on the master's REGISTER answer to its heartbeat
+    sequence = cluster.master.journal.sequence
+    native.reset_counts()
+    t0 = time.perf_counter()
+    cluster.restart_master()
+    restart_s = time.perf_counter() - t0
+    replay_s = cluster.master.replay_s
+    if cluster.master.journal.sequence != sequence:
+        fail(f"master phase: replay reached sequence "
+             f"{cluster.master.journal.sequence}, want {sequence}")
+    if not native.loaded() or native.plain_calls()["scan"]:
+        fail(f"master phase: the journal replay did not scan natively "
+             f"(loaded {native.loaded()}, plain {native.plain_calls()})")
+    t0 = time.perf_counter()
+    cluster.workers[0].worker.heartbeat()
+    register_s = time.perf_counter() - t0
+    fs = main["fs"] = cluster.file_system()
+    for path, st in before.items():
+        now = fs.get_status(path)
+        if (now.block_ids, now.length) != (st.block_ids, st.length) or \
+                now.in_memory_percentage != 100:
+            fail(f"master phase: {path} after the restart has blocks "
+                 f"{now.block_ids} ({now.length} B, "
+                 f"{now.in_memory_percentage} % in memory), before "
+                 f"{st.block_ids} ({st.length} B)")
+    n = len(files)
+    loader = DeviceBlockLoader(fs, list(files), device=device,
+                               hbm_bytes=n * BLOCK_BYTES + (64 << 20),
+                               prefetch=2, dtype=np.int32)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocks = list(loader.epoch())
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        check_order("master phase epoch", blocks,
+                    [SimpleNamespace(path=p) for p in files], main)
+        x = torch.cat(blocks)
+        del blocks
+        rk.launches = 0
+        acc, scan_ms = timed(lambda: chain(rk.scaled_sum, x, k))
+        launches = rk.launches
+        got = int(acc)
+    finally:
+        loader.close()
+    plain = int(chain(rk.scaled_sum_reference, x, k))
+    del x
+    if launches != k:
+        fail(f"master phase launched scaled_sum {launches} times, want {k}")
+    if not got == main["chain"] == plain:
+        fail(f"master phase scan: kernel chain {got}, main path's chain "
+             f"{main['chain']}, plain chain {plain}")
+    out.update({"journal_entries": sequence, "restart_s": restart_s,
+                "replay_s": replay_s,
+                "register_s": register_s, "epoch_s": epoch_s,
+                "scan_ms": scan_ms, "scan_launches": launches,
+                "chain": got, "s": time.perf_counter() - t_phase})
+    lat = "; ".join(
+        f"{name}: " + ", ".join(
+            f"{op} p50 {v['p50_ms']:.3f} ms p99 {v['p99_ms']:.3f} ms"
+            for op, v in out[name].items())
+        for name in clients)
+    print(f"master: {MASTER_FILES} empty files in {MASTER_DIRS} "
+          f"directories ({n_dirs} a transport, {per_dir} files each, the "
+          f"transports' calls alternating) beside the {n} shards, per "
+          f"call ({lat}); restart "
+          f"on the same journal {restart_s:.3f} s (stop, replay, serve), "
+          f"replay of {sequence} entries {replay_s:.3f} s (native frame "
+          f"scan), worker re-registered in {register_s:.3f} s, "
+          f"{n} shards with the same block ids; epoch {epoch_s:.3f} s, "
+          f"scan K={k} {scan_ms:.2f} ms, acc {got} == main path == plain; "
+          f"launches {launches}; phase {out['s']:.1f} s", flush=True)
     return out
 
 
@@ -1248,7 +1498,7 @@ def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
                                        out["coalesce"].pop("paths"), main)
         out["web_and_sink"] = web_and_sink_check(worker, sink_path)
         fs.close()
-        if native.plain_calls() != {"prefault": 0, "plan": 0}:
+        if any(native.plain_calls().values()):
             fail(f"worker phase: native calls took the plain path: "
                  f"{native.plain_calls()}")
         lr, sr = out["lease_read"], out["shm_read"]
@@ -2999,12 +3249,18 @@ def main() -> int:
     t_start = time.perf_counter()
     setup()
     kern = kernel_phase(device, NUM_BLOCKS * BLOCK_BYTES // 4)
+    # the block files, the cluster's MEM tier, the records, the page cache
     workdir = block_dir(NUM_BLOCKS * BLOCK_BYTES
+                        + (NUM_BLOCKS * BLOCK_BYTES + (256 << 20))
                         + DECODE_BLOCKS * BLOCK_BYTES + PAGE_CACHE_BYTES)
+    main = None
     try:
         main = main_path(device, workdir, NUM_BLOCKS, BLOCK_BYTES, K)
         shard_files = main["files"]
         prefetch = prefetch_phase(device, main, K)
+        master = master_phase(device, main, K)
+        # the cluster's MEM tier leaves /dev/shm before 2c builds its own
+        stop_cluster(main)
         page_cache = page_cache_phase(device, workdir, main)
         worker = worker_phase(device, workdir, main, K)
         del main["blocks"]
@@ -3022,8 +3278,17 @@ def main() -> int:
         mesh = mesh_phase(device, workdir, shard_files, files)
         mesh["kernel_launches"] = {"scaled_sum": rk.launches}
     finally:
+        if main is not None:
+            stop_cluster(main)
         shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({"main": {
+        "cold_write_s": main["cold_write_s"],
+        "cold_write_gb_per_s": NUM_BLOCKS * BLOCK_BYTES
+        / main["cold_write_s"] / 1e9,
+        "epoch1_s": main["epoch1_s"], "block_opens": main["opens"],
+        "shm_leases": main["shm_leases"]}}), flush=True)
     print(json.dumps({"prefetch": prefetch}), flush=True)
+    print(json.dumps({"master": master}), flush=True)
     print(json.dumps({"page_cache": page_cache}), flush=True)
     print(json.dumps({"worker": worker}), flush=True)
     print(json.dumps({"train": train}), flush=True)
@@ -3037,6 +3302,7 @@ def main() -> int:
         "launches_by_path": {
             "main": main["launches"],
             "prefetch": prefetch["scan_launches"],
+            "master": master["scan_launches"],
             "page_cache": page_cache["scan_launches"],
             "worker": worker["launches"],
             "worker_shm": worker["shm_read"]["scan_launches"],

@@ -55,7 +55,17 @@ def test_importing_every_module_loads_no_jax():
               "client.block_store", "worker.ufs_fetch", "worker.management",
               "worker.web", "metrics.sinks", "utils.faults",
               "utils.pause_monitor", "utils.statuspage", "security",
-              "security.user", "security.authentication"):
+              "security.user", "security.authentication", "utils.uri",
+              "utils.clock", "security.authorization", "journal",
+              "journal.format", "journal.system", "master", "master.inode",
+              "master.metastore", "master.metastore.base",
+              "master.metastore.heap", "master.ttl", "master.inode_tree",
+              "master.mount_table", "master.invalidation",
+              "master.block_master", "master.sync",
+              "master.path_properties", "master.integrity",
+              "master.file_master", "master.process", "rpc.master_service",
+              "rpc.fastpath", "client.streams", "client.file_system",
+              "minicluster", "minicluster.local_cluster"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

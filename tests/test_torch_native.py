@@ -89,7 +89,8 @@ def test_prefault_plain_path_matches_jax(jax_lib, plain, dtype, nbytes):
     assert native.prefault(view) == _jax_checksum(jax_lib, view)
     assert native.prefault(memoryview(view.view(np.uint8))) == \
         _jax_checksum(jax_lib, view)
-    assert native.plain_calls() == {"prefault": 2, "plan": 0}
+    assert native.plain_calls() == {"prefault": 2, "plan": 0, "scan": 0,
+                                    "crc": 0}
     assert native.prefault_calls() == (2, 2 * view.nbytes)
 
 
@@ -274,7 +275,8 @@ def test_plain_plan_is_counted(plain):
     assert not fastpath.copy_into(dest, 0, b"abc")
     with pytest.raises(fastpath.NativeExecError):
         fastpath.execute_table(fastpath.op_table(2), dest)
-    assert native.plain_calls() == {"prefault": 0, "plan": 2}
+    assert native.plain_calls() == {"prefault": 0, "plan": 2, "scan": 0,
+                                    "crc": 0}
 
 
 # -- build ---------------------------------------------------------------------

@@ -321,8 +321,9 @@ def test_conf_key_matches_jax(key):
         tmpl = Template.match(key.name)
         want = tmpl.format(*re.fullmatch(tmpl.regex, key.name).groups())
     assert (key.key_type.name, key.default, key.aliases, key.choices,
-            key.scope.name) == (want.key_type.name, want.default,
-                                want.aliases, want.choices, want.scope.name)
+            key.scope.name, key.consistency.name) == (
+        want.key_type.name, want.default, want.aliases, want.choices,
+        want.scope.name, want.consistency.name)
 
 
 def test_conf_parses_like_jax():
@@ -377,115 +378,3 @@ def test_priority_queue_drains_like_jax(prioritize):
     assert orders[0][1] == 8
     if not prioritize:
         assert orders[0][0] == list(range(32))
-
-
-# -- cold reads: overlapping reads of one block share one UFS read ------------
-class _GatedUfs:
-    """A UFS whose reads are counted and wait on ``gate``."""
-
-    def __init__(self, data: bytes, fail: bool = False) -> None:
-        import threading
-
-        self.data = data
-        self.fail = fail
-        self.reads = 0
-        self.gate = threading.Event()
-        self._lock = threading.Lock()
-
-    def read_range(self, path, offset, length):
-        with self._lock:
-            self.reads += 1
-        self.gate.wait(10)
-        if self.fail:
-            raise IOError("ufs down")
-        return self.data[offset:offset + length]
-
-
-def _blocked_in_read(thread) -> bool:
-    """True once ``thread`` waits inside ``UfsBlockReader.read_block``."""
-    import sys
-
-    f = sys._current_frames().get(thread.ident)
-    names = set()
-    while f is not None:
-        names.add(f.f_code.co_name)
-        f = f.f_back
-    return {"read_block", "wait"} <= names
-
-
-def _cold_reads(tmp_path, ufs, n, cache):
-    """``n`` threads read block 1 from ``ufs`` through one port
-    ``UfsBlockReader`` while the first read waits on the UFS gate;
-    returns the reader, the store and each thread's bytes or error."""
-    import threading
-    import time
-
-    from alluxio_tpu_torch.worker.ufs_io import (
-        UfsBlockDescriptor, UfsBlockReader,
-    )
-
-    store = make_store(PORT, tmp_path, mem_dirs=(64 * KB,), ssd_cap=0)
-    reader = UfsBlockReader(store)
-    desc = UfsBlockDescriptor(block_id=1, ufs_path="/f", offset=0,
-                              length=len(ufs.data))
-    out = [None] * n
-
-    def run(i):
-        try:
-            out[i] = reader.read_block(ufs, desc, cache=cache)
-        except Exception as e:  # noqa: BLE001 - compared below
-            out[i] = e
-
-    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
-    threads[0].start()
-    deadline = time.monotonic() + 5
-    while ufs.reads == 0 and time.monotonic() < deadline:
-        time.sleep(0.005)
-    for t in threads[1:]:
-        t.start()
-    while not all(_blocked_in_read(t) for t in threads[1:]) and \
-            time.monotonic() < deadline:
-        time.sleep(0.005)
-    ufs.gate.set()
-    for t in threads:
-        t.join(10)
-    return reader, store, desc, out
-
-
-def test_overlapping_cold_reads_share_one_ufs_read(tmp_path):
-    """Four reads of one cold block, as the four stripes of a striped
-    read ask for it: one UFS read, one cache fill, the same bytes; a read
-    after them is served from the store."""
-    data = np.random.default_rng(60).integers(
-        0, 256, 40 * KB, dtype=np.uint8).tobytes()
-    ufs = _GatedUfs(data)
-    reader, store, desc, out = _cold_reads(tmp_path, ufs, 4, cache=True)
-    assert out == [data] * 4
-    assert ufs.reads == 1 and store.has_block(1)
-    assert [e for e, _ in store.events].count("committed") == 1
-    assert reader.read_block(ufs, desc) == data and ufs.reads == 1
-    assert not reader._flights
-
-
-def test_uncached_cold_reads_share_one_ufs_read(tmp_path):
-    """Without caching the overlapping reads still share the one UFS
-    read; a read after them reads the UFS again."""
-    data = bytes(range(256)) * 40
-    ufs = _GatedUfs(data)
-    reader, store, desc, out = _cold_reads(tmp_path, ufs, 3, cache=False)
-    assert out == [data] * 3 and not store.has_block(1)
-    assert ufs.reads == 1
-    assert reader.read_block(ufs, desc, cache=False) == data
-    assert ufs.reads == 2 and not reader._flights
-
-
-def test_failed_cold_read_fails_every_sharer(tmp_path):
-    """A UFS error reaches every read that shared the failed read, and
-    the next read tries the UFS again."""
-    ufs = _GatedUfs(bytes(8 * KB), fail=True)
-    reader, store, desc, out = _cold_reads(tmp_path, ufs, 3, cache=True)
-    assert all(isinstance(e, IOError) for e in out), out
-    assert not store.has_block(1) and not reader._flights
-    ufs.fail = False
-    assert reader.read_block(ufs, desc) == bytes(8 * KB)
-    assert store.has_block(1)

@@ -254,7 +254,8 @@ def shm_loader_case(tmp_path, device, n=3, words=1 << 20):
             loader.close()
             store.close()
         assert native.loaded()
-        assert native.plain_calls() == {"prefault": 0, "plan": 0}
+        assert native.plain_calls() == {"prefault": 0, "plan": 0, "scan": 0,
+                                        "crc": 0}
         assert worker.shm_store.stats()["live_leases"] == 0
         assert not worker.store.shm_leased_blocks
     finally:
