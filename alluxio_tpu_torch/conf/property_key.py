@@ -631,6 +631,25 @@ class Keys:
         scope=Scope.MASTER)
     MASTER_TTL_CHECK_INTERVAL = _k("atpu.master.ttl.check.interval",
                                    KeyType.DURATION, default="1h", scope=Scope.MASTER)
+    MASTER_REPLICATION_CHECK_INTERVAL = _k(
+        "atpu.master.replication.check.interval", KeyType.DURATION, default="1min",
+        scope=Scope.MASTER)
+    MASTER_REPLICATION_MAX_INFLIGHT = _k(
+        "atpu.master.replication.max.inflight", KeyType.INT, default=256,
+        scope=Scope.MASTER,
+        description="Replicate/evict jobs the replication checker keeps "
+                    "in flight at once; deficits beyond it wait for the "
+                    "next heartbeat (counted in "
+                    "Master.ReplicationJobsDeferred) — bounds job-master "
+                    "load after a mass worker loss.")
+    MASTER_PERSISTENCE_TEMP_TTL = _k(
+        "atpu.master.persistence.temp.ttl", KeyType.DURATION,
+        default="1h", scope=Scope.MASTER,
+        description="Age after which an .atpu_persist.* temp file is "
+                    "considered abandoned.")
+    MASTER_PERSISTENCE_SCHEDULER_INTERVAL = _k(
+        "atpu.master.persistence.scheduler.interval", KeyType.DURATION, default="1s",
+        scope=Scope.MASTER)
     MASTER_UFS_PATH_CACHE_CAPACITY = _k(
         "atpu.master.ufs.path.cache.capacity", KeyType.INT, default=100_000,
         scope=Scope.MASTER)
@@ -849,6 +868,23 @@ class Keys:
     USER_METRICS_HEARTBEAT_INTERVAL = _k(
         "atpu.user.metrics.heartbeat.interval", KeyType.DURATION,
         default="10s", scope=Scope.CLIENT)
+
+    # --- job service ---
+    JOB_MASTER_HOSTNAME = _k("atpu.job.master.hostname", default="localhost")
+    JOB_MASTER_RPC_PORT = _k("atpu.job.master.rpc.port", KeyType.INT, default=20001)
+    JOB_MASTER_JOB_CAPACITY = _k("atpu.job.master.job.capacity", KeyType.INT,
+                                 default=100_000, scope=Scope.JOB_MASTER)
+    JOB_MASTER_WORKER_TIMEOUT = _k("atpu.job.master.worker.timeout",
+                                   KeyType.DURATION, default="1min",
+                                   scope=Scope.JOB_MASTER)
+    JOB_MASTER_LOST_WORKER_INTERVAL = _k(
+        "atpu.job.master.lost.worker.interval", KeyType.DURATION,
+        default="10s", scope=Scope.JOB_MASTER)
+    JOB_WORKER_THREADPOOL_SIZE = _k("atpu.job.worker.threadpool.size", KeyType.INT,
+                                    default=8, scope=Scope.JOB_WORKER)
+    JOB_WORKER_HEARTBEAT_INTERVAL = _k("atpu.job.worker.heartbeat.interval",
+                                       KeyType.DURATION, default="1s",
+                                       scope=Scope.JOB_WORKER)
 
 # Parameterized families (reference: PropertyKey.Template, PropertyKey.java:5668)
 class Templates:

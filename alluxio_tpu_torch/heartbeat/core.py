@@ -21,12 +21,16 @@ class HeartbeatContext:
 
     MASTER_TTL_CHECK = "Master.TtlCheck"
     MASTER_LOST_WORKER_DETECTION = "Master.LostWorkerDetection"
+    MASTER_REPLICATION_CHECK = "Master.ReplicationCheck"
+    MASTER_PERSISTENCE_SCHEDULER = "Master.PersistenceScheduler"
     WORKER_METRICS_SINKS = "Worker.MetricsSinks"
     WORKER_BLOCK_SYNC = "Worker.BlockSync"
     WORKER_PIN_LIST_SYNC = "Worker.PinListSync"
     WORKER_STORAGE_HEALTH = "Worker.StorageHealth"
     WORKER_CLIENT_METRICS = "Worker.ClientMetrics"
     WORKER_MANAGEMENT_TASKS = "Worker.ManagementTasks"
+    JOB_MASTER_LOST_WORKER_DETECTION = "JobMaster.LostWorkerDetection"
+    JOB_WORKER_COMMAND_HANDLING = "JobWorker.CommandHandling"
     CLIENT_METRICS_HEARTBEAT = "Client.MetricsHeartbeat"
     CLIENT_PREFETCH_AGENT = "Client.PrefetchAgent"
 

@@ -1,0 +1,23 @@
+"""Built-in plan definitions (a copy of ``alluxio_tpu/job/plans/``;
+reference: ``job/server/.../job/plan/{load,migrate,persist,replicate}``).
+
+The JAX registry also holds ``transform`` (it needs the table reader and
+pyarrow) and ``stressbench`` (it needs the worker and master stress
+benches). The port has neither yet: a job of either type fails with the
+registry's "unknown job type" error.
+"""
+
+from __future__ import annotations
+
+
+def register_builtin_plans(registry) -> None:
+    from alluxio_tpu_torch.job.plans.load import LoadDefinition
+    from alluxio_tpu_torch.job.plans.migrate import MigrateDefinition
+    from alluxio_tpu_torch.job.plans.persist import PersistDefinition
+    from alluxio_tpu_torch.job.plans.replicate import (
+        EvictDefinition, MoveDefinition, ReplicateDefinition,
+    )
+
+    for plan in (LoadDefinition(), MigrateDefinition(), PersistDefinition(),
+                 ReplicateDefinition(), EvictDefinition(), MoveDefinition()):
+        registry.register(plan)

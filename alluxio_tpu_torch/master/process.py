@@ -11,12 +11,14 @@ The port's master holds the journal, the block master, the permission
 checker, the metastore (``HEAP``), the file master, the path properties
 and the cluster config checker; it serves the FS, block and meta services
 over gRPC and the same-host fast path, and ticks the lost-worker and TTL
-heartbeats. Each of the JAX master's other parts comes with its own
-slice: the HA process (``FaultTolerantMasterProcess``) and its quorum
-view, the table master, the integrity checkers and active sync, the
-metrics master with its history, health, remediation, the web server,
-the update check, the scheduled backup, admission and audit, the
-replication and persistence schedulers, and the master's metrics sinks.
+heartbeats. Once a job service exists, the replication checker and the
+persistence scheduler attach late (``attach_replication_checker``,
+``attach_persistence_scheduler``). Each of the JAX master's other parts
+comes with its own slice: the HA process (``FaultTolerantMasterProcess``)
+and its quorum view, the table master, the integrity checkers and active
+sync, the metrics master with its history, health, remediation, the web
+server, the update check, the scheduled backup, admission and audit, and
+the master's metrics sinks.
 A conf key that asks for one of the opt-in ones
 raises ``NotSupportedError`` rather than being ignored.
 """
@@ -26,7 +28,7 @@ from __future__ import annotations
 import logging
 import time
 import uuid
-from typing import List, Optional
+from typing import TYPE_CHECKING, List, Optional
 
 from alluxio_tpu_torch.conf import Configuration, Keys
 from alluxio_tpu_torch.heartbeat import (
@@ -42,6 +44,9 @@ from alluxio_tpu_torch.rpc.master_service import (
 )
 from alluxio_tpu_torch.utils.clock import Clock, SystemClock
 from alluxio_tpu_torch.utils.exceptions import NotSupportedError
+
+if TYPE_CHECKING:
+    from alluxio_tpu_torch.master.persistence import PersistenceScheduler
 
 LOG = logging.getLogger(__name__)
 
@@ -127,6 +132,8 @@ class MasterProcess:
         self.rpc_server: Optional[RpcServer] = None
         self.fastpath_server = None
         self._threads: List[HeartbeatThread] = []
+        #: the checkers attached to a job service
+        self._job_threads: List[HeartbeatThread] = []
         self.cluster_id = str(uuid.uuid4())
         self.start_time_ms = 0
         self._safe_mode_until = float("inf")
@@ -221,7 +228,58 @@ class MasterProcess:
         for t in self._threads:
             t.start()
 
+    def attach_replication_checker(self, job_client,
+                                   interval_s: Optional[float] = None) -> None:
+        """Start the replication-control loop once a job service exists
+        (reference: ``ReplicationChecker.java:57`` registered as an FSM
+        heartbeat; here the job master boots after the metadata master, so
+        the checker attaches late)."""
+        from alluxio_tpu_torch.master.replication import ReplicationChecker
+
+        checker = ReplicationChecker(
+            self.fs_master, self.block_master, job_client,
+            max_inflight=self._conf.get_int(
+                Keys.MASTER_REPLICATION_MAX_INFLIGHT))
+        self.replication_checker = checker
+        t = HeartbeatThread(
+            HeartbeatContext.MASTER_REPLICATION_CHECK,
+            _Exec(checker.heartbeat),
+            interval_s if interval_s is not None else
+            self._conf.get_duration_s(
+                Keys.MASTER_REPLICATION_CHECK_INTERVAL))
+        t.start()
+        self._job_threads.append(t)
+
+    def attach_persistence_scheduler(self, job_client,
+                                     interval_s: Optional[float] = None
+                                     ) -> "PersistenceScheduler":
+        """Start the async-persist scheduling loop once a job service
+        exists (reference: the PersistenceScheduler heartbeat,
+        ``DefaultFileSystemMaster.java:3810`` — attaches late here for the
+        same reason as the replication checker)."""
+        from alluxio_tpu_torch.master.persistence import PersistenceScheduler
+
+        scheduler = PersistenceScheduler(self.fs_master, job_client)
+        t = HeartbeatThread(
+            HeartbeatContext.MASTER_PERSISTENCE_SCHEDULER,
+            _Exec(scheduler.heartbeat),
+            interval_s if interval_s is not None else
+            self._conf.get_duration_s(
+                Keys.MASTER_PERSISTENCE_SCHEDULER_INTERVAL))
+        t.start()
+        self._job_threads.append(t)
+        return scheduler
+
+    def detach_job_service(self) -> None:
+        """Stop and join the checkers that call the job service, before
+        it goes away (a checker mid-call would otherwise retry against a
+        stopped job master until its RPC budget runs out)."""
+        for t in self._job_threads:
+            t.stop()
+        self._job_threads = []
+
     def stop(self) -> None:
+        self.detach_job_service()
         for t in self._threads:
             t.stop()
         self._threads = []

@@ -1,6 +1,6 @@
-"""In-process test cluster: master + N workers over real gRPC (a copy of
-``alluxio_tpu/minicluster/local_cluster.py``; the job service comes with
-its slice).
+"""In-process test cluster: master + N workers over real gRPC, and on
+request the job service (a copy of
+``alluxio_tpu/minicluster/local_cluster.py``).
 
 Re-design of ``minicluster/.../LocalAlluxioCluster.java:45`` +
 ``LocalAlluxioClusterResource``: every role runs as threads in one process,
@@ -46,7 +46,8 @@ class LocalCluster:
                  conf_overrides: Optional[Dict] = None,
                  worker_mem_bytes: int = 64 << 20,
                  block_size: int = 1 << 20,
-                 start_worker_heartbeats: bool = False) -> None:
+                 start_worker_heartbeats: bool = False,
+                 start_job_service: bool = False) -> None:
         self._base = base_dir
         self._num_workers = num_workers
         self._worker_mem = worker_mem_bytes
@@ -72,6 +73,9 @@ class LocalCluster:
             self.conf.set(k, v)
         self.master: Optional[MasterProcess] = None
         self.workers: List[_WorkerHandle] = []
+        self._start_job_service = start_job_service
+        self.job_master = None
+        self.job_workers: List = []
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "LocalCluster":
@@ -81,6 +85,8 @@ class LocalCluster:
         self.master.start()
         for i in range(self._num_workers):
             self._start_worker(i)
+        if self._start_job_service:
+            self.start_job_service()
         return self
 
     def _start_worker(self, index: int) -> _WorkerHandle:
@@ -138,12 +144,53 @@ class LocalCluster:
         self.master = MasterProcess(
             conf, root_ufs_uri=os.path.join(self._base, "underFSStorage"))
         self.master.start()
+        if self.job_master is not None:
+            self._attach_checkers()
         return self.master
 
     def add_worker(self) -> _WorkerHandle:
         return self._start_worker(len(self.workers))
 
+    def start_job_service(self) -> None:
+        """Start a job master + one job worker per block worker
+        (reference: job master/worker co-deployment, §3.5 of SURVEY.md),
+        then attach the master's replication checker and persistence
+        scheduler to it."""
+        from alluxio_tpu_torch.job.process import (
+            JobMasterProcess, make_job_worker,
+        )
+
+        jconf = self.conf.copy()
+        jconf.set(Keys.JOB_MASTER_RPC_PORT, 0)
+        # tight heartbeat so in-process tests converge fast
+        jconf.set(Keys.JOB_WORKER_HEARTBEAT_INTERVAL, "50ms")
+        self.job_master = JobMasterProcess(jconf, self.master.address)
+        self.job_master.start()
+        # publish the ephemeral port the job master actually bound
+        self.conf.set(Keys.JOB_MASTER_RPC_PORT, self.job_master.rpc_port)
+        for i in range(len(self.workers)):
+            jw = make_job_worker(jconf, self.job_master.address,
+                                 self.master.address, f"localhost-w{i}")
+            jw.start()
+            self.job_workers.append(jw)
+        self._attach_checkers()
+
+    def _attach_checkers(self) -> None:
+        self.master.attach_replication_checker(self.job_client(),
+                                               interval_s=0.1)
+        self.master.attach_persistence_scheduler(self.job_client(),
+                                                 interval_s=0.1)
+
     def stop(self) -> None:
+        """Stop the master's checkers, the job workers, the job master,
+        the block workers and the master, in that order, joining every
+        thread each started."""
+        if self.master is not None:
+            self.master.detach_job_service()
+        for jw in self.job_workers:
+            jw.stop()
+        if self.job_master is not None:
+            self.job_master.stop()
         for w in self.workers:
             w.stop()
         if self.master is not None:
@@ -175,6 +222,11 @@ class LocalCluster:
 
     def worker_client(self, index: int = 0) -> WorkerClient:
         return WorkerClient(self.workers[index].address)
+
+    def job_client(self):
+        from alluxio_tpu_torch.rpc.job_service import JobMasterClient
+
+        return JobMasterClient(self.job_master.address)
 
     def file_system(self):
         """A full FileSystem client bound to this cluster."""

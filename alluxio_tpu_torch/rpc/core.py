@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from concurrent import futures
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
@@ -237,11 +238,13 @@ class RpcServer:
     (reference: ``GrpcServerBuilder`` + ``GrpcDataServer.java:50``)."""
 
     def __init__(self, bind_host: str = "0.0.0.0", port: int = 0,
-                 max_workers: int = 16, authenticator=None) -> None:
+                 max_workers: int = 16, authenticator=None,
+                 thread_name_prefix: str = "rpc-server") -> None:
         """``authenticator``: a ``security.authentication.Authenticator``;
         when set, every RPC is authenticated and the resolved user is
         bound for handlers to read via
-        ``security.authenticated_user()``."""
+        ``security.authenticated_user()``. ``thread_name_prefix`` names
+        the handler threads, which ``stop`` joins."""
         self._services: Dict[str, ServiceDefinition] = {}
         self._authenticator = authenticator
         options = [
@@ -249,9 +252,9 @@ class RpcServer:
             ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
             ("grpc.so_reuseport", 0),
         ]
-        self._server = grpc.server(
-            futures.ThreadPoolExecutor(max_workers=max_workers),
-            options=options)
+        self._executor = futures.ThreadPoolExecutor(
+            max_workers=max_workers, thread_name_prefix=thread_name_prefix)
+        self._server = grpc.server(self._executor, options=options)
         self._bind = f"{bind_host}:{port}"
         self.port = port
         self._started = False
@@ -273,9 +276,16 @@ class RpcServer:
         return self.port
 
     def stop(self, grace_s: float = 0.5) -> None:
+        """Stop serving, then join the handler threads for up to 5 s (a
+        handler stuck past the grace period is left to finish on its
+        own)."""
         if self._started:
             self._started = False
             self._server.stop(grace_s).wait(timeout=5)
+            self._executor.shutdown(wait=False, cancel_futures=True)
+            deadline = time.monotonic() + 5.0
+            for t in list(getattr(self._executor, "_threads", ())):
+                t.join(max(0.0, deadline - time.monotonic()))
 
 
 def _raise_typed(err: grpc.RpcError) -> None:

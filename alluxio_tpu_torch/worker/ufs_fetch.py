@@ -27,7 +27,8 @@ mount is remembered for ``UNSTRIPED_MOUNT_TTL_S`` so later fetches skip
 the doomed striping attempt without demoting the mount forever.
 
 Observability: ``Worker.UfsFetch*`` counters + ``Worker.UfsFetchTtfb``
-timer, and an ``atpu.worker.ufs_fetch`` span per fetch under the caller's
+timer, a ``Worker.UfsFetchTime`` timer of each successful fetch's wall
+time (the reference lacks it), and an ``atpu.worker.ufs_fetch`` span per fetch under the caller's
 live span, with its ``queue_wait``, ``ufs_fetch`` and ``cache_fill``
 phases. The port's tracer records every span while it is on (the JAX
 tracer's sampling is not copied), and the span also names the starter's
@@ -403,6 +404,8 @@ class BlockFetch:
         m = metrics()
         m.counter("Worker.UfsBlocksRead").inc()
         m.counter("Worker.UfsBytesRead").inc(self.served_length)
+        m.timer("Worker.UfsFetchTime").update(
+            time.perf_counter() - self.created_at)
         with self._cond:
             self._done = True
             self._cond.notify_all()

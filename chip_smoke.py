@@ -42,8 +42,28 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    (replay time printed; the replay must scan its frames natively), the
    worker re-registers, the 64 shards must resolve to the same block ids
    and lengths, and one loader epoch over them must scan (``K`` chained
-   ``scaled_sum``) to the main path's value. The cluster then stops and
-   its directory goes, before 2c builds its own tier;
+   ``scaled_sum``) to the main path's value. Then config #2 of 2e runs on
+   the same cluster. The cluster then stops and its directory goes,
+   before 2e and 2c build their own tiers;
+2e. suite: ``bench.py``'s device configs through the port's
+   ``stress/tpu_suite.py``, each stage checking what it moved. (a) config
+   #2 on the main path's cluster: 4 shards of ``min(BLOCK_BYTES, 64
+   MiB)``, 4096 seeded 4 KiB reads batched 256 at a time onto the card,
+   every batch equal to the files, MB/s against the adjacent ceiling;
+   (b) config #3 on its own two-worker cluster with the job service, at
+   the main path's corpus (64 x 32 MiB in 4 MiB blocks, the file count cut
+   only if ``/dev/shm`` lacks the room): a warm reference onto the card,
+   the corpus freed, a ``load`` job that must complete with every block
+   located on both workers, then the loaded set onto the card with no
+   UFS read, equal on the card to the warm set; ``K`` chained
+   ``scaled_sum`` calls over it (the ``suite`` launches) equal the plain
+   chain and the warm set's; the untraced load's seconds split between
+   the tasks' commit waits and the worker's fetches (both timers), and a
+   traced load of two files for the fetch spans' phases; (c) config #5
+   at ``write_bench.run()``'s defaults (each file its own payload): no
+   error, no unpersisted file, spilled bytes in the SSD tier, every file
+   read back equal to its own payload through the cluster and from its
+   UFS file;
 2b. page cache: ``LocalCacheManager`` with a 512 MB host tier of 1 MiB
    pages on disk (LRU) below a device tier: two passes of ``get_device``
    over all 2048 pages of the main path's files (2048 promotions, then
@@ -139,11 +159,13 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    collective is a copy through NCCL, so these check the mesh code on
    the card, not NVLink rates.
 
-It prints the card's name and power limit, one ``{"main": {...}}``
+It prints the card's name and power limit, whether pyarrow imports,
+one ``{"main": {...}}``
 line, one ``{"prefetch": {...}}`` line, one ``{"master": {...}}`` line,
 one ``{"page_cache": {...}}`` line, one ``{"worker": {...}}``
 line, one ``{"train": {...}}``
-line, one ``{"mesh": {...}}`` line, one ``{"kernels": [...]}`` line,
+line, one ``{"mesh": {...}}`` line, one ``{"suite": {...}}`` line, one
+``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
 exits non-zero and prints no result. All data is made from a seed.
@@ -179,6 +201,7 @@ PREFETCH_HEARTBEAT_S = 0.1
 #: page-cache phase, at the JAX defaults: 1 MiB pages, a 512 MB host tier
 #: the master phase (2d): empty files beside the shards, in directories
 MASTER_FILES = 2000
+SUITE_FILES = NUM_BLOCKS  # config #3 at the main path's corpus (2 GiB)
 MASTER_DIRS = 20
 PAGE_BYTES = 1 << 20
 PAGE_CACHE_BYTES = 512 << 20
@@ -312,6 +335,12 @@ def setup() -> None:
     for mod in ("grpc", "msgpack"):
         print(f"importable {mod}: "
               f"{importlib.util.find_spec(mod) is not None}", flush=True)
+    # config #4 and the table read path need pyarrow
+    try:
+        import pyarrow
+        print(f"pyarrow imports: version {pyarrow.__version__}", flush=True)
+    except ImportError as e:
+        print(f"pyarrow does not import: {e}", flush=True)
 
     # the host's C++ compiler builds the port's native library (and is
     # nvcc's host compiler): the run fails without it
@@ -948,6 +977,182 @@ def master_phase(device, main: dict, k: int) -> dict:
           f"scan K={k} {scan_ms:.2f} ms, acc {got} == main path == plain; "
           f"launches {launches}; phase {out['s']:.1f} s", flush=True)
     return out
+
+
+
+# -- suite phase (2e) ---------------------------------------------------------
+def suite_random_4k(device, main: dict) -> dict:
+    """(2e a): BASELINE config #2 on the main path's live cluster, as
+    ``bench.py`` runs it after the headline on the same client: 4 shards of
+    ``min(BLOCK_BYTES, 64 MiB)``, 4096 seeded 4 KiB reads, batches of 256
+    copied to the card. The stage itself holds every device batch against
+    the files' bytes."""
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    t0 = time.perf_counter()
+    row = tpu_suite.config2_random_4k(main["fs"], device,
+                                      shard_bytes=min(BLOCK_BYTES, 64 << 20))
+    row["s"] = time.perf_counter() - t0
+    print(f"suite #2 random 4k: {row['value']} MB/s ({row['ops_per_s']} "
+          f"reads/s) against the adjacent ceiling {row['ceiling_mb_per_s']} "
+          f"MB/s (one read_all of a shard and one copy to the card): "
+          f"{row['achieved_vs_ceiling']} of it, vs_baseline "
+          f"{row['vs_baseline']} (1.0 = half the ceiling); "
+          f"{row['batches_checked']} device batches equal the files; "
+          f"stage {row['s']:.1f} s", flush=True)
+    return row
+
+
+def suite_prefetch(device, k: int) -> dict:
+    """(2e b): BASELINE config #3 on its own cluster (two workers, the job
+    service, 4 MiB blocks, a MEM tier a worker of the corpus plus 128 MiB,
+    block heartbeats at 50 ms, all under ``/dev/shm``) at the main path's
+    corpus: a warm reference streamed to the card, the corpus freed, a
+    ``load`` job, the loaded set streamed to the card. The stage checks
+    the job, the block count, the locations and their spread, and that
+    the stream reads nothing from the UFS; here the loaded set must equal
+    the warm set on the card, and ``K`` chained ``scaled_sum`` calls over
+    it must equal the plain chain and the plain chain over the warm set.
+    The load runs untraced; its seconds are split between the tasks'
+    commit waits (``Job.LoadCommitWait``) and the worker's fetches
+    (``Worker.UfsFetchTime``). A second, traced load of two files gives
+    the fetch spans' phases."""
+    import torch
+
+    from alluxio_tpu_torch.conf import Keys
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.stress import tpu_suite
+    from alluxio_tpu_torch.utils import tracing
+
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    files, file_bytes = SUITE_FILES, BLOCK_BYTES
+    # the UFS copy and one cached copy, and room to spare
+    need = 2 * files * file_bytes + (256 << 20)
+    print(f"suite #3: /dev/shm free {free} bytes, the phase needs {need}",
+          flush=True)
+    if free < need:
+        files = max(2, (free - (256 << 20)) // (2 * file_bytes))
+        print(f"suite #3: CUT to {files} files of {file_bytes >> 20} MiB "
+              f"to fit /dev/shm", flush=True)
+
+    def consumer(warm, loaded):
+        x = torch.cat([t.view(torch.int32) for t in loaded])
+        w = torch.cat([t.view(torch.int32) for t in warm])
+        equal = bool(torch.equal(x, w))
+        acc, scan_ms = timed(lambda: chain(rk.scaled_sum, x, k))
+        got = int(acc)
+        plain = int(chain(rk.scaled_sum_reference, x, k))
+        warm_plain = int(chain(rk.scaled_sum_reference, w, k))
+        del x, w
+        if not equal:
+            fail("suite #3: the loaded set differs from the warm set on "
+                 "the card")
+        if not got == plain == warm_plain:
+            fail(f"suite #3 scan: kernel chain {got}, plain chain {plain}, "
+                 f"plain chain over the warm set {warm_plain}")
+        return {"scan_ms": scan_ms, "chain": got, "equal": equal,
+                "bytes": sum(t.numel() for t in loaded)}
+
+    def totals():
+        m = metrics()
+        return [m.timer(name).histogram()[1:]
+                for name in ("Job.LoadCommitWait", "Worker.UfsFetchTime")]
+
+    t0 = time.perf_counter()
+    before = totals()
+    rk.launches = 0
+    row = tpu_suite.config3_prefetch(device, file_bytes=file_bytes,
+                                     num_files=files, consumer=consumer)
+    launches = rk.launches
+    (wait_s, waits), (fetch_s, fetches) = [
+        (s1 - s0, n1 - n0) for (s0, n0), (s1, n1) in zip(before, totals())]
+    row["s"] = time.perf_counter() - t0
+    if launches != k:
+        fail(f"suite #3 launched scaled_sum {launches} times, want {k}")
+    blocks = row["num_blocks"]
+    if waits != blocks or fetches != blocks:
+        fail(f"suite #3: {waits} commit waits and {fetches} fetches for "
+             f"{blocks} loaded blocks")
+
+    # the traced load: two files, so every fetch span stays in the ring
+    tracing.tracer().drain(1 << 16)
+    traced_files = min(2, files)
+    try:
+        traced = tpu_suite.config3_prefetch(
+            device, file_bytes=file_bytes, num_files=traced_files,
+            conf_overrides={Keys.TRACE_ENABLED: True})
+        spans = [sp for sp in tracing.tracer().drain(1 << 16)
+                 if sp["name"] == "atpu.worker.ufs_fetch"]
+    finally:
+        tracing.set_tracing_enabled(False)
+    traced_blocks = traced["num_blocks"]
+    if len(spans) != traced_blocks:
+        fail(f"suite #3: {len(spans)} fetch spans for {traced_blocks} "
+             f"blocks of the traced load")
+    phases = {}
+    for span in spans:
+        for name, ms in span.get("phases", ()):
+            phases[name] = phases.get(name, 0.0) + ms
+    row.update({"files": files, "file_bytes": file_bytes,
+                "launches": launches,
+                "commit_wait_s": wait_s,
+                "commit_wait_ms_per_block": 1e3 * wait_s / blocks,
+                "fetch_s": fetch_s,
+                "fetch_ms_per_block": 1e3 * fetch_s / blocks,
+                "traced_load": {
+                    "files": traced_files, "blocks": traced_blocks,
+                    "load_seconds": traced["load_seconds"],
+                    "fetch_span_ms_per_block": sum(
+                        sp["duration_ms"] for sp in spans) / traced_blocks,
+                    "phase_ms_per_block": {
+                        n: ms / traced_blocks for n, ms in phases.items()}}})
+    tl = row["traced_load"]
+    print(f"suite #3 prefetch: {files} x {file_bytes >> 20} MiB, {blocks} "
+          f"blocks of 4 MiB; warm reference {row['warm_reference_mb_per_s']} "
+          f"MB/s; load job {row['load_seconds']} s "
+          f"({row['prefetch_mb_per_s']} MB/s, untraced), blocks by host "
+          f"{row['blocks_by_host']}; post-load stream {row['value']} MB/s, "
+          f"vs_baseline {row['vs_baseline']} (1.0 = 0.7 of the warm "
+          f"reference), no UFS read, the loaded set equal to the warm set "
+          f"on the card; load split: {blocks} commit waits "
+          f"{wait_s:.3f} s in all, "
+          f"{row['commit_wait_ms_per_block']:.2f} ms a block, against "
+          f"{blocks} fetches {row['fetch_ms_per_block']:.2f} ms a block; "
+          f"traced load of {traced_files} files ({traced_blocks} blocks) "
+          f"{tl['load_seconds']} s, fetch spans "
+          f"{tl['fetch_span_ms_per_block']:.2f} ms a block "
+          f"({', '.join(f'{n} {v:.2f}' for n, v in tl['phase_ms_per_block'].items())}); "
+          f"scan K={k} {row['consumer']['scan_ms']:.2f} ms, acc "
+          f"{row['consumer']['chain']} == plain == warm set's plain; "
+          f"launches {launches}; stage {row['s']:.1f} s", flush=True)
+    return row
+
+
+def suite_write_eviction(main: dict) -> dict:
+    """(2e c): BASELINE config #5 at ``write_bench.run()``'s defaults (24 x
+    8 MiB ASYNC_THROUGH by 4 threads into a 64 MiB MEM tier over an SSD
+    tier, LRFU) on its own cluster under ``/dev/shm``, graded against the
+    main path's cold-write rate. The stage checks that there is no error
+    and no unpersisted file, that the SSD tier holds spilled bytes, and
+    reads every file back through the cluster and from its UFS file,
+    each against its own payload."""
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    cold_rate = NUM_BLOCKS * BLOCK_BYTES / main["cold_write_s"]
+    t0 = time.perf_counter()
+    row = tpu_suite.config5_write_eviction(cold_write_rate=cold_rate)
+    row["s"] = time.perf_counter() - t0
+    print(f"suite #5 write-through eviction: ingest {row['value']} MB/s "
+          f"against the main path's cold write "
+          f"{row['unpressured_cold_write_mb_per_s']} MB/s, vs_baseline "
+          f"{row['vs_baseline']} (1.0 = half of it); durable after "
+          f"{row['time_to_durable_s']} s, {row['unpersisted']} unpersisted; "
+          f"tiers' used bytes {row['tier_used_bytes']}; "
+          f"{row['read_back_files']} files read back equal through the "
+          f"cluster and from the UFS; stage {row['s']:.1f} s", flush=True)
+    return row
 
 
 # -- page-cache phase ---------------------------------------------------------
@@ -3259,8 +3464,12 @@ def main() -> int:
         shard_files = main["files"]
         prefetch = prefetch_phase(device, main, K)
         master = master_phase(device, main, K)
-        # the cluster's MEM tier leaves /dev/shm before 2c builds its own
+        suite = {"random_4k": suite_random_4k(device, main)}
+        # the cluster's MEM tier leaves /dev/shm before 2e and 2c build
+        # their own
         stop_cluster(main)
+        suite["prefetch"] = suite_prefetch(device, K)
+        suite["write_eviction"] = suite_write_eviction(main)
         page_cache = page_cache_phase(device, workdir, main)
         worker = worker_phase(device, workdir, main, K)
         del main["blocks"]
@@ -3293,6 +3502,7 @@ def main() -> int:
     print(json.dumps({"worker": worker}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
+    print(json.dumps({"suite": suite}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "scaled_sum", "route": "cuda",
         "source": "alluxio_tpu_torch/ops/csrc/reduce_kernel.cu",
@@ -3303,6 +3513,7 @@ def main() -> int:
             "main": main["launches"],
             "prefetch": prefetch["scan_launches"],
             "master": master["scan_launches"],
+            "suite": suite["prefetch"]["launches"],
             "page_cache": page_cache["scan_launches"],
             "worker": worker["launches"],
             "worker_shm": worker["shm_read"]["scan_launches"],

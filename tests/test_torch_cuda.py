@@ -367,3 +367,38 @@ def test_worker_cold_fetch_loader_on_card(cuda, tmp_path):
     scan of the same blocks."""
     _module("torch_worker", "tests/testutils/torch_worker.py") \
         .cold_fetch_loader_case(tmp_path, cuda)
+
+
+def test_suite_prefetch_onto_the_card(cuda):
+    """BASELINE config #3 at 4 files x 8 MiB: the load job's set streamed
+    onto the card equals the warm reference set there, and chained scans
+    of it by the kernel equal the plain chain over it and over the warm
+    reference set."""
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    def scan(fn, x):
+        acc = torch.zeros((), dtype=torch.int32, device=cuda)
+        for _ in range(5):
+            acc = torch.remainder(fn(x, torch.remainder(acc, 3) + 1) + acc,
+                                  1000003)
+        return int(acc)
+
+    def consumer(warm, loaded):
+        assert all(t.device == cuda for t in warm + loaded)
+        x = torch.cat([t.view(torch.int32) for t in loaded])
+        w = torch.cat([t.view(torch.int32) for t in warm])
+        before = rk.launches
+        got = scan(rk.scaled_sum, x)
+        return {"launches": rk.launches - before, "chain": got,
+                "equal": bool(torch.equal(x, w)),
+                "plain": scan(rk.scaled_sum_reference, x),
+                "warm_plain": scan(rk.scaled_sum_reference, w)}
+
+    row = tpu_suite.config3_prefetch(cuda, file_bytes=8 << 20, num_files=4,
+                                     consumer=consumer)
+    c = row["consumer"]
+    assert c["launches"] == 5
+    assert c["equal"]
+    assert c["chain"] == c["plain"] == c["warm_plain"]
+    assert row["num_blocks"] == 8
+    assert row["blocks_by_host"] == {"localhost-w0": 4, "localhost-w1": 4}

@@ -65,7 +65,13 @@ def test_importing_every_module_loads_no_jax():
               "master.path_properties", "master.integrity",
               "master.file_master", "master.process", "rpc.master_service",
               "rpc.fastpath", "client.streams", "client.file_system",
-              "minicluster", "minicluster.local_cluster"):
+              "minicluster", "minicluster.local_cluster", "job",
+              "job.wire", "job.plan", "job.plans", "job.plans.load",
+              "job.plans.persist", "job.plans.replicate",
+              "job.plans.migrate", "job.master", "job.worker",
+              "job.process", "rpc.job_service", "master.replication",
+              "master.persistence", "stress", "stress.base",
+              "stress.cluster", "stress.write_bench", "stress.tpu_suite"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

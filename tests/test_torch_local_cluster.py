@@ -14,6 +14,8 @@
   and the port's ``FileSystem`` against the JAX ``LocalCluster``; in both
   the bytes read back and the ``FileInfo``s equal what the cluster's own
   client sees.
+- no job-service thread outlives ``stop()`` of a cluster that ran the
+  job service.
 """
 
 import os
@@ -259,3 +261,39 @@ def test_meta_rpcs_answer_like_jax_without_components(clusters):
     meta.checkpoint()
     assert os.listdir(os.path.join(cluster.conf.get(Keys.HOME), "journal",
                                    "checkpoints"))
+
+
+# -- the job service's threads ------------------------------------------------
+JOB_THREADS = ("job-task", "job-master-rpc", "JobWorker.CommandHandling",
+               "JobMaster.LostWorkerDetection", "Master.ReplicationCheck",
+               "Master.PersistenceScheduler")
+
+
+def test_no_job_service_thread_outlives_stop(tmp_path):
+    """``LocalCluster(start_job_service=True).stop()`` joins the job
+    workers' pools and heartbeats, the job master's heartbeat and RPC
+    handlers, and the master's two checkers. (This module's other
+    clusters run no job service; threads alive before are set aside.)"""
+    import threading
+    import time
+
+    before = set(threading.enumerate())
+    cluster = LocalCluster(str(tmp_path), num_workers=2,
+                           start_job_service=True,
+                           start_worker_heartbeats=True).start()
+    fs = cluster.file_system()
+    fs.write_all("/t", b"t" * 4096, write_type=WriteType.ASYNC_THROUGH)
+    deadline = time.monotonic() + 30.0
+    while not fs.get_status("/t").persisted:
+        assert time.monotonic() < deadline, "/t never persisted"
+        time.sleep(0.05)
+    running = {t.name for t in threading.enumerate()}
+    assert {"JobWorker.CommandHandling", "JobMaster.LostWorkerDetection",
+            "Master.ReplicationCheck",
+            "Master.PersistenceScheduler"} <= running
+    assert any(n.startswith("job-task") for n in running)
+    fs.close()
+    cluster.stop()
+    left = [t.name for t in set(threading.enumerate()) - before
+            if t.is_alive() and t.name.startswith(JOB_THREADS)]
+    assert left == []

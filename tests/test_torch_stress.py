@@ -1,0 +1,324 @@
+"""The port's stress benches against the JAX package's, on the CPU.
+
+- ``base.percentiles``, ``drive`` (op counts, bytes, errors) and the
+  ``RateLimiter`` (the sleeps it asks for, on a stepped clock) give the
+  JAX answers for the same inputs and seeds; ``BenchResult.json_line``
+  is the same line;
+- ``stress/cluster.py``: ``write_cold_corpus`` leaves a corpus on the UFS
+  with no cached copy, in both packages;
+- ``write_bench.run`` at a small size passes its checks in both packages
+  with equal params, the port's metrics a superset of the JAX ones, every
+  file read back right, and a file holding another file's bytes fails;
+- ``tpu_suite``'s configs #2, #3 and #5 at small sizes with
+  ``device="cpu"`` give rows with the JAX keys (the JAX configs run on
+  JAX's CPU device) and pass their checks; the port's ``run_all`` runs
+  the three and lets a raising stage raise.
+"""
+
+import importlib
+import json
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+PACKAGES = ("alluxio_tpu", "alluxio_tpu_torch")
+
+
+def _mod(pkg: str, name: str):
+    return importlib.import_module(f"{pkg}.{name}")
+
+
+# -- base ---------------------------------------------------------------------
+@pytest.mark.parametrize("n", [0, 1, 7, 100, 1001])
+def test_percentiles_equal(n):
+    samples = np.random.default_rng(n).exponential(1e-3, size=n).tolist()
+    got = [_mod(pkg, "stress.base").percentiles(list(samples))
+           for pkg in PACKAGES]
+    assert got[0] == got[1]
+    assert set(got[1]) == {"p50_us", "p95_us", "p99_us", "max_us"}
+
+
+@pytest.mark.parametrize("threads,ops", [(1, 10), (3, 17), (4, 64)])
+def test_drive_counts_equal(threads, ops):
+    rng = np.random.default_rng(threads * 100 + ops)
+    sizes = rng.integers(0, 1 << 20, size=(threads, ops))
+    fails = rng.random(size=(threads, ops)) < 0.1
+
+    def op(t, i):
+        if fails[t, i]:
+            raise RuntimeError("injected")
+        return int(sizes[t, i])
+
+    got = []
+    for pkg in PACKAGES:
+        res = _mod(pkg, "stress.base").drive(threads, op,
+                                             ops_per_thread=ops)
+        got.append((res.ops, res.bytes, res.errors, len(res.latencies_s)))
+    assert got[0] == got[1]
+    assert got[1] == (int((~fails).sum()), int(sizes[~fails].sum()),
+                      int(fails.sum()), threads * ops)
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_drive_needs_a_bound(pkg):
+    with pytest.raises(ValueError):
+        _mod(pkg, "stress.base").drive(1, lambda t, i: 0)
+
+
+class _SteppedClock:
+    """``time`` for the rate limiter: ``sleep`` advances ``monotonic`` by
+    what it was asked, and by 1 ms at least (a float clock would not move
+    for the last ulp of a token)."""
+
+    def __init__(self):
+        self.now = 100.0
+        self.sleeps = []
+
+    def monotonic(self):
+        return self.now
+
+    def sleep(self, s):
+        self.sleeps.append(round(s, 9))
+        self.now += max(s, 1e-3)
+
+
+@pytest.mark.parametrize("rate", [5.0, 40.0, 1000.0])
+def test_rate_limiter_sleeps_equal(rate, monkeypatch):
+    got = []
+    for pkg in PACKAGES:
+        base = _mod(pkg, "stress.base")
+        clock = _SteppedClock()
+        monkeypatch.setattr(base, "time", clock)
+        limiter = base.RateLimiter(rate)
+        for _ in range(25):
+            limiter.acquire()
+        got.append((clock.sleeps, round(clock.now - 100.0, 9)))
+    assert got[0] == got[1]
+    assert got[1][1] >= 24 / rate * 0.999
+
+
+def test_bench_result_line_equal():
+    kw = dict(bench="b", params={"threads": 2, "x": [1, 2]},
+              metrics={"ingest_mb_per_s": 1.5, "p50_us": 3.0}, errors=1,
+              duration_s=1.23456)
+    lines = [_mod(pkg, "stress.base").BenchResult(**kw).json_line()
+             for pkg in PACKAGES]
+    assert lines[0] == lines[1]
+    assert json.loads(lines[1])["duration_s"] == 1.235
+
+
+# -- the bench cluster --------------------------------------------------------
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_write_cold_corpus_leaves_no_cached_copy(pkg):
+    cluster_mod = _mod(pkg, "stress.cluster")
+    payloads = {f"/corpus/f{i}": bytes([i]) * (300 << 10) for i in range(3)}
+    with cluster_mod.bench_cluster(
+            num_workers=1, block_size=256 << 10,
+            worker_mem_bytes=8 << 20, start_worker_heartbeats=True) as (
+            fs, cluster):
+        cluster_mod.write_cold_corpus(fs, cluster.block_client(), payloads)
+        for path, payload in payloads.items():
+            st = fs.get_status(path)
+            assert st.persisted and st.in_memory_percentage == 0
+            assert len(fs.fs_master.get_file_block_info_list(path)) == 2
+            with open(st.ufs_path, "rb") as f:
+                assert f.read() == payload
+
+
+# -- write bench --------------------------------------------------------------
+SMALL_WRITE = dict(threads=2, num_files=8, file_bytes=1 << 20,
+                   mem_bytes=3 << 20, block_size=512 << 10,
+                   persist_timeout_s=60.0)
+
+
+def test_write_bench_small_passes_in_both():
+    results = {pkg: _mod(pkg, "stress.write_bench").run(**SMALL_WRITE)
+               for pkg in PACKAGES}
+    jax, port = results["alluxio_tpu"], results["alluxio_tpu_torch"]
+    assert jax.params == port.params
+    assert jax.errors == port.errors == 0
+    assert jax.metrics["unpersisted"] == port.metrics["unpersisted"] == 0
+    assert set(jax.metrics) <= set(port.metrics)
+    assert port.metrics["read_back_files"] == SMALL_WRITE["num_files"]
+    assert port.metrics["read_back_mismatches"] == 0
+    for r in (jax, port):  # memory pressure spilled to the SSD tier
+        assert r.metrics["tier_used_bytes"]["SSD"] > 0
+    assert json.loads(port.json_line())["bench"] == "write-through-eviction"
+
+
+def test_write_bench_read_back_tells_files_apart(monkeypatch):
+    """Every file carries its own payload, so a file whose UFS bytes are
+    another file's fails the read-back (with one payload for every file,
+    as the reference writes, it would pass)."""
+    from alluxio_tpu_torch.stress import write_bench
+
+    read = write_bench._read_ufs_file
+    monkeypatch.setattr(write_bench, "_read_ufs_file", lambda ufs_path:
+                        read(ufs_path.replace("f-00000", "f-00001")))
+    r = write_bench.run(**SMALL_WRITE)
+    assert r.metrics["read_back_files"] == SMALL_WRITE["num_files"]
+    assert r.metrics["read_back_mismatches"] == SMALL_WRITE["threads"]
+    assert r.errors == SMALL_WRITE["threads"]
+
+
+# -- the device suite ---------------------------------------------------------
+def _jax_cpu():
+    import jax
+
+    return jax, jax.devices("cpu")[0]
+
+
+def test_config2_rows_carry_the_jax_keys(tmp_path):
+    from alluxio_tpu.minicluster import LocalCluster as JaxCluster
+    from alluxio_tpu.stress import tpu_suite as jax_suite
+    from alluxio_tpu_torch.minicluster import LocalCluster
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    kw = dict(shard_bytes=256 << 10, num_shards=2, reads=96, batch=32)
+    with JaxCluster(str(tmp_path / "jax"), block_size=1 << 20) as jc:
+        fs = jc.file_system()
+        jax, dev = _jax_cpu()
+        want = jax_suite.config2_random_4k(jax, fs, dev, **kw)
+        fs.close()
+    with LocalCluster(str(tmp_path / "port"), block_size=1 << 20) as pc:
+        fs = pc.file_system()
+        got = tpu_suite.config2_random_4k(fs, "cpu", **kw)
+        fs.close()
+    assert set(want) <= set(got)
+    assert (got["config"], got["unit"]) == (want["config"], want["unit"])
+    assert got["batches_checked"] == 3
+    assert got["value"] > 0 and got["ceiling_mb_per_s"] > 0
+
+
+def test_config2_checks_the_device_batches(tmp_path, monkeypatch):
+    """A batch that differs from the files fails the stage."""
+    import torch
+
+    from alluxio_tpu_torch.minicluster import LocalCluster
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    real = tpu_suite._put
+
+    def corrupt(arr, device):
+        t = real(arr, device)
+        if arr.ndim == 2:
+            t[0, 0] ^= torch.tensor(1, dtype=t.dtype)
+        return t
+
+    monkeypatch.setattr(tpu_suite, "_put", corrupt)
+    with LocalCluster(str(tmp_path), block_size=1 << 20) as pc:
+        fs = pc.file_system()
+        with pytest.raises(RuntimeError, match="device batch 0 row 0"):
+            tpu_suite.config2_random_4k(fs, "cpu", shard_bytes=64 << 10,
+                                        num_shards=2, reads=32, batch=16)
+        fs.close()
+
+
+def test_config3_rows_carry_the_jax_keys():
+    from alluxio_tpu.stress import tpu_suite as jax_suite
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    jax, dev = _jax_cpu()
+    want = jax_suite.config3_prefetch(jax, dev, file_bytes=8 << 20,
+                                      num_files=2)
+    seen = {}
+
+    def consumer(warm, loaded):
+        seen["sets"] = (len(warm), len(loaded))
+        return {"equal": all(bool((a == b).all())
+                             for a, b in zip(warm, loaded))}
+
+    got = tpu_suite.config3_prefetch("cpu", file_bytes=8 << 20, num_files=2,
+                                     consumer=consumer)
+    assert set(want) <= set(got)
+    assert got["config"] == want["config"]
+    assert seen["sets"] == (2, 2)
+    assert got["consumer"] == {"equal": True}
+    assert got["num_blocks"] == 4
+    assert got["blocks_by_host"] == {"localhost-w0": 2, "localhost-w1": 2}
+
+
+def test_config5_rows_carry_the_jax_keys(monkeypatch):
+    import functools
+
+    from alluxio_tpu.stress import tpu_suite as jax_suite
+    from alluxio_tpu.stress import write_bench as jax_write_bench
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    # the JAX config runs write_bench.run() at its defaults: the same
+    # small size for both
+    monkeypatch.setattr(jax_write_bench, "run", functools.partial(
+        jax_write_bench.run, **SMALL_WRITE))
+    want = jax_suite.config5_write_eviction(cold_write_rate=100e6)
+    got = tpu_suite.config5_write_eviction(cold_write_rate=100e6,
+                                           **SMALL_WRITE)
+    assert set(want) <= set(got)
+    assert got["config"] == want["config"]
+    assert got["unpersisted"] == 0
+    assert got["read_back_files"] == SMALL_WRITE["num_files"]
+    assert got["tier_used_bytes"]["SSD"] > 0
+    assert got["unpressured_cold_write_mb_per_s"] == 100.0
+
+
+def test_run_all_runs_the_three_configs(monkeypatch, tmp_path):
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    calls = []
+    monkeypatch.setattr(tpu_suite, "config2_random_4k",
+                        lambda fs, device, **kw: calls.append(
+                            ("2", fs, str(device), kw)) or {"config": "2"})
+    monkeypatch.setattr(tpu_suite, "config3_prefetch",
+                        lambda device, **kw: calls.append(
+                            ("3", str(device), kw)) or {"config": "3"})
+    monkeypatch.setattr(tpu_suite, "config5_write_eviction",
+                        lambda **kw: calls.append(("5", kw))
+                        or {"config": "5"})
+    out = tmp_path / "rows.json"
+    rows = tpu_suite.run_all("fs", "cpu", shard_bytes=128 << 20,
+                             cold_write_rate=2e9, out_path=str(out))
+    assert rows == [{"config": "2"}, {"config": "3"}, {"config": "5"}]
+    assert calls == [("2", "fs", "cpu", {"shard_bytes": 64 << 20}),
+                     ("3", "cpu", {"file_bytes": 32 << 20}),
+                     ("5", {"cold_write_rate": 2e9})]
+    assert json.loads(out.read_text()) == rows
+
+
+@pytest.mark.parametrize("stage", ["config2_random_4k", "config3_prefetch",
+                                   "config5_write_eviction"])
+def test_run_all_lets_a_failed_stage_raise(stage, monkeypatch):
+    """No fallback: the reference logs a failed stage and goes on; the
+    port's run_all raises it."""
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    ran = []
+    for name in ("config2_random_4k", "config3_prefetch",
+                 "config5_write_eviction"):
+        monkeypatch.setattr(tpu_suite, name,
+                            lambda *a, _n=name, **k: ran.append(_n)
+                            or {"config": _n})
+
+    def boom(*a, **k):
+        raise RuntimeError(f"{stage} failed")
+
+    monkeypatch.setattr(tpu_suite, stage, boom)
+    with pytest.raises(RuntimeError, match=f"{stage} failed"):
+        tpu_suite.run_all("fs", "cpu", shard_bytes=1 << 20,
+                          cold_write_rate=1.0)
+    order = ["config2_random_4k", "config3_prefetch",
+             "config5_write_eviction"]
+    assert ran == order[:order.index(stage)]
+
+
+def test_suite_device_defaults_to_the_card(monkeypatch):
+    import torch
+
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpu_suite.config3_prefetch(file_bytes=1 << 20)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpu_suite.run_all("fs", shard_bytes=1 << 20, cold_write_rate=1.0)
