@@ -12,9 +12,10 @@ the authentication keys the worker's authenticator reads; the
 safe-mode, worker-timeout, UFS path cache, fast-path, TTL and
 lost-worker keys, and the switches of the opt-in master components the
 port refuses; the permission keys; the ``atpu.user.rpc.retry.*`` keys
-of the RPC clients, and the client's file-system, metadata-cache,
-streaming chunk-size, SHM, remote-read, batch-read and native fastpath
-keys — with the JAX names, types, defaults and consistency levels, so
+of the RPC clients, the client's file-system, metadata-cache,
+streaming chunk-size, SHM, remote-read, batch-read, native fastpath and
+``atpu.user.table.*`` keys, the table master's transform-monitor
+interval, and the ``atpu.prefetch.*`` keys of the prefetch service — with the JAX names, types, defaults and consistency levels, so
 one properties file configures either package.
 """
 
@@ -436,6 +437,62 @@ class Keys:
                     "Client.NativeFallbacks. Off: the client is "
                     "byte-identical to a build without the subsystem.")
 
+    # --- client: the table read path (table/) ---
+    USER_TABLE_PUSHDOWN_ENABLED = _k(
+        "atpu.user.table.pushdown.enabled", KeyType.BOOL, default=True,
+        scope=Scope.CLIENT,
+        description="Projection-aware Parquet reads (docs/table_reads.md): "
+                    "the table reader parses the footer once (cached), "
+                    "plans the exact column-chunk byte ranges of the "
+                    "projection per row group, and executes them through "
+                    "the choose_route ladder — same-host chunks as SHM "
+                    "zero-copy views, small wire-crossing chunks "
+                    "coalesced into read_many batches, large chunks as "
+                    "striped reads — with decode of row group k "
+                    "overlapped against transfer of k+1. Off: reads go "
+                    "through the legacy seek+read pyarrow path, "
+                    "byte-identical to a build without the subsystem.")
+    USER_TABLE_PIPELINE_DEPTH = _k(
+        "atpu.user.table.pipeline.depth", KeyType.INT, default=2,
+        scope=Scope.CLIENT,
+        description="Row groups in flight ahead of the decoder in the "
+                    "planned table-read pipeline: transfer of row group "
+                    "k+depth is issued while k decodes, so decode time "
+                    "hides under transfer time. 1 serializes transfer "
+                    "and decode (no overlap); the depth bounds buffered "
+                    "row-group bytes.")
+    USER_TABLE_READ_PARALLELISM = _k(
+        "atpu.user.table.read.parallelism", KeyType.INT, default=4,
+        scope=Scope.CLIENT,
+        description="Files a multi-file projection (read_columns over a "
+                    "partitioned table) opens/plans/reads concurrently: "
+                    "partition-spanning projections overlap their footer "
+                    "fetches and row-group pipelines instead of running "
+                    "file-serial. 1 restores the serial loop.")
+    USER_TABLE_COALESCE_SLACK_BYTES = _k(
+        "atpu.user.table.coalesce.slack.bytes", KeyType.BYTES,
+        default="256KB", scope=Scope.CLIENT,
+        description="Adjacent planned column-chunk ranges whose gap is "
+                    "at or under this slack merge into one read — the "
+                    "discarded gap bytes buy fewer round trips (gap "
+                    "bytes are fetched and dropped). 0 never merges "
+                    "across a gap (only touching ranges coalesce).")
+    USER_TABLE_FOOTER_CACHE_MAX = _k(
+        "atpu.user.table.footer.cache.max", KeyType.INT, default=256,
+        scope=Scope.CLIENT,
+        description="Parsed Parquet footers held per client process "
+                    "(LRU), keyed on path + metadata version so a "
+                    "rewritten file re-parses: a warm projection re-plans "
+                    "from the cache with zero footer I/O.")
+    USER_TABLE_FOOTER_READ_BYTES = _k(
+        "atpu.user.table.footer.read.bytes", KeyType.BYTES, default="64KB",
+        scope=Scope.CLIENT,
+        description="First-guess tail read for a Parquet footer: one "
+                    "range read of this many bytes replaces pyarrow's "
+                    "probe-seek sequence of tiny reads; a footer larger "
+                    "than the guess costs exactly one more ranged read "
+                    "(sized from the footer-length trailer).")
+
     # --- worker: the read-only web endpoint ---
     WORKER_WEB_PORT = _k("atpu.worker.web.port", KeyType.INT, default=30000)
     WORKER_WEB_ENABLED = _k(
@@ -647,6 +704,12 @@ class Keys:
         default="1h", scope=Scope.MASTER,
         description="Age after which an .atpu_persist.* temp file is "
                     "considered abandoned.")
+    TABLE_TRANSFORM_MONITOR_INTERVAL = _k(
+        "atpu.table.transform.manager.job.monitor.interval", KeyType.DURATION,
+        default="10s", scope=Scope.MASTER,
+        description="How often the table master polls running transform "
+                    "jobs and commits completed layouts (reference: "
+                    "TransformManager.java:82 heartbeat).")
     MASTER_PERSISTENCE_SCHEDULER_INTERVAL = _k(
         "atpu.master.persistence.scheduler.interval", KeyType.DURATION, default="1s",
         scope=Scope.MASTER)
@@ -885,6 +948,43 @@ class Keys:
     JOB_WORKER_HEARTBEAT_INTERVAL = _k("atpu.job.worker.heartbeat.interval",
                                        KeyType.DURATION, default="1s",
                                        scope=Scope.JOB_WORKER)
+
+    # --- clairvoyant prefetch service (prefetch/; NoPFS arxiv 2101.08734,
+    #     Hoard arxiv 1812.00669 — no reference analogue) ---
+    PREFETCH_ENABLED = _k(
+        "atpu.prefetch.enabled", KeyType.BOOL, default=False,
+        scope=Scope.CLIENT, aliases=("prefetch.enabled",),
+        description="Run the clairvoyant prefetch control loop (oracle "
+                    "-> scheduler -> agent) for seeded-shuffle reads. "
+                    "Off: the loader's behavior is byte-identical to a "
+                    "build without the subsystem.")
+    PREFETCH_LOOKAHEAD_BLOCKS = _k(
+        "atpu.prefetch.lookahead.blocks", KeyType.INT, default=16,
+        scope=Scope.CLIENT, aliases=("prefetch.lookahead.blocks",),
+        description="How many future accesses (per the oracle's exact "
+                    "order, across epoch boundaries) the scheduler "
+                    "plans placements for each tick.")
+    PREFETCH_BUDGET_BYTES = _k(
+        "atpu.prefetch.budget.bytes", KeyType.BYTES, default="256MB",
+        scope=Scope.CLIENT, aliases=("prefetch.budget.bytes",),
+        description="Ceiling on prefetched-ahead bytes (issued + ready, "
+                    "not yet consumed) across all tiers; the planner "
+                    "stops at the nearest-deadline block that no longer "
+                    "fits (backpressure).")
+    PREFETCH_HBM_FRACTION = _k(
+        "atpu.prefetch.hbm.fraction", KeyType.FLOAT, default=0.25,
+        scope=Scope.CLIENT, aliases=("prefetch.hbm.fraction",),
+        description="Slice of the budget placed directly into the HBM "
+                    "tier (a device-resident tensor); the rest goes to "
+                    "worker DRAM. Effective only when a loader with an "
+                    "HBM store is bound.")
+    PREFETCH_HEARTBEAT_INTERVAL = _k(
+        "atpu.prefetch.heartbeat.interval.ms", KeyType.DURATION,
+        default="100ms", scope=Scope.CLIENT,
+        aliases=("prefetch.heartbeat.interval.ms",),
+        description="Agent tick cadence: completions are observed and "
+                    "the next placement plan issued once per tick.")
+
 
 # Parameterized families (reference: PropertyKey.Template, PropertyKey.java:5668)
 class Templates:

@@ -23,6 +23,7 @@ class HeartbeatContext:
     MASTER_LOST_WORKER_DETECTION = "Master.LostWorkerDetection"
     MASTER_REPLICATION_CHECK = "Master.ReplicationCheck"
     MASTER_PERSISTENCE_SCHEDULER = "Master.PersistenceScheduler"
+    MASTER_TABLE_TRANSFORM_MONITOR = "Master.TableTransformMonitor"
     WORKER_METRICS_SINKS = "Worker.MetricsSinks"
     WORKER_BLOCK_SYNC = "Worker.BlockSync"
     WORKER_PIN_LIST_SYNC = "Worker.PinListSync"

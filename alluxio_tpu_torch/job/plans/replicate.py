@@ -7,6 +7,14 @@ targets ONE block and adjusts where its cached copies live — replicate
 fans a copy out to N more workers, evict drops it from N workers, move
 relocates it between workers/tiers. Driven by the master's
 ReplicationChecker (reference: ``ReplicationChecker.java:57``).
+
+One difference: replicate spreads its targets. The JAX plan takes the
+non-holders in job-worker-id order, so every re-replication after a
+worker loss lands on the same lowest-id host; when that host's tier
+cannot hold them all it evicts copies it held, which the checker then
+sends back to it, without end. The port starts the same ordered list at
+the block id modulo its length (the reference's Java plan shuffles the
+candidates), so one host takes about its share.
 """
 
 from __future__ import annotations
@@ -56,6 +64,9 @@ class ReplicateDefinition(PlanDefinition):
         live = ctx.live_hosts()
         missing = [w for w in sorted(workers, key=lambda w: w.worker_id)
                    if w.hostname not in have and w.hostname in live]
+        if missing:
+            start = block_id % len(missing)
+            missing = missing[start:] + missing[:start]
         chosen = missing[:replicas]
         if not chosen:
             return []

@@ -8,17 +8,20 @@ window** after primacy during which client ops are rejected while workers
 re-register (reference: ``DefaultSafeModeManager``).
 
 The port's master holds the journal, the block master, the permission
-checker, the metastore (``HEAP``), the file master, the path properties
-and the cluster config checker; it serves the FS, block and meta services
-over gRPC and the same-host fast path, and ticks the lost-worker and TTL
-heartbeats. Once a job service exists, the replication checker and the
-persistence scheduler attach late (``attach_replication_checker``,
-``attach_persistence_scheduler``). Each of the JAX master's other parts
-comes with its own slice: the HA process (``FaultTolerantMasterProcess``)
-and its quorum view, the table master, the integrity checkers and active
-sync, the metrics master with its history, health, remediation, the web
-server, the update check, the scheduled backup, admission and audit, and
-the master's metrics sinks.
+checker, the metastore (``HEAP``), the file master, the path properties,
+the table master (the catalog, registered with the journal before replay)
+and the cluster config checker; it serves the FS, block, table and meta
+services over gRPC and the same-host fast path, and ticks the lost-worker,
+TTL and transform-monitor heartbeats. Once a job service exists, the
+replication checker and the persistence scheduler attach late
+(``attach_replication_checker``, ``attach_persistence_scheduler``); the
+table master reaches the job master by ``atpu.job.master.rpc.port`` when
+it starts a transform. Each of the JAX master's other parts comes with
+its own slice: the HA process (``FaultTolerantMasterProcess``) and its
+quorum view, the integrity checkers and active sync, the metrics master
+with its history, health, remediation, the web server, the update check,
+the scheduled backup, admission and audit, and the master's metrics
+sinks.
 A conf key that asks for one of the opt-in ones
 raises ``NotSupportedError`` rather than being ignored.
 """
@@ -42,6 +45,7 @@ from alluxio_tpu_torch.rpc.core import RpcServer
 from alluxio_tpu_torch.rpc.master_service import (
     block_master_service, fs_master_service, meta_master_service,
 )
+from alluxio_tpu_torch.rpc.table_service import table_master_service
 from alluxio_tpu_torch.utils.clock import Clock, SystemClock
 from alluxio_tpu_torch.utils.exceptions import NotSupportedError
 
@@ -123,6 +127,28 @@ class MasterProcess:
         )
 
         self.path_properties = PathProperties(self.journal)
+        from alluxio_tpu_torch.table.master import TableMaster
+
+        def _table_fs_factory():
+            from alluxio_tpu_torch.client.file_system import FileSystem
+
+            fs_conf = Configuration(load_env=False)
+            fs_conf.set(Keys.MASTER_FASTPATH_DIR,
+                        conf.get(Keys.MASTER_FASTPATH_DIR))
+            return FileSystem(self.address, conf=fs_conf)
+
+        def _table_job_factory():
+            from alluxio_tpu_torch.rpc.job_service import JobMasterClient
+
+            return JobMasterClient(
+                f"localhost:{conf.get_int(Keys.JOB_MASTER_RPC_PORT)}",
+                conf=conf)
+
+        # registered with the journal BEFORE replay so catalog entries
+        # from prior runs find their component
+        self.table_master = TableMaster(self.journal,
+                                        fs_factory=_table_fs_factory,
+                                        job_client_factory=_table_job_factory)
         self.config_checker = ConfigurationChecker()
         self.config_checker.register(
             "master", {k: str(v) for k, v in conf.to_map().items()})
@@ -188,6 +214,9 @@ class MasterProcess:
             authenticator=authenticator)
         self.rpc_server.add_service(fs_master_service(self.fs_master))
         self.rpc_server.add_service(block_master_service(self.block_master))
+        self.rpc_server.add_service(table_master_service(
+            self.table_master,
+            permission_checker=self.permission_checker))
         self.rpc_server.add_service(meta_master_service(
             self._conf, cluster_id=self.cluster_id,
             start_time_ms=self.start_time_ms,
@@ -224,6 +253,10 @@ class MasterProcess:
                 HeartbeatContext.MASTER_TTL_CHECK,
                 _Exec(self.fs_master.check_ttl_expired),
                 conf.get_duration_s(Keys.MASTER_TTL_CHECK_INTERVAL)),
+            HeartbeatThread(
+                HeartbeatContext.MASTER_TABLE_TRANSFORM_MONITOR,
+                _Exec(self.table_master.heartbeat),
+                conf.get_duration_s(Keys.TABLE_TRANSFORM_MONITOR_INTERVAL)),
         ]
         for t in self._threads:
             t.start()

@@ -3,6 +3,12 @@ copy of ``alluxio_tpu/master/replication.py`` without
 ``request_replication``, the remediation engine's entry point: remediation
 is not ported).
 
+One difference: a block that no live worker holds, of a persisted file,
+is re-replicated from the UFS (the replicate job carries the block's UFS
+source, which its plan already takes). The reference launches a
+replicate job that fails for want of a cached copy to copy from, and
+fails again every heartbeat, so such a block never comes back.
+
 Re-design of ``core/server/master/src/main/java/alluxio/master/file/
 replication/ReplicationChecker.java:57`` + ``job/plan/replicate/
 DefaultReplicationHandler.java``: a periodic heartbeat walks files with
@@ -30,8 +36,9 @@ import time
 from typing import Dict, Set
 
 from alluxio_tpu_torch.job.wire import Status
+from alluxio_tpu_torch.master.inode import PersistenceState
 from alluxio_tpu_torch.utils.exceptions import (
-    BlockDoesNotExistError, NotFoundError,
+    BlockDoesNotExistError, InvalidPathError, NotFoundError,
 )
 
 LOG = logging.getLogger(__name__)
@@ -72,7 +79,7 @@ class ReplicationChecker:
         for inode in self._fs.files_with_replication_constraints():
             rmin = inode.replication_min
             rmax = inode.replication_max
-            for bid in inode.block_ids:
+            for index, bid in enumerate(inode.block_ids):
                 if bid in self._inflight:
                     continue
                 try:
@@ -81,12 +88,33 @@ class ReplicationChecker:
                     continue  # block gone; skip
                 replicas = len(info.locations)
                 if rmin > 0 and replicas < rmin:
-                    self._launch(bid, {"type": "replicate",
-                                       "block_id": bid,
-                                       "replicas": rmin - replicas})
+                    config = {"type": "replicate", "block_id": bid,
+                              "replicas": rmin - replicas}
+                    if not replicas:
+                        ufs = self._ufs_source(inode, index)
+                        if ufs is not None:
+                            config["ufs"] = ufs
+                    self._launch(bid, config)
                 elif 0 <= rmax < replicas:
                     self._launch(bid, {"type": "evict", "block_id": bid,
                                        "replicas": replicas - rmax})
+
+    def _ufs_source(self, inode, index: int):
+        """Where block ``index`` of a persisted file lies in the UFS (the
+        replicate plan's ``ufs`` argument), or None."""
+        if inode.persistence_state != PersistenceState.PERSISTED:
+            return None
+        path = self._fs.inode_tree.path_of_id(inode.id)
+        if path is None:
+            return None
+        try:
+            res = self._fs.mount_table.resolve(path)
+        except (NotFoundError, InvalidPathError):
+            return None
+        offset = index * inode.block_size_bytes
+        return {"ufs_path": res.ufs_path, "offset": offset,
+                "length": min(inode.block_size_bytes, inode.length - offset),
+                "mount_id": res.mount_id}
 
     #: placeholder job id while the launch RPC is in flight — keeps the
     #: (bid) slot reserved while the RPC runs outside the lock

@@ -1,13 +1,11 @@
 """Prefetch service facade: oracle + scheduler + agent as one control loop.
 
-The port of ``alluxio_tpu/prefetch/service.py``. Built by
-:meth:`PrefetchService.from_fs` (the port has no configuration keys; the
-knobs are keyword arguments whose defaults are the JAX package's
-``atpu.prefetch.*`` defaults), bound to a
+The port of ``alluxio_tpu/prefetch/service.py``. Built from
+configuration (``atpu.prefetch.*`` keys) by :meth:`PrefetchService.from_conf`,
+or from keyword arguments by :meth:`PrefetchService.from_fs`, bound to a
 :class:`~alluxio_tpu_torch.client.torch_io.DeviceBlockLoader` consumer,
 and driven either by its own heartbeat thread or by explicit
-:meth:`tick` calls (tests). Prefetching disabled means the caller builds
-no service and hands the loader none.
+:meth:`tick` calls (tests).
 """
 
 from __future__ import annotations
@@ -16,6 +14,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
+from alluxio_tpu_torch.conf import Keys
 from alluxio_tpu_torch.heartbeat import HeartbeatContext, HeartbeatThread
 from alluxio_tpu_torch.prefetch.agent import (
     JobServiceExecutor, PrefetchAgent, WorkerTierExecutor,
@@ -43,6 +42,30 @@ class PrefetchService:
         self._closed = False
 
     # -- construction -------------------------------------------------------
+    @classmethod
+    def from_conf(cls, conf, fs, paths: Sequence[str], *, seed: int,
+                  num_hosts: int = 1, host_index: int = 0,
+                  local_host: str = "", job_client=None,
+                  worker_client_fn: Optional[Callable] = None
+                  ) -> Optional["PrefetchService"]:
+        """Assemble from ``atpu.prefetch.*`` keys; None when disabled —
+        callers pass that straight to the loader, whose behavior is then
+        byte-identical to a loader that never heard of prefetching.
+        With ``job_client``, DRAM placements ride load plans through the
+        job service instead of direct worker RPCs."""
+        if not conf.get_bool(Keys.PREFETCH_ENABLED):
+            return None
+        return cls.from_fs(
+            fs, paths, seed=seed,
+            lookahead_blocks=conf.get_int(Keys.PREFETCH_LOOKAHEAD_BLOCKS),
+            budget_bytes=conf.get_bytes(Keys.PREFETCH_BUDGET_BYTES),
+            hbm_fraction=conf.get_float(Keys.PREFETCH_HBM_FRACTION),
+            heartbeat_interval_s=conf.get_duration_s(
+                Keys.PREFETCH_HEARTBEAT_INTERVAL),
+            num_hosts=num_hosts, host_index=host_index,
+            local_host=local_host, job_client=job_client,
+            worker_client_fn=worker_client_fn)
+
     @classmethod
     def from_fs(cls, fs, paths: Sequence[str], *, seed: int,
                 lookahead_blocks: int = 16, budget_bytes: int = 256 << 20,

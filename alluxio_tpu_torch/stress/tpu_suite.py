@@ -1,6 +1,6 @@
-"""On-device stages for BASELINE configs #2, #3 and #5 on PyTorch (a copy
-of ``alluxio_tpu/stress/tpu_suite.py``), run after the headline (config
-#1) on the same live cluster and device.
+"""On-device stages for BASELINE configs #2–#5 on PyTorch (a copy of
+``alluxio_tpu/stress/tpu_suite.py``), run after the headline (config #1)
+on the same live cluster and device.
 
 Each stage emits one structured row with an explicit ``vs_baseline``.
 The baselines are self-calibrating against this environment's measured
@@ -14,6 +14,9 @@ ceilings, as in the reference:
                   the device vs streaming a pre-warmed set (target
                   >=0.7x: the load job must not leave the tiers colder
                   than a plain warm-up)
+  #4 projection   3-of-23-column Parquet read into device arrays vs the
+                  full-scan wall time (target: speedup >= 3x, the
+                  byte-selectivity bound)
   #5 write-evict  ASYNC_THROUGH ingest under memory pressure with LRFU
                   eviction vs the unpressured cold-write rate of config
                   #1 (target >=0.5x: eviction + UFS write-through may
@@ -21,22 +24,23 @@ ceilings, as in the reference:
 
 Where the reference calls ``jax.device_put`` and ``block_until_ready``,
 the port copies the numpy view to ``device`` (``None`` is the card) and
-synchronizes a CUDA device. It differs from the reference in four ways:
+synchronizes a CUDA device. It differs from the reference in three ways:
 
-- config #4 (Parquet projection) waits for the table read path;
 - ``run_all`` has no fallback: a stage that raises fails the run (the
   reference logs it and goes on), and rows carry no host-fallback label;
 - each stage checks what it moved and raises when a check fails: #2's
   device batches against the files' bytes; #3's job status, block count,
   locations, spread over the workers and that the post-load stream reads
-  nothing from the UFS; #5's errors, durability, spill and read-back;
+  nothing from the UFS; #4's projected columns on the device against the
+  table's (after the timed window); #5's errors, durability, spill and
+  read-back;
 - #3 waits until the freed corpus has left every worker before the load
   is timed: the reference starts the load while the workers may still
   hold blocks the free has not reached, and the load then skips them.
 
 Reference analogues: ``AlluxioFuseFileSystem.java:52-55`` random reads,
-``LoadDefinition.java:65`` fan-out, ``TieredBlockStore.java:85`` +
-``LRFUAnnotator.java:29``.
+``LoadDefinition.java:65`` fan-out, ``AlluxioCatalog.java:55`` +
+transform path, ``TieredBlockStore.java:85`` + ``LRFUAnnotator.java:29``.
 """
 
 from __future__ import annotations
@@ -250,6 +254,79 @@ def config3_prefetch(device=None, *, file_bytes: int, num_files: int = 4,
                     **extra)
 
 
+def config4_projection(fs, device=None, *, rows_per_part: int = 30_000,
+                       partitions: int = 2) -> Dict:
+    """Parquet column projection into device arrays vs full scan: the
+    reference's seeded 23-column table (20 float32 columns, an int32
+    label, an int64 id, a float32 weight) written once a partition, the
+    footers warmed, a full read of every partition through
+    ``open_parquet``, then a read of the 3 projected columns with each
+    column copied to the device. After the timed window every projected
+    column on the device must equal the table's column."""
+    import io
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    from alluxio_tpu_torch.table.reader import open_parquet
+
+    device = resolve_device(device)
+    rng = np.random.default_rng(13)
+    cols = {f"c{i}": rng.standard_normal(rows_per_part).astype(np.float32)
+            for i in range(20)}
+    cols["label"] = rng.integers(0, 1000, size=rows_per_part,
+                                 dtype=np.int32)
+    cols["id"] = np.arange(rows_per_part, dtype=np.int64)
+    cols["weight"] = rng.standard_normal(rows_per_part).astype(np.float32)
+    table = pa.table(cols)
+    sink = io.BytesIO()
+    pq.write_table(table, sink)
+    blob = sink.getvalue()
+    paths = []
+    for p in range(partitions):
+        path = f"/bench/proj-{p}.parquet"
+        fs.write_all(path, blob)
+        paths.append(path)
+    want = ["c0", "label", "weight"]
+    # warm footers
+    for p in paths:
+        open_parquet(fs, p)
+    t0 = time.monotonic()
+    full = [open_parquet(fs, p).read() for p in paths]
+    t_full = time.monotonic() - t0
+    n_full = sum(t.nbytes for t in full)
+    del full
+    t0 = time.monotonic()
+    devs = []
+    for p in paths:
+        t = open_parquet(fs, p).read(columns=want)
+        for name in want:
+            devs.append(_put(np.ascontiguousarray(t.column(name).to_numpy()),
+                             device))
+    _sync(device)
+    t_proj = time.monotonic() - t0
+    expect = [_put(np.ascontiguousarray(table.column(name).to_numpy()),
+                   device) for name in want]
+    for i, dev in enumerate(devs):
+        if not torch.equal(dev, expect[i % len(want)]):
+            raise RuntimeError(
+                f"config #4: column {want[i % len(want)]} of "
+                f"{paths[i // len(want)]} on the device differs from the "
+                f"table's")
+    speedup = t_full / t_proj if t_proj > 0 else 0.0
+    return _row("4-parquet-projection",
+                "3-of-23-column projection speedup into device memory",
+                speedup, "x", speedup / 3.0,
+                full_scan_s=round(t_full, 3),
+                projection_s=round(t_proj, 3),
+                full_bytes=n_full,
+                projected_bytes=sum(d.numel() * d.element_size()
+                                    for d in devs),
+                file_bytes=partitions * len(blob),
+                columns_checked=len(devs))
+
+
 def config5_write_eviction(*, cold_write_rate: float, **params) -> Dict:
     """ASYNC_THROUGH ingest under memory pressure (at the defaults the
     dataset is 3x the MEM tier, LRFU, SSD spill): the pressured-cluster
@@ -283,15 +360,17 @@ def config5_write_eviction(*, cold_write_rate: float, **params) -> Dict:
 
 def run_all(fs, device=None, *, shard_bytes: int, cold_write_rate: float,
             out_path: str = "") -> List[Dict]:
-    """Run configs #2, #3 and #5; a stage that raises fails the run.
-    ``fs`` is the headline cluster's client (config #2 reuses its warm
-    worker); configs #3 and #5 provision their own clusters."""
+    """Run configs #2, #3, #4 and #5, in the reference's order; a stage
+    that raises fails the run. ``fs`` is the headline cluster's client
+    (configs #2 and #4 reuse its warm worker); configs #3 and #5 provision
+    their own clusters."""
     device = resolve_device(device)
     stages: List[Callable[[], Dict]] = [
         lambda: config2_random_4k(fs, device,
                                   shard_bytes=min(shard_bytes, 64 << 20)),
         lambda: config3_prefetch(device,
                                  file_bytes=min(shard_bytes, 32 << 20)),
+        lambda: config4_projection(fs, device),
         lambda: config5_write_eviction(cold_write_rate=cold_write_rate),
     ]
     rows = [stage() for stage in stages]

@@ -43,8 +43,9 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    worker re-registers, the 64 shards must resolve to the same block ids
    and lengths, and one loader epoch over them must scan (``K`` chained
    ``scaled_sum``) to the main path's value. Then config #2 of 2e runs on
-   the same cluster. The cluster then stops and its directory goes,
-   before 2e and 2c build their own tiers;
+   the same cluster, and config #4 at ``bench.py``'s size (2e d). The
+   cluster then stops and its directory goes, before 2e and 2c build
+   their own tiers;
 2e. suite: ``bench.py``'s device configs through the port's
    ``stress/tpu_suite.py``, each stage checking what it moved. (a) config
    #2 on the main path's cluster: 4 shards of ``min(BLOCK_BYTES, 64
@@ -63,7 +64,22 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    at ``write_bench.run()``'s defaults (each file its own payload): no
    error, no unpersisted file, spilled bytes in the SSD tier, every file
    read back equal to its own payload through the cluster and from its
-   UFS file;
+   UFS file; (d) the table read path: config #4 (the reference's seeded
+   23-column Parquet table, a full scan through ``open_parquet`` against a
+   3-column projection copied to the card) at ``bench.py``'s 2 x 30 000
+   rows on the main path's cluster, then at 16 x 1 000 000 rows (about
+   1.5 GB of Parquet) on a cluster of its own (a MEM tier of the table
+   plus 256 MiB in ``/dev/shm``, partitions cut only if it lacks the
+   room), each run's projected columns equal to the table's on the card;
+   then ``table_bench.run_pushdown`` at its defaults (4 x 40 000 rows,
+   3 repeats, a modeled 2 ms wire): planned and legacy ms, the planned
+   table equal to the legacy one;
+2f. clairvoyant: ``prefetch_bench.run_clairvoyant`` on the card at the JAX
+   defaults (4 x 8 MiB, 1 MiB blocks, every placement in DRAM) and at the
+   main path's corpus (64 x 32 MiB in 32 MiB blocks, lookahead 16, a 512
+   MiB budget, ``hbm_fraction`` 0.25), two epochs each: hit rate, late
+   count, p50/p99 block-ready ms, GB/s, the stall buckets and their
+   verdict; every consumed block equal to its file's bytes on the card;
 2b. page cache: ``LocalCacheManager`` with a 512 MB host tier of 1 MiB
    pages on disk (LRU) below a device tier: two passes of ``get_device``
    over all 2048 pages of the main path's files (2048 promotions, then
@@ -165,7 +181,7 @@ line, one ``{"prefetch": {...}}`` line, one ``{"master": {...}}`` line,
 one ``{"page_cache": {...}}`` line, one ``{"worker": {...}}``
 line, one ``{"train": {...}}``
 line, one ``{"mesh": {...}}`` line, one ``{"suite": {...}}`` line, one
-``{"kernels": [...]}`` line,
+``{"clairvoyant": {...}}`` line, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
 exits non-zero and prints no result. All data is made from a seed.
@@ -202,6 +218,8 @@ PREFETCH_HEARTBEAT_S = 0.1
 #: the master phase (2d): empty files beside the shards, in directories
 MASTER_FILES = 2000
 SUITE_FILES = NUM_BLOCKS  # config #3 at the main path's corpus (2 GiB)
+PROJECTION_PARTITIONS = 16   # config #4 at a real training table's size:
+PROJECTION_ROWS = 1_000_000  # 16 x 1M rows of 23 columns, ~1.5 GB Parquet
 MASTER_DIRS = 20
 PAGE_BYTES = 1 << 20
 PAGE_CACHE_BYTES = 512 << 20
@@ -338,9 +356,9 @@ def setup() -> None:
     # config #4 and the table read path need pyarrow
     try:
         import pyarrow
-        print(f"pyarrow imports: version {pyarrow.__version__}", flush=True)
     except ImportError as e:
-        print(f"pyarrow does not import: {e}", flush=True)
+        fail(f"pyarrow does not import: {e}")
+    print(f"pyarrow imports: version {pyarrow.__version__}", flush=True)
 
     # the host's C++ compiler builds the port's native library (and is
     # nvcc's host compiler): the run fails without it
@@ -1153,6 +1171,152 @@ def suite_write_eviction(main: dict) -> dict:
           f"{row['read_back_files']} files read back equal through the "
           f"cluster and from the UFS; stage {row['s']:.1f} s", flush=True)
     return row
+
+
+# -- table read path (2e d) ---------------------------------------------------
+def _projection_line(name: str, row: dict) -> None:
+    print(f"{name}: {row['value']}x speedup of the 3-of-23-column projection "
+          f"into device memory over the full scan, vs_baseline "
+          f"{row['vs_baseline']} (1.0 = 3x); full scan {row['full_scan_s']} s "
+          f"({row['full_bytes']} decoded bytes), projection "
+          f"{row['projection_s']} s ({row['projected_bytes']} bytes on the "
+          f"card); {row['file_bytes']} Parquet bytes; "
+          f"{row['columns_checked']} projected columns equal the table's on "
+          f"the card; stage {row['s']:.1f} s", flush=True)
+
+
+def suite_projection(device, main: dict) -> dict:
+    """(2e d, bench size): BASELINE config #4 at ``bench.py``'s parameters
+    (2 partitions x 30 000 rows) on the main path's live cluster, as the
+    reference's ``run_all`` runs it. The stage holds every projected
+    column on the card against the table's."""
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    t0 = time.perf_counter()
+    row = tpu_suite.config4_projection(main["fs"], device)
+    row["s"] = time.perf_counter() - t0
+    _projection_line("suite #4 projection (2 x 30 000 rows, main cluster)",
+                     row)
+    return row
+
+
+def suite_projection_real(device) -> dict:
+    """(2e d, real size): config #4 at ``PROJECTION_PARTITIONS`` x
+    ``PROJECTION_ROWS`` rows of the same schema, on a cluster of its own
+    (one worker, a MEM tier of the table plus 256 MiB in ``/dev/shm``,
+    32 MiB blocks). Partitions are cut only when ``/dev/shm`` lacks the
+    room, and the cut is printed."""
+    from alluxio_tpu_torch.stress import tpu_suite
+    from alluxio_tpu_torch.stress.cluster import bench_cluster
+
+    parts = PROJECTION_PARTITIONS
+    # a 23-column row is 96 bytes decoded; Parquet adds under a tenth
+    part_bytes = PROJECTION_ROWS * 96 * 11 // 10
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    need = parts * part_bytes + (512 << 20)
+    print(f"suite #4: /dev/shm free {free} bytes, the real-size table needs "
+          f"{need}", flush=True)
+    if free < need:
+        parts = max(2, (free - (512 << 20)) // part_bytes)
+        print(f"suite #4: CUT to {parts} partitions of {PROJECTION_ROWS} "
+              f"rows to fit /dev/shm", flush=True)
+    t0 = time.perf_counter()
+    with bench_cluster(block_size=BLOCK_BYTES,
+                       worker_mem_bytes=parts * part_bytes + (256 << 20)
+                       ) as (fs, _cluster):
+        row = tpu_suite.config4_projection(fs, device,
+                                           rows_per_part=PROJECTION_ROWS,
+                                           partitions=parts)
+    row["s"] = time.perf_counter() - t0
+    row["partitions"] = parts
+    row["rows_per_part"] = PROJECTION_ROWS
+    _projection_line(f"suite #4 projection ({parts} x {PROJECTION_ROWS} "
+                     f"rows, own cluster)", row)
+    return row
+
+
+def suite_pushdown() -> dict:
+    """(2e d, pushdown): ``table_bench.run_pushdown`` at its defaults (4 x
+    40 000 rows of the 23-column store_sales table, 3 repeats, a modeled
+    2 ms, 1000 Mb/s wire): the planned and the legacy path over the same
+    warm table. It fails when the planned path's table differs from the
+    legacy path's; the bench's own 2x gate is printed."""
+    from alluxio_tpu_torch.stress import table_bench
+
+    t0 = time.perf_counter()
+    r = table_bench.run_pushdown()
+    m = r.metrics
+    out = {"params": r.params, "metrics": m, "errors": r.errors,
+           "s": time.perf_counter() - t0}
+    if not m["byte_identical"]:
+        fail("pushdown: the planned path's table differs from the legacy "
+             "path's")
+    gate = "met" if m["speedup"] >= r.params["min_speedup"] else "MISSED"
+    print(f"pushdown (4 x 40 000 rows, 3 of 23 columns, modeled 2 ms RTT): "
+          f"planned {m['planned_ms']} ms against legacy {m['legacy_ms']} ms "
+          f"a read of the table, {m['speedup']}x (the bench's "
+          f"{r.params['min_speedup']}x gate {gate}), "
+          f"{m['projected_mb_per_s']} MB/s projected; planned table equal "
+          f"to the legacy one; stage {out['s']:.1f} s", flush=True)
+    return out
+
+
+# -- clairvoyant prefetch bench (2f) ------------------------------------------
+def clairvoyant_phase(device) -> dict:
+    """(2f): ``prefetch_bench.run_clairvoyant`` on the card, at the JAX
+    defaults (4 x 8 MiB in 1 MiB blocks, lookahead 16, 128 MiB budget,
+    every placement in DRAM) and at the main path's corpus (64 x 32 MiB in
+    32 MiB blocks, lookahead 16, a 512 MiB budget, ``hbm_fraction``
+    0.25), two epochs each; the file count of the second is cut only if
+    ``/dev/shm`` lacks the room. Every consumed block must equal its
+    file's bytes (the bench checks, on the card)."""
+    from alluxio_tpu_torch.stress import prefetch_bench
+
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    files = NUM_BLOCKS
+    need = 2 * files * BLOCK_BYTES + (512 << 20)
+    print(f"clairvoyant: /dev/shm free {free} bytes, the corpus run needs "
+          f"{need}", flush=True)
+    if free < need:
+        files = max(4, (free - (512 << 20)) // (2 * BLOCK_BYTES))
+        print(f"clairvoyant: CUT to {files} files of {BLOCK_BYTES >> 20} "
+              f"MiB to fit /dev/shm", flush=True)
+    runs = {}
+    for name, kw in (
+            ("defaults", {}),
+            ("corpus", dict(num_files=files, file_bytes=BLOCK_BYTES,
+                            block_size=BLOCK_BYTES,
+                            lookahead_blocks=PREFETCH_LOOKAHEAD,
+                            budget_bytes=512 << 20, hbm_fraction=0.25))):
+        t0 = time.perf_counter()
+        r = prefetch_bench.run_clairvoyant(device=device, **kw)
+        m = r.metrics
+        runs[name] = {"params": r.params, "metrics": m,
+                      "s": time.perf_counter() - t0}
+        if m["block_mismatches"] or m["blocks_checked"] != \
+                r.params["epochs"] * m["blocks_per_epoch"]:
+            fail(f"clairvoyant {name}: {m['block_mismatches']} of "
+                 f"{m['blocks_checked']} consumed blocks differ from their "
+                 f"files")
+        stalls = {k[len("stall_"):-2]: v for k, v in m.items()
+                  if k.startswith("stall_") and k.endswith("_s")}
+        p = r.params
+        print(f"clairvoyant {name} ({p['num_files']} x "
+              f"{p['file_bytes'] >> 20} MiB in {p['block_size'] >> 20} MiB "
+              f"blocks, lookahead {p['lookahead_blocks']}, budget "
+              f"{p['budget_bytes'] >> 20} MiB, hbm_fraction "
+              f"{p['hbm_fraction']}, {p['epochs']} epochs): hit rate "
+              f"{m['hit_rate']} ({m['hits']} / {m['late']} / {m['misses']} "
+              f"hit/late/miss, {m['late_arrivals']} late arrivals), block "
+              f"ready p50 {m['p50_block_ready_ms']} ms p99 "
+              f"{m['p99_block_ready_ms']} ms, {m['gb_per_s']} GB/s; stalls "
+              f"{stalls} s, input-bound {m['input_bound_fraction']}, "
+              f"verdict: {m['stall_verdict']}; {m['blocks_checked']} "
+              f"consumed blocks equal their files on the card; "
+              f"{runs[name]['s']:.1f} s", flush=True)
+    return runs
 
 
 # -- page-cache phase ---------------------------------------------------------
@@ -3465,11 +3629,28 @@ def main() -> int:
         prefetch = prefetch_phase(device, main, K)
         master = master_phase(device, main, K)
         suite = {"random_4k": suite_random_4k(device, main)}
+        # the table read path runs no kernel of the port (JAX's config #4
+        # reaches no Pallas kernel): its count is read all the same
+        from alluxio_tpu_torch.ops import reduce_kernel as rk
+        rk.launches = 0
+        suite["projection"] = suite_projection(device, main)
+        table_launches = rk.launches
         # the cluster's MEM tier leaves /dev/shm before 2e and 2c build
         # their own
         stop_cluster(main)
         suite["prefetch"] = suite_prefetch(device, K)
+        rk.launches = 0
+        suite["projection_real"] = suite_projection_real(device)
+        suite["pushdown"] = suite_pushdown()
+        table_launches += rk.launches
+        suite["table_launches"] = table_launches
         suite["write_eviction"] = suite_write_eviction(main)
+        rk.launches = 0
+        clairvoyant = clairvoyant_phase(device)
+        clairvoyant["launches"] = rk.launches
+        print(f"table path: scaled_sum launched {table_launches} times, "
+              f"clairvoyant path {clairvoyant['launches']} (neither has a "
+              f"kernel of its own)", flush=True)
         page_cache = page_cache_phase(device, workdir, main)
         worker = worker_phase(device, workdir, main, K)
         del main["blocks"]
@@ -3477,7 +3658,6 @@ def main() -> int:
         decode_phase(device, files, DECODE_BLOCKS, BLOCK_BYTES)
         # the train path runs no kernel of the port (the JAX e2e path
         # reaches no Pallas kernel): its count is read all the same
-        from alluxio_tpu_torch.ops import reduce_kernel as rk
         rk.launches = 0
         train = train_phase(device, workdir, files)
         train["kernel_launches"] = {"scaled_sum": rk.launches}
@@ -3503,6 +3683,7 @@ def main() -> int:
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"suite": suite}), flush=True)
+    print(json.dumps({"clairvoyant": clairvoyant}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "scaled_sum", "route": "cuda",
         "source": "alluxio_tpu_torch/ops/csrc/reduce_kernel.cu",
@@ -3514,6 +3695,8 @@ def main() -> int:
             "prefetch": prefetch["scan_launches"],
             "master": master["scan_launches"],
             "suite": suite["prefetch"]["launches"],
+            "table": suite["table_launches"],
+            "clairvoyant": clairvoyant["launches"],
             "page_cache": page_cache["scan_launches"],
             "worker": worker["launches"],
             "worker_shm": worker["shm_read"]["scan_launches"],

@@ -402,3 +402,35 @@ def test_suite_prefetch_onto_the_card(cuda):
     assert c["chain"] == c["plain"] == c["warm_plain"]
     assert row["num_blocks"] == 8
     assert row["blocks_by_host"] == {"localhost-w0": 4, "localhost-w1": 4}
+
+
+def test_suite_projection_onto_the_card(cuda, tmp_path):
+    """BASELINE config #4 at 2 x 3 000 rows on the port's cluster: the
+    three projected columns land on the card, equal to the table's (the
+    stage checks them there), and the row carries the reference's keys."""
+    from alluxio_tpu_torch.minicluster import LocalCluster
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    with LocalCluster(str(tmp_path), block_size=1 << 20) as cluster:
+        fs = cluster.file_system()
+        row = tpu_suite.config4_projection(fs, cuda, rows_per_part=3000)
+        fs.close()
+    assert row["columns_checked"] == 6
+    assert row["projected_bytes"] == 2 * 3000 * 12
+    for key in ("full_scan_s", "projection_s", "full_bytes", "vs_baseline"):
+        assert key in row
+
+
+def test_clairvoyant_bench_on_the_card(cuda):
+    """The clairvoyant prefetch bench at 2 files x 4 MiB with device-tier
+    placements: every consumed block is on the card and equal to its
+    file's bytes, and every block was consumed."""
+    from alluxio_tpu_torch.stress import prefetch_bench
+
+    r = prefetch_bench.run_clairvoyant(device=cuda, num_files=2,
+                                       file_bytes=4 << 20,
+                                       hbm_fraction=0.25)
+    m = r.metrics
+    assert m["block_mismatches"] == 0
+    assert m["blocks_checked"] == 2 * m["blocks_per_epoch"] == 16
+    assert m["hits"] + m["late"] + m["misses"] == 16

@@ -71,7 +71,10 @@ def test_importing_every_module_loads_no_jax():
               "job.plans.migrate", "job.master", "job.worker",
               "job.process", "rpc.job_service", "master.replication",
               "master.persistence", "stress", "stress.base",
-              "stress.cluster", "stress.write_bench", "stress.tpu_suite"):
+              "stress.cluster", "stress.write_bench", "stress.tpu_suite",
+              "table", "table.plan", "table.reader", "table.udb",
+              "table.master", "rpc.table_service", "job.plans.transform",
+              "stress.table_bench", "stress.prefetch_bench"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -4,7 +4,9 @@
 - the job wire types pack to the same msgpack bytes in both packages, and
   a record decoded by either re-encodes to the same bytes;
 - each plan's ``select_executors`` picks the same executors and task
-  arguments (or raises the same error) in both packages, over the same
+  arguments (or raises the same error) in both packages (replicate's
+  targets start at the block id's place in the JAX order, the port's one
+  difference), over the same
   seeded cluster view: files and their blocks, the block workers that
   are live, where each block is cached, the registered job workers;
 - one ``JobMaster`` of each package, on a manual clock and over the same
@@ -13,8 +15,8 @@
   detection (with reassignment), cancels and status reads, answers
   alike at every step, errors included;
 - the task failover of ``_PlanCoordinator`` (the JAX cases, on both);
-- the port's registry holds the JAX plans but ``transform`` and
-  ``stressbench``, and refuses those two by name.
+- the port's registry holds the JAX plans but ``stressbench``, and
+  refuses that one by name.
 """
 
 import importlib
@@ -219,6 +221,20 @@ def _select_configs(plan: str, layout: dict, rng) -> list:
     if plan == "persist":
         return [{"path": p, "inode_id": i} for i, p in enumerate(files)] + [
             {}, {"path": "/missing"}]
+    if plan == "transform":
+        tables = []
+        for n in (0, 1, 3, 5):
+            specs = [f"year={2000 + int(y)}" for y in
+                     rng.choice(30, size=n, replace=False)] if n != 1 \
+                else [""]
+            tables.append({"name": f"t{n}", "location": f"/wh/t{n}",
+                           "partitions": [
+                               {"spec": sp, "location":
+                                f"/wh/t{n}/{sp}" if sp else f"/wh/t{n}",
+                                "values": {}} for sp in specs]})
+        return [{"table_wire": t, "output_root": f"{t['location']}/_out"}
+                for t in tables] + [{"output_root": "/x"},
+                                    {"table_wire": {}, "output_root": "/x"}]
     if plan == "migrate":
         return [{"source": "/data", "destination": "/out"},
                 {"source": "/data/a", "destination": "/dst"},
@@ -229,9 +245,21 @@ def _select_configs(plan: str, layout: dict, rng) -> list:
     raise AssertionError(plan)
 
 
+def _spread(want, cfg, select):
+    """The JAX replicate selection with the port's one difference: the
+    ordered non-holders (all of them, from the JAX plan asked for more
+    copies than there are workers) start at the block id modulo their
+    count (``alluxio_tpu_torch/job/plans/replicate.py``)."""
+    if want[0] != "ok" or not want[1]:
+        return want
+    full = select(dict(cfg, replicas=1 << 10))[1]
+    start = cfg["block_id"] % len(full)
+    return ("ok", (full[start:] + full[:start])[:int(cfg.get("replicas", 1))])
+
+
 @pytest.mark.parametrize("seed", [11, 12, 13, 14])
 @pytest.mark.parametrize("plan", ["load", "replicate", "evict", "move",
-                                  "persist", "migrate"])
+                                  "persist", "migrate", "transform"])
 def test_select_executors_equal(plan, seed):
     layout = _layout(seed)
     rng = np.random.default_rng(seed)
@@ -249,6 +277,12 @@ def test_select_executors_equal(plan, seed):
         got[pkg] = [_outcome(lambda: definition.select_executors(
             dict(cfg, type=plan), _job_workers(pkg, roster), ctx))
             for cfg in configs for roster in rosters]
+        if plan == "replicate" and pkg == "alluxio_tpu":
+            got[pkg] = [_spread(want, cfg, lambda c: _outcome(
+                lambda: definition.select_executors(
+                    dict(c, type=plan), _job_workers(pkg, roster), ctx)))
+                for want, (cfg, roster) in zip(got[pkg], [
+                    (c, r) for c in configs for r in rosters])]
     assert got["alluxio_tpu"] == got["alluxio_tpu_torch"]
     # the views are not trivial: some selections pick executors
     assert any(o[0] == "ok" and o[1] for o in got["alluxio_tpu_torch"])
@@ -372,7 +406,22 @@ def _script(master, pkg, layout, seed, steps=160):
 
 
 @pytest.mark.parametrize("seed", [21, 22, 23, 24])
-def test_job_master_scripts_equal(seed):
+def test_job_master_scripts_equal(seed, monkeypatch):
+    # the JAX replicate plan picks its targets by the port's rule (the
+    # one difference, held by test_select_executors_equal), so that the
+    # job masters' answers can be compared step by step
+    jax_replicate = _mod("alluxio_tpu", "job.plan").default_registry() \
+        .get("replicate")
+    select = jax_replicate.select_executors
+
+    def spread(config, workers, ctx):
+        want = _outcome(lambda: select(config, workers, ctx))
+        if want[0] == "error":
+            return select(config, workers, ctx)  # raises the same error
+        return _spread(want, config,
+                       lambda c: _outcome(lambda: select(c, workers, ctx)))[1]
+
+    monkeypatch.setattr(jax_replicate, "select_executors", spread)
     layout = _layout(seed)
     masters = {}
     for pkg in PACKAGES:
@@ -486,7 +535,7 @@ class TestTaskFailover:
 
 
 # -- the registry -------------------------------------------------------------
-WAITING = ("stressbench", "transform")
+WAITING = ("stressbench",)
 
 
 def test_registry_names_are_jax_minus_the_waiting_plans():

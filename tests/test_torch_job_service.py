@@ -335,6 +335,39 @@ def test_over_replicated_file_trims(env):
     env.wait_hosts(bid, lambda hosts: len(hosts) == 1)
 
 
+def test_uncached_persisted_block_comes_back_from_the_ufs(env):
+    """A persisted file with no cached copy and ``replication_min`` 1: the
+    port's checker re-replicates its block from the UFS. The reference's
+    launches replicate jobs that fail for want of a cached copy, again
+    every heartbeat, and the block never comes back (the fault that made
+    the prefetch bench's worker-kill drill fail when eviction pressure
+    had dropped the surviving copy of a block)."""
+    path = "/heal-cold"
+    env.fs.write_all(path, b"c" * 8192, write_type="CACHE_THROUGH")
+    env.fs.free(path, forced=True)
+    env.wait_uncached(path)
+    assert env.fs.get_status(path).persisted
+    env.fs.set_attribute(path, replication_min=1)
+    bid = env.block_ids(path)[0]
+    if env.pkg == "alluxio_tpu_torch":
+        env.wait_hosts(bid, lambda hosts: len(hosts) == 1)
+        assert env.fs.read_all(path) == b"c" * 8192
+        return
+    checker = env.cluster.master.replication_checker
+    deadline = time.monotonic() + 10.0
+    failed = None
+    while failed is None and time.monotonic() < deadline:
+        job_id = checker._inflight.get(bid)
+        if job_id is not None and job_id >= 0:
+            info = env.jc.get_status(job_id)
+            if info.status == "FAILED":
+                failed = info
+        time.sleep(0.02)
+    assert failed is not None, "the reference's checker launched no job"
+    assert "no cached copy to replicate from" in failed.error_message
+    assert not env.hosts(bid)
+
+
 def test_lost_worker_triggers_re_replication(own_env):
     """Kill a block worker holding one of two copies: the checker restores
     replication_min on a third worker and its job worker."""

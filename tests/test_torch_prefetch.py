@@ -624,3 +624,56 @@ class TestPortWorker:
             assert port_run[key] == jax_run[key], summary
         assert [len(e) for e in port_run["bytes"]] == \
             [len(e) for e in jax_run["bytes"]]
+
+
+# -- PrefetchService.from_conf ------------------------------------------------
+FROM_CONF_CASES = (
+    {},
+    {"atpu.prefetch.enabled": "true"},
+    {"atpu.prefetch.enabled": "true", "atpu.prefetch.lookahead.blocks": "5",
+     "atpu.prefetch.budget.bytes": "3MB", "atpu.prefetch.hbm.fraction": "0.5",
+     "atpu.prefetch.heartbeat.interval.ms": "25ms"},
+    {"prefetch.enabled": "true", "prefetch.lookahead.blocks": "2",
+     "prefetch.budget.bytes": "1000", "prefetch.hbm.fraction": "1.0",
+     "prefetch.heartbeat.interval.ms": "2s"},
+    {"atpu.prefetch.enabled": "false", "atpu.prefetch.lookahead.blocks": "5"},
+)
+
+
+def _knobs(svc):
+    if svc is None:
+        return None
+    s = svc.scheduler
+    return (s._lookahead, s._budget, s._hbm_budget, s._hbm_fraction,
+            svc._interval, type(svc.agent._executor).__name__)
+
+
+@pytest.mark.parametrize("props", FROM_CONF_CASES,
+                         ids=lambda p: ",".join(f"{k.split('.')[-1]}={v}"
+                                                for k, v in p.items())
+                         or "defaults")
+@pytest.mark.parametrize("with_jobs", (False, True), ids=("worker", "jobs"))
+def test_from_conf_builds_what_jax_builds(hb_cluster, props, with_jobs):
+    """For the same properties (canonical names and their aliases), both
+    packages' ``from_conf`` build a loop with equal lookahead, budget,
+    HBM fraction and heartbeat interval and the same kind of executor, or
+    both return None when the service is off."""
+    from alluxio_tpu.conf import Configuration as JaxConfiguration
+    from alluxio_tpu_torch.conf import Configuration
+
+    fs = hb_cluster.file_system()
+    paths = _write_cold_corpus(hb_cluster, fs, n_files=1,
+                               file_bytes=2 * BLOCK, base="/pf-conf")
+    jobs = object() if with_jobs else None
+    got = []
+    for pkg_conf, svc_cls in ((JaxConfiguration, jp.PrefetchService),
+                              (Configuration, PrefetchService)):
+        svc = svc_cls.from_conf(pkg_conf(dict(props), load_env=False), fs,
+                                paths, seed=3, job_client=jobs)
+        got.append(_knobs(svc))
+        if svc is not None:
+            svc.close()
+    assert got[0] == got[1]
+    enabled = props.get("atpu.prefetch.enabled",
+                        props.get("prefetch.enabled")) == "true"
+    assert (got[1] is None) == (not enabled)

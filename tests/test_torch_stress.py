@@ -9,10 +9,20 @@
 - ``write_bench.run`` at a small size passes its checks in both packages
   with equal params, the port's metrics a superset of the JAX ones, every
   file read back right, and a file holding another file's bytes fails;
-- ``tpu_suite``'s configs #2, #3 and #5 at small sizes with
+- ``tpu_suite``'s configs #2, #3, #4 and #5 at small sizes with
   ``device="cpu"`` give rows with the JAX keys (the JAX configs run on
-  JAX's CPU device) and pass their checks; the port's ``run_all`` runs
-  the three and lets a raising stage raise.
+  JAX's CPU device) and pass their checks (config #4's projected columns
+  on the device equal the table's); the port's ``run_all`` runs the four
+  in the reference's order and lets a raising stage raise;
+- ``table_bench.run`` and ``run_pushdown`` at the JAX test's size give
+  the JAX params and metric keys, and raise without pyarrow (the JAX
+  bench returns a skipped row);
+- ``prefetch_bench.run`` at the JAX test's size, and its fault drill at
+  JAX's (four workers, replication 2, eviction pressure, a worker killed
+  mid-load), give the JAX params and metric keys with every file read
+  back equal to its payload; ``run_clairvoyant`` at the JAX defaults
+  gives the JAX keys, consumes as many blocks as JAX's for the same seed
+  with no miss, and every consumed block equals its file's bytes.
 """
 
 import importlib
@@ -263,7 +273,59 @@ def test_config5_rows_carry_the_jax_keys(monkeypatch):
     assert got["unpressured_cold_write_mb_per_s"] == 100.0
 
 
+def test_config4_rows_carry_the_jax_keys(tmp_path):
+    from alluxio_tpu.minicluster import LocalCluster as JaxCluster
+    from alluxio_tpu.stress import tpu_suite as jax_suite
+    from alluxio_tpu_torch.minicluster import LocalCluster
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    kw = dict(rows_per_part=3000, partitions=2)
+    with JaxCluster(str(tmp_path / "jax"), block_size=1 << 20) as jc:
+        fs = jc.file_system()
+        jax, dev = _jax_cpu()
+        want = jax_suite.config4_projection(jax, fs, dev, **kw)
+        fs.close()
+    with LocalCluster(str(tmp_path / "port"), block_size=1 << 20) as pc:
+        fs = pc.file_system()
+        got = tpu_suite.config4_projection(fs, "cpu", **kw)
+        fs.close()
+    assert set(want) <= set(got)
+    assert (got["config"], got["unit"]) == (want["config"], want["unit"])
+    # the same seeded table: the same decoded bytes in both packages
+    assert got["full_bytes"] == want["full_bytes"]
+    assert got["columns_checked"] == 6
+    assert got["projected_bytes"] == 2 * 3000 * (4 + 4 + 4)
+    assert got["value"] > 0 and got["full_scan_s"] >= 0
+
+
+def test_config4_checks_the_device_columns(tmp_path, monkeypatch):
+    """A projected column that differs on the device fails the stage."""
+    import torch
+
+    from alluxio_tpu_torch.minicluster import LocalCluster
+    from alluxio_tpu_torch.stress import tpu_suite
+
+    real = tpu_suite._put
+    puts = []
+
+    def corrupt(arr, device):
+        t = real(arr, device)
+        puts.append(t)
+        if len(puts) == 2:  # partition 0's label column
+            t[7] += torch.tensor(1, dtype=t.dtype)
+        return t
+
+    monkeypatch.setattr(tpu_suite, "_put", corrupt)
+    with LocalCluster(str(tmp_path), block_size=1 << 20) as pc:
+        fs = pc.file_system()
+        with pytest.raises(RuntimeError,
+                           match="column label of /bench/proj-0.parquet"):
+            tpu_suite.config4_projection(fs, "cpu", rows_per_part=500)
+        fs.close()
+
+
 def test_run_all_runs_the_three_configs(monkeypatch, tmp_path):
+    """Now the four configs, in the reference's order (#4 joined them)."""
     from alluxio_tpu_torch.stress import tpu_suite
 
     calls = []
@@ -273,29 +335,36 @@ def test_run_all_runs_the_three_configs(monkeypatch, tmp_path):
     monkeypatch.setattr(tpu_suite, "config3_prefetch",
                         lambda device, **kw: calls.append(
                             ("3", str(device), kw)) or {"config": "3"})
+    monkeypatch.setattr(tpu_suite, "config4_projection",
+                        lambda fs, device, **kw: calls.append(
+                            ("4", fs, str(device), kw)) or {"config": "4"})
     monkeypatch.setattr(tpu_suite, "config5_write_eviction",
                         lambda **kw: calls.append(("5", kw))
                         or {"config": "5"})
     out = tmp_path / "rows.json"
     rows = tpu_suite.run_all("fs", "cpu", shard_bytes=128 << 20,
                              cold_write_rate=2e9, out_path=str(out))
-    assert rows == [{"config": "2"}, {"config": "3"}, {"config": "5"}]
+    assert rows == [{"config": "2"}, {"config": "3"}, {"config": "4"},
+                    {"config": "5"}]
     assert calls == [("2", "fs", "cpu", {"shard_bytes": 64 << 20}),
                      ("3", "cpu", {"file_bytes": 32 << 20}),
+                     ("4", "fs", "cpu", {}),
                      ("5", {"cold_write_rate": 2e9})]
     assert json.loads(out.read_text()) == rows
 
 
-@pytest.mark.parametrize("stage", ["config2_random_4k", "config3_prefetch",
-                                   "config5_write_eviction"])
+STAGES = ("config2_random_4k", "config3_prefetch", "config4_projection",
+          "config5_write_eviction")
+
+
+@pytest.mark.parametrize("stage", STAGES)
 def test_run_all_lets_a_failed_stage_raise(stage, monkeypatch):
     """No fallback: the reference logs a failed stage and goes on; the
     port's run_all raises it."""
     from alluxio_tpu_torch.stress import tpu_suite
 
     ran = []
-    for name in ("config2_random_4k", "config3_prefetch",
-                 "config5_write_eviction"):
+    for name in STAGES:
         monkeypatch.setattr(tpu_suite, name,
                             lambda *a, _n=name, **k: ran.append(_n)
                             or {"config": _n})
@@ -307,9 +376,7 @@ def test_run_all_lets_a_failed_stage_raise(stage, monkeypatch):
     with pytest.raises(RuntimeError, match=f"{stage} failed"):
         tpu_suite.run_all("fs", "cpu", shard_bytes=1 << 20,
                           cold_write_rate=1.0)
-    order = ["config2_random_4k", "config3_prefetch",
-             "config5_write_eviction"]
-    assert ran == order[:order.index(stage)]
+    assert ran == list(STAGES[:STAGES.index(stage)])
 
 
 def test_suite_device_defaults_to_the_card(monkeypatch):
@@ -322,3 +389,139 @@ def test_suite_device_defaults_to_the_card(monkeypatch):
         tpu_suite.config3_prefetch(file_bytes=1 << 20)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpu_suite.run_all("fs", shard_bytes=1 << 20, cold_write_rate=1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpu_suite.config4_projection("fs")
+    from alluxio_tpu_torch.stress import prefetch_bench
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prefetch_bench.run_clairvoyant()
+
+
+# -- the table bench ----------------------------------------------------------
+SMALL_TABLE = dict(partitions=2, rows_per_partition=2000, repeats=1)
+
+
+@pytest.mark.parametrize("bench", ["run", "run_pushdown"])
+def test_table_bench_gives_the_jax_params_and_keys(bench):
+    results = {pkg: getattr(_mod(pkg, "stress.table_bench"), bench)(
+        **SMALL_TABLE) for pkg in PACKAGES}
+    jax, port = results["alluxio_tpu"], results["alluxio_tpu_torch"]
+    assert (port.bench, port.params) == (jax.bench, jax.params)
+    assert set(port.metrics) == set(jax.metrics)
+    # the same seeded files, byte for byte
+    assert port.metrics["file_bytes"] == jax.metrics["file_bytes"]
+    if bench == "run":
+        assert jax.errors == port.errors == 0
+        assert port.metrics["rows"] == 4000
+        assert 0 < port.metrics["byte_selectivity"] < 0.6
+    else:
+        # the planned path's table equals the legacy path's (the speed
+        # gate is the card's: these tiny files fall under its 2x)
+        assert port.metrics["byte_identical"] == 1
+
+
+@pytest.mark.parametrize("bench", ["run", "run_pushdown"])
+def test_table_bench_raises_without_pyarrow(bench, monkeypatch):
+    """The reference returns a skipped row; the port raises before it
+    builds a cluster."""
+    import sys
+
+    from alluxio_tpu_torch.stress import table_bench
+
+    monkeypatch.setitem(sys.modules, "pyarrow", None)
+    with pytest.raises(ImportError):
+        getattr(table_bench, bench)(**SMALL_TABLE)
+
+
+# -- the prefetch benches -----------------------------------------------------
+def test_prefetch_bench_moves_cold_corpus_in_both():
+    kw = dict(num_workers=2, num_files=2, file_bytes=2 << 20,
+              block_size=1 << 20)
+    results = {pkg: _mod(pkg, "stress.prefetch_bench").run(**kw)
+               for pkg in PACKAGES}
+    jax, port = results["alluxio_tpu"], results["alluxio_tpu_torch"]
+    assert (port.bench, port.params) == (jax.bench, jax.params)
+    assert set(jax.metrics) <= set(port.metrics)
+    assert jax.errors == port.errors == 0
+    for r in (jax, port):
+        assert r.metrics["blocks"] == r.metrics["blocks_at_replication"] == 4
+    assert port.metrics["read_back_mismatches"] == 0
+
+
+def test_prefetch_bench_read_back_tells_files_apart(monkeypatch):
+    """A file whose bytes are not its payload counts as a mismatch and an
+    error."""
+    from alluxio_tpu_torch.client.file_system import FileSystem
+
+    real = FileSystem.read_all
+    monkeypatch.setattr(FileSystem, "read_all", lambda self, path: (
+        b"\0" if path.endswith("f-00001") else real(self, path)))
+    from alluxio_tpu_torch.stress import prefetch_bench
+
+    r = prefetch_bench.run(num_workers=1, num_files=2, file_bytes=1 << 20,
+                           block_size=1 << 20)
+    assert r.metrics["read_back_mismatches"] == 1
+    assert r.errors == 1
+
+
+@pytest.mark.steal_prone
+def test_prefetch_fault_drill_end_to_end():
+    """JAX's drill (``tests/test_job_service.py::TestTaskFailover::
+    test_fault_drill_end_to_end``) on the port: replication 2, eviction
+    pressure and a worker killed mid-load; the plan completes, every
+    block ends at replication, and every file reads back right."""
+    from alluxio_tpu_torch.stress.prefetch_bench import run
+
+    r = run(num_workers=4, num_files=8, file_bytes=8 << 20,
+            block_size=4 << 20, replication=2, pressure=True,
+            kill_worker=True)
+    assert r.errors == 0
+    assert r.metrics["blocks_at_replication"] == r.metrics["blocks"]
+    assert r.metrics["evicted_filler_files"] > 0
+    assert r.metrics["killed_mid_job"] is True
+    assert r.metrics["read_back_mismatches"] == 0
+    assert r.params["worker_killed"] is True
+
+
+def test_clairvoyant_bench_matches_jax():
+    """At the JAX defaults and seed: the same params and metric keys
+    (the port's a superset), the same blocks consumed with no miss, and
+    every consumed block equal to its file's bytes. Hits and late
+    arrivals split by the agent's live heartbeat thread, so their split
+    is not held equal, their sum is."""
+    from alluxio_tpu.stress import prefetch_bench as jax_bench
+    from alluxio_tpu_torch.stress import prefetch_bench
+
+    want = jax_bench.run_clairvoyant()
+    got = prefetch_bench.run_clairvoyant(device="cpu")
+    assert got.params == want.params
+    assert set(want.metrics) <= set(got.metrics)
+    for r in (want, got):
+        assert r.metrics["misses"] == 0 and r.errors == 0
+    assert got.metrics["hits"] + got.metrics["late"] == \
+        want.metrics["hits"] + want.metrics["late"] == 64
+    assert got.metrics["blocks_per_epoch"] == \
+        want.metrics["blocks_per_epoch"] == 32
+    assert got.metrics["blocks_checked"] == 64
+    assert got.metrics["block_mismatches"] == 0
+
+
+def test_clairvoyant_bench_checks_the_blocks(monkeypatch):
+    """A consumed block that differs from its file fails the check."""
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.stress import prefetch_bench
+
+    real = DeviceBlockLoader.epoch
+
+    def epoch(self):
+        for i, block in enumerate(real(self)):
+            if i == 5:
+                block = block.clone()
+                block[0] ^= 1
+            yield block
+
+    monkeypatch.setattr(DeviceBlockLoader, "epoch", epoch)
+    r = prefetch_bench.run_clairvoyant(device="cpu", num_files=2,
+                                       epochs=1)
+    assert r.metrics["block_mismatches"] == 1
+    assert r.errors == 1
