@@ -1,9 +1,9 @@
 """Public FileSystem client API: a copy of ``alluxio_tpu/client/file_system.py``.
 
-Left out with the slices that bring them: the trace and profiler
-configuration and the profile that rides the metrics heartbeat (the
-heartbeat ships the metric snapshot and trace spans), and the
-remediation engine's pushed tuning overlay (``apply_conf_overlay``).
+Left out with the slices that bring them: the profiler configuration and
+the profile that rides the metrics heartbeat (the heartbeat ships the
+metric snapshot and trace spans), and the remediation engine's pushed
+tuning overlay (``apply_conf_overlay``).
 
 Re-design of ``core/client/fs/src/main/java/alluxio/client/file/
 {FileSystem.java:79,BaseFileSystem.java:92,FileSystemContext.java:91}``:
@@ -152,10 +152,13 @@ class FileSystem:
     def __init__(self, master_address: str,
                  conf: Optional[Configuration] = None) -> None:
         self._conf = conf or Configuration()
-        if self._conf.get_bool(Keys.TRACE_ENABLED):
-            from alluxio_tpu_torch.utils.tracing import set_tracing_enabled
+        from alluxio_tpu_torch.utils.tracing import (
+            apply_trace_conf, set_tracing_enabled,
+        )
 
+        if self._conf.get_bool(Keys.TRACE_ENABLED):
             set_tracing_enabled(True)
+        apply_trace_conf(self._conf)
         from alluxio_tpu_torch.security.authentication import client_metadata
 
         md = tuple(client_metadata(self._conf))

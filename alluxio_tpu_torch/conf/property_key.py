@@ -667,6 +667,7 @@ class Keys:
 
     # --- master: RPC, safe mode, worker timeout, heartbeats ---
     HOME = _k("atpu.home", default="/tmp/alluxio_tpu")
+    MASTER_HOSTNAME = _k("atpu.master.hostname", default="localhost", scope=Scope.ALL)
     MASTER_RPC_PORT = _k("atpu.master.rpc.port", KeyType.INT, default=19998)
     MASTER_RPC_ADDRESSES = _k(
         "atpu.master.rpc.addresses", scope=Scope.ALL,
@@ -831,6 +832,18 @@ class Keys:
                     "Spans carry a W3C-traceparent context across RPC "
                     "hops, so client/worker/master spans stitch into "
                     "one trace.")
+    TRACE_SAMPLE_RATE = _k(
+        "atpu.trace.sample.rate", KeyType.FLOAT, default=1.0,
+        scope=Scope.ALL,
+        description="Probability a NEW root trace is recorded (0..1). "
+                    "Child spans — local and remote — inherit the "
+                    "root's decision, so traces never tear.")
+    TRACE_RING_CAPACITY = _k(
+        "atpu.trace.ring.capacity", KeyType.INT, default=4096,
+        scope=Scope.ALL,
+        description="Completed spans retained per process (oldest "
+                    "evicted first). Workers/clients drain the ring to "
+                    "the master on the metrics heartbeat.")
 
     # --- client: the file-system client, its streams and metadata cache ---
     USER_BLOCK_SIZE_BYTES_DEFAULT = _k(

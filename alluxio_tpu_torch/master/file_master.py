@@ -60,6 +60,9 @@ ROOT_MOUNT_ID = 1
 #: fallback for "fast tier" classification before any worker registers
 #: its topology (the live answer comes from BlockMaster.top_tiers())
 _DEFAULT_DEVICE_TIERS = frozenset(("HBM", "MEM"))
+#: rounds of "make the UFS parent dirs, re-check under the tree lock"
+#: before an op whose ancestor chain keeps changing gives up
+_UFS_DIR_ROUNDS = 3
 
 
 def _transpose(rows: "List[dict]") -> dict:
@@ -119,8 +122,11 @@ class FileSystemMaster:
         journal.register(self.inode_tree)
         journal.register(_MountTableJournal(
             self.mount_table, invalidation_sink=self.invalidations.append))
-        #: paths with in-flight async persist (file id -> alluxio path)
+        #: inode ids with async persist requested; added to and drained
+        #: under ``_persist_lock`` only, so no id lands between the
+        #: drain's copy and its clear
         self._persist_requests: "set[int]" = set()
+        self._persist_lock = threading.Lock()
         # serializes persist commits' UFS IO (see commit_persist)
         self._persist_mutex = threading.Lock()
         from alluxio_tpu_torch.master.sync import AbsentPathCache, UfsSyncPathCache
@@ -708,20 +714,22 @@ class FileSystemMaster:
         ``mark_persisted``/``rename`` follow for their fallbacks)."""
         uri = AlluxioURI(path)
         with self.inode_tree.lock_path(uri, write=True) as lip:
-            if self._complete_locked(uri, lip.lookup, length,
-                                     ufs_fingerprint, anc_held=False):
-                return
-        with self.inode_tree.lock.write_locked():
-            self._complete_locked(uri, self.inode_tree.lookup(uri),
-                                  length, ufs_fingerprint, anc_held=True)
+            plan = self._complete_locked(uri, lip.lookup, length,
+                                         ufs_fingerprint)
+        if plan:
+            self._journal_after_ufs_dirs(
+                plan, lambda made: self._complete_locked(
+                    uri, self.inode_tree.lookup(uri), length,
+                    ufs_fingerprint, made=made))
 
     def _complete_locked(self, uri: AlluxioURI, lookup: PathLookup,
                          length: "Optional[int]", ufs_fingerprint: str, *,
-                         anc_held: bool) -> bool:
-        """Validate + journal a complete under the caller's locks;
-        ``anc_held=False`` returns False — nothing journaled — when
-        unpersisted ancestors must flip (only the exclusive tree lock
-        covers those)."""
+                         made: "Set[tuple]" = frozenset()) -> "List[tuple]":
+        """Validate + journal a complete under the caller's locks, or
+        journal nothing and return the UFS directories (not in
+        ``made``, the ones already made) that its unpersisted ancestors
+        still need: flipping those takes the exclusive tree lock, and
+        their directories are made first, with no lock held."""
         from alluxio_tpu_torch.security.authorization import WRITE
 
         self._check_access(lookup, WRITE)
@@ -733,13 +741,12 @@ class FileSystemMaster:
             length = sum(b.length for b in infos)
         anc = self._unpersisted_chain(
             self.inode_tree.parent_of(inode), uri) if ufs_fingerprint else []
-        if not anc_held and anc:
-            return False  # caller retries under the exclusive tree lock
-        if anc:
-            # breadcrumbs BEFORE the durable flip: a crash after the
-            # journal fsync must not leave PERSISTED dirs that exist
-            # only as implicit object prefixes
-            self._ensure_ufs_parent_dirs(uri)
+        # breadcrumbs come BEFORE the durable flip: a crash after the
+        # journal fsync must not leave PERSISTED dirs that exist only as
+        # implicit object prefixes
+        missing = self._ufs_dir_plan(anc, made)
+        if missing:
+            return missing
         with self._journal.create_context() as ctx:
             ctx.append(EntryType.COMPLETE_FILE, {
                 "file_id": inode.id, "length": length,
@@ -748,8 +755,8 @@ class FileSystemMaster:
                 self._journal_persisted(ctx, inode, ufs_fingerprint,
                                         ancestors=anc)
         if inode.persistence_state == PersistenceState.TO_BE_PERSISTED:
-            self._persist_requests.add(inode.id)
-        return True
+            self._request_persist(inode.id)
+        return []
 
     def _existing_file(self, uri: AlluxioURI) -> Inode:
         return self._existing_inode(self.inode_tree.lookup(uri), uri)
@@ -875,22 +882,23 @@ class FileSystemMaster:
         self._check_reserved_name(dst_uri)
         with self.inode_tree.lock_path_pair(src_uri, dst_uri) as (
                 src_lip, dst_lip):
-            if self._rename_locked(src_uri, dst_uri, src_lip.lookup,
-                                   dst_lip.lookup, anc_held=False):
-                return
-        with self.inode_tree.lock.write_locked():
-            self._rename_locked(src_uri, dst_uri,
-                                self.inode_tree.lookup(src_uri),
-                                self.inode_tree.lookup(dst_uri),
-                                anc_held=True)
+            plan = self._rename_locked(src_uri, dst_uri, src_lip.lookup,
+                                       dst_lip.lookup)
+        if plan:
+            self._journal_after_ufs_dirs(
+                plan, lambda made: self._rename_locked(
+                    src_uri, dst_uri, self.inode_tree.lookup(src_uri),
+                    self.inode_tree.lookup(dst_uri), made=made))
 
     def _rename_locked(self, src_uri: AlluxioURI, dst_uri: AlluxioURI,
                        src_lookup: PathLookup, dst_lookup: PathLookup, *,
-                       anc_held: bool) -> bool:
-        """Validate + journal a rename under the caller's locks.
-        ``anc_held=False`` (striped): returns False — nothing journaled
-        — when the op needs PERSISTED flips above dst's parent, which
-        only the exclusive tree lock covers."""
+                       made: "Set[tuple]" = frozenset()) -> "List[tuple]":
+        """Validate + journal a rename under the caller's locks, or
+        journal nothing and return the UFS directories (not in
+        ``made``) that dst's unpersisted ancestors still need when the
+        op must flip them to PERSISTED: the flip takes the exclusive
+        tree lock, and the directories are made first with no lock
+        held."""
         inode = src_lookup.inode
         self._check_delete(src_lookup)
         if self.mount_table.is_mount_point(src_uri):
@@ -915,16 +923,14 @@ class FileSystemMaster:
             self._check_ufs_writable(src_uri)
         dst_anc = self._unpersisted_chain(new_parent, dst_uri) \
             if persisted else []
-        if not anc_held and any(a.id != new_parent.id for a in dst_anc):
-            return False  # caller retries under the exclusive tree lock
-        if dst_anc:
-            # the UFS rename will implicitly create dst's parent
-            # chain; those inodes flip PERSISTED in the SAME journal
-            # context as the RENAME (a second context would leave a
-            # crash window replaying the rename with NOT_PERSISTED
-            # dst parents — re-opening the ghost-tree bug), and
-            # breadcrumbs land first
-            self._ensure_ufs_parent_dirs(dst_uri)
+        missing = self._ufs_dir_plan(dst_anc, made)
+        if missing:
+            return missing
+        # the UFS rename will implicitly create dst's parent chain;
+        # those inodes flip PERSISTED in the SAME journal context as the
+        # RENAME (a second context would leave a crash window replaying
+        # the rename with NOT_PERSISTED dst parents — re-opening the
+        # ghost-tree bug)
         with self._journal.create_context() as ctx:
             ctx.append(EntryType.RENAME, {
                 "id": inode.id, "new_parent_id": new_parent.id,
@@ -934,7 +940,7 @@ class FileSystemMaster:
         if persisted:
             self._rename_in_ufs(src_uri, dst_uri, inode.is_directory)
         self._absent_cache.remove(dst_uri.path)
-        return True
+        return []
 
     def _rename_in_ufs(self, src_uri: AlluxioURI, dst_uri: AlluxioURI,
                        is_dir: bool) -> None:
@@ -1275,15 +1281,23 @@ class FileSystemMaster:
                 ctx.append(EntryType.SET_ATTRIBUTE, {
                     "id": inode.id,
                     "persistence_state": PersistenceState.TO_BE_PERSISTED})
-            self._persist_requests.add(inode.id)
+            self._request_persist(inode.id)
+
+    def _request_persist(self, inode_id: int) -> None:
+        with self._persist_lock:
+            self._persist_requests.add(inode_id)
 
     def pop_persist_requests(self) -> "set[int]":
         """Drain scheduled persist work as inode IDS (consumed by the
         persistence scheduler heartbeat). Paths are deliberately NOT
         stored here — a stored path is stale-by-design after a rename;
-        the scheduler re-resolves via ``current_path_of``."""
-        out = set(self._persist_requests)
-        self._persist_requests.clear()
+        the scheduler re-resolves via ``current_path_of``. The copy and
+        the clear are one step under the lock every add takes, so an id
+        requested meanwhile waits for the next drain instead of being
+        cleared unseen."""
+        with self._persist_lock:
+            out = set(self._persist_requests)
+            self._persist_requests.clear()
         return out
 
     def _unpersisted_chain(self, start, mount_uri: AlluxioURI) -> list:
@@ -1326,22 +1340,57 @@ class FileSystemMaster:
         for cur in ancestors:
             ctx.append(EntryType.PERSIST_FILE, {"id": cur.id})
 
-    def _ensure_ufs_parent_dirs(self, uri: AlluxioURI) -> None:
-        """Make the UFS parent chain of ``uri`` explicit (breadcrumb
-        objects on object stores, real dirs elsewhere; idempotent). A
-        directory inode marked PERSISTED must exist in the UFS in its
-        own right — implicit-prefix-only existence means metadata sync
-        would delete the directory (and its cache-only children) as
-        soon as its last persisted file is removed."""
-        parent = uri.parent()
-        if parent is None:
-            return
-        try:
-            res = self.mount_table.resolve(parent)
-            self._ufs.get(res.mount_id).mkdirs(res.ufs_path)
-        except Exception:  # noqa: BLE001 best-effort; sync self-heals
-            LOG.debug("breadcrumb mkdirs for %s failed", parent,
-                      exc_info=True)
+    def _ufs_dir_plan(self, ancestors: list,
+                      made: "Set[tuple]" = frozenset()) -> "List[tuple]":
+        """The UFS directories that ``ancestors`` (unpersisted
+        directory inodes of one mount, nearest first) need and that are
+        not in ``made``, shallowest first, as ``(mount id, UFS path)``.
+        Decided under the caller's tree locks; :meth:`_make_ufs_dirs`
+        makes them after release."""
+        plan = []
+        for inode in reversed(ancestors):
+            res = self.mount_table.resolve(self.inode_tree.get_path(inode))
+            if (res.mount_id, res.ufs_path) not in made:
+                plan.append((res.mount_id, res.ufs_path))
+        return plan
+
+    def _make_ufs_dirs(self, plan: "List[tuple]") -> "Set[tuple]":
+        """Make the UFS directories of ``plan`` (breadcrumb objects on
+        object stores, real dirs elsewhere; idempotent) with no tree
+        lock held, and return them as a set. A directory inode marked
+        PERSISTED must exist in the UFS in its own right —
+        implicit-prefix-only existence means metadata sync would delete
+        the directory (and its cache-only children) as soon as its last
+        persisted file is removed — and a PERSISTED inode under a
+        NOT_PERSISTED directory brings back the ghost tree
+        (:meth:`_journal_persisted`). So a failed mkdirs raises
+        :class:`UnavailableError` before the caller journals anything or
+        touches the UFS: the op, or the persist job, is retried."""
+        for mount_id, ufs_path in plan:
+            try:
+                self._ufs.get(mount_id).mkdirs(ufs_path)
+            except Exception as e:  # noqa: BLE001 any UFS fault: retry
+                raise UnavailableError(
+                    f"mkdirs {ufs_path} failed in the UFS: {e}") from e
+        return set(plan)
+
+    def _journal_after_ufs_dirs(self, plan: "List[tuple]", step) -> None:
+        """Make ``plan``'s UFS directories with no tree lock held, then
+        run ``step(made)`` under the exclusive tree lock. ``step``
+        re-derives the op and journals it once every directory its
+        ancestors now need is in ``made``; otherwise (the chain changed
+        while the lock was released) it journals nothing and returns the
+        rest, made on the next round."""
+        made: "Set[tuple]" = set()
+        for _ in range(_UFS_DIR_ROUNDS):
+            made |= self._make_ufs_dirs(plan)
+            with self.inode_tree.lock.write_locked():
+                plan = step(made)
+            if not plan:
+                return
+        raise UnavailableError(
+            f"the UFS parent chain changed {_UFS_DIR_ROUNDS} times while "
+            "its directories were made")
 
     def current_path_of(self, inode_id: int) -> "Optional[str]":
         """Re-resolve an inode id to its CURRENT path (None when the
@@ -1358,24 +1407,25 @@ class FileSystemMaster:
         striped-fast-path / coarse-ancestor-flip split as
         :meth:`complete_file`."""
         uri = AlluxioURI(path)
-        with self.inode_tree.lock_path(uri, write=True) as lip:
-            inode = self._existing_inode(lip.lookup, uri)
+
+        def step(lookup: PathLookup,
+                 made: "Set[tuple]" = frozenset()) -> "List[tuple]":
+            inode = self._existing_inode(lookup, uri)
             anc = self._unpersisted_chain(
                 self.inode_tree.parent_of(inode), uri)
-            if not anc:
+            missing = self._ufs_dir_plan(anc, made)
+            if not missing:
                 with self._journal.create_context() as ctx:
                     self._journal_persisted(ctx, inode, ufs_fingerprint,
                                             ancestors=anc)
-                return
-        with self.inode_tree.lock.write_locked():
-            inode = self._existing_inode(self.inode_tree.lookup(uri), uri)
-            anc = self._unpersisted_chain(
-                self.inode_tree.parent_of(inode), uri)
-            if anc:  # breadcrumbs BEFORE the durable flip
-                self._ensure_ufs_parent_dirs(uri)
-            with self._journal.create_context() as ctx:
-                self._journal_persisted(ctx, inode, ufs_fingerprint,
-                                        ancestors=anc)
+            return missing
+
+        with self.inode_tree.lock_path(uri, write=True) as lip:
+            plan = step(lip.lookup)
+        if plan:
+            # breadcrumbs BEFORE the durable flip, with no tree lock held
+            self._journal_after_ufs_dirs(
+                plan, lambda made: step(self.inode_tree.lookup(uri), made))
 
     def commit_persist(self, path: "str | AlluxioURI",
                        temp_ufs_path: str, *,
@@ -1425,16 +1475,17 @@ class FileSystemMaster:
                     self._discard_temp(uri, temp_ufs_path)
                     raise
                 resolution = self.mount_table.resolve(uri)
-                anc_ids = [a.id for a in self._unpersisted_chain(
-                    self.inode_tree.parent_of(inode), uri)]
+                plan = self._ufs_dir_plan(self._unpersisted_chain(
+                    self.inode_tree.parent_of(inode), uri))
             ufs = self._ufs.get(resolution.mount_id)
             # phase 2: UFS IO outside the tree lock (can be a
             # multi-second server-side copy on object stores).
             # Parent-chain breadcrumbs FIRST: the ancestors are about
             # to be journaled PERSISTED and must exist explicitly
-            # (steady state — chain already persisted — skips the RPC)
-            if anc_ids:
-                self._ensure_ufs_parent_dirs(uri)
+            # (steady state — chain already persisted — skips the RPC);
+            # a failed mkdirs raises before the rename, and the temp is
+            # left for the job's retry or the UfsCleaner's sweep
+            made = self._make_ufs_dirs(plan)
             if temp_ufs_path:
                 if not ufs.rename_file(temp_ufs_path, resolution.ufs_path):
                     raise UnavailableError(
@@ -1447,7 +1498,14 @@ class FileSystemMaster:
             with self.inode_tree.lock.write_locked():
                 try:
                     inode = _validated_inode()
-                except (FileDoesNotExistError, InvalidPathError):
+                    anc = self._unpersisted_chain(
+                        self.inode_tree.parent_of(inode), uri)
+                    if self._ufs_dir_plan(anc, made):
+                        raise UnavailableError(
+                            f"the UFS parent chain of {uri} changed during "
+                            "the persist commit")
+                except (FileDoesNotExistError, InvalidPathError,
+                        UnavailableError):
                     # deleted/recreated during the rename: the delete's
                     # own UFS cleanup has already swept the directory —
                     # remove the file if it survived (no other persist
@@ -1459,7 +1517,8 @@ class FileSystemMaster:
                                   resolution.ufs_path, exc_info=True)
                     raise
                 with self._journal.create_context() as ctx:
-                    self._journal_persisted(ctx, inode, fingerprint)
+                    self._journal_persisted(ctx, inode, fingerprint,
+                                            ancestors=anc)
                 return fingerprint
 
     def _discard_temp(self, uri: AlluxioURI, temp_ufs_path: str) -> None:

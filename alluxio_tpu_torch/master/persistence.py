@@ -39,8 +39,12 @@ class PersistenceScheduler:
 
     def heartbeat(self) -> None:
         self._check_inflight()
+        inflight = {inode_id for inode_id, _ in self._inflight.values()}
         for inode_id in self._fsm.pop_persist_requests():
-            self._pending.setdefault(inode_id, 1)
+            # a request for a file whose job is still running is that
+            # job's: a second job would persist the same file twice
+            if inode_id not in inflight:
+                self._pending.setdefault(inode_id, 1)
         self._submit_pending()
 
     def _submit_pending(self) -> None:

@@ -175,9 +175,12 @@ class MasterProcess:
         from alluxio_tpu_torch.utils.pause_monitor import (
             ensure_process_monitor,
         )
-        from alluxio_tpu_torch.utils.tracing import set_tracing_enabled
+        from alluxio_tpu_torch.utils.tracing import (
+            apply_trace_conf, set_tracing_enabled,
+        )
 
         set_tracing_enabled(self._conf.get_bool(Keys.TRACE_ENABLED))
+        apply_trace_conf(self._conf)
         # stall detector (reference: JvmPauseMonitor started at
         # AlluxioMasterProcess.java:265-273): ONE per process
         ensure_process_monitor()

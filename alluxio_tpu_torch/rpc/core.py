@@ -22,10 +22,13 @@ metadata. The ``atpu.debug.fault.rpc.reject.rate`` hook sheds a dispatch
 with the typed ``ResourceExhausted`` and retry-after, as the JAX server
 does.
 
-Left out with the features that need them: admission control (the
-master's), trace-context propagation across the wire (a server span is
-still recorded when tracing is on), the master fast path and domain
-sockets.
+Tracing: the client sends the caller's trace context as the
+``atpu-traceparent`` metadata entry, and the server binds it before it
+opens the method's span, so the server span joins the caller's trace
+(as the JAX transport does).
+
+Left out with the feature that needs it: admission control (the
+master's).
 """
 
 from __future__ import annotations
@@ -42,7 +45,10 @@ import msgpack
 from alluxio_tpu_torch.utils.exceptions import (
     AlluxioTpuError, ResourceExhaustedError, UnavailableError,
 )
-from alluxio_tpu_torch.utils.tracing import tracer
+from alluxio_tpu_torch.utils.tracing import (
+    TRACEPARENT_KEY, bind_remote_parent, current_traceparent,
+    reset_remote_parent, tracer,
+)
 
 LOG = logging.getLogger(__name__)
 
@@ -65,6 +71,18 @@ _CODE_TO_GRPC = {
     "UNIMPLEMENTED": grpc.StatusCode.UNIMPLEMENTED,
     "INTERNAL": grpc.StatusCode.INTERNAL,
 }
+
+
+def _bind_trace(context: grpc.ServicerContext):
+    """Bind an inbound traceparent as this handler's parent context, so
+    the server span joins the caller's trace. Returns a reset token
+    (None when tracing is off or the call carries no header)."""
+    if not tracer().enabled:
+        return None
+    for k, v in (context.invocation_metadata() or ()):
+        if k == TRACEPARENT_KEY:
+            return bind_remote_parent(v)
+    return None
 
 
 def pack(obj: Any) -> bytes:
@@ -129,6 +147,7 @@ def _wrap_unary(fn: Callable[[dict], Any], authenticator,
                 span_name: str) -> Callable:
     def handler(request: dict, context: grpc.ServicerContext):
         token = None
+        trace_token = _bind_trace(context)
         try:
             with tracer().span(span_name):
                 token = _bind_user(context, authenticator)
@@ -141,6 +160,7 @@ def _wrap_unary(fn: Callable[[dict], Any], authenticator,
             context.abort(grpc.StatusCode.INTERNAL, f"{type(e).__name__}: {e}")
         finally:
             _unbind_user(token)
+            reset_remote_parent(trace_token)
 
     return handler
 
@@ -149,6 +169,7 @@ def _wrap_stream_out(fn: Callable[[dict], Iterator[Any]], authenticator,
                      span_name: str) -> Callable:
     def handler(request: dict, context: grpc.ServicerContext):
         token = None
+        trace_token = _bind_trace(context)
         try:
             with tracer().span(span_name):
                 token = _bind_user(context, authenticator)
@@ -161,6 +182,7 @@ def _wrap_stream_out(fn: Callable[[dict], Iterator[Any]], authenticator,
             context.abort(grpc.StatusCode.INTERNAL, f"{type(e).__name__}: {e}")
         finally:
             _unbind_user(token)
+            reset_remote_parent(trace_token)
 
     return handler
 
@@ -169,6 +191,7 @@ def _wrap_stream_in(fn: Callable[[Iterator[Any]], Any], authenticator,
                     span_name: str) -> Callable:
     def handler(request_iterator, context: grpc.ServicerContext):
         token = None
+        trace_token = _bind_trace(context)
         try:
             with tracer().span(span_name):
                 token = _bind_user(context, authenticator)
@@ -181,6 +204,7 @@ def _wrap_stream_in(fn: Callable[[Iterator[Any]], Any], authenticator,
             context.abort(grpc.StatusCode.INTERNAL, f"{type(e).__name__}: {e}")
         finally:
             _unbind_user(token)
+            reset_remote_parent(trace_token)
 
     return handler
 
@@ -366,13 +390,22 @@ class RpcChannel:
                 RpcChannel._pool[key] = ch
             self._channel = ch
 
+    def _call_metadata(self) -> Tuple[Tuple[str, str], ...]:
+        """Per-call metadata: the channel identity plus the caller's
+        trace context, so the server span joins the caller's trace."""
+        tp = current_traceparent()
+        if tp is None:
+            return self.metadata
+        return self.metadata + ((TRACEPARENT_KEY, tp),)
+
     def call(self, service: str, method: str, request: dict,
              timeout: Optional[float] = 30.0) -> Any:
         fn = self._channel.unary_unary(
             f"/{service}/{method}", request_serializer=pack,
             response_deserializer=unpack)
         try:
-            return fn(request, timeout=timeout, metadata=self.metadata)
+            return fn(request, timeout=timeout,
+                      metadata=self._call_metadata())
         except grpc.RpcError as e:
             _raise_typed(e)
 
@@ -382,7 +415,8 @@ class RpcChannel:
             f"/{service}/{method}", request_serializer=pack,
             response_deserializer=unpack)
         try:
-            yield from fn(request, timeout=timeout, metadata=self.metadata)
+            yield from fn(request, timeout=timeout,
+                          metadata=self._call_metadata())
         except grpc.RpcError as e:
             _raise_typed(e)
 
@@ -394,7 +428,7 @@ class RpcChannel:
             f"/{service}/{method}", request_serializer=pack,
             response_deserializer=unpack)
         return StreamCall(fn(request, timeout=timeout,
-                             metadata=self.metadata))
+                             metadata=self._call_metadata()))
 
     def call_stream_in(self, service: str, method: str,
                        requests: Iterator[dict],
@@ -403,7 +437,8 @@ class RpcChannel:
             f"/{service}/{method}", request_serializer=pack,
             response_deserializer=unpack)
         try:
-            return fn(requests, timeout=timeout, metadata=self.metadata)
+            return fn(requests, timeout=timeout,
+                      metadata=self._call_metadata())
         except grpc.RpcError as e:
             _raise_typed(e)
 

@@ -16,14 +16,14 @@ Protocol (all frames are ``[u32 little-endian length][msgpack]``):
                           connection (the gRPC path fixes metadata per
                           channel, so per-connection auth is equivalent)
           server->client  {"ok": true} | {"err": wire}
-  call    client->server  [service, method, request]
+  call    client->server  [service, method, request(, traceparent)]
           server->client  {"ok": result} | {"err": wire}
 
-The port's server accepts and ignores the optional fourth element of a
-call frame (the JAX caller's traceparent): trace-context propagation
-comes with trace stitching. Admission control waits for the master's
-QoS slice; the conf-gated RPC-reject hook sheds a call here as it does
-on gRPC.
+The optional fourth element of a call frame is the caller's trace
+context; the server binds it before it opens the method's span, so the
+span joins the caller's trace, as the JAX server does. Admission control
+waits for the master's QoS slice; the conf-gated RPC-reject hook sheds a
+call here as it does on gRPC.
 
 Discovery is by convention: a master serving RPC port P binds
 ``<dir>/atpu-master-P.sock`` (dir from ``atpu.master.fastpath.dir``,
@@ -110,7 +110,9 @@ class FastPathServer:
 
     def start(self) -> str:
         from alluxio_tpu_torch.rpc.core import check_reject_fault
-        from alluxio_tpu_torch.utils.tracing import tracer
+        from alluxio_tpu_torch.utils.tracing import (
+            bind_remote_parent, reset_remote_parent, tracer,
+        )
 
         methods = self._methods
         authenticator = self._auth
@@ -154,9 +156,9 @@ class FastPathServer:
                             return  # clean disconnect
                         parts = msgpack.unpackb(
                             frame, raw=False, strict_map_key=False)
-                        # an optional 4th element (a JAX caller's
-                        # traceparent) is ignored
                         service, method, request = parts[:3]
+                        # optional 4th element: the caller's traceparent
+                        traceparent = parts[3] if len(parts) > 3 else None
                         fn = methods.get((service, method))
                         if fn is None:
                             _send_frame(self.connection, {"err": {
@@ -164,9 +166,10 @@ class FastPathServer:
                                 "message": f"{service}/{method} has no "
                                            f"fastpath handler"}})
                             continue
+                        # span and reject-hook parity with the gRPC
+                        # wrapper, joined to the caller's trace
+                        trace_token = bind_remote_parent(traceparent)
                         try:
-                            # span and reject-hook parity with the gRPC
-                            # wrapper
                             with tracer().span(f"{service}.{method}"):
                                 check_reject_fault(f"{service}.{method}")
                                 result = fn(request or {})
@@ -179,6 +182,8 @@ class FastPathServer:
                             _send_frame(self.connection, {"err": {
                                 "code": "INTERNAL",
                                 "message": f"{type(e).__name__}: {e}"}})
+                        finally:
+                            reset_remote_parent(trace_token)
                 except (ConnectionError, ValueError, OSError):
                     pass  # peer went away mid-frame
                 finally:
@@ -279,7 +284,12 @@ class FastPathChannel:
                 # per-call deadline, matching the gRPC path's semantics
                 sock.settimeout(timeout if timeout else 30.0)
                 self._tl.timeout = timeout
-            _send_frame(sock, [service, method, request])
+            from alluxio_tpu_torch.utils.tracing import current_traceparent
+
+            # optional 4th frame element: the caller's trace context
+            tp = current_traceparent()
+            _send_frame(sock, [service, method, request] +
+                        ([tp] if tp else []))
             resp = _read_frame(self._tl.rfile)
         except (ConnectionError, socket.timeout, OSError) as e:
             self.close_thread_connection()

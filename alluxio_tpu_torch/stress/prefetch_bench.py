@@ -42,7 +42,12 @@ def run(*, num_workers: int = 4,
     the replication checker must restore the killed worker's copies —
     the failure envelope ``LoadDefinition.java:65``-style fan-out exists
     to survive. Every file read back through the cluster, after the
-    measurement, must equal its payload (``read_back_mismatches``)."""
+    measurement, must equal its payload (``read_back_mismatches``).
+    With ``kill_worker`` the lost-worker check runs every second, the
+    count waits until the master has dropped the killed worker
+    (``detection_wait_s``, from the kill), and a copy counts only on a
+    live worker: until detection the master still lists the dead
+    worker's copies, which the reference's drill counts as replicas."""
     from alluxio_tpu_torch.client.streams import WriteType
     from alluxio_tpu_torch.conf import Keys
 
@@ -63,6 +68,7 @@ def run(*, num_workers: int = 4,
         # replication checker
         overrides[Keys.MASTER_WORKER_TIMEOUT] = "2s"
         overrides[Keys.JOB_MASTER_WORKER_TIMEOUT] = "2s"
+        overrides[Keys.MASTER_LOST_WORKER_DETECTION_INTERVAL] = "1s"
     with bench_cluster(num_workers=num_workers,
                        block_size=block_size,
                        worker_mem_bytes=mem,
@@ -143,6 +149,7 @@ def run(*, num_workers: int = 4,
             killed_host = victim.worker.address.tiered_identity.value(
                 "host")
             victim.stop()
+            killed_at = time.monotonic()
             cluster.job_workers[0].stop()
         info = job_client.wait_for_job(job_id, timeout_s=300.0)
         wall = time.monotonic() - t0
@@ -151,16 +158,33 @@ def run(*, num_workers: int = 4,
                 f"load job {job_id} ended {info.status}: "
                 f"{info.error_message}")
 
+        dead = {killed_host} if kill_worker else set()
+
         def replication_counts():
             blocks = cached = 0
             for i in range(num_files):
                 for fbi in fs.fs_master.get_file_block_info_list(
                         f"{base_path}/f-{i:05d}"):
                     blocks += 1
-                    if len(fbi.block_info.locations) >= replication:
+                    hosts = [loc.address.tiered_identity.value("host")
+                             for loc in fbi.block_info.locations]
+                    if len([h for h in hosts if h not in dead]) \
+                            >= replication:
                         cached += 1
             return blocks, cached
 
+        detection_wait = 0.0
+        if kill_worker:
+            deadline = time.monotonic() + rereplicate_timeout_s
+            while killed_host in {
+                    w.address.tiered_identity.value("host")
+                    for w in cluster.block_client().get_worker_infos()}:
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"the master never dropped the killed worker "
+                        f"{killed_host} in {rereplicate_timeout_s:.0f}s")
+                time.sleep(0.25)
+            detection_wait = time.monotonic() - killed_at
         blocks, cached = replication_counts()
         rerepl_wait = 0.0
         if kill_worker:
@@ -216,6 +240,7 @@ def run(*, num_workers: int = 4,
                      "evicted_filler_files": evicted_filler,
                      "killed_mid_job": killed_mid_job,
                      "rereplication_wait_s": round(rerepl_wait, 2),
+                     "detection_wait_s": round(detection_wait, 2),
                      "read_back_mismatches": mismatches},
             errors=blocks - cached + mismatches, duration_s=wall)
 

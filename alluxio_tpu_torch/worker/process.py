@@ -236,7 +236,12 @@ class BlockWorker:
         from alluxio_tpu_torch.utils.pause_monitor import (
             ensure_process_monitor,
         )
+        from alluxio_tpu_torch.utils.tracing import (
+            apply_trace_conf, set_tracing_enabled,
+        )
 
+        set_tracing_enabled(self._conf.get_bool(Keys.TRACE_ENABLED))
+        apply_trace_conf(self._conf)
         ensure_process_monitor()
         self._master_sync.register_with_master()
         hb_interval = self._conf.get_duration_s(

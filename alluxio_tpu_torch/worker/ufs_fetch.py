@@ -186,11 +186,17 @@ class BlockFetch:
     # -- tracing ------------------------------------------------------------
     def _open_span(self):
         """Manually-managed span: the fetch starts on the caller's thread
-        (under its live span) but finishes on whichever stripe worker
-        lands last, so the context-manager form cannot be used."""
-        if not _tracing.tracer().enabled:
+        (inheriting its trace context) but finishes on whichever stripe
+        worker lands last, so the context-manager form cannot be used."""
+        t = _tracing.tracer()
+        if not t.enabled:
             return None
-        span = _tracing.child_span("atpu.worker.ufs_fetch")
+        ctx = _tracing.current_trace_context()
+        span = _tracing.Span(
+            "atpu.worker.ufs_fetch", _tracing.new_span_id(),
+            ctx.span_id if ctx else None,
+            ctx.trace_id if ctx else _tracing.new_trace_id(),
+            sampled=ctx.sampled if ctx else t._sample())
         span.tags = {"block_id": str(self.desc.block_id),
                      "bytes": str(self.desc.length),
                      "stripes": str(len(self.stripes))}
@@ -217,7 +223,8 @@ class BlockFetch:
         if self._error is not None:
             self._span.error = \
                 f"{type(self._error).__name__}: {self._error}"
-        _tracing.tracer().record(self._span)
+        if self._span.sampled:
+            _tracing.tracer().record(self._span)
 
     # -- stripe-worker side -------------------------------------------------
     def _claim_stripe(self) -> Optional[int]:

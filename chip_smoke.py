@@ -23,7 +23,7 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    ``scaled_sum`` calls over the device-resident set (the warm-tier
    scan), checked against the same chain on the plain version. The
    shards also go to block files, the source of the phases that keep
-   their stand-ins (2b, 2c, decode, train, mesh);
+   their stand-ins (2b, 2c) and of 2g's cluster;
 2a. prefetch: the port's ``PrefetchService.from_fs`` over the cluster's
    client and the same paths (seed ``SEED``, lookahead 16, a 16-block
    budget, every placement in the device tier, a 100 ms heartbeat
@@ -58,9 +58,13 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    located on both workers, then the loaded set onto the card with no
    UFS read, equal on the card to the warm set; ``K`` chained
    ``scaled_sum`` calls over it (the ``suite`` launches) equal the plain
-   chain and the warm set's; the untraced load's seconds split between
-   the tasks' commit waits and the worker's fetches (both timers), and a
-   traced load of two files for the fetch spans' phases; (c) config #5
+   chain and the warm set's; the load's seconds split between the
+   tasks' commit waits and the worker's fetches (both timers), the load
+   untraced at the suite's settings; then the config once more, traced,
+   with a trace ring that holds all of its spans and the worker metrics
+   heartbeat (which drains the ring) held off: the fetch spans' phases,
+   and the spans of the post-load ``read_all`` streams;
+   (c) config #5
    at ``write_bench.run()``'s defaults (each file its own payload): no
    error, no unpersisted file, spilled bytes in the SSD tier, every file
    read back equal to its own payload through the cluster and from its
@@ -102,12 +106,9 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    main path's chain and the plain chain; (ii') the same through the SHM
    rung (the JAX defaults): 64 leases and 64 SHM pins while the loader
    is open, none after the loader and then the client close, every block
-   pre-faulted by the native library; then epoch 1 of six fresh loaders
-   in turns (stand-in files, lease, SHM cold, SHM again on the same
-   client with no lease RPC, lease, stand-in files); (iii) 8 blocks
-   through the remote rung, one stream a block, striped at the JAX
-   defaults over pooled channels, one stream again, each equal to its
-   file; one ``pread_many`` of 256 seeded small reads on the remote rung
+   pre-faulted by the native library, each cold open's lease RPC and map
+   traced (the route turns and the remote rung run in 2g); (iii) one
+   ``pread_many`` of 256 seeded small reads on the remote rung
    (one ``read_many``) and on the SHM rung (one native plan), equal to
    the file; (iv) the prefetch loop at the JAX defaults
    (``hbm_fraction`` 0.25: DRAM placements through the worker's
@@ -142,11 +143,35 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    victim chain the main path's (the ``worker_qos`` launches), every
    flood block cached and right once the async cache is idle, every
    block fetched once, the principals the worker saw printed;
-3. decode: four 32 MiB blocks of 64x64x3 records through
-   ``batched_device_iterator`` and ``decode_image_records`` on the card,
-   checked bit for bit against the same decode on the CPU;
-4. train: ``bench.py``'s e2e path on the same four blocks, served from
-   the loader's device tier: 3 epochs of linear-softmax SGD (85 batches
+2g. a worker in its own process: the port's ``MultiProcessCluster``
+   under ``/dev/shm`` (its master and one worker, each a ``python -m
+   alluxio_tpu_torch.shell.main <role>`` process; 32 MiB blocks; a MEM
+   tier of the working set plus 256 MiB and room for what decode, train
+   and mesh write, through the level-0 quota template) and its
+   ``FileSystem``: the 64 shards written with ``write_all(MUST_CACHE)``,
+   each one block on the worker; a loader's epoch 1 with every block on
+   the SHM rung, epoch 2 all device-tier hits, ``K`` chained
+   ``scaled_sum`` calls equal to the main path's chain and the plain
+   chain (the ``multi_process`` launches); the route turns, each epoch
+   1 of a fresh loader with no device tier, the route chosen by the
+   client's keys only: the lease rung (``atpu.user.shm.enabled`` off),
+   the SHM rung cold (the lease RPC and the map of each open traced)
+   and again on the same client (no lease RPC), 8 blocks through the
+   remote rung (``atpu.user.short.circuit.enabled`` off) one stream a
+   block, striped (the stripe-size key) and one stream again, every
+   block on its rung and equal to its file; 2d's metadata calls
+   (create + complete, ``get_status``, ``list_status`` of 2 000 empty
+   files) p50/p99 on the gRPC and fast-path transports. Each number
+   prints beside its
+   in-process counterpart (the main path, 2c's traced SHM read, 2d). The
+   cluster then serves decode, train and mesh, and every one of its
+   processes stops at the end of the run;
+3. decode: four 32 MiB blocks of 64x64x3 records, written to 2g's
+   cluster, through ``batched_device_iterator`` and
+   ``decode_image_records`` on the card, checked bit for bit against the
+   same decode on the CPU;
+4. train: ``bench.py``'s e2e path on the same four blocks, read from
+   2g's cluster and served from the loader's device tier: 3 epochs of linear-softmax SGD (85 batches
    x 128, float32), then 3 epochs of the flagship ViT (4 layers, d_model
    256, bf16, AdamW 3e-4; 170 batches x 64, ``images_to_tokens``, one
    train step a batch). Before the first step, the same weights are
@@ -156,13 +181,16 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    a non-finite loss, and on a ViT whose last-epoch mean loss is not
    below its first.
    It prints per-step ms (CUDA events), records/s, GB/s into the step,
-   each path's bound, and, from ``torch.profiler`` over 20 more steps,
-   launches per step and the card's busy share. Then the ViT's train
+   each path's bound, and, from the port's ``device_trace`` (a
+   ``torch.profiler`` capture written as a Chrome trace, which must hold
+   the kernels) over 20 more steps, launches per step and the card's
+   busy share. Then the ViT's train
    state is saved to a directory-backed namespace, restored into a fresh
    model, and must be bit-identical and give the same next-step loss.
 5. mesh: the mesh layer over an NCCL group of one rank (one card), a
    ``{"data": 1, "model": 1}`` mesh: (a) ``MeshBlockCache.load_global``
-   over the main path's 64 x 32 MiB shard files, then ``global_batch``
+   over the main path's 64 x 32 MiB shards in 2g's cluster (the
+   turnover's two fresh shards written there too), then ``global_batch``
    of 64 seeded indices, ``ring_shift(1)``, ``gather_all``,
    ``replicate`` and a 2-row ``turnover``, each byte for byte against
    the files, ``global_batch`` timed against its bytes bound and
@@ -181,7 +209,8 @@ line, one ``{"prefetch": {...}}`` line, one ``{"master": {...}}`` line,
 one ``{"page_cache": {...}}`` line, one ``{"worker": {...}}``
 line, one ``{"train": {...}}``
 line, one ``{"mesh": {...}}`` line, one ``{"suite": {...}}`` line, one
-``{"clairvoyant": {...}}`` line, one ``{"kernels": [...]}`` line,
+``{"clairvoyant": {...}}`` line, one ``{"multi_process": {...}}`` line,
+one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
 exits non-zero and prints no result. All data is made from a seed.
@@ -221,6 +250,9 @@ SUITE_FILES = NUM_BLOCKS  # config #3 at the main path's corpus (2 GiB)
 PROJECTION_PARTITIONS = 16   # config #4 at a real training table's size:
 PROJECTION_ROWS = 1_000_000  # 16 x 1M rows of 23 columns, ~1.5 GB Parquet
 MASTER_DIRS = 20
+#: config #3's trace ring: every span of the stage (a few per loaded
+#: block, and the heartbeats' RPCs) with room to spare
+SUITE_TRACE_RING = 1 << 17
 PAGE_BYTES = 1 << 20
 PAGE_CACHE_BYTES = 512 << 20
 #: worker phase: a MEM tier of the working set and eight blocks more
@@ -236,6 +268,8 @@ GRPC_BLOCKS = 8
 #: (atpu.user.remote.read.stripe.size), eight stripes a block
 REMOTE_STRIPE_BYTES = 4 << 20
 PREFETCH_CONTAINER_BASE = 100
+#: 2g, the multi-process cluster: the readiness waits of its processes
+MP_BOOT_S = 60.0
 #: the cold turns' fresh blocks: a container range per turn
 COLD_CONTAINER_BASE = 200
 #: (2c v') readers of one set of cold blocks, started together
@@ -465,72 +499,6 @@ def kernel_phase(device, big_n: int) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-# -- the worker stand-in ------------------------------------------------------
-class ShardSource:
-    """Stands in for a same-host worker in the phases that keep their
-    stand-ins (2c's route turns, decode, train, mesh; the main path, 2a
-    and 2d read through the port's cluster) and in the card tests'
-    prefetching loader: each path is one block file, read by short
-    circuit. For a prefetch service it also answers the master's block
-    listing (one block a file: id ``file id << 24``, the file's length,
-    offset 0) and stands in for a block master with no worker, so no
-    DRAM placement can be made."""
-
-    def __init__(self, files: dict) -> None:
-        self._files = files  # path -> (file id, block file)
-        self.opens = 0       # streams opened, and their host time
-        self.open_s = 0.0
-        self.fs_master = SimpleNamespace(
-            get_file_block_info_list=self._block_infos)
-        self.block_master = SimpleNamespace(
-            get_worker_infos=lambda: [],
-            get_block_info=lambda bid: SimpleNamespace(block_id=bid,
-                                                       locations=[]),
-            get_block_infos=lambda bids: [])
-
-    def get_status(self, path):
-        fid, _ = self._files[path]
-        return SimpleNamespace(path=path, file_id=fid, block_ids=[fid << 24],
-                               ufs_path="", mount_id=0, persisted=False)
-
-    def _block_infos(self, path):
-        fid, block_file = self._files[path]
-        return [SimpleNamespace(offset=0, block_info=SimpleNamespace(
-            block_id=fid << 24, length=os.path.getsize(block_file)))]
-
-    @staticmethod
-    def worker_client(address):
-        fail(f"the stand-in has no worker; asked for {address}")
-
-    def open_file(self, path, info=None, max_open_streams=1):
-        return _ShardFile(self, self._files[path][1])
-
-
-class _ShardFile:
-    def __init__(self, src: ShardSource, block_file: str) -> None:
-        self._src = src
-        self._block_file = block_file
-        self._stream = None
-
-    def block_stream(self, index: int):
-        from alluxio_tpu_torch.client.block_streams import LocalBlockInStream
-
-        if index != 0:
-            fail(f"shard files hold one block, asked for {index}")
-        if self._stream is None:
-            t = time.perf_counter()
-            self._stream = LocalBlockInStream.from_path(
-                self._block_file, os.path.getsize(self._block_file))
-            self._src.open_s += time.perf_counter() - t
-            self._src.opens += 1
-        return self._stream
-
-    def close(self) -> None:
-        if self._stream is not None:
-            self._stream.close()
-            self._stream = None
-
-
 def block_dir(need_bytes: int) -> str:
     shm = Path("/dev/shm")
     if shm.is_dir():
@@ -567,7 +535,6 @@ def main_path(device, workdir: str, num_blocks: int, block_bytes: int,
     time."""
     import torch
 
-    from alluxio_tpu_torch.client.streams import WriteType
     from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
     from alluxio_tpu_torch.metrics import metrics
     from alluxio_tpu_torch.minicluster import LocalCluster
@@ -595,12 +562,7 @@ def main_path(device, workdir: str, num_blocks: int, block_bytes: int,
     print(f"main path: LocalCluster (master at {cluster.master.address}, "
           f"one worker, MEM tier {(num_blocks * block_bytes >> 20) + 256} "
           f"MiB) up in {time.perf_counter() - t0:.2f} s", flush=True)
-    write_s = 0.0
-    for path, (_, block_file) in files.items():
-        arr = np.fromfile(block_file, dtype=np.int32)
-        t = time.perf_counter()
-        fs.write_all(path, arr, write_type=WriteType.MUST_CACHE)
-        write_s += time.perf_counter() - t
+    write_s = write_files(fs, files)
     total = num_blocks * block_bytes
     print(f"main path: cold write {num_blocks} x {block_bytes >> 20} MiB "
           f"write_all(MUST_CACHE) {write_s:.3f} s "
@@ -624,6 +586,7 @@ def main_path(device, workdir: str, num_blocks: int, block_bytes: int,
         first = list(loader.epoch())
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        wait_s = loader.stall_report()["total_wait_s"]
         hits0 = hits.count
         blocks = list(loader.epoch())
         torch.cuda.synchronize()
@@ -663,14 +626,16 @@ def main_path(device, workdir: str, num_blocks: int, block_bytes: int,
     if got != ref:
         fail(f"chained scan: kernel chain {got} != plain chain {ref}")
     print(f"main path: epoch 1 (host->device) {t1 - t0:.3f} s "
-          f"({total / (t1 - t0) / 1e9:.2f} GB/s), block opens by rung "
+          f"({total / (t1 - t0) / 1e9:.2f} GB/s, the consumer waits "
+          f"{wait_s:.3f} s), block opens by rung "
           f"{opens} (Client.BlockOpens; the lease rung counts under shm), "
           f"{leases.count - leases0} SHM leases granted; epoch 2 (device "
           f"tier) {t2 - t1:.4f} s, {num_blocks} hits; warm-tier scan "
           f"K={k}: {chain_ms:.2f} ms, {k * total / chain_ms / 1e6:.1f} "
           f"GB/s, acc {got} == plain; launches {launches}", flush=True)
     return {"launches": launches, "files": files, "blocks": blocks,
-            "chain": got, "epoch1_s": t1 - t0, "cluster": cluster,
+            "chain": got, "epoch1_s": t1 - t0, "consumer_wait_s": wait_s,
+            "cluster": cluster,
             "fs": fs, "cold_write_s": write_s, "opens": opens,
             "shm_leases": leases.count - leases0}
 
@@ -875,6 +840,40 @@ def _client_latencies(clients: dict, n_dirs: int, per_dir: int) -> dict:
             for name in names}
 
 
+#: the master's two transports, in the order 2d and 2g time them
+TRANSPORTS = ("grpc", "fastpath")
+
+
+def transport_latencies(name: str, address: str, fast_dir: str) -> dict:
+    """``_client_latencies`` of ``MASTER_FILES`` empty files in
+    ``MASTER_DIRS`` directories through a gRPC client and a same-host
+    fast-path client of the master at ``address`` (its socket under
+    ``fast_dir``), each held to its transport before and after."""
+    from alluxio_tpu_torch.rpc.clients import FsMasterClient
+
+    clients = {"grpc": FsMasterClient(address, fastpath=False),
+               "fastpath": FsMasterClient(address, fastpath_dir=fast_dir)}
+    per_dir = MASTER_FILES // MASTER_DIRS
+    out = {"files": MASTER_FILES, "dirs": MASTER_DIRS,
+           "files_per_dir": per_dir}
+    try:
+        for transport, client in clients.items():
+            if client.transport != transport:
+                fail(f"{name}: the {transport} client sends over "
+                     f"{client.transport} (fast-path sockets under "
+                     f"{fast_dir})")
+        out.update(_client_latencies(
+            clients, MASTER_DIRS // len(clients), per_dir))
+        for transport, client in clients.items():
+            if client.transport != transport:
+                fail(f"{name}: the {transport} client fell back to "
+                     f"{client.transport}")
+    finally:
+        for client in clients.values():
+            client.close()
+    return out
+
+
 def master_phase(device, main: dict, k: int) -> dict:
     """(2d): the port's master on the main path's cluster at full size —
     metadata RPC latencies over gRPC and over the same-host fast path, a
@@ -886,36 +885,18 @@ def master_phase(device, main: dict, k: int) -> dict:
     from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
     from alluxio_tpu_torch.conf import Keys
     from alluxio_tpu_torch.ops import reduce_kernel as rk
-    from alluxio_tpu_torch.rpc.clients import FsMasterClient
 
     t_phase = time.perf_counter()
     cluster, fs = main["cluster"], main["fs"]
     files = main["files"]
     before = {p: fs.get_status(p) for p in files}
-    address = cluster.master.address
-    fast_dir = cluster.conf.get(Keys.MASTER_FASTPATH_DIR)
-    clients = {"grpc": FsMasterClient(address, fastpath=False),
-               "fastpath": FsMasterClient(address, fastpath_dir=fast_dir)}
-    n_dirs = MASTER_DIRS // len(clients)
-    per_dir = MASTER_FILES // MASTER_DIRS
-    out = {"files": MASTER_FILES, "dirs": MASTER_DIRS,
-           "files_per_dir": per_dir, "shards": len(files)}
-    try:
-        for name, client in clients.items():
-            if client.transport != name:
-                fail(f"master phase: the {name} client sends over "
-                     f"{client.transport} (fast-path sockets under "
-                     f"{fast_dir})")
-        out.update(_client_latencies(clients, n_dirs, per_dir))
-        for name, client in clients.items():
-            if client.transport != name:
-                fail(f"master phase: the {name} client fell back to "
-                     f"{client.transport}")
-    finally:
-        for client in clients.values():
-            client.close()
+    out = transport_latencies(
+        "master phase", cluster.master.address,
+        cluster.conf.get(Keys.MASTER_FASTPATH_DIR))
+    out["shards"] = len(files)
     n_meta = sum(len(fs.list_status(f"/meta/{name}/d{j:02d}"))
-                 for name in clients for j in range(n_dirs))
+                 for name in TRANSPORTS
+                 for j in range(MASTER_DIRS // len(TRANSPORTS)))
     if n_meta != MASTER_FILES:
         fail(f"master phase: {n_meta} files under /meta, want "
              f"{MASTER_FILES}")
@@ -983,9 +964,10 @@ def master_phase(device, main: dict, k: int) -> dict:
         f"{name}: " + ", ".join(
             f"{op} p50 {v['p50_ms']:.3f} ms p99 {v['p99_ms']:.3f} ms"
             for op, v in out[name].items())
-        for name in clients)
+        for name in TRANSPORTS)
     print(f"master: {MASTER_FILES} empty files in {MASTER_DIRS} "
-          f"directories ({n_dirs} a transport, {per_dir} files each, the "
+          f"directories ({out['dirs'] // len(TRANSPORTS)} a transport, "
+          f"{out['files_per_dir']} files each, the "
           f"transports' calls alternating) beside the {n} shards, per "
           f"call ({lat}); restart "
           f"on the same journal {restart_s:.3f} s (stop, replay, serve), "
@@ -1031,10 +1013,16 @@ def suite_prefetch(device, k: int) -> dict:
     the stream reads nothing from the UFS; here the loaded set must equal
     the warm set on the card, and ``K`` chained ``scaled_sum`` calls over
     it must equal the plain chain and the plain chain over the warm set.
-    The load runs untraced; its seconds are split between the tasks'
-    commit waits (``Job.LoadCommitWait``) and the worker's fetches
-    (``Worker.UfsFetchTime``). A second, traced load of two files gives
-    the fetch spans' phases."""
+    The timed load runs untraced at the suite's settings; its seconds are
+    split between the tasks' commit waits (``Job.LoadCommitWait``) and
+    the worker's fetches (``Worker.UfsFetchTime``). A second run of the
+    whole config is traced, with a ring that holds all of its spans
+    (``atpu.trace.ring.capacity`` ``SUITE_TRACE_RING``) and the worker's
+    metrics heartbeat held off (it drains the ring and ships the spans
+    to the master, which keeps none): the fetch spans' phases split its
+    load, and the spans begun after its last fetch ended are the
+    post-load ``read_all`` streams'. Its load seconds are reported apart
+    from the timed load's."""
     import torch
 
     from alluxio_tpu_torch.conf import Keys
@@ -1055,23 +1043,30 @@ def suite_prefetch(device, k: int) -> dict:
         print(f"suite #3: CUT to {files} files of {file_bytes >> 20} MiB "
               f"to fit /dev/shm", flush=True)
 
-    def consumer(warm, loaded):
+    def loaded_equals_warm(warm, loaded):
         x = torch.cat([t.view(torch.int32) for t in loaded])
         w = torch.cat([t.view(torch.int32) for t in warm])
-        equal = bool(torch.equal(x, w))
+        if not torch.equal(x, w):
+            fail("suite #3: the loaded set differs from the warm set on "
+                 "the card")
+        return x, w
+
+    def consumer(warm, loaded):
+        x, w = loaded_equals_warm(warm, loaded)
         acc, scan_ms = timed(lambda: chain(rk.scaled_sum, x, k))
         got = int(acc)
         plain = int(chain(rk.scaled_sum_reference, x, k))
         warm_plain = int(chain(rk.scaled_sum_reference, w, k))
         del x, w
-        if not equal:
-            fail("suite #3: the loaded set differs from the warm set on "
-                 "the card")
         if not got == plain == warm_plain:
             fail(f"suite #3 scan: kernel chain {got}, plain chain {plain}, "
                  f"plain chain over the warm set {warm_plain}")
-        return {"scan_ms": scan_ms, "chain": got, "equal": equal,
+        return {"scan_ms": scan_ms, "chain": got, "equal": True,
                 "bytes": sum(t.numel() for t in loaded)}
+
+    def equal_only(warm, loaded):
+        loaded_equals_warm(warm, loaded)
+        return {"equal": True}
 
     def totals():
         m = metrics()
@@ -1094,25 +1089,39 @@ def suite_prefetch(device, k: int) -> dict:
         fail(f"suite #3: {waits} commit waits and {fetches} fetches for "
              f"{blocks} loaded blocks")
 
-    # the traced load: two files, so every fetch span stays in the ring
-    tracing.tracer().drain(1 << 16)
-    traced_files = min(2, files)
+    # the traced run: the same config, every span kept in the ring
+    t1 = time.perf_counter()
+    tracing.tracer().clear()
     try:
         traced = tpu_suite.config3_prefetch(
-            device, file_bytes=file_bytes, num_files=traced_files,
-            conf_overrides={Keys.TRACE_ENABLED: True})
-        spans = [sp for sp in tracing.tracer().drain(1 << 16)
-                 if sp["name"] == "atpu.worker.ufs_fetch"]
+            device, file_bytes=file_bytes, num_files=files,
+            consumer=equal_only,
+            conf_overrides={
+                Keys.TRACE_ENABLED: True,
+                Keys.TRACE_RING_CAPACITY: SUITE_TRACE_RING,
+                Keys.WORKER_METRICS_HEARTBEAT_INTERVAL: "1h"})
+        spans = tracing.tracer().drain(SUITE_TRACE_RING)
     finally:
         tracing.set_tracing_enabled(False)
-    traced_blocks = traced["num_blocks"]
-    if len(spans) != traced_blocks:
-        fail(f"suite #3: {len(spans)} fetch spans for {traced_blocks} "
-             f"blocks of the traced load")
+    traced_s = time.perf_counter() - t1
+    if len(spans) >= SUITE_TRACE_RING:
+        fail(f"suite #3: the trace ring filled ({len(spans)} spans)")
+    fetches_traced = [sp for sp in spans
+                      if sp["name"] == "atpu.worker.ufs_fetch"]
+    if len(fetches_traced) != traced["num_blocks"]:
+        fail(f"suite #3: {len(fetches_traced)} fetch spans for "
+             f"{traced['num_blocks']} blocks of the traced load")
     phases = {}
-    for span in spans:
+    for span in fetches_traced:
         for name, ms in span.get("phases", ()):
             phases[name] = phases.get(name, 0.0) + ms
+    load_end = max(sp["start_ms"] + sp["duration_ms"]
+                   for sp in fetches_traced)
+    post_load = {}
+    for sp in spans:
+        if sp["start_ms"] > load_end:
+            count, ms = post_load.get(sp["name"], (0, 0.0))
+            post_load[sp["name"]] = (count + 1, ms + sp["duration_ms"])
     row.update({"files": files, "file_bytes": file_bytes,
                 "launches": launches,
                 "commit_wait_s": wait_s,
@@ -1120,13 +1129,23 @@ def suite_prefetch(device, k: int) -> dict:
                 "fetch_s": fetch_s,
                 "fetch_ms_per_block": 1e3 * fetch_s / blocks,
                 "traced_load": {
-                    "files": traced_files, "blocks": traced_blocks,
+                    "blocks": traced["num_blocks"],
                     "load_seconds": traced["load_seconds"],
+                    "post_load_mb_per_s": traced["value"],
+                    "worker_metrics_heartbeat": "held off",
+                    "s": traced_s,
+                    "spans": len(spans), "ring": SUITE_TRACE_RING,
                     "fetch_span_ms_per_block": sum(
-                        sp["duration_ms"] for sp in spans) / traced_blocks,
+                        sp["duration_ms"] for sp in fetches_traced)
+                    / len(fetches_traced),
                     "phase_ms_per_block": {
-                        n: ms / traced_blocks for n, ms in phases.items()}}})
+                        n: ms / len(fetches_traced)
+                        for n, ms in phases.items()},
+                    "post_load_spans": {
+                        n: {"count": c, "ms": ms}
+                        for n, (c, ms) in sorted(post_load.items())}}})
     tl = row["traced_load"]
+    busiest = sorted(post_load.items(), key=lambda kv: -kv[1][1])[:4]
     print(f"suite #3 prefetch: {files} x {file_bytes >> 20} MiB, {blocks} "
           f"blocks of 4 MiB; warm reference {row['warm_reference_mb_per_s']} "
           f"MB/s; load job {row['load_seconds']} s "
@@ -1138,13 +1157,19 @@ def suite_prefetch(device, k: int) -> dict:
           f"{wait_s:.3f} s in all, "
           f"{row['commit_wait_ms_per_block']:.2f} ms a block, against "
           f"{blocks} fetches {row['fetch_ms_per_block']:.2f} ms a block; "
-          f"traced load of {traced_files} files ({traced_blocks} blocks) "
-          f"{tl['load_seconds']} s, fetch spans "
-          f"{tl['fetch_span_ms_per_block']:.2f} ms a block "
-          f"({', '.join(f'{n} {v:.2f}' for n, v in tl['phase_ms_per_block'].items())}); "
           f"scan K={k} {row['consumer']['scan_ms']:.2f} ms, acc "
           f"{row['consumer']['chain']} == plain == warm set's plain; "
           f"launches {launches}; stage {row['s']:.1f} s", flush=True)
+    print(f"suite #3 traced run (worker metrics heartbeat held off): load "
+          f"job {tl['load_seconds']} s, post-load stream "
+          f"{tl['post_load_mb_per_s']} MB/s, the loaded set equal to the "
+          f"warm set on the card; {tl['spans']} spans in a ring of "
+          f"{SUITE_TRACE_RING}: fetch spans "
+          f"{tl['fetch_span_ms_per_block']:.2f} ms a block "
+          f"({', '.join(f'{n} {v:.2f}' for n, v in tl['phase_ms_per_block'].items())}), "
+          f"after the load "
+          f"{', '.join(f'{n} x{c} {ms:.1f} ms' for n, (c, ms) in busiest)}; "
+          f"stage {traced_s:.1f} s", flush=True)
     return row
 
 
@@ -1761,9 +1786,9 @@ def loader_read(name: str, device, fs, files: dict, main: dict, k: int,
 def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
     """(2c): the port's worker serves the main path's blocks through the
     port's ``BlockStoreClient`` ladder: a cold write-through by short
-    circuit, warm reads by lease and through the SHM plane into fresh
-    loaders and the warm scan, route turns, the remote rung single-stream
-    and striped, batched small reads on the remote and SHM rungs, the
+    circuit, warm reads by lease and through the SHM plane (traced) into
+    fresh loaders and the warm scan, batched small reads on the remote
+    and SHM rungs, the
     prefetch loop at the JAX defaults, its DRAM placements landing in the
     worker's MEM tier, and cold reads through the UFS rung."""
     from alluxio_tpu_torch import native
@@ -1849,11 +1874,8 @@ def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
         out["shm_read"] = shm_read(device, files, master, worker, main, k,
                                    hits)
 
-        out["route_turns"] = route_turns(device, files, master, worker)
-
-        # (iii) the remote rung, single stream and striped, then batched
-        # small reads on the remote and SHM rungs
-        out["remote_read"] = remote_turns(device, files, master, main)
+        # (iii) batched small reads on the remote and SHM rungs (the
+        # route turns and the remote rung run on 2g's cluster)
         out["pread_many"] = pread_many_check(files, master)
         out["prefetch"] = worker_prefetch(device, worker, master, client,
                                           main, fs)
@@ -1871,7 +1893,6 @@ def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
             fail(f"worker phase: native calls took the plain path: "
                  f"{native.plain_calls()}")
         lr, sr = out["lease_read"], out["shm_read"]
-        rt = out["remote_read"]
         print(f"worker: cold write {n} x {BLOCK_BYTES >> 20} MiB by short "
               f"circuit {write_s:.3f} s "
               f"({out['cold_write']['gb_per_s']:.2f} GB/s), {master.commits}"
@@ -1884,9 +1905,10 @@ def worker_phase(device, workdir: str, main: dict, k: int) -> dict:
               f"{out['prefetch']['lease_rpc_pair_ms']:.3f} ms; scan K={k} "
               f"{lr['scan_ms']:.2f} / {sr['scan_ms']:.2f} ms, acc "
               f"{lr['chain']} == main path == plain, launches {launches} / "
-              f"{sr['scan_launches']}; remote rung {GRPC_BLOCKS} blocks: "
-              + ", ".join(f"{t['mode']} {t['s']:.3f} s "
-                          f"({t['gb_per_s']:.2f} GB/s)" for t in rt)
+              f"{sr['scan_launches']}; SHM cold open: lease RPC p50 "
+              f"{sr['lease_wait_ms']['p50']:.3f} ms, p99 "
+              f"{sr['lease_wait_ms']['p99']:.3f} ms, map p50 "
+              f"{sr['shm_map_ms']['p50']:.3f} ms"
               + f"; cold UFS rung {GRPC_BLOCKS} blocks: "
               + ", ".join(f"{t['mode']} {t['s']:.3f} s "
                           f"({t['gb_per_s']:.2f} GB/s, "
@@ -2084,13 +2106,26 @@ def shm_read(device, files: dict, master, worker, main: dict, k: int,
     The native library pre-faults every block, none on the plain path."""
     from alluxio_tpu_torch import native
 
+    from alluxio_tpu_torch.utils import tracing
+
     n = len(files)
     fs = WorkerFS(files, 1, master, route="shm")
     native.reset_counts()
-    read = loader_read(
-        "worker SHM read", device, fs, files, main, k,
-        lambda: (worker.shm_store.stats()["live_leases"],
-                 len(worker.store.shm_leased_blocks)), hits)
+    # traced: each cold open's lease RPC and map, the in-process
+    # counterpart of 2g's out-of-process SHM turn
+    tracing.set_tracing_enabled(True)
+    wall0 = time.time() * 1e3
+    try:
+        read = loader_read(
+            "worker SHM read", device, fs, files, main, k,
+            lambda: (worker.shm_store.stats()["live_leases"],
+                     len(worker.store.shm_leased_blocks)), hits)
+    finally:
+        tracing.set_tracing_enabled(False)
+    phases = shm_phases(wall0)
+    if len(phases["lease_wait"]) != n or len(phases["shm_map"]) != n:
+        fail(f"worker SHM read: {len(phases['lease_wait'])} lease RPCs "
+             f"and {len(phases['shm_map'])} maps traced, want {n} each")
     prefaults = native.prefault_calls()
     fs.check_rungs("worker SHM read")
     after_loader = worker.shm_store.stats()["live_leases"]
@@ -2109,89 +2144,8 @@ def shm_read(device, files: dict, master, worker, main: dict, k: int,
              f"True, {(n, n * BLOCK_BYTES)}, none")
     return dict(read, rungs=dict(fs.rungs),
                 leases_after_loader_close=after_loader,
-                leases_after_client_close=0, native_prefaults=n)
-
-
-def route_turns(device, files: dict, master, worker) -> list:
-    """Epoch 1 of a fresh loader (no device tier) over the same 64
-    blocks, in turns: the stand-in's block files, the lease rung, the
-    SHM rung cold (a lease RPC and a map a block), the SHM rung again on
-    the same client (segment-cache hits, no RPC), the lease rung, the
-    stand-in. Each turn's time, the consumer's wait for the producer (the
-    loader's stall report) and the host ms a block to open a stream; for
-    the SHM turns also the leases the worker granted and, from the
-    loader's host-read spans, the ms a block of the lease RPC and of the
-    map (the turns run with tracing on, all six alike). The SHM client
-    is closed before the turns end, so (iv) sees no SHM pin."""
-    import torch
-
-    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
-    from alluxio_tpu_torch.metrics import metrics
-    from alluxio_tpu_torch.utils import tracing
-
-    n = len(files)
-    shm_fs = WorkerFS(files, 1, master, route="shm")
-    granted = metrics().counter("Worker.ShmLeasesGranted")
-    turns = []
-    tracing.set_tracing_enabled(True)
-    try:
-        for route in ("stand-in", "lease", "shm", "shm", "lease",
-                      "stand-in"):
-            src = {"stand-in": lambda: ShardSource(files),
-                   "lease": lambda: WorkerFS(files, 1, master),
-                   "shm": lambda: shm_fs}[route]()
-            opens0, open_s0, granted0 = src.opens, src.open_s, granted.count
-            wall0 = time.time() * 1e3
-            loader = DeviceBlockLoader(src, list(files), device=device,
-                                       prefetch=2, dtype=np.int32)
-            try:
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                for _ in loader.epoch():
-                    pass
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t
-                wait = loader.stall_report()["total_wait_s"]
-            finally:
-                loader.close()
-            opens = src.opens - opens0
-            turn = {"route": route, "s": dt, "consumer_wait_s": wait,
-                    "open_ms_per_block": (src.open_s - open_s0) * 1e3
-                    / opens}
-            if route == "lease":
-                src.check_rungs("worker route turn (lease)")
-                src.close()
-            if route == "shm":
-                calls = granted.count - granted0
-                phases = shm_phases(wall0)
-                cold = len(turns) == 2
-                want = n if cold else 0
-                if calls != want or len(phases["lease_wait"]) != want:
-                    fail(f"worker route turn (SHM, "
-                         f"{'cold' if cold else 'cached'}): {calls} leases "
-                         f"granted, {len(phases['lease_wait'])} lease "
-                         f"RPCs traced, want {want}")
-                turn.update(cached=not cold, shm_open_rpcs=calls)
-                if cold:
-                    turn.update(
-                        shm_open_rpc_ms=sum(phases["lease_wait"]) / n,
-                        map_ms=sum(phases["shm_map"]) / n)
-            turns.append(turn)
-        shm_fs.check_rungs("worker route turns (SHM)")
-    finally:
-        tracing.set_tracing_enabled(False)
-        shm_fs.close()
-    print("worker route turns (epoch 1, no device tier): " + ", ".join(
-        f"{t['route']}{' cached' if t.get('cached') else ''} {t['s']:.3f} "
-        f"s (consumer waits {t['consumer_wait_s']:.3f} s, open "
-        f"{t['open_ms_per_block']:.3f} ms a block)" for t in turns),
-        flush=True)
-    cold = turns[2]
-    print(f"worker SHM cold open a block: shm_open RPC "
-          f"{cold['shm_open_rpc_ms']:.3f} ms, map {cold['map_ms']:.3f} ms, "
-          f"whole open {cold['open_ms_per_block']:.3f} ms; cached open "
-          f"{turns[3]['open_ms_per_block']:.3f} ms, no RPC", flush=True)
-    return turns
+                leases_after_client_close=0, native_prefaults=n,
+                **{f"{name}_ms": spread(ms) for name, ms in phases.items()})
 
 
 def shm_phases(since_ms: float) -> dict:
@@ -2211,57 +2165,16 @@ def shm_phases(since_ms: float) -> dict:
     return out
 
 
-def remote_turns(device, files: dict, master, main: dict) -> list:
-    """(2c iii): the first ``GRPC_BLOCKS`` blocks through the remote rung
-    (short circuit off) into a loader with no device tier, in turns:
-    one stream a block (stripe size 0), striped at the JAX defaults (4
-    MiB stripes, concurrency 4 over pooled channels), one stream again.
-    Every block must equal its file."""
-    import torch
-
-    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
-    from alluxio_tpu_torch.metrics import metrics
-
-    grpc_files = dict(list(files.items())[:GRPC_BLOCKS])
-    streamed = metrics().counter("Client.JaxStreamedBlocks")
-    stripes = metrics().counter("Client.RemoteReadStripes")
-    hedges = metrics().counter("Client.RemoteReadHedges")
-    turns = []
-    for mode, stripe in (("single", 0), ("striped", REMOTE_STRIPE_BYTES),
-                         ("single", 0)):
-        gfs = WorkerFS(grpc_files, 1, master, route="grpc",
-                       stripe_size=stripe)
-        s0, st0, h0 = streamed.count, stripes.count, hedges.count
-        loader = DeviceBlockLoader(gfs, list(grpc_files), device=device,
-                                   prefetch=2, dtype=np.int32)
-        try:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            got = list(loader.epoch())
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t
-        finally:
-            loader.close()
-            gfs.close()
-        gfs.check_rungs(f"worker remote rung ({mode})")
-        if streamed.count - s0 != GRPC_BLOCKS:
-            fail(f"worker remote rung ({mode}): {streamed.count - s0} "
-                 f"streamed blocks, want {GRPC_BLOCKS}")
-        n_stripes = stripes.count - st0
-        if (n_stripes > 0) != (mode == "striped"):
-            fail(f"worker remote rung ({mode}): {n_stripes} stripes")
-        check_order(f"worker remote rung ({mode})", got,
-                    [SimpleNamespace(path=p) for p in grpc_files], main)
-        del got
-        turns.append({"mode": mode, "blocks": GRPC_BLOCKS, "s": dt,
-                      "gb_per_s": GRPC_BLOCKS * BLOCK_BYTES / dt / 1e9,
-                      "stripes": n_stripes, "hedges": hedges.count - h0})
-    return turns
-
-
 def pct(samples: list, p: float) -> float:
     return samples[min(len(samples) - 1, int(p / 100.0 * len(samples)))] \
         if samples else 0.0
+
+
+def spread(samples: list) -> dict:
+    """Mean, p50 and p99 of ``samples`` (ms)."""
+    ordered = sorted(samples)
+    return {"n": len(ordered), "mean": sum(ordered) / max(1, len(ordered)),
+            "p50": pct(ordered, 50), "p99": pct(ordered, 99)}
 
 
 def main_chain(main: dict, paths, k: int) -> int:
@@ -2782,6 +2695,335 @@ def worker_prefetch(device, worker, master, client, main: dict,
 
 
 # -- decode -------------------------------------------------------------------
+# -- 2g: a worker in its own process -----------------------------------------
+class RungFS:
+    """A cluster client whose block streams are counted by the rung that
+    opened them (``BlockInStream.rung``) and whose first opens are timed:
+    a loader opens every block through ``open_file(...).block_stream``;
+    every other call goes to the ``FileSystem``."""
+
+    def __init__(self, fs) -> None:
+        self._fs = fs
+        self.rungs = {}
+        self.opens = 0
+        self.open_s = 0.0
+
+    def __getattr__(self, name):
+        return getattr(self._fs, name)
+
+    def open_file(self, path, **kwargs):
+        return _RungFile(self, self._fs.open_file(path, **kwargs))
+
+    def check_rungs(self, name: str, want: str) -> None:
+        if set(self.rungs) != {want}:
+            fail(f"{name}: blocks by rung {self.rungs}, want only {want}")
+
+
+class _RungFile:
+    def __init__(self, fs: RungFS, f) -> None:
+        self._fs = fs
+        self._f = f
+        self._seen = set()
+
+    def block_stream(self, index: int):
+        t = time.perf_counter()
+        stream = self._f.block_stream(index)
+        if index not in self._seen:
+            self._seen.add(index)
+            fs = self._fs
+            fs.open_s += time.perf_counter() - t
+            fs.opens += 1
+            fs.rungs[stream.rung] = fs.rungs.get(stream.rung, 0) + 1
+        return stream
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
+
+
+def start_mp_cluster(num_blocks: int) -> dict:
+    """The port's ``MultiProcessCluster`` under ``/dev/shm`` (when it has
+    the room): its master and one worker, each a process of its own
+    (``python -m alluxio_tpu_torch.shell.main <role>``), blocks of
+    ``BLOCK_BYTES``, a MEM tier through the level-0 quota template of
+    ``num_blocks`` blocks plus 256 MiB and room for the records and the
+    mesh's fresh shards, and its ``FileSystem``."""
+    from alluxio_tpu_torch.conf import Keys, Templates
+    from alluxio_tpu_torch.minicluster.multi_process import (
+        MultiProcessCluster,
+    )
+
+    tier = num_blocks * BLOCK_BYTES + (256 << 20) \
+        + (DECODE_BLOCKS + 2) * BLOCK_BYTES
+    base = block_dir(tier)
+    cluster = MultiProcessCluster(
+        os.path.join(base, "cluster"), num_workers=1, extra_conf={
+            Keys.USER_BLOCK_SIZE_BYTES_DEFAULT.name: str(BLOCK_BYTES),
+            Templates.WORKER_TIER_DIRS_QUOTA.format(0).name: str(tier)})
+    t0 = time.perf_counter()
+    try:
+        cluster.start(timeout_s=MP_BOOT_S)
+        fs = cluster.file_system()
+    except BaseException:
+        cluster.stop()
+        shutil.rmtree(base, ignore_errors=True)
+        raise
+    boot_s = time.perf_counter() - t0
+    pids = [p.proc.pid for p in cluster.masters + cluster.workers]
+    print(f"2g: MultiProcessCluster under {base} (master at "
+          f"{cluster.master_addresses}, one worker, pids {pids}, MEM tier "
+          f"{tier} bytes by the quota template) up in {boot_s:.2f} s",
+          flush=True)
+    return {"cluster": cluster, "fs": fs, "base": base, "tier": tier,
+            "boot_s": boot_s, "pids": pids}
+
+
+def stop_mp_cluster(mp: dict) -> None:
+    """Close the client, stop every process of the cluster, and give
+    its directory back."""
+    try:
+        mp["fs"].close()
+    finally:
+        mp["cluster"].stop()
+        alive = [p.proc.pid for p in mp["cluster"].masters
+                 + mp["cluster"].workers if p.alive]
+        shutil.rmtree(mp["base"], ignore_errors=True)
+    if alive:
+        fail(f"2g: processes {alive} outlived the cluster's stop")
+
+
+def write_files(fs, files: dict) -> float:
+    """Each block file written to the cluster at its path with
+    ``write_all(MUST_CACHE)``; returns the seconds the writes took."""
+    from alluxio_tpu_torch.client.streams import WriteType
+
+    write_s = 0.0
+    for path, (_, block_file) in files.items():
+        arr = np.fromfile(block_file, dtype=np.uint8)
+        t = time.perf_counter()
+        fs.write_all(path, arr, write_type=WriteType.MUST_CACHE)
+        write_s += time.perf_counter() - t
+    return write_s
+
+
+def mp_turn(name: str, device, fs, paths: list, main: dict,
+            want: str) -> dict:
+    """Epoch 1 of a fresh loader with no device tier over ``paths``
+    through ``fs``: every block opened by the ``want`` rung and equal to
+    its file; the epoch's time, the consumer's wait and the host ms a
+    block to open a stream."""
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+
+    rfs = RungFS(fs)
+    loader = DeviceBlockLoader(rfs, list(paths), device=device, prefetch=2,
+                               dtype=np.int32)
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = list(loader.epoch())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        wait = loader.stall_report()["total_wait_s"]
+    finally:
+        loader.close()
+    rfs.check_rungs(name, want)
+    check_order(name, got, [SimpleNamespace(path=p) for p in paths], main)
+    del got
+    return {"route": name, "rung": want, "blocks": len(paths), "s": dt,
+            "gb_per_s": len(paths) * BLOCK_BYTES / dt / 1e9,
+            "consumer_wait_s": wait,
+            "open_ms_per_block": rfs.open_s * 1e3 / rfs.opens}
+
+
+def mp_phase(device, mp: dict, main: dict, inproc: dict, k: int) -> dict:
+    """(2g): the main path through the port's ``MultiProcessCluster``,
+    whose worker is a process of its own: the 64 shards written with
+    ``write_all(MUST_CACHE)`` (64 commits on the worker), a loader's epoch
+    1 with every block on the SHM rung, epoch 2 all device-tier hits, K
+    chained ``scaled_sum`` calls equal to the main path's chain and the
+    plain chain; then the route turns, each a fresh loader with no
+    device tier, its route chosen by the client's keys only: the lease
+    rung (``atpu.user.shm.enabled`` off), the SHM rung cold (traced: the
+    lease RPC and the map of each open) and cached (the same client: no
+    RPC), and ``GRPC_BLOCKS`` blocks through the remote rung
+    (``atpu.user.short.circuit.enabled`` off) one stream a block, striped
+    (``atpu.user.remote.read.stripe.size``, the JAX default at full
+    size) and one stream again, every block on its rung and equal to its
+    file; last 2d's metadata calls against the master by transport. The
+    numbers print beside the in-process ones (``inproc``: the main path,
+    2c's traced SHM read, 2d's metadata calls)."""
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.conf import Configuration, Keys
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.utils import tracing
+
+    cluster, fs = mp["cluster"], mp["fs"]
+    files = main["files"]
+    paths = list(files)
+    n = len(files)
+    t_phase = time.perf_counter()
+    write_s = write_files(fs, files)
+    worker_port = cluster.worker_ports[0]
+    located = [[[loc.address.rpc_port for loc in b.block_info.locations]
+                for b in fs.fs_master.get_file_block_info_list(p)]
+               for p in paths]
+    if located != [[[worker_port]]] * n:
+        fail(f"2g: the shards' blocks are not one each on the worker "
+             f"(port {worker_port}): {located[:4]} ...")
+
+    m = metrics()
+    hits = m.counter("Client.JaxHbmHits")
+    rfs = RungFS(fs)
+    loader = DeviceBlockLoader(rfs, paths, device=device,
+                               hbm_bytes=n * BLOCK_BYTES + (64 << 20),
+                               prefetch=2, dtype=np.int32)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = list(loader.epoch())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        wait_s = loader.stall_report()["total_wait_s"]
+        hits0 = hits.count
+        blocks = list(loader.epoch())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if hits.count - hits0 != n or \
+                any(a is not b for a, b in zip(first, blocks)):
+            fail(f"2g epoch 2: {hits.count - hits0} device-tier hits, "
+                 f"want {n}")
+        del first
+        rfs.check_rungs("2g epoch 1", "shm")
+        check_order("2g epoch 1", blocks,
+                    [SimpleNamespace(path=p) for p in paths], main)
+        x = torch.cat(blocks)
+        del blocks
+        rk.launches = 0
+        acc, scan_ms = timed(lambda: chain(rk.scaled_sum, x, k))
+        launches = rk.launches
+        got = int(acc)
+    finally:
+        loader.close()
+    plain = int(chain(rk.scaled_sum_reference, x, k))
+    del x
+    if launches != k:
+        fail(f"2g launched scaled_sum {launches} times, want {k}")
+    if not got == main["chain"] == plain:
+        fail(f"2g scan: kernel chain {got}, main path's chain "
+             f"{main['chain']}, plain chain {plain}")
+
+    def client(**keys):
+        conf = Configuration(load_env=False)
+        for key, value in keys.items():
+            conf.set(getattr(Keys, key), value)
+        return cluster.file_system(conf)
+
+    # the route turns, epoch 1 each, with no device tier
+    turns = []
+    lease_fs, shm_fs = client(USER_SHM_ENABLED=False), client()
+    tracing.set_tracing_enabled(True)
+    try:
+        turns.append(mp_turn("lease", device, lease_fs, paths, main,
+                             "lease"))
+        wall0 = time.time() * 1e3
+        turns.append(mp_turn("SHM cold", device, shm_fs, paths, main,
+                             "shm"))
+        cold = shm_phases(wall0)
+        wall0 = time.time() * 1e3
+        turns.append(mp_turn("SHM cached", device, shm_fs, paths, main,
+                             "shm"))
+        cached = shm_phases(wall0)
+    finally:
+        tracing.set_tracing_enabled(False)
+        lease_fs.close()
+        shm_fs.close()
+    if [len(cold["lease_wait"]), len(cold["shm_map"])] != [n, n] or \
+            cached["lease_wait"] or cached["shm_map"]:
+        fail(f"2g SHM turns: {len(cold['lease_wait'])} lease RPCs and "
+             f"{len(cold['shm_map'])} maps traced cold, "
+             f"{len(cached['lease_wait'])} and {len(cached['shm_map'])} "
+             f"cached; want {n}, {n}, then none")
+    streamed = m.counter("Client.JaxStreamedBlocks")
+    stripes = m.counter("Client.RemoteReadStripes")
+    remote = []
+    grpc_paths = paths[:GRPC_BLOCKS]
+    for mode, stripe in (("single", 0), ("striped", REMOTE_STRIPE_BYTES),
+                         ("single", 0)):
+        rfs_client = client(USER_SHORT_CIRCUIT_ENABLED=False,
+                            USER_REMOTE_READ_STRIPE_SIZE=stripe)
+        s0, st0 = streamed.count, stripes.count
+        try:
+            turn = mp_turn(f"remote {mode}", device, rfs_client, grpc_paths,
+                           main, "remote")
+        finally:
+            rfs_client.close()
+        n_stripes = stripes.count - st0
+        if streamed.count - s0 != GRPC_BLOCKS or \
+                (n_stripes > 0) != (mode == "striped"):
+            fail(f"2g remote rung ({mode}): {streamed.count - s0} streamed "
+                 f"blocks, {n_stripes} stripes")
+        remote.append(dict(turn, mode=mode, stripe_bytes=stripe,
+                           stripes=n_stripes))
+    meta = transport_latencies("2g", cluster.master_addresses,
+                               cluster.base)
+
+    total = n * BLOCK_BYTES
+    out = {"boot_s": mp["boot_s"], "tier_bytes": mp["tier"],
+           "base": mp["base"], "processes": len(mp["pids"]),
+           "blocks": n, "block_bytes": BLOCK_BYTES,
+           "cold_write_s": write_s, "cold_write_gb_per_s": total / write_s
+           / 1e9, "commits": n, "epoch1_s": t1 - t0,
+           "epoch1_gb_per_s": total / (t1 - t0) / 1e9,
+           "consumer_wait_s": wait_s, "epoch2_s": t2 - t1,
+           "device_tier_hits": n, "rungs": dict(rfs.rungs),
+           "open_ms_per_block": rfs.open_s * 1e3 / rfs.opens,
+           "scan_ms": scan_ms, "launches": launches, "chain": got,
+           "route_turns": turns,
+           "shm_cold_open": {"lease_wait_ms": spread(cold["lease_wait"]),
+                             "shm_map_ms": spread(cold["shm_map"])},
+           "remote": remote,
+           "metadata_ms": {t: meta[t] for t in TRANSPORTS},
+           "in_process": inproc, "s": time.perf_counter() - t_phase}
+    lw, sm = out["shm_cold_open"]["lease_wait_ms"], \
+        out["shm_cold_open"]["shm_map_ms"]
+    ip = inproc
+    print(f"2g (worker in its own process; in-process in brackets): cold "
+          f"write {n} x {BLOCK_BYTES >> 20} MiB {write_s:.3f} s "
+          f"[{ip['cold_write_s']:.3f} s], {n} commits; epoch 1 "
+          f"{t1 - t0:.3f} s, consumer waits {wait_s:.3f} s "
+          f"[{ip['epoch1_s']:.3f} s, waits {ip['consumer_wait_s']:.3f} s], "
+          f"every block on the SHM rung; epoch 2 {t2 - t1:.4f} s, {n} hits; "
+          f"scan K={k} {scan_ms:.2f} ms, acc {got} == main path == plain, "
+          f"launches {launches}", flush=True)
+    print("2g route turns (epoch 1, no device tier): " + ", ".join(
+        f"{t['route']} {t['s']:.3f} s ({t['gb_per_s']:.2f} GB/s, consumer "
+        f"waits {t['consumer_wait_s']:.3f} s, open "
+        f"{t['open_ms_per_block']:.3f} ms a block)"
+        for t in turns + remote), flush=True)
+    lat = "; ".join(
+        f"{t} " + ", ".join(
+            f"{op} {v['p50_ms']:.3f} / {v['p99_ms']:.3f} ms "
+            f"[{ip['metadata_ms'][t][op]['p50_ms']:.3f} / "
+            f"{ip['metadata_ms'][t][op]['p99_ms']:.3f}]"
+            for op, v in meta[t].items())
+        for t in TRANSPORTS)
+    print(f"2g SHM cold open: lease RPC p50 {lw['p50']:.3f} ms, p99 "
+          f"{lw['p99']:.3f} ms [{ip['lease_wait_ms']['p50']:.3f}, "
+          f"{ip['lease_wait_ms']['p99']:.3f} ms]; map p50 {sm['p50']:.3f} "
+          f"ms, p99 {sm['p99']:.3f} ms [{ip['shm_map_ms']['p50']:.3f}, "
+          f"{ip['shm_map_ms']['p99']:.3f} ms]; metadata p50 / p99 "
+          f"({MASTER_FILES} files as in 2d): {lat}; remote "
+          f"rung one stream {remote[0]['gb_per_s']:.2f} and "
+          f"{remote[2]['gb_per_s']:.2f} GB/s, striped "
+          f"{remote[1]['gb_per_s']:.2f} GB/s; phase {out['s']:.1f} s",
+          flush=True)
+    return out
+
+
 def record_files(workdir: str, num_blocks: int, block_bytes: int) -> dict:
     """``bench.py``'s e2e layout: blocks of 64x64x3 records with a 4-byte
     label, padded to the block size; returns path -> (file id, file)."""
@@ -2803,7 +3045,7 @@ def record_files(workdir: str, num_blocks: int, block_bytes: int) -> dict:
     return files
 
 
-def decode_phase(device, files: dict, num_blocks: int,
+def decode_phase(device, fs, files: dict, num_blocks: int,
                  block_bytes: int) -> None:
     import torch
 
@@ -2814,8 +3056,7 @@ def decode_phase(device, files: dict, num_blocks: int,
 
     rec_bytes = image_record_bytes(H, W, C)
     per_block = block_bytes // rec_bytes
-    loader = DeviceBlockLoader(ShardSource(files), list(files),
-                               device=device,
+    loader = DeviceBlockLoader(fs, list(files), device=device,
                                hbm_bytes=num_blocks * block_bytes
                                + (8 << 20))
     n = 0
@@ -3019,32 +3260,40 @@ def run_epochs(name: str, loader, step, batch: int, epochs: int,
     return state, stats
 
 
-def profile_steps(loader, step, batch: int, n_steps: int, state):
-    """``n_steps`` more steps under ``torch.profiler``: kernel launches
-    per step and the share of the window in which the card was busy
-    (the union of its kernel and copy intervals over the window)."""
+def profile_steps(loader, step, batch: int, n_steps: int, state,
+                  trace_dir: str):
+    """``n_steps`` more steps under the port's ``device_trace`` (a
+    ``torch.profiler`` capture, written as a Chrome trace into
+    ``trace_dir``): kernel launches per step and the share of the window
+    in which the card was busy (the union of its kernel and copy
+    intervals over the window); the trace file must hold the kernels."""
     import itertools
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     from alluxio_tpu_torch.client.torch_io import batched_device_iterator
     from alluxio_tpu_torch.ops.decode import (decode_image_records,
                                               image_record_bytes)
+    from alluxio_tpu_torch.utils.tracing import device_trace
 
     batches = itertools.islice(batched_device_iterator(
         loader, record_bytes=image_record_bytes(H, W, C),
         batch_size=batch), n_steps)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace(trace_dir) as trace:
         for recs in batches:
             with record_function("atpu.decode"):
                 imgs, labels = decode_image_records(recs, height=H,
                                                     width=W, channels=C)
             state, _ = step(state, imgs, labels)
         torch.cuda.synchronize()
+    prof = trace.profile
+    with open(trace.path) as f:
+        traced = json.load(f).get("traceEvents", [])
+    trace_kernels = sum(1 for e in traced if e.get("cat") == "kernel")
+    os.remove(trace.path)
     events = list(prof.events())
     # the named regions also appear on the device timeline, spanning the
     # kernels inside them: they are neither launches nor busy time
@@ -3052,6 +3301,9 @@ def profile_steps(loader, step, batch: int, n_steps: int, state):
            and not e.name.startswith("atpu.")]
     if not dev:
         return state, None
+    if not trace_kernels:
+        fail(f"device_trace: the profiler saw {len(dev)} device events, "
+             f"the Chrome trace file holds no kernel")
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -3078,6 +3330,7 @@ def profile_steps(loader, step, batch: int, n_steps: int, state):
                 (e.time_range.end - e.time_range.start) / n_steps / 1e3
     return state, {
         "steps": n_steps, "launches_per_step": len(kernels) / n_steps,
+        "trace_kernel_events": trace_kernels,
         "host_ms_per_step": host_ms,
         "device_busy_us_per_step": busy / n_steps,
         "window_us_per_step": window / n_steps,
@@ -3086,7 +3339,7 @@ def profile_steps(loader, step, batch: int, n_steps: int, state):
                  a.self_device_time_total / n_steps) for a in top]}
 
 
-def train_phase(device, workdir: str, files: dict) -> dict:
+def train_phase(device, workdir: str, fs, files: dict) -> dict:
     """bench.py's e2e path through the port: device tier -> batches ->
     decode -> (a) linear-softmax SGD, (b) the flagship ViT under AdamW;
     then the ViT's checkpoint round trip."""
@@ -3112,8 +3365,7 @@ def train_phase(device, workdir: str, files: dict) -> dict:
     print(f"train phase: {len(files)} x {BLOCK_BYTES >> 20} MiB blocks, "
           f"{n_records} records; TF32 matmul "
           f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
-    loader = DeviceBlockLoader(ShardSource(files), list(files),
-                               device=device,
+    loader = DeviceBlockLoader(fs, list(files), device=device,
                                hbm_bytes=len(files) * BLOCK_BYTES
                                + (8 << 20))
     out = {}
@@ -3189,10 +3441,12 @@ def train_phase(device, workdir: str, files: dict) -> dict:
               f"({out['linear']['bound_by']})", flush=True)
 
         # launches and busy share over PROFILE_STEPS more steps, each path
+        traces = os.path.join(workdir, "traces")
         (model, opt), vprof = profile_steps(loader, vit, VIT_BATCH,
-                                            PROFILE_STEPS, (model, opt))
+                                            PROFILE_STEPS, (model, opt),
+                                            traces)
         _, lprof = profile_steps(loader, linear, BATCH, PROFILE_STEPS,
-                                 (params, ()))
+                                 (params, ()), traces)
         for name, prof in (("vit", vprof), ("linear", lprof)):
             out[name]["profile"] = prof
             if prof is not None:
@@ -3212,7 +3466,8 @@ def train_phase(device, workdir: str, files: dict) -> dict:
                   f"{prof['window_us_per_step']:.1f} us per step "
                   f"(busy share {prof['busy_share']:.4f}; of the "
                   f"unprofiled step {prof['busy_share_of_step']:.4f}); "
-                  f"host ms/step "
+                  f"{prof['trace_kernel_events']} kernels in the "
+                  f"device_trace Chrome trace; host ms/step "
                   f"under the profiler: "
                   + ", ".join(f"{k} {v:.3f}" for k, v in
                               sorted(prof["host_ms_per_step"].items())),
@@ -3321,8 +3576,10 @@ def profile_once(fn) -> dict:
             "kernels_us": kernels[:6], "collectives": collectives}
 
 
-def data_plane_check(device, mesh, workdir: str, files: dict) -> dict:
-    """(a): the main path's shard files through ``MeshBlockCache``."""
+def data_plane_check(device, mesh, workdir: str, fs, files: dict) -> dict:
+    """(a): the main path's shards through ``MeshBlockCache``, read from
+    the cluster behind ``fs``; the turnover's two fresh shards are
+    written there first."""
     import torch
 
     from alluxio_tpu_torch.parallel.ici_store import MeshBlockCache
@@ -3332,7 +3589,7 @@ def data_plane_check(device, mesh, workdir: str, files: dict) -> dict:
     cache = MeshBlockCache(mesh, block_bytes=BLOCK_BYTES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cached = cache.load_global(ShardSource(files), list(files), report=False)
+    cached = cache.load_global(fs, list(files), report=False)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     check_rows("load_global", cached, range(n), views)
@@ -3369,8 +3626,9 @@ def data_plane_check(device, mesh, workdir: str, files: dict) -> dict:
         at = os.path.join(workdir, f"fresh-{i}.blk")
         random_int32(BLOCK_BYTES // 4, gen, device).cpu().numpy().tofile(at)
         new[path] = (NUM_BLOCKS + 1 + i, at)
+    write_files(fs, {p: new[p] for p in rows.values()})
     ptr = cached.data_ptr()
-    cached = cache.turnover(cached, ShardSource(new),
+    cached = cache.turnover(cached, fs,
                             {g: (p, 0) for g, p in rows.items()},
                             report=False)
     if cached.data_ptr() != ptr:
@@ -3396,7 +3654,7 @@ def data_plane_check(device, mesh, workdir: str, files: dict) -> dict:
     return out
 
 
-def train_batches(device, files: dict, n_batches: int) -> list:
+def train_batches(device, fs, files: dict, n_batches: int) -> list:
     """The first ``n_batches`` ViT batches of the train phase, as tokens
     and labels on the card."""
     from alluxio_tpu_torch.client.torch_io import (DeviceBlockLoader,
@@ -3405,8 +3663,7 @@ def train_batches(device, files: dict, n_batches: int) -> list:
     from alluxio_tpu_torch.ops.decode import (decode_image_records,
                                               image_record_bytes)
 
-    loader = DeviceBlockLoader(ShardSource(files), list(files),
-                               device=device, hbm_bytes=0)
+    loader = DeviceBlockLoader(fs, list(files), device=device, hbm_bytes=0)
     out = []
     try:
         batches = batched_device_iterator(
@@ -3564,9 +3821,10 @@ def pipeline_check(device, mesh, shape) -> dict:
             "bit_identical": True}
 
 
-def mesh_phase(device, workdir: str, shard_files: dict,
+def mesh_phase(device, workdir: str, fs, shard_files: dict,
                records: dict) -> dict:
-    """The mesh layer over an NCCL group of one rank on this card."""
+    """The mesh layer over an NCCL group of one rank on this card, its
+    shards and records read from the cluster behind ``fs``."""
     import dataclasses
 
     import torch
@@ -3585,12 +3843,12 @@ def mesh_phase(device, workdir: str, shard_files: dict,
               f"on {torch.device('cuda', torch.cuda.current_device())}",
               flush=True)
         out = {"backend": dist.get_backend(), "nccl": nccl, "world": 1,
-               "data_plane": data_plane_check(device, mesh, workdir,
+               "data_plane": data_plane_check(device, mesh, workdir, fs,
                                               shard_files)}
         cfg = TransformerConfig(
             vocab_or_patch_dim=PATCH * PATCH * C, n_classes=N_CLASSES,
             max_len=(H // PATCH) * (W // PATCH), **VIT_WIDTHS)
-        batches = train_batches(device, records, MESH_STEPS)
+        batches = train_batches(device, fs, records, MESH_STEPS)
         out["vit"] = sharded_step_check(device, mesh, cfg, batches, VIT_LR)
         out["moe"] = sharded_step_check(
             device, mesh, dataclasses.replace(cfg, moe_experts=MOE_EXPERTS),
@@ -3622,7 +3880,7 @@ def main() -> int:
     workdir = block_dir(NUM_BLOCKS * BLOCK_BYTES
                         + (NUM_BLOCKS * BLOCK_BYTES + (256 << 20))
                         + DECODE_BLOCKS * BLOCK_BYTES + PAGE_CACHE_BYTES)
-    main = None
+    main = mp = None
     try:
         main = main_path(device, workdir, NUM_BLOCKS, BLOCK_BYTES, K)
         shard_files = main["files"]
@@ -3653,23 +3911,38 @@ def main() -> int:
               f"kernel of its own)", flush=True)
         page_cache = page_cache_phase(device, workdir, main)
         worker = worker_phase(device, workdir, main, K)
+        # 2g: the main path again, its worker a process of its own; the
+        # cluster then serves decode, train and mesh
+        mp = start_mp_cluster(NUM_BLOCKS)
+        multi = mp_phase(device, mp, main, {
+            "cold_write_s": main["cold_write_s"],
+            "epoch1_s": main["epoch1_s"],
+            "consumer_wait_s": main["consumer_wait_s"],
+            "lease_wait_ms": worker["shm_read"]["lease_wait_ms"],
+            "shm_map_ms": worker["shm_read"]["shm_map_ms"],
+            "metadata_ms": {t: master[t] for t in TRANSPORTS}}, K)
         del main["blocks"]
         files = record_files(workdir, DECODE_BLOCKS, BLOCK_BYTES)
-        decode_phase(device, files, DECODE_BLOCKS, BLOCK_BYTES)
+        write_files(mp["fs"], files)
+        decode_phase(device, mp["fs"], files, DECODE_BLOCKS, BLOCK_BYTES)
         # the train path runs no kernel of the port (the JAX e2e path
         # reaches no Pallas kernel): its count is read all the same
         rk.launches = 0
-        train = train_phase(device, workdir, files)
+        train = train_phase(device, workdir, mp["fs"], files)
         train["kernel_launches"] = {"scaled_sum": rk.launches}
         print(f"train path: scaled_sum launched {rk.launches} times (the "
               f"path has no kernel of its own)", flush=True)
         rk.launches = 0
-        mesh = mesh_phase(device, workdir, shard_files, files)
+        mesh = mesh_phase(device, workdir, mp["fs"], shard_files, files)
         mesh["kernel_launches"] = {"scaled_sum": rk.launches}
     finally:
-        if main is not None:
-            stop_cluster(main)
-        shutil.rmtree(workdir, ignore_errors=True)
+        try:
+            if mp is not None:
+                stop_mp_cluster(mp)
+        finally:
+            if main is not None:
+                stop_cluster(main)
+            shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"main": {
         "cold_write_s": main["cold_write_s"],
         "cold_write_gb_per_s": NUM_BLOCKS * BLOCK_BYTES
@@ -3684,6 +3957,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"suite": suite}), flush=True)
     print(json.dumps({"clairvoyant": clairvoyant}), flush=True)
+    print(json.dumps({"multi_process": multi}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "scaled_sum", "route": "cuda",
         "source": "alluxio_tpu_torch/ops/csrc/reduce_kernel.cu",
@@ -3702,6 +3976,7 @@ def main() -> int:
             "worker_shm": worker["shm_read"]["scan_launches"],
             "worker_cold": worker["cold_launches"],
             "worker_qos": worker["qos"]["launches"],
+            "multi_process": multi["launches"],
             "train": train["kernel_launches"]["scaled_sum"],
             "mesh": mesh["kernel_launches"]["scaled_sum"]},
         "max_abs_err": kern["max_abs_err"],

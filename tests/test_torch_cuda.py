@@ -148,32 +148,50 @@ def _module(name, relpath):
 
 
 def _smoke():
-    """``chip_smoke.py`` as a module (its stand-in worker and checks)."""
+    """``chip_smoke.py`` as a module (its checks)."""
     return _module("chip_smoke", "chip_smoke.py")
 
 
 def _prefetching_loader(tmp_path, device, n=4, words=1 << 21):
-    """n block files of ``words`` int32 behind chip_smoke's stand-in
-    worker, a port PrefetchService placing every block in the device
-    tier, and a loader on ``device`` bound to it."""
+    """n files of ``words`` int32 on a port ``LocalCluster`` (one worker,
+    blocks of a file each), a port PrefetchService placing every block in
+    the device tier, and a loader on ``device`` bound to it. Returns the
+    host copies (path -> (id, file)), the service, the loader and the
+    cluster with its client, for the caller to close."""
+    from alluxio_tpu_torch.client.streams import WriteType
     from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.minicluster import LocalCluster
     from alluxio_tpu_torch.prefetch import PrefetchService
 
+    cluster = LocalCluster(str(tmp_path / "cluster"), block_size=words * 4,
+                           worker_mem_bytes=2 * n * words * 4,
+                           start_worker_heartbeats=True).start()
+    fs = cluster.file_system()
     files = {}
     for i in range(n):
         path = tmp_path / f"p{i}"
-        _random_int32(words, 200 + i, "cpu").numpy().tofile(path)
+        data = _random_int32(words, 200 + i, "cpu").numpy()
+        data.tofile(path)
+        fs.write_all(f"/p{i}", data, write_type=WriteType.MUST_CACHE)
         files[f"/p{i}"] = (i + 1, str(path))
-    src = _smoke().ShardSource(files)
-    svc = PrefetchService.from_fs(src, list(files), seed=3,
+    svc = PrefetchService.from_fs(fs, list(files), seed=3,
                                   lookahead_blocks=n,
                                   budget_bytes=n * words * 4,
-                                  hbm_fraction=1.0,
-                                  worker_client_fn=src.worker_client)
-    loader = DeviceBlockLoader(src, list(files), device=device,
+                                  hbm_fraction=1.0)
+    loader = DeviceBlockLoader(fs, list(files), device=device,
                                hbm_bytes=n * words * 4 + (1 << 20),
                                dtype=np.int32, prefetch_service=svc)
-    return files, svc, loader
+    return files, svc, loader, (cluster, fs)
+
+
+def _close(svc, loader, cluster_fs) -> None:
+    cluster, fs = cluster_fs
+    try:
+        svc.close()
+        loader.close()
+        fs.close()
+    finally:
+        cluster.stop()
 
 
 def test_adopted_pages_read_on_a_side_stream(cuda, tmp_path):
@@ -181,7 +199,7 @@ def test_adopted_pages_read_on_a_side_stream(cuda, tmp_path):
     stream, whose copies are held back by a busy kernel queued there
     first, are read by a consumer on a side stream: every block equals
     its file, since the consumer's stream waits on each copy's event."""
-    files, svc, loader = _prefetching_loader(tmp_path, cuda)
+    files, svc, loader, cluster = _prefetching_loader(tmp_path, cuda)
     side = torch.cuda.Stream(device=cuda)
     try:
         with torch.cuda.stream(loader._copy_stream):
@@ -198,8 +216,7 @@ def test_adopted_pages_read_on_a_side_stream(cuda, tmp_path):
             want = np.fromfile(files[ref.path][1], dtype=np.int32)
             assert np.array_equal(got.numpy(), want), ref.path
     finally:
-        svc.close()
-        loader.close()
+        _close(svc, loader, cluster)
 
 
 def test_get_device_on_the_card(cuda):
@@ -238,7 +255,8 @@ def test_adopt_thread_copies_on_the_loaders_device(cuda, tmp_path):
     the loader sits on the last one; with one, the copy stream's device
     and every adopted page's are the loader's."""
     dev = torch.device("cuda", torch.cuda.device_count() - 1)
-    files, svc, loader = _prefetching_loader(tmp_path, dev, words=1 << 18)
+    files, svc, loader, cluster = _prefetching_loader(tmp_path, dev,
+                                                      words=1 << 18)
     try:
         assert loader._copy_stream.device == dev
         assert svc.wait_ready(len(files), timeout_s=60.0, tick=True)
@@ -251,8 +269,7 @@ def test_adopt_thread_copies_on_the_loaders_device(cuda, tmp_path):
             want = np.fromfile(files[ref.path][1], dtype=np.int32)
             assert np.array_equal(got.cpu().numpy(), want)
     finally:
-        svc.close()
-        loader.close()
+        _close(svc, loader, cluster)
 
 
 def _small_vit(device, seed=0):

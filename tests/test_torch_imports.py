@@ -74,7 +74,8 @@ def test_importing_every_module_loads_no_jax():
               "stress.cluster", "stress.write_bench", "stress.tpu_suite",
               "table", "table.plan", "table.reader", "table.udb",
               "table.master", "rpc.table_service", "job.plans.transform",
-              "stress.table_bench", "stress.prefetch_bench"):
+              "stress.table_bench", "stress.prefetch_bench", "shell",
+              "shell.main", "shell.launch", "minicluster.multi_process"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -96,6 +97,28 @@ def test_package_import_loads_no_torch():
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+def test_role_launchers_load_no_torch():
+    """The role processes are host-only: the shell, the launchers, the
+    multi-process cluster and every module the four launchers build
+    their roles from import no torch."""
+    code = ("import sys\n"
+            "import alluxio_tpu_torch.shell.main, "
+            "alluxio_tpu_torch.shell.launch, "
+            "alluxio_tpu_torch.minicluster.multi_process, "
+            "alluxio_tpu_torch.master.process, "
+            "alluxio_tpu_torch.worker.process, "
+            "alluxio_tpu_torch.rpc.worker_service, "
+            "alluxio_tpu_torch.worker.ufs_manager, "
+            "alluxio_tpu_torch.security.authentication, "
+            "alluxio_tpu_torch.job.process\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'alluxio_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -283,6 +283,46 @@ def test_nested_mount_persist_stops_at_mount_point(env, tmp_path):
     env.fs.unmount("/nm/inner")
 
 
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_persistence_scheduler_skips_an_inflight_file(pkg):
+    """A persist request for a file whose job is still running (the file
+    asked for again before its job ended) must not start a second job
+    for it. The JAX scheduler queues the popped id without looking at
+    its in-flight jobs and submits two; the port's submits one."""
+    from types import SimpleNamespace
+
+    class Fsm:
+        def __init__(self):
+            self.requests = [{7}, {7}]
+
+        def pop_persist_requests(self):
+            return self.requests.pop(0) if self.requests else set()
+
+        @staticmethod
+        def current_path_of(inode_id):
+            return f"/f{inode_id}"
+
+    class Jobs:
+        def __init__(self):
+            self.submitted = []
+
+        def run(self, config):
+            self.submitted.append(config)
+            return len(self.submitted)
+
+        @staticmethod
+        def get_status(job_id):
+            return SimpleNamespace(status="RUNNING", error_message="")
+
+    jobs = Jobs()
+    sched = _mod(pkg, "master.persistence").PersistenceScheduler(Fsm(), jobs)
+    sched.heartbeat()
+    sched.heartbeat()
+    assert [c["inode_id"] for c in jobs.submitted] == \
+        ([7, 7] if pkg == "alluxio_tpu" else [7])
+    assert sched.inflight_count == len(jobs.submitted)
+
+
 def test_persist_now_rejects_wrong_inode(env):
     env.fs.write_all("/pin", b"x" * 100)
     real_id = env.fs.get_status("/pin").file_id

@@ -196,3 +196,207 @@ def test_embedded_journal_is_refused(tmp_path):
 
     with pytest.raises(ValueError, match="EMBEDDED"):
         create_journal_system("EMBEDDED", str(tmp_path))
+
+
+# -- the reference's copied faults, repaired in the port ----------------------
+JAX, PORT = PACKAGES
+
+
+class _DrainRace(set):
+    """A persist-request set whose ``clear()`` first runs ``race``: a
+    persist requested from another thread lands between the drain's copy
+    of the set and its clear."""
+
+    def __init__(self, items, race) -> None:
+        super().__init__(items)
+        self._race = race
+
+    def clear(self) -> None:
+        race, self._race = self._race, None
+        if race is not None:
+            race()
+        super().clear()
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_persist_request_made_during_a_drain_is_kept(tmp_path, pkg):
+    """The JAX drain copies the set and then clears it with no lock: an
+    id added between the two is cleared unseen, so its file is never
+    persisted. The port drains under the lock every add takes, so the
+    add waits and the next drain returns it."""
+    import threading
+
+    m = Masters(pkg, str(tmp_path)).start()
+    try:
+        fsm = m.fsm
+        for path in ("/a", "/b"):
+            fsm.create_file(path)
+            fsm.complete_file(path, length=0)
+        fsm.schedule_async_persistence("/a")
+        a, b = (fsm.get_status(p).file_id for p in ("/a", "/b"))
+        adder = threading.Thread(target=fsm.schedule_async_persistence,
+                                 args=("/b",))
+
+        def race():
+            adder.start()
+            # the JAX add never blocks, so it lands here, between the
+            # copy and the clear; the port's add waits for the lock
+            adder.join(timeout=None if pkg == JAX else 0.5)
+
+        fsm._persist_requests = _DrainRace(fsm._persist_requests, race)
+        first = fsm.pop_persist_requests()
+        adder.join(timeout=10)
+        assert not adder.is_alive()
+        second = fsm.pop_persist_requests()
+    finally:
+        m.stop()
+    assert a in first
+    assert (b in first | second) == (pkg == PORT)
+
+
+def _persist_fixture(m: Masters, op: str):
+    """An operation that must make UFS directories for ``/d1/d2``, two
+    unpersisted directories: completing a file under them with a UFS
+    fingerprint, marking such a file persisted, committing its persist
+    (a zero-block file: the master creates the UFS object), or renaming
+    a persisted file under them. Returns the operation as a callable."""
+    fsm = m.fsm
+    fsm.create_file("/other")
+    fsm.create_directory("/d1/d2", recursive=True)
+    if op == "rename":
+        fsm.create_file("/s/f", recursive=True)
+        fsm.complete_file("/s/f", length=0)
+        fsm.mark_persisted("/s/f", "fp")
+        uri = mod(m.pkg, "utils.uri").AlluxioURI("/s/f")
+        with open(fsm.mount_table.resolve(uri).ufs_path, "wb"):
+            pass
+        return lambda: fsm.rename("/s/f", "/d1/d2/f")
+    fsm.create_file("/d1/d2/f")
+    if op == "complete":
+        return lambda: fsm.complete_file("/d1/d2/f", length=0,
+                                         ufs_fingerprint="fp")
+    fsm.complete_file("/d1/d2/f", length=0)
+    if op == "commit_persist":
+        file_id = fsm.get_status("/d1/d2/f").file_id
+        return lambda: fsm.commit_persist("/d1/d2/f", "",
+                                          expected_id=file_id)
+    return lambda: fsm.mark_persisted("/d1/d2/f", "fp")
+
+
+def _root_ufs(m: Masters):
+    uri = mod(m.pkg, "utils.uri").AlluxioURI("/")
+    return m.fsm._ufs.get(m.fsm.mount_table.resolve(uri).mount_id)
+
+
+@pytest.mark.parametrize("op", ("complete", "mark_persisted", "rename"))
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_ufs_dirs_are_made_outside_the_tree_lock(tmp_path, monkeypatch,
+                                                 pkg, op):
+    """The JAX master makes the breadcrumb directories while it holds
+    the tree's exclusive lock, so one slow UFS call stalls the whole
+    namespace. The port decides under the lock which directories it
+    needs and makes them after releasing it: a ``get_status`` of an
+    unrelated path answers while the UFS call is blocked. (On JAX the
+    test only records that the lock is write-held, and blocks nothing.)"""
+    import threading
+
+    m = Masters(pkg, str(tmp_path)).start()
+    release = threading.Event()
+    try:
+        run = _persist_fixture(m, op)
+        ufs = _root_ufs(m)
+        entered = threading.Event()
+        held = []
+        real = ufs.mkdirs
+
+        def mkdirs(path, *args, **kwargs):
+            write_held = \
+                m.fsm.inode_tree.lock._writer is threading.current_thread()
+            held.append(write_held)
+            if not write_held:
+                entered.set()
+                assert release.wait(10)
+            return real(path, *args, **kwargs)
+
+        monkeypatch.setattr(ufs, "mkdirs", mkdirs)
+        worker = threading.Thread(target=run)
+        worker.start()
+        if pkg == JAX:
+            worker.join(timeout=10)
+            assert held and all(held)
+        else:
+            assert entered.wait(10)
+            answered = []
+            reader = threading.Thread(
+                target=lambda: answered.append(m.fsm.get_status("/other")))
+            reader.start()
+            reader.join(timeout=10)
+            assert answered, "get_status waited for the UFS call"
+            release.set()
+            worker.join(timeout=10)
+            assert held and not any(held)
+        assert not worker.is_alive()
+        assert m.fsm.get_status("/d1/d2").persistence_state == "PERSISTED"
+    finally:
+        release.set()
+        m.stop()
+
+
+@pytest.mark.parametrize("op", ("complete", "mark_persisted", "rename",
+                                "commit_persist"))
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_failed_ufs_mkdirs_leaves_directories_unpersisted(tmp_path,
+                                                          monkeypatch,
+                                                          pkg, op):
+    """The JAX master swallows a failed breadcrumb mkdirs and journals
+    the directories PERSISTED all the same, so the namespace claims UFS
+    directories that do not exist. The port never lets a PERSISTED file
+    sit under a NOT_PERSISTED directory (a rename of that directory
+    would skip the UFS rename, and metadata sync would bring the old
+    tree back): the op raises ``UnavailableError`` before it journals
+    anything or touches the UFS, the directories stay unpersisted, and
+    the retried op persists the whole chain; a rename of ``/d1`` then
+    leaves no ghost after a sync."""
+    m = Masters(pkg, str(tmp_path)).start()
+    try:
+        run = _persist_fixture(m, op)
+        fsm = m.fsm
+        ufs = _root_ufs(m)
+        real = ufs.mkdirs
+
+        def mkdirs(path, *args, **kwargs):
+            raise OSError(f"injected mkdirs failure for {path}")
+
+        def states():
+            return [fsm.get_status(p).persistence_state
+                    for p in ("/d1", "/d1/d2")]
+
+        monkeypatch.setattr(ufs, "mkdirs", mkdirs)
+        if pkg == JAX:
+            run()
+            assert states() == ["PERSISTED", "PERSISTED"]
+            assert fsm.get_status("/d1/d2/f").persistence_state == \
+                "PERSISTED"
+            return
+        with pytest.raises(mod(pkg, "utils.exceptions").UnavailableError):
+            run()
+        assert states() == ["NOT_PERSISTED", "NOT_PERSISTED"]
+        if op == "rename":
+            assert fsm.get_status("/s/f").persistence_state == "PERSISTED"
+            assert not fsm.exists("/d1/d2/f")
+        else:
+            assert fsm.get_status("/d1/d2/f").persistence_state != \
+                "PERSISTED"
+        monkeypatch.setattr(ufs, "mkdirs", real)
+        run()
+        assert states() == ["PERSISTED", "PERSISTED"]
+        assert fsm.get_status("/d1/d2/f").persistence_state == "PERSISTED"
+        uri = mod(pkg, "utils.uri").AlluxioURI("/d1/d2")
+        assert os.path.isdir(fsm.mount_table.resolve(uri).ufs_path)
+        fsm.rename("/d1", "/moved")
+        names = {i.name for i in fsm.list_status("/", sync_interval_ms=0)}
+        assert "d1" not in names and "moved" in names
+        assert fsm.get_status("/moved/d2/f").persistence_state == \
+            "PERSISTED"
+    finally:
+        m.stop()

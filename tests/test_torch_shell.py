@@ -1,0 +1,130 @@
+"""The port's command-line dispatch against the JAX package's, on the CPU.
+
+- ``_parse_generic`` turns the same argv into the same configuration and
+  the same remaining arguments on both packages, and both refuse the
+  same malformed ``host:port``;
+- the JAX package's commands that the port does not have are refused
+  with exit code 1 and the ROADMAP item that brings them (a deliberate
+  difference); help and version answer as in JAX;
+- ``python -m alluxio_tpu_torch.shell.main master`` serves, and stops
+  with exit code 0 on SIGTERM.
+"""
+
+import importlib
+import os
+import re
+import select
+import signal
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+PACKAGES = ("alluxio_tpu", "alluxio_tpu_torch")
+KEYS = ("atpu.master.hostname", "atpu.master.rpc.port",
+        "atpu.job.master.hostname", "atpu.job.master.rpc.port",
+        "atpu.user.block.size.bytes.default")
+
+
+def _mod(pkg: str, name: str):
+    return importlib.import_module(f"{pkg}.{name}")
+
+
+def _parse(pkg: str, argv):
+    conf = _mod(pkg, "conf").Configuration(load_env=False)
+    main = _mod(pkg, "shell.main")
+    try:
+        rest = main._parse_generic(list(argv), conf)
+    except main.GenericOptionError as e:
+        return ("error", str(e))
+    return rest, {k: conf.get(k) for k in KEYS}
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["worker"],
+    ["--master", "m1:1234", "worker"],
+    ["--master", "m1", "worker"],
+    ["--master", ":1234", "master"],
+    ["--job-master", "jm:2001", "job-worker"],
+    ["--job-master", "jm", "--master", "m:9", "job-worker", "x"],
+    ["-D", "atpu.user.block.size.bytes.default=8MB", "master"],
+    ["-D", "atpu.master.rpc.port=4242", "--master", "h:17", "master"],
+    ["--master"],
+    ["master", "-D"],
+    ["--master", "m1:port"],
+    ["--job-master", "jm:x1", "job-master"],
+])
+def test_parse_generic_matches_jax(argv):
+    assert _parse("alluxio_tpu_torch", argv) == _parse("alluxio_tpu", argv)
+
+
+def _jax_commands() -> set:
+    usage = _mod("alluxio_tpu", "shell.main").USAGE
+    block = usage.split("Commands:")[1].split("Generic options:")[0]
+    return {line.split()[0] for line in block.splitlines() if line.strip()}
+
+
+def test_every_jax_command_is_dispatched_or_refused():
+    from alluxio_tpu_torch.shell import main
+
+    ported = {"master", "worker", "job-master", "job-worker", "version"}
+    assert ported | set(main._NOT_PORTED) == _jax_commands()
+    assert not ported & set(main._NOT_PORTED)
+
+
+@pytest.mark.parametrize("cmd", sorted(
+    importlib.import_module("alluxio_tpu_torch.shell.main")._NOT_PORTED))
+def test_unported_command_is_refused(cmd, capsys):
+    from alluxio_tpu_torch.shell import main
+
+    assert main.main([cmd, "arg"]) == 1
+    err = capsys.readouterr().err
+    assert f"{cmd}: not ported yet" in err
+    item = re.search(r"ROADMAP item '([^']+)'", err).group(1)
+    roadmap = open(os.path.join(os.path.dirname(__file__), os.pardir,
+                                "ROADMAP.md")).read()
+    assert item in roadmap
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_help_version_and_unknown_match_jax(pkg, capsys):
+    main = _mod(pkg, "shell.main")
+    codes = [main.main(["--help"]), main.main(["version"]),
+             main.main(["no-such-command"])]
+    out = capsys.readouterr()
+    assert codes == [0, 0, 1]
+    assert out.out.strip().endswith("0.1.0")
+    assert "Unknown command: no-such-command" in out.err
+
+
+def test_master_role_serves_and_stops_on_sigterm(tmp_path):
+    env = {**os.environ, "ATPU_MASTER_RPC_PORT": "0",
+           "ATPU_HOME": str(tmp_path),
+           "ATPU_MASTER_JOURNAL_FOLDER": str(tmp_path / "journal"),
+           "ATPU_MASTER_FASTPATH_DIR": str(tmp_path),
+           "ATPU_MASTER_SAFEMODE_WAIT": "0s"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "alluxio_tpu_torch.shell.main", "master"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        text=True, cwd=os.path.join(os.path.dirname(__file__), os.pardir))
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 60)
+        assert ready, "the master printed no banner in 60 s"
+        banner = proc.stdout.readline()
+        port = int(re.search(r"serving on port (\d+)", banner).group(1))
+        from alluxio_tpu_torch.rpc.clients import MetaMasterClient
+
+        info = MetaMasterClient(f"localhost:{port}",
+                                retry_duration_s=5.0).get_master_info()
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+    assert info
+    assert code == 0

@@ -469,7 +469,11 @@ def test_prefetch_fault_drill_end_to_end():
     """JAX's drill (``tests/test_job_service.py::TestTaskFailover::
     test_fault_drill_end_to_end``) on the port: replication 2, eviction
     pressure and a worker killed mid-load; the plan completes, every
-    block ends at replication, and every file reads back right."""
+    block ends at replication, and every file reads back right. Unlike
+    the reference's drill, the count waits until the master has dropped
+    the killed worker (lost-worker detection, every second here) and a
+    copy counts only on a live worker: the killed worker's copies must
+    have come back elsewhere, not merely still be listed."""
     from alluxio_tpu_torch.stress.prefetch_bench import run
 
     r = run(num_workers=4, num_files=8, file_bytes=8 << 20,
@@ -481,6 +485,7 @@ def test_prefetch_fault_drill_end_to_end():
     assert r.metrics["killed_mid_job"] is True
     assert r.metrics["read_back_mismatches"] == 0
     assert r.params["worker_killed"] is True
+    assert r.metrics["detection_wait_s"] > 0
 
 
 def test_clairvoyant_bench_matches_jax():
