@@ -776,6 +776,26 @@ class Keys:
                                       "store with a write-back LRU.")
     MASTER_METASTORE_DIR = _k("atpu.master.metastore.dir",
                               default="/tmp/alluxio_tpu/metastore", scope=Scope.MASTER)
+    MASTER_METASTORE_INODE_CACHE_MAX_SIZE = _k(
+        "atpu.master.metastore.inode.cache.max.size", KeyType.INT, default=100_000,
+        scope=Scope.MASTER)
+    MASTER_METASTORE_LSM_MEMTABLE_BYTES = _k(
+        "atpu.master.metastore.lsm.memtable.bytes", KeyType.BYTES,
+        default="8MB", scope=Scope.MASTER,
+        description="LSM metastore memtable cap: the in-memory write "
+                    "buffer is flushed to an immutable sorted run when "
+                    "its encoded size crosses this bound.")
+    MASTER_METASTORE_LSM_COMPACTION_TRIGGER = _k(
+        "atpu.master.metastore.lsm.compaction.trigger", KeyType.INT,
+        default=4, scope=Scope.MASTER,
+        description="Size-tiered compaction fan-in: merge a tier once "
+                    "this many adjacent same-tier runs accumulate.")
+    MASTER_METASTORE_LSM_WAL_SYNC = _k(
+        "atpu.master.metastore.lsm.wal.sync", KeyType.BOOL, default=False,
+        scope=Scope.MASTER,
+        description="fsync the metastore WAL on every append. Off by "
+                    "default: the journal is the durability source of "
+                    "truth and replays over the metastore on recovery.")
 
     # --- master: opt-in components the port's master does not have yet (it
     # refuses to start with one switched on) ---

@@ -1,11 +1,6 @@
 """Built-in plan definitions (a copy of ``alluxio_tpu/job/plans/``;
 reference: ``job/server/.../job/plan/{load,migrate,persist,replicate,
-transform}``).
-
-The JAX registry also holds ``stressbench``, which needs the worker and
-master stress benches. The port has neither yet: a job of that type fails
-with the registry's "unknown job type" error.
-"""
+transform,stress}``)."""
 
 from __future__ import annotations
 
@@ -17,9 +12,10 @@ def register_builtin_plans(registry) -> None:
     from alluxio_tpu_torch.job.plans.replicate import (
         EvictDefinition, MoveDefinition, ReplicateDefinition,
     )
+    from alluxio_tpu_torch.job.plans.stressbench import StressBenchDefinition
     from alluxio_tpu_torch.job.plans.transform import TransformDefinition
 
     for plan in (LoadDefinition(), MigrateDefinition(), PersistDefinition(),
                  ReplicateDefinition(), EvictDefinition(), MoveDefinition(),
-                 TransformDefinition()):
+                 TransformDefinition(), StressBenchDefinition()):
         registry.register(plan)

@@ -1,6 +1,4 @@
-"""The namespace inode tree: a copy of ``alluxio_tpu/master/inode_tree.py``
-(an LSM-native checkpoint raises ``NotSupportedError`` until the LSM
-store is ported).
+"""The namespace inode tree: a copy of ``alluxio_tpu/master/inode_tree.py``.
 
 Re-design of ``core/server/master/.../file/meta/InodeTree.java:84`` +
 ``InodeTreePersistentState.java:71``.
@@ -60,7 +58,7 @@ from alluxio_tpu_torch.master.inode import Inode, PersistenceState
 from alluxio_tpu_torch.master.metastore import HeapInodeStore, InodeStore
 from alluxio_tpu_torch.master.ttl import TtlBucketList
 from alluxio_tpu_torch.utils.exceptions import (
-    FileDoesNotExistError, InvalidPathError, NotSupportedError,
+    FileDoesNotExistError, InvalidPathError,
 )
 from alluxio_tpu_torch.utils.locks import RWLock
 from alluxio_tpu_torch.utils.uri import AlluxioURI
@@ -896,13 +894,28 @@ class InodeTree(Journaled):
             self._index_restored(inode)
 
     def _restore_cross_kind(self, store_state: dict) -> None:
-        """An LSM-native checkpoint arriving at a master whose store has
-        no native format. JAX hydrates it through a throwaway LSM reader;
-        the port has no LSM store until the metastore-backends slice, so
-        the bootstrap fails with a typed error instead."""
-        raise NotSupportedError(
-            "LSM-native checkpoint: the LSM metastore is not ported yet "
-            f"(store state keys {sorted(store_state)})")
+        """An LSM-native checkpoint arriving at a master whose own store
+        has no native format (HEAP/SQLITE standby behind an LSM primary):
+        hydrate through a throwaway LSM reader instead of failing the
+        bootstrap."""
+        import shutil
+        import tempfile
+
+        from alluxio_tpu_torch.master.metastore.lsm import LsmInodeStore
+
+        tmp = tempfile.mkdtemp(prefix="atpu_lsm_restore_")
+        try:
+            reader = LsmInodeStore(tmp, compaction=False)
+            reader.restore_state(store_state)
+            for inode in reader.iter_inodes():
+                self._store.put(inode)
+                if inode.parent_id != ROOT_ID_PARENT:
+                    self._store.add_child(inode.parent_id, inode.name,
+                                          inode.id)
+                self._index_restored(inode)
+            reader.close()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
 
     def _index_restored(self, inode: Inode) -> None:
         if inode.ttl >= 0:

@@ -8,8 +8,8 @@ window** after primacy during which client ops are rejected while workers
 re-register (reference: ``DefaultSafeModeManager``).
 
 The port's master holds the journal, the block master, the permission
-checker, the metastore (``HEAP``), the file master, the path properties,
-the table master (the catalog, registered with the journal before replay)
+checker, the metastore (any kind ``atpu.master.metastore`` names), the
+file master, the path properties, the table master (the catalog, registered with the journal before replay)
 and the cluster config checker; it serves the FS, block, table and meta
 services over gRPC and the same-host fast path, and ticks the lost-worker,
 TTL and transform-monitor heartbeats. Once a job service exists, the
@@ -110,9 +110,24 @@ class MasterProcess:
         self.permission_checker = checker
         from alluxio_tpu_torch.master.metastore import create_inode_store
 
+        # pluggable metastore backend (reference: HEAP/ROCKS/caching):
+        # HEAP serves from dicts; SQLITE spills metadata > RAM to disk;
+        # LSM is the capacity backend (WAL + memtable + sorted runs,
+        # caching-wrapped hot set); CACHING fronts SQLITE with a bounded
+        # write-back LRU
         inode_store = create_inode_store(
             str(conf.get(Keys.MASTER_METASTORE)),
-            conf.get(Keys.MASTER_METASTORE_DIR))
+            conf.get(Keys.MASTER_METASTORE_DIR),
+            cache_size=conf.get_int(
+                Keys.MASTER_METASTORE_INODE_CACHE_MAX_SIZE),
+            lsm_options={
+                "memtable_bytes": conf.get_bytes(
+                    Keys.MASTER_METASTORE_LSM_MEMTABLE_BYTES),
+                "max_runs_per_tier": conf.get_int(
+                    Keys.MASTER_METASTORE_LSM_COMPACTION_TRIGGER),
+                "wal_sync": conf.get_bool(
+                    Keys.MASTER_METASTORE_LSM_WAL_SYNC),
+            })
         self.fs_master = FileSystemMaster(
             self.block_master, self.journal, clock=self._clock,
             inode_store=inode_store,

@@ -54,7 +54,8 @@ def launch_master(conf: Configuration) -> int:
     proc = MasterProcess(conf)
     port = proc.start()
     return _serve_until_signal(
-        proc.stop, f"alluxio-tpu master serving on port {port}")
+        proc.stop, f"alluxio-tpu master serving on port {port} "
+                   f"(journal replay {proc.replay_s:.6f} s)")
 
 
 def launch_worker(conf: Configuration) -> int:

@@ -19,6 +19,7 @@ USAGE = """\
 Usage: alluxio-tpu [generic options] <command> [command args]
 
 Commands:
+  stress     stress benchmark suite (worker/master/prefetch/table/write)
   master     run a master process
   worker     run a worker process
   job-master run a job master process
@@ -39,7 +40,6 @@ _NOT_PORTED = {
          "validateHms", "runOperation", "format", "proxy", "logserver",
          "fuse"),
         "Host-only surfaces, last"),
-    "stress": "The rest of stress/",
     "journalCrashTest": "HA",
 }
 
@@ -104,6 +104,10 @@ def main(argv=None) -> int:
 
         print(alluxio_tpu_torch.__version__)
         return 0
+    if cmd == "stress":
+        from alluxio_tpu_torch.stress.__main__ import main as stress_main
+
+        return stress_main(argv[1:])
     if cmd in ("master", "worker", "job-master", "job-worker"):
         from alluxio_tpu_torch.shell.launch import launch_process
 

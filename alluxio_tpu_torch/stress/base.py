@@ -1,7 +1,5 @@
 """Shared stress-bench machinery: result schema, latency stats, and the
-threaded closed-loop driver (a copy of ``alluxio_tpu/stress/base.py``
-without ``host_speed_stamp_ms``, whose callers, the host-calibration and
-host-fallback rows, the port does not have).
+threaded closed-loop driver (a copy of ``alluxio_tpu/stress/base.py``).
 
 Re-design of ``stress/common/src/main/java/alluxio/stress/
 {BaseParameters.java:56,TaskResult,worker/IOTaskSummary.java}``: results
@@ -161,3 +159,18 @@ def drive(n_threads: int, op: Callable[[int, int], int], *,
         merged.extend(sub)
     return DriveResult(ops=sum(counts), bytes=sum(nbytes),
                        errors=sum(errors), latencies_s=merged, wall_s=wall)
+
+
+def host_speed_stamp_ms() -> float:
+    """10M-adds wall time in ms: the one host-speed calibration figure
+    (CI-container CPU drifts 3-4x between allocations; GIL-bound op/s
+    rows scale ~inversely with this). Used by the suite's
+    host-calibration row and the bench's host-fallback rows under the
+    SAME key name, ``python_10m_adds_ms``."""
+    import time as _t
+
+    t0 = _t.monotonic()
+    x = 0
+    for i in range(10_000_000):
+        x += i
+    return round((_t.monotonic() - t0) * 1000, 1)

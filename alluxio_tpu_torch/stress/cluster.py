@@ -1,8 +1,7 @@
 """Cluster context for stress benches (a copy of
-``alluxio_tpu/stress/cluster.py``): an in-process LocalCluster (the
-reference's ``--in-process`` smoke mode, ``BaseParameters.java:81``). The
-JAX bench CLI's ``--master`` mode, which attaches to a live cluster, has
-no caller in the port and is not copied."""
+``alluxio_tpu/stress/cluster.py``): in-process LocalCluster (default,
+the reference's ``--in-process`` smoke mode, ``BaseParameters.java:81``)
+or a live cluster via ``--master host:port`` (``--cluster`` mode)."""
 
 from __future__ import annotations
 
@@ -43,15 +42,26 @@ def write_cold_corpus(fs, block_client, paths_and_payloads, *,
 
 
 @contextlib.contextmanager
-def bench_cluster(*, num_workers: int = 1,
+def bench_cluster(master: Optional[str] = None, *, num_workers: int = 1,
                   block_size: int = 32 << 20,
                   worker_mem_bytes: int = 1 << 30,
                   conf_overrides: Optional[Dict] = None,
                   start_job_service: bool = False,
                   start_worker_heartbeats: bool = False,
                   ) -> Iterator[Tuple[object, object]]:
-    """Yields ``(fs, cluster)``: a scratch LocalCluster on /dev/shm and
-    its client (both torn down afterwards)."""
+    """Yields ``(fs, cluster_or_None)``. With ``master`` set, attaches a
+    FileSystem client to the live cluster; otherwise stands up a scratch
+    LocalCluster on /dev/shm (tears it down afterwards)."""
+    if master:
+        from alluxio_tpu_torch.client.file_system import FileSystem
+        from alluxio_tpu_torch.conf import Configuration
+
+        fs = FileSystem(master, conf=Configuration(load_env=False))
+        try:
+            yield fs, None
+        finally:
+            fs.close()
+        return
     base = tempfile.mkdtemp(
         prefix="atpu_stress_",
         dir="/dev/shm" if os.path.isdir("/dev/shm") else None)

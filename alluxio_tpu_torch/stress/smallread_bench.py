@@ -1,0 +1,295 @@
+"""Small-read data-plane benches (a copy of
+``alluxio_tpu/stress/smallread_bench.py``; ``make bench-smallread`` runs
+the JAX ones).
+
+Two gated rows for the zero-copy/batching subsystem
+(docs/small_reads.md):
+
+- ``smallread-batch`` — random-4k reads over real gRPC against a live
+  in-process cluster with short-circuit OFF (every op must cross the
+  worker RPC boundary). Per-op ``pread`` loop vs one scatter/gather
+  ``pread_many`` over the same offsets. FAILS below ``--min-speedup``
+  (default 3x) batched-vs-per-op ops/s — the "one RPC per batch, not
+  per op" claim, measured end to end. Byte equality between the two
+  runs is asserted on the way (a fast wrong answer is a failure, not a
+  result).
+- ``smallread-shm-zerocopy`` — same-host reads through the SHM plane:
+  the block stream must BE the SHM stream (``last_source == "SHM"``),
+  every view must alias ONE underlying mmap (buffer identity via
+  ``np.shares_memory`` + ``memoryview.obj`` identity — zero copies,
+  not just "fast"), and a traced read burst must record ZERO
+  ``wire``/``serialize`` phase time (the wire never ran; cf. the
+  ``obs-critical-path`` row next to which this sits in the suite).
+- ``smallread-native-fastpath`` — the same-host batched random-4k
+  drill run twice: ``atpu.user.native.fastpath.enabled`` on (one
+  packed op table per ``pread_many`` batch, GIL released for the
+  whole call) vs off (the per-op pure-Python loop, i.e. the path
+  before the native core existed). FAILS below ``--min-speedup``
+  (default 5x) native-vs-python ops/s, on any byte difference between
+  the two outputs and the written data, or when the native layer did
+  not actually execute (``Client.NativeBatches`` must move).
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+from alluxio_tpu_torch.stress.base import BenchResult
+
+
+def _rand_offsets(rng, size: int, read_bytes: int, ops: int):
+    return [rng.randrange(0, size - read_bytes) for _ in range(ops)]
+
+
+def run_batch(*, file_mb: int = 2, ops: int = 400,
+              read_bytes: int = 4096,
+              min_speedup: float = 3.0) -> BenchResult:
+    """``smallread-batch``: batched vs per-op random-4k ops/s over the
+    remote read path."""
+    import random
+    import tempfile
+
+    from alluxio_tpu_torch.client.file_system import FileSystem
+    from alluxio_tpu_torch.conf import Keys
+    from alluxio_tpu_torch.minicluster.local_cluster import LocalCluster
+
+    t_start = time.monotonic()
+    rng = random.Random(0x4B)
+    size = file_mb << 20
+    with tempfile.TemporaryDirectory(prefix="atpu-smallread-") as base:
+        with LocalCluster(base, num_workers=1,
+                          worker_mem_bytes=8 * size) as c:
+            conf = c.conf.copy()
+            # force the wire: the row measures RPC coalescing, so the
+            # same-host shortcuts (SHM map, path-lease mmap) are off
+            conf.set(Keys.USER_SHORT_CIRCUIT_ENABLED, False)
+            conf.set(Keys.USER_SHM_ENABLED, False)
+            fs = FileSystem(c.master.address, conf=conf)
+            try:
+                path = "/smallread-batch.bin"
+                payload = bytes(rng.randrange(256) for _ in range(4096))
+                fs.write_all(path, payload * (size // 4096),
+                             write_type="MUST_CACHE")
+                with fs.open_file(path) as f:
+                    # one block under test (a file spans several;
+                    # offsets must stay inside block 0)
+                    bs = f.block_stream(0)
+                    offsets = _rand_offsets(rng, bs.length, read_bytes,
+                                            ops)
+                    sizes = [read_bytes] * ops
+                    bs.pread(offsets[0], read_bytes)  # warm the channel
+                    t0 = time.perf_counter()
+                    per_op = [bs.pread(o, read_bytes) for o in offsets]
+                    per_op_s = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    batched = bs.pread_many(offsets, sizes)
+                    batched_s = time.perf_counter() - t0
+            finally:
+                fs.close()
+    mismatches = sum(1 for a, b in zip(per_op, batched) if a != b)
+    per_op_ops = ops / per_op_s if per_op_s > 0 else 0.0
+    batched_ops = ops / batched_s if batched_s > 0 else 0.0
+    speedup = (batched_ops / per_op_ops) if per_op_ops > 0 else 0.0
+    ok = mismatches == 0 and speedup >= min_speedup
+    if not ok:
+        print(f"[smallread] batch speedup {speedup:.2f}x "
+              f"(mismatches={mismatches}) misses the "
+              f"{min_speedup}x gate", file=sys.stderr)
+    return BenchResult(
+        bench="smallread-batch",
+        params={"file_mb": file_mb, "ops": ops,
+                "read_bytes": read_bytes, "min_speedup": min_speedup},
+        metrics={"per_op_ops_per_s": round(per_op_ops, 1),
+                 "batched_ops_per_s": round(batched_ops, 1),
+                 "speedup": round(speedup, 2),
+                 "mismatches": mismatches,
+                 "speedup_ok": ok},
+        errors=0 if ok else 1,
+        duration_s=time.monotonic() - t_start)
+
+
+def run_native(*, file_mb: int = 2, ops: int = 2000,
+               read_bytes: int = 4096,
+               min_speedup: float = 5.0) -> BenchResult:
+    """``smallread-native-fastpath``: batched random-4k ops/s with the
+    native plan executor on vs the pure-Python per-op path, byte
+    identity asserted between both outputs and the source data."""
+    import random
+    import tempfile
+
+    from alluxio_tpu_torch.client import fastpath
+    from alluxio_tpu_torch.client.file_system import FileSystem
+    from alluxio_tpu_torch.conf import Keys
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.minicluster.local_cluster import LocalCluster
+
+    t_start = time.monotonic()
+    rng = random.Random(0x6D)
+    size = file_mb << 20
+    reps = 5
+    native_ok = fastpath.available()
+    shm_stream = False
+    batches_moved = False
+    mismatches = -1
+    native_s = python_s = 0.0
+    with tempfile.TemporaryDirectory(prefix="atpu-native-") as base:
+        with LocalCluster(base, num_workers=1,
+                          worker_mem_bytes=8 * size) as c:
+            conf_off = c.conf.copy()
+            conf_off.set(Keys.USER_NATIVE_FASTPATH_ENABLED, False)
+            fs_on = c.file_system()
+            fs_off = FileSystem(c.master.address, conf=conf_off)
+            try:
+                path = "/smallread-native.bin"
+                payload = bytes(rng.randrange(256) for _ in range(4096))
+                data = payload * (size // 4096)
+                fs_on.write_all(path, data, write_type="MUST_CACHE")
+                results = {}
+                for tag, fs in (("native", fs_on), ("python", fs_off)):
+                    with fs.open_file(path) as f:
+                        bs = f.block_stream(0)
+                        bs.pread(0, read_bytes)  # map the segment
+                        if tag == "native":
+                            shm_stream = bs.last_source == "SHM"
+                            offsets = _rand_offsets(rng, bs.length,
+                                                    read_bytes, ops)
+                            sizes = [read_bytes] * ops
+                        bs.pread_many(offsets[:8], sizes[:8])  # warm
+                        before = metrics().counter(
+                            "Client.NativeBatches").count
+                        best = float("inf")
+                        for _ in range(reps):
+                            t0 = time.perf_counter()
+                            out = bs.pread_many(offsets, sizes)
+                            best = min(best,
+                                       time.perf_counter() - t0)
+                        results[tag] = out
+                        if tag == "native":
+                            native_s = best
+                            batches_moved = metrics().counter(
+                                "Client.NativeBatches").count > before
+                        else:
+                            python_s = best
+                # byte identity: native == fallback == the written data
+                expect = [data[o:o + read_bytes] for o in offsets]
+                mismatches = sum(
+                    1 for a, b, e in zip(results["native"],
+                                         results["python"], expect)
+                    if a != b or a != e)
+            finally:
+                fs_on.close()
+                fs_off.close()
+    native_ops = ops / native_s if native_s > 0 else 0.0
+    python_ops = ops / python_s if python_s > 0 else 0.0
+    speedup = (native_ops / python_ops) if python_ops > 0 else 0.0
+    ok = (native_ok and shm_stream and batches_moved
+          and mismatches == 0 and speedup >= min_speedup)
+    if not ok:
+        print(f"[smallread] native fastpath row failed: "
+              f"available={native_ok} shm_stream={shm_stream} "
+              f"native_ran={batches_moved} mismatches={mismatches} "
+              f"speedup {speedup:.2f}x vs the {min_speedup}x gate",
+              file=sys.stderr)
+    return BenchResult(
+        bench="smallread-native-fastpath",
+        params={"file_mb": file_mb, "ops": ops,
+                "read_bytes": read_bytes, "min_speedup": min_speedup},
+        metrics={"native_available": native_ok,
+                 "shm_stream": shm_stream,
+                 "native_exec_ran": batches_moved,
+                 "python_ops_per_s": round(python_ops, 1),
+                 "native_ops_per_s": round(native_ops, 1),
+                 "speedup": round(speedup, 2),
+                 "mismatches": mismatches,
+                 "speedup_ok": ok},
+        errors=0 if ok else 1,
+        duration_s=time.monotonic() - t_start)
+
+
+def run_shm(*, file_mb: int = 2, ops: int = 200,
+            read_bytes: int = 4096) -> BenchResult:
+    """``smallread-shm-zerocopy``: buffer-identity + no-wire fidelity
+    of the same-host SHM plane."""
+    import random
+    import tempfile
+
+    import numpy as np
+
+    from alluxio_tpu_torch.minicluster.local_cluster import LocalCluster
+    from alluxio_tpu_torch.utils.tracing import set_tracing_enabled, tracer
+
+    t_start = time.monotonic()
+    rng = random.Random(0x5C)
+    size = file_mb << 20
+    shm_stream = False
+    identity_ok = False
+    bytes_ok = False
+    wire_ms = 0.0
+    setup_phases = {}
+    reads_per_s = 0.0
+    try:
+        with tempfile.TemporaryDirectory(prefix="atpu-shm-") as base:
+            with LocalCluster(base, num_workers=1,
+                              worker_mem_bytes=8 * size) as c:
+                fs = c.file_system()
+                path = "/smallread-shm.bin"
+                payload = bytes(rng.randrange(256) for _ in range(4096))
+                data = payload * (size // 4096)
+                fs.write_all(path, data, write_type="MUST_CACHE")
+                with fs.open_file(path) as f:
+                    set_tracing_enabled(True)
+                    tracer().clear()
+                    with tracer().span("atpu.bench.shmread") as sp:
+                        bs = f.block_stream(0)
+                        first = bs.pread(0, read_bytes)
+                        # block 0 only: a file spans several blocks and
+                        # each block maps its own segment
+                        offsets = _rand_offsets(rng, bs.length,
+                                                read_bytes, ops)
+                        t0 = time.perf_counter()
+                        views = [bs.pread_view(o, read_bytes)
+                                 for o in offsets]
+                        elapsed = time.perf_counter() - t0
+                    set_tracing_enabled(False)
+                    shm_stream = bs.last_source == "SHM"
+                    reads_per_s = ops / elapsed if elapsed > 0 else 0.0
+                    bytes_ok = first == data[:read_bytes] and all(
+                        bytes(v) == data[o:o + read_bytes]
+                        for v, o in zip(views, offsets))
+                    # buffer identity: every view aliases the ONE mmap
+                    # (.obj is the exporting object), and the whole-
+                    # block ndarray shares that memory — zero copies
+                    nv = bs.numpy_view()
+                    identity_ok = bool(views) and all(
+                        v.obj is views[0].obj for v in views) and \
+                        np.shares_memory(nv, np.asarray(views[0]))
+                    for name, ms in (sp.phases or []):
+                        if name in ("wire", "serialize"):
+                            wire_ms += ms
+                        else:
+                            setup_phases[name] = round(
+                                setup_phases.get(name, 0.0) + ms, 3)
+                    del nv, views
+                fs.close()
+    finally:
+        set_tracing_enabled(False)
+        tracer().clear()
+    ok = shm_stream and identity_ok and bytes_ok and wire_ms == 0.0
+    if not ok:
+        print(f"[smallread] shm row failed: shm_stream={shm_stream} "
+              f"identity_ok={identity_ok} bytes_ok={bytes_ok} "
+              f"wire_ms={wire_ms}", file=sys.stderr)
+    return BenchResult(
+        bench="smallread-shm-zerocopy",
+        params={"file_mb": file_mb, "ops": ops,
+                "read_bytes": read_bytes},
+        metrics={"shm_stream": shm_stream,
+                 "buffer_identity_ok": identity_ok,
+                 "bytes_ok": bytes_ok,
+                 "wire_serialize_ms": round(wire_ms, 3),
+                 "setup_phases": setup_phases,
+                 "reads_per_s": round(reads_per_s, 1),
+                 "zerocopy_ok": ok},
+        errors=0 if ok else 1,
+        duration_s=time.monotonic() - t_start)

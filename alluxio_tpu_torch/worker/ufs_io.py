@@ -1,10 +1,10 @@
-"""Worker-side UFS block IO: the block descriptor, the cache fill and
-the async cache manager.
+"""Worker-side UFS block IO: the block descriptor, the unstriped read
+with its cache fill, and the async cache manager.
 
-A copy of ``alluxio_tpu/worker/ufs_io.py`` without the unstriped read
-(``UfsBlockReader.read_block``): the worker's cold path is the striped,
-coalescing fetcher (``worker/ufs_fetch.py``), and the async cache
-manager always rides it.
+A copy of ``alluxio_tpu/worker/ufs_io.py``. The worker's cold path is the
+striped, coalescing fetcher (``worker/ufs_fetch.py``), and the async
+cache manager always rides it; the unstriped read
+(``UfsBlockReader.read_block``) is the cold-read bench's baseline.
 
 Re-design of ``core/server/worker/.../block/{UnderFileSystemBlockStore.java,
 UnderFileSystemBlockReader.java:50}`` + the async cache manager
@@ -47,12 +47,32 @@ class UfsBlockDescriptor:
 
 
 class UfsBlockReader:
-    """The cache fill of a block whose bytes a fetch already holds: the
-    async cache calls it when the block was not cached by the fetch it
-    joined. (The worker's cold reads ride ``worker/ufs_fetch.py``.)"""
+    """Single-range read-through: serve from UFS while caching into the
+    local store. This is the *unstriped* path — one blocking connection,
+    first byte after the last — kept as the bench baseline
+    (``stress/ufs_cold_bench.py``); the worker's cold reads ride
+    ``worker/ufs_fetch.py``, and the async cache calls ``cache_block``
+    when a block was not cached by the fetch it joined."""
 
     def __init__(self, store: TieredBlockStore) -> None:
         self._store = store
+
+    def read_block(self, ufs: UnderFileSystem, desc: UfsBlockDescriptor, *,
+                   cache: bool = True, tier_alias: str = "") -> bytes:
+        """Fetch the whole block (the device read path wants whole pages
+        into a staging buffer, not tiny chunks)."""
+        from alluxio_tpu_torch.metrics import metrics
+        from alluxio_tpu_torch.utils.tracing import tracer
+
+        with tracer().span("atpu.worker.ufs_read",
+                           block_id=desc.block_id, bytes=desc.length):
+            data = ufs.read_range(desc.ufs_path, desc.offset, desc.length)
+        m = metrics()
+        m.counter("Worker.UfsBlocksRead").inc()
+        m.counter("Worker.UfsBytesRead").inc(len(data))
+        if cache:
+            self.cache_block(desc.block_id, data, tier_alias)
+        return data
 
     def cache_block(self, block_id: int, data: bytes,
                     tier_alias: str = "") -> bool:

@@ -202,6 +202,32 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    stage against the stage applied in sequence. At one rank every
    collective is a copy through NCCL, so these check the mesh code on
    the card, not NVLink rates.
+2h. stress, after the mesh: (a) 2g's corpus and everything else in its
+   namespace deleted, ``python -m alluxio_tpu_torch.stress`` runs as a
+   child process with ``--master`` at 2g's cluster: ``worker`` random (8
+   threads) and sequential (4 threads) over 32 x 64 MiB shards, and
+   ``master`` GetStatus, CreateFile and ListStatus (``--fixed-count
+   100``, 8 threads), 5 s each, the bench's namespace deleted after each;
+   then the same five rows with no ``--master`` (the bench's in-process
+   cluster). Each row must have no error and ops/s above 0; each prints
+   beside its in-process row (ops/s, MB/s, p50, p99), and the attached
+   client's metadata transport is printed; (b) a job master and two job
+   workers, each a process of its own with the cluster's environment,
+   run a ``stressbench`` job of the worker bench (random, 5 s, 4 x 64
+   MiB shards a task) and then one of the master bench (GetStatus, 5 s):
+   each join must count 2 tasks and no error, and no job role outlives
+   its stop. 2g's cluster then stops; (c) a second multi-process
+   cluster whose master keeps its namespace in the LSM store (in the
+   cluster's directory, the JAX defaults otherwise): 2d's metadata
+   workload by transport, printed beside 2g's HEAP master; the master
+   restarts on the same journal and metastore, the 2 000 files must list
+   as before, and the journal replay (from the master's banner) and the
+   store's flushes, compactions and runs print; (d) ``python -m
+   alluxio_tpu_torch.stress suite`` as a child process, its lines in the
+   work directory: it must exit 0, or 1 with each failed row failed by
+   its speed gate alone (``gate_miss``: a crash, a wrong byte or count
+   fails the run), every row and gate printed; ``stress report`` renders
+   the lines into the work directory, and the page must name every row.
 
 It prints the card's name and power limit, whether pyarrow imports,
 one ``{"main": {...}}``
@@ -210,6 +236,7 @@ one ``{"page_cache": {...}}`` line, one ``{"worker": {...}}``
 line, one ``{"train": {...}}``
 line, one ``{"mesh": {...}}`` line, one ``{"suite": {...}}`` line, one
 ``{"clairvoyant": {...}}`` line, one ``{"multi_process": {...}}`` line,
+one ``{"stress": {...}}`` line,
 one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
@@ -221,6 +248,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3024,6 +3052,424 @@ def mp_phase(device, mp: dict, main: dict, inproc: dict, k: int) -> dict:
     return out
 
 
+# -- 2h: the stress CLI, the stressbench job, the master on LSM, the suite ----
+#: the port's stress CLI, run as a child process
+STRESS_CLI = [sys.executable, "-m", "alluxio_tpu_torch.stress"]
+STRESS_DURATION_S = 5
+#: 2h a's worker bench corpus: 32 x 64 MiB, the main path's 2 GiB
+STRESS_SHARD_MB = 64
+STRESS_SHARDS = 32
+#: 2h a's five CLI rows: (name, the bench's arguments), each run against
+#: the live cluster (``--master``) and then in-process
+STRESS_ROWS = (
+    ("worker-random", ["worker", "--mode", "random", "--threads", "8"]),
+    ("worker-sequential", ["worker", "--mode", "sequential",
+                           "--threads", "4"]),
+    ("master-GetStatus", ["master", "--op", "GetStatus", "--threads", "8"]),
+    ("master-CreateFile", ["master", "--op", "CreateFile",
+                           "--threads", "8"]),
+    ("master-ListStatus", ["master", "--op", "ListStatus", "--threads", "8",
+                           "--fixed-count", "100"]),
+)
+#: the namespace each CLI bench writes under
+STRESS_PATHS = ("/stress-worker", "/stress-master")
+STRESS_JOB_WORKERS = 2
+#: 2h b's two stressbench jobs: bench -> options (the worker bench's
+#: shards at its defaults, 4 x 64 MiB a task)
+STRESS_JOBS = {"worker": {"mode": "random", "duration_s": STRESS_DURATION_S},
+               "master": {"op": "GetStatus",
+                          "duration_s": STRESS_DURATION_S}}
+STRESS_CHILD_TIMEOUT_S = 300
+SUITE_TIMEOUT_S = 800
+
+
+def stress_env() -> dict:
+    """The environment of a stress child: the repository on its path,
+    whatever its working directory."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    return env
+
+
+def stress_row(name: str, argv: list, cwd: str,
+               master: "str | None" = None) -> dict:
+    """One CLI bench in a child process: its JSON line, which must have
+    no error and a positive ``ops_per_s``."""
+    args = list(argv) + ["--duration", str(STRESS_DURATION_S)]
+    if argv[0] == "worker":
+        args += ["--shard-mb", str(STRESS_SHARD_MB),
+                 "--num-shards", str(STRESS_SHARDS)]
+    if master is not None:
+        args += ["--master", master]
+    where = "out of process" if master else "in process"
+    t = time.perf_counter()
+    proc = subprocess.run(STRESS_CLI + args, capture_output=True, text=True,
+                          timeout=STRESS_CHILD_TIMEOUT_S, cwd=cwd,
+                          env=stress_env())
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"2h a: {name} ({where}) exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    row = json.loads(lines[-1])
+    if row["errors"] != 0 or not row["metrics"].get("ops_per_s", 0) > 0:
+        fail(f"2h a: {name} ({where}): {lines[-1]}")
+    row["wall_s"] = time.perf_counter() - t
+    return row
+
+
+def wait_empty(fs, timeout_s: float = 60.0) -> None:
+    """Wait until the cluster's workers hold no block."""
+    deadline = time.monotonic() + timeout_s
+    while any(w.block_count for w in fs.block_master.get_worker_infos()):
+        if time.monotonic() > deadline:
+            fail("2h: the worker still holds blocks of deleted files")
+        time.sleep(0.1)
+
+
+def stress_cli_phase(mp: dict, workdir: str) -> dict:
+    """(2h a): the stress CLI against 2g's live cluster, once its corpus
+    is gone: each of ``STRESS_ROWS`` in a child process with ``--master``
+    (the bench's own client of the cluster), its namespace deleted after
+    it, then the same rows in-process (the bench's own LocalCluster)."""
+    from alluxio_tpu_torch.client.file_system import FileSystem
+    from alluxio_tpu_torch.conf import Configuration
+
+    cluster, fs = mp["cluster"], mp["fs"]
+    t_phase = time.perf_counter()
+    for info in fs.list_status("/"):
+        fs.delete(info.path, recursive=True)
+    wait_empty(fs)
+    address = cluster.master_addresses
+    # the CLI's attached client is built as this one is: with no
+    # environment it knows no fast-path directory
+    probe = FileSystem(address, conf=Configuration(load_env=False))
+    try:
+        transport = probe.fs_master.transport
+    finally:
+        probe.close()
+    rows = {}
+    for name, argv in STRESS_ROWS:
+        rows[name] = {"out_of_process": stress_row(name, argv, workdir,
+                                                   address)}
+        for path in STRESS_PATHS:
+            if fs.exists(path):
+                fs.delete(path, recursive=True)
+    wait_empty(fs)
+    for name, argv in STRESS_ROWS:
+        rows[name]["in_process"] = stress_row(name, argv, workdir)
+    print(f"2h a: the stress CLI against 2g's cluster ({address}; the "
+          f"attached client's metadata rides {transport}), each row "
+          f"{STRESS_DURATION_S} s, in-process in brackets:", flush=True)
+    for name, r in rows.items():
+        o, i = r["out_of_process"]["metrics"], r["in_process"]["metrics"]
+        mb = (f", {o['mb_per_s']:.1f} MB/s [{i['mb_per_s']:.1f}]"
+              if "mb_per_s" in o else "")
+        print(f"  {name}: {o['ops_per_s']:.1f} ops/s "
+              f"[{i['ops_per_s']:.1f}]{mb}, p50 {o['p50_us']:.1f} us "
+              f"[{i['p50_us']:.1f}], p99 {o['p99_us']:.1f} us "
+              f"[{i['p99_us']:.1f}]", flush=True)
+    return {"master": address, "metadata_transport": transport,
+            "rows": rows, "s": time.perf_counter() - t_phase}
+
+
+def stressbench_phase(mp: dict) -> dict:
+    """(2h b): a job master and ``STRESS_JOB_WORKERS`` job workers, each a
+    process of its own with the cluster's environment, run one
+    ``stressbench`` job of the worker bench (random, 5 s, its default 4 x
+    64 MiB shards a task) and then one of the master bench (GetStatus,
+    5 s): each task runs in a job worker through its own client, and each
+    join must count every task and no error. No job role outlives the
+    phase."""
+    from alluxio_tpu_torch.job.wire import Status
+    from alluxio_tpu_torch.minicluster.multi_process import (
+        ManagedProcess, free_port,
+    )
+    from alluxio_tpu_torch.rpc.job_service import JobMasterClient
+
+    cluster = mp["cluster"]
+    t_phase = time.perf_counter()
+    jport = free_port()
+    env = {**cluster._common_env(),
+           "ATPU_MASTER_RPC_ADDRESSES": cluster.master_addresses,
+           "ATPU_JOB_MASTER_HOSTNAME": "localhost",
+           "ATPU_JOB_MASTER_RPC_PORT": str(jport),
+           "ATPU_JOB_WORKER_HEARTBEAT_INTERVAL": "100ms"}
+    logs = os.path.join(cluster.base, "logs")
+    roles = [ManagedProcess("job-master", env,
+                            os.path.join(logs, "job-master.out"))] + [
+        ManagedProcess("job-worker", env,
+                       os.path.join(logs, f"job-worker{i}.out"))
+        for i in range(STRESS_JOB_WORKERS)]
+    results = {}
+    try:
+        roles[0].start()
+        jc = JobMasterClient(f"localhost:{jport}")
+        deadline = time.monotonic() + MP_BOOT_S
+        while True:
+            try:
+                plans = jc.list_plan_types()
+                break
+            except Exception:  # noqa: BLE001 - not serving yet
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.2)
+        if "stressbench" not in plans:
+            fail(f"2h b: the job master's plans {plans} lack stressbench")
+        for role in roles[1:]:
+            role.start()
+        while len(jc.list_workers()) < STRESS_JOB_WORKERS:
+            if time.monotonic() > deadline:
+                fail(f"2h b: {len(jc.list_workers())} job workers "
+                     f"registered, want {STRESS_JOB_WORKERS}")
+            time.sleep(0.2)
+        for bench, options in STRESS_JOBS.items():
+            t = time.perf_counter()
+            info = jc.wait_for_job(jc.run({
+                "type": "stressbench", "bench": bench,
+                "options": dict(options)}), timeout_s=STRESS_CHILD_TIMEOUT_S)
+            agg = info.result or {}
+            if info.status != Status.COMPLETED or \
+                    agg.get("tasks") != STRESS_JOB_WORKERS or \
+                    agg.get("errors") != 0 or \
+                    not agg.get("metrics", {}).get("ops_per_s", 0) > 0:
+                fail(f"2h b: stressbench {bench}: {info.status} "
+                     f"{info.error_message} {agg}")
+            results[bench] = dict(agg, s=time.perf_counter() - t)
+    finally:
+        for role in reversed(roles):
+            role.stop()
+    alive = [r.proc.pid for r in roles if r.alive]
+    if alive:
+        fail(f"2h b: job role processes {alive} outlived their stop")
+    for bench, agg in results.items():
+        m = agg["metrics"]
+        mb = f", {m['mb_per_s']:.1f} MB/s" if "mb_per_s" in m else ""
+        print(f"2h b: stressbench {bench} over {agg['tasks']} job workers "
+              f"(each a process): {m['ops_per_s']:.1f} ops/s{mb} summed, "
+              f"worst p50 {m['p50_us']:.1f} us, p99 {m['p99_us']:.1f} us, "
+              f"errors {agg['errors']}, job {agg['s']:.1f} s", flush=True)
+    return {"jobs": results, "job_workers": STRESS_JOB_WORKERS,
+            "processes_left": 0, "s": time.perf_counter() - t_phase}
+
+
+def listing(address: str) -> list:
+    """Every entry under ``/meta`` (path, folder, length), by path."""
+    from alluxio_tpu_torch.rpc.clients import FsMasterClient
+
+    client = FsMasterClient(address, fastpath=False)
+    try:
+        return sorted((i.path, i.folder, i.length)
+                      for i in client.list_status("/meta", recursive=True))
+    finally:
+        client.close()
+
+
+def replay_seconds(log_path: str, banners: int,
+                   timeout_s: float = 30.0) -> float:
+    """The journal replay the master's ``banners``-th serving banner in
+    its log reports."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        with open(log_path, errors="replace") as f:
+            # the banner's printed line (the log record repeats it)
+            got = re.findall(r"^alluxio-tpu master serving .* \(journal "
+                             r"replay ([0-9.]+) s\)$", f.read(), re.M)
+        if len(got) >= banners:
+            return float(got[banners - 1])
+        if time.monotonic() > deadline:
+            fail(f"2h c: the master printed {len(got)} banners, want "
+                 f"{banners}")
+        time.sleep(0.1)
+
+
+def lsm_master_phase(heap_ms: dict) -> dict:
+    """(2h c): a second ``MultiProcessCluster`` whose master keeps its
+    namespace in the LSM store (``atpu.master.metastore`` LSM, its
+    directory in the cluster's, the JAX defaults otherwise): 2d's
+    metadata workload by transport, beside 2g's on HEAP; then the master
+    restarts on the same journal and metastore directory, and the 2 000
+    files must list as before. The replay time and the store's counters
+    are printed."""
+    from alluxio_tpu_torch.conf import Keys
+    from alluxio_tpu_torch.minicluster.multi_process import (
+        MultiProcessCluster,
+    )
+    from alluxio_tpu_torch.rpc.clients import MetaMasterClient
+
+    t_phase = time.perf_counter()
+    base = block_dir(512 << 20)
+    cdir = os.path.join(base, "cluster")
+    cluster = MultiProcessCluster(cdir, num_workers=1, extra_conf={
+        Keys.MASTER_METASTORE.name: "LSM",
+        Keys.MASTER_METASTORE_DIR.name: os.path.join(cdir, "metastore")})
+    log = os.path.join(cdir, "logs", "master0.out")
+    try:
+        cluster.start(timeout_s=MP_BOOT_S)
+        address = cluster.master_addresses
+        first_replay = replay_seconds(log, 1)
+        meta = transport_latencies("2h c", address, cluster.base)
+        before = listing(address)
+        stats_before = MetaMasterClient(address).get_metastore_info()[
+            "stats"]
+        if stats_before.get("kind") != "CACHING:LSM":
+            fail(f"2h c: the master's store is {stats_before}")
+        cluster.masters[0].stop()
+        t = time.perf_counter()
+        cluster.start_master(0)
+        cluster.wait_for_primary(MP_BOOT_S)
+        restart_s = time.perf_counter() - t
+        replay_s = replay_seconds(log, 2)
+        after = listing(address)
+        stats = MetaMasterClient(address).get_metastore_info()["stats"]
+    finally:
+        cluster.stop()
+        alive = [p.proc.pid for p in cluster.masters + cluster.workers
+                 if p.alive]
+        shutil.rmtree(base, ignore_errors=True)
+    if alive:
+        fail(f"2h c: processes {alive} outlived the cluster's stop")
+    files = sum(1 for _, folder, _ in before if not folder)
+    if files != MASTER_FILES or after != before:
+        fail(f"2h c: {files} files listed before the restart, want "
+             f"{MASTER_FILES}; after it the listing "
+             f"{'differs' if after != before else 'is the same'}")
+    lat = "; ".join(
+        f"{t} " + ", ".join(
+            f"{op} {v['p50_ms']:.3f} / {v['p99_ms']:.3f} ms "
+            f"[{heap_ms[t][op]['p50_ms']:.3f} / "
+            f"{heap_ms[t][op]['p99_ms']:.3f}]"
+            for op, v in meta[t].items())
+        for t in TRANSPORTS)
+    print(f"2h c: master on LSM (2g's HEAP master in brackets), p50 / p99 "
+          f"of {MASTER_FILES} files: {lat}", flush=True)
+    print(f"2h c: restart on the same journal and metastore: serving "
+          f"again in {restart_s:.3f} s, journal replay {replay_s:.3f} s "
+          f"(first boot {first_replay:.3f} s); {len(after)} entries list "
+          f"as before; store {stats['kind']}: flushes "
+          f"{stats['flushes']}, compactions {stats['compactions']}, runs "
+          f"{stats['runs']}, inodes {stats['inodes']} (before the restart "
+          f"flushes {stats_before['flushes']}, compactions "
+          f"{stats_before['compactions']}, runs {stats_before['runs']})",
+          flush=True)
+    return {"metadata_ms": {t: meta[t] for t in TRANSPORTS},
+            "heap_metadata_ms": heap_ms, "entries": len(after),
+            "restart_s": restart_s, "replay_s": replay_s,
+            "first_replay_s": first_replay, "store": stats,
+            "store_before_restart": stats_before,
+            "s": time.perf_counter() - t_phase}
+
+
+def gate_miss(row: dict) -> "str | None":
+    """Why a suite row failed, when its speed gate alone failed it (the
+    row's bytes, counts and lookups all right); None otherwise."""
+    m, p = row.get("metrics", {}), row.get("params", {})
+    if "error" in m:
+        return None
+    bench = row["bench"]
+    if bench in ("metadata-striped", "metadata-journal-batch",
+                 "metadata-hot-dir", "metadata-cached-getstatus"):
+        ok = m.get("speedup", 0.0) < p["min_speedup"]
+        key = "speedup"
+    elif bench == "metadata-lsm-capacity":
+        # HEAP not running out, or LSM not finishing, is the gate; LSM
+        # finishing its build with an edge or a lookup missing is not
+        ok = m.get("lsm_ok") or not m.get("lsm_build_s")
+        return (f"HEAP out of memory {m.get('heap_oom')} (built "
+                f"{m.get('heap_built_before_oom')} inodes), LSM finished "
+                f"{m.get('lsm_ok')}, under {m.get('cap_mb')} MiB") \
+            if ok else None
+    elif bench == "smallread-batch":
+        ok = m.get("mismatches") == 0
+        key = "speedup"
+    elif bench == "smallread-native-fastpath":
+        ok = m.get("mismatches") == 0 and m.get("native_available") and \
+            m.get("shm_stream") and m.get("native_exec_ran")
+        key = "speedup"
+    elif bench == "ufs-cold-read":
+        ok = m.get("speedup_c4", 0.0) < p["min_speedup"]
+        key = "speedup_c4"
+    elif bench == "remote-warm-read":
+        ok = m.get("speedup", 0.0) < p["min_speedup"] or \
+            m.get("hedge_wins") == 0
+        key = "speedup"
+    elif bench == "table-column-projection":
+        ok = m.get("projection_speedup", 0.0) < p["min_speedup"]
+        key = "projection_speedup"
+    elif bench == "table-projection-pushdown":
+        ok = m.get("byte_identical") == 1 and \
+            m.get("speedup", 0.0) < p["min_speedup"]
+        key = "speedup"
+    else:
+        return None
+    return (f"{key} {m.get(key)} under the gate "
+            f"(min_speedup {p.get('min_speedup')})") if ok else None
+
+
+def suite_phase(workdir: str) -> dict:
+    """(2d of 2h): ``python -m alluxio_tpu_torch.stress suite`` as a child
+    process, its lines written into ``workdir``: it must exit 0, or 1
+    with every failed row a gate miss (``gate_miss``); then ``stress
+    report`` renders them into ``workdir``, and the page must name every
+    row."""
+    import html
+
+    from alluxio_tpu_torch.stress.__main__ import SUITE
+
+    t_phase = time.perf_counter()
+    lines_path = os.path.join(workdir, "stress-suite.jsonl")
+    log_path = os.path.join(workdir, "stress-suite.log")
+    with open(lines_path, "w") as out, open(log_path, "w") as err:
+        proc = subprocess.run(STRESS_CLI + ["suite"], stdout=out,
+                              stderr=err, cwd=workdir, env=stress_env(),
+                              timeout=SUITE_TIMEOUT_S)
+    suite_s = time.perf_counter() - t_phase
+    with open(lines_path) as f:
+        rows = [json.loads(line) for line in f if line.startswith("{")]
+    if len(rows) != 1 + len(SUITE):
+        with open(log_path) as f:
+            tail = f.read()[-3000:]
+        fail(f"2h d: the suite gave {len(rows)} rows, want "
+             f"{1 + len(SUITE)} (exit {proc.returncode}): {tail}")
+    failed, misses = [], {}
+    for (name, _), row in zip((("host-calibration", None),) + SUITE, rows):
+        if row["errors"] == 0:
+            continue
+        why = gate_miss(row)
+        if why is None:
+            failed.append((name, row))
+        else:
+            misses[name] = why
+    if failed or proc.returncode not in ((1,) if misses else (0,)):
+        fail(f"2h d: the suite exited {proc.returncode}; failed rows "
+             f"{json.dumps(failed)[:3000]}")
+    html_path = os.path.join(workdir, "stress-report.html")
+    rep = subprocess.run(STRESS_CLI + ["report", "--input", lines_path,
+                                       "--out", html_path],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=workdir, env=stress_env())
+    if rep.returncode != 0:
+        fail(f"2h d: stress report exited {rep.returncode}: {rep.stderr}")
+    with open(html_path) as f:
+        page = f.read()
+    unnamed = [r["bench"] for r in rows
+               if html.escape(r["bench"]) not in page]
+    if unnamed:
+        fail(f"2h d: the report does not name {unnamed}")
+    print(f"2h d: stress suite, {len(rows)} rows in {suite_s:.1f} s "
+          f"(exit {proc.returncode}), report {len(page)} bytes naming "
+          f"every row:", flush=True)
+    for (name, _), row in zip((("host-calibration", None),) + SUITE, rows):
+        m = row["metrics"]
+        shown = {k: v for k, v in m.items()
+                 if not isinstance(v, (dict, str))}
+        gate = f" GATE MISSED: {misses[name]}" if name in misses else ""
+        print(f"  {name} ({row['duration_s']:.1f} s, errors "
+              f"{row['errors']}){gate}: {json.dumps(shown)}", flush=True)
+    return {"rows": rows, "exit": proc.returncode, "gate_misses": misses,
+            "s": suite_s, "report_bytes": len(page)}
+
+
 def record_files(workdir: str, num_blocks: int, block_bytes: int) -> dict:
     """``bench.py``'s e2e layout: blocks of 64x64x3 records with a 4-byte
     label, padded to the block size; returns path -> (file id, file)."""
@@ -3935,6 +4381,22 @@ def main() -> int:
         rk.launches = 0
         mesh = mesh_phase(device, workdir, mp["fs"], shard_files, files)
         mesh["kernel_launches"] = {"scaled_sum": rk.launches}
+        # 2h: the stress CLI and the stressbench job on 2g's cluster, then
+        # the master on LSM and the suite on clusters of their own; the
+        # path has no kernel of its own, and its count is read all the same
+        t_stress = time.perf_counter()
+        rk.launches = 0
+        stress = {"cli": stress_cli_phase(mp, workdir),
+                  "jobs": stressbench_phase(mp)}
+        stop_mp_cluster(mp)
+        mp = None
+        stress["lsm"] = lsm_master_phase(multi["metadata_ms"])
+        stress["suite"] = suite_phase(workdir)
+        stress["launches"] = rk.launches
+        stress["s"] = time.perf_counter() - t_stress
+        print(f"stress path: scaled_sum launched {rk.launches} times (the "
+              f"path has no kernel of its own); 2h {stress['s']:.1f} s",
+              flush=True)
     finally:
         try:
             if mp is not None:
@@ -3958,6 +4420,7 @@ def main() -> int:
     print(json.dumps({"suite": suite}), flush=True)
     print(json.dumps({"clairvoyant": clairvoyant}), flush=True)
     print(json.dumps({"multi_process": multi}), flush=True)
+    print(json.dumps({"stress": stress}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "scaled_sum", "route": "cuda",
         "source": "alluxio_tpu_torch/ops/csrc/reduce_kernel.cu",
@@ -3978,7 +4441,8 @@ def main() -> int:
             "worker_qos": worker["qos"]["launches"],
             "multi_process": multi["launches"],
             "train": train["kernel_launches"]["scaled_sum"],
-            "mesh": mesh["kernel_launches"]["scaled_sum"]},
+            "mesh": mesh["kernel_launches"]["scaled_sum"],
+            "stress": stress["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

@@ -75,7 +75,15 @@ def test_importing_every_module_loads_no_jax():
               "table", "table.plan", "table.reader", "table.udb",
               "table.master", "rpc.table_service", "job.plans.transform",
               "stress.table_bench", "stress.prefetch_bench", "shell",
-              "shell.main", "shell.launch", "minicluster.multi_process"):
+              "shell.main", "shell.launch", "minicluster.multi_process",
+              "master.metastore.encoding", "master.metastore.wal",
+              "master.metastore.sstable", "master.metastore.lsm",
+              "master.metastore.sqlite", "master.metastore.caching",
+              "stress.worker_bench", "stress.master_bench",
+              "job.plans.stressbench", "stress.metadata_bench",
+              "stress.smallread_bench", "stress.ufs_cold_bench",
+              "stress.remote_read_bench", "stress.report",
+              "stress.__main__"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -115,6 +123,25 @@ def test_role_launchers_load_no_torch():
             "alluxio_tpu_torch.job.process\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('torch', 'jax', 'alluxio_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", [
+    "alluxio_tpu_torch.stress.metadata_bench",
+    "alluxio_tpu_torch.master.metastore.lsm",
+    "alluxio_tpu_torch.master.metastore",
+    "alluxio_tpu_torch.stress.__main__",
+])
+def test_metastore_and_capacity_bench_load_no_torch(module):
+    """The metadata bench's capacity child runs under an address-space
+    cap that a torch import alone would exceed: the bench, the CLI and
+    the metastore it builds import neither torch nor JAX."""
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'alluxio_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -15,8 +15,8 @@
   detection (with reassignment), cancels and status reads, answers
   alike at every step, errors included;
 - the task failover of ``_PlanCoordinator`` (the JAX cases, on both);
-- the port's registry holds the JAX plans but ``stressbench``, and
-  refuses that one by name.
+- the port's registry holds the JAX plans, and ``stressbench``'s ``join``
+  aggregates the same seeded task summaries to the same result.
 """
 
 import importlib
@@ -201,6 +201,11 @@ def _select_configs(plan: str, layout: dict, rng) -> list:
     pick = [int(b) for b in rng.choice(bids, size=3)]
     files = sorted(p for p, d in layout["infos"].items()
                    if not d.get("folder"))
+    if plan == "stressbench":
+        return [{"bench": "worker"}, {"bench": "master"},
+                {"bench": "master", "cluster_limit": 1},
+                {"bench": "worker", "cluster_limit": int(rng.integers(1, 9))},
+                {"bench": "prefetch"}, {}]
     if plan == "load":
         return [{"path": "/data", "replication": r} for r in (1, 2, 3)] + [
             {"path": "/single"}, {"path": "/data/a", "recursive": False},
@@ -259,7 +264,8 @@ def _spread(want, cfg, select):
 
 @pytest.mark.parametrize("seed", [11, 12, 13, 14])
 @pytest.mark.parametrize("plan", ["load", "replicate", "evict", "move",
-                                  "persist", "migrate", "transform"])
+                                  "persist", "migrate", "transform",
+                                  "stressbench"])
 def test_select_executors_equal(plan, seed):
     layout = _layout(seed)
     rng = np.random.default_rng(seed)
@@ -535,25 +541,42 @@ class TestTaskFailover:
 
 
 # -- the registry -------------------------------------------------------------
-WAITING = ("stressbench",)
-
-
-def test_registry_names_are_jax_minus_the_waiting_plans():
+def test_registry_names_equal_jax():
     jax_names = _mod("alluxio_tpu", "job.plan").default_registry().names()
     port = _mod("alluxio_tpu_torch", "job.plan").default_registry()
-    assert set(WAITING) <= set(jax_names)
-    assert port.names() == [n for n in jax_names if n not in WAITING]
+    assert port.names() == jax_names
+    assert "stressbench" in port.names()
 
 
-@pytest.mark.parametrize("name", WAITING)
-def test_registry_refuses_the_waiting_plans(name):
-    from alluxio_tpu.utils.exceptions import (
-        InvalidArgumentError as JaxInvalidArgument,
-    )
-    from alluxio_tpu_torch.utils.exceptions import InvalidArgumentError
+def _bench_rows(seed: int, bench: str) -> list:
+    """Seeded per-task JSON summaries as a stress bench returns them: the
+    worker bench's keys, or the master bench's."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(int(rng.integers(1, 5))):
+        lat = sorted(float(x) for x in rng.exponential(300.0, 4))
+        metrics = {"ops_per_s": float(rng.uniform(1, 1e5)),
+                   "p50_us": lat[0], "p95_us": lat[1], "p99_us": lat[2],
+                   "max_us": lat[3]}
+        if bench == "worker":
+            metrics["mb_per_s"] = float(rng.uniform(1, 1e4))
+        rows.append({"bench": f"{bench}-x", "params": {"threads": 2},
+                     "metrics": metrics,
+                     "errors": int(rng.integers(0, 3)),
+                     "duration_s": float(rng.uniform(0.1, 5))})
+    if rng.random() < 0.5:
+        rows.insert(int(rng.integers(0, len(rows))), None)
+    return rows
 
-    port = _mod("alluxio_tpu_torch", "job.plan").default_registry()
-    with pytest.raises(InvalidArgumentError,
-                       match=f"unknown job type: '{name}'"):
-        port.get(name)
-    assert InvalidArgumentError.__name__ == JaxInvalidArgument.__name__
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("bench", ["worker", "master"])
+def test_stressbench_join_equal(bench, seed):
+    rows = _bench_rows(seed, bench)
+    got = [_mod(pkg, "job.plan").default_registry().get("stressbench").join(
+        {"type": "stressbench", "bench": bench}, list(rows))
+        for pkg in PACKAGES]
+    assert got[1] == got[0]
+    assert got[0]["tasks"] == sum(1 for r in rows if r)
+    assert _mod("alluxio_tpu_torch", "job.plan").default_registry().get(
+        "stressbench").join({"bench": bench}, [None]) == {}

@@ -14,7 +14,8 @@
   authorization bits and ACLs, the path properties and the config checker,
   the metastore factory — each against its JAX counterpart.
 - The port's master process refuses the opt-in components it does not
-  have (a typed error), and an LSM-native checkpoint raises one.
+  have (a typed error). (An LSM-native checkpoint restoring across
+  packages and kinds is ``tests/test_torch_metastore.py``'s.)
 """
 
 import os
@@ -143,34 +144,37 @@ def test_path_properties_and_config_report_match_jax():
 @pytest.mark.parametrize("kind", ("HEAP", "heap", "SQLITE", "LSM", "CACHING",
                                   "CACHING:LSM", "ROCKS"))
 def test_metastore_factory(tmp_path, kind):
+    """Every kind gives the store class JAX gives (a caching store over the
+    same backing class where JAX wraps one); a kind neither package knows
+    raises the same typed error."""
     from alluxio_tpu.master.metastore import create_inode_store as jax_create
-    from alluxio_tpu_torch.master.metastore import (HeapInodeStore,
-                                                    create_inode_store)
-    from alluxio_tpu_torch.utils.exceptions import InvalidArgumentError
-
-    if kind.upper() == "HEAP":
-        assert isinstance(create_inode_store(kind, str(tmp_path)),
-                          HeapInodeStore)
-        return
     from alluxio_tpu.utils.exceptions import (
         InvalidArgumentError as JaxInvalidArgumentError,
     )
+    from alluxio_tpu_torch.master.metastore import create_inode_store
+    from alluxio_tpu_torch.utils.exceptions import InvalidArgumentError
 
-    with pytest.raises(InvalidArgumentError) as info:
-        create_inode_store(kind, str(tmp_path))
-    if kind == "ROCKS":  # a kind neither package knows: the same error
+    if kind == "ROCKS":
+        with pytest.raises(InvalidArgumentError):
+            create_inode_store(kind, str(tmp_path / "port"))
         with pytest.raises(JaxInvalidArgumentError):
-            jax_create(kind, str(tmp_path))
-    else:  # a JAX kind the port has not yet: the message names the slice
-        assert "slice" in str(info.value)
+            jax_create(kind, str(tmp_path / "jax"))
+        return
 
+    def shape(store):
+        backing = getattr(store, "backing", None)
+        return (type(store).__name__, store.stats().get("kind"),
+                None if backing is None else type(backing).__name__)
 
-def test_lsm_checkpoint_raises_typed_error():
-    from alluxio_tpu_torch.master.inode_tree import InodeTree
-    from alluxio_tpu_torch.utils.exceptions import NotSupportedError
-
-    with pytest.raises(NotSupportedError):
-        InodeTree().restore({"root_id": 1, "store_state": {"runs": []}})
+    stores = [create(kind, str(tmp_path / name), cache_size=8)
+              for create, name in ((jax_create, "jax"),
+                                   (create_inode_store, "port"))]
+    try:
+        assert shape(stores[1]) == shape(stores[0])
+        assert type(stores[1]).__module__.startswith("alluxio_tpu_torch.")
+    finally:
+        for store in stores:
+            store.close()
 
 
 @pytest.mark.parametrize("key", (

@@ -5,12 +5,14 @@
   same malformed ``host:port``;
 - the JAX package's commands that the port does not have are refused
   with exit code 1 and the ROADMAP item that brings them (a deliberate
-  difference); help and version answer as in JAX;
+  difference); ``stress`` runs the port's stress CLI; help and version
+  answer as in JAX;
 - ``python -m alluxio_tpu_torch.shell.main master`` serves, and stops
   with exit code 0 on SIGTERM.
 """
 
 import importlib
+import json
 import os
 import re
 import select
@@ -71,7 +73,8 @@ def _jax_commands() -> set:
 def test_every_jax_command_is_dispatched_or_refused():
     from alluxio_tpu_torch.shell import main
 
-    ported = {"master", "worker", "job-master", "job-worker", "version"}
+    ported = {"master", "worker", "job-master", "job-worker", "version",
+              "stress"}
     assert ported | set(main._NOT_PORTED) == _jax_commands()
     assert not ported & set(main._NOT_PORTED)
 
@@ -88,6 +91,26 @@ def test_unported_command_is_refused(cmd, capsys):
     roadmap = open(os.path.join(os.path.dirname(__file__), os.pardir,
                                 "ROADMAP.md")).read()
     assert item in roadmap
+
+
+def test_stress_dispatches_to_the_cli(capsys):
+    """``stress`` runs the port's stress CLI on the arguments after it, as
+    the JAX shell runs its own: a toy worker bench prints its one JSON
+    line, and a bench the port does not have is refused by the CLI with
+    its ROADMAP item."""
+    from alluxio_tpu_torch.shell import main
+
+    assert main.main(["stress", "worker", "--mode", "random", "--threads",
+                      "1", "--duration", "0.3", "--shard-mb", "1",
+                      "--num-shards", "1"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    row = json.loads(lines[0])
+    assert row["bench"] == "worker-random" and row["errors"] == 0
+    assert row["params"]["master"] == "in-process"
+    assert main.main(["stress", "qos"]) == 1
+    assert "qos: not ported yet; it comes with the ROADMAP item " \
+        "'Admission and audit'" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

@@ -22,7 +22,13 @@
   mid-load), give the JAX params and metric keys with every file read
   back equal to its payload; ``run_clairvoyant`` at the JAX defaults
   gives the JAX keys, consumes as many blocks as JAX's for the same seed
-  with no miss, and every consumed block equals its file's bytes.
+  with no miss, and every consumed block equals its file's bytes;
+- the worker, master, small-read, cold-UFS, remote-read and metadata
+  benches at a toy size give the JAX bench name, params and metric keys,
+  the port's with no error (gates relaxed to the mechanics);
+- the ``stressbench`` job on each package's ``LocalCluster`` with its job
+  service, as JAX's ``TestDistributedStressBench``: two tasks, no error,
+  the JAX join's keys, every task's fixtures removed.
 """
 
 import importlib
@@ -530,3 +536,110 @@ def test_clairvoyant_bench_checks_the_blocks(monkeypatch):
                                        epochs=1)
     assert r.metrics["block_mismatches"] == 1
     assert r.errors == 1
+
+
+# -- the worker, master and host benches ---------------------------------------
+#: each bench at a toy size (well under a second of measuring, a few MiB),
+#: its gate, where it has one, relaxed to the mechanics: the card's run
+#: holds the rows to their own gates
+TOY_BENCHES = {
+    "worker-random": ("worker_bench", "run", dict(
+        mode="random", threads=2, duration_s=0.3, shard_bytes=2 << 20,
+        num_shards=2)),
+    "worker-sequential": ("worker_bench", "run", dict(
+        mode="sequential", threads=2, duration_s=0.3, shard_bytes=8 << 20,
+        num_shards=2)),
+    **{f"master-{op}": ("master_bench", "run", dict(
+        op=op, threads=2, duration_s=0.3, fixed_count=20))
+       for op in ("CreateFile", "GetStatus", "ListStatus",
+                  "ListStatusStream", "DeleteFile", "RenameFile")},
+    "master-maxthroughput": ("master_bench", "run_max_throughput", dict(
+        op="GetStatus", threads=2, duration_s=0.2, fixed_count=10)),
+    "smallread-batch": ("smallread_bench", "run_batch", dict(
+        file_mb=1, ops=100, min_speedup=0.0)),
+    "smallread-shm": ("smallread_bench", "run_shm", dict(file_mb=1, ops=50)),
+    "smallread-native": ("smallread_bench", "run_native", dict(
+        file_mb=1, ops=200, min_speedup=0.0)),
+    "ufs-cold-read": ("ufs_cold_bench", "run", dict(
+        block_mb=1, stripe_kb=256, blocks_per_reader=1, rtt_ms=5.0,
+        conn_mbps=64.0, min_speedup=0.0)),
+    "remote-warm-read": ("remote_read_bench", "run", dict(
+        block_mb=1, stripe_kb=256, blocks=2, rtt_ms=10.0, conn_mbps=64.0,
+        stall_ms=200.0, min_speedup=0.0)),
+    **{f"metadata-{row}": ("metadata_bench", "run", dict(
+        row=row, threads=2, duration_s=0.3, min_speedup=0.0))
+       for row in ("striped", "journal", "hot-dir")},
+    "metadata-cached": ("metadata_bench", "run", dict(
+        row="cached", threads=2, duration_s=0.3, files=8, min_speedup=0.0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TOY_BENCHES))
+def test_bench_gives_the_jax_params_and_keys(name):
+    module, fn, kw = TOY_BENCHES[name]
+    results = {pkg: getattr(_mod(pkg, f"stress.{module}"), fn)(**dict(kw))
+               for pkg in PACKAGES}
+    jax, port = results["alluxio_tpu"], results["alluxio_tpu_torch"]
+    assert port.errors == 0, port.json_line()
+    assert (port.bench, port.params) == (jax.bench, jax.params)
+    assert set(port.metrics) == set(jax.metrics)
+    headline = [k for k in ("ops_per_s", "mb_per_s", "gb_per_s",
+                            "batched_ops_per_s", "native_ops_per_s",
+                            "reads_per_s", "striped_batched_ops_per_s",
+                            "edge_lock_ops_per_s", "cached_ops_per_s",
+                            "max_sustained_ops_per_s") if k in port.metrics]
+    assert headline and all(port.metrics[k] > 0 for k in headline)
+
+
+def test_worker_bench_reuse_fs_cleans_up():
+    """The stressbench job's mode: the bench runs through a given client
+    under its base path and removes that path afterwards."""
+    from alluxio_tpu_torch.stress import worker_bench
+    from alluxio_tpu_torch.stress.cluster import bench_cluster
+
+    with bench_cluster(block_size=1 << 20,
+                       worker_mem_bytes=32 << 20) as (fs, _cluster):
+        r = worker_bench.run(mode="random", threads=1, duration_s=0.2,
+                             shard_bytes=1 << 20, num_shards=2,
+                             base_path="/dist/t0", _reuse_fs=fs)
+        assert r.errors == 0 and r.metrics["ops_per_s"] > 0
+        assert not fs.exists("/dist/t0")
+
+
+# -- the stressbench job ---------------------------------------------------------
+@pytest.mark.parametrize("bench", ["worker", "master"])
+def test_stressbench_fans_out_over_job_workers(tmp_path, bench):
+    """JAX's ``TestDistributedStressBench`` on both packages' clusters:
+    the plan runs the bench on every job worker against the live cluster
+    through the job worker's own client, and joins the same keys."""
+    config = {"type": "stressbench", "bench": bench,
+              "options": {"mode": "random", "threads": 2,
+                          "duration_s": 1.0, "shard_bytes": 2 << 20,
+                          "num_shards": 1} if bench == "worker" else
+              {"op": "GetStatus", "threads": 2, "duration_s": 0.5,
+               "fixed_count": 20}}
+    results = {}
+    for pkg in PACKAGES:
+        keys = _mod(pkg, "conf").Keys
+        status = _mod(pkg, "job.wire").Status
+        with _mod(pkg, "minicluster.local_cluster").LocalCluster(
+                str(tmp_path / pkg), num_workers=2, start_job_service=True,
+                start_worker_heartbeats=True, conf_overrides={
+                    keys.WORKER_BLOCK_HEARTBEAT_INTERVAL: "50ms"}) as c:
+            jc = c.job_client()
+            info = jc.wait_for_job(jc.run(dict(config)), timeout_s=120.0)
+            assert info.status == status.COMPLETED, info.error_message
+            results[pkg] = info.result
+            fs = c.file_system()
+            try:  # each task removed its fixtures
+                assert not fs.exists("/stress-dist/t0")
+            finally:
+                fs.close()
+    jax, port = results["alluxio_tpu"], results["alluxio_tpu_torch"]
+    assert port["tasks"] == jax["tasks"] == 2
+    assert port["errors"] == 0
+    assert (port["bench"], set(port["metrics"])) == \
+        (jax["bench"], set(jax["metrics"]))
+    assert port["metrics"]["ops_per_s"] > 0
+    if bench == "worker":
+        assert port["metrics"]["mb_per_s"] > 0
