@@ -1,10 +1,5 @@
 """Public FileSystem client API: a copy of ``alluxio_tpu/client/file_system.py``.
 
-Left out with the slices that bring them: the profiler configuration and
-the profile that rides the metrics heartbeat (the heartbeat ships the
-metric snapshot and trace spans), and the remediation engine's pushed
-tuning overlay (``apply_conf_overlay``).
-
 Re-design of ``core/client/fs/src/main/java/alluxio/client/file/
 {FileSystem.java:79,BaseFileSystem.java:92,FileSystemContext.java:91}``:
 one facade over the master clients + block store, with an optional
@@ -159,6 +154,9 @@ class FileSystem:
         if self._conf.get_bool(Keys.TRACE_ENABLED):
             set_tracing_enabled(True)
         apply_trace_conf(self._conf)
+        from alluxio_tpu_torch.utils.profiler import apply_profile_conf
+
+        apply_profile_conf(self._conf)
         from alluxio_tpu_torch.security.authentication import client_metadata
 
         md = tuple(client_metadata(self._conf))
@@ -286,15 +284,18 @@ class FileSystem:
         """Ship this client's metric snapshot — plus completed trace
         spans drained from the local ring — to the master for cluster
         aggregation and trace stitching (reference:
-        ``client/metrics/ClientMasterSync``). The response carries the
-        metadata cache's invalidations when the master keeps them."""
+        ``client/metrics/ClientMasterSync``).  The response may carry a
+        remediation tuning overlay; applying it here means pushed
+        retunes land within one heartbeat interval, no extra RPC."""
         from alluxio_tpu_torch.metrics import metrics
+        from alluxio_tpu_torch.utils.profiler import profiler
         from alluxio_tpu_torch.utils.tracing import tracer
 
         spans = tracer().drain(500) if tracer().enabled else []
+        flame = profiler().drain() if profiler().running else None
         resp = self.meta_master.metrics_heartbeat(
             f"client-{socket.gethostname()}-{id(self):x}",
-            metrics().snapshot(), spans=spans,
+            metrics().snapshot(), spans=spans, profile=flame,
             md_cache_version=self._md_cache.applied_version
             if self._md_cache is not None else None,
             want_md_invalidations=self._md_cache is not None)
@@ -308,6 +309,73 @@ class FileSystem:
             if now - self._last_conf_sync >= self._conf_sync_interval_s:
                 self._last_conf_sync = now
                 best_effort("config-hash sync", self.check_config_sync)
+        if isinstance(resp, dict) and "conf_overlay_version" in resp:
+            self.apply_conf_overlay(resp.get("conf_overlay") or {},
+                                    int(resp["conf_overlay_version"]))
+
+    #: master-pushable keys -> (clamp, apply) — everything else in an
+    #: overlay is ignored: the push surface is a closed catalog, not a
+    #: remote-write of arbitrary client conf
+    _OVERLAY_CLAMPS = {
+        "atpu.user.remote.read.hedge.quantile":
+            lambda v: min(1.0, max(0.5, float(v))),
+        "atpu.user.remote.read.concurrency":
+            lambda v: min(64, max(1, int(float(v)))),
+        "atpu.prefetch.budget.bytes":
+            lambda v: min(4 << 30, max(16 << 20, int(float(v)))),
+    }
+
+    def apply_conf_overlay(self, overlay: Dict[str, object],
+                           version: int) -> None:
+        """Apply (or revert) the master's remediation tuning overlay.
+        Idempotent per version; values are clamped client-side (a
+        misbehaving master cannot push a client off a cliff); keys the
+        overlay no longer carries revert to the value this client
+        booted with."""
+        if version == getattr(self, "_overlay_version", None):
+            return
+        self._overlay_version = version
+        runtime = self.store.remote_read
+        bases = getattr(self, "_overlay_bases", None)
+        if bases is None:
+            bases = self._overlay_bases = {
+                "atpu.user.remote.read.hedge.quantile":
+                    runtime.conf.hedge_quantile,
+                "atpu.user.remote.read.concurrency":
+                    runtime.conf.concurrency,
+                "atpu.prefetch.budget.bytes": None,  # scheduler-owned
+            }
+        import dataclasses as _dc
+
+        from alluxio_tpu_torch.metrics import metrics
+
+        applied = []
+        replace = {}
+        for key, clamp in self._OVERLAY_CLAMPS.items():
+            raw = overlay.get(key)
+            try:
+                value = clamp(raw) if raw is not None else bases[key]
+            except (TypeError, ValueError):
+                continue  # a malformed push must not break heartbeats
+            if key == "atpu.user.remote.read.hedge.quantile":
+                replace["hedge_quantile"] = float(value)
+            elif key == "atpu.user.remote.read.concurrency":
+                replace["concurrency"] = int(value)
+            elif key == "atpu.prefetch.budget.bytes":
+                from alluxio_tpu_torch.prefetch.scheduler import (
+                    retune_budget,
+                )
+
+                # None = overlay withdrawn: restore each scheduler's
+                # own configured budget
+                retune_budget(None if raw is None else int(value))
+            if raw is not None:
+                applied.append(key)
+        # the conf dataclass is frozen; swap it atomically so a stream
+        # mid-read never sees a half-applied retune
+        runtime.conf = _dc.replace(runtime.conf, **replace)
+        metrics().counter("Client.ConfOverlayApplied").inc()
+        self._overlay_active = applied
 
     @property
     def conf(self):

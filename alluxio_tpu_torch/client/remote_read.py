@@ -25,12 +25,15 @@ that path a pipelined, parallel subsystem:
   free.
 
 Observability: ``Client.RemoteRead{Stripes,Hedges,HedgeWins,Reroutes,
-Bytes}`` counters, the ``Client.RemoteReadTtfb`` timer and the
-size-bucketed ``Client.ReadLatency.*`` timers. The port has no trace
-context across threads: a striped read adds its executor queue wait and
-its winning transfers' time (``queue_wait``, ``wire``) as phases of the
-span that was current on the caller's thread, if any, where the JAX
-module opens a span of its own.
+Bytes}`` counters, the ``Client.RemoteReadTtfb`` timer, the
+size-bucketed ``Client.ReadLatency.*`` timers, and an
+``atpu.client.remote_read`` span per striped read that joins the
+caller's trace so the input doctor can attribute remote-read stalls.
+
+One difference: each stripe's stream carries the read span's trace
+context, so the worker's ``read_block`` spans join the read's trace as
+its children. The JAX module opens its stripes on executor threads that
+have no trace context, so their worker spans start traces of their own.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from alluxio_tpu_torch.utils.exceptions import (
     BlockDoesNotExistError, UnavailableError,
 )
 from alluxio_tpu_torch.utils.striping import plan_stripes
-from alluxio_tpu_torch.utils.tracing import current_span
+from alluxio_tpu_torch.utils import tracing as _tracing
 
 #: hedge delays below this never fire — on a same-host CI cluster the
 #: EWMA can sit at microseconds, and hedging every stripe there is a
@@ -320,9 +323,13 @@ class StripedRead:
         self.hedge_wins = 0
         self.reroutes = 0
         self._m = metrics()
-        self._span = current_span()
-        #: the caller's span (None when untraced) and its phase
-        #: accumulators (only written when there is one):
+        self._span = self._open_span()
+        #: the context each stripe's stream carries to the worker
+        self._traceparent = None if self._span is None else \
+            _tracing.format_traceparent(_tracing.TraceContext(
+                self._span.trace_id, self._span.span_id,
+                self._span.sampled))
+        #: phase accumulators (only written when this read is traced):
         #: executor queue wait and transfer ("wire") time of winning
         #: attempts, summed across stripes
         self._queue_ms = 0.0
@@ -330,9 +337,25 @@ class StripedRead:
         self._latency_recorded = False
 
     # -- tracing -------------------------------------------------------------
+    def _open_span(self):
+        t = _tracing.tracer()
+        if not t.enabled:
+            return None
+        ctx = _tracing.current_trace_context()
+        span = _tracing.Span(
+            "atpu.client.remote_read", _tracing.new_span_id(),
+            ctx.span_id if ctx else None,
+            ctx.trace_id if ctx else _tracing.new_trace_id(),
+            sampled=ctx.sampled if ctx else t._sample())
+        span.tags = {"block_id": str(self.block_id),
+                     "bytes": str(self._n),
+                     "stripes": str(len(self._stripes)),
+                     "sources": str(len(self._sources))}
+        return span
+
     def _close_span(self) -> None:
         """Record the size-bucketed latency (``Client.ReadLatency.*``)
-        once, and add this read's phases to the caller's span."""
+        once, and finish and record this read's span."""
         if self._n > 0 and not self._latency_recorded:
             self._latency_recorded = True
             self._m.timer(f"Client.ReadLatency.{size_bucket(self._n)}"
@@ -343,6 +366,15 @@ class StripedRead:
             self._span.phase("queue_wait", self._queue_ms)
         if self._wire_ms > 0.0:
             self._span.phase("wire", self._wire_ms)
+        self._span.duration_ms = (time.perf_counter() - self._t0) * 1000.0
+        self._span.tags["hedges"] = str(self.hedges)
+        self._span.tags["hedge_wins"] = str(self.hedge_wins)
+        self._span.tags["reroutes"] = str(self.reroutes)
+        if self._error is not None:
+            self._span.error = \
+                f"{type(self._error).__name__}: {self._error}"
+        if self._span.sampled:
+            _tracing.tracer().record(self._span)
         self._span = None
 
     # -- scheduling (all under self._cond) -----------------------------------
@@ -529,7 +561,12 @@ class StripedRead:
                 self._queue_ms += (now - a.started) * 1000.0
         a.started = now
         try:
-            handle = a.source.open(self._offset + rel_off, ln, self._chunk)
+            token = _tracing.bind_remote_parent(self._traceparent)
+            try:
+                handle = a.source.open(self._offset + rel_off, ln,
+                                       self._chunk)
+            finally:
+                _tracing.reset_remote_parent(token)
             with self._cond:
                 if a.cancelled or self._error is not None:
                     try:

@@ -10,8 +10,10 @@ the web endpoint; the metrics sinks and the worker's metrics heartbeat;
 the authentication keys the worker's authenticator reads; the
 ``atpu.debug.fault.*`` hooks; the master's RPC, journal, metastore,
 safe-mode, worker-timeout, UFS path cache, fast-path, TTL and
-lost-worker keys, and the switches of the opt-in master components the
-port refuses; the permission keys; the ``atpu.user.rpc.retry.*`` keys
+lost-worker keys, the metrics history, health-rule, remediation and
+web server keys, and the switches of the opt-in master components the
+port refuses; the permission keys; the tracing and ``atpu.profile.*``
+keys; the ``atpu.user.rpc.retry.*`` keys
 of the RPC clients, the client's file-system, metadata-cache,
 streaming chunk-size, SHM, remote-read, batch-read, native fastpath and
 ``atpu.user.table.*`` keys, the table master's transform-monitor
@@ -810,11 +812,6 @@ class Keys:
                     "of queuing in the RPC executor. Off: dispatch is "
                     "byte-identical to a build without admission "
                     "control.")
-    MASTER_WEB_ENABLED = _k(
-        "atpu.master.web.enabled", KeyType.BOOL, default=False,
-        scope=Scope.MASTER,
-        description="Serve the read-only HTTP/JSON state endpoint "
-                    "(reference: AlluxioMasterRestServiceHandler).")
     MASTER_UPDATE_CHECK_ENABLED = _k(
         "atpu.master.update.check.enabled", KeyType.BOOL, default=False,
         scope=Scope.MASTER,
@@ -823,6 +820,102 @@ class Keys:
                     "phone-home is opt-in).")
     MASTER_DAILY_BACKUP_ENABLED = _k("atpu.master.daily.backup.enabled",
                                      KeyType.BOOL, default=False, scope=Scope.MASTER)
+
+    # --- master: observability (metrics history, health rules, remediation,
+    # the web server) ---
+    MASTER_METRICS_MAX_SOURCES = _k(
+        "atpu.master.metrics.max.sources", KeyType.INT, default=4096,
+        scope=Scope.MASTER,
+        description="Distinct reporting sources the master's metrics "
+                    "store accepts; reports from new sources beyond it "
+                    "are dropped (counted in "
+                    "Master.MetricsReportsDropped) — bounds memory "
+                    "against spoofed source-name floods.")
+    MASTER_METRICS_HISTORY_ENABLED = _k(
+        "atpu.master.metrics.history.enabled", KeyType.BOOL, default=True,
+        scope=Scope.MASTER,
+        description="Keep bounded per-(source, metric) time series of "
+                    "the metric snapshots arriving on the metrics "
+                    "heartbeat (raw + 1m/10m rollups), served at "
+                    "/api/v1/master/metrics/history and `fsadmin "
+                    "report history`.")
+    MASTER_METRICS_HISTORY_CAPACITY = _k(
+        "atpu.master.metrics.history.capacity", KeyType.INT, default=360,
+        scope=Scope.MASTER,
+        description="Samples retained per series per resolution (raw, "
+                    "1m, 10m) — oldest evicted first. Total history "
+                    "memory is bounded by max.series x 3 x capacity "
+                    "points.")
+    MASTER_METRICS_HISTORY_RETENTION = _k(
+        "atpu.master.metrics.history.retention", KeyType.DURATION,
+        default="1h", scope=Scope.MASTER,
+        description="Raw samples older than this are pruned (1m "
+                    "rollups keep 10x, 10m rollups 60x, still capped "
+                    "by capacity).")
+    MASTER_METRICS_HISTORY_MAX_SERIES = _k(
+        "atpu.master.metrics.history.max.series", KeyType.INT,
+        default=4096, scope=Scope.MASTER,
+        description="Hard cap on distinct (source, metric) series; "
+                    "samples for series beyond it (or outside the "
+                    "prefix allowlist) are dropped and counted in "
+                    "Master.MetricsHistorySamplesDropped — bounds "
+                    "memory against metric-name cardinality floods.")
+    MASTER_METRICS_HISTORY_ALLOW_PREFIXES = _k(
+        "atpu.master.metrics.history.allow.prefixes", KeyType.STRING,
+        default="Cluster.,Master.,Worker.,Client.,JobMaster.,"
+                "JobWorker.,Process.",
+        scope=Scope.MASTER,
+        description="Comma-separated metric-name prefixes admitted "
+                    "into the history store; anything else (e.g. a "
+                    "spoofed-name flood) is dropped before it can "
+                    "mint a series.")
+    MASTER_HEALTH_ENABLED = _k(
+        "atpu.master.health.enabled", KeyType.BOOL, default=True,
+        scope=Scope.MASTER,
+        description="Continuously evaluate the declarative health "
+                    "rules (cluster doctor) over the metrics history; "
+                    "verdicts at /api/v1/master/health and `fsadmin "
+                    "report health`.")
+    MASTER_HEALTH_EVAL_INTERVAL = _k(
+        "atpu.master.health.eval.interval", KeyType.DURATION,
+        default="10s", scope=Scope.MASTER,
+        description="Period of the master's health-rule evaluation "
+                    "heartbeat.")
+    MASTER_HEALTH_STALL_THRESHOLD = _k(
+        "atpu.master.health.stall.threshold", KeyType.FLOAT, default=0.5,
+        scope=Scope.MASTER,
+        description="InputBoundFraction above this (sustained over the "
+                    "stall window) fires the input-stall alert.")
+    MASTER_HEALTH_STALL_WINDOW = _k(
+        "atpu.master.health.stall.window", KeyType.DURATION,
+        default="60s", scope=Scope.MASTER,
+        description="Evidence window the input-stall rule averages "
+                    "over.")
+    MASTER_HEALTH_METADATA_LOCK_WAIT_THRESHOLD = _k(
+        "atpu.master.health.metadata.lock.wait.threshold",
+        KeyType.DURATION, default="50ms", scope=Scope.MASTER,
+        description="metadata-lock-contention rule: fire when the "
+                    "master's inode-lock acquisition p99 "
+                    "(Master.MetadataInodeLockWaitTime.p99) stays above "
+                    "this over the stall window — sustained path-lock "
+                    "contention on the metadata control plane.")
+    MASTER_HEALTH_FIRE_AFTER = _k(
+        "atpu.master.health.fire.after", KeyType.DURATION, default="30s",
+        scope=Scope.MASTER,
+        description="Debounce: a rule must stay violated this long "
+                    "before its alert moves pending -> firing.")
+    MASTER_HEALTH_RESOLVE_AFTER = _k(
+        "atpu.master.health.resolve.after", KeyType.DURATION,
+        default="60s", scope=Scope.MASTER,
+        description="Debounce: a firing alert must stay clean this "
+                    "long before it resolves.")
+    MASTER_METASTORE_COMPACTION_DEBT_RUNS = _k(
+        "atpu.master.metastore.compaction.debt.runs", KeyType.INT,
+        default=24, scope=Scope.MASTER,
+        description="Health threshold: mean Master.MetastoreRuns above "
+                    "this sustained over the rule window fires the "
+                    "metastore-compaction-debt alert (compaction is "
+                    "not keeping up with flushes).")
     MASTER_REMEDIATION_ENABLED = _k(
         "atpu.master.remediation.enabled", KeyType.BOOL, default=False,
         scope=Scope.MASTER,
@@ -832,6 +925,63 @@ class Keys:
                     "OFF by default: with it off the cluster behaves "
                     "exactly as if the engine did not exist. See "
                     "docs/self_healing.md.")
+    MASTER_REMEDIATION_DRY_RUN = _k(
+        "atpu.master.remediation.dry.run", KeyType.BOOL, default=False,
+        scope=Scope.MASTER,
+        description="Evaluate and AUDIT every remediation the engine "
+                    "would take without executing any of them — the "
+                    "recommended first week of production rollout.")
+    MASTER_REMEDIATION_MAX_ACTIONS_PER_WINDOW = _k(
+        "atpu.master.remediation.max.actions.per.window", KeyType.INT,
+        default=4, scope=Scope.MASTER,
+        description="Hard cap on remediation actions (executed or "
+                    "dry-run) per sliding window; further actions are "
+                    "suppressed-but-audited. A runaway rule can "
+                    "quarantine at most this many workers per window.")
+    MASTER_REMEDIATION_WINDOW = _k(
+        "atpu.master.remediation.window", KeyType.DURATION,
+        default="10min", scope=Scope.MASTER,
+        description="Sliding window the action cap counts over.")
+    MASTER_REMEDIATION_COOLDOWN = _k(
+        "atpu.master.remediation.cooldown", KeyType.DURATION,
+        default="5min", scope=Scope.MASTER,
+        description="Minimum spacing between two actions of the same "
+                    "kind on the same subject — a flapping alert cannot "
+                    "thrash quarantine/release or re-replicate the same "
+                    "worker's blocks in a loop.")
+    MASTER_REMEDIATION_PROBATION = _k(
+        "atpu.master.remediation.probation", KeyType.DURATION,
+        default="60s", scope=Scope.MASTER,
+        description="After the triggering alert resolves, a quarantined "
+                    "worker (or pushed tuning overlay) is held this much "
+                    "longer before release/revert — resolution debounce "
+                    "on the action side.")
+    MASTER_REMEDIATION_REREPLICATE_BLOCKS = _k(
+        "atpu.master.remediation.rereplicate.blocks", KeyType.INT,
+        default=8, scope=Scope.MASTER,
+        description="Hottest blocks (top-tier residents) re-replicated "
+                    "off a worker per re-replication action.")
+    MASTER_REMEDIATION_QUARANTINE_MAX_FRACTION = _k(
+        "atpu.master.remediation.quarantine.max.fraction", KeyType.FLOAT,
+        default=0.5, scope=Scope.MASTER,
+        description="Healthy-capacity floor: at most this fraction of "
+                    "registered workers (min 1) may be quarantined at "
+                    "once — a systemic condition that flags the whole "
+                    "fleet must not let the engine empty the placement "
+                    "set and amplify the outage.")
+    MASTER_WEB_ENABLED = _k(
+        "atpu.master.web.enabled", KeyType.BOOL, default=False,
+        scope=Scope.MASTER,
+        description="Serve the read-only HTTP/JSON state endpoint "
+                    "(reference: AlluxioMasterRestServiceHandler).")
+    CLUSTER_NAME = _k("atpu.cluster.name", default="default-cluster",
+                      consistency=ConsistencyLevel.ENFORCE)
+    MASTER_WEB_PORT = _k("atpu.master.web.port", KeyType.INT, default=19999)
+    MASTER_WEB_BIND_HOST = _k(
+        "atpu.master.web.bind.host", KeyType.STRING, default="0.0.0.0",
+        scope=Scope.MASTER,
+        description="Bind address for the read-only master web/REST "
+                    "endpoint.")
 
     # --- security: authorization (the file master's permission checks) ---
     SECURITY_AUTHORIZATION_PERMISSION_ENABLED = _k(
@@ -864,6 +1014,39 @@ class Keys:
         description="Completed spans retained per process (oldest "
                     "evicted first). Workers/clients drain the ring to "
                     "the master on the metrics heartbeat.")
+    PROFILE_ENABLED = _k(
+        "atpu.profile.enabled", KeyType.BOOL, default=False,
+        scope=Scope.ALL,
+        description="Run the sampling thread-stack profiler "
+                    "(utils/profiler.py): a daemon thread periodically "
+                    "snapshots every thread's Python stack and merges "
+                    "them into flame-graph counts, shipped to the "
+                    "master on the metrics heartbeat. Off by default — "
+                    "the read path must stay byte-identical when "
+                    "profiling is disabled.")
+    PROFILE_SAMPLE_INTERVAL_MS = _k(
+        "atpu.profile.sample.interval.ms", KeyType.INT, default=97,
+        scope=Scope.ALL,
+        description="Milliseconds between stack samples. A prime-ish "
+                    "default avoids beating against periodic work. "
+                    "Each wake forces a GIL handoff against whatever "
+                    "thread is running (~1ms observed), so the cost is "
+                    "per-wake, not per-stack: ~10Hz keeps the tax "
+                    "under the 2% obs-profile-overhead gate while "
+                    "still resolving hot paths over a heartbeat "
+                    "window.")
+    PROFILE_MAX_STACKS = _k(
+        "atpu.profile.max.stacks", KeyType.INT, default=2048,
+        scope=Scope.ALL,
+        description="Distinct merged stacks retained per process; "
+                    "when full, new stacks are dropped (the hot paths "
+                    "are by definition already in the table).")
+    PROFILE_STACK_DEPTH = _k(
+        "atpu.profile.stack.depth", KeyType.INT, default=24,
+        scope=Scope.ALL,
+        description="Frames kept per sampled stack, innermost first — "
+                    "deeper frames are truncated to bound sample cost "
+                    "and wire size.")
 
     # --- client: the file-system client, its streams and metadata cache ---
     USER_BLOCK_SIZE_BYTES_DEFAULT = _k(

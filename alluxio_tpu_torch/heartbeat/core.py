@@ -24,6 +24,8 @@ class HeartbeatContext:
     MASTER_REPLICATION_CHECK = "Master.ReplicationCheck"
     MASTER_PERSISTENCE_SCHEDULER = "Master.PersistenceScheduler"
     MASTER_TABLE_TRANSFORM_MONITOR = "Master.TableTransformMonitor"
+    MASTER_HEALTH_CHECK = "Master.HealthCheck"
+    MASTER_METRICS_SINKS = "Master.MetricsSinks"
     WORKER_METRICS_SINKS = "Worker.MetricsSinks"
     WORKER_BLOCK_SYNC = "Worker.BlockSync"
     WORKER_PIN_LIST_SYNC = "Worker.PinListSync"

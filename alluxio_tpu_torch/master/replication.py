@@ -1,7 +1,5 @@
 """Replication control: keep cached-copy counts within [min, max] (a
-copy of ``alluxio_tpu/master/replication.py`` without
-``request_replication``, the remediation engine's entry point: remediation
-is not ported).
+copy of ``alluxio_tpu/master/replication.py``).
 
 One difference: a block that no live worker holds, of a persisted file,
 is re-replicated from the UFS (the replicate job carries the block's UFS
@@ -19,6 +17,11 @@ deficit never spawns duplicate jobs. This is also the elastic-recovery
 loop: when a worker is lost, its blocks' location counts drop and the next
 check re-replicates (SURVEY §5.3).
 
+Besides the constraint walk, the checker exposes
+:meth:`request_replication` — targeted one-shot replication the
+remediation engine uses to fan a straggling worker's hottest blocks out
+to healthy peers.
+
 Observability and bounds: launches/failures/deferrals are counted
 (``Master.ReplicationJobs{Launched,Failed,Deferred}`` +
 ``Master.ReplicationJobsInflight`` gauge), launch failures warn rate-limited instead of vanishing at
@@ -33,7 +36,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from typing import Dict, Set
+from typing import Dict, List, Set
 
 from alluxio_tpu_torch.job.wire import Status
 from alluxio_tpu_torch.master.inode import PersistenceState
@@ -99,6 +102,19 @@ class ReplicationChecker:
                     self._launch(bid, {"type": "evict", "block_id": bid,
                                        "replicas": replicas - rmax})
 
+    def request_replication(self, block_ids: List[int], *,
+                            replicas: int = 1) -> List[int]:
+        """Targeted one-shot replication: +``replicas`` copies of each
+        block, deduplicated against in-flight jobs and bounded by the
+        same cap as the constraint walk.  Returns the block ids whose
+        jobs actually launched (the remediation audit records them)."""
+        launched = []
+        for bid in block_ids:
+            if self._launch(bid, {"type": "replicate", "block_id": bid,
+                                  "replicas": int(replicas)}):
+                launched.append(bid)
+        return launched
+
     def _ufs_source(self, inode, index: int):
         """Where block ``index`` of a persisted file lies in the UFS (the
         replicate plan's ``ufs`` argument), or None."""
@@ -117,7 +133,9 @@ class ReplicationChecker:
                 "mount_id": res.mount_id}
 
     #: placeholder job id while the launch RPC is in flight — keeps the
-    #: (bid) slot reserved while the RPC runs outside the lock
+    #: (bid) slot reserved so the second writer thread (the remediation
+    #: engine calls request_replication off the health heartbeat while
+    #: the constraint walk runs on its own) cannot double-launch
     _RESERVED = -1
 
     def _launch(self, bid: int, config: dict) -> bool:

@@ -94,6 +94,14 @@ class Timer:
         with self._lock:
             return sorted(list(self._samples)[-n:]) if n > 0 else []
 
+    def percentile(self, p: float) -> float:
+        """The ``p``-th percentile (0-100) of the reservoir; 0 when empty."""
+        with self._lock:
+            if not self._samples:
+                return 0.0
+            s = sorted(self._samples)
+        return s[min(len(s) - 1, int(p / 100.0 * len(s)))]
+
     def snapshot(self) -> Dict[str, float]:
         with self._lock:
             samples = sorted(self._samples)

@@ -481,6 +481,27 @@ class MetaMasterClient(_BaseClient):
     def get_log_level(self, logger: str = "") -> dict:
         return self._call("get_log_level", {"logger": logger})
 
+    def set_trace_enabled(self, enabled: bool, *,
+                          clear: bool = False) -> dict:
+        return self._call("set_trace_enabled",
+                          {"enabled": enabled, "clear": clear})
+
+    def get_trace(self, *, limit: int = 500, prefix: str = "",
+                  trace_id: str = "") -> dict:
+        return self._call("get_trace", {"limit": limit, "prefix": prefix,
+                                        "trace_id": trace_id})
+
+    def get_trace_profile(self, *, trace_id: str = "", prefix: str = "",
+                          root_prefix: str = "", limit: int = 4000,
+                          max_traces: int = 256) -> dict:
+        """Critical-path analysis over the master's stitched traces:
+        with ``trace_id`` the blocking chain of that one trace, without
+        it the aggregate per-phase read-path profile."""
+        return self._call("get_trace_profile", {
+            "trace_id": trace_id, "prefix": prefix,
+            "root_prefix": root_prefix, "limit": limit,
+            "max_traces": max_traces})
+
     def get_quorum_info(self) -> dict:
         return self._call("get_quorum_info", {})
 

@@ -2,12 +2,9 @@
 for a single master.
 
 Left out with the slices that bring them: the audit wrapper and the
-active-sync RPCs of the FS service; the standby services; and of the
-meta service the trace RPCs (``set_trace_enabled``, ``get_trace``,
-``get_trace_profile``, which need trace stitching). The meta RPCs whose
-component is not ported yet (metrics master, health engine, remediation,
-admission, backup, Raft quorum) answer as the JAX ones do when that
-component is ``None``.
+active-sync RPCs of the FS service; the standby services. The meta RPCs
+whose component is not ported yet (admission, backup, Raft quorum)
+answer as the JAX ones do when that component is ``None``.
 
 Re-design of the reference's master service handlers
 (``file/FileSystemMaster{Client,Worker,Job}ServiceHandler.java``,
@@ -262,6 +259,10 @@ def meta_master_service(conf: Configuration, *, cluster_id: str = "",
                         path_properties=None,
                         config_checker=None,
                         permission_checker=None,
+                        metrics_master=None,
+                        health_monitor=None,
+                        remediation_engine=None,
+                        invalidation_log=None,
                         metastore_stats_fn=None,
                         role_fn=lambda: "PRIMARY") -> ServiceDefinition:
     """Config distribution + cluster info + admin ops
@@ -271,10 +272,8 @@ def meta_master_service(conf: Configuration, *, cluster_id: str = "",
 
     Admin ops (backup / checkpoint / path-conf mutation) are gated behind
     superuser, as the reference gates them behind admin privilege. The
-    JAX service's ``metrics_master``, ``health_monitor``,
-    ``remediation_engine``, ``admission``, ``invalidation_log`` and
-    ``masters_fn`` arguments are not taken: their RPCs answer as the JAX
-    ones do without them."""
+    JAX service's ``admission`` and ``masters_fn`` arguments are not
+    taken: their RPCs answer as the JAX ones do without them."""
     from alluxio_tpu_torch.utils.exceptions import (
         FailedPreconditionError, InvalidArgumentError,
     )
@@ -335,25 +334,136 @@ def meta_master_service(conf: Configuration, *, cluster_id: str = "",
     svc.unary("set_log_level", _set_log_level)
     svc.unary("get_log_level", _get_log_level)
 
+    def _set_trace_enabled(r):
+        from alluxio_tpu_torch.utils.tracing import (
+            set_tracing_enabled, tracer,
+        )
+
+        _require_admin()
+        on = bool(r.get("enabled"))
+        set_tracing_enabled(on)
+        if r.get("clear"):
+            tracer().clear()
+        return {"enabled": on}
+
+    def _get_trace(r):
+        from alluxio_tpu_torch.utils.tracing import stitch_spans, tracer
+
+        stitched = stitch_spans(
+            metrics_master.traces if metrics_master is not None else None,
+            limit=int(r.get("limit") or 500),
+            prefix=r.get("prefix") or "",
+            trace_id=r.get("trace_id") or "",
+            local_source="master")
+        return {"enabled": tracer().enabled, **stitched}
+
+    def _get_trace_profile(r):
+        """Critical-path analysis over stitched traces: one trace id ->
+        its blocking chain; no id -> the aggregate per-phase read-path
+        profile."""
+        from alluxio_tpu_torch.utils.critical_path import (
+            analyze_trace, profile,
+        )
+        from alluxio_tpu_torch.utils.tracing import stitch_spans, tracer
+
+        trace_id = r.get("trace_id") or ""
+        stitched = stitch_spans(
+            metrics_master.traces if metrics_master is not None else None,
+            limit=int(r.get("limit") or 4000),
+            prefix=r.get("prefix") or "",
+            trace_id=trace_id,
+            local_source="master")
+        if trace_id:
+            return {"enabled": tracer().enabled,
+                    "critical_path": analyze_trace(stitched["spans"])}
+        return {"enabled": tracer().enabled,
+                "profile": profile(
+                    stitched["spans"],
+                    root_prefix=r.get("root_prefix") or "",
+                    max_traces=int(r.get("max_traces") or 256))}
+
+    svc.unary("set_trace_enabled", _set_trace_enabled)
+    svc.unary("get_trace", _get_trace)
+    svc.unary("get_trace_profile", _get_trace_profile)
+
+    def _get_metrics(r):
+        snap = metrics().snapshot()
+        if metrics_master is not None:
+            snap = metrics_master.merged_snapshot(snap)
+        return {"metrics": snap}
+
+    def _metrics_heartbeat(r):
+        """Worker/client metric snapshots -> cluster aggregation
+        (reference: DefaultMetricsMaster + metric_master.proto).
+        Requires an authenticated caller — an anonymous client must not
+        be able to forge sources and inflate Cluster.* aggregates."""
+        if metrics_master is not None:
+            if permission_checker is not None:
+                from alluxio_tpu_torch.security.user import (
+                    authenticated_user,
+                )
+                from alluxio_tpu_torch.utils.exceptions import (
+                    UnauthenticatedError,
+                )
+
+                if authenticated_user() is None:
+                    raise UnauthenticatedError(
+                        "metrics_heartbeat requires an authenticated user")
+            resp = metrics_master.handle_heartbeat(r)
+            if remediation_engine is not None:
+                # piggyback the retuning overlay: no extra RPC, and
+                # every reporting client converges within one
+                # heartbeat interval of a push or revert
+                overlay, version = remediation_engine.heartbeat_overlay()
+                if overlay:
+                    resp["conf_overlay"] = overlay
+                resp["conf_overlay_version"] = version
+            if invalidation_log is not None and \
+                    r.get("want_md_invalidations"):
+                # metadata-cache push invalidation rides the same
+                # channel: prefixes invalidated since the client's
+                # applied version
+                resp["md_invalidations"] = invalidation_log.since(
+                    r.get("md_cache_version"))
+            return resp
+        return {}
+
     def _get_metrics_history(r):
-        raise FailedPreconditionError(
-            "metrics history is disabled on this master "
-            "(atpu.master.metrics.history.enabled)")
+        """Time-resolved series out of the master's history store.
+        Without a ``name`` it lists the recorded metric names + store
+        stats; with one it returns matching series at the requested
+        resolution, optionally derived as a per-second rate."""
+        if metrics_master is None or metrics_master.history is None:
+            raise FailedPreconditionError(
+                "metrics history is disabled on this master "
+                "(atpu.master.metrics.history.enabled)")
+        return metrics_master.history_report(r)
 
     def _get_health(r):
-        raise FailedPreconditionError(
-            "the health-rule engine is disabled on this master "
-            "(atpu.master.health.enabled)")
+        """Ranked health verdicts from the continuous rule engine.
+        ``evaluate`` (default true) runs a fresh evaluation pass first
+        so the report never serves a stale lifecycle state."""
+        if health_monitor is None:
+            raise FailedPreconditionError(
+                "the health-rule engine is disabled on this master "
+                "(atpu.master.health.enabled)")
+        resp = health_monitor.fresh_report(bool(r.get("evaluate", True)))
+        if remediation_engine is not None:
+            # the remediation timeline rides the health report: cause
+            # (alert) and effect (action) belong on one screen
+            resp["remediation"] = remediation_engine.report()
+        return resp
 
     def _get_qos(r):
         snap = metrics().snapshot()
+        if metrics_master is not None:
+            snap = metrics_master.merged_snapshot(snap)
         return {"admission": {"enabled": False},
                 "metrics": {k: v for k, v in snap.items()
                             if "Qos" in k or "RpcAdmission" in k}}
 
-    svc.unary("get_metrics", lambda r: {"metrics": metrics().snapshot()})
-    # without a metrics master the heartbeat is accepted and dropped
-    svc.unary("metrics_heartbeat", lambda r: {})
+    svc.unary("get_metrics", _get_metrics)
+    svc.unary("metrics_heartbeat", _metrics_heartbeat)
     svc.unary("get_metrics_history", _get_metrics_history)
     svc.unary("get_health", _get_health)
     svc.unary("get_qos", _get_qos)

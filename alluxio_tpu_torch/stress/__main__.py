@@ -12,11 +12,14 @@ Benches:
   prefetch     distributed load across N workers [#3]
   table        Parquet column-projection via the catalog [#4]
   write        async write-through under eviction pressure [#5]
+  obs          tracing and profiler overhead, critical-path attribution
+  health       metrics-history ingestion overhead
+  selfheal     remediation detection->action latency and tick overhead
   suite        run the whole BASELINE config family
 
-The JAX CLI's ``obs``, ``health``, ``selfheal``, ``qos`` and ``ha``
-benches need modules the port does not have yet: each is refused with
-the ROADMAP item that brings it, and the suite leaves out their rows.
+The JAX CLI's ``qos`` and ``ha`` benches need modules the port does not
+have yet: each is refused with the ROADMAP item that brings it, and the
+suite leaves out their rows.
 The table bench runs in-process only (``table --master`` is refused).
 """
 
@@ -29,7 +32,6 @@ import sys
 #: the JAX benches the port does not have yet, each with the ROADMAP item
 #: (its heading in "Open items") that ports the modules it needs
 _NOT_PORTED = {
-    **dict.fromkeys(("obs", "health", "selfheal"), "Observability"),
     "qos": "Admission and audit",
     "ha": "HA",
 }
@@ -108,6 +110,32 @@ def build_parser() -> argparse.ArgumentParser:
     wr.add_argument("--file-mb", type=int, default=8)
     wr.add_argument("--mem-mb", type=int, default=64)
 
+    ob = sub.add_parser("obs", help="observability rows: tracing/"
+                                    "profiler overhead + critical-path "
+                                    "attribution fidelity")
+    ob.add_argument("--row", choices=("tracing", "profile",
+                                      "critical-path"),
+                    default="tracing",
+                    help="which obs row: tracing overhead (default), "
+                         "stack-sampler overhead, or critical-path "
+                         "attribution")
+    ob.add_argument("--file-mb", type=int, default=4)
+    ob.add_argument("--reads", type=int, default=60,
+                    help="reads per alternating batch (tracing/profile) "
+                         "or total random preads (critical-path)")
+    ob.add_argument("--batches", type=int, default=5)
+    ob.add_argument("--span-iterations", type=int, default=100_000)
+    ob.add_argument("--sample-interval-ms", type=int, default=0,
+                    help="profiler row: stack-sampling interval under "
+                         "test (0 = the shipped conf default)")
+    ob.add_argument("--read-bytes", type=int, default=4096,
+                    help="critical-path row: bytes per random pread")
+    ob.add_argument("--max-overhead-pct", type=float, default=2.0,
+                    help="fail the overhead rows above this delta")
+    ob.add_argument("--min-attributed-pct", type=float, default=90.0,
+                    help="fail the critical-path row when named phases "
+                         "explain less of root wall time than this")
+
     sr = sub.add_parser("smallread",
                         help="small-read data plane: batched random-4k "
                              "over real gRPC vs per-op RPCs, and "
@@ -126,6 +154,37 @@ def build_parser() -> argparse.ArgumentParser:
     sr.add_argument("--min-speedup", type=float, default=3.0,
                     help="batch row: fail below this batched/per-op "
                          "ops/s ratio")
+
+    he = sub.add_parser("health", help="metrics-history ingestion "
+                                       "overhead on the heartbeat hot "
+                                       "path (fake-clock harness)")
+    he.add_argument("--sources", type=int, default=64)
+    he.add_argument("--metrics-per-source", type=int, default=120,
+                    help="snapshot size per heartbeat (a live worker "
+                         "ships ~100-150 entries once timers expand)")
+    he.add_argument("--ticks", type=int, default=40)
+    he.add_argument("--batches", type=int, default=8)
+    he.add_argument("--max-overhead-pct", type=float, default=5.0,
+                    help="fail the bench above this heartbeat-handling "
+                         "overhead with history enabled")
+
+    sh = sub.add_parser("selfheal",
+                        help="remediation engine: detection->action "
+                             "latency + health-tick overhead "
+                             "(fake-clock harness)")
+    sh.add_argument("--sources", type=int, default=64,
+                    help="fleet size driving the health tick (matches "
+                         "bench-health's model); the engine's cost is "
+                         "per-tick constant, the tick scales with this")
+    sh.add_argument("--ticks", type=int, default=60)
+    sh.add_argument("--batches", type=int, default=6)
+    sh.add_argument("--eval-interval", type=float, default=5.0,
+                    help="simulated health-eval period (seconds)")
+    sh.add_argument("--fire-after", type=float, default=10.0,
+                    help="simulated alert fire debounce (seconds)")
+    sh.add_argument("--max-overhead-pct", type=float, default=2.0,
+                    help="fail the bench above this added health-tick "
+                         "overhead with the engine attached")
 
     uc = sub.add_parser("ufscold", help="striped vs single-stream cold "
                                         "UFS reads (connection-limited "
@@ -239,10 +298,16 @@ SUITE = (
     ("table-projection", ["table"]),
     ("table-projection-pushdown", ["table", "--row", "pushdown"]),
     ("write-eviction", ["write"]),
+    ("obs-tracing-overhead", ["obs"]),
+    ("obs-profile-overhead", ["obs", "--row", "profile"]),
+    ("obs-critical-path", ["obs", "--row", "critical-path",
+                           "--file-mb", "2", "--reads", "80"]),
     ("smallread-batch", ["smallread", "--row", "batch"]),
     ("smallread-shm-zerocopy", ["smallread", "--row", "shm"]),
     ("smallread-native-fastpath", ["smallread", "--row", "native",
                                    "--min-speedup", "5.0"]),
+    ("health-ingest-overhead", ["health"]),
+    ("selfheal-remediation", ["selfheal"]),
     ("ufs-cold-read", ["ufscold"]),
     ("remote-warm-read", ["remoteread"]),
     ("metadata-striped", ["metadata", "--row", "striped"]),
@@ -430,6 +495,29 @@ def main(argv=None) -> int:
         r = run(threads=args.threads, num_files=args.num_files,
                 file_bytes=args.file_mb << 20,
                 mem_bytes=args.mem_mb << 20)
+    elif args.bench == "obs":
+        if args.row == "profile":
+            from alluxio_tpu_torch.stress.obs_bench import run_profile_overhead
+
+            r = run_profile_overhead(
+                file_mb=args.file_mb, reads=args.reads,
+                batches=args.batches,
+                sample_interval_ms=args.sample_interval_ms,
+                max_overhead_pct=args.max_overhead_pct)
+        elif args.row == "critical-path":
+            from alluxio_tpu_torch.stress.obs_bench import run_critical_path
+
+            r = run_critical_path(
+                file_mb=args.file_mb, reads=args.reads,
+                read_bytes=args.read_bytes,
+                min_attributed_pct=args.min_attributed_pct)
+        else:
+            from alluxio_tpu_torch.stress.obs_bench import run
+
+            r = run(file_mb=args.file_mb, reads=args.reads,
+                    batches=args.batches,
+                    span_iterations=args.span_iterations,
+                    max_overhead_pct=args.max_overhead_pct)
     elif args.bench == "smallread":
         if args.row == "shm":
             from alluxio_tpu_torch.stress.smallread_bench import run_shm
@@ -451,6 +539,21 @@ def main(argv=None) -> int:
                           ops=args.ops if args.ops is not None else 400,
                           read_bytes=args.read_bytes,
                           min_speedup=args.min_speedup)
+    elif args.bench == "health":
+        from alluxio_tpu_torch.stress.health_bench import run
+
+        r = run(sources=args.sources,
+                metrics_per_source=args.metrics_per_source,
+                ticks=args.ticks, batches=args.batches,
+                max_overhead_pct=args.max_overhead_pct)
+    elif args.bench == "selfheal":
+        from alluxio_tpu_torch.stress.selfheal_bench import run
+
+        r = run(sources=args.sources, ticks=args.ticks,
+                batches=args.batches,
+                eval_interval_s=args.eval_interval,
+                fire_after_s=args.fire_after,
+                max_overhead_pct=args.max_overhead_pct)
     elif args.bench == "ufscold":
         from alluxio_tpu_torch.stress.ufs_cold_bench import run
 

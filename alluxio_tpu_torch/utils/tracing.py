@@ -1,12 +1,12 @@
 """Span tracing with W3C trace context and sampling, and a profiler bridge.
 
-A copy of ``alluxio_tpu/utils/tracing.py`` without the master's side
-(``TraceStore``, ``stitch_spans``, ``summarize_traces``: they come with
-the master's observability): a process ring of completed spans nested
-through a contextvar, typed phase events inside a span (``Span.phase``),
-the live span (``current_span``), the drain the worker's metrics
-heartbeat ships to the master, and ``annotate``, which names a host
-region on the device timeline.
+A copy of ``alluxio_tpu/utils/tracing.py``: a process ring of completed
+spans nested through a contextvar, typed phase events inside a span
+(``Span.phase``), the live span (``current_span``), the drain the
+metrics heartbeats ship to the master, the master's ``TraceStore`` that
+keeps the shipped spans and ``stitch_spans``, which merges them with the
+master's own ring into one view per trace, and ``annotate``, which names
+a host region on the device timeline.
 
 Cross-process context: every span carries a W3C-traceparent-style
 context (``trace_id``, parent ``span_id``, sampled flag). Client stubs
@@ -32,7 +32,7 @@ import random
 import re
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Dict, Iterator, List, NamedTuple, Optional
 
 _current_span: contextvars.ContextVar = contextvars.ContextVar(
@@ -222,9 +222,19 @@ class Tracer:
         """Add a span finished outside the context manager."""
         self._ring.append(span)
 
-    def snapshot(self, limit: int = 500) -> List[dict]:
+    def snapshot(self, limit: int = 500,
+                 prefix: str = "") -> List[dict]:
         """Most-recent-first dump of completed spans."""
-        return [s.to_dict() for s in reversed(list(self._ring))][:limit]
+        out = []
+        # atomic copy first: iterating the live deque races concurrent
+        # record() appends ("deque mutated during iteration")
+        for s in reversed(list(self._ring)):
+            if prefix and not s.name.startswith(prefix):
+                continue
+            out.append(s.to_dict())
+            if len(out) >= limit:
+                break
+        return out
 
     def drain(self, limit: int = 500) -> List[dict]:
         """Pop up to ``limit`` completed spans, oldest first (the
@@ -308,6 +318,125 @@ def apply_trace_conf(conf) -> None:
     _TRACER.configure(
         capacity=conf.get_int(Keys.TRACE_RING_CAPACITY),
         sample_rate=conf.get_float(Keys.TRACE_SAMPLE_RATE))
+
+
+# -- master-side stitching ---------------------------------------------------
+class TraceStore:
+    """Spans shipped from remote processes (workers/clients drain their
+    rings on the metrics heartbeat), deduplicated by (trace_id, span_id)
+    so an in-process cluster — where every role shares one ring — never
+    double-serves a span the reporter also shipped."""
+
+    def __init__(self, capacity: int = 8192) -> None:
+        self._ring: deque = deque(maxlen=capacity)
+        self._seen: "OrderedDict[tuple, bool]" = OrderedDict()
+        self._seen_cap = capacity * 2
+        self._lock = threading.Lock()
+
+    def ingest(self, source: str, spans: Optional[List[dict]]) -> int:
+        n = 0
+        with self._lock:
+            for s in spans or ():
+                if not isinstance(s, dict):
+                    continue
+                key = (s.get("trace_id"), s.get("span_id"))
+                if key in self._seen:
+                    continue
+                self._seen[key] = True
+                while len(self._seen) > self._seen_cap:
+                    self._seen.popitem(last=False)
+                d = dict(s)
+                d.setdefault("source", source)
+                self._ring.append(d)
+                n += 1
+        return n
+
+    def snapshot(self, limit: int = 500, prefix: str = "",
+                 trace_id: str = "") -> List[dict]:
+        with self._lock:
+            items = list(self._ring)
+        out = []
+        for s in reversed(items):
+            if prefix and not str(s.get("name", "")).startswith(prefix):
+                continue
+            if trace_id and s.get("trace_id") != trace_id:
+                continue
+            out.append(s)
+            if len(out) >= limit:
+                break
+        return out
+
+    def span_count(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+
+def stitch_spans(store: Optional[TraceStore], *, limit: int = 500,
+                 prefix: str = "", trace_id: str = "",
+                 local_source: str = "local") -> dict:
+    """Merge the process-local ring with remotely-shipped spans into one
+    view: a flat most-recent-first span list plus a per-trace summary
+    (what ``/api/v1/master/trace`` and ``fsadmin trace`` serve)."""
+    spans: List[dict] = []
+    seen = set()
+    # a trace_id filter scans the whole ring: the wanted trace's spans
+    # may sit past the first `limit` recent spans of OTHER traces
+    # (the ACTUAL configured capacity, not the default constant)
+    scan = max(limit, _TRACER._ring.maxlen or _RING_CAP) \
+        if trace_id else limit
+    local = _TRACER.snapshot(limit=scan, prefix=prefix)
+    for s in local:
+        if trace_id and s.get("trace_id") != trace_id:
+            continue
+        s = dict(s)
+        s.setdefault("source", local_source)
+        seen.add((s.get("trace_id"), s.get("span_id")))
+        spans.append(s)
+    if store is not None:
+        for s in store.snapshot(limit=limit, prefix=prefix,
+                                trace_id=trace_id):
+            key = (s.get("trace_id"), s.get("span_id"))
+            if key in seen:
+                continue
+            seen.add(key)
+            spans.append(s)
+    spans.sort(key=lambda s: s.get("start_ms") or 0.0, reverse=True)
+    del spans[limit:]
+    return {"spans": spans, "traces": summarize_traces(spans)}
+
+
+def summarize_traces(spans: List[dict]) -> List[dict]:
+    """Per-trace rollup of a most-recent-first span list (span count,
+    contributing sources, root name, wall duration). Shared by
+    :func:`stitch_spans` and the HA fan-out merge."""
+    traces: "OrderedDict[str, dict]" = OrderedDict()
+    for s in spans:
+        tid = s.get("trace_id")
+        if not tid:
+            continue
+        t = traces.get(tid)
+        if t is None:
+            t = traces[tid] = {"trace_id": tid, "spans": 0,
+                               "sources": [], "root": None,
+                               "start_ms": None, "end_ms": None}
+        t["spans"] += 1
+        src = s.get("source")
+        if src and src not in t["sources"]:
+            t["sources"].append(src)
+        if s.get("parent") is None:
+            t["root"] = s.get("name")
+        start = s.get("start_ms")
+        if start is not None:
+            end = start + (s.get("duration_ms") or 0.0)
+            t["start_ms"] = start if t["start_ms"] is None \
+                else min(t["start_ms"], start)
+            t["end_ms"] = end if t["end_ms"] is None \
+                else max(t["end_ms"], end)
+    for t in traces.values():
+        t["duration_ms"] = None if t["start_ms"] is None \
+            else round(t["end_ms"] - t["start_ms"], 3)
+        t.pop("end_ms", None)
+    return list(traces.values())
 
 
 # -- device-side bridge -------------------------------------------------------

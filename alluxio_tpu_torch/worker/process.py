@@ -106,8 +106,7 @@ class _MetricsReporter:
     """Ships this worker's metric snapshot — plus any completed trace
     spans drained from the local ring — to the master each tick for
     cluster aggregation and trace stitching (reference: worker side of
-    metric_master.proto). The port ships no profile: the profiler comes
-    with a later slice."""
+    metric_master.proto)."""
 
     def __init__(self, meta_client, source: str) -> None:
         self._client = meta_client
@@ -125,10 +124,13 @@ class _MetricsReporter:
             # the quarantine remediation exist to catch
             return
         spans = tracer().drain(500) if tracer().enabled else []
+        from alluxio_tpu_torch.utils.profiler import profiler
+
+        flame = profiler().drain() if profiler().running else None
         try:
             self._client.metrics_heartbeat(self._source,
                                            metrics().snapshot(),
-                                           spans=spans, profile=None)
+                                           spans=spans, profile=flame)
         except Exception:  # noqa: BLE001 master transition: retry next tick
             # spans riding this tick are dropped — tracing is telemetry,
             # re-queueing could double-ship on a late-delivered RPC
@@ -242,6 +244,9 @@ class BlockWorker:
 
         set_tracing_enabled(self._conf.get_bool(Keys.TRACE_ENABLED))
         apply_trace_conf(self._conf)
+        from alluxio_tpu_torch.utils.profiler import apply_profile_conf
+
+        apply_profile_conf(self._conf)
         ensure_process_monitor()
         self._master_sync.register_with_master()
         hb_interval = self._conf.get_duration_s(

@@ -207,7 +207,8 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    child process with ``--master`` at 2g's cluster: ``worker`` random (8
    threads) and sequential (4 threads) over 32 x 64 MiB shards, and
    ``master`` GetStatus, CreateFile and ListStatus (``--fixed-count
-   100``, 8 threads), 5 s each, the bench's namespace deleted after each;
+   100``, 8 threads), ``STRESS_DURATION_S`` each, the bench's namespace
+   deleted after each;
    then the same five rows with no ``--master`` (the bench's in-process
    cluster). Each row must have no error and ops/s above 0; each prints
    beside its in-process row (ops/s, MB/s, p50, p99), and the attached
@@ -228,6 +229,35 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    its speed gate alone (``gate_miss``: a crash, a wrong byte or count
    fails the run), every row and gate printed; ``stress report`` renders
    the lines into the work directory, and the page must name every row.
+2i. the observability loop, last: a ``MultiProcessCluster`` of its own
+   (its master and one worker each a process, in ``/dev/shm``) with the
+   metrics history, the health rules and the remediation engine on (not
+   in dry run), the master's web server on an ephemeral port, tracing
+   on, and the health and heartbeat keys cut (``OBS_KEYS``); the client
+   runs the stack sampler. (a) The main path's 64 shards written THROUGH
+   to the UFS and freed, every block cold; (b) a loader with a device
+   tier and a ``PrefetchService`` whose budget the overlay retunes (its
+   agent not started, so every block crosses the worker's cold fetch)
+   reads them in the oracle's order, the consumer launching
+   ``scaled_sum`` once a block and reading it back: the client's ``Client.InputBoundFraction`` must fire
+   ``input-stall-sustained``, the engine must execute a ``retune`` and
+   the client apply its overlay (``Client.ConfOverlayApplied``, the
+   scheduler's budget doubled); the times from the first stalled sample
+   to the alert, the action and the client are printed beside the
+   selfheal bench's bound; ``get_health`` and the web server's health
+   route must name the same alerts; (c) device-tier epochs (every block
+   a hit) until the alert resolves and the overlay is withdrawn (the
+   budget back at its boot value), within ``OBS_RESOLVE_DEADLINE_S``,
+   the hit epochs' consumer wait and step a block printed; (d) every
+   consumed block equal to its file, every block's result the plain
+   version's, the ``K`` chain over the resident set the main path's
+   and the plain chain's, the history holding the client's fraction
+   through both epochs; (e) one traced remote read (short circuit off)
+   through the worker process, whose stitched trace must hold spans of
+   the client and of the worker, and its critical path (the
+   ``attributed_pct`` under the obs gate of 90 is a recorded miss); (f)
+   the master's profile of the client must hold the loader's producer
+   frames; no role process may outlive the stop.
 
 It prints the card's name and power limit, whether pyarrow imports,
 one ``{"main": {...}}``
@@ -236,7 +266,7 @@ one ``{"page_cache": {...}}`` line, one ``{"worker": {...}}``
 line, one ``{"train": {...}}``
 line, one ``{"mesh": {...}}`` line, one ``{"suite": {...}}`` line, one
 ``{"clairvoyant": {...}}`` line, one ``{"multi_process": {...}}`` line,
-one ``{"stress": {...}}`` line,
+one ``{"stress": {...}}`` line, one ``{"observability": {...}}`` line,
 one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
@@ -3055,7 +3085,10 @@ def mp_phase(device, mp: dict, main: dict, inproc: dict, k: int) -> dict:
 # -- 2h: the stress CLI, the stressbench job, the master on LSM, the suite ----
 #: the port's stress CLI, run as a child process
 STRESS_CLI = [sys.executable, "-m", "alluxio_tpu_torch.stress"]
-STRESS_DURATION_S = 5
+#: 2h a's and 2h b's cut (PERF.md section 4): each bench measures this
+#: many seconds, not the CLI's 5 (2h d's suite runs the same benches at
+#: their own durations), so that the script stays near 900 s
+STRESS_DURATION_S = 2
 #: 2h a's worker bench corpus: 32 x 64 MiB, the main path's 2 GiB
 STRESS_SHARD_MB = 64
 STRESS_SHARDS = 32
@@ -3081,8 +3114,6 @@ STRESS_JOBS = {"worker": {"mode": "random", "duration_s": STRESS_DURATION_S},
                           "duration_s": STRESS_DURATION_S}}
 STRESS_CHILD_TIMEOUT_S = 300
 SUITE_TIMEOUT_S = 800
-
-
 def stress_env() -> dict:
     """The environment of a stress child: the repository on its path,
     whatever its working directory."""
@@ -3367,6 +3398,25 @@ def gate_miss(row: dict) -> "str | None":
     if "error" in m:
         return None
     bench = row["bench"]
+    if bench in ("obs-tracing-overhead", "obs-profile-overhead",
+                 "health-ingest-overhead"):
+        return (f"overhead_pct {m.get('overhead_pct')} over the "
+                f"{p.get('max_overhead_pct')} % budget") \
+            if m.get("overhead_ok") is False else None
+    if bench == "obs-critical-path":
+        # too few traces is a fault; too little attributed is the gate
+        ok = m.get("traces_analyzed", 0) >= p["reads"] // 2 and \
+            m.get("attributed_pct", 0.0) < p["min_attributed_pct"]
+        return (f"attributed_pct {m.get('attributed_pct')} under the "
+                f"{p['min_attributed_pct']} % gate") if ok else None
+    if bench == "selfheal-remediation":
+        missed = [k for k in ("latency_ok", "overhead_ok")
+                  if m.get(k) is False]
+        return (f"{', '.join(missed)} false (detect_to_act_s "
+                f"{m.get('detect_to_act_s')} against "
+                f"{m.get('latency_budget_s')} s, overhead_pct "
+                f"{m.get('overhead_pct')} against "
+                f"{p.get('max_overhead_pct')} %)") if missed else None
     if bench in ("metadata-striped", "metadata-journal-batch",
                  "metadata-hot-dir", "metadata-cached-getstatus"):
         ok = m.get("speedup", 0.0) < p["min_speedup"]
@@ -3468,6 +3518,454 @@ def suite_phase(workdir: str) -> dict:
               f"{row['errors']}){gate}: {json.dumps(shown)}", flush=True)
     return {"rows": rows, "exit": proc.returncode, "gate_misses": misses,
             "s": suite_s, "report_bytes": len(page)}
+
+
+# -- 2i: the observability loop -----------------------------------------------
+#: 2i's cuts of the health and heartbeat keys (PERF.md section 4): at the
+#: JAX defaults (a 10 s evaluation, a 60 s stall window, 30 s to fire, 60 s
+#: to resolve, 60 s of probation, 10 s heartbeats) the loop would hold the
+#: phase for minutes
+OBS_KEYS = {
+    "atpu.master.health.eval.interval": "500ms",
+    "atpu.master.health.stall.window": "3s",
+    "atpu.master.health.fire.after": "2s",
+    "atpu.master.health.resolve.after": "3s",
+    "atpu.master.remediation.probation": "1s",
+    "atpu.worker.metrics.heartbeat.interval": "250ms",
+    "atpu.user.metrics.heartbeat.interval": "250ms",
+}
+OBS_RESOLVE_DEADLINE_S = 60.0
+OBS_OVERLAY_DEADLINE_S = 30.0
+#: the prefetch budget the client boots with (the JAX default); the
+#: retune doubles it
+OBS_PREFETCH_BUDGET = 256 << 20
+#: the critical path's share the obs bench gates (``obs-critical-path``)
+OBS_ATTRIBUTED_GATE = 90.0
+
+
+class OverlayWatch:
+    """Samples, every few ms on a thread of its own, the client's
+    ``Client.ConfOverlayApplied`` count and the prefetch scheduler's
+    budget, so the moment the client applied (and withdrew) the
+    master's overlay is known on the wall clock the master stamps."""
+
+    def __init__(self, scheduler) -> None:
+        import threading
+
+        from alluxio_tpu_torch.metrics import metrics
+
+        self._counter = metrics().counter("Client.ConfOverlayApplied")
+        self._scheduler = scheduler
+        self.samples = [self.sample()]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="smoke-overlay-watch")
+        self._thread.start()
+
+    def sample(self) -> tuple:
+        return (time.time(), self._counter.count, self._scheduler._budget)
+
+    def _loop(self) -> None:
+        while not self._stop.wait(0.005):
+            s = self.sample()
+            if s[1:] != self.samples[-1][1:]:
+                self.samples.append(s)
+
+    def first(self, pred) -> "float | None":
+        return next((t for t, n, b in self.samples if pred(n, b)), None)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(5)
+
+
+def web_json(port: int, route: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/api/v1/master/{route}",
+            timeout=30) as r:
+        return json.loads(r.read())
+
+
+def obs_epoch(loader, keep: bool) -> tuple:
+    """One epoch: each block through the consumer's step (one
+    ``scaled_sum``, read back); returns the blocks (when ``keep``), the
+    steps' results, the epoch's seconds and the consumer's wait."""
+    import torch
+
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    blocks, results = [], []
+    wait0 = loader.stall_report()["total_wait_s"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for block in loader.epoch():
+        results.append(int(rk.scaled_sum(block, 1)))
+        if keep:
+            blocks.append(block)
+    torch.cuda.synchronize()
+    return blocks, results, time.perf_counter() - t, \
+        loader.stall_report()["total_wait_s"] - wait0
+
+
+def observability_phase(device, main: dict, k: int) -> dict:
+    """(2i): the master's observability loop fed by the card's loader:
+    the input-bound fraction of a cold epoch fires the input-stall alert,
+    the remediation engine pushes a prefetch-budget overlay that the
+    client applies, and device-tier epochs resolve the alert and withdraw
+    the overlay."""
+    import socket
+
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.conf import Configuration, Keys, Templates
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.minicluster.multi_process import (
+        MultiProcessCluster, free_port,
+    )
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.prefetch import PrefetchService
+    from alluxio_tpu_torch.rpc.clients import MetaMasterClient
+    from alluxio_tpu_torch.stress.cluster import wait_cold
+    from alluxio_tpu_torch.utils import tracing
+    from alluxio_tpu_torch.utils.profiler import profiler
+
+    files = main["files"]
+    paths = list(files)
+    n = len(paths)
+    t_phase = time.perf_counter()
+    tier = n * BLOCK_BYTES + (256 << 20)
+    base = block_dir(tier + n * BLOCK_BYTES)
+    web = free_port()
+    extra = {Keys.USER_BLOCK_SIZE_BYTES_DEFAULT.name: str(BLOCK_BYTES),
+             Templates.WORKER_TIER_DIRS_QUOTA.format(0).name: str(tier),
+             **OBS_KEYS,
+             "atpu.master.remediation.enabled": "true",
+             "atpu.master.remediation.dry.run": "false",
+             "atpu.master.web.enabled": "true",
+             "atpu.master.web.port": str(web),
+             "atpu.trace.enabled": "true"}
+    print(f"2i: observability keys cut for the phase: {json.dumps(OBS_KEYS)}"
+          f"; remediation on (not dry run), web on port {web}, tracing "
+          f"on", flush=True)
+    cluster = MultiProcessCluster(os.path.join(base, "cluster"),
+                                  num_workers=1, extra_conf=extra)
+    conf = Configuration(load_env=False)
+    for key, value in (("atpu.trace.enabled", True),
+                       ("atpu.profile.enabled", True),
+                       ("atpu.user.metrics.collection.enabled", True),
+                       ("atpu.user.metrics.heartbeat.interval",
+                        OBS_KEYS["atpu.user.metrics.heartbeat.interval"])):
+        conf.set(key, value)
+    mp = {"cluster": cluster, "base": base}
+    svc = loader = watch = fs2 = None
+    keys = Configuration(OBS_KEYS, load_env=False)
+    threshold = keys.get_float(Keys.MASTER_HEALTH_STALL_THRESHOLD)
+    # the selfheal bench's bound: fire_after + 2 x eval_interval
+    budget_bound_s = keys.get_duration_s(Keys.MASTER_HEALTH_FIRE_AFTER) \
+        + 2 * keys.get_duration_s(Keys.MASTER_HEALTH_EVAL_INTERVAL)
+    try:
+        cluster.start(timeout_s=MP_BOOT_S)
+        fs = mp["fs"] = cluster.file_system(conf)
+        meta = MetaMasterClient(cluster.master_addresses,
+                                retry_duration_s=30.0)
+        source = f"client-{socket.gethostname()}-{id(fs):x}"
+        pids = [p.proc.pid for p in cluster.masters + cluster.workers]
+        print(f"2i: MultiProcessCluster under {base} (pids {pids}) up in "
+              f"{time.perf_counter() - t_phase:.2f} s; the client ships as "
+              f"{source}", flush=True)
+
+        # (a) the cold corpus: persisted THROUGH, then freed
+        from alluxio_tpu_torch.client.streams import WriteType
+
+        t = time.perf_counter()
+        for path in paths:
+            fs.write_all(path, np.fromfile(files[path][1], dtype=np.uint8),
+                         write_type=WriteType.THROUGH)
+        write_s = time.perf_counter() - t
+        wait_cold(fs, fs.block_master, paths, timeout_s=120.0)
+        cold_s = time.perf_counter() - t - write_s
+        print(f"2i (a): {n} x {BLOCK_BYTES >> 20} MiB written THROUGH in "
+              f"{write_s:.2f} s, every block cold {cold_s:.2f} s later",
+              flush=True)
+
+        # (b) the stall epoch, every block through the worker's cold fetch
+        svc = PrefetchService.from_fs(fs, paths, seed=SEED,
+                                      budget_bytes=OBS_PREFETCH_BUDGET)
+        boot_budget = svc.scheduler._budget
+        loader = DeviceBlockLoader(fs, paths, device=device,
+                                   hbm_bytes=n * BLOCK_BYTES + (64 << 20),
+                                   prefetch=2, dtype=np.int32,
+                                   prefetch_service=svc)
+        hits = metrics().counter("Client.JaxHbmHits")
+        watch = OverlayWatch(svc.scheduler)
+        applied0 = watch.samples[0][1]
+        rk.launches = 0
+        t_stall = time.time()
+        blocks, results, stall_s, stall_wait = obs_epoch(loader,
+                                                         keep=True)
+        t_stall_end = time.time()
+        order = [ref.path for ref in svc.oracle.epoch_sequence(0)]
+        deadline = time.monotonic() + OBS_OVERLAY_DEADLINE_S
+        while watch.first(lambda c, b: c > applied0) is None:
+            if time.monotonic() > deadline:
+                fail(f"2i (b): no overlay reached the client within "
+                     f"{OBS_OVERLAY_DEADLINE_S} s of the stall epoch: "
+                     f"alerts {meta.get_health()['alerts']}, the fraction "
+                     f"{meta.get_metrics_history('Client.InputBoundFraction')}"
+                     [:3000])
+            time.sleep(0.05)
+        t_applied = watch.first(lambda c, b: c > applied0)
+        budget_pushed = svc.scheduler._budget
+        if budget_pushed == boot_budget:
+            fail(f"2i (b): the overlay left the scheduler's budget at "
+                 f"{boot_budget}")
+        # the same alerts over RPC and over the web server, while firing
+        for _ in range(5):
+            rpc = meta.get_health(evaluate=False)
+            via_web = web_json(web, "health")
+            alerts = sorted((a["rule"], a["subject"])
+                            for a in rpc["alerts"])
+            if alerts == sorted((a["rule"], a["subject"])
+                                for a in via_web["alerts"]):
+                break
+        else:
+            fail(f"2i (b): get_health names {alerts}, the web route "
+                 f"{via_web['alerts']}")
+        if ("input-stall-sustained", source) not in alerts:
+            fail(f"2i (b): input-stall-sustained is not firing for "
+                 f"{source}: {alerts}")
+        gbps = n * BLOCK_BYTES / stall_s / 1e9
+        print(f"2i (b): stall epoch {stall_s:.3f} s ({gbps:.2f} GB/s), the "
+              f"consumer waits "
+              f"{stall_wait:.3f} s; the overlay reached the client "
+              f"{t_applied - t_stall_end:+.3f} s after the epoch, budget "
+              f"{boot_budget} -> {budget_pushed}; alerts over RPC = web: "
+              f"{alerts}", flush=True)
+
+        # (c) device-tier epochs until the alert resolves and the overlay
+        # is withdrawn
+        t_resolve = time.time()
+        epochs = 0
+        hit_s = hit_wait = 0.0
+        deadline = time.monotonic() + OBS_RESOLVE_DEADLINE_S
+        while not (svc.scheduler._budget == boot_budget
+                   and watch.first(lambda c, b: c > applied0 + 1)):
+            if time.monotonic() > deadline:
+                fail(f"2i (c): no withdrawal within "
+                     f"{OBS_RESOLVE_DEADLINE_S} s ({epochs} device-tier "
+                     f"epochs): {json.dumps(meta.get_health())[:3000]}")
+            h0 = hits.count
+            last, again, epoch_s, wait_s = obs_epoch(loader, keep=True)
+            epochs += 1
+            hit_s += epoch_s
+            hit_wait += wait_s
+            if hits.count - h0 != n:
+                fail(f"2i (c): epoch {epochs}: {hits.count - h0} "
+                     f"device-tier hits, want {n}")
+            if sorted(again) != sorted(results):
+                fail(f"2i (c): epoch {epochs}'s step results differ from "
+                     f"the stall epoch's")
+            time.sleep(0.2)
+        t_withdrawn = watch.first(lambda c, b: c > applied0 + 1)
+        resolve_s = t_withdrawn - t_resolve
+        # the chain over the resident set, in file order
+        resident = dict(zip(order, blocks))
+        x = torch.cat([resident[p] for p in paths])
+        got = int(chain(rk.scaled_sum, x, k))
+        launches = rk.launches
+        # the consumer's wait on a device-tier hit (the producer's
+        # hand-off) beside its whole step a block
+        hit_us = {"wait": hit_wait / (epochs * n) * 1e6,
+                  "step": hit_s / (epochs * n) * 1e6}
+        print(f"2i (c): {epochs} device-tier epochs, the alert resolved "
+              f"and the overlay withdrawn {resolve_s:.3f} s after the "
+              f"first, budget back at {svc.scheduler._budget}; a hit "
+              f"block's wait {hit_us['wait']:.1f} us of a "
+              f"{hit_us['step']:.1f} us step", flush=True)
+
+        # (d) the holds, outside the timed windows
+        plain = int(chain(rk.scaled_sum_reference, x, k))
+        if not got == main["chain"] == plain:
+            fail(f"2i (d): chain {got}, main path's {main['chain']}, "
+                 f"plain {plain}")
+        del x
+        for path, block, res in zip(order, blocks, results):
+            host = torch.from_numpy(np.fromfile(files[path][1],
+                                                dtype=np.int32))
+            if not torch.equal(block.cpu(), host):
+                fail(f"2i (d): the block of {path} differs from its file")
+            want = int(rk.scaled_sum_reference(block, 1))
+            if res != want:
+                fail(f"2i (d): {path}'s step {res} != plain {want}")
+        if {id(b) for b in last} != {id(b) for b in blocks}:
+            fail("2i (d): a device-tier epoch did not return the resident "
+                 "pages")
+        health = meta.get_health()
+        audit = health["remediation"]["audit"]
+        executed = [a for a in audit if a["action"] == "retune"
+                    and a["outcome"] == "executed"
+                    and a["rule"] == "input-stall-sustained"]
+        reverted = [a for a in audit if a["action"] == "revert"
+                    and a["outcome"] == "executed"]
+        fired = [a for a in health["recently_resolved"]
+                 if a["rule"] == "input-stall-sustained"
+                 and a["subject"] == source]
+        if not (executed and reverted and fired):
+            fail(f"2i (d): retune {executed}, revert {reverted}, resolved "
+                 f"alert {fired}")
+        series = meta.get_metrics_history(
+            "Client.InputBoundFraction", source=source)["series"]
+        pts = series[0]["points"] if series else []
+        in_stall = [v for ts, v in pts if t_stall <= ts <= t_stall_end]
+        in_resolve = [v for ts, v in pts if ts > t_resolve]
+        if not (in_stall and in_resolve and max(in_stall) > threshold
+                and min(in_resolve) <= threshold):
+            fail(f"2i (d): the history's fraction series holds {len(pts)} "
+                 f"points, {len(in_stall)} in the stall epoch and "
+                 f"{len(in_resolve)} after it: {pts[-40:]}")
+        first_stalled = next(ts for ts, v in pts if v > threshold)
+        # the rule averages the window: its first violating evaluation
+        # (the alert's ``since``) comes once the window's mean crosses
+        since = fired[0]["since"]
+        timeline = {"first_violation_s": since - first_stalled,
+                    "alert_fired_s": fired[0]["fired_at"] - first_stalled,
+                    "action_s": executed[0]["at"] - first_stalled,
+                    "client_applied_s": t_applied - first_stalled,
+                    "resolved_s": fired[0]["resolved_at"] - first_stalled,
+                    "withdrawn_s": t_withdrawn - first_stalled}
+        bound = {
+            "action_from_violation_s": executed[0]["at"] - since,
+            "client_from_violation_s": t_applied - since}
+
+        def verdict(x):
+            return "met" if x <= budget_bound_s else "missed"
+
+        print(f"2i (d): every block equals its file, every step the plain "
+              f"version's, the chain {got} == main path == plain; from the "
+              f"first stalled sample: the rule's first violating "
+              f"evaluation {timeline['first_violation_s']:.3f} s, alert "
+              f"fired {timeline['alert_fired_s']:.3f} s, retune executed "
+              f"{timeline['action_s']:.3f} s "
+              f"({verdict(timeline['action_s'])}), overlay applied in the "
+              f"client {timeline['client_applied_s']:.3f} s "
+              f"({verdict(timeline['client_applied_s'])}), resolved "
+              f"{timeline['resolved_s']:.3f} s, withdrawn "
+              f"{timeline['withdrawn_s']:.3f} s; from the first violating "
+              f"evaluation: retune {bound['action_from_violation_s']:.3f} "
+              f"s ({verdict(bound['action_from_violation_s'])}), client "
+              f"{bound['client_from_violation_s']:.3f} s "
+              f"({verdict(bound['client_from_violation_s'])}), against the "
+              f"selfheal bench's bound {budget_bound_s} s; the history "
+              f"holds {len(in_stall)} stall-epoch and {len(in_resolve)} "
+              f"later samples of the fraction (max {max(in_stall):.3f}, "
+              f"last {in_resolve[-1]:.3f})", flush=True)
+        loader.close()
+        loader = None
+        svc.close()
+        svc = None
+        del blocks, last, resident
+
+        # (e) one traced remote read through the worker's process: the
+        # client's striped read is the trace's root, its stripes' worker
+        # spans its children
+        conf2 = conf.copy()
+        conf2.set(Keys.USER_SHORT_CIRCUIT_ENABLED, False)
+        conf2.set(Keys.USER_METRICS_COLLECTION_ENABLED, False)
+        conf2.set(Keys.USER_REMOTE_READ_STRIPE_SIZE, BLOCK_BYTES // 8)
+        fs2 = cluster.file_system(conf2)
+        with fs2.open_file(paths[0]) as f:
+            t_read = time.time() * 1000.0
+            data = f.pread(0, BLOCK_BYTES)
+        if np.frombuffer(data, dtype=np.uint8).tobytes() != \
+                np.fromfile(files[paths[0]][1], dtype=np.uint8).tobytes():
+            fail("2i (e): the traced read's bytes differ from the file")
+        deadline = time.monotonic() + 30.0
+        while True:
+            reads = [sp for sp in meta.get_trace(
+                prefix="atpu.client.remote_read", limit=4000)["spans"]
+                if sp["start_ms"] >= t_read]
+            spans = meta.get_trace(trace_id=reads[-1]["trace_id"],
+                                   limit=4000)["spans"] if reads else []
+            sources = {sp.get("source", "") for sp in spans}
+            if any(x.startswith("worker-") for x in sources) and \
+                    any(x.startswith("client-") for x in sources):
+                break
+            if time.monotonic() > deadline:
+                fail(f"2i (e): the traced read's spans come from "
+                     f"{sources} only")
+            time.sleep(0.1)
+        tid = reads[-1]["trace_id"]
+        cp = meta.get_trace_profile(trace_id=tid)["critical_path"]
+        attributed = cp["attributed_pct"]
+        obs_miss = None if attributed >= OBS_ATTRIBUTED_GATE else (
+            f"attributed_pct {attributed} under the "
+            f"{OBS_ATTRIBUTED_GATE} % obs gate")
+        print(f"2i (e): one traced {BLOCK_BYTES >> 20} MiB remote read in "
+              f"{BLOCK_BYTES // 8 >> 20} MiB stripes: trace {tid}, "
+              f"{len(spans)} spans from {sorted(sources)}; critical path "
+              f"wall {cp['wall_ms']} ms, attributed {attributed} %"
+              f"{' GATE MISSED: ' + obs_miss if obs_miss else ''}; "
+              f"segments {json.dumps(cp['segments'])}", flush=True)
+
+        # (f) the client's profile at the master
+        flame = None
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            flame = web_json(web, f"profile?source={source}")["flame"]
+            if flame and any("torch_io.py:" in key
+                             for key in flame["stacks"]):
+                break
+            time.sleep(0.25)
+        else:
+            fail(f"2i (f): the master's profile of {source} holds no "
+                 f"loader frame: {json.dumps(flame)[:2000]}")
+        producer = sum(c for key, c in flame["stacks"].items()
+                       if "torch_io.py:producer" in key)
+        print(f"2i (f): the master's profile of the client: "
+              f"{flame['samples']} samples, {len(flame['stacks'])} stacks, "
+              f"{producer} in the loader's producer", flush=True)
+    finally:
+        if watch is not None:
+            watch.stop()
+        if loader is not None:
+            loader.close()
+        if svc is not None:
+            svc.close()
+        if fs2 is not None:
+            fs2.close()
+        tracing.set_tracing_enabled(False)
+        profiler().stop()
+        if "fs" in mp:
+            stop_mp_cluster(mp)
+        else:
+            cluster.stop()
+            shutil.rmtree(base, ignore_errors=True)
+    out = {"blocks": n, "block_bytes": BLOCK_BYTES, "keys": OBS_KEYS,
+           "write_s": write_s,
+           "cold_s": cold_s, "stall_epoch_s": stall_s,
+           "stall_consumer_wait_s": stall_wait,
+           "boot_budget": boot_budget, "pushed_budget": budget_pushed,
+           "resolve_epochs": epochs, "resolve_s": resolve_s,
+           "hit_block_us": hit_us,
+           "timeline_s": timeline, "bound_s": budget_bound_s,
+           "from_violation_s": bound,
+           "fraction_max": max(in_stall), "fraction_last": in_resolve[-1],
+           "alerts": alerts, "trace_spans": len(spans),
+           "trace_sources": sorted(sources),
+           "critical_path": {"wall_ms": cp["wall_ms"],
+                             "attributed_pct": attributed,
+                             "segments": cp["segments"]},
+           "gate_miss": obs_miss,
+           "profile_samples": flame["samples"],
+           "profile_producer_samples": producer,
+           "launches": launches, "chain": got,
+           "s": time.perf_counter() - t_phase}
+    print(f"2i: {out['s']:.1f} s, scaled_sum launched {launches} times",
+          flush=True)
+    return out
 
 
 def record_files(workdir: str, num_blocks: int, block_bytes: int) -> dict:
@@ -4397,6 +4895,8 @@ def main() -> int:
         print(f"stress path: scaled_sum launched {rk.launches} times (the "
               f"path has no kernel of its own); 2h {stress['s']:.1f} s",
               flush=True)
+        # 2i: the observability loop on a process cluster of its own
+        observability = observability_phase(device, main, K)
     finally:
         try:
             if mp is not None:
@@ -4421,6 +4921,7 @@ def main() -> int:
     print(json.dumps({"clairvoyant": clairvoyant}), flush=True)
     print(json.dumps({"multi_process": multi}), flush=True)
     print(json.dumps({"stress": stress}), flush=True)
+    print(json.dumps({"observability": observability}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "scaled_sum", "route": "cuda",
         "source": "alluxio_tpu_torch/ops/csrc/reduce_kernel.cu",
@@ -4442,7 +4943,8 @@ def main() -> int:
             "multi_process": multi["launches"],
             "train": train["kernel_launches"]["scaled_sum"],
             "mesh": mesh["kernel_launches"]["scaled_sum"],
-            "stress": stress["launches"]},
+            "stress": stress["launches"],
+            "observability": observability["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

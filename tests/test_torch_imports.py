@@ -83,7 +83,12 @@ def test_importing_every_module_loads_no_jax():
               "job.plans.stressbench", "stress.metadata_bench",
               "stress.smallread_bench", "stress.ufs_cold_bench",
               "stress.remote_read_bench", "stress.report",
-              "stress.__main__"):
+              "stress.__main__", "metrics.history",
+              "master.metrics_master", "utils.profiler",
+              "utils.critical_path", "master.health",
+              "master.remediation", "master.web", "utils.weblog",
+              "utils.trace_fanout", "stress.obs_bench",
+              "stress.health_bench", "stress.selfheal_bench"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -116,6 +121,10 @@ def test_role_launchers_load_no_torch():
             "alluxio_tpu_torch.shell.launch, "
             "alluxio_tpu_torch.minicluster.multi_process, "
             "alluxio_tpu_torch.master.process, "
+            "alluxio_tpu_torch.master.metrics_master, "
+            "alluxio_tpu_torch.master.health, "
+            "alluxio_tpu_torch.master.remediation, "
+            "alluxio_tpu_torch.master.web, "
             "alluxio_tpu_torch.worker.process, "
             "alluxio_tpu_torch.rpc.worker_service, "
             "alluxio_tpu_torch.worker.ufs_manager, "

@@ -15,7 +15,9 @@
   the bytes read back and the ``FileInfo``s equal what the cluster's own
   client sees.
 - no job-service thread outlives ``stop()`` of a cluster that ran the
-  job service.
+  job service;
+- at their defaults both masters answer the metrics history and health
+  RPCs alike.
 """
 
 import os
@@ -241,17 +243,34 @@ def test_cross_wire(clusters, side, wt):
         foreign.close()
 
 
-def test_meta_rpcs_answer_like_jax_without_components(clusters):
-    """The meta RPCs whose component the port has not ported answer as
-    the JAX ones do without that component."""
+def test_meta_rpcs_answer_like_jax_at_the_defaults(clusters):
+    """At their defaults both masters keep the metrics history and run
+    the health rules: ``get_health`` names the same rules with the same
+    status, ``get_metrics_history`` and a metrics heartbeat answer alike.
+    The meta RPCs whose component the port has not ported (the quorum
+    view, backups) answer as the JAX ones do without that component."""
     from alluxio_tpu_torch.utils.exceptions import FailedPreconditionError
 
+    answers = {}
+    for name, (cluster, _) in clusters.items():
+        meta = cluster.meta_client()
+        beat = meta.metrics_heartbeat("client-x", {"Client.X": 1.0})
+        health = meta.get_health()
+        history = meta.get_metrics_history("Client.X")
+        answers[name] = {
+            "heartbeat": beat,
+            "qos": meta.get_qos()["admission"],
+            "health": (sorted(health), health["status"],
+                       [r["name"] for r in health["rules"]]),
+            "history": (sorted(history), [
+                (e["source"], e["name"], len(e["points"]))
+                for e in history["series"]]),
+        }
+    assert answers["port"] == answers["jax"]
+    assert answers["port"]["history"][1] == [("client-x", "Client.X", 1)]
     cluster, fs = clusters["port"]
     meta = cluster.meta_client()
-    assert meta.metrics_heartbeat("client-x", {"a": 1.0}) == {}
-    assert meta.get_qos()["admission"] == {"enabled": False}
-    for call in (meta.get_health, meta.get_metrics_history,
-                 meta.get_quorum_info, meta.get_masters, meta.backup):
+    for call in (meta.get_quorum_info, meta.get_masters, meta.backup):
         with pytest.raises(FailedPreconditionError):
             call()
     info = meta.get_master_info()

@@ -14,7 +14,8 @@
   authorization bits and ACLs, the path properties and the config checker,
   the metastore factory — each against its JAX counterpart.
 - The port's master process refuses the opt-in components it does not
-  have (a typed error). (An LSM-native checkpoint restoring across
+  have (a typed error), and the web server and remediation keys build
+  their component in both packages' master processes. (An LSM-native checkpoint restoring across
   packages and kinds is ``tests/test_torch_metastore.py``'s.)
 """
 
@@ -178,9 +179,9 @@ def test_metastore_factory(tmp_path, kind):
 
 
 @pytest.mark.parametrize("key", (
-    "atpu.master.rpc.admission.enabled", "atpu.master.web.enabled",
+    "atpu.master.rpc.admission.enabled",
     "atpu.master.update.check.enabled", "atpu.master.daily.backup.enabled",
-    "atpu.master.remediation.enabled", "atpu.master.journal.init.from.backup",
+    "atpu.master.journal.init.from.backup",
 ))
 def test_master_process_refuses_unported_components(tmp_path, key):
     from alluxio_tpu_torch.conf import Configuration, Keys
@@ -193,6 +194,73 @@ def test_master_process_refuses_unported_components(tmp_path, key):
              if key.endswith("backup") else True)
     with pytest.raises(NotSupportedError, match=key.replace(".", r"\.")):
         MasterProcess(conf, root_ufs_uri=str(tmp_path))
+
+
+@pytest.mark.parametrize("key, attr", (
+    ("atpu.master.web.enabled", "web_server"),
+    ("atpu.master.remediation.enabled", "remediation"),
+))
+def test_master_process_builds_the_switched_on_component(tmp_path, key,
+                                                         attr):
+    """The key builds its component in both packages' started master
+    processes, and only that one (the other stays None)."""
+    other = {"web_server": "remediation",
+             "remediation": "web_server"}[attr]
+    for pkg in PACKAGES:
+        conf_mod = mod(pkg, "conf")
+        keys = conf_mod.Keys
+        conf = conf_mod.Configuration(load_env=False)
+        conf.set(keys.MASTER_JOURNAL_FOLDER, str(tmp_path / pkg / "journal"))
+        conf.set(keys.MASTER_RPC_PORT, 0)
+        conf.set(keys.MASTER_WEB_PORT, 0)
+        conf.set(keys.MASTER_FASTPATH_ENABLED, False)
+        conf.set(key, True)
+        process = mod(pkg, "master.process").MasterProcess(
+            conf, root_ufs_uri=str(tmp_path / pkg / "ufs"))
+        process.start()
+        try:
+            assert getattr(process, attr) is not None, pkg
+            assert getattr(process, other) is None, pkg
+            assert type(getattr(process, attr)).__module__.startswith(
+                f"{pkg}."), pkg
+            if attr == "remediation":
+                assert process.remediation.on_alerts in \
+                    process.health_monitor.alert_listeners
+            else:
+                assert process.web_port == process.web_server.port > 0
+        finally:
+            process.stop()
+
+
+def test_master_process_runs_the_named_metrics_sink(tmp_path):
+    """``atpu.metrics.sinks`` gives the master a sink heartbeat in both
+    packages: its JSON-lines file fills with the master's metrics."""
+    import json
+    import time
+
+    for pkg in PACKAGES:
+        conf_mod = mod(pkg, "conf")
+        keys = conf_mod.Keys
+        conf = conf_mod.Configuration(load_env=False)
+        sink = tmp_path / pkg / "metrics.jsonl"
+        conf.set(keys.MASTER_JOURNAL_FOLDER, str(tmp_path / pkg / "journal"))
+        conf.set(keys.MASTER_RPC_PORT, 0)
+        conf.set(keys.MASTER_FASTPATH_ENABLED, False)
+        conf.set(keys.METRICS_SINKS, "jsonl")
+        conf.set(keys.METRICS_SINK_JSONL_PATH, str(sink))
+        conf.set(keys.METRICS_SINK_INTERVAL, "100ms")
+        process = mod(pkg, "master.process").MasterProcess(
+            conf, root_ufs_uri=str(tmp_path / pkg / "ufs"))
+        process.start()
+        try:
+            deadline = time.monotonic() + 30.0
+            while not (sink.exists() and sink.read_text().strip()):
+                assert time.monotonic() < deadline, pkg
+                time.sleep(0.05)
+        finally:
+            process.stop()
+        row = json.loads(sink.read_text().splitlines()[0])
+        assert any(k.startswith("Master.") for k in row["metrics"]), pkg
 
 
 def test_embedded_journal_is_refused(tmp_path):

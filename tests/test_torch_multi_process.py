@@ -16,7 +16,10 @@ the LOCAL journal, its workers, each a ``python -m <package>.shell.main
   ``extra_conf``; the port refuses several masters and EMBEDDED journals
   (HA is not ported);
 - a role child of the port has neither ``jax`` nor ``alluxio_tpu`` (nor
-  ``torch``) in ``sys.modules``.
+  ``torch``) in ``sys.modules``;
+- the worker's spans, metrics and stack samples from its own process
+  reach the master's trace store, history and profile on its metrics
+  heartbeat.
 
 Readiness waits are bounded well below the cluster's default, and every
 case stops its children in a ``finally``.
@@ -103,6 +106,64 @@ def test_cluster_boots_and_serves(pkg, tmp_path):
             fs.close()
         assert all(w.alive for w in c.masters + c.workers)
     assert got == data
+
+
+OBSERVED = {"atpu.trace.enabled": True, "atpu.profile.enabled": True,
+            "atpu.profile.sample.interval.ms": 20,
+            "atpu.worker.metrics.heartbeat.interval": "200ms",
+            "atpu.master.web.enabled": True}
+
+
+def _web(port: int, route: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/api/v1/master/{route}",
+            timeout=30) as r:
+        return json.loads(r.read())
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_worker_process_telemetry_reaches_the_master(pkg, tmp_path):
+    """A traced remote read (short circuit off) through the worker's own
+    process: the worker's read spans arrive in the master's stitched
+    trace with the worker as their source, its metric series in the
+    history under its source, and its stack samples in the master's
+    profile (served by the master's web server)."""
+    tracing = _mod(pkg, "utils.tracing")
+    data = _payload(1 << 20)
+    web = _mod(pkg, "minicluster.multi_process").free_port()
+    with _running(pkg, str(tmp_path),
+                  extra={**OBSERVED, "atpu.master.web.port": web}) as c:
+        meta = _mod(pkg, "rpc.clients").MetaMasterClient(
+            c.master_addresses, retry_duration_s=10.0)
+        src = f"worker-localhost:{c.worker_ports[0]}"
+        fs = _client(pkg, c, **{"atpu.user.short.circuit.enabled": False})
+        try:
+            fs.write_all("/mp/traced", data)
+            tracing.tracer().clear()
+            tracing.set_tracing_enabled(True)
+            assert fs.read_all("/mp/traced") == data
+
+            def worker_spans():
+                return [s for s in meta.get_trace(limit=4000)["spans"]
+                        if s.get("source") == src
+                        and s["name"] == "atpu.BlockWorker.read_block"]
+
+            _wait(worker_spans, "no worker span reached the master")
+            _wait(lambda: _web(web, f"profile?source={src}")["flame"],
+                  "no worker stack sample reached the master")
+            names = meta.get_metrics_history()["names"]
+            series = [e for n in names if n.startswith("Worker.")
+                      for e in meta.get_metrics_history(n)["series"]
+                      if e["source"] == src]
+            flame = _web(web, f"profile?source={src}")["flame"]
+        finally:
+            tracing.set_tracing_enabled(False)
+            tracing.tracer().clear()
+            fs.close()
+    assert series and all(e["points"] for e in series)
+    assert flame["samples"] > 0 and flame["stacks"]
 
 
 DETECTION = {"atpu.master.worker.timeout": "2s",

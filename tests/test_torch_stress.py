@@ -23,9 +23,13 @@
   back equal to its payload; ``run_clairvoyant`` at the JAX defaults
   gives the JAX keys, consumes as many blocks as JAX's for the same seed
   with no miss, and every consumed block equals its file's bytes;
-- the worker, master, small-read, cold-UFS, remote-read and metadata
-  benches at a toy size give the JAX bench name, params and metric keys,
-  the port's with no error (gates relaxed to the mechanics);
+- the worker, master, small-read, cold-UFS, remote-read, metadata,
+  observability (tracing, profiler, critical path), health and
+  self-healing benches at a toy size give the JAX bench name, params and
+  metric keys, the port's with no error (gates relaxed to the mechanics);
+  the max-throughput search's ``rounds`` depends on the ops/s each run
+  achieves, so it is held to the loop's bounds in both packages instead
+  of compared;
 - the ``stressbench`` job on each package's ``LocalCluster`` with its job
   service, as JAX's ``TestDistributedStressBench``: two tasks, no error,
   the JAX join's keys, every task's fixtures removed.
@@ -571,7 +575,23 @@ TOY_BENCHES = {
        for row in ("striped", "journal", "hot-dir")},
     "metadata-cached": ("metadata_bench", "run", dict(
         row="cached", threads=2, duration_s=0.3, files=8, min_speedup=0.0)),
+    "obs-tracing-overhead": ("obs_bench", "run", dict(
+        file_mb=1, reads=5, batches=2, span_iterations=1000,
+        max_overhead_pct=1e9)),
+    "obs-profile-overhead": ("obs_bench", "run_profile_overhead", dict(
+        file_mb=1, reads=5, batches=2, sample_interval_ms=5,
+        max_overhead_pct=1e9)),
+    "obs-critical-path": ("obs_bench", "run_critical_path", dict(
+        file_mb=1, reads=20, min_attributed_pct=0.0)),
+    "health-ingest-overhead": ("health_bench", "run", dict(
+        sources=4, metrics_per_source=10, ticks=4, batches=2,
+        max_overhead_pct=1e9)),
+    "selfheal-remediation": ("selfheal_bench", "run", dict(
+        sources=8, ticks=10, batches=2, max_overhead_pct=1e9)),
 }
+
+#: the max-throughput search's step cap (``master_bench.py``'s loop)
+MAX_THROUGHPUT_ROUNDS = 8
 
 
 @pytest.mark.parametrize("name", sorted(TOY_BENCHES))
@@ -581,13 +601,22 @@ def test_bench_gives_the_jax_params_and_keys(name):
                for pkg in PACKAGES}
     jax, port = results["alluxio_tpu"], results["alluxio_tpu_torch"]
     assert port.errors == 0, port.json_line()
+    if name == "master-maxthroughput":
+        # the binary search's step count follows the ops/s each run
+        # achieves: bounded, not compared
+        rounds = {pkg: r.params.pop("rounds") for pkg, r in results.items()}
+        assert all(1 <= n <= MAX_THROUGHPUT_ROUNDS
+                   for n in rounds.values()), rounds
     assert (port.bench, port.params) == (jax.bench, jax.params)
     assert set(port.metrics) == set(jax.metrics)
     headline = [k for k in ("ops_per_s", "mb_per_s", "gb_per_s",
                             "batched_ops_per_s", "native_ops_per_s",
                             "reads_per_s", "striped_batched_ops_per_s",
                             "edge_lock_ops_per_s", "cached_ops_per_s",
-                            "max_sustained_ops_per_s") if k in port.metrics]
+                            "max_sustained_ops_per_s", "spans_per_s",
+                            "samples", "traces_analyzed",
+                            "drain_samples_per_s", "eval_on_us")
+                if k in port.metrics]
     assert headline and all(port.metrics[k] > 0 for k in headline)
 
 

@@ -1,9 +1,11 @@
 """The port's stress CLI against the JAX package's, on the CPU.
 
 - ``build_parser()`` has JAX's subcommands and options, without the
-  benches the port refuses (``obs``, ``health``, ``selfheal``, ``qos``,
-  ``ha``); each of those is refused with exit code 1 and the ROADMAP item
-  that brings it; ``SUITE`` is JAX's without those benches' rows;
+  benches the port refuses (``qos``, ``ha``); each of those is refused
+  with exit code 1 and the ROADMAP item that brings it; ``SUITE`` is
+  JAX's without those benches' rows; each suite row of the ``obs``,
+  ``health`` and ``selfheal`` benches reaches its bench function with
+  the keyword arguments JAX's CLI passes;
 - ``make_tfrecord_shard`` gives the same bytes for one seed, and
   ``render_report`` the same HTML for the same records;
 - ``run_suite`` runs each row in a child process of the port's CLI, keeps
@@ -31,9 +33,7 @@ pytest.importorskip("jax")
 
 PACKAGES = ("alluxio_tpu", "alluxio_tpu_torch")
 JAX, PORT = PACKAGES
-REFUSED = {"obs": "Observability", "health": "Observability",
-           "selfheal": "Observability", "qos": "Admission and audit",
-           "ha": "HA"}
+REFUSED = {"qos": "Admission and audit", "ha": "HA"}
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
 
 
@@ -92,6 +92,38 @@ def test_refused_bench_names_its_roadmap_item(bench, capsys):
     assert err.startswith(f"{bench}: not ported yet")
     assert item == REFUSED[bench]
     assert item in open(os.path.join(ROOT, "ROADMAP.md")).read()
+
+
+#: the suite rows of the benches this slice ported, with the module and
+#: function each dispatches to
+OBS_ROWS = {"obs-tracing-overhead": ("obs_bench", "run"),
+            "obs-profile-overhead": ("obs_bench", "run_profile_overhead"),
+            "obs-critical-path": ("obs_bench", "run_critical_path"),
+            "health-ingest-overhead": ("health_bench", "run"),
+            "selfheal-remediation": ("selfheal_bench", "run")}
+
+
+@pytest.mark.parametrize("row", sorted(OBS_ROWS))
+def test_ported_bench_row_dispatches_like_jax(row, monkeypatch, capsys):
+    """The suite row's arguments reach the same bench function with the
+    same keyword arguments in both CLIs (the function is replaced by one
+    that records them)."""
+    module, fn = OBS_ROWS[row]
+    (argv,) = [a for name, a in _cli(JAX).SUITE if name == row]
+    got = {}
+    for pkg in PACKAGES:
+        base = _mod(pkg, "stress.base")
+
+        def record(_pkg=pkg, _base=base, **kw):
+            got[_pkg] = kw
+            return _base.BenchResult(bench=row, params={}, metrics={},
+                                     errors=0, duration_s=0.0)
+
+        monkeypatch.setattr(_mod(pkg, f"stress.{module}"), fn, record)
+        assert _cli(pkg).main(list(argv)) == 0
+    assert got[PORT] == got[JAX]
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [json.loads(line)["bench"] for line in lines] == [row, row]
 
 
 def test_table_master_is_refused(capsys):
