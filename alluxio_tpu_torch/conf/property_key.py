@@ -691,6 +691,11 @@ class Keys:
         scope=Scope.MASTER)
     MASTER_TTL_CHECK_INTERVAL = _k("atpu.master.ttl.check.interval",
                                    KeyType.DURATION, default="1h", scope=Scope.MASTER)
+    MASTER_ACTIVE_SYNC_INTERVAL = _k(
+        "atpu.master.activesync.interval", KeyType.DURATION, default="30s",
+        scope=Scope.MASTER,
+        description="Poll interval for active sync points (reference: "
+                    "ActiveSyncManager.java:81; polling replaces iNotify).")
     MASTER_REPLICATION_CHECK_INTERVAL = _k(
         "atpu.master.replication.check.interval", KeyType.DURATION, default="1min",
         scope=Scope.MASTER)
@@ -702,6 +707,22 @@ class Keys:
                     "next heartbeat (counted in "
                     "Master.ReplicationJobsDeferred) — bounds job-master "
                     "load after a mass worker loss.")
+    MASTER_LOST_FILES_DETECTION_INTERVAL = _k(
+        "atpu.master.lost.files.detection.interval", KeyType.DURATION,
+        default="5min", scope=Scope.MASTER,
+        description="How often the master scans lost blocks for files "
+                    "with no recoverable copy (reference: "
+                    "LostFileDetector.java).")
+    MASTER_BLOCK_INTEGRITY_CHECK_INTERVAL = _k(
+        "atpu.master.block.integrity.check.interval", KeyType.DURATION,
+        default="1h", scope=Scope.MASTER,
+        description="How often the master frees blocks whose owning file "
+                    "is gone (reference: BlockIntegrityChecker.java).")
+    MASTER_UFS_CLEANUP_INTERVAL = _k(
+        "atpu.master.ufs.cleanup.interval", KeyType.DURATION,
+        default="1h", scope=Scope.MASTER,
+        description="How often mounted UFSes are swept for abandoned "
+                    "persist temp files (reference: UfsCleaner.java).")
     MASTER_PERSISTENCE_TEMP_TTL = _k(
         "atpu.master.persistence.temp.ttl", KeyType.DURATION,
         default="1h", scope=Scope.MASTER,
@@ -799,8 +820,7 @@ class Keys:
                     "default: the journal is the durability source of "
                     "truth and replays over the metastore on recovery.")
 
-    # --- master: opt-in components the port's master does not have yet (it
-    # refuses to start with one switched on) ---
+    # --- master: RPC admission control ---
     MASTER_RPC_ADMISSION_ENABLED = _k(
         "atpu.master.rpc.admission.enabled", KeyType.BOOL, default=False,
         scope=Scope.MASTER,
@@ -812,6 +832,37 @@ class Keys:
                     "of queuing in the RPC executor. Off: dispatch is "
                     "byte-identical to a build without admission "
                     "control.")
+    MASTER_RPC_ADMISSION_RATE = _k(
+        "atpu.master.rpc.admission.rate", KeyType.FLOAT, default=200.0,
+        scope=Scope.MASTER,
+        description="Sustained master RPCs per second each principal "
+                    "may issue before shedding starts.")
+    MASTER_RPC_ADMISSION_BURST = _k(
+        "atpu.master.rpc.admission.burst", KeyType.FLOAT, default=400.0,
+        scope=Scope.MASTER,
+        description="Token-bucket depth per principal: how far a "
+                    "principal may briefly exceed the sustained rate.")
+    MASTER_RPC_ADMISSION_MAX_PRINCIPALS = _k(
+        "atpu.master.rpc.admission.max.principals", KeyType.INT,
+        default=4096, scope=Scope.MASTER,
+        description="Bound on tracked principal buckets (the key space "
+                    "is client-controlled); beyond it the least-"
+                    "recently-used bucket is evicted, so a spoofed-"
+                    "principal flood cannot grow master memory.")
+    MASTER_RPC_ADMISSION_EXEMPT = _k(
+        "atpu.master.rpc.admission.exempt", KeyType.STRING,
+        default="register,heartbeat,commit_block,get_worker_id,"
+                "metrics_heartbeat,file_system_heartbeat,"
+                "worker_heartbeat,register_worker",
+        scope=Scope.MASTER,
+        description="Comma-separated RPC method names never shed: "
+                    "worker registration/heartbeats and block commits "
+                    "are cluster-critical — shedding them would "
+                    "destabilize the cluster faster than any tenant "
+                    "flood.")
+
+    # --- master: opt-in components the port's master does not have yet (it
+    # refuses to start with one switched on) ---
     MASTER_UPDATE_CHECK_ENABLED = _k(
         "atpu.master.update.check.enabled", KeyType.BOOL, default=False,
         scope=Scope.MASTER,

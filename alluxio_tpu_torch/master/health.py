@@ -1,8 +1,6 @@
 """Continuous health-rule engine ("cluster doctor"): a copy of
-``alluxio_tpu/master/health.py`` without ``tenant_overload_rule`` (it
-reads the admission controller, which is not ported) and
-``quorum_degraded_rule`` (it reads the HA quorum view, which is not
-ported either).
+``alluxio_tpu/master/health.py`` without ``quorum_degraded_rule`` (it
+reads the HA quorum view, which is not ported yet).
 
 Turns the metrics history (:mod:`alluxio_tpu_torch.metrics.history`) into
 ranked, firing/resolved alerts: each declarative rule watches a
@@ -458,6 +456,62 @@ def default_rules(*, stall_threshold: float = 0.5,
                         "GC pauses) against its peers; drain it if it "
                         "cannot keep up"),
     ]
+
+
+def tenant_overload_rule(shed_counts_fn: Callable[[], Dict[str, int]],
+                         *, shed_rate_per_s: float = 1.0,
+                         window_s: float = 60.0) -> HealthRule:
+    """Flags a principal whose master RPCs are being shed at a
+    sustained rate — i.e. a tenant exceeding its admission-control
+    share.  ``shed_counts_fn`` is the admission controller's
+    ``shed_counts`` (principal -> cumulative shed count); the probe
+    derives per-principal rates by diffing successive snapshots, so it
+    needs neither the history store nor per-principal metric series
+    (which would mint attacker-controlled cardinality)."""
+    state = {"prev": {}, "at": None}
+    #: probes closer together than this keep the previous baseline: a
+    #: query-driven evaluate() (fsadmin report health) landing 0.3s
+    #: after the heartbeat tick must not turn 2 shed RPCs into a
+    #: 6.7/s "flood"
+    MIN_PROBE_WINDOW_S = 1.0
+
+    def probe(ctx: HealthContext) -> List[Violation]:
+        try:
+            counts = shed_counts_fn()
+        except Exception:  # noqa: BLE001 - never take the doctor down
+            LOG.debug("tenant-overload probe failed", exc_info=True)
+            return []
+        prev, at = state["prev"], state["at"]
+        if at is not None and ctx.now - at < MIN_PROBE_WINDOW_S:
+            return []  # too soon: keep the baseline, rate another day
+        state["prev"], state["at"] = dict(counts), ctx.now
+        if at is None:
+            return []  # first probe: no baseline to rate against
+        dt = ctx.now - at
+        if dt <= 0:
+            return []
+        out = []
+        for principal, shed in counts.items():
+            rate = (shed - prev.get(principal, 0)) / dt
+            if rate > shed_rate_per_s:
+                out.append(Violation(
+                    f"tenant:{principal}", rate,
+                    f"principal {principal!r} is being shed "
+                    f"{rate:.1f} master RPCs/s — it is flooding past "
+                    f"its admission rate",
+                    {"shed_total": shed, "window_s": dt}))
+        return out
+
+    return HealthRule(
+        "tenant-over-share", severity="warning", window_s=window_s,
+        threshold=shed_rate_per_s, probe=probe,
+        description="one principal's master RPCs are being shed at a "
+                    "sustained rate (admission control)",
+        remediation="the tenant is flooding: check its job config, "
+                    "raise atpu.master.rpc.admission.rate if the "
+                    "fleet genuinely grew, or leave the shedding in "
+                    "place — victims are already protected; see "
+                    "`fsadmin report qos` and docs/qos.md")
 
 
 def metastore_compaction_debt_rule(max_runs: int = 24, *,

@@ -9,25 +9,35 @@ re-register (reference: ``DefaultSafeModeManager``).
 
 The port's master holds the journal, the block master, the permission
 checker, the metastore (any kind ``atpu.master.metastore`` names), the
-file master, the path properties, the table master (the catalog,
-registered with the journal before replay), the cluster config checker
-and the observability loop: the metrics master with its history, the
-health rules, the remediation engine when it is switched on, the
-stack sampler (``atpu.profile.*``) and the web server when it is
-switched on. It serves the FS, block, table and meta services over gRPC
-and the same-host fast path, and ticks the lost-worker, TTL,
-transform-monitor and health heartbeats, and the metrics sinks that
+file master, the active sync points and the path properties, the table
+master (the catalog; both registered with the journal before replay),
+the integrity daemons (lost files, orphan blocks, abandoned UFS temps),
+the cluster config checker and the observability loop: the metrics
+master with its history, the health rules, the remediation engine when
+it is switched on, the stack sampler (``atpu.profile.*``) and the web
+server when it is switched on. Serving, it starts the audit writer and,
+when ``atpu.master.rpc.admission.enabled`` is set, the admission
+controller with the tenant-overload rule. It serves the FS (audited,
+with the sync-point RPCs), block, table and meta services over gRPC and
+the same-host fast path, both gated by admission, and ticks the
+lost-worker, TTL, active-sync, transform-monitor, lost-file,
+block-integrity, UFS-cleanup and health heartbeats (the health tick also
+samples the admission counters), and the metrics sinks that
 ``atpu.metrics.sinks`` names. Once a job service exists, the
 replication checker and the persistence scheduler attach late
 (``attach_replication_checker``, ``attach_persistence_scheduler``); the
 table master reaches the job master by ``atpu.job.master.rpc.port`` when
 it starts a transform. Each of the JAX master's other parts comes with
 its own slice: the HA process (``FaultTolerantMasterProcess``) and its
-quorum view with its history samples and health rule, the integrity
-checkers and active sync, the update check, the scheduled backup, and
-admission and audit with the tenant-overload rule. A conf key that asks
-for one of the opt-in ones raises ``NotSupportedError`` rather than being
-ignored.
+quorum view with its history samples and health rule, the update check
+and the scheduled backup. A conf key that asks for one of the opt-in
+ones raises ``NotSupportedError`` rather than being ignored.
+
+One addition: the ``Master.AuditLogDropped`` and
+``Master.AuditLogDroppedDenied`` gauges read the audit writer's dropped
+counts (all entries, and those of denied calls; the JAX master keeps the
+first on the writer only), so a master in its own process can show that
+every shed call was either audited or counted as dropped.
 """
 
 from __future__ import annotations
@@ -61,7 +71,6 @@ LOG = logging.getLogger(__name__)
 #: opt-in JAX master components that are not ported yet: the conf key
 #: that switches each on, and what it would build
 _UNPORTED_OPT_INS = (
-    (Keys.MASTER_RPC_ADMISSION_ENABLED, "RPC admission control"),
     (Keys.MASTER_UPDATE_CHECK_ENABLED, "the update checker"),
     (Keys.MASTER_DAILY_BACKUP_ENABLED, "the scheduled backup"),
 )
@@ -142,7 +151,9 @@ class MasterProcess:
         from alluxio_tpu_torch.master.path_properties import (
             ConfigurationChecker, PathProperties,
         )
+        from alluxio_tpu_torch.master.sync import ActiveSyncManager
 
+        self.active_sync = ActiveSyncManager(self.fs_master, self.journal)
         self.path_properties = PathProperties(self.journal)
         from alluxio_tpu_torch.table.master import TableMaster
 
@@ -166,6 +177,17 @@ class MasterProcess:
         self.table_master = TableMaster(self.journal,
                                         fs_factory=_table_fs_factory,
                                         job_client_factory=_table_job_factory)
+        from alluxio_tpu_torch.master.integrity import (
+            BlockIntegrityChecker, LostFileDetector, UfsCleaner,
+        )
+
+        self.lost_file_detector = LostFileDetector(self.fs_master,
+                                                   self.block_master)
+        self.block_integrity_checker = BlockIntegrityChecker(
+            self.fs_master, self.block_master)
+        self.ufs_cleaner = UfsCleaner(
+            self.fs_master.mount_table, self.fs_master._ufs,
+            ttl_ms=conf.get_ms(Keys.MASTER_PERSISTENCE_TEMP_TTL))
         self.config_checker = ConfigurationChecker()
         self.config_checker.register(
             "master", {k: str(v) for k, v in conf.to_map().items()})
@@ -177,6 +199,8 @@ class MasterProcess:
         self.metrics_master = None
         self.health_monitor = None
         self.remediation = None
+        self.admission = None
+        self.audit_writer = None
         self.replication_checker = None
         self._worker_lost_listener_installed = False
         self.web_server = None
@@ -203,6 +227,12 @@ class MasterProcess:
             self._metastore_sample.get("compaction_bytes", 0) or 0))
         reg.register_gauge("Master.MetastoreCacheHitRatio", lambda: float(
             self._metastore_sample.get("cache_hit_ratio", 0.0) or 0.0))
+        reg.register_gauge("Master.AuditLogDropped", lambda: float(
+            self.audit_writer.dropped if self.audit_writer is not None
+            else 0))
+        reg.register_gauge("Master.AuditLogDroppedDenied", lambda: float(
+            self.audit_writer.dropped_denied
+            if self.audit_writer is not None else 0))
 
     def _sample_metadata_history(self) -> None:
         """Push the metadata control plane's own gauges into the history
@@ -294,20 +324,38 @@ class MasterProcess:
         self._safe_mode_until = time.monotonic() + self._conf.get_duration_s(
             Keys.MASTER_SAFEMODE_WAIT)
         metrics("Master")
+        from alluxio_tpu_torch.security.audit import AsyncAuditLogWriter
         from alluxio_tpu_torch.security.authentication import Authenticator
         from alluxio_tpu_torch.utils import faults
 
         # arm the conf-gated fault hooks (atpu.debug.fault.*): the
         # rpc.reject.rate drill sheds master dispatches too
         faults.injector().configure(self._conf)
+        self.audit_writer = AsyncAuditLogWriter()
+        self.audit_writer.start()
+        self.admission = None
+        if self._conf.get_bool(Keys.MASTER_RPC_ADMISSION_ENABLED):
+            from alluxio_tpu_torch.qos.admission import (
+                AdmissionConf, AdmissionController,
+            )
+
+            # built BEFORE the metrics master so the tenant-overload
+            # health rule can close over it; shed RPCs are audited
+            # with allowed=False next to the permission denials
+            self.admission = AdmissionController(
+                AdmissionConf.from_conf(self._conf),
+                audit_writer=self.audit_writer)
         self._init_metrics_master()
         self._start_heartbeats()
         authenticator = Authenticator(self._conf)
         self.rpc_server = RpcServer(
             bind_host="0.0.0.0",
             port=self._conf.get_int(Keys.MASTER_RPC_PORT),
-            authenticator=authenticator)
-        self.rpc_server.add_service(fs_master_service(self.fs_master))
+            authenticator=authenticator,
+            admission=self.admission)
+        self.rpc_server.add_service(fs_master_service(
+            self.fs_master, active_sync=self.active_sync,
+            audit_writer=self.audit_writer))
         self.rpc_server.add_service(block_master_service(self.block_master))
         self.rpc_server.add_service(table_master_service(
             self.table_master,
@@ -322,6 +370,7 @@ class MasterProcess:
             metrics_master=self.metrics_master,
             health_monitor=self.health_monitor,
             remediation_engine=self.remediation,
+            admission=self.admission,
             invalidation_log=self.fs_master.invalidations,
             metastore_stats_fn=self.fs_master.metastore_stats))
         self.rpc_port = self.rpc_server.start()
@@ -334,7 +383,8 @@ class MasterProcess:
                 socket_path_for(
                     f"localhost:{self.rpc_port}",
                     self._conf.get(Keys.MASTER_FASTPATH_DIR)),
-                authenticator=authenticator)
+                authenticator=authenticator,
+                admission=self.admission)
             for svc in self.rpc_server._services.values():
                 self.fastpath_server.add_service(svc)
             self.fastpath_server.start()
@@ -410,6 +460,17 @@ class MasterProcess:
                     Keys.MASTER_HEALTH_STALL_WINDOW),
                 inode_lock_wait_p99_s=conf.get_duration_s(
                     Keys.MASTER_HEALTH_METADATA_LOCK_WAIT_THRESHOLD))
+            if self.admission is not None:
+                from alluxio_tpu_torch.master.health import (
+                    tenant_overload_rule,
+                )
+
+                # flags a principal whose master RPCs are being shed
+                # at a sustained rate — the doctor names the tenant
+                # exceeding its share instead of operators diffing
+                # audit logs
+                rules.append(tenant_overload_rule(
+                    self.admission.shed_counts))
             # inert on HEAP/SQLITE (they report zero runs); on LSM it
             # catches compaction losing the race with flushes before
             # read amplification turns into an outage
@@ -570,9 +631,27 @@ class MasterProcess:
                 _Exec(self.fs_master.check_ttl_expired),
                 conf.get_duration_s(Keys.MASTER_TTL_CHECK_INTERVAL)),
             HeartbeatThread(
+                HeartbeatContext.MASTER_ACTIVE_SYNC,
+                _Exec(self.active_sync.heartbeat),
+                conf.get_duration_s(Keys.MASTER_ACTIVE_SYNC_INTERVAL)),
+            HeartbeatThread(
                 HeartbeatContext.MASTER_TABLE_TRANSFORM_MONITOR,
                 _Exec(self.table_master.heartbeat),
                 conf.get_duration_s(Keys.TABLE_TRANSFORM_MONITOR_INTERVAL)),
+            HeartbeatThread(
+                HeartbeatContext.MASTER_LOST_FILES_DETECTION,
+                _Exec(self.lost_file_detector.heartbeat),
+                conf.get_duration_s(
+                    Keys.MASTER_LOST_FILES_DETECTION_INTERVAL)),
+            HeartbeatThread(
+                HeartbeatContext.MASTER_BLOCK_INTEGRITY_CHECK,
+                _Exec(self.block_integrity_checker.heartbeat),
+                conf.get_duration_s(
+                    Keys.MASTER_BLOCK_INTEGRITY_CHECK_INTERVAL)),
+            HeartbeatThread(
+                HeartbeatContext.MASTER_UFS_CLEANUP,
+                _Exec(self.ufs_cleaner.heartbeat),
+                conf.get_duration_s(Keys.MASTER_UFS_CLEANUP_INTERVAL)),
         ]
 
         def _health_tick() -> None:
@@ -583,6 +662,11 @@ class MasterProcess:
                 # drains the pending offers, so tick the drain directly
                 # or the bounded pending queue overflows between queries
                 self.metrics_master.drain_history()
+            if self.admission is not None:
+                # Master.RpcAdmission* series ride the same tick the
+                # remediation samples do: flood shapes stay visible in
+                # the history after the flood is gone
+                self.admission.sample_history(self.metrics_master.history)
             self._sample_metadata_history()
 
         if self.health_monitor is not None or \
@@ -670,6 +754,8 @@ class MasterProcess:
             self.fastpath_server = None
         if self.rpc_server is not None:
             self.rpc_server.stop()
+        if self.audit_writer is not None:
+            self.audit_writer.stop()
         self.fs_master.stop()
         self.journal.stop()
 

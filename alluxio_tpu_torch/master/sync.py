@@ -1,6 +1,4 @@
-"""UFS metadata-sync machinery: the two path caches of
-``alluxio_tpu/master/sync.py`` (its ``ActiveSyncManager`` comes with the
-master's checkers).
+"""UFS metadata-sync machinery (a copy of ``alluxio_tpu/master/sync.py``).
 
 Re-designs of the reference's sync subsystem:
 - ``file/meta/UfsSyncPathCache.java`` -> :class:`UfsSyncPathCache` — when
@@ -8,14 +6,26 @@ Re-designs of the reference's sync subsystem:
   skip redundant UFS round-trips;
 - ``file/meta/AsyncUfsAbsentPathCache.java`` -> :class:`AbsentPathCache` —
   remember UFS-absent paths so repeated misses don't hammer the store;
+- ``file/activesync/{ActiveSyncManager.java:81,ActiveSyncer.java}`` ->
+  :class:`ActiveSyncManager` — journaled sync points re-synced by a
+  heartbeat. The reference rides HDFS iNotify; object stores have no event
+  stream, so the master polls with fingerprint diffs (the same mechanism
+  the reference falls back to on full-sync intervals).
 """
 
 from __future__ import annotations
 
 import collections
+import logging
 import threading
 import time
-from typing import Tuple
+from typing import Dict, List, Tuple
+
+from alluxio_tpu_torch.journal.format import EntryType
+from alluxio_tpu_torch.utils.exceptions import InvalidArgumentError
+from alluxio_tpu_torch.utils.uri import AlluxioURI
+
+LOG = logging.getLogger(__name__)
 
 
 class UfsSyncPathCache:
@@ -106,3 +116,82 @@ class AbsentPathCache:
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
+
+
+class ActiveSyncManager:
+    """Journaled sync points + the polling re-sync pass
+    (reference: ``ActiveSyncManager.java:81``; the heartbeat tick is the
+    ``ActiveSyncer`` equivalent, registered as MASTER_ACTIVE_UFS_SYNC)."""
+
+    journal_name = "ActiveSyncManager"
+
+    def __init__(self, fs_master, journal) -> None:
+        self._fsm = fs_master
+        self._journal = journal
+        self._points: List[str] = []
+        self._lock = threading.Lock()
+        #: per-point stats: path -> (last_run_ms, changed_count)
+        self.last_runs: Dict[str, Tuple[int, int]] = {}
+        journal.register(self)
+
+    # -- API (the file-system service's start_sync/stop_sync) ----------------
+    def add_sync_point(self, path: "str | AlluxioURI") -> None:
+        uri = AlluxioURI(path)
+        self._fsm.get_status(uri)  # must exist (reference parity)
+        with self._lock:
+            if uri.path in self._points:
+                return
+        with self._journal.create_context() as ctx:
+            ctx.append(EntryType.ADD_SYNC_POINT, {"path": uri.path})
+
+    def remove_sync_point(self, path: "str | AlluxioURI") -> None:
+        uri = AlluxioURI(path)
+        with self._lock:
+            if uri.path not in self._points:
+                raise InvalidArgumentError(
+                    f"{uri.path} is not a sync point")
+        with self._journal.create_context() as ctx:
+            ctx.append(EntryType.REMOVE_SYNC_POINT, {"path": uri.path})
+
+    def sync_points(self) -> List[str]:
+        with self._lock:
+            return list(self._points)
+
+    # -- the ActiveSyncer tick ----------------------------------------------
+    def heartbeat(self) -> None:
+        for path in self.sync_points():
+            try:
+                changed = self._fsm.sync_metadata(path, recursive=True)
+                self.last_runs[path] = (
+                    int(time.time() * 1000), int(changed))
+            except Exception:  # noqa: BLE001 - keep other points alive
+                LOG.exception("active sync of %s failed", path)
+
+    # -- journal contract ----------------------------------------------------
+    def process_entry(self, entry) -> bool:
+        if entry.type == EntryType.ADD_SYNC_POINT:
+            with self._lock:
+                p = entry.payload["path"]
+                if p not in self._points:
+                    self._points.append(p)
+            return True
+        if entry.type == EntryType.REMOVE_SYNC_POINT:
+            with self._lock:
+                try:
+                    self._points.remove(entry.payload["path"])
+                except ValueError:
+                    pass
+            return True
+        return False
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"points": list(self._points)}
+
+    def restore(self, snap: dict) -> None:
+        with self._lock:
+            self._points = list(snap.get("points", []))
+
+    def reset_state(self) -> None:
+        with self._lock:
+            self._points = []

@@ -99,10 +99,13 @@ class ManagedProcess:
                 else None)
 
     def kill(self, sig: int = signal.SIGKILL) -> None:
-        """Hard-kill (crash simulation)."""
+        """Hard-kill (crash simulation); ``SIGSTOP`` and ``SIGCONT``
+        pause and resume the role instead (a silent, then returning
+        process), so the call does not wait for an exit."""
         if self.proc is not None and self.proc.poll() is None:
             self.proc.send_signal(sig)
-            self.proc.wait(timeout=10)
+            if sig not in (signal.SIGSTOP, signal.SIGCONT):
+                self.proc.wait(timeout=10)
 
     def stop(self) -> None:
         if self.proc is not None and self.proc.poll() is None:

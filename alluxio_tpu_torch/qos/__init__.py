@@ -1,10 +1,11 @@
-"""Worker QoS: priority classes, the stripe executor and the async-cache
-queue — a copy of the part of ``alluxio_tpu/qos/__init__.py`` that the
-worker uses.
+"""QoS primitives (a copy of ``alluxio_tpu/qos/__init__.py`` without the
+client's per-tenant stripe budget): priority classes, token buckets and
+tenant-scoped concurrency budgets.
 
-- :data:`ON_DEMAND` / :data:`ASYNC_FILL` / :data:`PREFETCH` — the
-  priority classes every worker-side request carries;
-- :class:`PriorityExecutor` — a bounded thread pool that drains in
+- :class:`TokenBucket` / :class:`TokenBucketSet` — per-principal rate
+  limiting with a retry-after hint, used by the master's RPC admission
+  controller (``qos/admission.py``);
+- :class:`PriorityExecutor` — a bounded executor that drains in
   priority order with per-tenant concurrency caps (the worker's
   per-mount UFS stripe executors); queued background work is overtaken
   by arriving on-demand work, and a queued fetch joined by an on-demand
@@ -12,9 +13,8 @@ worker uses.
 - :class:`PriorityTaskQueue` — the async cache manager's bounded queue.
 
 With QoS off (the default) both drain in exact FIFO order with no caps.
-The token buckets serve the master's admission controller and come with
-the master; the client's per-tenant stripe budget waits for a client
-that names a tenant."""
+The client's per-tenant stripe budget (``StripeBudget``) waits for a
+client that names a tenant."""
 
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import itertools
 import logging
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 LOG = logging.getLogger(__name__)
 
@@ -45,6 +45,94 @@ def priority_from_name(name: str, default: int = ASYNC_FILL) -> int:
     (an old client naming a class this build dropped must not crash the
     worker)."""
     return _NAME_TO_PRIORITY.get(str(name or "").upper(), default)
+
+
+class TokenBucket:
+    """Classic token bucket with a *retry-after* answer.
+
+    ``try_acquire`` never blocks: over-limit callers are the ones being
+    shed, and making them queue inside the limiter would recreate the
+    unbounded backlog admission control exists to prevent.  The returned
+    hint is how long until one token accrues — what the master puts in
+    the typed ``ResourceExhausted`` so clients back off instead of
+    hammering.
+    """
+
+    __slots__ = ("rate", "burst", "_tokens", "_last", "_clock", "_lock")
+
+    def __init__(self, rate: float, burst: float, *,
+                 clock: Callable[[], float] = time.monotonic) -> None:
+        self.rate = max(1e-9, float(rate))
+        self.burst = max(1.0, float(burst))
+        self._tokens = self.burst  # start full: a fresh principal is
+        self._last = clock()       # not mid-flood by definition
+        self._clock = clock
+        self._lock = threading.Lock()
+
+    def try_acquire(self, n: float = 1.0) -> Tuple[bool, float]:
+        """``(admitted, retry_after_s)``; the hint is 0.0 on admit."""
+        with self._lock:
+            now = self._clock()
+            self._tokens = min(self.burst,
+                               self._tokens + (now - self._last) * self.rate)
+            self._last = now
+            if self._tokens >= n:
+                self._tokens -= n
+                return True, 0.0
+            return False, (n - self._tokens) / self.rate
+
+    def available(self) -> float:
+        with self._lock:
+            now = self._clock()
+            self._tokens = min(self.burst,
+                               self._tokens + (now - self._last) * self.rate)
+            self._last = now
+            return self._tokens
+
+
+class TokenBucketSet:
+    """Keyed token buckets with bounded membership.
+
+    The key space is attacker-controlled (any client can mint
+    principals), so the map is capped: beyond ``max_keys`` the
+    least-recently-USED bucket is evicted — O(1) via insertion-ordered
+    dict, because a principal flood must not make every admission
+    check O(cap).  An evicted flooding principal that comes back gets
+    a fresh (full) bucket — one burst of grace, still bounded memory.
+    """
+
+    def __init__(self, rate: float, burst: float, *, max_keys: int = 4096,
+                 clock: Callable[[], float] = time.monotonic) -> None:
+        from collections import OrderedDict
+
+        self.rate = float(rate)
+        self.burst = float(burst)
+        self._max = max(1, int(max_keys))
+        self._clock = clock
+        self._lock = threading.Lock()
+        #: key -> bucket, ordered least- to most-recently used
+        self._buckets: "OrderedDict[str, TokenBucket]" = OrderedDict()
+        self.evictions = 0
+
+    def bucket(self, key: str) -> TokenBucket:
+        with self._lock:
+            b = self._buckets.get(key)
+            if b is None:
+                if len(self._buckets) >= self._max:
+                    self._buckets.popitem(last=False)  # LRU out
+                    self.evictions += 1
+                b = self._buckets[key] = TokenBucket(
+                    self.rate, self.burst, clock=self._clock)
+            else:
+                self._buckets.move_to_end(key)
+            return b
+
+    def try_acquire(self, key: str, n: float = 1.0) -> Tuple[bool, float]:
+        return self.bucket(key).try_acquire(n)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._buckets)
 
 
 class _Task:

@@ -367,6 +367,15 @@ class FsMasterClient(_BaseClient):
     def get_acl(self, path: str) -> dict:
         return self._call("get_acl", {"path": str(path)})
 
+    def start_sync(self, path: str) -> None:
+        self._call("start_sync", {"path": str(path)})
+
+    def stop_sync(self, path: str) -> None:
+        self._call("stop_sync", {"path": str(path)})
+
+    def get_sync_path_list(self) -> List[str]:
+        return self._call("get_sync_path_list", {})["paths"]
+
     def mark_persisted(self, path: str, ufs_fingerprint: str = "") -> None:
         self._call("mark_persisted", {"path": str(path),
                                       "ufs_fingerprint": ufs_fingerprint})

@@ -17,18 +17,20 @@ same exception class (reference: ``exception/status`` <->
 Authentication: a server given an ``authenticator`` (the worker's with
 QoS on, ``security/authentication.py``) authenticates every RPC's
 metadata and binds the caller for handlers to read through
-``security.authenticated_user()``; without one the server reads no
-metadata. The ``atpu.debug.fault.rpc.reject.rate`` hook sheds a dispatch
+``security.authenticated_user()``. The ``atpu.debug.fault.rpc.reject.rate`` hook sheds a dispatch
 with the typed ``ResourceExhausted`` and retry-after, as the JAX server
-does.
+does, sparing the admission controller's exempt methods.
 
 Tracing: the client sends the caller's trace context as the
 ``atpu-traceparent`` metadata entry, and the server binds it before it
 opens the method's span, so the server span joins the caller's trace
 (as the JAX transport does).
 
-Left out with the feature that needs it: admission control (the
-master's).
+Admission: a server given an ``admission`` controller (the master's,
+``qos/admission.py``) passes every dispatch through the caller's token
+bucket (``check_admission``; the principal is the authenticated user, or
+else the ``atpu-user`` metadata entry) and records the check as the
+server span's ``admission`` phase.
 """
 
 from __future__ import annotations
@@ -117,41 +119,72 @@ def _unbind_user(token) -> None:
         reset_authenticated_user(token)
 
 
-#: methods the reject drill never sheds (the JAX admission controller's
-#: exemptions, ``alluxio_tpu/qos/admission.py``): shedding registration
-#: and heartbeats would destabilize the cluster the drill observes
-FAULT_EXEMPT = frozenset((
-    "register", "heartbeat", "commit_block", "get_worker_id",
-    "metrics_heartbeat", "file_system_heartbeat", "worker_heartbeat",
-    "register_worker"))
-
-
-def check_reject_fault(method_key: str) -> None:
-    """The conf-gated RPC-reject hook of the JAX dispatch: a taken fault
-    sheds the call with the typed ``ResourceExhaustedError`` carrying
-    ``retry_after_s``."""
+def check_admission(admission, context, method_key: str,
+                    principal_hint: Optional[str] = None) -> None:
+    """Per-dispatch QoS gate, shared by the gRPC wrappers and the
+    fast-path server: the conf-gated fault hook first (so shedding can
+    be chaos-drilled with no admission controller and no flood), then
+    the per-principal token bucket.  Raises a typed
+    ``ResourceExhaustedError`` carrying ``retry_after_s`` — the RPC is
+    SHED, never queued (see ``qos/admission.py``).  ``principal_hint``:
+    transport-specific identity fallback for servers without a gRPC
+    context (the fast path passes its hello frame's ``atpu-user``)."""
     from alluxio_tpu_torch.utils import faults
 
-    if not faults.armed() or \
-            method_key.rsplit(".", 1)[-1] in FAULT_EXEMPT:
+    if faults.armed():
+        # the chaos drill honors the same exemptions real admission
+        # does — shedding registration/heartbeats would destabilize
+        # the cluster the drill is observing
+        from alluxio_tpu_torch.qos.admission import DEFAULT_EXEMPT
+
+        exempt = admission.conf.exempt if admission is not None \
+            else DEFAULT_EXEMPT
+        if method_key.rsplit(".", 1)[-1] not in exempt:
+            ra = faults.injector().take_rpc_reject(method_key)
+            if ra:
+                err = ResourceExhaustedError(
+                    f"injected rpc reject for {method_key}; retry "
+                    f"after {ra:.3f}s")
+                err.retry_after_s = ra
+                raise err
+    if admission is None:
         return
-    ra = faults.injector().take_rpc_reject(method_key)
-    if ra:
-        err = ResourceExhaustedError(
-            f"injected rpc reject for {method_key}; retry after {ra:.3f}s")
-        err.retry_after_s = ra
-        raise err
+    principal = principal_hint
+    from alluxio_tpu_torch.security.user import authenticated_user
+
+    user = authenticated_user()
+    if user is not None:
+        principal = user.name
+    elif principal is None and context is not None:
+        # no authenticator: fall back to the identity metadata clients
+        # attach anyway, so admission can still separate principals
+        for k, v in (context.invocation_metadata() or ()):
+            if k == "atpu-user":
+                principal = v
+                break
+    admission.check(principal, method_key.rsplit(".", 1)[-1])
+
+
+def _timed_admission(sp, admission, context, span_name: str) -> None:
+    """check_admission, recording its cost as the server span's
+    ``admission`` phase when the dispatch is traced."""
+    if sp is None:
+        check_admission(admission, context, span_name)
+        return
+    t0 = time.perf_counter()
+    check_admission(admission, context, span_name)
+    sp.phase("admission", (time.perf_counter() - t0) * 1000.0)
 
 
 def _wrap_unary(fn: Callable[[dict], Any], authenticator,
-                span_name: str) -> Callable:
+                span_name: str, admission=None) -> Callable:
     def handler(request: dict, context: grpc.ServicerContext):
         token = None
         trace_token = _bind_trace(context)
         try:
-            with tracer().span(span_name):
+            with tracer().span(span_name) as sp:
                 token = _bind_user(context, authenticator)
-                check_reject_fault(span_name)
+                _timed_admission(sp, admission, context, span_name)
                 return fn(request or {})
         except AlluxioTpuError as e:
             _abort_typed(context, e)
@@ -166,14 +199,14 @@ def _wrap_unary(fn: Callable[[dict], Any], authenticator,
 
 
 def _wrap_stream_out(fn: Callable[[dict], Iterator[Any]], authenticator,
-                     span_name: str) -> Callable:
+                     span_name: str, admission=None) -> Callable:
     def handler(request: dict, context: grpc.ServicerContext):
         token = None
         trace_token = _bind_trace(context)
         try:
-            with tracer().span(span_name):
+            with tracer().span(span_name) as sp:
                 token = _bind_user(context, authenticator)
-                check_reject_fault(span_name)
+                _timed_admission(sp, admission, context, span_name)
                 yield from fn(request or {})
         except AlluxioTpuError as e:
             _abort_typed(context, e)
@@ -188,14 +221,14 @@ def _wrap_stream_out(fn: Callable[[dict], Iterator[Any]], authenticator,
 
 
 def _wrap_stream_in(fn: Callable[[Iterator[Any]], Any], authenticator,
-                    span_name: str) -> Callable:
+                    span_name: str, admission=None) -> Callable:
     def handler(request_iterator, context: grpc.ServicerContext):
         token = None
         trace_token = _bind_trace(context)
         try:
-            with tracer().span(span_name):
+            with tracer().span(span_name) as sp:
                 token = _bind_user(context, authenticator)
-                check_reject_fault(span_name)
+                _timed_admission(sp, admission, context, span_name)
                 return fn(request_iterator)
         except AlluxioTpuError as e:
             _abort_typed(context, e)
@@ -230,9 +263,10 @@ class ServiceDefinition:
 
 class _GenericHandler(grpc.GenericRpcHandler):
     def __init__(self, services: Dict[str, ServiceDefinition],
-                 authenticator=None) -> None:
+                 authenticator=None, admission=None) -> None:
         self._services = services
         self._auth = authenticator
+        self._admission = admission
 
     def service(self, handler_call_details):
         # method path: /<service>/<method>
@@ -246,14 +280,14 @@ class _GenericHandler(grpc.GenericRpcHandler):
         span = f"{service_name}.{method}"
         if kind == "unary":
             return grpc.unary_unary_rpc_method_handler(
-                _wrap_unary(fn, self._auth, span),
+                _wrap_unary(fn, self._auth, span, self._admission),
                 request_deserializer=unpack, response_serializer=pack)
         if kind == "stream_out":
             return grpc.unary_stream_rpc_method_handler(
-                _wrap_stream_out(fn, self._auth, span),
+                _wrap_stream_out(fn, self._auth, span, self._admission),
                 request_deserializer=unpack, response_serializer=pack)
         return grpc.stream_unary_rpc_method_handler(
-            _wrap_stream_in(fn, self._auth, span),
+            _wrap_stream_in(fn, self._auth, span, self._admission),
             request_deserializer=unpack, response_serializer=pack)
 
 
@@ -263,14 +297,19 @@ class RpcServer:
 
     def __init__(self, bind_host: str = "0.0.0.0", port: int = 0,
                  max_workers: int = 16, authenticator=None,
+                 admission=None,
                  thread_name_prefix: str = "rpc-server") -> None:
         """``authenticator``: a ``security.authentication.Authenticator``;
         when set, every RPC is authenticated and the resolved user is
         bound for handlers to read via
-        ``security.authenticated_user()``. ``thread_name_prefix`` names
-        the handler threads, which ``stop`` joins."""
+        ``security.authenticated_user()``. ``admission``: a
+        ``qos.admission.AdmissionController``; when set, every dispatch
+        passes its per-principal token bucket and over-limit calls are
+        shed with a typed retry-after. ``thread_name_prefix`` names the
+        handler threads, which ``stop`` joins."""
         self._services: Dict[str, ServiceDefinition] = {}
         self._authenticator = authenticator
+        self._admission = admission
         options = [
             ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
             ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
@@ -290,7 +329,8 @@ class RpcServer:
         """Bind and serve; returns the bound port (an ephemeral one for
         port 0). Raises when the address cannot be bound."""
         self._server.add_generic_rpc_handlers(
-            (_GenericHandler(self._services, self._authenticator),))
+            (_GenericHandler(self._services, self._authenticator,
+                             self._admission),))
         self.port = self._server.add_insecure_port(self._bind)
         if self.port == 0:
             raise UnavailableError(f"cannot bind the RPC server to "

@@ -21,9 +21,11 @@ Protocol (all frames are ``[u32 little-endian length][msgpack]``):
 
 The optional fourth element of a call frame is the caller's trace
 context; the server binds it before it opens the method's span, so the
-span joins the caller's trace, as the JAX server does. Admission control
-waits for the master's QoS slice; the conf-gated RPC-reject hook sheds a
-call here as it does on gRPC.
+span joins the caller's trace, as the JAX server does. A server given the
+master's admission controller gates every call through the caller's token
+bucket (the hello frame's ``atpu-user`` names the caller when no
+authenticator runs), and the conf-gated RPC-reject hook sheds a call
+here as it does on gRPC.
 
 Discovery is by convention: a master serving RPC port P binds
 ``<dir>/atpu-master-P.sock`` (dir from ``atpu.master.fastpath.dir``,
@@ -91,9 +93,11 @@ class FastPathServer:
     Unix socket. Unary methods only — streaming methods are simply not
     registered here, so clients keep using gRPC for them."""
 
-    def __init__(self, uds_path: str, authenticator=None) -> None:
+    def __init__(self, uds_path: str, authenticator=None,
+                 admission=None) -> None:
         self._uds_path = uds_path
         self._auth = authenticator
+        self._admission = admission
         #: (service, method) -> fn, resolved once at registration
         self._methods: Dict[Tuple[str, str], Any] = {}
         self._server: Optional[socketserver.ThreadingUnixStreamServer] = None
@@ -109,13 +113,14 @@ class FastPathServer:
                 self._methods[(svc.name, method)] = fn
 
     def start(self) -> str:
-        from alluxio_tpu_torch.rpc.core import check_reject_fault
+        from alluxio_tpu_torch.rpc.core import check_admission
         from alluxio_tpu_torch.utils.tracing import (
             bind_remote_parent, reset_remote_parent, tracer,
         )
 
         methods = self._methods
         authenticator = self._auth
+        admission = self._admission
         conns, conns_lock = self._conns, self._conns_lock
 
         class Handler(socketserver.StreamRequestHandler):
@@ -149,6 +154,11 @@ class FastPathServer:
                                         {"err": e.to_wire()})
                             return
                         token = set_authenticated_user(user)
+                    # identity fallback for admission without an
+                    # authenticator: without it every socket principal
+                    # would collapse into one anonymous bucket and a
+                    # flooding tenant would shed its victims too
+                    principal_hint = md.get("atpu-user")
                     _send_frame(self.connection, {"ok": True})
                     while True:
                         frame = _read_frame(self.rfile)
@@ -166,12 +176,16 @@ class FastPathServer:
                                 "message": f"{service}/{method} has no "
                                            f"fastpath handler"}})
                             continue
-                        # span and reject-hook parity with the gRPC
-                        # wrapper, joined to the caller's trace
+                        # span and admission parity with the gRPC
+                        # wrapper, joined to the caller's trace: a local
+                        # flood must not bypass the gate by riding the
+                        # Unix socket
                         trace_token = bind_remote_parent(traceparent)
                         try:
                             with tracer().span(f"{service}.{method}"):
-                                check_reject_fault(f"{service}.{method}")
+                                check_admission(
+                                    admission, None, f"{service}.{method}",
+                                    principal_hint=principal_hint)
                                 result = fn(request or {})
                             _send_frame(self.connection, {"ok": result})
                         except AlluxioTpuError as e:

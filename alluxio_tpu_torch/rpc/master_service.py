@@ -1,10 +1,9 @@
 """Master-side RPC services: a copy of ``alluxio_tpu/rpc/master_service.py``
 for a single master.
 
-Left out with the slices that bring them: the audit wrapper and the
-active-sync RPCs of the FS service; the standby services. The meta RPCs
-whose component is not ported yet (admission, backup, Raft quorum)
-answer as the JAX ones do when that component is ``None``.
+Left out with the HA slice: the standby services. The meta RPCs whose
+component is not ported yet (backup, Raft quorum) answer as the JAX ones
+do when that component is ``None``.
 
 Re-design of the reference's master service handlers
 (``file/FileSystemMaster{Client,Worker,Job}ServiceHandler.java``,
@@ -48,23 +47,63 @@ def _timed(name: str, fn, journal=None):
     return wrapper
 
 
-def fs_master_service(fsm: FileSystemMaster) -> ServiceDefinition:
+def fs_master_service(fsm: FileSystemMaster,
+                      active_sync=None,
+                      audit_writer=None) -> ServiceDefinition:
     svc = ServiceDefinition(FS_SERVICE)
 
     def u(name, fn, register=True):
-        """Wrap ``fn`` with timing; ``register=False`` returns the
-        wrapped callable instead of registering a unary method (stream
-        handlers reuse the same discipline for their resolve step)."""
+        """Wrap ``fn`` with timing + audit; ``register=False`` returns
+        the wrapped callable instead of registering a unary method
+        (stream handlers reuse the same discipline for their resolve
+        step)."""
         timed = _timed(name, fn, journal=fsm._journal)
+        if audit_writer is None:
+            if register:
+                svc.unary(name, timed)
+            return timed
+
+        def audited(req):
+            from alluxio_tpu_torch.security.audit import AuditContext
+            from alluxio_tpu_torch.security.user import authenticated_user
+            from alluxio_tpu_torch.utils.exceptions import (
+                PermissionDeniedError,
+            )
+
+            user = authenticated_user()
+            ctx = AuditContext(
+                command=name, src_path=str(req.get("path")
+                                           or req.get("src") or ""),
+                dst_path=str(req.get("dst") or ""),
+                user=user.name if user else "")
+            try:
+                return timed(req)
+            except PermissionDeniedError:
+                ctx.allowed = ctx.succeeded = False
+                raise
+            except Exception:
+                ctx.succeeded = False
+                raise
+            finally:
+                audit_writer.append(ctx)
+
         if register:
-            svc.unary(name, timed)
-        return timed
+            svc.unary(name, audited)
+        return audited
 
     u("set_acl", lambda r: (fsm.set_acl(
         r["path"], r.get("entries", []),
         default=r.get("default", False),
         recursive=r.get("recursive", False)), {})[-1])
     u("get_acl", lambda r: fsm.get_acl(r["path"]))
+
+    if active_sync is not None:
+        u("start_sync", lambda r: (
+            active_sync.add_sync_point(r["path"]), {})[-1])
+        u("stop_sync", lambda r: (
+            active_sync.remove_sync_point(r["path"]), {})[-1])
+        u("get_sync_path_list", lambda r: {
+            "paths": active_sync.sync_points()})
 
     def _get_status(r):
         # stamp BEFORE the lookup: the payload is then at least as new
@@ -88,8 +127,9 @@ def fs_master_service(fsm: FileSystemMaster) -> ServiceDefinition:
         Columnar-requesting clients get struct-of-arrays batches
         (sliced views of the memoized transpose — same encode win as
         the unary columnar path); recursive listings fall back to row
-        dicts. Timed like the unary RPCs: the listing resolves before
-        the first chunk goes out; batching itself is transport work.
+        dicts. Timed + audited like the unary RPCs: the listing
+        resolves (and is audited) before the first chunk goes out;
+        batching itself is transport work.
 
         ``paged=True`` (non-recursive only) switches to cursor paging:
         every batch is its own ``list_status_page`` call — own short
@@ -111,7 +151,7 @@ def fs_master_service(fsm: FileSystemMaster) -> ServiceDefinition:
                     return
                 offset += len(page["infos"])
                 cursor = page["next"]
-        res = _timed_resolve(r)
+        res = _audited_resolve(r)
         if isinstance(res, dict):  # columnar {"n": N, "cols": {...}}
             cols, n = res["cols"], res.get("n", 0)
             keys = list(cols)
@@ -132,7 +172,7 @@ def fs_master_service(fsm: FileSystemMaster) -> ServiceDefinition:
             r["path"], recursive=r.get("recursive", False),
             sync_interval_ms=r.get("sync_interval_ms", -1), wire=True)
 
-    _timed_resolve = u("list_status_stream.resolve", _resolve,
+    _audited_resolve = u("list_status_stream.resolve", _resolve,
                          register=False)
     svc.stream_out("list_status_stream", _list_status_stream)
     def _list_status(r):
@@ -262,6 +302,7 @@ def meta_master_service(conf: Configuration, *, cluster_id: str = "",
                         metrics_master=None,
                         health_monitor=None,
                         remediation_engine=None,
+                        admission=None,
                         invalidation_log=None,
                         metastore_stats_fn=None,
                         role_fn=lambda: "PRIMARY") -> ServiceDefinition:
@@ -272,8 +313,8 @@ def meta_master_service(conf: Configuration, *, cluster_id: str = "",
 
     Admin ops (backup / checkpoint / path-conf mutation) are gated behind
     superuser, as the reference gates them behind admin privilege. The
-    JAX service's ``admission`` and ``masters_fn`` arguments are not
-    taken: their RPCs answer as the JAX ones do without them."""
+    JAX service's ``masters_fn`` argument (HA's quorum view) is not
+    taken: ``get_masters`` answers as the JAX one does without it."""
     from alluxio_tpu_torch.utils.exceptions import (
         FailedPreconditionError, InvalidArgumentError,
     )
@@ -458,7 +499,8 @@ def meta_master_service(conf: Configuration, *, cluster_id: str = "",
         snap = metrics().snapshot()
         if metrics_master is not None:
             snap = metrics_master.merged_snapshot(snap)
-        return {"admission": {"enabled": False},
+        return {"admission": admission.report() if admission is not None
+                else {"enabled": False},
                 "metrics": {k: v for k, v in snap.items()
                             if "Qos" in k or "RpcAdmission" in k}}
 

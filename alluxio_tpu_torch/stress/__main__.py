@@ -15,11 +15,12 @@ Benches:
   obs          tracing and profiler overhead, critical-path attribution
   health       metrics-history ingestion overhead
   selfheal     remediation detection->action latency and tick overhead
+  qos          two-tenant victim p99 under a flood; admission shedding
   suite        run the whole BASELINE config family
 
-The JAX CLI's ``qos`` and ``ha`` benches need modules the port does not
-have yet: each is refused with the ROADMAP item that brings it, and the
-suite leaves out their rows.
+The JAX CLI's ``ha`` bench needs modules the port does not have yet: it
+is refused with the ROADMAP item that brings it, and the suite leaves
+out its row.
 The table bench runs in-process only (``table --master`` is refused).
 """
 
@@ -32,7 +33,6 @@ import sys
 #: the JAX benches the port does not have yet, each with the ROADMAP item
 #: (its heading in "Open items") that ports the modules it needs
 _NOT_PORTED = {
-    "qos": "Admission and audit",
     "ha": "HA",
 }
 
@@ -225,6 +225,28 @@ def build_parser() -> argparse.ArgumentParser:
     rr.add_argument("--min-speedup", type=float, default=1.5,
                     help="fail below this striped/single throughput ratio")
 
+    qo = sub.add_parser("qos",
+                        help="two-tenant QoS: victim read p99 under an "
+                             "abusive tenant's flood with/without QoS, "
+                             "plus admission-limiter bounded-memory "
+                             "shedding (modeled UFS, fake-clock "
+                             "limiter)")
+    qo.add_argument("--rtt-ms", type=float, default=40.0,
+                    help="modeled per-read UFS round trip; must dwarf "
+                         "the host's thread-wake jitter")
+    qo.add_argument("--block-kb", type=int, default=64)
+    qo.add_argument("--victim-reads", type=int, default=12)
+    qo.add_argument("--flood-blocks", type=int, default=48,
+                    help="abusive-tenant backlog per wave (two waves)")
+    qo.add_argument("--per-mount-limit", type=int, default=4)
+    qo.add_argument("--tenant-limit", type=int, default=2)
+    qo.add_argument("--max-degradation", type=float, default=2.0,
+                    help="fail when the victim's flooded p99 exceeds "
+                         "this multiple of its solo p99 with QoS on")
+    qo.add_argument("--admission-checks", type=int, default=200_000)
+    qo.add_argument("--admission-principals", type=int, default=20_000)
+    qo.add_argument("--admission-max-principals", type=int, default=512)
+
     md = sub.add_parser("metadata",
                         help="metadata control-plane gates: striped "
                              "inode locking + journal group commit vs "
@@ -310,6 +332,7 @@ SUITE = (
     ("selfheal-remediation", ["selfheal"]),
     ("ufs-cold-read", ["ufscold"]),
     ("remote-warm-read", ["remoteread"]),
+    ("qos-two-tenant", ["qos"]),
     ("metadata-striped", ["metadata", "--row", "striped"]),
     ("metadata-cached-getstatus", ["metadata", "--row", "cached"]),
     ("metadata-journal-batch", ["metadata", "--row", "journal"]),
@@ -571,6 +594,18 @@ def main(argv=None) -> int:
                 conn_mbps=args.conn_mbps, blocks=args.blocks,
                 hedge_quantile=args.hedge_quantile,
                 stall_ms=args.stall_ms, min_speedup=args.min_speedup)
+    elif args.bench == "qos":
+        from alluxio_tpu_torch.stress.qos_bench import run
+
+        r = run(rtt_ms=args.rtt_ms, block_kb=args.block_kb,
+                victim_reads=args.victim_reads,
+                flood_blocks=args.flood_blocks,
+                per_mount_limit=args.per_mount_limit,
+                tenant_limit=args.tenant_limit,
+                max_degradation=args.max_degradation,
+                admission_checks=args.admission_checks,
+                admission_principals=args.admission_principals,
+                admission_max_principals=args.admission_max_principals)
     elif args.bench == "metadata":
         from alluxio_tpu_torch.stress.metadata_bench import run
 

@@ -224,7 +224,8 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    restarts on the same journal and metastore, the 2 000 files must list
    as before, and the journal replay (from the master's banner) and the
    store's flushes, compactions and runs print; (d) ``python -m
-   alluxio_tpu_torch.stress suite`` as a child process, its lines in the
+   alluxio_tpu_torch.stress suite`` as a child process (its rows cut as
+   ``SUITE_CUTS`` says, each cut printed), its lines in the
    work directory: it must exit 0, or 1 with each failed row failed by
    its speed gate alone (``gate_miss``: a crash, a wrong byte or count
    fails the run), every row and gate printed; ``stress report`` renders
@@ -258,6 +259,32 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    ``attributed_pct`` under the obs gate of 90 is a recorded miss); (f)
    the master's profile of the client must hold the loader's producer
    frames; no role process may outlive the stop.
+2j. the master's guards, after 2i: a ``MultiProcessCluster`` of its own
+   (its master and one worker, each a process, in ``/dev/shm``) with RPC
+   admission on at the JAX defaults and the detection, sync, cleanup and
+   health keys cut (``GUARD_KEYS``, each printed with its default). (a)
+   32 of the main path's shards, 16 MUST_CACHE and 16 CACHE_THROUGH, and
+   one loader epoch onto the card, every block's ``scaled_sum`` the plain
+   version's; the worker's process stopped (``SIGSTOP``) until the master
+   has marked exactly the 16 MUST_CACHE files ``LOST`` (never a persisted
+   one), then resumed until it has re-registered and all 16 are
+   ``NOT_PERSISTED`` again (each time printed); a second epoch gives
+   every block the first's sum. (b) A persisted ``/sync`` directory made
+   a sync point; 16 seeded 32 MiB files dropped into its UFS directory
+   from outside (``os.replace``) must be listed at their lengths (the
+   seconds printed), read cold onto the card with each block's sum its
+   file's; 4 deleted in the UFS must leave the listing; ``stop_sync``
+   must leave no sync point. (c) The loader's own principal runs an
+   epoch of (a)'s shards with a 20 Hz ``get_status`` probe, alone, beside
+   a child process of another principal flooding ``get_status`` from 8
+   threads, and alone again: the epoch, the consumer's wait and the
+   probe's p50/p99 of each turn, the flood's calls, the shed count by
+   principal, the audit lines with ``allowed=false`` and the writer's
+   dropped counts, and the tenant-overload alert's state; the victim must
+   never be shed, the flood must be, and the audited plus the dropped
+   denials must equal the shed count. (d) An aged and a fresh persist
+   temp in the root UFS: the aged one must go within two cleanup ticks,
+   the fresh one must stay; no role process may outlive the stop.
 
 It prints the card's name and power limit, whether pyarrow imports,
 one ``{"main": {...}}``
@@ -267,7 +294,7 @@ line, one ``{"train": {...}}``
 line, one ``{"mesh": {...}}`` line, one ``{"suite": {...}}`` line, one
 ``{"clairvoyant": {...}}`` line, one ``{"multi_process": {...}}`` line,
 one ``{"stress": {...}}`` line, one ``{"observability": {...}}`` line,
-one ``{"kernels": [...]}`` line,
+one ``{"guards": {...}}`` line, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
 exits non-zero and prints no result. All data is made from a seed.
@@ -311,6 +338,9 @@ MASTER_DIRS = 20
 #: config #3's trace ring: every span of the stage (a few per loaded
 #: block, and the heartbeats' RPCs) with room to spare
 SUITE_TRACE_RING = 1 << 17
+#: 2e #3's traced rerun loads this fraction of the files (a cut, since
+#: the script ran past its time on a slow host: PERF.md section 4)
+SUITE_TRACED_DIVISOR = 4
 PAGE_BYTES = 1 << 20
 PAGE_CACHE_BYTES = 512 << 20
 #: worker phase: a MEM tier of the working set and eight blocks more
@@ -1147,12 +1177,16 @@ def suite_prefetch(device, k: int) -> dict:
         fail(f"suite #3: {waits} commit waits and {fetches} fetches for "
              f"{blocks} loaded blocks")
 
-    # the traced run: the same config, every span kept in the ring
+    # the traced run: the same config at a quarter of the files (a cut,
+    # PERF.md section 4), every span kept in the ring
+    traced_files = max(1, files // SUITE_TRACED_DIVISOR)
+    print(f"suite #3: cut: the traced run loads {traced_files} of the "
+          f"{files} files", flush=True)
     t1 = time.perf_counter()
     tracing.tracer().clear()
     try:
         traced = tpu_suite.config3_prefetch(
-            device, file_bytes=file_bytes, num_files=files,
+            device, file_bytes=file_bytes, num_files=traced_files,
             consumer=equal_only,
             conf_overrides={
                 Keys.TRACE_ENABLED: True,
@@ -1187,6 +1221,7 @@ def suite_prefetch(device, k: int) -> dict:
                 "fetch_s": fetch_s,
                 "fetch_ms_per_block": 1e3 * fetch_s / blocks,
                 "traced_load": {
+                    "files": traced_files,
                     "blocks": traced["num_blocks"],
                     "load_seconds": traced["load_seconds"],
                     "post_load_mb_per_s": traced["value"],
@@ -1218,7 +1253,8 @@ def suite_prefetch(device, k: int) -> dict:
           f"scan K={k} {row['consumer']['scan_ms']:.2f} ms, acc "
           f"{row['consumer']['chain']} == plain == warm set's plain; "
           f"launches {launches}; stage {row['s']:.1f} s", flush=True)
-    print(f"suite #3 traced run (worker metrics heartbeat held off): load "
+    print(f"suite #3 traced run ({traced_files} files, worker metrics "
+          f"heartbeat held off): load "
           f"job {tl['load_seconds']} s, post-load stream "
           f"{tl['post_load_mb_per_s']} MB/s, the loaded set equal to the "
           f"warm set on the card; {tl['spans']} spans in a ring of "
@@ -3087,7 +3123,7 @@ def mp_phase(device, mp: dict, main: dict, inproc: dict, k: int) -> dict:
 STRESS_CLI = [sys.executable, "-m", "alluxio_tpu_torch.stress"]
 #: 2h a's and 2h b's cut (PERF.md section 4): each bench measures this
 #: many seconds, not the CLI's 5 (2h d's suite runs the same benches at
-#: their own durations), so that the script stays near 900 s
+#: the same cut, ``SUITE_CUTS``), so that the script stays under 925 s
 STRESS_DURATION_S = 2
 #: 2h a's worker bench corpus: 32 x 64 MiB, the main path's 2 GiB
 STRESS_SHARD_MB = 64
@@ -3429,6 +3465,17 @@ def gate_miss(row: dict) -> "str | None":
                 f"{m.get('heap_built_before_oom')} inodes), LSM finished "
                 f"{m.get('lsm_ok')}, under {m.get('cap_mb')} MiB") \
             if ok else None
+    elif bench == "qos-two-tenant":
+        # the victim's degradation is the gate; an inert limiter or an
+        # unbounded bucket map is a fault
+        ok = m.get("admission_shed", 0) > 0 and \
+            m.get("admission_buckets_tracked", 0) <= \
+            m.get("admission_buckets_cap", 0) and \
+            m.get("victim_degradation_qos_x", 0.0) > \
+            p["max_degradation_x"]
+        return (f"victim_degradation_qos_x "
+                f"{m.get('victim_degradation_qos_x')} over the "
+                f"{p['max_degradation_x']}x gate") if ok else None
     elif bench == "smallread-batch":
         ok = m.get("mismatches") == 0
         key = "speedup"
@@ -3456,6 +3503,41 @@ def gate_miss(row: dict) -> "str | None":
             f"(min_speedup {p.get('min_speedup')})") if ok else None
 
 
+#: 2h d's cuts of the suite's rows (PERF.md section 4), each printed: the
+#: script ran past its time on a slow host. The capacity row cannot show
+#: its gate at the suite's own size either (HEAP fits 1 000 000 inodes)
+SUITE_CUTS = {
+    "metadata-lsm-capacity": {"--inodes": "200000"},
+    **{name: {"--duration": "2"} for name in (
+        "worker-sequential", "worker-random-4k", "master-CreateFile",
+        "master-GetStatus", "master-ListStatus", "master-ListStatus-large",
+        "master-DeleteFile")},
+}
+#: ``stress suite`` over the rows given as JSON in its first argument
+SUITE_CHILD = (
+    "import json, sys\n"
+    "import alluxio_tpu_torch.stress.__main__ as cli\n"
+    "cli.SUITE = tuple((n, a) for n, a in json.loads(sys.argv[1]))\n"
+    "sys.exit(cli.main(['suite']))\n")
+
+
+def cut_suite() -> tuple:
+    """The CLI's ``SUITE`` with ``SUITE_CUTS`` applied, each cut printed
+    beside the row's own value."""
+    from alluxio_tpu_torch.stress.__main__ import SUITE
+
+    rows = []
+    for name, argv in SUITE:
+        argv = list(argv)
+        for opt, value in SUITE_CUTS.get(name, {}).items():
+            i = argv.index(opt) + 1
+            print(f"2h d: cut {name} {opt} {value} (the suite's "
+                  f"{argv[i]})", flush=True)
+            argv[i] = value
+        rows.append((name, argv))
+    return tuple(rows)
+
+
 def suite_phase(workdir: str) -> dict:
     """(2d of 2h): ``python -m alluxio_tpu_torch.stress suite`` as a child
     process, its lines written into ``workdir``: it must exit 0, or 1
@@ -3464,13 +3546,13 @@ def suite_phase(workdir: str) -> dict:
     row."""
     import html
 
-    from alluxio_tpu_torch.stress.__main__ import SUITE
-
+    SUITE = cut_suite()
     t_phase = time.perf_counter()
     lines_path = os.path.join(workdir, "stress-suite.jsonl")
     log_path = os.path.join(workdir, "stress-suite.log")
     with open(lines_path, "w") as out, open(log_path, "w") as err:
-        proc = subprocess.run(STRESS_CLI + ["suite"], stdout=out,
+        proc = subprocess.run([sys.executable, "-c", SUITE_CHILD,
+                               json.dumps(SUITE)], stdout=out,
                               stderr=err, cwd=workdir, env=stress_env(),
                               timeout=SUITE_TIMEOUT_S)
     suite_s = time.perf_counter() - t_phase
@@ -3965,6 +4047,548 @@ def observability_phase(device, main: dict, k: int) -> dict:
            "s": time.perf_counter() - t_phase}
     print(f"2i: {out['s']:.1f} s, scaled_sum launched {launches} times",
           flush=True)
+    return out
+
+
+# -- 2j: the master's guards ---------------------------------------------------
+#: the cuts of 2j, each printed beside its default; admission runs at the
+#: JAX defaults (200 calls/s, a burst of 400, a principal)
+GUARD_KEYS = {
+    "atpu.master.lost.files.detection.interval": "500ms",
+    "atpu.master.lost.worker.detection.interval": "500ms",
+    "atpu.master.worker.timeout": "2s",
+    "atpu.master.activesync.interval": "500ms",
+    "atpu.master.ufs.cleanup.interval": "1s",
+    "atpu.master.persistence.temp.ttl": "5s",
+    "atpu.master.health.eval.interval": "500ms",
+    # a live worker beats eight times within the timeout, so only the
+    # stopped one is declared lost
+    "atpu.worker.block.heartbeat.interval": "250ms",
+}
+GUARD_SHARDS = 32        # (a): 16 MUST_CACHE + 16 CACHE_THROUGH, 1 GiB
+GUARD_SYNC_FILES = 16    # (b): dropped into the sync point's UFS directory
+GUARD_SYNC_DELETED = 4
+GUARD_PROBE_HZ = 20      # (c): the victim's get_status probe
+GUARD_FLOOD_THREADS = 8
+GUARD_FLOOD_PRINCIPAL = "flood-tenant"
+GUARD_DEADLINE_S = 60.0
+GUARD_ALERT_WAIT_S = 3.0
+#: (c)'s flooding tenant: a child process that calls get_status from
+#: several threads, under a principal of its own, on the same transport a
+#: client on the master's host takes (the fast path), until a stop file
+#: appears; it prints its counts as one JSON line
+FLOOD_CHILD = r"""
+import json, os, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+from alluxio_tpu_torch.rpc.clients import FsMasterClient
+from alluxio_tpu_torch.utils.exceptions import ResourceExhaustedError
+address, fast_dir, path, stop, principal = sys.argv[2:7]
+threads = int(sys.argv[7])
+counts = [[0, 0, 0] for _ in range(threads)]
+started = threading.Barrier(threads + 1)
+def flood(i):
+    c = FsMasterClient(address, metadata=(("atpu-user", principal),),
+                       retry_duration_s=0.0, fastpath_dir=fast_dir)
+    c.exists("/")
+    started.wait()
+    while not os.path.exists(stop):
+        try:
+            c.get_status(path)
+            counts[i][0] += 1
+        except ResourceExhaustedError:
+            counts[i][1] += 1
+        except Exception:
+            counts[i][2] += 1
+    transport[i] = c.transport
+transport = [None] * threads
+ts = [threading.Thread(target=flood, args=(i,)) for i in range(threads)]
+for t in ts:
+    t.start()
+started.wait()
+print("ready", flush=True)
+t0 = time.perf_counter()
+for t in ts:
+    t.join()
+print(json.dumps({"admitted": sum(c[0] for c in counts),
+                  "shed": sum(c[1] for c in counts),
+                  "errors": sum(c[2] for c in counts),
+                  "s": time.perf_counter() - t0,
+                  "transports": sorted(set(transport))}), flush=True)
+"""
+
+
+def start_guard_cluster(base: str, block_bytes: int, tier: int):
+    """A ``MultiProcessCluster`` (its master and one worker, each a
+    process) with admission on and 2j's cuts, blocks of ``block_bytes``
+    and a MEM tier of ``tier`` bytes; each cut is printed with its
+    default."""
+    from alluxio_tpu_torch.conf import Keys, Templates
+    from alluxio_tpu_torch.conf.property_key import REGISTRY
+    from alluxio_tpu_torch.minicluster.multi_process import (
+        MultiProcessCluster,
+    )
+
+    for key, value in GUARD_KEYS.items():
+        print(f"2j: cut {key} = {value} (default "
+              f"{REGISTRY.get(key).default})", flush=True)
+    extra = {Keys.USER_BLOCK_SIZE_BYTES_DEFAULT.name: str(block_bytes),
+             Templates.WORKER_TIER_DIRS_QUOTA.format(0).name: str(tier),
+             Keys.MASTER_RPC_ADMISSION_ENABLED.name: "true",
+             **GUARD_KEYS}
+    cluster = MultiProcessCluster(os.path.join(base, "cluster"),
+                                  num_workers=1, extra_conf=extra)
+    cluster.start(timeout_s=MP_BOOT_S)
+    return cluster
+
+
+def _sync_device(device) -> None:
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+
+
+def guard_epoch(device, fs, paths: list) -> dict:
+    """One loader epoch (no device tier: every block crosses from the
+    worker) onto ``device``: each block's ``scaled_sum`` held against
+    ``scaled_sum_reference`` of the same block. Returns the sums by path,
+    the epoch's seconds and the consumer's wait."""
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    loader = DeviceBlockLoader(fs, paths, device=device, prefetch=2,
+                               dtype=np.int32)
+    sums = []
+    try:
+        wait0 = loader.stall_report()["total_wait_s"]
+        _sync_device(device)
+        t = time.perf_counter()
+        for path, block in zip(paths, loader.epoch()):
+            # a no-op view at the main path's block size; zeros (neutral
+            # to the sum) pad a smaller block to the kernel's multiple
+            x = rk.pad_to_kernel_shape(block)
+            got = int(rk.scaled_sum(x, 1))
+            want = int(rk.scaled_sum_reference(x, 1))
+            if got != want:
+                fail(f"2j: {path}'s scaled_sum {got} != plain {want}")
+            sums.append(got)
+        _sync_device(device)
+        epoch_s = time.perf_counter() - t
+        wait_s = loader.stall_report()["total_wait_s"] - wait0
+    finally:
+        loader.close()
+    if len(sums) != len(paths):
+        fail(f"2j: the epoch gave {len(sums)} blocks for {len(paths)} "
+             f"files")
+    return {"sums": dict(zip(paths, sums)), "s": epoch_s, "wait_s": wait_s}
+
+
+def _states(fsc, directory: str) -> dict:
+    return {i.path: i.persistence_state
+            for i in fsc.list_status(directory)}
+
+
+def lost_file_drill(device, cluster, files: dict, must: list,
+                    through: list) -> dict:
+    """(2j a) ``must`` written MUST_CACHE and ``through`` CACHE_THROUGH
+    from their block files; one epoch onto ``device``; the worker's
+    process stopped (``SIGSTOP``) until the master has marked exactly the
+    MUST_CACHE files ``LOST``, then resumed (``SIGCONT``) until it has
+    re-registered and every file is back; a second epoch must give each
+    block the first epoch's sum."""
+    import signal
+
+    from alluxio_tpu_torch.client.streams import WriteType
+    from alluxio_tpu_torch.rpc.clients import BlockMasterClient
+
+    fs = cluster.file_system()
+    fsc = cluster.fs_client()
+    bmc = BlockMasterClient(cluster.master_addresses)
+    directory = os.path.dirname(must[0])
+    paths = must + through
+    t = time.perf_counter()
+    for path in paths:
+        fs.write_all(path, np.fromfile(files[path], dtype=np.uint8),
+                     write_type=WriteType.MUST_CACHE if path in must
+                     else WriteType.CACHE_THROUGH)
+    write_s = time.perf_counter() - t
+    states = _states(fsc, directory)
+    want = {p: "NOT_PERSISTED" if p in must else "PERSISTED" for p in paths}
+    if states != want:
+        fail(f"2j (a): written states {states}")
+    first = guard_epoch(device, fs, paths)
+    fs.close()
+    worker = cluster.workers[0]
+    worker.kill(signal.SIGSTOP)
+    t_stop = time.perf_counter()
+    lost_worker_s = None
+    try:
+        while True:
+            states = _states(fsc, directory)
+            if lost_worker_s is None and not bmc.get_worker_infos():
+                lost_worker_s = time.perf_counter() - t_stop
+            lost = sorted(p for p, s in states.items() if s == "LOST")
+            if any(states[p] != "PERSISTED" for p in through):
+                fail(f"2j (a): a persisted file left PERSISTED: {states}")
+            if lost == sorted(must):
+                break
+            if time.perf_counter() - t_stop > GUARD_DEADLINE_S:
+                fail(f"2j (a): {len(lost)} of {len(must)} files LOST "
+                     f"{GUARD_DEADLINE_S} s after the worker stopped")
+            time.sleep(0.05)
+        lost_s = time.perf_counter() - t_stop
+    finally:
+        worker.kill(signal.SIGCONT)
+    t_cont = time.perf_counter()
+    registered_s = None
+    while True:
+        if registered_s is None and bmc.get_worker_infos():
+            registered_s = time.perf_counter() - t_cont
+        states = _states(fsc, directory)
+        if registered_s is not None and states == want:
+            break
+        if time.perf_counter() - t_cont > GUARD_DEADLINE_S:
+            fail(f"2j (a): not recovered {GUARD_DEADLINE_S} s after the "
+                 f"worker resumed: {states}")
+        time.sleep(0.05)
+    recovered_s = time.perf_counter() - t_cont
+    fs = cluster.file_system()
+    try:
+        second = guard_epoch(device, fs, paths)
+    finally:
+        fs.close()
+    if second["sums"] != first["sums"]:
+        fail("2j (a): the second epoch's sums differ from the first's")
+    return {"files": len(paths), "must_cache": len(must),
+            "cache_through": len(through), "write_s": write_s,
+            "epoch1_s": first["s"], "epoch2_s": second["s"],
+            "lost_worker_s": lost_worker_s, "lost_s": lost_s,
+            "registered_s": registered_s, "recovered_s": recovered_s,
+            "sums": first["sums"]}
+
+
+def _log_lines(path: str, needle: str) -> int:
+    with open(path, "rb") as f:
+        return sum(needle.encode() in line for line in f)
+
+
+def sync_drill(device, cluster, base: str, block_bytes: int,
+               n_files: int, n_deleted: int) -> dict:
+    """(2j b) a persisted ``/sync`` directory made a sync point; seeded
+    files dropped into its UFS directory from outside the cluster (each
+    written beside it and moved in with ``os.replace``) must appear in the
+    listing at their lengths, read cold through the worker onto
+    ``device`` with each block's ``scaled_sum`` equal to the plain
+    version's over the file's bytes; deleted ones must leave it."""
+    import torch
+
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    fsc = cluster.fs_client()
+    root = fsc.get_mount_points()[0].ufs_uri
+    ufs_dir = os.path.join(root, "sync")
+    os.makedirs(ufs_dir)
+    info = fsc.get_status("/sync", sync_interval_ms=0)
+    if not (info.folder and info.persisted):
+        fail(f"2j (b): /sync is not a persisted directory: {info}")
+    fsc.start_sync("/sync")
+    if fsc.get_sync_path_list() != ["/sync"]:
+        fail(f"2j (b): sync points {fsc.get_sync_path_list()}")
+    # a directory's first listing loads its UFS children once; list it
+    # before the drop, so that only the sync point's ticks can show the
+    # dropped files
+    if fsc.list_status("/sync"):
+        fail("2j (b): /sync is not empty before the drop")
+    staging = os.path.join(base, "staging")
+    os.makedirs(staging)
+    rng = np.random.default_rng(SEED + 14)
+    datas = {}
+    for i in range(n_files):
+        name = f"drop-{i:02d}.bin"
+        data = rng.integers(-2**31, 2**31 - 1, size=block_bytes // 4,
+                            dtype=np.int32)
+        data.tofile(os.path.join(staging, name))
+        datas[f"/sync/{name}"] = data
+    for path in datas:
+        name = os.path.basename(path)
+        os.replace(os.path.join(staging, name), os.path.join(ufs_dir, name))
+    t_drop = time.perf_counter()
+    want = sorted((os.path.basename(p), block_bytes) for p in datas)
+    while sorted((i.name, i.length)
+                 for i in fsc.list_status("/sync")) != want:
+        if time.perf_counter() - t_drop > GUARD_DEADLINE_S:
+            fail(f"2j (b): the sync point lists "
+                 f"{[i.name for i in fsc.list_status('/sync')]}")
+        time.sleep(0.02)
+    visible_s = time.perf_counter() - t_drop
+    fs = cluster.file_system()
+    try:
+        epoch = guard_epoch(device, fs, sorted(datas))
+    finally:
+        fs.close()
+    for path, got in epoch["sums"].items():
+        want_sum = int(rk.scaled_sum_reference(
+            torch.from_numpy(datas[path]), 1))
+        if got != want_sum:
+            fail(f"2j (b): {path}'s block sums {got}, its file's bytes "
+                 f"{want_sum}")
+    gone = sorted(datas)[:n_deleted]
+    for path in gone:
+        os.remove(os.path.join(ufs_dir, os.path.basename(path)))
+    t_del = time.perf_counter()
+    while {i.path for i in fsc.list_status("/sync")} & set(gone):
+        if time.perf_counter() - t_del > GUARD_DEADLINE_S:
+            fail("2j (b): deleted files still listed")
+        time.sleep(0.02)
+    deleted_s = time.perf_counter() - t_del
+    fsc.stop_sync("/sync")
+    points = fsc.get_sync_path_list()
+    if points:
+        fail(f"2j (b): sync points after stop_sync: {points}")
+    return {"files": n_files, "visible_s": visible_s,
+            "cold_epoch_s": epoch["s"], "cold_wait_s": epoch["wait_s"],
+            "cold_gb_per_s": n_files * block_bytes / epoch["s"] / 1e9,
+            "deleted": n_deleted, "deleted_s": deleted_s}
+
+
+class _Probe:
+    """The victim's probe: ``get_status`` at ``GUARD_PROBE_HZ`` on a
+    thread of its own, under the victim's principal, with no retry (a
+    shed surfaces)."""
+
+    def __init__(self, cluster, path: str) -> None:
+        import threading
+
+        from alluxio_tpu_torch.rpc.clients import FsMasterClient
+        from alluxio_tpu_torch.utils.exceptions import ResourceExhaustedError
+
+        self._client = FsMasterClient(cluster.master_addresses,
+                                      retry_duration_s=0.0,
+                                      fastpath_dir=cluster.base)
+        self._path = path
+        self._shed_error = ResourceExhaustedError
+        self.ms, self.shed = [], 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="smoke-guard-probe")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        period = 1.0 / GUARD_PROBE_HZ
+        while not self._stop.wait(period):
+            t = time.perf_counter()
+            try:
+                self._client.get_status(self._path)
+                self.ms.append((time.perf_counter() - t) * 1000.0)
+            except self._shed_error:
+                self.shed += 1
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(10)
+        self._client.close()
+        ms = sorted(self.ms)
+        return {"calls": len(ms), "shed": self.shed,
+                "p50_ms": pct(ms, 50), "p99_ms": pct(ms, 99)}
+
+
+def admission_drill(device, cluster, paths: list, sums: dict,
+                    principal: str) -> dict:
+    """(2j c) the victim (the loader's own principal) runs an epoch with
+    its probe alone, beside a flooding tenant's child process, and alone
+    again; the victim is never shed, the flood is, and every shed call is
+    audited or counted as dropped by the audit writer."""
+    from alluxio_tpu_torch.rpc.clients import MetaMasterClient
+
+    meta = MetaMasterClient(cluster.master_addresses, retry_duration_s=30.0)
+    stop_file = os.path.join(cluster.base, "flood.stop")
+    turns, flood, alert, flood_s = [], None, None, 0.0
+    for turn in ("alone", "flood", "alone again"):
+        child = None
+        if turn == "flood":
+            child = subprocess.Popen(
+                [sys.executable, "-c", FLOOD_CHILD, str(ROOT),
+                 cluster.master_addresses, cluster.base, paths[0],
+                 stop_file, GUARD_FLOOD_PRINCIPAL,
+                 str(GUARD_FLOOD_THREADS)],
+                stdout=subprocess.PIPE, text=True)
+            if child.stdout.readline().strip() != "ready":
+                child.kill()
+                fail("2j (c): the flood child did not start")
+            t_flood = time.perf_counter()
+        try:
+            probe = _Probe(cluster, paths[0])
+            fs = cluster.file_system()
+            try:
+                epoch = guard_epoch(device, fs, paths)
+            finally:
+                fs.close()
+                p = probe.stop()
+            if child is not None:
+                # the rule rates sheds between evaluations at least 1 s
+                # apart: its state is read on the health ticks while the
+                # flood goes on, up to GUARD_ALERT_WAIT_S into the flood
+                while True:
+                    health = meta.get_health(evaluate=False)
+                    alert = next(
+                        ([kind, a["subject"]]
+                         for kind in ("alerts", "pending")
+                         for a in health[kind]
+                         if a["rule"] == "tenant-over-share"), None)
+                    flood_s = time.perf_counter() - t_flood
+                    if alert or flood_s > GUARD_ALERT_WAIT_S:
+                        break
+                    time.sleep(0.1)
+        finally:
+            if child is not None:
+                with open(stop_file, "w"):
+                    pass
+                out, _ = child.communicate(timeout=60)
+                flood = json.loads(out.strip().splitlines()[-1])
+        if epoch["sums"] != sums:
+            fail(f"2j (c): the {turn} epoch's sums differ from (a)'s")
+        turns.append({"turn": turn, "epoch_s": epoch["s"],
+                      "wait_s": epoch["wait_s"], "probe": p})
+        print(f"2j (c): victim {turn}: epoch {epoch['s']:.3f} s, the "
+              f"consumer waits {epoch['wait_s']:.3f} s, probe "
+              f"{p['calls']} calls p50 {p['p50_ms']:.3f} ms p99 "
+              f"{p['p99_ms']:.3f} ms, {p['shed']} shed", flush=True)
+    qos = meta.get_qos()["admission"]
+    shed_by = {r["principal"]: r["shed"] for r in qos["principals"]}
+    admitted_by = {r["principal"]: r["admitted"] for r in qos["principals"]}
+    shed = qos["shed_total"]
+    if shed_by.get(principal, 0) or any(t["probe"]["shed"] for t in turns):
+        fail(f"2j (c): the victim {principal!r} was shed: {shed_by}")
+    if not shed_by.get(GUARD_FLOOD_PRINCIPAL) or not flood["shed"]:
+        fail(f"2j (c): the flood was never shed: {shed_by}, {flood}")
+    # the writer drains after the flood: every shed call is audited with
+    # allowed=false or counted among its dropped denials
+    log = os.path.join(cluster.base, "logs", "master0.out")
+    deadline = time.monotonic() + GUARD_DEADLINE_S
+    while True:
+        audited = _log_lines(log, "allowed=false")
+        m = meta.get_metrics()
+        dropped = int(m.get("Master.AuditLogDropped", 0))
+        dropped_denied = int(m.get("Master.AuditLogDroppedDenied", 0))
+        if audited + dropped_denied == shed:
+            break
+        if time.monotonic() > deadline:
+            fail(f"2j (c): {audited} audited + {dropped_denied} dropped "
+                 f"denials != {shed} shed")
+        time.sleep(0.2)
+    print(f"2j (c): the flood ({GUARD_FLOOD_THREADS} threads over "
+          f"{flood['transports']}) made {flood['admitted']} admitted and "
+          f"{flood['shed']} shed calls ({flood['errors']} errors) in "
+          f"{flood['s']:.2f} s; shed by principal {shed_by}, admitted "
+          f"{admitted_by}; audit: {audited} lines allowed=false + "
+          f"{dropped_denied} dropped denials = {shed} shed (the writer "
+          f"dropped {dropped} entries in all); tenant-over-share "
+          f"{alert[0] + ' for ' + alert[1] if alert else 'not raised'} "
+          f"{flood_s:.2f} s into the flood", flush=True)
+    return {"turns": turns, "flood": flood, "shed_by_principal": shed_by,
+            "admitted_by_principal": admitted_by, "shed_total": shed,
+            "audited": audited, "audit_dropped": dropped,
+            "audit_dropped_denied": dropped_denied,
+            "tenant_alert": alert, "tenant_alert_read_s": flood_s}
+
+
+def sweep_drill(cluster) -> dict:
+    """(2j d) an aged persist temp and a fresh one planted in the root
+    UFS: the aged one must go within two cleanup ticks, the fresh one
+    must stay."""
+    from alluxio_tpu_torch.conf import Configuration
+
+    keys = Configuration(GUARD_KEYS, load_env=False)
+    tick = keys.get_duration_s("atpu.master.ufs.cleanup.interval")
+    ttl = keys.get_duration_s("atpu.master.persistence.temp.ttl")
+    root = cluster.fs_client().get_mount_points()[0].ufs_uri
+    aged = os.path.join(root, ".atpu_persist.aged.0000aaaa")
+    fresh = os.path.join(root, ".atpu_persist.fresh.0000ffff")
+    log = os.path.join(cluster.base, "logs", "master0.out")
+    needle = "UfsCleaner removed abandoned persist temp"
+    removed0 = _log_lines(log, needle)
+    for path in (aged, fresh):
+        with open(path, "wb") as f:
+            f.write(b"temp")
+    old = time.time() - 10 * ttl
+    os.utime(aged, (old, old))
+    t = time.perf_counter()
+    while os.path.exists(aged):
+        if time.perf_counter() - t > 2 * tick + 0.5:
+            fail(f"2j (d): the aged temp outlived two {tick} s cleanup "
+                 f"ticks")
+        time.sleep(0.01)
+    gone_s = time.perf_counter() - t
+    time.sleep(tick + 0.2)  # one more tick: the fresh temp stays
+    if not os.path.exists(fresh):
+        fail("2j (d): the cleaner removed a fresh temp")
+    removed = _log_lines(log, needle) - removed0
+    print(f"2j (d): the aged temp went {gone_s:.3f} s after it was "
+          f"planted (ticks of {tick} s, TTL {ttl} s), the fresh one "
+          f"stayed; the cleaner logged {removed} removal(s)", flush=True)
+    return {"aged_gone_s": gone_s, "fresh_kept": True, "removed": removed,
+            "tick_s": tick, "ttl_s": ttl}
+
+
+def guards_phase(device, main: dict) -> dict:
+    """(2j) the master's guards on a process cluster of its own, against
+    the card's loader: a lost file and its recovery, active sync, RPC
+    admission and audit under a flood, and the UFS temp sweep."""
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.security.user import get_os_user
+
+    t_phase = time.perf_counter()
+    paths = list(main["files"])[:GUARD_SHARDS]
+    half = GUARD_SHARDS // 2
+    files = {f"/guards/{'m' if i < half else 't'}-{i:02d}":
+             main["files"][p][1] for i, p in enumerate(paths)}
+    names = list(files)
+    tier = (GUARD_SHARDS + GUARD_SYNC_FILES) * BLOCK_BYTES + (256 << 20)
+    base = block_dir(tier + (GUARD_SHARDS + GUARD_SYNC_FILES)
+                     * BLOCK_BYTES)
+    print(f"2j: admission on at the defaults (rate 200/s, burst 400 a "
+          f"principal); a MultiProcessCluster under {base}", flush=True)
+    rk.launches = 0
+    cluster = start_guard_cluster(base, BLOCK_BYTES, tier)
+    try:
+        lost = lost_file_drill(device, cluster, files, names[:half],
+                               names[half:])
+        print(f"2j (a): {half} MUST_CACHE + {half} CACHE_THROUGH x "
+              f"{BLOCK_BYTES >> 20} MiB written in {lost['write_s']:.2f} "
+              f"s, epoch 1 {lost['epoch1_s']:.3f} s; the worker stopped: "
+              f"dropped by the master {lost['lost_worker_s']:.3f} s later, "
+              f"exactly the {half} MUST_CACHE files LOST "
+              f"{lost['lost_s']:.3f} s later, none of the persisted; "
+              f"resumed: re-registered {lost['registered_s']:.3f} s, every "
+              f"file back {lost['recovered_s']:.3f} s later; epoch 2 "
+              f"{lost['epoch2_s']:.3f} s, every block's sum the first "
+              f"epoch's", flush=True)
+        sync = sync_drill(device, cluster, base, BLOCK_BYTES,
+                          GUARD_SYNC_FILES, GUARD_SYNC_DELETED)
+        print(f"2j (b): {sync['files']} x {BLOCK_BYTES >> 20} MiB dropped "
+              f"into the sync point's UFS directory, all listed "
+              f"{sync['visible_s']:.3f} s after the last; read cold onto "
+              f"the card in {sync['cold_epoch_s']:.3f} s "
+              f"({sync['cold_gb_per_s']:.2f} GB/s), every block's sum its "
+              f"file's; {sync['deleted']} deleted in the UFS left the "
+              f"listing {sync['deleted_s']:.3f} s later; stop_sync left "
+              f"no sync point", flush=True)
+        adm = admission_drill(device, cluster, names, lost["sums"],
+                              get_os_user())
+        sweep = sweep_drill(cluster)
+    finally:
+        cluster.stop()
+        alive = [p.proc.pid for p in cluster.masters + cluster.workers
+                 if p.alive]
+        shutil.rmtree(base, ignore_errors=True)
+    if alive:
+        fail(f"2j: processes {alive} outlived the cluster's stop")
+    del lost["sums"]
+    out = {"keys": GUARD_KEYS, "block_bytes": BLOCK_BYTES, "lost": lost,
+           "sync": sync, "admission": adm, "sweep": sweep,
+           "launches": rk.launches, "s": time.perf_counter() - t_phase}
+    print(f"2j: {out['s']:.1f} s, scaled_sum launched {rk.launches} "
+          f"times", flush=True)
     return out
 
 
@@ -4897,6 +5521,8 @@ def main() -> int:
               flush=True)
         # 2i: the observability loop on a process cluster of its own
         observability = observability_phase(device, main, K)
+        # 2j: the master's guards on a process cluster of its own
+        guards = guards_phase(device, main)
     finally:
         try:
             if mp is not None:
@@ -4922,6 +5548,7 @@ def main() -> int:
     print(json.dumps({"multi_process": multi}), flush=True)
     print(json.dumps({"stress": stress}), flush=True)
     print(json.dumps({"observability": observability}), flush=True)
+    print(json.dumps({"guards": guards}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "scaled_sum", "route": "cuda",
         "source": "alluxio_tpu_torch/ops/csrc/reduce_kernel.cu",
@@ -4944,7 +5571,8 @@ def main() -> int:
             "train": train["kernel_launches"]["scaled_sum"],
             "mesh": mesh["kernel_launches"]["scaled_sum"],
             "stress": stress["launches"],
-            "observability": observability["launches"]},
+            "observability": observability["launches"],
+            "guards": guards["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

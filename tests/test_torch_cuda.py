@@ -451,3 +451,30 @@ def test_clairvoyant_bench_on_the_card(cuda):
     assert m["block_mismatches"] == 0
     assert m["blocks_checked"] == 2 * m["blocks_per_epoch"] == 16
     assert m["hits"] + m["late"] + m["misses"] == 16
+
+
+def test_lost_file_drill_on_the_card(cuda, tmp_path):
+    """``chip_smoke.py``'s 2j (a) at 4 x 1 MiB: 2 MUST_CACHE and 2
+    CACHE_THROUGH files on a process cluster, an epoch onto the card, the
+    worker's process stopped until exactly the MUST_CACHE files are LOST,
+    resumed until all are back, and a second epoch whose block sums equal
+    the first's (each launch held against the plain version)."""
+    smoke = _smoke()
+    block = 1 << 20
+    files = {}
+    for i in range(4):
+        path = str(tmp_path / f"shard-{i}.blk")
+        np.random.default_rng(i).integers(
+            -2**31, 2**31 - 1, size=block // 4, dtype=np.int32).tofile(path)
+        files[f"/guards/{'m' if i < 2 else 't'}-{i}"] = path
+    names = list(files)
+    cluster = smoke.start_guard_cluster(str(tmp_path), block, 16 * block)
+    try:
+        before = rk.launches
+        got = smoke.lost_file_drill(cuda, cluster, files, names[:2],
+                                    names[2:])
+        assert rk.launches - before == 8
+    finally:
+        cluster.stop()
+    assert got["lost_s"] > 0 and got["recovered_s"] > 0
+    assert sorted(got["sums"]) == sorted(names)

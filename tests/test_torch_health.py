@@ -10,7 +10,9 @@ evaluation both monitors must return the same firing alerts, and their
 reports (pending, firing and resolved alerts, ranked, with every value)
 must be equal: every default rule fires and resolves alike. The port's
 rule set is JAX's ``default_rules`` plus the compaction-debt rule; the
-tenant-overload and quorum-degraded rules wait for admission and HA.
+tenant-overload rule is held against JAX's in
+``tests/test_torch_admission.py``, and the quorum-degraded rule waits
+for HA.
 """
 
 import importlib
@@ -173,7 +175,7 @@ def test_rule_set_is_jax_minus_the_deferred_rules():
         jax_h.metastore_compaction_debt_rule(7).to_wire()
     missing = {n for n in dir(jax_h) if not n.startswith("_")} - \
         {n for n in dir(port_h) if not n.startswith("_")}
-    assert missing == {"tenant_overload_rule", "quorum_degraded_rule"}
+    assert missing == {"quorum_degraded_rule"}
     assert port_h.SEVERITIES == jax_h.SEVERITIES
 
 

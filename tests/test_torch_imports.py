@@ -88,7 +88,8 @@ def test_importing_every_module_loads_no_jax():
               "utils.critical_path", "master.health",
               "master.remediation", "master.web", "utils.weblog",
               "utils.trace_fanout", "stress.obs_bench",
-              "stress.health_bench", "stress.selfheal_bench"):
+              "stress.health_bench", "stress.selfheal_bench",
+              "qos.admission", "security.audit", "stress.qos_bench"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -125,6 +126,10 @@ def test_role_launchers_load_no_torch():
             "alluxio_tpu_torch.master.health, "
             "alluxio_tpu_torch.master.remediation, "
             "alluxio_tpu_torch.master.web, "
+            "alluxio_tpu_torch.master.integrity, "
+            "alluxio_tpu_torch.master.sync, "
+            "alluxio_tpu_torch.qos.admission, "
+            "alluxio_tpu_torch.security.audit, "
             "alluxio_tpu_torch.worker.process, "
             "alluxio_tpu_torch.rpc.worker_service, "
             "alluxio_tpu_torch.worker.ufs_manager, "

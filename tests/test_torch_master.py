@@ -179,7 +179,6 @@ def test_metastore_factory(tmp_path, kind):
 
 
 @pytest.mark.parametrize("key", (
-    "atpu.master.rpc.admission.enabled",
     "atpu.master.update.check.enabled", "atpu.master.daily.backup.enabled",
     "atpu.master.journal.init.from.backup",
 ))
@@ -196,16 +195,19 @@ def test_master_process_refuses_unported_components(tmp_path, key):
         MasterProcess(conf, root_ufs_uri=str(tmp_path))
 
 
-@pytest.mark.parametrize("key, attr", (
+SWITCHED_ON = (
     ("atpu.master.web.enabled", "web_server"),
     ("atpu.master.remediation.enabled", "remediation"),
-))
+    ("atpu.master.rpc.admission.enabled", "admission"),
+)
+
+
+@pytest.mark.parametrize("key, attr", SWITCHED_ON)
 def test_master_process_builds_the_switched_on_component(tmp_path, key,
                                                          attr):
     """The key builds its component in both packages' started master
-    processes, and only that one (the other stays None)."""
-    other = {"web_server": "remediation",
-             "remediation": "web_server"}[attr]
+    processes, and only that one (the others stay None)."""
+    others = [a for _, a in SWITCHED_ON if a != attr]
     for pkg in PACKAGES:
         conf_mod = mod(pkg, "conf")
         keys = conf_mod.Keys
@@ -220,12 +222,19 @@ def test_master_process_builds_the_switched_on_component(tmp_path, key,
         process.start()
         try:
             assert getattr(process, attr) is not None, pkg
-            assert getattr(process, other) is None, pkg
+            assert all(getattr(process, a) is None for a in others), pkg
             assert type(getattr(process, attr)).__module__.startswith(
                 f"{pkg}."), pkg
             if attr == "remediation":
                 assert process.remediation.on_alerts in \
                     process.health_monitor.alert_listeners
+            elif attr == "admission":
+                # the gate on the RPC server, its shed calls audited, and
+                # the doctor's rule for a tenant over its share
+                assert process.rpc_server._admission is process.admission
+                assert process.admission._audit is process.audit_writer
+                assert "tenant-over-share" in [
+                    r.name for r in process.health_monitor.rules]
             else:
                 assert process.web_port == process.web_server.port > 0
         finally:

@@ -108,9 +108,9 @@ def test_stress_dispatches_to_the_cli(capsys):
     row = json.loads(lines[0])
     assert row["bench"] == "worker-random" and row["errors"] == 0
     assert row["params"]["master"] == "in-process"
-    assert main.main(["stress", "qos"]) == 1
-    assert "qos: not ported yet; it comes with the ROADMAP item " \
-        "'Admission and audit'" in capsys.readouterr().err
+    assert main.main(["stress", "ha"]) == 1
+    assert "ha: not ported yet; it comes with the ROADMAP item " \
+        "'HA'" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

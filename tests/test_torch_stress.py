@@ -578,8 +578,13 @@ TOY_BENCHES = {
     "obs-tracing-overhead": ("obs_bench", "run", dict(
         file_mb=1, reads=5, batches=2, span_iterations=1000,
         max_overhead_pct=1e9)),
+    # a 1 MiB read_all takes about a millisecond on one CPU core
+    # (0.88-1.18 ms, min and median of 200), so 120 reads keep the
+    # sampler on for at least 20 of its 5 ms intervals a batch: the
+    # sampler waits one interval before its first sample, and a shorter
+    # window can end with none
     "obs-profile-overhead": ("obs_bench", "run_profile_overhead", dict(
-        file_mb=1, reads=5, batches=2, sample_interval_ms=5,
+        file_mb=1, reads=120, batches=2, sample_interval_ms=5,
         max_overhead_pct=1e9)),
     "obs-critical-path": ("obs_bench", "run_critical_path", dict(
         file_mb=1, reads=20, min_attributed_pct=0.0)),
@@ -588,6 +593,10 @@ TOY_BENCHES = {
         max_overhead_pct=1e9)),
     "selfheal-remediation": ("selfheal_bench", "run", dict(
         sources=8, ticks=10, batches=2, max_overhead_pct=1e9)),
+    "qos-two-tenant": ("qos_bench", "run", dict(
+        rtt_ms=20.0, victim_reads=4, flood_blocks=8, per_mount_limit=2,
+        tenant_limit=1, max_degradation=1e9, admission_checks=20_000,
+        admission_principals=2_000, admission_max_principals=64)),
 }
 
 #: the max-throughput search's step cap (``master_bench.py``'s loop)
@@ -615,7 +624,8 @@ def test_bench_gives_the_jax_params_and_keys(name):
                             "edge_lock_ops_per_s", "cached_ops_per_s",
                             "max_sustained_ops_per_s", "spans_per_s",
                             "samples", "traces_analyzed",
-                            "drain_samples_per_s", "eval_on_us")
+                            "drain_samples_per_s", "eval_on_us",
+                            "admission_checks_per_s")
                 if k in port.metrics]
     assert headline and all(port.metrics[k] > 0 for k in headline)
 

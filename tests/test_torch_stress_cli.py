@@ -1,11 +1,11 @@
 """The port's stress CLI against the JAX package's, on the CPU.
 
 - ``build_parser()`` has JAX's subcommands and options, without the
-  benches the port refuses (``qos``, ``ha``); each of those is refused
-  with exit code 1 and the ROADMAP item that brings it; ``SUITE`` is
-  JAX's without those benches' rows; each suite row of the ``obs``,
-  ``health`` and ``selfheal`` benches reaches its bench function with
-  the keyword arguments JAX's CLI passes;
+  bench the port refuses (``ha``), which is refused with exit code 1 and
+  the ROADMAP item that brings it; ``SUITE`` is JAX's without that
+  bench's row; each suite row of the ``obs``, ``health``, ``selfheal``
+  and ``qos`` benches reaches its bench function with the keyword
+  arguments JAX's CLI passes;
 - ``make_tfrecord_shard`` gives the same bytes for one seed, and
   ``render_report`` the same HTML for the same records;
 - ``run_suite`` runs each row in a child process of the port's CLI, keeps
@@ -33,7 +33,7 @@ pytest.importorskip("jax")
 
 PACKAGES = ("alluxio_tpu", "alluxio_tpu_torch")
 JAX, PORT = PACKAGES
-REFUSED = {"qos": "Admission and audit", "ha": "HA"}
+REFUSED = {"ha": "HA"}
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
 
 
@@ -94,13 +94,15 @@ def test_refused_bench_names_its_roadmap_item(bench, capsys):
     assert item in open(os.path.join(ROOT, "ROADMAP.md")).read()
 
 
-#: the suite rows of the benches this slice ported, with the module and
-#: function each dispatches to
+#: the suite rows of the benches ported since the CLI (the observability
+#: benches, then the QoS bench), with the module and function each
+#: dispatches to
 OBS_ROWS = {"obs-tracing-overhead": ("obs_bench", "run"),
             "obs-profile-overhead": ("obs_bench", "run_profile_overhead"),
             "obs-critical-path": ("obs_bench", "run_critical_path"),
             "health-ingest-overhead": ("health_bench", "run"),
-            "selfheal-remediation": ("selfheal_bench", "run")}
+            "selfheal-remediation": ("selfheal_bench", "run"),
+            "qos-two-tenant": ("qos_bench", "run")}
 
 
 @pytest.mark.parametrize("row", sorted(OBS_ROWS))
