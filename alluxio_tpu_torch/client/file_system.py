@@ -187,8 +187,10 @@ class FileSystem:
                 Keys.USER_RPC_RETRY_BASE_SLEEP),
             max_sleep_s=self._conf.get_duration_s(
                 Keys.USER_RPC_RETRY_MAX_SLEEP))
-        self.fs_master = FsMasterClient(addresses, metadata=md,
-                                        fastpath_dir=fp_dir, **retry_kw)
+        self.fs_master = FsMasterClient(
+            addresses, metadata=md, fastpath_dir=fp_dir,
+            standby_reads=self._conf.get_bool(
+                Keys.USER_STANDBY_READS_ENABLED), **retry_kw)
         self.block_master = BlockMasterClient(addresses, metadata=md,
                                               fastpath_dir=fp_dir,
                                               **retry_kw)

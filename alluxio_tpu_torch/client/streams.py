@@ -6,7 +6,14 @@ It keeps the port's two repairs of the JAX write path: a cancelled
 it on the worker rather than commit the bytes sent), and ``written`` and
 the block boundaries count BYTES for any contiguous buffer, so a numpy
 array wider than a byte is split and completed at its true length (the
-JAX stream slices a memoryview by items).
+JAX stream slices a memoryview by items). And ``block_stream`` (the
+zero-copy loader's entry) waits for a source of a persisted block: a new
+primary master knows no worker until the workers re-register with it, so
+for that window a persisted block has neither a location nor a live
+worker to read it through from the UFS. The JAX stream raises at once
+there, and a loader reading through a master failover fails its epoch;
+here the open retries, its locations refreshed, for up to
+``NO_SOURCE_WAIT_S`` (a block with no UFS copy still fails at once).
 
 Re-design of ``core/client/fs/src/main/java/alluxio/client/file/
 {AlluxioFileInStream.java:66,AlluxioFileOutStream.java:56}``: a seekable
@@ -215,10 +222,28 @@ class FileInStream:
         self._streams[index] = stream
         return stream
 
+    #: seconds ``block_stream`` waits for a persisted block's source
+    NO_SOURCE_WAIT_S = 15.0
+
     def block_stream(self, index: int) -> BlockInStream:
-        """Expose the per-block stream — the zero-copy JAX path uses this to
-        mmap whole blocks instead of byte-copy reads."""
-        return self._block_stream(index)
+        """Expose the per-block stream — the zero-copy loader uses this to
+        mmap whole blocks instead of byte-copy reads. A persisted block
+        that no worker can serve yet (no location, no live worker: a
+        master failover before the workers re-registered) is retried
+        with its locations refreshed, backing off from 50 ms to 1 s, for
+        up to ``NO_SOURCE_WAIT_S``."""
+        deadline = time.monotonic() + self.NO_SOURCE_WAIT_S
+        delay = 0.05
+        while True:
+            try:
+                return self._block_stream(index)
+            except UnavailableError:
+                if self._ufs_info_for(index) is None or \
+                        time.monotonic() + delay > deadline:
+                    raise
+            self._block_infos = None
+            time.sleep(delay)
+            delay = min(1.0, 2 * delay)
 
     def pread_ranges(self, ranges: "List[tuple]", *,
                      route_stats: Optional[Dict[str, int]] = None

@@ -11,12 +11,13 @@ the authentication keys the worker's authenticator reads; the
 ``atpu.debug.fault.*`` hooks; the master's RPC, journal, metastore,
 safe-mode, worker-timeout, UFS path cache, fast-path, TTL and
 lost-worker keys, the metrics history, health-rule, remediation and
-web server keys, and the switches of the opt-in master components the
-port refuses; the permission keys; the tracing and ``atpu.profile.*``
+web server keys, the HA keys (standby masters and reads, the embedded
+Raft journal, the registry heartbeat), the backup keys, and the switch
+of the update check the port refuses; the permission keys; the tracing and ``atpu.profile.*``
 keys; the ``atpu.user.rpc.retry.*`` keys
 of the RPC clients, the client's file-system, metadata-cache,
-streaming chunk-size, SHM, remote-read, batch-read, native fastpath and
-``atpu.user.table.*`` keys, the table master's transform-monitor
+streaming chunk-size, SHM, remote-read, batch-read, native fastpath,
+standby-read and ``atpu.user.table.*`` keys, the table master's transform-monitor
 interval, and the ``atpu.prefetch.*`` keys of the prefetch service — with the JAX names, types, defaults and consistency levels, so
 one properties file configures either package.
 """
@@ -759,6 +760,57 @@ class Keys:
                     "(atpu-master-<rpc_port>.sock); clients probe the "
                     "same conventional path.")
 
+    # --- master: HA (standby masters, the embedded Raft journal) ---
+    MASTER_HA_ENABLED = _k(
+        "atpu.master.ha.enabled", KeyType.BOOL, default=False,
+        scope=Scope.MASTER,
+        description="Run the master fault-tolerant: file-lock election on "
+                    "the shared journal dir, standby tailing until primacy.")
+    MASTER_HA_STANDBY_READS_ENABLED = _k(
+        "atpu.master.ha.standby.reads.enabled", KeyType.BOOL, default=True,
+        scope=Scope.MASTER,
+        description="Standby masters serve GetStatus/ListStatus/Exists "
+                    "off their tailing journal apply, stamped with the "
+                    "standby's own (journal-deterministic) md_version; "
+                    "every other RPC is refused with a typed "
+                    "NotPrimaryError carrying the current leader hint "
+                    "(docs/ha.md).")
+    MASTER_HA_PUBLISH_INTERVAL = _k(
+        "atpu.master.ha.publish.interval", KeyType.DURATION, default="1s",
+        scope=Scope.MASTER,
+        description="How often an HA master publishes its row (role, "
+                    "applied sequence, term) into the shared-journal "
+                    "master registry backing `fsadmin report masters` "
+                    "and the quorum-degraded health rule.")
+    MASTER_EMBEDDED_JOURNAL_ADDRESSES = _k(
+        "atpu.master.embedded.journal.addresses", default="",
+        scope=Scope.ALL,
+        description="Comma-separated host:port quorum member addresses for "
+                    "the EMBEDDED (Raft) journal (reference: "
+                    "alluxio.master.embedded.journal.addresses).")
+    MASTER_EMBEDDED_JOURNAL_ADDRESS = _k(
+        "atpu.master.embedded.journal.address", default="",
+        scope=Scope.MASTER,
+        description="This master's own quorum address; must appear in "
+                    "atpu.master.embedded.journal.addresses.")
+    MASTER_EMBEDDED_JOURNAL_ELECTION_TIMEOUT_MIN = _k(
+        "atpu.master.embedded.journal.election.timeout.min",
+        KeyType.DURATION, default="300ms", scope=Scope.MASTER)
+    MASTER_EMBEDDED_JOURNAL_ELECTION_TIMEOUT_MAX = _k(
+        "atpu.master.embedded.journal.election.timeout.max",
+        KeyType.DURATION, default="600ms", scope=Scope.MASTER)
+    MASTER_EMBEDDED_JOURNAL_HEARTBEAT_INTERVAL = _k(
+        "atpu.master.embedded.journal.heartbeat.interval",
+        KeyType.DURATION, default="100ms", scope=Scope.MASTER)
+    MASTER_EMBEDDED_JOURNAL_SNAPSHOT_PERIOD_ENTRIES = _k(
+        "atpu.master.embedded.journal.snapshot.period.entries", KeyType.INT,
+        default=100_000, scope=Scope.MASTER)
+    MASTER_STANDBY_TAIL_INTERVAL = _k(
+        "atpu.master.standby.journal.tail.interval", KeyType.DURATION,
+        default="1s", scope=Scope.MASTER,
+        description="Standby journal tailing period (reference: "
+                    "UfsJournalCheckpointThread.java:47).")
+
     # --- master: journal and metastore ---
     MASTER_JOURNAL_TYPE = _k("atpu.master.journal.type", KeyType.ENUM,
                              default="LOCAL", choices=("LOCAL", "UFS", "EMBEDDED", "NOOP"),
@@ -861,16 +913,31 @@ class Keys:
                     "destabilize the cluster faster than any tenant "
                     "flood.")
 
-    # --- master: opt-in components the port's master does not have yet (it
-    # refuses to start with one switched on) ---
+    # --- master: the opt-in component the port's master does not have yet
+    # (it refuses to start with it switched on) ---
     MASTER_UPDATE_CHECK_ENABLED = _k(
         "atpu.master.update.check.enabled", KeyType.BOOL, default=False,
         scope=Scope.MASTER,
         description="Periodically probe for a newer release (reference "
                     "UpdateChecker.java; OFF by default here — "
                     "phone-home is opt-in).")
+
+    # --- master: metadata backups ---
     MASTER_DAILY_BACKUP_ENABLED = _k("atpu.master.daily.backup.enabled",
                                      KeyType.BOOL, default=False, scope=Scope.MASTER)
+    MASTER_BACKUP_DIR = _k("atpu.master.backup.directory",
+                           default="/tmp/alluxio_tpu/backups", scope=Scope.MASTER)
+    MASTER_DAILY_BACKUP_INTERVAL = _k(
+        "atpu.master.daily.backup.interval", KeyType.DURATION,
+        default="24h", scope=Scope.MASTER,
+        description="How often the scheduled-backup heartbeat lands a "
+                    "metadata backup (reference: DailyMetadataBackup's "
+                    "time-of-day schedule, interval-based here).")
+    MASTER_DAILY_BACKUP_RETENTION = _k(
+        "atpu.master.daily.backup.retention", KeyType.INT, default=3,
+        scope=Scope.MASTER,
+        description="Scheduled backups kept after pruning (reference: "
+                    "alluxio.master.daily.backup.files.retained).")
 
     # --- master: observability (metrics history, health rules, remediation,
     # the web server) ---
@@ -1124,6 +1191,17 @@ class Keys:
                     "UnavailableException retry on write).")
     USER_SHORT_CIRCUIT_ENABLED = _k("atpu.user.short.circuit.enabled", KeyType.BOOL,
                                     default=True, scope=Scope.CLIENT)
+    USER_STANDBY_READS_ENABLED = _k(
+        "atpu.user.standby.reads.enabled", KeyType.BOOL, default=False,
+        scope=Scope.CLIENT,
+        description="Route read-marked metadata RPCs (GetStatus/"
+                    "ListStatus/Exists) round-robin across the standby "
+                    "masters of atpu.master.rpc.addresses instead of "
+                    "the primary; responses carry the standby's "
+                    "md_version stamp so the client metadata cache "
+                    "stays coherent (docs/ha.md).  Requires "
+                    "atpu.master.ha.standby.reads.enabled on the "
+                    "masters.")
     USER_FILE_PASSIVE_CACHE_ENABLED = _k(
         "atpu.user.file.passive.cache.enabled", KeyType.BOOL, default=True,
         scope=Scope.CLIENT)

@@ -21,11 +21,13 @@ class HeartbeatContext:
 
     MASTER_TTL_CHECK = "Master.TtlCheck"
     MASTER_LOST_WORKER_DETECTION = "Master.LostWorkerDetection"
+    MASTER_LOST_MASTER_DETECTION = "Master.LostMasterDetection"
     MASTER_LOST_FILES_DETECTION = "Master.LostFilesDetection"
     MASTER_REPLICATION_CHECK = "Master.ReplicationCheck"
     MASTER_PERSISTENCE_SCHEDULER = "Master.PersistenceScheduler"
     MASTER_BLOCK_INTEGRITY_CHECK = "Master.BlockIntegrityCheck"
     MASTER_UFS_CLEANUP = "Master.UfsCleanup"
+    MASTER_DAILY_BACKUP = "Master.DailyBackup"
     MASTER_ACTIVE_SYNC = "Master.ActiveUfsSync"
     MASTER_TABLE_TRANSFORM_MONITOR = "Master.TableTransformMonitor"
     MASTER_HEALTH_CHECK = "Master.HealthCheck"

@@ -1,8 +1,5 @@
-"""Journal system: segmented WAL + checkpoints + group-commit flushing —
-a copy of ``alluxio_tpu/journal/system.py`` without the standby and
-backup methods (``standby_start``, ``catch_up``,
-``gain_primacy_from_standby``, ``checkpoint_standby``, ``write_backup``,
-``init_from_backup``), which come with the HA and backup slice.
+"""Journal system: segmented WAL + checkpoints + group-commit flushing (a
+copy of ``alluxio_tpu/journal/system.py``).
 
 Re-design of the reference's journal stack
 (``core/server/common/.../journal/{JournalSystem,AsyncJournalWriter,
@@ -19,7 +16,7 @@ JournalContext}.java`` and the UFS flavor ``journal/ufs/UfsJournal.java:71``):
   RPC-return, batched per operation instead of per timer tick.
 - **Primacy fencing** uses an epoch file + O_EXCL lock file; a master that
   loses the lock stops writing (the reference fences via log rotation /
-  Raft terms). Raft-style replicated mode (``journal/raft.py``) waits for HA.
+  Raft terms). Raft-style replicated mode lives in ``journal/raft.py``.
 - A NOOP flavor backs read-only/standby and unit-test uses.
 """
 
@@ -28,7 +25,7 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import msgpack
 
@@ -336,9 +333,13 @@ class LocalJournalSystem(JournalSystem):
             flush_timer.update(time.perf_counter() - t0)
 
     def _fsync(self, fd: int) -> None:
-        """The one fsync choke point (tests and benches override it to
-        model slow devices; the JAX chaos injector's fsync countdown
-        comes back with the HA slice)."""
+        """The one fsync choke point (tests/benches override to model
+        slow devices; the chaos injector's ``fsync_errors`` countdown
+        fails the next N syncs here — the ack-durability crash drill)."""
+        from alluxio_tpu_torch.utils import faults
+
+        if faults.armed() and faults.injector().take_fsync_error():
+            raise OSError("injected journal fsync failure")
         os.fsync(fd)
 
     def is_primary(self) -> bool:
@@ -616,6 +617,119 @@ class LocalJournalSystem(JournalSystem):
             self._close_log()
             self._open_log()
 
+    # -- standby mode (reference: standby masters tail the journal) ---------
+    def standby_start(self) -> None:
+        """Initial standby load: checkpoint + all durable segments, without
+        opening a write log."""
+        with self._lock:
+            self.start()
+            self._replay()
+
+    def catch_up(self) -> int:
+        """Apply entries newer than the local sequence (the tailer tick).
+        Tolerates the primary's in-flight torn tail. STRICTLY contiguous:
+        a sequence gap (e.g. the primary rotated the active log between
+        our listdir and open, so we read the new log first) triggers a
+        full rescan instead of silently skipping entries. Returns the
+        number of entries applied."""
+        applied = 0
+        with self._lock:
+            # a newer checkpoint than our state implies entries we can no
+            # longer read from GC'd segments: reload from scratch
+            ck = self._latest_checkpoint()
+            if ck and int(ck.split(".")[0], 16) > self._seq:
+                self._replay()
+                return 0
+            gap = False
+            for seg in self._list_segments():
+                path = os.path.join(self._log_dir, seg)
+                try:
+                    f = open(path, "rb")
+                except FileNotFoundError:  # GC'd between list and open
+                    continue
+                with f:
+                    for entry in JournalEntry.decode_stream(f):
+                        if entry.sequence <= self._seq:
+                            continue
+                        if entry.sequence != self._seq + 1:
+                            gap = True
+                            break
+                        self._apply(entry)
+                        self._seq = entry.sequence
+                        applied += 1
+                if gap:
+                    break
+            if gap:
+                # rotation raced the scan: rebuild deterministically
+                self._replay()
+        return applied
+
+    def gain_primacy_from_standby(self) -> None:
+        """Promotion for an already-tailing standby: finish the tail and
+        open the write log — no state reset, so failover is O(tail), not
+        O(snapshot) (reference: the standby's caught-up state serves)."""
+        with self._lock:
+            self.catch_up()
+            self._open_log()
+            self._primary = True
+
+    def checkpoint_standby(self) -> None:
+        """Checkpoint from standby state (no write log held). Shortens the
+        primary-promotion replay (reference: checkpoint on standby)."""
+        with self._lock:
+            if self._primary:
+                return
+            self._checkpoint_locked()
+
+    # -- backup / restore (reference: BackupLeaderRole.java:62 +
+    # initFromBackup AlluxioMasterProcess.java:173-190) --------------------
+    def write_backup(self, backup_dir: str) -> str:
+        """Full metadata backup = one checkpoint-format file; returns its
+        path. Safe on a live primary (state snapshot under the lock)."""
+        os.makedirs(backup_dir, exist_ok=True)
+        with self._lock:
+            snap = {
+                "sequence": self._seq,
+                "components": {name: comp.snapshot()
+                               for name, comp in self._components.items()},
+            }
+        stamp = time.strftime("%Y%m%d-%H%M%S")
+        path = os.path.join(backup_dir,
+                            f"atpu-backup-{stamp}-{snap['sequence']}.bak")
+        n = 1
+        while os.path.exists(path):  # same second + sequence: uniquify
+            path = os.path.join(
+                backup_dir,
+                f"atpu-backup-{stamp}-{snap['sequence']}.{n}.bak")
+            n += 1
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(msgpack.packb(snap, use_bin_type=True))
+            f.flush()
+            os.fsync(f.fileno())
+        os.rename(tmp, path)
+        return path
+
+    def init_from_backup(self, backup_path: str) -> bool:
+        """Seed an EMPTY journal from a backup file: the backup becomes the
+        initial checkpoint so the normal replay path restores it. Returns
+        False (and does nothing) when the journal already has state."""
+        self.start()
+        if self._latest_checkpoint() is not None or any(
+                self._list_segments()):
+            return False
+        with open(backup_path, "rb") as f:
+            snap = msgpack.unpackb(f.read(), raw=False,
+                                   strict_map_key=False)
+        seq = int(snap["sequence"])
+        tmp = os.path.join(self._ckpt_dir, ".tmp.restore")
+        with open(tmp, "wb") as f:
+            f.write(msgpack.packb(snap, use_bin_type=True))
+            f.flush()
+            os.fsync(f.fileno())
+        os.rename(tmp, os.path.join(self._ckpt_dir, f"{seq:016x}.ckpt"))
+        return True
+
     # -- introspection ------------------------------------------------------
     @property
     def sequence(self) -> int:
@@ -636,9 +750,11 @@ def create_journal_system(journal_type: str, folder: str, **kwargs) -> JournalSy
     if jt in ("LOCAL", "UFS"):
         return LocalJournalSystem(folder, **kwargs)
     if jt == "EMBEDDED":
-        # the replicated journal (``journal/raft.py``) comes with the HA
-        # slice: the error JAX raises when that module is absent
-        raise ValueError(
-            "journal type EMBEDDED requires the replicated journal "
-            "module (alluxio_tpu_torch.journal.raft); use LOCAL or UFS")
+        try:
+            from alluxio_tpu_torch.journal.raft import EmbeddedJournalSystem
+        except ImportError as e:
+            raise ValueError(
+                "journal type EMBEDDED requires the replicated journal "
+                "module (alluxio_tpu_torch.journal.raft); use LOCAL or UFS") from e
+        return EmbeddedJournalSystem(folder, **kwargs)
     raise ValueError(f"unknown journal type {journal_type}")

@@ -1,5 +1,13 @@
 """Block master: block -> locations map, worker registry & liveness — a
-copy of ``alluxio_tpu/master/block_master.py``.
+copy of ``alluxio_tpu/master/block_master.py``, with one repair: the
+container-id reservation entry tells its own live apply from a replay by
+the thread that reserves, not by journal primacy. The JAX master takes
+an entry applied while its journal is primary for its own live apply and
+leaves the id generator where it is; a lone EMBEDDED member restarted
+becomes the Raft leader before its apply loop replays its log, so it
+restarts the generator at 1 and hands out container ids that its inodes
+already hold (a new directory then gets the id of an existing inode, and
+the path walk of the next journal apply never ends).
 
 Re-design of ``core/server/master/.../block/DefaultBlockMaster.java:119``
 (workerRegister ``:869``, workerHeartbeat ``:916``,
@@ -116,6 +124,9 @@ class BlockMaster(Journaled):
         self.device_report_ttl_ms = 5 * 60 * 1000
         #: ids below this mark are covered by a journaled reservation
         self._container_reserved = 0
+        #: the thread inside ``new_container_id``'s journal write: only
+        #: its own apply of the reservation is live, any other a replay
+        self._reserving_thread: Optional[int] = None
         self._reserve_lock = threading.Lock()
         self._lost_blocks: Set[int] = set()
         #: worker id -> quarantine start (ms): still registered, still
@@ -183,11 +194,15 @@ class BlockMaster(Journaled):
                 if cid < self._container_reserved:  # another thread won
                     return cid
                 mark = cid + self.CONTAINER_ID_RESERVATION
-                with self._journal.immediate_durability(), \
-                        self._journal.create_context() as ctx:
-                    ctx.append(EntryType.BLOCK_CONTAINER_ID,
-                               {"next_container_id": mark,
-                                "owner": self.journal_name})
+                self._reserving_thread = threading.get_ident()
+                try:
+                    with self._journal.immediate_durability(), \
+                            self._journal.create_context() as ctx:
+                        ctx.append(EntryType.BLOCK_CONTAINER_ID,
+                                   {"next_container_id": mark,
+                                    "owner": self.journal_name})
+                finally:
+                    self._reserving_thread = None
                 self._container_reserved = mark
         return cid
 
@@ -656,11 +671,13 @@ class BlockMaster(Journaled):
                 self._lost_blocks.discard(p["block_id"])
         elif t == EntryType.BLOCK_CONTAINER_ID and \
                 p.get("owner") == self.journal_name:
-            if self._journal.is_primary():
+            if self._reserving_thread == threading.get_ident():
                 # live self-apply: the generator already advanced past
                 # the ids being reserved; jumping it to the mark would
                 # burn the whole chunk and re-reserve on EVERY call.
-                # Only track the covered range.
+                # Only track the covered range. (The JAX master asks
+                # the journal's primacy here, which a restarted lone
+                # Raft member holds while it replays its log.)
                 self._container_reserved = max(
                     self._container_reserved, p["next_container_id"])
             else:

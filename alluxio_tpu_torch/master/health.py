@@ -1,6 +1,5 @@
 """Continuous health-rule engine ("cluster doctor"): a copy of
-``alluxio_tpu/master/health.py`` without ``quorum_degraded_rule`` (it
-reads the HA quorum view, which is not ported yet).
+``alluxio_tpu/master/health.py``.
 
 Turns the metrics history (:mod:`alluxio_tpu_torch.metrics.history`) into
 ranked, firing/resolved alerts: each declarative rule watches a
@@ -512,6 +511,42 @@ def tenant_overload_rule(shed_counts_fn: Callable[[], Dict[str, int]],
                     "fleet genuinely grew, or leave the shedding in "
                     "place — victims are already protected; see "
                     "`fsadmin report qos` and docs/qos.md")
+
+
+def quorum_degraded_rule(expected: int, *,
+                         window_s: float = 30.0) -> HealthRule:
+    """Fires while fewer masters than configured are alive in the HA
+    quorum (``Master.HaQuorumLive`` vs ``Master.HaQuorumExpected``,
+    sampled by the primary on the health tick — docs/ha.md).  A lost
+    standby costs nothing *now*; the alert exists because the next
+    failure is the outage — and the remediation timeline can show the
+    operator exactly when redundancy was lost."""
+
+    def probe(ctx: HealthContext) -> List[Violation]:
+        live = ctx.window_mean("Master.HaQuorumLive", "master", window_s)
+        if live is None:
+            return []
+        want = ctx.window_mean("Master.HaQuorumExpected", "master",
+                               window_s) or float(expected)
+        if live >= want - 0.5:  # mean over a window: tolerate one blip
+            return []
+        return [Violation(
+            "master-quorum", live,
+            f"only {live:.1f} of {want:.0f} masters alive in the HA "
+            f"quorum — failover margin degraded",
+            {"metric": "Master.HaQuorumLive", "window_s": window_s,
+             "expected": want})]
+
+    return HealthRule(
+        "master-quorum-degraded", severity="warning",
+        window_s=window_s, threshold=float(expected), probe=probe,
+        needs_history=True,
+        description="fewer masters than configured are alive in the "
+                    "HA quorum",
+        remediation="restart the dead master (or replace the host): "
+                    "`fsadmin report masters` names the missing "
+                    "member; while degraded, another failure can take "
+                    "the namespace down — see docs/ha.md")
 
 
 def metastore_compaction_debt_rule(max_runs: int = 24, *,

@@ -27,17 +27,35 @@ samples the admission counters), and the metrics sinks that
 replication checker and the persistence scheduler attach late
 (``attach_replication_checker``, ``attach_persistence_scheduler``); the
 table master reaches the job master by ``atpu.job.master.rpc.port`` when
-it starts a transform. Each of the JAX master's other parts comes with
-its own slice: the HA process (``FaultTolerantMasterProcess``) and its
-quorum view with its history samples and health rule, the update check
-and the scheduled backup. A conf key that asks for one of the opt-in
-ones raises ``NotSupportedError`` rather than being ignored.
+it starts a transform. A multi-master deployment adds the quorum view
+(``masters_report``, the registry heartbeat, the quorum gauges with
+their history samples and the ``master-quorum-degraded`` rule); the
+scheduled backup and ``atpu.master.journal.init.from.backup`` are
+switched on by their keys. ``FaultTolerantMasterProcess`` is the HA
+master: a journal-tailing standby (serving reads when
+``atpu.master.ha.standby.reads.enabled``) that promotes when its primary
+selector (the Raft election under the EMBEDDED journal, a file lock on
+the shared journal otherwise) grants primacy, and demotes when deposed.
+The update check comes with the host-only surfaces; a conf key that asks
+for it raises ``NotSupportedError`` rather than being ignored.
 
-One addition: the ``Master.AuditLogDropped`` and
-``Master.AuditLogDroppedDenied`` gauges read the audit writer's dropped
-counts (all entries, and those of denied calls; the JAX master keeps the
-first on the writer only), so a master in its own process can show that
-every shed call was either audited or counted as dropped.
+Differences from the JAX master:
+
+- the ``Master.AuditLogDropped`` and ``Master.AuditLogDroppedDenied``
+  gauges read the audit writer's dropped counts (all entries, and those
+  of denied calls; the JAX master keeps the first on the writer only),
+  so a master in its own process can show that every shed call was
+  either audited or counted as dropped;
+- the HA master fences its primary reads on both transports. The JAX
+  master wraps the FS read handlers in the primacy check after the
+  fast-path server has copied them, so until the asynchronous demote
+  stops that server a deposed leader answers same-host reads from
+  lagging state, unmarked. Here the fence is applied before either
+  server takes the handlers;
+- a demotion also stops the web server and the job-service checkers,
+  which the next promotion's serving start (or a new attach) brings
+  back; the JAX demote leaves its web server bound, so its next
+  promotion cannot bind the web port again.
 """
 
 from __future__ import annotations
@@ -57,7 +75,8 @@ from alluxio_tpu_torch.master.file_master import FileSystemMaster
 from alluxio_tpu_torch.metrics import metrics
 from alluxio_tpu_torch.rpc.core import RpcServer
 from alluxio_tpu_torch.rpc.master_service import (
-    block_master_service, fs_master_service, meta_master_service,
+    FS_SERVICE, STANDBY_FS_READS, block_master_service, fs_master_service,
+    meta_master_service,
 )
 from alluxio_tpu_torch.rpc.table_service import table_master_service
 from alluxio_tpu_torch.utils.clock import Clock, SystemClock
@@ -72,7 +91,6 @@ LOG = logging.getLogger(__name__)
 #: that switches each on, and what it would build
 _UNPORTED_OPT_INS = (
     (Keys.MASTER_UPDATE_CHECK_ENABLED, "the update checker"),
-    (Keys.MASTER_DAILY_BACKUP_ENABLED, "the scheduled backup"),
 )
 
 
@@ -93,19 +111,30 @@ class MasterProcess:
                 raise NotSupportedError(
                     f"{key.name} asks for {what}, which the port's master "
                     "does not have yet")
-        if conf.get(Keys.MASTER_JOURNAL_INIT_FROM_BACKUP):
-            raise NotSupportedError(
-                f"{Keys.MASTER_JOURNAL_INIT_FROM_BACKUP.name}: journal "
-                "backups are not ported yet")
         self._conf = conf
         self._clock = clock or SystemClock()
-        self.journal = create_journal_system(
-            str(conf.get(Keys.MASTER_JOURNAL_TYPE)).upper(),
-            conf.get(Keys.MASTER_JOURNAL_FOLDER),
-            max_log_size=conf.get_bytes(
-                Keys.MASTER_JOURNAL_LOG_SIZE_BYTES_MAX),
-            checkpoint_period_entries=conf.get_int(
-                Keys.MASTER_JOURNAL_CHECKPOINT_PERIOD_ENTRIES))
+        jtype = str(conf.get(Keys.MASTER_JOURNAL_TYPE)).upper()
+        if jtype == "EMBEDDED":
+            lo = conf.get_ms(Keys.MASTER_EMBEDDED_JOURNAL_ELECTION_TIMEOUT_MIN)
+            hi = conf.get_ms(Keys.MASTER_EMBEDDED_JOURNAL_ELECTION_TIMEOUT_MAX)
+            self.journal = create_journal_system(
+                jtype, conf.get(Keys.MASTER_JOURNAL_FOLDER),
+                address=str(conf.get(
+                    Keys.MASTER_EMBEDDED_JOURNAL_ADDRESS)),
+                addresses=str(conf.get(
+                    Keys.MASTER_EMBEDDED_JOURNAL_ADDRESSES)),
+                election_timeout_ms=(int(lo), int(hi)),
+                heartbeat_interval_ms=int(conf.get_ms(
+                    Keys.MASTER_EMBEDDED_JOURNAL_HEARTBEAT_INTERVAL)),
+                snapshot_period_entries=conf.get_int(
+                    Keys.MASTER_EMBEDDED_JOURNAL_SNAPSHOT_PERIOD_ENTRIES))
+        else:
+            self.journal = create_journal_system(
+                jtype, conf.get(Keys.MASTER_JOURNAL_FOLDER),
+                max_log_size=conf.get_bytes(
+                    Keys.MASTER_JOURNAL_LOG_SIZE_BYTES_MAX),
+                checkpoint_period_entries=conf.get_int(
+                    Keys.MASTER_JOURNAL_CHECKPOINT_PERIOD_ENTRIES))
         self.block_master = BlockMaster(
             self.journal, clock=self._clock,
             worker_timeout_ms=conf.get_ms(Keys.MASTER_WORKER_TIMEOUT))
@@ -213,6 +242,32 @@ class MasterProcess:
         self._safe_mode_until = float("inf")
         self.rpc_port: Optional[int] = None
         self.replay_s = 0.0
+        self.scheduled_backup = None
+        from alluxio_tpu_torch.journal.ha import MasterRegistry
+
+        #: shared-journal presence registry behind `fsadmin report
+        #: masters` and the quorum-degraded health sampling (docs/ha.md)
+        self.master_registry = MasterRegistry(
+            str(conf.get(Keys.MASTER_JOURNAL_FOLDER)))
+        #: expected quorum size: the configured master list (client
+        #: addresses, falling back to the raft member list); 0 = not HA
+        self._ha_expected = max(
+            len(self._conf_address_list(Keys.MASTER_RPC_ADDRESSES)),
+            len(self._conf_address_list(
+                Keys.MASTER_EMBEDDED_JOURNAL_ADDRESSES)))
+        #: last quorum-liveness sample (health tick) — served as gauges
+        #: and ingested as `master` history series (docs/ha.md)
+        self._ha_live_sample = 1.0
+        self._ha_lag_sample = 0.0
+        #: (address-or-None, monotonic expiry) — bounds the registry
+        #: directory scan leader_address costs on the standby read path
+        self._leader_cache: "Optional[tuple]" = None
+        #: publishes registry rows / runs the publish heartbeat: multi-
+        #: master deployments only (FaultTolerantMasterProcess forces
+        #: True — the file-lock flavor can run without a configured
+        #: master list).  A plain single master must not grow a masters/
+        #: dir it rewrites every second for nobody.
+        self._ha_member = self._ha_expected > 1
         #: last metastore_stats() pull (refreshed on the health tick) —
         #: gauges must not take the store lock on every scrape
         self._metastore_sample: dict = {}
@@ -233,6 +288,13 @@ class MasterProcess:
         reg.register_gauge("Master.AuditLogDroppedDenied", lambda: float(
             self.audit_writer.dropped_denied
             if self.audit_writer is not None else 0))
+        if self._ha_expected > 1:
+            reg.register_gauge("Master.HaQuorumExpected",
+                               lambda: float(self._ha_expected))
+            reg.register_gauge("Master.HaQuorumLive",
+                               lambda: self._ha_live_sample)
+            reg.register_gauge("Master.HaStandbyLagEntries",
+                               lambda: self._ha_lag_sample)
 
     def _sample_metadata_history(self) -> None:
         """Push the metadata control plane's own gauges into the history
@@ -287,6 +349,213 @@ class MasterProcess:
     def in_safe_mode(self) -> bool:
         return time.monotonic() < self._safe_mode_until
 
+    def _conf_address_list(self, key) -> List[str]:
+        return [a.strip() for a in str(self._conf.get(key) or "").split(",")
+                if a.strip()]
+
+    # -- HA quorum view ------------------------------------------------------
+    #: a registry row older than this is counted dead by the quorum-
+    #: degraded sampling (3 missed refresh ticks, floor 3s for jittery
+    #: test hosts).  Standbys refresh their row on the journal-tailer
+    #: tick, not the publish heartbeat, so the threshold must cover the
+    #: SLOWER of the two cadences — else an operator raising the tail
+    #: interval makes every healthy standby read as dead and latches
+    #: the master-quorum-degraded alert on a healthy quorum.
+    def _ha_live_threshold_s(self) -> float:
+        return max(3.0,
+                   3 * self._conf.get_duration_s(
+                       Keys.MASTER_HA_PUBLISH_INTERVAL),
+                   3 * self._conf.get_duration_s(
+                       Keys.MASTER_STANDBY_TAIL_INTERVAL))
+
+    @property
+    def client_address(self) -> str:
+        """The address clients reach THIS master at (conf hostname +
+        the actually-bound RPC/standby port)."""
+        port = self.rpc_port or getattr(self, "standby_rpc_port", None) or \
+            self._conf.get_int(Keys.MASTER_RPC_PORT)
+        return f"{self._conf.get(Keys.MASTER_HOSTNAME)}:{port}"
+
+    def _raft_to_client_address(self, raft_addr: str) -> Optional[str]:
+        """Map a raft member address to its client RPC address by list
+        position (``atpu.master.rpc.addresses`` zipped with
+        ``atpu.master.embedded.journal.addresses``, the reference's
+        convention)."""
+        rpc = self._conf_address_list(Keys.MASTER_RPC_ADDRESSES)
+        raft = self._conf_address_list(
+            Keys.MASTER_EMBEDDED_JOURNAL_ADDRESSES)
+        if raft_addr in raft and len(rpc) == len(raft):
+            return rpc[raft.index(raft_addr)]
+        return None
+
+    def leader_address(self) -> Optional[str]:
+        """Best-known current primary (client address) — the hint a
+        standby's NotPrimaryError carries.  None when unknown.  A bound
+        primary RPC port plus live journal primacy IS primacy here: the
+        FT ``serving`` flag flips only after ``_start_serving`` returns,
+        and the registry must not publish a freshly-promoted master as a
+        standby in between.  The primacy check matters on the way DOWN
+        too: a deposed leader whose RPC server has not stopped yet must
+        hint the NEW leader (or nothing), never itself — a self-hint
+        would spin redirected clients on the deposed master."""
+        if self.rpc_port and self.journal.is_primary():
+            return self.client_address
+        node = getattr(self.journal, "node", None)
+        if node is not None:  # EMBEDDED: raft leader, mapped to rpc addr
+            leader_id = node.leader_id
+            if leader_id and leader_id != node.node_id:
+                return self._raft_to_client_address(leader_id)
+            return None
+        # shared-journal flavor: freshest published PRIMARY row.  The
+        # scan is synchronous disk IO (listdir + per-row json) and every
+        # standby-served read resolves the hint, so cache the answer for
+        # a fraction of the publish interval — the rows themselves are
+        # never fresher than that interval, and a wrong hint only costs
+        # the client one redirect hop
+        now = time.monotonic()
+        cached = self._leader_cache
+        if cached is not None and now < cached[1]:
+            return cached[0]
+        limit = self._ha_live_threshold_s()
+        best = None
+        for row in self.master_registry.list():
+            if row.get("role") != "PRIMARY":
+                continue
+            if row.get("last_contact_s", limit) >= limit:
+                continue
+            if row.get("address") == self.client_address:
+                continue  # ourselves (stale row from a previous term)
+            if best is None or row["last_contact_s"] < \
+                    best["last_contact_s"]:
+                best = row
+        addr = best["address"] if best else None
+        ttl = 0.5 * self._conf.get_duration_s(
+            Keys.MASTER_HA_PUBLISH_INTERVAL)
+        self._leader_cache = (addr, now + ttl)
+        return addr
+
+    def _publish_registry(self) -> None:
+        """One registry row for this master (role, applied sequence,
+        term) — primaries publish on their own heartbeat, standbys on
+        the tailer tick.  Role rides the same port+primacy signal as
+        ``leader_address`` so a deposed-but-not-demoted master never
+        advertises PRIMARY."""
+        if not self._ha_member:
+            return
+        # never publish an unreachable row: before a port is bound the
+        # address falls back to conf MASTER_RPC_PORT, which tests (and
+        # ephemeral-port deployments) set to 0 — a ":0" row would sit in
+        # the file-per-address registry forever, poisoning quorum views
+        if self.client_address.endswith(":0"):
+            return
+        role = "PRIMARY" if self.rpc_port and self.journal.is_primary() \
+            else "STANDBY"
+        node = getattr(self.journal, "node", None)
+        term = node.log.term if node is not None else 0
+        self.master_registry.publish(
+            self.client_address, role=role,
+            sequence=int(getattr(self.journal, "sequence", 0)), term=term)
+
+    def masters_report(self) -> dict:
+        """The quorum view served by ``get_masters`` (`fsadmin report
+        masters`, statuspage "Masters"): one row per known master,
+        merged from the shared-journal registry and — under the
+        EMBEDDED journal — live Raft quorum state."""
+        rows: dict = {}
+        for row in self.master_registry.list():
+            rows[row["address"]] = dict(row)
+        self._publish_registry()  # our own row, fresh
+        me = rows[self.client_address] = {
+            "address": self.client_address,
+            "role": "PRIMARY" if self.rpc_port and
+            self.journal.is_primary() else "STANDBY",
+            "sequence": int(getattr(self.journal, "sequence", 0)),
+            "term": 0, "last_contact_s": 0.0,
+        }
+        tailer = getattr(self, "_tailer", None)
+        if tailer is not None and me["role"] == "STANDBY":
+            me["tailer_lag_s"] = max(
+                0.0, time.monotonic() - tailer.last_caught_up)
+        quorum = None
+        if hasattr(self.journal, "quorum_info"):
+            quorum = self.journal.quorum_info()
+            me["term"] = quorum.get("term", 0)
+            for m in quorum.get("members", []):
+                addr = self._raft_to_client_address(m["node_id"]) or \
+                    m["node_id"]
+                if addr == self.client_address:
+                    continue
+                row = rows.setdefault(addr, {"address": addr,
+                                             "sequence": None})
+                row["role"] = {"LEADER": "PRIMARY",
+                               "FOLLOWER": "STANDBY"}.get(
+                    m.get("role", ""), "UNKNOWN")
+                row["term"] = quorum.get("term", 0)
+                row["match_index"] = m.get("match_index")
+                row["last_contact_s"] = m.get("last_contact_s")
+        # lag relative to the furthest-applied member we can see; raft
+        # members without a registry row still report replication
+        # progress through the leader's match_index
+        def _applied(r):
+            return r["sequence"] if r.get("sequence") is not None \
+                else r.get("match_index")
+
+        seqs = [_applied(r) for r in rows.values()
+                if _applied(r) is not None]
+        head = max(seqs) if seqs else 0
+        for r in rows.values():
+            if _applied(r) is not None:
+                r["lag_entries"] = head - _applied(r)
+        out = {"leader": self.leader_address(),
+               "masters": sorted(rows.values(),
+                                 key=lambda r: r["address"])}
+        if quorum is not None:
+            out["quorum"] = quorum
+        return out
+
+    def _sample_ha_history(self) -> None:
+        """Quorum liveness gauges into the history rings on the health
+        tick (``master`` source): what the ``master-quorum-degraded``
+        rule watches (docs/ha.md)."""
+        if self._ha_expected <= 1:
+            return
+        history = self.metrics_master.history \
+            if self.metrics_master is not None else None
+        if history is None:
+            return
+        limit = self._ha_live_threshold_s()
+        live = 1  # ourselves
+        lag = 0
+        node = getattr(self.journal, "node", None)
+        if node is not None:
+            info = node.quorum_info()
+            for m in info.get("members", []):
+                age = m.get("last_contact_s")
+                if m.get("address") != "self" and age is not None and \
+                        age < limit:
+                    live += 1
+            follower_match = [m.get("match_index", 0)
+                              for m in info.get("members", [])
+                              if m.get("address") != "self"]
+            if follower_match:
+                lag = max(0, info.get("commit_index", 0)
+                          - min(follower_match))
+        else:
+            my_seq = int(getattr(self.journal, "sequence", 0))
+            for row in self.master_registry.list():
+                if row.get("address") == self.client_address:
+                    continue
+                if row.get("last_contact_s", limit) < limit:
+                    live += 1
+                    lag = max(lag, my_seq - int(row.get("sequence", 0)))
+        self._ha_live_sample = float(live)
+        self._ha_lag_sample = float(lag)
+        history.ingest("master", {
+            "Master.HaQuorumExpected": float(self._ha_expected),
+            "Master.HaQuorumLive": float(live),
+            "Master.HaStandbyLagEntries": float(lag),
+        })
+
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> int:
         """Boot straight to primary; returns the bound RPC port."""
@@ -306,11 +575,19 @@ class MasterProcess:
         # AlluxioMasterProcess.java:265-273): ONE per process
         ensure_process_monitor()
         self.journal.start()
+        self._init_from_backup_if_configured()
         t0 = time.perf_counter()
         self.journal.gain_primacy()
         #: seconds the journal replay took (checkpoint and segments)
         self.replay_s = time.perf_counter() - t0
         return self._start_serving()
+
+    def _init_from_backup_if_configured(self) -> None:
+        """Seed an empty journal from a metadata backup (reference:
+        initFromBackup, AlluxioMasterProcess.java:173-190)."""
+        backup = self._conf.get(Keys.MASTER_JOURNAL_INIT_FROM_BACKUP)
+        if backup and hasattr(self.journal, "init_from_backup"):
+            self.journal.init_from_backup(str(backup))
 
     def _start_serving(self) -> int:
         """Primacy is held: start masters, heartbeats and the RPC server."""
@@ -372,8 +649,25 @@ class MasterProcess:
             remediation_engine=self.remediation,
             admission=self.admission,
             invalidation_log=self.fs_master.invalidations,
+            masters_fn=self.masters_report,
             metastore_stats_fn=self.fs_master.metastore_stats))
+        # before either transport takes the handlers: the fast path
+        # copies them when it registers a service
+        self._fence_primary_reads()
         self.rpc_port = self.rpc_server.start()
+        # announce primacy to the quorum view the moment the port is
+        # bound, then keep the row fresh on its own heartbeat
+        from alluxio_tpu_torch.utils.exceptions import best_effort
+
+        if self._ha_member:
+            best_effort("master registry publish",
+                        self._publish_registry)
+            self._threads.append(HeartbeatThread(
+                HeartbeatContext.MASTER_LOST_MASTER_DETECTION,
+                _Exec(self._publish_registry),
+                self._conf.get_duration_s(
+                    Keys.MASTER_HA_PUBLISH_INTERVAL)))
+            self._threads[-1].start()
         if self._conf.get_bool(Keys.MASTER_FASTPATH_ENABLED):
             from alluxio_tpu_torch.rpc.fastpath import (
                 FastPathServer, socket_path_for,
@@ -396,6 +690,10 @@ class MasterProcess:
                 bind_host=self._conf.get(Keys.MASTER_WEB_BIND_HOST))
             self.web_port = self.web_server.start()
         return self.rpc_port
+
+    def _fence_primary_reads(self) -> None:
+        """A master that is not HA stays primary while it serves: its
+        reads need no primacy check."""
 
     def _init_metrics_master(self) -> None:
         """Metrics history + health-rule engine (cluster doctor),
@@ -474,6 +772,14 @@ class MasterProcess:
             # inert on HEAP/SQLITE (they report zero runs); on LSM it
             # catches compaction losing the race with flushes before
             # read amplification turns into an outage
+            if self._ha_expected > 1:
+                from alluxio_tpu_torch.master.health import (
+                    quorum_degraded_rule,
+                )
+
+                # a lost standby costs nothing today, which is exactly
+                # why it must alert: the next failure is the outage
+                rules.append(quorum_degraded_rule(self._ha_expected))
             rules.append(metastore_compaction_debt_rule(
                 conf.get_int(Keys.MASTER_METASTORE_COMPACTION_DEBT_RUNS)))
             if history is None:
@@ -668,12 +974,28 @@ class MasterProcess:
                 # the history after the flood is gone
                 self.admission.sample_history(self.metrics_master.history)
             self._sample_metadata_history()
+            self._sample_ha_history()
 
         if self.health_monitor is not None or \
                 self.metrics_master.history is not None:
             self._threads.append(HeartbeatThread(
                 HeartbeatContext.MASTER_HEALTH_CHECK, _Exec(_health_tick),
                 conf.get_duration_s(Keys.MASTER_HEALTH_EVAL_INTERVAL)))
+        if conf.get_bool(Keys.MASTER_DAILY_BACKUP_ENABLED):
+            from alluxio_tpu_torch.master.backup import ScheduledBackup
+
+            self.scheduled_backup = ScheduledBackup(
+                self.journal, conf.get(Keys.MASTER_BACKUP_DIR),
+                interval_s=conf.get_duration_s(
+                    Keys.MASTER_DAILY_BACKUP_INTERVAL),
+                retention=conf.get_int(Keys.MASTER_DAILY_BACKUP_RETENTION))
+            # ticked well under the backup interval so a missed beat
+            # only delays, never skips, a due backup
+            self._threads.append(HeartbeatThread(
+                HeartbeatContext.MASTER_DAILY_BACKUP,
+                _Exec(self.scheduled_backup.heartbeat),
+                min(60.0, conf.get_duration_s(
+                    Keys.MASTER_DAILY_BACKUP_INTERVAL))))
         from alluxio_tpu_torch.metrics.sinks import SinkManager
 
         self.sink_manager = SinkManager(conf, metrics())
@@ -758,7 +1080,296 @@ class MasterProcess:
             self.audit_writer.stop()
         self.fs_master.stop()
         self.journal.stop()
+        from alluxio_tpu_torch.utils.exceptions import best_effort
+
+        best_effort("master registry withdraw",
+                    self.master_registry.withdraw, self.client_address)
 
     @property
     def address(self) -> str:
         return f"localhost:{self.rpc_port}"
+
+
+class FaultTolerantMasterProcess(MasterProcess):
+    """HA master: boots as a journal-tailing standby and starts serving
+    when the primary selector grants primacy (reference:
+    ``FaultTolerantAlluxioMasterProcess`` + standby tailing)."""
+
+    def __init__(self, conf: Configuration, *, selector=None, **kwargs
+                 ) -> None:
+        super().__init__(conf, **kwargs)
+        from alluxio_tpu_torch.journal.ha import (
+            FileLockPrimarySelector, JournalTailer,
+        )
+
+        # standby-serving torn-read exclusion: the standby apply paths
+        # (tailer tick, raft apply loop) hold no inode-path locks, so a
+        # concurrently served read could observe a half-applied
+        # rename/delete — a state no journal version ever contained,
+        # which would break the advertised staleness contract.  Holding
+        # the tree-wide WRITE lock around each apply batch excludes the
+        # read handlers (which hold it in read mode via lock_path); it
+        # is acquired OUTSIDE the journal/node locks, the same
+        # tree-first canonical order the primary's RPC paths use
+        # (docs/ha.md).
+        def _apply_exclusion():
+            return self.fs_master.inode_tree.lock.write_locked()
+
+        if selector is not None:
+            self.selector = selector
+        else:
+            from alluxio_tpu_torch.journal.raft import (
+                EmbeddedJournalSystem, RaftPrimarySelector,
+            )
+
+            if isinstance(self.journal, EmbeddedJournalSystem):
+                # embedded journal: Raft election IS primary election, and
+                # followers apply continuously (no tailer needed)
+                self.selector = RaftPrimarySelector(self.journal)
+                self.journal.node.on_step_down(self._on_deposed)
+            else:
+                self.selector = FileLockPrimarySelector(
+                    conf.get(Keys.MASTER_JOURNAL_FOLDER))
+        node = getattr(self.journal, "node", None)
+        if node is not None:  # EMBEDDED (any selector): raft apply loop
+            node.apply_exclusion = _apply_exclusion
+        import threading
+
+        self._tailer = JournalTailer(
+            self.journal,
+            interval_s=conf.get_duration_s(
+                Keys.MASTER_STANDBY_TAIL_INTERVAL),
+            node=self.client_address,
+            on_tick=self._publish_registry,
+            apply_exclusion=_apply_exclusion)
+        self._promote_thread = None
+        self._promote_lock = threading.Lock()
+        self._stopped = False
+        self.serving = False
+        # an FT master is an HA member even without a configured master
+        # list (the file-lock flavor discovers peers via the shared
+        # journal dir alone): always publish registry rows
+        self._ha_member = True
+        #: read-only RPC server while standby (atpu.master.ha.standby.
+        #: reads.enabled): GetStatus/ListStatus/Exists off the tailing
+        #: apply, everything else a NotPrimaryError redirect
+        self._standby_server = None
+        self.standby_rpc_port: Optional[int] = None
+
+    def start(self) -> int:  # type: ignore[override]
+        """Standby boot: tail the journal; a background thread waits for
+        primacy and promotes. Returns 0 (no RPC port while standby) —
+        callers poll ``rpc_port``/``serving``."""
+        import threading
+
+        from alluxio_tpu_torch.utils.pause_monitor import ensure_process_monitor
+        from alluxio_tpu_torch.utils.tracing import (
+            apply_trace_conf, set_tracing_enabled,
+        )
+
+        set_tracing_enabled(self._conf.get_bool(Keys.TRACE_ENABLED))
+        apply_trace_conf(self._conf)
+        from alluxio_tpu_torch.utils.profiler import apply_profile_conf
+
+        apply_profile_conf(self._conf)
+        # the HA master is the one whose elections stall detection
+        # protects — it must not be the one path without it
+        ensure_process_monitor()
+        self.selector.start()
+        self.journal.start()
+        self._init_from_backup_if_configured()
+        t0 = time.perf_counter()
+        if self.selector.try_acquire():
+            # under _promote_lock: a Raft step-down firing _on_deposed
+            # mid-boot must not demote half-initialized serving state
+            with self._promote_lock:
+                self.journal.gain_primacy()
+                self.replay_s = time.perf_counter() - t0
+                port = self._start_serving()
+                self.serving = True
+            return port
+        self.journal.standby_start()
+        self.replay_s = time.perf_counter() - t0
+        # standby endpoint FIRST: the tailer's on_tick publishes this
+        # master's registry row, and publishing before the read port is
+        # bound advertises the configured (possibly ephemeral :0) port —
+        # a stale row the file-per-address registry then keeps forever
+        self._start_standby_serving()
+        self._tailer.start()
+        self._promote_thread = threading.Thread(
+            target=self._wait_and_promote, name="primacy-waiter",
+            daemon=True)
+        self._promote_thread.start()
+        return 0
+
+    def _start_standby_serving(self) -> None:
+        """Open the read-only RPC endpoint on the configured master
+        port: reads are served off the tailed state, stamped with this
+        standby's journal-deterministic md_version; every other RPC is
+        a typed NotPrimaryError redirect (docs/ha.md)."""
+        if not self._conf.get_bool(Keys.MASTER_HA_STANDBY_READS_ENABLED):
+            return
+        from alluxio_tpu_torch.rpc.master_service import (
+            standby_block_service, standby_fs_service,
+            standby_meta_service,
+        )
+        from alluxio_tpu_torch.security.authentication import Authenticator
+
+        server = RpcServer(
+            bind_host="0.0.0.0",
+            port=self._conf.get_int(Keys.MASTER_RPC_PORT),
+            authenticator=Authenticator(self._conf))
+        server.add_service(standby_fs_service(
+            self.fs_master, self.leader_address,
+            active_sync=self.active_sync))
+        server.add_service(standby_block_service(
+            self.block_master, self.leader_address))
+        server.add_service(standby_meta_service(
+            self._conf, leader_fn=self.leader_address,
+            cluster_id=self.cluster_id,
+            start_time_ms=self.start_time_ms, journal=self.journal,
+            masters_fn=self.masters_report,
+            permission_checker=self.permission_checker))
+        self.standby_rpc_port = server.start()
+        self._standby_server = server
+        LOG.info("standby master serving reads on port %d",
+                 self.standby_rpc_port)
+
+    def _stop_standby_serving(self) -> None:
+        if self._standby_server is not None:
+            self._standby_server.stop()
+            self._standby_server = None
+            self.standby_rpc_port = None
+
+    def _fence_primary_reads(self) -> None:
+        """Primacy-gate the serving FS reads: a deposed leader demotes
+        asynchronously (``_on_deposed`` runs on its own thread), and
+        until its servers actually stop it would keep serving reads
+        from state that now LAGS the new leader — without the standby
+        marker, so a strong client would trust them.  Checking live
+        primacy per read closes that window the moment the node learns
+        it stepped down.  ``_start_serving`` calls this before the gRPC
+        server starts and before the fast-path server copies the
+        handlers, so both transports are fenced (the JAX master fences
+        after the fast path took its copies).  (A partitioned leader
+        that has not yet heard the higher term can still serve
+        briefly-stale reads — the classic lease-read gap; terms fence
+        every write. docs/ha.md.)"""
+        svc = self.rpc_server.service(FS_SERVICE)
+        if svc is None:
+            return
+        journal = self.journal
+
+        def gate(fn):
+            def handler(r):
+                if not journal.is_primary():
+                    from alluxio_tpu_torch.utils.exceptions import (
+                        NotPrimaryError,
+                    )
+
+                    raise NotPrimaryError(
+                        "this master was deposed",
+                        leader=self.leader_address() or None)
+                return fn(r)
+
+            return handler
+
+        for name, (fn, kind) in list(svc.methods.items()):
+            if name in STANDBY_FS_READS:
+                svc.methods[name] = (gate(fn), kind)
+
+    def _wait_and_promote(self) -> None:
+        while not self._stopped:
+            if self.selector.wait_for_primacy(timeout_s=0.5):
+                with self._promote_lock:
+                    if self._stopped:
+                        # stop() raced our acquisition: hand the lock back
+                        # so another master can promote
+                        self.selector.release()
+                        return
+                    self.promote()
+                return
+
+    def _on_deposed(self) -> None:
+        """Raft step-down while serving: stop client RPCs and rejoin the
+        election loop as a standby. Journal writes already fail fast
+        (propose raises when not leader), so this is availability hygiene,
+        not the fence — terms are the fence. Runs on its own thread: the
+        raft node invokes callbacks under its lock."""
+        import threading
+
+        def demote():
+            with self._promote_lock:
+                if self._stopped or not self.serving:
+                    return
+                self.serving = False
+                for t in self._threads:
+                    t.stop()
+                self._threads = []
+                # the job-service checkers write through the journal: a
+                # standby cannot; a new attach brings them back
+                self.detach_job_service()
+                if self.web_server is not None:
+                    # released so the next promotion can bind it again
+                    self.web_server.stop()
+                    self.web_server = None
+                if getattr(self, "fastpath_server", None) is not None:
+                    # a deposed master must not keep serving local
+                    # clients over the Unix socket either
+                    self.fastpath_server.stop()
+                    self.fastpath_server = None
+                if self.rpc_server is not None:
+                    self.rpc_server.stop()
+                    self.rpc_server = None
+                self.rpc_port = None
+                if getattr(self, "audit_writer", None) is not None:
+                    self.audit_writer.stop()
+                    self.audit_writer = None
+                # rejoin the quorum as a standby: resume tailing (a
+                # no-op tick under raft, but it publishes our STANDBY
+                # registry row) and re-open the read-only endpoint
+                self._tailer.start()
+                self._start_standby_serving()
+                self._promote_thread = threading.Thread(
+                    target=self._wait_and_promote, name="primacy-waiter",
+                    daemon=True)
+                self._promote_thread.start()
+
+        threading.Thread(target=demote, name="raft-demote",
+                         daemon=True).start()
+
+    def promote(self) -> int:
+        """Standby -> primary: stop tailing, finish the tail in place (no
+        state reset — the standby is already caught up), open the write
+        log, start serving.  The standby read server is stopped FIRST so
+        ``_start_serving`` can bind the same configured port."""
+        self._tailer.stop()
+        self._stop_standby_serving()
+        if hasattr(self.journal, "gain_primacy_from_standby"):
+            self.journal.gain_primacy_from_standby()
+        else:
+            self.journal.gain_primacy()
+        port = self._start_serving()
+        self.serving = True
+        return port
+
+    def stop(self) -> None:
+        with self._promote_lock:
+            self._stopped = True
+        if self._promote_thread is not None:
+            self._promote_thread.join(timeout=10)
+            self._promote_thread = None
+        self._tailer.stop()
+        self._stop_standby_serving()
+        was_serving = self.serving
+        self.serving = False
+        if was_serving:
+            super().stop()
+        else:
+            self.journal.stop()
+            from alluxio_tpu_torch.utils.exceptions import best_effort
+
+            best_effort("master registry withdraw",
+                        self.master_registry.withdraw,
+                        self.client_address)
+        self.selector.release()

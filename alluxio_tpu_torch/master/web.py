@@ -1,8 +1,7 @@
 """Read-only HTTP/JSON state endpoint for the master (a copy of
-``alluxio_tpu/master/web.py`` without the ``/masters`` route, which
-serves the HA quorum view, and the ``/config`` route and page, which
-walk the whole key registry: the port's catalog holds only the keys it
-reads).
+``alluxio_tpu/master/web.py`` without the ``/config`` route and page,
+which walk the whole key registry: the port's catalog holds only the
+keys it reads).
 
 Re-design of ``core/server/master/src/main/java/alluxio/master/meta/
 AlluxioMasterRestServiceHandler.java`` (the web UI's backing REST API)
@@ -20,6 +19,8 @@ Routes:
   GET /api/v1/master/health    the health rules' ranked alerts
   GET /api/v1/master/remediation  the remediation engine's audit
   GET /api/v1/master/metastore the metastore's shape
+  GET /api/v1/master/masters   the HA quorum view (role, term, applied
+                               sequence, lag, last contact per master)
   GET /api/v1/master/trace     ?limit=&prefix=&trace_id=&fanout= stitched
                                spans and per-trace summaries
   GET /api/v1/master/trace/profile  ?trace_id= critical path of a trace,
@@ -54,14 +55,14 @@ def _dashboard_html() -> bytes:
 
     return render(
         "alluxio-tpu master", "/api/v1/master",
-        sections=[("Cluster", "info"),
+        sections=[("Cluster", "info"), ("Masters", "masters"),
                   ("Workers", "workers"),
                   ("Metastore", "metastore"),
                   ("Mounts", "mounts"), ("Catalog", "catalog"),
                   ("Cluster health", "health"),
                   ("Self-healing", "remediation"),
                   ("Input doctor", "stall")],
-        raw_routes=["/api/v1/master/info", "/capacity",
+        raw_routes=["/api/v1/master/info", "/masters", "/capacity",
                     "/metrics",
                     "/metrics/history", "/health", "/remediation",
                     "/metastore",
@@ -73,6 +74,17 @@ def _dashboard_html() -> bytes:
     for (const k of ['cluster_id','rpc_port','safe_mode','live_workers',
                      'uptime_ms'])
       row(t, [k, String(info[k])]);
+    // HA quorum view: role/term/applied-seq per master (docs/ha.md)
+    const ms = await j('/masters');
+    const mst = document.getElementById('masters');
+    row(mst, ['address','role','term','applied seq','lag','contact'], true);
+    for (const x of ms.masters)
+      row(mst, [x.address + (x.address === ms.leader ? ' *' : ''),
+                x.role || '?', String(x.term ?? '-'),
+                String(x.sequence ?? '-'),
+                x.lag_entries != null ? String(x.lag_entries) : '-',
+                x.last_contact_s != null
+                  ? x.last_contact_s.toFixed(1) + 's' : '-']);
     const cap = await j('/capacity');
     const w = document.getElementById('workers');
     row(w, ['host','state','capacity','used'], true);
@@ -311,6 +323,8 @@ class MasterWebServer:
                     if mm is not None:
                         snap = mm.merged_snapshot(snap)
                     return {"metrics": snap}
+                if route == "/api/v1/master/masters":
+                    return mp.masters_report()
                 if route == "/api/v1/master/metrics/history":
                     mm = getattr(mp, "metrics_master", None)
                     if mm is None or mm.history is None:

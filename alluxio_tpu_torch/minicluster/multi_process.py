@@ -1,5 +1,5 @@
 """Multi-process cluster: each role a real OS process (a copy of
-``alluxio_tpu/minicluster/multi_process.py``, single master).
+``alluxio_tpu/minicluster/multi_process.py``).
 
 Re-design of ``minicluster/src/main/java/alluxio/multi/process/
 MultiProcessCluster.java:94`` (+ ``PortCoordination``): spawns the
@@ -9,12 +9,29 @@ alluxio_tpu_torch.shell.main <role>`` subprocess configured through
 index (the crash-recovery analogue of ``LimitedLifeMasterProcess``).
 The roles are host processes and import neither torch nor JAX.
 
-One master on the LOCAL journal; several masters and EMBEDDED journals
-(HA) are refused until the HA item of the ROADMAP ports them. Unlike the
-JAX cluster, the master's fast-path socket lives in the cluster's
-directory (``atpu.master.fastpath.dir``, as ``LocalCluster`` does), and
-the cluster's own clients and workers reach it there. Like the JAX
-cluster, it spawns no job roles: a caller starts them with
+Several masters, or an EMBEDDED journal, make an HA cluster: every
+master is the HA master (``atpu.master.ha.enabled``), on a shared LOCAL
+journal directory (file-lock election) or, EMBEDDED, on a journal of its
+own with its own Raft port (a quorum over ``raft_addresses``); workers and
+clients get the full master list. Differences from the JAX cluster:
+
+- the masters' fast-path sockets live in the cluster's directory
+  (``atpu.master.fastpath.dir``, as ``LocalCluster`` does), and the
+  cluster's own clients and workers reach them there: keep that
+  directory short (a Unix socket path holds 107 bytes);
+- a single master on the LOCAL journal is the plain master, not the HA
+  one (the JAX cluster starts every master HA);
+- HA masters get the master list too (``atpu.master.rpc.addresses``),
+  so a standby names the leader's client address in its redirects and
+  the quorum view keys its rows by client address; the JAX cluster
+  gives the list to workers only;
+- ``wait_for_primary`` asks for the master whose ``get_master_info``
+  says PRIMARY: a standby serving reads answers that call too;
+- with ``atpu.master.web.enabled`` in ``extra_conf`` and no
+  ``atpu.master.web.port``, each master gets a web port of its own
+  (``master_web_ports``).
+
+Like the JAX cluster, it spawns no job roles: a caller starts them with
 ``ManagedProcess`` and ``_common_env()``.
 """
 
@@ -30,9 +47,7 @@ import time
 from typing import Dict, List, Optional
 
 from alluxio_tpu_torch.rpc.clients import FsMasterClient, MetaMasterClient
-from alluxio_tpu_torch.utils.exceptions import (
-    AlluxioTpuError, NotSupportedError,
-)
+from alluxio_tpu_torch.utils.exceptions import AlluxioTpuError
 
 
 #: the directory that holds the package: children import it from there,
@@ -122,28 +137,33 @@ class ManagedProcess:
 
 
 class MultiProcessCluster:
-    """One master (LOCAL journal) + N workers, each a real subprocess.
-    Start, restart and stop it from a long-lived thread: a role dies
-    with the thread that spawned it (:class:`ManagedProcess`)."""
+    """N masters + M workers, each a real subprocess. Start, restart and
+    stop it from a long-lived thread: a role dies with the thread that
+    spawned it (:class:`ManagedProcess`)."""
 
     def __init__(self, base_dir: str, *, num_masters: int = 1,
                  num_workers: int = 1,
                  journal_type: str = "LOCAL",
                  extra_conf: Optional[Dict[str, str]] = None) -> None:
-        if num_masters != 1 or journal_type.upper() != "LOCAL":
-            raise NotSupportedError(
-                f"{num_masters} masters on a {journal_type} journal: the "
-                "port's cluster runs one master on the LOCAL journal; "
-                "several masters and EMBEDDED journals come with HA "
-                "(ROADMAP item 'HA')")
+        """``journal_type``: LOCAL = shared journal dir + flock election
+        (masters must share a filesystem); EMBEDDED = per-master journal
+        dirs + Raft quorum over the embedded journal ports (true
+        multi-host HA; reference: EmbeddedJournalIntegrationTest)."""
         self.base = base_dir
         self.journal_dir = os.path.join(base_dir, "journal")
         self.journal_type = journal_type.upper()
         self.master_ports = [free_port() for _ in range(num_masters)]
+        self.raft_ports = [free_port() for _ in range(num_masters)]
         self.worker_ports = [free_port() for _ in range(num_workers)]
+        self._extra = dict(extra_conf or {})
+        self.master_web_ports: List[int] = []
+        if str(self._extra.get("atpu.master.web.enabled")).lower() == "true":
+            port = self._extra.get("atpu.master.web.port")
+            self.master_web_ports = [int(port)] * num_masters \
+                if port is not None else \
+                [free_port() for _ in range(num_masters)]
         self.masters: List[ManagedProcess] = []
         self.workers: List[ManagedProcess] = []
-        self._extra = dict(extra_conf or {})
         os.makedirs(self.journal_dir, exist_ok=True)
         os.makedirs(os.path.join(base_dir, "logs"), exist_ok=True)
         # the master's root UFS (``atpu.home``/underFSStorage), made as
@@ -166,6 +186,16 @@ class MultiProcessCluster:
             env["ATPU_" + str(k).replace("atpu.", "").replace(".", "_")
                 .upper()] = str(v)
         return env
+
+    @property
+    def ha(self) -> bool:
+        """True when the masters run HA (several, or EMBEDDED)."""
+        return len(self.master_ports) > 1 or \
+            self.journal_type == "EMBEDDED"
+
+    @property
+    def raft_addresses(self) -> str:
+        return ",".join(f"127.0.0.1:{p}" for p in self.raft_ports)
 
     def _role_env(self) -> Dict[str, str]:
         """``_common_env`` plus the fast-path socket's directory."""
@@ -192,6 +222,20 @@ class MultiProcessCluster:
     def start_master(self, index: int) -> ManagedProcess:
         env = self._role_env()
         env["ATPU_MASTER_RPC_PORT"] = str(self.master_ports[index])
+        if self.master_web_ports:
+            env["ATPU_MASTER_WEB_PORT"] = str(self.master_web_ports[index])
+        if self.ha:
+            env["ATPU_MASTER_HA_ENABLED"] = "true"
+            env["ATPU_MASTER_RPC_ADDRESSES"] = self.master_addresses
+        if self.journal_type == "EMBEDDED":
+            env["ATPU_MASTER_JOURNAL_TYPE"] = "EMBEDDED"
+            # each quorum member keeps its OWN journal (no shared fs)
+            env["ATPU_MASTER_JOURNAL_FOLDER"] = os.path.join(
+                self.base, f"journal-m{index}")
+            env["ATPU_MASTER_EMBEDDED_JOURNAL_ADDRESSES"] = \
+                self.raft_addresses
+            env["ATPU_MASTER_EMBEDDED_JOURNAL_ADDRESS"] = \
+                f"127.0.0.1:{self.raft_ports[index]}"
         p = ManagedProcess(
             "master", env,
             os.path.join(self.base, "logs", f"master{index}.out"))
@@ -206,6 +250,7 @@ class MultiProcessCluster:
         env = self._role_env()
         wdir = os.path.join(self.base, f"worker{index}")
         env.update({
+            # HA: workers address the full master list and fail over
             "ATPU_MASTER_RPC_ADDRESSES": self.master_addresses,
             "ATPU_WORKER_RPC_PORT": str(self.worker_ports[index]),
             "ATPU_WORKER_DATA_FOLDER": wdir,
@@ -227,15 +272,22 @@ class MultiProcessCluster:
 
     # -- readiness -----------------------------------------------------------
     def wait_for_primary(self, timeout_s: float = 180.0) -> str:
-        """Block until the master serves RPCs; returns its address."""
+        """Block until a master serves RPCs as the primary; returns its
+        address. A standby that serves reads answers
+        ``get_master_info`` too, with the role STANDBY: it is skipped,
+        as is a master whose process is gone."""
         deadline = time.monotonic() + timeout_s
         last_err: Optional[Exception] = None
         while time.monotonic() < deadline:
-            for port in self.master_ports:
+            for i, port in enumerate(self.master_ports):
+                if i < len(self.masters) and not self.masters[i].alive:
+                    continue
                 try:
-                    MetaMasterClient(f"localhost:{port}",
-                                     retry_duration_s=0.2).get_master_info()
-                    return f"localhost:{port}"
+                    info = MetaMasterClient(
+                        f"localhost:{port}", fastpath=False,
+                        retry_duration_s=0.2).get_master_info()
+                    if info.get("role", "PRIMARY") == "PRIMARY":
+                        return f"localhost:{port}"
                 except (AlluxioTpuError, Exception) as e:  # noqa: BLE001
                     last_err = e
             time.sleep(0.2)

@@ -6,9 +6,7 @@ Re-design of ``client/file/RetryHandlingFileSystemMasterClient.java``,
 ``client/block/RetryHandlingBlockMasterClient.java`` and
 ``AbstractMasterClient``: every call runs under an exponential time-bounded
 retry on transient errors; surfaces mirror the in-process adapters so the
-rest of the stack cannot tell transport from direct calls. The master
-RPCs that wait for later slices (active sync, trace stitching) have no
-client method here.
+rest of the stack cannot tell transport from direct calls.
 """
 
 from __future__ import annotations
@@ -43,7 +41,8 @@ def _failover_metrics():
     cached_reg, counters = _failover_metrics_cache
     if cached_reg is not reg:
         counters = (reg.counter("Client.FailoverRedirects"),
-                    reg.counter("Client.FailoverRotations"))
+                    reg.counter("Client.FailoverRotations"),
+                    reg.counter("Client.StandbyReads"))
         _failover_metrics_cache = (reg, counters)
     return counters
 
@@ -67,26 +66,32 @@ def resolve_retry_duration_s(value: Optional[float] = None,
 class _BaseClient:
     """Multi-endpoint master client (reference: ``MasterInquireClient`` +
     ``AbstractMasterClient`` re-resolving the leader across the
-    configured masters).  ``address`` may be a comma-separated list of
-    masters; the client then
+    configured masters).  ``address`` may be a comma-separated list for
+    HA deployments; the client then
 
-    - follows **leader hints**: a master's typed ``NotPrimaryError``
+    - follows **leader hints**: a standby's typed ``NotPrimaryError``
       names the current primary, and the client jumps straight to it
       without consuming a retry attempt (``retry.note_redirect``);
     - **rotates** with full-jitter backoff on connection loss /
       hint-less unavailability, so a dead primary's clients fan out
-      over the survivors instead of stampeding one.
-
-    Every call goes to the believed primary: the port's masters serve
-    no standby reads."""
+      over the survivors instead of stampeding one;
+    - optionally routes **reads to standbys**
+      (``atpu.user.standby.reads.enabled``): read-marked RPCs
+      round-robin across the non-active members (endpoints that
+      recently failed sit out a short cooldown), keeping GetStatus/
+      ListStatus load off the primary (docs/ha.md)."""
 
     service = ""
+
+    #: seconds a failed endpoint sits out of standby-read rotation
+    _DOWN_COOLDOWN_S = 3.0
 
     def __init__(self, address: str, *,
                  retry_duration_s: Optional[float] = None,
                  base_sleep_s: float = 0.05, max_sleep_s: float = 3.0,
                  metadata=None, fastpath: bool = True,
-                 fastpath_dir: Optional[str] = None, conf=None) -> None:
+                 fastpath_dir: Optional[str] = None, conf=None,
+                 standby_reads: bool = False) -> None:
         """``fastpath_dir``: where master fastpath sockets live; pass the
         ``atpu.master.fastpath.dir`` property when a Configuration is at
         hand (FileSystem does) — otherwise the env override or /tmp.
@@ -106,6 +111,9 @@ class _BaseClient:
             self._channels.append(self._make_channel(a.strip(), metadata))
             self._addresses.append(a.strip())
         self._active = 0
+        self._standby_reads = bool(standby_reads)
+        self._read_rr = 0
+        self._down_until: Dict[int, float] = {}
         self._endpoints_lock = threading.Lock()
         self._metadata = metadata
         self._retry_duration_s = resolve_retry_duration_s(
@@ -146,9 +154,9 @@ class _BaseClient:
         self._active = (self._active + 1) % len(self._channels)
 
     def _follow_leader(self, leader: str) -> None:
-        """Point the active endpoint at the hinted primary, minting a
-        channel when the hint names a master outside the configured
-        list (e.g. a replacement member)."""
+        """Point the active (write) endpoint at the hinted primary,
+        minting a channel when the hint names a master outside the
+        configured list (e.g. a replacement member)."""
         leader = leader.strip()
         with self._endpoints_lock:
             try:
@@ -159,13 +167,18 @@ class _BaseClient:
                 self._addresses.append(leader)
                 self._active = len(self._channels) - 1
 
+    def _mark_down(self, idx: int) -> None:
+        self._down_until[idx] = time.monotonic() + self._DOWN_COOLDOWN_S
+
     def _handle_not_primary(self, leader, idx: int) -> None:
-        """Redirect/rotate bookkeeping shared by the unary and the
-        stream path: a hinted failure follows the leader (the retry
-        policy's free redirect); a hint-less one rotates off the
-        endpoint, so a master that cannot name a leader is not re-picked
-        for the whole retry budget."""
-        redirects, rotations = _failover_metrics()
+        """Shared redirect/rotate bookkeeping for every not-primary
+        path (unary handler, strong-read conversion, stream
+        establishment — keep them identical): a hinted failure follows
+        the leader (the retry policy's free redirect); a hint-less one
+        rotates off the endpoint, so a standby that cannot name a
+        leader (mid-election, partitioned) is not re-picked for the
+        whole retry budget."""
+        redirects, rotations, _ = _failover_metrics()
         if leader:
             self._follow_leader(leader)
             redirects.inc()
@@ -174,28 +187,70 @@ class _BaseClient:
                 self._rotate()
             rotations.inc()
 
-    def _handle_unavailable(self, idx: int) -> None:
-        """Connection loss: rotate off the endpoint that failed."""
-        if idx == self._active and len(self._channels) > 1:
-            self._rotate()
-            _failover_metrics()[1].inc()
+    def _pick(self, read: bool) -> int:
+        """Endpoint for this attempt: writes (and single-endpoint
+        clients) go to the believed leader; standby-routed reads
+        round-robin the OTHER members, falling back to the leader when
+        every standby is cooling down."""
+        if not (read and self._standby_reads and len(self._channels) > 1):
+            return self._active
+        now = time.monotonic()
+        n = len(self._channels)
+        for _ in range(n):
+            self._read_rr = (self._read_rr + 1) % n
+            i = self._read_rr
+            if i == self._active:
+                continue
+            if self._down_until.get(i, 0.0) <= now:
+                return i
+        return self._active
 
-    def _call(self, method: str, request: dict, timeout: float = 30.0):
+    def _call(self, method: str, request: dict, timeout: float = 30.0, *,
+              read: bool = False):
         from alluxio_tpu_torch.utils.exceptions import (
-            NotPrimaryError, UnavailableError,
+            AlluxioTpuError, NotPrimaryError, UnavailableError,
         )
 
         def attempt():
-            idx = self._active
+            idx = self._pick(read)
             try:
-                return self._channels[idx].call(
+                out = self._channels[idx].call(
                     self.service, method, request, timeout=timeout)
-            except NotPrimaryError as e:  # before its base class
-                self._handle_not_primary(getattr(e, "leader", None), idx)
+                if read and isinstance(out, dict) and \
+                        out.pop("standby", False):
+                    hint = out.pop("leader", None)
+                    if not self._standby_reads and \
+                            len(self._channels) > 1:
+                        # a standby served a read this client expected
+                        # read-your-writes from — convert the mark back
+                        # into a redirect (single-endpoint clients
+                        # pointed AT a standby asked for what they got)
+                        raise NotPrimaryError(
+                            "read served by a standby", leader=hint)
+            except NotPrimaryError as e:
+                self._handle_not_primary(e.leader, idx)
                 raise
             except UnavailableError:
-                self._handle_unavailable(idx)
+                self._mark_down(idx)
+                if idx == self._active and len(self._channels) > 1:
+                    self._rotate()
+                    _failover_metrics()[1].inc()
                 raise
+            except AlluxioTpuError as e:
+                if read and e.standby and not self._standby_reads and \
+                        len(self._channels) > 1:
+                    # a standby answered a strong read with an ERROR off
+                    # its bounded-stale state (e.g. NOT_FOUND for a path
+                    # the primary just acked): as untrustworthy as a
+                    # stale result — retry on the primary
+                    self._handle_not_primary(e.leader, idx)
+                    raise NotPrimaryError(
+                        "standby answered a strong read",
+                        leader=e.leader) from e
+                raise
+            if read and idx != self._active:
+                _failover_metrics()[2].inc()
+            return out
 
         return retry(
             attempt,
@@ -215,13 +270,15 @@ class FsMasterClient(_BaseClient):
         what the client metadata cache stores (docs/metadata.md)."""
         resp = self._call(
             "get_status", {"path": str(path),
-                           "sync_interval_ms": sync_interval_ms})
+                           "sync_interval_ms": sync_interval_ms},
+            read=True)
         stamp = resp.pop("md_version", None)
         info = FileInfo.from_wire(resp)
         return (info, stamp) if want_version else info
 
     def exists(self, path: str) -> bool:
-        return self._call("exists", {"path": str(path)})["exists"]
+        return self._call("exists", {"path": str(path)},
+                          read=True)["exists"]
 
     @staticmethod
     def _decode_columnar(cols: dict) -> List[FileInfo]:
@@ -240,7 +297,8 @@ class FsMasterClient(_BaseClient):
         :meth:`get_status`."""
         resp = self._call("list_status", {
             "path": str(path), "recursive": recursive,
-            "sync_interval_ms": sync_interval_ms, "columnar": True})
+            "sync_interval_ms": sync_interval_ms, "columnar": True},
+            read=True)
         stamp = resp.get("md_version")
         col = resp.get("columnar")
         if col is None:  # server predates the columnar listing format
@@ -269,19 +327,34 @@ class FsMasterClient(_BaseClient):
         def attempt():
             from alluxio_tpu_torch.utils.exceptions import NotPrimaryError
 
-            idx = self._active
+            idx = self._pick(read=True)
             it = self._channels[idx].call_stream(
                 self.service, "list_status_stream", request)
             try:
                 first = next(it)
             except StopIteration:
                 return None, it
-            except NotPrimaryError as e:  # before its base class
-                self._handle_not_primary(getattr(e, "leader", None), idx)
+            except NotPrimaryError as e:
+                # must precede the UnavailableError arm (its subclass):
+                # a deposed leader's fence or a not-yet-caught-up
+                # standby names the leader — follow the hint instead of
+                # cooling down a healthy member and blind-rotating
+                self._handle_not_primary(e.leader, idx)
                 raise
             except UnavailableError:
-                self._handle_unavailable(idx)
+                self._mark_down(idx)
+                if idx == self._active and len(self._channels) > 1:
+                    self._rotate()
                 raise
+            if isinstance(first, dict) and first.get("standby") and \
+                    not self._standby_reads and len(self._channels) > 1:
+                # same strong-read contract as the unary path: a
+                # standby-served stream redirects instead of feeding a
+                # stale listing to a read-your-writes client
+                hint = first.get("leader")
+                self._handle_not_primary(hint, idx)
+                raise NotPrimaryError("read served by a standby",
+                                      leader=hint)
             return first, it
 
         first, it = retry(
@@ -517,8 +590,9 @@ class MetaMasterClient(_BaseClient):
     def get_masters(self) -> dict:
         """Quorum view for ``fsadmin report masters``: per-master role,
         term, last-applied sequence, tailer lag and last contact
-        (docs/ha.md)."""
-        return self._call("get_masters", {})
+        (docs/ha.md).  Read-marked: standbys answer it too, so the view
+        survives a dead primary."""
+        return self._call("get_masters", {}, read=True)
 
     def transfer_quorum_leadership(self, target: str) -> dict:
         return self._call("transfer_quorum_leadership",

@@ -1,9 +1,6 @@
 """Master-side RPC services: a copy of ``alluxio_tpu/rpc/master_service.py``
-for a single master.
-
-Left out with the HA slice: the standby services. The meta RPCs whose
-component is not ported yet (backup, Raft quorum) answer as the JAX ones
-do when that component is ``None``.
+with the primary's services and the standby's (reads served off the
+tailed journal, everything else a ``NotPrimaryError`` redirect).
 
 Re-design of the reference's master service handlers
 (``file/FileSystemMaster{Client,Worker,Job}ServiceHandler.java``,
@@ -15,16 +12,35 @@ metrics (the reference's ``RpcUtils`` wrappers).
 
 from __future__ import annotations
 
+from typing import Optional
+
 from alluxio_tpu_torch.conf import Configuration, Source
 from alluxio_tpu_torch.master.block_master import BlockMaster
 from alluxio_tpu_torch.master.file_master import FileSystemMaster
 from alluxio_tpu_torch.metrics import metrics
-from alluxio_tpu_torch.rpc.core import ServiceDefinition
+from alluxio_tpu_torch.rpc.core import RpcServer, ServiceDefinition
 from alluxio_tpu_torch.utils.wire import WorkerNetAddress
 
 FS_SERVICE = "atpu.FileSystemMaster"
 BLOCK_SERVICE = "atpu.BlockMaster"
 META_SERVICE = "atpu.MetaMaster"
+
+#: FS RPCs a standby master serves off its tailing journal apply
+#: (docs/ha.md).  Metadata sync is forced off for them — a standby
+#: cannot journal the sync's effects — and everything NOT in this set
+#: is refused with a typed NotPrimaryError + leader hint.
+STANDBY_FS_READS = frozenset({
+    "get_status", "exists", "list_status", "list_status_stream",
+})
+
+#: Meta RPCs a standby answers itself: cluster/config introspection and
+#: the quorum view — the surfaces an operator needs exactly when the
+#: primary is down.
+STANDBY_META_READS = frozenset({
+    "get_configuration", "get_config_hash", "get_master_info",
+    "get_masters", "get_quorum_info", "get_metrics",
+})
+
 
 
 def _timed(name: str, fn, journal=None):
@@ -304,6 +320,7 @@ def meta_master_service(conf: Configuration, *, cluster_id: str = "",
                         remediation_engine=None,
                         admission=None,
                         invalidation_log=None,
+                        masters_fn=None,
                         metastore_stats_fn=None,
                         role_fn=lambda: "PRIMARY") -> ServiceDefinition:
     """Config distribution + cluster info + admin ops
@@ -312,9 +329,7 @@ def meta_master_service(conf: Configuration, *, cluster_id: str = "",
     trigger used by ``fsadmin journal checkpoint``).
 
     Admin ops (backup / checkpoint / path-conf mutation) are gated behind
-    superuser, as the reference gates them behind admin privilege. The
-    JAX service's ``masters_fn`` argument (HA's quorum view) is not
-    taken: ``get_masters`` answers as the JAX one does without it."""
+    superuser, as the reference gates them behind admin privilege."""
     from alluxio_tpu_torch.utils.exceptions import (
         FailedPreconditionError, InvalidArgumentError,
     )
@@ -342,9 +357,13 @@ def meta_master_service(conf: Configuration, *, cluster_id: str = "",
         if metastore_stats_fn is not None else {}})
 
     def _get_masters(r):
-        # no quorum view without HA (JAX: masters_fn None)
-        raise FailedPreconditionError(
-            "this master does not serve a quorum view")
+        """Quorum view: per-master role, term, applied sequence, lag
+        and last contact, merged from the shared-journal registry and
+        (EMBEDDED) live Raft state."""
+        if masters_fn is None:
+            raise FailedPreconditionError(
+                "this master does not serve a quorum view")
+        return masters_fn()
 
     svc.unary("get_masters", _get_masters)
 
@@ -523,21 +542,45 @@ def meta_master_service(conf: Configuration, *, cluster_id: str = "",
     def _quorum_info(r):
         """Quorum membership/roles (reference: journal_master.proto
         GetQuorumInfo behind ``fsadmin journal quorum``)."""
-        raise FailedPreconditionError(
-            "quorum info requires the EMBEDDED journal")
+        if journal is None or not hasattr(journal, "quorum_info"):
+            raise FailedPreconditionError(
+                "quorum info requires the EMBEDDED journal")
+        return journal.quorum_info()
 
     def _transfer_leadership(r):
         _require_admin()
-        raise FailedPreconditionError(
-            "leadership transfer requires the EMBEDDED journal")
+        if journal is None or not hasattr(journal, "transfer_leadership"):
+            raise FailedPreconditionError(
+                "leadership transfer requires the EMBEDDED journal")
+        ok = journal.transfer_leadership(str(r["target"]))
+        return {"transferred": bool(ok)}
 
     svc.unary("get_quorum_info", _quorum_info)
     svc.unary("transfer_quorum_leadership", _transfer_leadership)
 
     def _backup(r):
         _require_admin()
-        raise FailedPreconditionError(
-            "this master's journal does not support backups")
+        if journal is None or not hasattr(journal, "write_backup"):
+            raise FailedPreconditionError(
+                "this master's journal does not support backups")
+        import os
+
+        from alluxio_tpu_torch.conf import Keys
+
+        root = str(conf.get(Keys.MASTER_BACKUP_DIR))
+        backup_dir = r.get("directory") or root
+        # confine request-supplied dirs under the configured backup root:
+        # a remote admin must not write backups to arbitrary master paths
+        resolved = os.path.realpath(str(backup_dir))
+        root_resolved = os.path.realpath(root)
+        if resolved != root_resolved and \
+                not resolved.startswith(root_resolved + os.sep):
+            raise InvalidArgumentError(
+                f"backup directory {backup_dir!r} escapes the configured "
+                f"backup root {root!r}")
+        path = journal.write_backup(resolved)
+        return {"backup_uri": path,
+                "entry_count": getattr(journal, "sequence", 0)}
 
     svc.unary("backup", _backup)
 
@@ -563,3 +606,147 @@ def meta_master_service(conf: Configuration, *, cluster_id: str = "",
             {})[-1])
         svc.unary("get_config_report", lambda r: config_checker.report())
     return svc
+
+
+# --------------------------------------------------------------------------
+# Standby serving (docs/ha.md): the SAME service names as the primary, with
+# read handlers served off the tailing journal apply and everything else
+# refused by a typed NotPrimaryError carrying the current leader hint — a
+# client never sees a bare UNIMPLEMENTED from a standby, it sees a redirect.
+# --------------------------------------------------------------------------
+
+def _not_primary_rejector(name: str, leader_fn):
+    def reject(_request):
+        from alluxio_tpu_torch.utils.exceptions import NotPrimaryError
+
+        raise NotPrimaryError(
+            f"{name} requires the primary master",
+            leader=leader_fn() or None)
+
+    return reject
+
+
+def _reject_non_reads(svc: ServiceDefinition, reads: frozenset,
+                      leader_fn) -> ServiceDefinition:
+    for name, (fn, kind) in list(svc.methods.items()):
+        if name not in reads:
+            svc.methods[name] = (
+                _not_primary_rejector(f"{svc.name}.{name}", leader_fn),
+                kind)
+    return svc
+
+
+def standby_fs_service(fsm: FileSystemMaster, leader_fn,
+                       active_sync=None) -> ServiceDefinition:
+    """The FS surface a standby serves: GetStatus/ListStatus/Exists off
+    the tailed state — stamped with the standby's own journal-
+    deterministic ``md_version`` — with metadata sync forced OFF (a
+    standby cannot journal a sync's effects); every mutating RPC is a
+    :class:`NotPrimaryError` redirect.
+
+    Every served read is additionally marked ``standby: true`` (plus the
+    current leader hint): a multi-endpoint client that did NOT opt into
+    standby reads converts the mark back into a redirect client-side, so
+    strong read-your-writes clients can never be silently fed a stale
+    read by an endpoint they mistook for the primary (docs/ha.md)."""
+    svc = fs_master_service(fsm, active_sync=active_sync)
+
+    def read_wrap(fn):
+        # leader hint resolved ONCE per request: under the shared-
+        # journal flavor leader_fn scans the registry directory, and a
+        # streamed listing would otherwise re-scan per chunk
+        def mark(out, leader):
+            if isinstance(out, dict):
+                out = {**out, "standby": True}
+                if leader:
+                    out["leader"] = leader
+            return out
+
+        def mark_error(e, leader):
+            """A read ERROR off tailed state is as stale as a read
+            result — a NOT_FOUND for a path the primary just acked is
+            the dangerous case.  Tag it (plus the leader hint) so a
+            strong client retries on the primary instead of trusting
+            it (docs/ha.md)."""
+            from alluxio_tpu_torch.utils.exceptions import AlluxioTpuError
+
+            if isinstance(e, AlluxioTpuError):
+                e.standby = True
+                if e.leader is None:
+                    e.leader = leader or None
+            return e
+
+        def redirect_journal_write(e, leader):
+            """A read that tried to JOURNAL (a UFS metadata load for a
+            path not yet in the namespace) hit the tail-only journal:
+            that is not an error in the namespace, it is work only the
+            primary can do — redirect instead of surfacing
+            JournalClosedError as an unavailable standby."""
+            from alluxio_tpu_torch.utils.exceptions import (
+                JournalClosedError, NotPrimaryError,
+            )
+
+            if isinstance(e, JournalClosedError):
+                return NotPrimaryError(
+                    "read requires a metadata load only the primary "
+                    "can journal", leader=leader or None)
+            return None
+
+        def stream(gen, leader):
+            try:
+                for chunk in gen:
+                    yield mark(chunk, leader)
+            except Exception as e:  # noqa: BLE001 - re-raised marked
+                raise redirect_journal_write(e, leader) or \
+                    mark_error(e, leader)
+
+        def handler(r):
+            leader = leader_fn()
+            if fsm.inode_tree.root is None:
+                # fresh standby before any journal entry arrived: there
+                # is nothing coherent to serve yet — send the client on
+                from alluxio_tpu_torch.utils.exceptions import NotPrimaryError
+
+                raise NotPrimaryError(
+                    "standby has not applied a journal yet",
+                    leader=leader or None)
+            try:
+                out = fn({**(r or {}), "sync_interval_ms": -1})
+            except Exception as e:  # noqa: BLE001 - re-raised marked
+                raise redirect_journal_write(e, leader) or \
+                    mark_error(e, leader)
+            if isinstance(out, dict):
+                return mark(out, leader)
+            return stream(out, leader)  # streamed listing
+
+        return handler
+
+    for name, (fn, kind) in list(svc.methods.items()):
+        if name in STANDBY_FS_READS:
+            svc.methods[name] = (read_wrap(fn), kind)
+    return _reject_non_reads(svc, STANDBY_FS_READS, leader_fn)
+
+
+def standby_block_service(bm: BlockMaster, leader_fn) -> ServiceDefinition:
+    """Block-master surface on a standby: all redirects.  Block
+    LOCATIONS are soft state rebuilt from worker heartbeats, which only
+    the primary receives — a standby's map would be empty, and serving
+    it would read as 'no replicas anywhere'."""
+    return _reject_non_reads(block_master_service(bm), frozenset(),
+                             leader_fn)
+
+
+def standby_meta_service(conf: Configuration, *, leader_fn,
+                         cluster_id: str = "", start_time_ms: int = 0,
+                         journal=None, masters_fn=None,
+                         permission_checker=None) -> ServiceDefinition:
+    """Meta surface on a standby: config/cluster introspection and the
+    quorum view stay live (they matter MOST while the primary is down);
+    admin mutations, backups, checkpoints and the metrics heartbeat
+    (which carries cache invalidations and conf overlays only the
+    primary can compute) redirect."""
+    svc = meta_master_service(
+        conf, cluster_id=cluster_id, start_time_ms=start_time_ms,
+        journal=journal, permission_checker=permission_checker,
+        masters_fn=masters_fn, role_fn=lambda: "STANDBY")
+    return _reject_non_reads(svc, STANDBY_META_READS, leader_fn)

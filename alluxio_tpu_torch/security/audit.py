@@ -1,8 +1,16 @@
 """Async audit logging (a copy of ``alluxio_tpu/security/audit.py``, with
 the same line format; the logger is the port's own,
-``alluxio_tpu_torch.audit``). One addition: the writer also counts the
-dropped entries of denied calls (``dropped_denied``), so a run can show
-that every shed call was logged or counted.
+``alluxio_tpu_torch.audit``). Two differences:
+
+- the writer also counts the dropped entries of denied calls
+  (``dropped_denied``), so a run can show that every shed call was logged
+  or counted;
+- ``stop()`` drains what was accepted before it. The JAX writer's loop
+  leaves as soon as the stop flag is set, so the entries still queued
+  then are neither logged nor counted; an HA master stops its writer on
+  every demotion. Here the thread writes every queued entry before it
+  ends, and an entry appended after ``stop()`` is counted in
+  ``dropped``.
 
 Re-design of ``core/server/common/.../master/audit/
 AsyncUserAccessAuditLogWriter.java:31`` + ``master/file/
@@ -59,22 +67,41 @@ class AsyncAuditLogWriter:
         self._thread.start()
 
     def append(self, ctx: AuditContext) -> None:
+        if self._stopped.is_set():
+            self._drop(ctx)
+            return
         try:
             self._queue.put_nowait(ctx)
         except queue.Full:
-            self.dropped += 1
-            if not ctx.allowed:
-                self.dropped_denied += 1
+            self._drop(ctx)
+
+    def _drop(self, ctx: AuditContext) -> None:
+        self.dropped += 1
+        if not ctx.allowed:
+            self.dropped_denied += 1
 
     def _drain(self) -> None:
-        while not self._stopped.is_set():
+        # ends at the stop sentinel, or on an empty queue once stopped
+        # (the sentinel did not fit a full queue): every entry accepted
+        # before stop() is written first
+        while True:
             try:
                 ctx = self._queue.get(timeout=0.5)
             except queue.Empty:
+                if self._stopped.is_set():
+                    break
                 continue
             if ctx is None:
                 break
             AUDIT_LOG.info("%s", ctx.format())
+        # an append that raced stop() may have landed behind the sentinel
+        while True:
+            try:
+                ctx = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if ctx is not None:
+                AUDIT_LOG.info("%s", ctx.format())
 
     def stop(self) -> None:
         self._stopped.set()

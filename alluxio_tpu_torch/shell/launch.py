@@ -7,10 +7,10 @@ plus ``bin/alluxio-start.sh``'s launch-process: build the process from
 the configuration, serve until SIGINT/SIGTERM, then stop it.
 
 The four roles are host processes: none of them imports torch, and none
-touches the card. Left out with the items that bring them: the HA master
-(``FaultTolerantMasterProcess``; the port's conf has no
-``atpu.master.ha.enabled`` to ask for it), the proxy, log-server and
-FUSE launchers, and shipping log records to a log server.
+touches the card. ``atpu.master.ha.enabled`` launches the HA master
+(``FaultTolerantMasterProcess``: a standby until it wins primacy). Left
+out with the item that brings them: the proxy, log-server and FUSE
+launchers, and shipping log records to a log server.
 """
 
 from __future__ import annotations
@@ -49,6 +49,17 @@ def _master_address(conf: Configuration) -> str:
 
 
 def launch_master(conf: Configuration) -> int:
+    if conf.get_bool(Keys.MASTER_HA_ENABLED):
+        from alluxio_tpu_torch.master.process import (
+            FaultTolerantMasterProcess,
+        )
+
+        proc = FaultTolerantMasterProcess(conf)
+        proc.start()
+        banner = ("alluxio-tpu master started (HA): "
+                  + ("serving" if proc.serving else "standby, tailing")
+                  + f" (journal replay {proc.replay_s:.6f} s)")
+        return _serve_until_signal(proc.stop, banner)
     from alluxio_tpu_torch.master.process import MasterProcess
 
     proc = MasterProcess(conf)

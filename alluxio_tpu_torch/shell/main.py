@@ -3,7 +3,7 @@
 commands the port has).
 
 Re-design of ``bin/alluxio`` (the bash dispatcher): routes to the role
-launchers. Generic options: ``--master host:port``, ``--job-master
+launchers, the stress CLI and ``journalCrashTest``. Generic options: ``--master host:port``, ``--job-master
 host:port``, ``-D key=value`` config overrides. Every other command of
 the JAX package is refused with the ROADMAP item that brings it.
 """
@@ -20,6 +20,7 @@ Usage: alluxio-tpu [generic options] <command> [command args]
 
 Commands:
   stress     stress benchmark suite (worker/master/prefetch/table/write)
+  journalCrashTest  crash-kill masters under load, verify replay
   master     run a master process
   worker     run a worker process
   job-master run a job master process
@@ -40,7 +41,6 @@ _NOT_PORTED = {
          "validateHms", "runOperation", "format", "proxy", "logserver",
          "fuse"),
         "Host-only surfaces, last"),
-    "journalCrashTest": "HA",
 }
 
 
@@ -108,6 +108,10 @@ def main(argv=None) -> int:
         from alluxio_tpu_torch.stress.__main__ import main as stress_main
 
         return stress_main(argv[1:])
+    if cmd == "journalCrashTest":
+        from alluxio_tpu_torch.shell.journal_crash import main as crash_main
+
+        return crash_main(argv[1:])
     if cmd in ("master", "worker", "job-master", "job-worker"):
         from alluxio_tpu_torch.shell.launch import launch_process
 

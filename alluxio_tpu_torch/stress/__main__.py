@@ -17,10 +17,9 @@ Benches:
   selfheal     remediation detection->action latency and tick overhead
   qos          two-tenant victim p99 under a flood; admission shedding
   suite        run the whole BASELINE config family
+  ha           HA failover drill: MTTR, acknowledged-write loss, standby
+               staleness
 
-The JAX CLI's ``ha`` bench needs modules the port does not have yet: it
-is refused with the ROADMAP item that brings it, and the suite leaves
-out its row.
 The table bench runs in-process only (``table --master`` is refused).
 """
 
@@ -29,12 +28,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-#: the JAX benches the port does not have yet, each with the ROADMAP item
-#: (its heading in "Open items") that ports the modules it needs
-_NOT_PORTED = {
-    "ha": "HA",
-}
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -279,6 +272,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="lsm-capacity row: RLIMIT_AS cap per backend "
                          "subprocess (HEAP must blow it, LSM must fit)")
 
+    ha = sub.add_parser("ha", help="HA failover drill: kill the primary "
+                                   "under live load; gates MTTR <= 2 "
+                                   "election timeouts, zero acked-write "
+                                   "loss, standby staleness contract")
+    ha.add_argument("--masters", type=int, default=3)
+    ha.add_argument("--election-timeout", type=float, default=2.0,
+                    metavar="SECONDS",
+                    help="election timeout upper bound (seconds-scale "
+                         "on purpose: the in-process quorum shares one "
+                         "GIL with the load; the gate must measure "
+                         "failover, not scheduler jitter)")
+    ha.add_argument("--warmup", type=float, default=2.0,
+                    help="seconds of load before the kill")
+
     sub.add_parser("suite", help="run the whole BASELINE config family")
     rp = sub.add_parser("report",
                         help="render suite JSON to a single-file HTML "
@@ -288,7 +295,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-#: JAX's ``SUITE`` without the rows of the benches in ``_NOT_PORTED``
 SUITE = (
     ("worker-sequential", ["worker", "--mode", "sequential",
                            "--threads", "4", "--duration", "5"]),
@@ -342,6 +348,7 @@ SUITE = (
     ("metadata-lsm-capacity", ["metadata", "--row", "lsm-capacity",
                                "--inodes", "1000000",
                                "--cap-mb", "1024"]),
+    ("ha-failover", ["ha"]),
 )
 
 
@@ -443,10 +450,6 @@ def run_suite() -> list:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _NOT_PORTED:
-        print(f"{argv[0]}: not ported yet; it comes with the ROADMAP item "
-              f"'{_NOT_PORTED[argv[0]]}'", file=sys.stderr)
-        return 1
     args = build_parser().parse_args(argv)
     if args.bench == "worker":
         from alluxio_tpu_torch.stress.worker_bench import run
@@ -627,6 +630,12 @@ def main(argv=None) -> int:
         else:
             r = run(row=args.row, fsync_ms=args.fsync_ms,
                     batch_time_ms=args.batch_time_ms, **kw)
+    elif args.bench == "ha":
+        from alluxio_tpu_torch.stress.ha_bench import run
+
+        r = run(masters=args.masters,
+                election_timeout_s=args.election_timeout,
+                warmup_s=args.warmup)
     elif args.bench == "suite":
         results = run_suite()
         return 0 if all(x.errors == 0 for x in results) else 1

@@ -34,26 +34,42 @@ substring so a multi-worker cluster can break exactly one node:
   ops really write), drilling the byte-identical fallback from
   ``plan_exec.cpp`` to the pure-Python read path.
 
-``FaultPlan`` sequences faults (plus cluster actions like
+The HA chaos drill (docs/ha.md) adds four programmatic faults — set by
+the minicluster / :class:`FaultPlan`, not by conf, since they only make
+sense against an orchestrated multi-master cluster:
+
+- **tailer freeze** — a standby's journal tailer (or Raft apply loop)
+  stops applying: its advertised ``md_version`` stops advancing, which
+  is exactly what the standby-read staleness invariant must survive;
+- **election freeze** — a quorum member skips starting elections while
+  frozen, making "who wins the next election" deterministic in drills;
+- **partition** — Raft peer calls touching a matching node id are
+  dropped with a ``ConnectionError`` (responses ride the same call, so
+  one-sided dropping cuts the link both ways);
+- **fsync errors** — the next N journal fsyncs raise ``OSError`` at the
+  ``LocalJournalSystem._fsync`` choke point: the crash-point drill for
+  "latch broken, never ack-then-lose".
+
+``FaultPlan`` sequences such faults (plus cluster actions like
 kill/restart-primary) into one deterministic, replayable schedule.
 
-The port wires every hook whose call site it has, at the JAX package's
-place: the UFS stripe reads (``worker/ufs_fetch.py``), the warm
-``read_block`` latency (``rpc/worker_service.py``), the RPC reject in the
-server's dispatch (``rpc/core.py``), the SHM lease deny
-(``worker/shm_store.py``), the SHM map error
-(``client/shm_transport.py``), the fastpath poison
-(``client/fastpath.py``) and the heartbeat freeze (the worker's metrics
-reporter, ``worker/process.py``). The JAX package's HA faults (tailer and
-election freeze, partition, journal fsync errors) wait for the master and
-its journal.
+The port wires every hook at the JAX package's place: the UFS stripe
+reads (``worker/ufs_fetch.py``), the warm ``read_block`` latency
+(``rpc/worker_service.py``), the RPC reject in the server's dispatch
+(``rpc/core.py``), the SHM lease deny (``worker/shm_store.py``), the SHM
+map error (``client/shm_transport.py``), the fastpath poison
+(``client/fastpath.py``), the heartbeat freeze (the worker's metrics
+reporter, ``worker/process.py``), the tailer freeze (``journal/ha.py``'s
+tailer and ``journal/raft.py``'s apply loop), the election freeze and the
+partition (``journal/raft.py``'s timer loop and peer call) and the fsync
+errors (``journal/system.py``'s ``_fsync``).
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 
 class FaultInjector:
@@ -71,11 +87,18 @@ class FaultInjector:
         self.shm_lease_deny_rate: float = 0.0
         self.native_exec_error_rate: float = 0.0
         self.scope: str = ""
+        #: HA chaos faults (programmatic; see module docstring)
+        self.tailer_freeze_scope: str = ""
+        self.election_freeze_scope: str = ""
+        self.partitioned: "frozenset[str]" = frozenset()
+        self.fsync_errors: int = 0
         #: injected-fault tallies, for tests and fsadmin spelunking
         self.injected = {"read_latency": 0, "heartbeat_freeze": 0,
                          "ufs_error": 0, "rpc_reject": 0,
                          "shm_map_error": 0, "shm_lease_deny": 0,
-                         "native_exec_error": 0}
+                         "native_exec_error": 0,
+                         "tailer_freeze": 0, "election_freeze": 0,
+                         "partition_drop": 0, "fsync_error": 0}
         self._ufs_reads = 0
         self._ufs_failed = 0
         self._rpc_calls = 0
@@ -115,7 +138,12 @@ class FaultInjector:
             shm_map_error_rate: Optional[float] = None,
             shm_lease_deny_rate: Optional[float] = None,
             native_exec_error_rate: Optional[float] = None,
-            scope: Optional[str] = None) -> None:
+            scope: Optional[str] = None,
+            tailer_freeze_scope: Optional[str] = None,
+            election_freeze_scope: Optional[str] = None,
+            partitioned: Optional[Sequence[str]] = None,
+            fsync_errors: Optional[int] = None) -> None:
+        global _armed
         with self._lock:
             if read_latency_s is not None:
                 self.read_latency_s = max(0.0, float(read_latency_s))
@@ -138,6 +166,15 @@ class FaultInjector:
                     0.0, float(native_exec_error_rate)))
             if scope is not None:
                 self.scope = str(scope)
+            if tailer_freeze_scope is not None:
+                self.tailer_freeze_scope = str(tailer_freeze_scope)
+            if election_freeze_scope is not None:
+                self.election_freeze_scope = str(election_freeze_scope)
+            if partitioned is not None:
+                self.partitioned = frozenset(
+                    str(p) for p in partitioned if str(p))
+            if fsync_errors is not None:
+                self.fsync_errors = max(0, int(fsync_errors))
             self._rearm_locked()
 
     def _rearm_locked(self) -> None:
@@ -146,7 +183,10 @@ class FaultInjector:
                       or self.ufs_error_rate or self.rpc_reject_rate
                       or self.shm_map_error_rate
                       or self.shm_lease_deny_rate
-                      or self.native_exec_error_rate)
+                      or self.native_exec_error_rate
+                      or self.tailer_freeze_scope
+                      or self.election_freeze_scope
+                      or self.partitioned or self.fsync_errors)
 
     def reset(self) -> None:
         global _armed
@@ -159,6 +199,10 @@ class FaultInjector:
             self.shm_lease_deny_rate = 0.0
             self.native_exec_error_rate = 0.0
             self.scope = ""
+            self.tailer_freeze_scope = ""
+            self.election_freeze_scope = ""
+            self.partitioned = frozenset()
+            self.fsync_errors = 0
             self._ufs_reads = 0
             self._ufs_failed = 0
             self._rpc_calls = 0
@@ -202,6 +246,55 @@ class FaultInjector:
                 self.injected["ufs_error"] += 1
                 return True
         return False
+
+    def tailer_frozen(self, node: str) -> bool:
+        """True while ``node`` matches the tailer-freeze scope: the
+        standby's tailer (or Raft apply loop) skips applying, so its
+        advertised md_version stops advancing — the staleness-contract
+        drill."""
+        scope = self.tailer_freeze_scope
+        if scope and scope in node:
+            self.injected["tailer_freeze"] += 1
+            return True
+        return False
+
+    def election_frozen(self, node: str) -> bool:
+        """True while ``node`` matches the election-freeze scope: the
+        member sits out elections (still votes), making drill outcomes
+        deterministic."""
+        scope = self.election_freeze_scope
+        if scope and scope in node:
+            self.injected["election_freeze"] += 1
+            return True
+        return False
+
+    def link_blocked(self, a: str, b: str) -> bool:
+        """True when either endpoint of a peer call matches a
+        partitioned node id.  Checked on the SENDING side only —
+        responses ride the same call, so dropping outbound traffic at
+        both members cuts the link bidirectionally."""
+        part = self.partitioned
+        if not part:
+            return False
+        for p in part:
+            if p in a or p in b:
+                self.injected["partition_drop"] += 1
+                return True
+        return False
+
+    def take_fsync_error(self) -> bool:
+        """True when this journal fsync should fail (countdown armed by
+        ``fsync_errors=N``): the crash-point drill for the journal's
+        latch-broken-never-ack-then-lose contract."""
+        if self.fsync_errors <= 0:
+            return False
+        with self._lock:
+            if self.fsync_errors <= 0:
+                return False
+            self.fsync_errors -= 1
+            self.injected["fsync_error"] += 1
+            self._rearm_locked()
+            return True
 
     def take_shm_map_error(self, host: str) -> bool:
         """True when this client SHM segment map should fail with an
@@ -305,8 +398,9 @@ class FaultPlan:
     """A deterministic, replayable chaos schedule.
 
     The plan is data (ordered :class:`FaultStep`\\ s); the cluster under
-    test supplies the ``actions`` catalog (kill a worker, set a fault
-    rate, ...).
+    test supplies the ``actions`` catalog (kill_primary, restart_master,
+    freeze_tailer, partition, fail_fsync, delay_elections, ...) — the
+    HA minicluster exposes exactly that (``HaCluster.chaos_actions``).
     ``run`` executes steps strictly in schedule order, records an
     execution log (step, wall offset, result/error), and never lets one
     failing step silently skip the rest: errors are logged per step and

@@ -5,8 +5,9 @@ on an HA deployment is not always the primary, so a single-master
 ``get_trace`` can show a hole exactly where the interesting hop ran.
 These helpers query every configured master endpoint and merge the
 stitched views back into one (dedup by ``(trace_id, span_id)``), which
-is what ``/api/v1/master/trace?fanout=1`` serves. Until the port has HA
-its master list has one endpoint, so the fan-out queries that master.
+is what ``/api/v1/master/trace?fanout=1`` serves on HA deployments
+(every master of ``atpu.master.rpc.addresses``, standbys included: they
+answer ``get_trace`` with their own spans).
 """
 
 from __future__ import annotations

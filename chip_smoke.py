@@ -285,6 +285,40 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    denials must equal the shed count. (d) An aged and a fresh persist
    temp in the root UFS: the aged one must go within two cleanup ticks,
    the fresh one must stay; no role process may outlive the stop.
+2k. master HA, after 2j: a ``MultiProcessCluster`` of its own, three HA
+   masters on EMBEDDED journals (the JAX election timeouts, 300-600 ms)
+   and one worker (a MEM tier of 48 x 32 MiB + 256 MiB), each a process,
+   with the scheduled backup, the masters' web servers and standby reads
+   on, and the health evaluation and backup interval cut (``HA_KEYS``,
+   each printed with its default). (a) The seconds to the first leader;
+   32 of the main path's shards written CACHE_THROUGH through the primary
+   and epoch 1 onto the card, one ``scaled_sum`` a block against its plain
+   version, then the ``K`` chain over the loaded blocks equal to the plain
+   chain and to the chain over the same files. (b) A fresh client's
+   loader (each file's block list crosses the master) beside a writer
+   child creating small files at 50 a second, each acknowledgement
+   recorded in a ``WriteLedger``; after 8 consumed blocks the primary is
+   SIGKILLed: the seconds until ``get_masters`` names a new leader, to the
+   writer's first acknowledged create and until the worker has
+   re-registered, the loader's longest gap and epoch 2 against epoch 1,
+   each block's rung and how many left the SHM rung while the new leader
+   knew no locations; every acknowledged create must be on the new
+   leader. (c) 1000 ``get_status`` calls a side, alternated, through a
+   client with standby reads on (both survivors listed; it reads the
+   standby) and a strong one (the primary), p50/p99 of each;
+   ``Client.StandbyReads`` must move, and stamped standby listings must
+   hold every acknowledged create the stamp covers. (d)
+   ``master-quorum-degraded`` must fire; the killed master restarted, the
+   seconds until it has applied the leader's sequence, the ``/masters``
+   route's rows printed; the rule must resolve. (e) A scheduled backup
+   covering the writer's creates, taken while a third epoch runs, seeds a
+   LOCAL master (``atpu.master.journal.init.from.backup``) that must list
+   every shard and every acknowledged create, as the leader does; after
+   the cluster's stop (no role process may outlive it) a copy of a
+   master's journal goes embedded -> local -> embedded and both migrated
+   masters must list the same. (f) ``stress ha`` at the JAX defaults: its
+   MTTR against the gate of two election timeouts plus the rank stagger
+   (a miss is recorded, not a failure).
 
 It prints the card's name and power limit, whether pyarrow imports,
 one ``{"main": {...}}``
@@ -294,7 +328,8 @@ line, one ``{"train": {...}}``
 line, one ``{"mesh": {...}}`` line, one ``{"suite": {...}}`` line, one
 ``{"clairvoyant": {...}}`` line, one ``{"multi_process": {...}}`` line,
 one ``{"stress": {...}}`` line, one ``{"observability": {...}}`` line,
-one ``{"guards": {...}}`` line, one ``{"kernels": [...]}`` line,
+one ``{"guards": {...}}`` line, one ``{"ha": {...}}`` line, one
+``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
 exits non-zero and prints no result. All data is made from a seed.
@@ -3476,6 +3511,14 @@ def gate_miss(row: dict) -> "str | None":
         return (f"victim_degradation_qos_x "
                 f"{m.get('victim_degradation_qos_x')} over the "
                 f"{p['max_degradation_x']}x gate") if ok else None
+    elif bench == "ha-failover":
+        # the MTTR budget alone is the gate: a lost acknowledged write, a
+        # stale standby read or a writer error is a fault
+        ok = m.get("mttr_ok") is False and m.get("mttr_s") is not None \
+            and m.get("lost_acked") == 0 \
+            and m.get("staleness_violations") == 0 and row["errors"] == 1
+        return (f"mttr_s {m.get('mttr_s')} over the "
+                f"{p.get('mttr_budget_s')} s budget") if ok else None
     elif bench == "smallread-batch":
         ok = m.get("mismatches") == 0
         key = "speedup"
@@ -4592,6 +4635,669 @@ def guards_phase(device, main: dict) -> dict:
     return out
 
 
+# -- 2k: master HA --------------------------------------------------------------
+#: 2k's cuts, each printed beside its default (PERF.md section 4): at the
+#: JAX defaults the health rule would evaluate every 10 s and wait 30 s to
+#: fire and 60 s to resolve, and the first scheduled backup would come a
+#: day later. The election timeouts (300-600 ms), the Raft heartbeat
+#: (100 ms), the standby tail and registry intervals (1 s) stay the JAX
+#: defaults
+HA_KEYS = {
+    "atpu.master.health.eval.interval": "500ms",
+    "atpu.master.health.fire.after": "0s",
+    "atpu.master.health.resolve.after": "0s",
+    "atpu.master.daily.backup.interval": "2s",
+}
+#: what 2k switches on (none is a cut): the scheduled backup, the masters'
+#: web servers (their ``/masters`` route), and the masters' standby reads
+#: (the JAX default, named so it shows)
+HA_SETTINGS = {
+    "atpu.master.daily.backup.enabled": "true",
+    "atpu.master.web.enabled": "true",
+    "atpu.master.ha.standby.reads.enabled": "true",
+}
+HA_MASTERS = 3
+HA_SHARDS = 32           # (a): 1 GiB CACHE_THROUGH through the primary
+HA_KILL_AFTER = 8        # (b): consumed blocks before the primary's SIGKILL
+HA_WRITE_HZ = 50         # (b): the writer child's creates a second
+HA_READS = 1000          # (c): get_status calls a side
+HA_STALE_PROBES = 20     # (c): stamped standby listings against the ledger
+HA_DEADLINE_S = 60.0
+HA_BENCH_TIMEOUT_S = 180
+#: (b)'s writer: a child process that creates small files under a
+#: directory at ``HA_WRITE_HZ`` through the failover client (the full
+#: master list, the JAX ``ha`` bench's retry settings), every fifth one
+#: stamped with the primary's md_version after its ack, until a stop file
+#: appears; one line an acknowledged create: path, wall-clock ack time,
+#: stamp (or -1)
+HA_WRITER_CHILD = r"""
+import sys, os, time
+sys.path.insert(0, sys.argv[1])
+from alluxio_tpu_torch.rpc.clients import FsMasterClient
+addresses, directory, stop, out_path, hz = sys.argv[2:7]
+period = 1.0 / float(hz)
+c = FsMasterClient(addresses, retry_duration_s=60.0, max_sleep_s=0.5,
+                   fastpath=False)
+c.create_directory(directory, recursive=True, allow_exists=True)
+with open(out_path, "w") as out:
+    print("ready", flush=True)
+    i, t0 = 0, time.monotonic()
+    while not os.path.exists(stop):
+        path = f"{directory}/w{i:06d}"
+        c.create_directory(path)
+        t_ack = time.time()
+        stamp = -1
+        if i % 5 == 0:
+            _, v = c.get_status(path, want_version=True)
+            stamp = -1 if v is None else int(v)
+        out.write(f"{path} {t_ack!r} {stamp}\n")
+        out.flush()
+        i += 1
+        time.sleep(max(0.0, t0 + i * period - time.monotonic()))
+"""
+
+
+class _RungFS:
+    """The loader's file system, recording the rung that opened each
+    block (``BlockInStream.rung``)."""
+
+    def __init__(self, fs) -> None:
+        self._fs = fs
+        self.rungs: dict = {}
+
+    def get_status(self, path):
+        return self._fs.get_status(path)
+
+    def open_file(self, path, **kw):
+        f = self._fs.open_file(path, **kw)
+        inner = f.block_stream
+
+        def block_stream(index):
+            stream = inner(index)
+            self.rungs[path] = getattr(stream, "rung", None)
+            return stream
+
+        f.block_stream = block_stream
+        return f
+
+
+def ha_epoch(device, fs, paths: list, on_block=None,
+             keep: bool = False) -> dict:
+    """One loader epoch (no device tier) onto ``device`` through a fresh
+    loader over ``fs``: each block's ``scaled_sum`` held against
+    ``scaled_sum_reference``; the consume time and the rung of every
+    block; ``on_block(n)`` after the n-th consumed block."""
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    rfs = _RungFS(fs)
+    loader = DeviceBlockLoader(rfs, paths, device=device, prefetch=2,
+                               dtype=np.int32)
+    sums, times, blocks = [], [], []
+    try:
+        wait0 = loader.stall_report()["total_wait_s"]
+        _sync_device(device)
+        t = time.perf_counter()
+        for path, block in zip(paths, loader.epoch()):
+            x = rk.pad_to_kernel_shape(block)
+            got = int(rk.scaled_sum(x, 1))
+            want = int(rk.scaled_sum_reference(x, 1))
+            if got != want:
+                fail(f"2k: {path}'s scaled_sum {got} != plain {want}")
+            sums.append(got)
+            times.append(time.perf_counter())
+            if keep:
+                blocks.append(block)
+            if on_block is not None:
+                on_block(len(sums))
+        _sync_device(device)
+        epoch_s = time.perf_counter() - t
+        wait_s = loader.stall_report()["total_wait_s"] - wait0
+    finally:
+        loader.close()
+    if len(sums) != len(paths):
+        fail(f"2k: the epoch gave {len(sums)} blocks for {len(paths)} "
+             f"files")
+    gaps = [b - a for a, b in zip([t] + times[:-1], times)]
+    return {"sums": dict(zip(paths, sums)), "s": epoch_s, "wait_s": wait_s,
+            "times": times, "max_gap_s": max(gaps),
+            "rungs": [rfs.rungs.get(p) for p in paths], "blocks": blocks}
+
+
+def start_ha_cluster(base: str, block_bytes: int, tier: int):
+    """A ``MultiProcessCluster`` of ``HA_MASTERS`` masters on EMBEDDED
+    journals and one worker, each a process, with 2k's cuts and settings;
+    returns it and the seconds to its first leader."""
+    from alluxio_tpu_torch.conf import Keys, Templates
+    from alluxio_tpu_torch.conf.property_key import REGISTRY
+    from alluxio_tpu_torch.minicluster.multi_process import (
+        MultiProcessCluster,
+    )
+
+    for key, value in HA_KEYS.items():
+        print(f"2k: cut {key} = {value} (default "
+              f"{REGISTRY.get(key).default})", flush=True)
+    for key, value in HA_SETTINGS.items():
+        print(f"2k: set {key} = {value} (default "
+              f"{REGISTRY.get(key).default})", flush=True)
+    extra = {Keys.USER_BLOCK_SIZE_BYTES_DEFAULT.name: str(block_bytes),
+             Templates.WORKER_TIER_DIRS_QUOTA.format(0).name: str(tier),
+             Keys.MASTER_BACKUP_DIR.name: os.path.join(base, "backups"),
+             **HA_KEYS, **HA_SETTINGS}
+    cluster = MultiProcessCluster(
+        os.path.join(base, "c"), num_masters=HA_MASTERS, num_workers=1,
+        journal_type="EMBEDDED", extra_conf=extra)
+    t = time.perf_counter()
+    try:
+        for i in range(HA_MASTERS):
+            cluster.start_master(i)
+        cluster.wait_for_primary(MP_BOOT_S)
+        leader_s = time.perf_counter() - t
+        cluster.start_worker(0)
+        cluster.wait_for_workers(1, MP_BOOT_S)
+    except BaseException:
+        cluster.stop()
+        raise
+    return cluster, leader_s
+
+
+def _masters_view(address: str) -> dict:
+    from alluxio_tpu_torch.rpc.clients import MetaMasterClient
+
+    return MetaMasterClient(address, fastpath=False,
+                            retry_duration_s=0.5).get_masters()
+
+
+def _own_sequence(address: str) -> "int | None":
+    """The applied journal sequence ``address`` reports for itself."""
+    try:
+        rows = _masters_view(address)["masters"]
+    except Exception:  # noqa: BLE001 - not serving yet
+        return None
+    return next((r.get("sequence") for r in rows
+                 if r["address"] == address), None)
+
+
+def _read_acks(path: str) -> list:
+    with open(path) as f:
+        rows = [line.split() for line in f if line.count(" ") == 2]
+    return [(p, float(t), int(s)) for p, t, s in rows]
+
+
+def _listing(fsc, directory: str) -> list:
+    return sorted(i.path for i in fsc.list_status(directory,
+                                                  recursive=True))
+
+
+class _FailoverWatch:
+    """From the primary's kill: the seconds until ``get_masters`` on a
+    survivor names a new leader, and until the worker has re-registered
+    with it (the leader lists a live worker)."""
+
+    def __init__(self, cluster, dead: int) -> None:
+        import threading
+
+        self._cluster = cluster
+        self._dead = f"localhost:{cluster.master_ports[dead]}"
+        self._survivors = [f"localhost:{p}" for i, p in
+                           enumerate(cluster.master_ports) if i != dead]
+        self.t_kill = time.perf_counter()
+        self.leader = None
+        self.leader_s = self.registered_s = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="smoke-ha-watch")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        from alluxio_tpu_torch.rpc.clients import BlockMasterClient
+
+        while not self._stop.is_set() and self.registered_s is None:
+            now = time.perf_counter()
+            if now - self.t_kill > HA_DEADLINE_S:
+                return
+            if self.leader is None:
+                for addr in self._survivors:
+                    try:
+                        leader = _masters_view(addr).get("leader")
+                    except Exception:  # noqa: BLE001 - mid-election
+                        continue
+                    if leader and leader != self._dead:
+                        self.leader = leader
+                        self.leader_s = time.perf_counter() - self.t_kill
+                        break
+            else:
+                try:
+                    infos = BlockMasterClient(
+                        self.leader, fastpath=False,
+                        retry_duration_s=0.2).get_worker_infos()
+                except Exception:  # noqa: BLE001 - not serving yet
+                    infos = []
+                if infos:
+                    self.registered_s = time.perf_counter() - self.t_kill
+            time.sleep(0.01)
+
+    def wait(self) -> None:
+        self._thread.join(HA_DEADLINE_S + 5)
+        if self.leader_s is None or self.registered_s is None:
+            fail(f"2k (b): {HA_DEADLINE_S} s after the kill: leader named "
+                 f"after {self.leader_s} s, worker re-registered after "
+                 f"{self.registered_s} s")
+
+
+def _quorum_alert(meta) -> "str | None":
+    """Where ``master-quorum-degraded`` stands on the leader: firing,
+    pending, resolved or None."""
+    h = meta.get_health(evaluate=False)
+    for kind in ("alerts", "pending", "recently_resolved"):
+        if any(a["rule"] == "master-quorum-degraded" for a in h[kind]):
+            return kind
+    return None
+
+
+def _await_quorum_alert(meta, want: tuple, what: str) -> float:
+    t = time.perf_counter()
+    while True:
+        state = _quorum_alert(meta)
+        if state in want:
+            return time.perf_counter() - t
+        if time.perf_counter() - t > HA_DEADLINE_S:
+            fail(f"2k (d): master-quorum-degraded {state!r} "
+                 f"{HA_DEADLINE_S} s after {what}")
+        time.sleep(0.2)
+
+
+def _restore_listing(journal_type: str, folder: str, ufs: str,
+                     directory: str, **conf) -> list:
+    """A master in this process on ``folder`` (its own port, no fast
+    path, no web server), the listing of ``directory`` under it, then
+    stopped."""
+    from alluxio_tpu_torch.conf import Configuration, Keys
+    from alluxio_tpu_torch.master.process import MasterProcess
+    from alluxio_tpu_torch.minicluster.multi_process import free_port
+    from alluxio_tpu_torch.rpc.clients import FsMasterClient
+
+    c = Configuration(load_env=False)
+    c.set(Keys.HOME, folder)
+    c.set(Keys.MASTER_JOURNAL_TYPE, journal_type)
+    c.set(Keys.MASTER_JOURNAL_FOLDER, folder)
+    c.set(Keys.MASTER_RPC_PORT, free_port())
+    c.set(Keys.MASTER_FASTPATH_ENABLED, False)
+    c.set(Keys.MASTER_SAFEMODE_WAIT, "0s")
+    for k, v in conf.items():
+        c.set(k, v)
+    m = MasterProcess(c, root_ufs_uri=ufs)
+    m.start()
+    try:
+        return _listing(FsMasterClient(m.address, fastpath=False),
+                        directory)
+    finally:
+        m.stop()
+
+
+def failover_drill(device, cluster, files: dict, kill_after: int,
+                   workdir: str, keep: bool = False) -> dict:
+    """(2k a-b) ``files`` (namespace path -> block file) written
+    CACHE_THROUGH through the primary and one epoch onto ``device``; then
+    a fresh client's epoch beside a writer child, the primary SIGKILLed
+    after ``kill_after`` consumed blocks; every acknowledged create must
+    be on the new leader and epoch 2's sums epoch 1's."""
+    import signal
+
+    from alluxio_tpu_torch.client.streams import WriteType
+    from alluxio_tpu_torch.minicluster import WriteLedger
+    from alluxio_tpu_torch.rpc.clients import FsMasterClient
+
+    paths = list(files)
+    primary = cluster.primary_index(MP_BOOT_S)
+    fs = cluster.file_system()
+    t = time.perf_counter()
+    for path in paths:
+        fs.write_all(path, np.fromfile(files[path], dtype=np.uint8),
+                     write_type=WriteType.CACHE_THROUGH)
+    write_s = time.perf_counter() - t
+    first = ha_epoch(device, fs, paths, keep=keep)
+    fs.close()
+    stop_file = os.path.join(workdir, "writer.stop")
+    acks_path = os.path.join(workdir, "writer.acks")
+    writer = subprocess.Popen(
+        [sys.executable, "-c", HA_WRITER_CHILD, str(ROOT),
+         cluster.master_addresses, "/ha/acks", stop_file, acks_path,
+         str(HA_WRITE_HZ)],
+        stdout=subprocess.PIPE, text=True, env=stress_env())
+    try:
+        if writer.stdout.readline().strip() != "ready":
+            fail("2k (b): the writer child did not start")
+        watch = []
+
+        def kill_primary(n: int) -> None:
+            if n == kill_after:
+                watch.append(_FailoverWatch(cluster, primary))
+                cluster.masters[primary].kill(signal.SIGKILL)
+
+        fs = cluster.file_system()
+        second = ha_epoch(device, fs, paths, on_block=kill_primary)
+        fs.close()
+        w = watch[0]
+        w.wait()
+        # the writer's first create acknowledged after the kill
+        t_kill_wall = time.time() - (time.perf_counter() - w.t_kill)
+        deadline = time.perf_counter() + HA_DEADLINE_S
+        while True:
+            after = [a for a in _read_acks(acks_path) if a[1] > t_kill_wall]
+            if after:
+                break
+            if time.perf_counter() > deadline or writer.poll() is not None:
+                fail(f"2k (b): no create acknowledged after the kill "
+                     f"(writer exit {writer.poll()})")
+            time.sleep(0.05)
+        first_ack_s = after[0][1] - t_kill_wall
+        open(stop_file, "w").close()
+        writer.wait(timeout=HA_DEADLINE_S)
+        if writer.returncode != 0:
+            fail(f"2k (b): the writer exited {writer.returncode}")
+    finally:
+        if writer.poll() is None:
+            writer.kill()
+            writer.wait(timeout=10)
+    acks = _read_acks(acks_path)
+    ledger = WriteLedger()
+    for path, _t, stamp in acks:
+        ledger.record(path, None if stamp < 0 else stamp)
+    if second["sums"] != first["sums"]:
+        fail("2k (b): epoch 2's sums differ from epoch 1's")
+    t_kill, t_reg = w.t_kill, w.t_kill + w.registered_s
+    off_shm = [(r, round(c - t_kill, 3)) for r, c in
+               zip(second["rungs"], second["times"])
+               if t_kill <= c <= t_reg and r != "shm"]
+    survivors = [f"localhost:{p}" for i, p in
+                 enumerate(cluster.master_ports) if i != primary]
+    lost = ledger.verify_durable(FsMasterClient(
+        w.leader, fastpath=False, retry_duration_s=HA_DEADLINE_S))
+    if lost:
+        fail(f"2k (b): {len(lost)} acknowledged creates missing on the "
+             f"new leader: {lost[:5]}")
+    return {"primary": primary, "write_s": write_s, "first": first,
+            "second": second, "watch": w, "first_ack_s": first_ack_s,
+            "acks": acks, "ledger": ledger, "off_shm": off_shm,
+            "leader": w.leader,
+            "standby": next(a for a in survivors if a != w.leader)}
+
+
+def ha_phase(device, main: dict) -> dict:
+    """(2k) master HA on a process cluster of its own, against the card's
+    loader: three masters on EMBEDDED journals, the primary killed in the
+    middle of an epoch beside a writer, standby reads, the rejoin, a
+    scheduled backup restored into a LOCAL master, a journal migration
+    round trip, and the CLI's ``ha`` bench."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from alluxio_tpu_torch.conf import Keys
+    from alluxio_tpu_torch.journal import migrate
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.minicluster.multi_process import free_port
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.rpc.clients import (
+        FsMasterClient, MetaMasterClient,
+    )
+
+    t_phase = time.perf_counter()
+    shards = list(main["files"])[:HA_SHARDS]
+    files = {f"/ha/s-{i:02d}": main["files"][p][1]
+             for i, p in enumerate(shards)}
+    paths = list(files)
+    tier = 48 * BLOCK_BYTES + (256 << 20)
+    base = block_dir(tier + HA_SHARDS * BLOCK_BYTES)
+    print(f"2k: {HA_MASTERS} masters on EMBEDDED journals, the JAX "
+          f"election timeouts (300-600 ms, heartbeat 100 ms); one worker, "
+          f"MEM tier {tier >> 20} MiB; a MultiProcessCluster under {base}",
+          flush=True)
+    rk.launches = 0
+    cluster, leader_s = start_ha_cluster(base, BLOCK_BYTES, tier)
+    try:
+        drill = failover_drill(device, cluster, files, HA_KILL_AFTER, base,
+                               keep=True)
+        primary, first, second = drill["primary"], drill["first"], \
+            drill["second"]
+        w, acks, ledger = drill["watch"], drill["acks"], drill["ledger"]
+        leader, standby = drill["leader"], drill["standby"]
+        x = torch.cat(first.pop("blocks"))
+        l0 = rk.launches
+        got = int(chain(rk.scaled_sum, x, K))
+        chain_launches = rk.launches - l0
+        plain = int(chain(rk.scaled_sum_reference, x, K))
+        host = torch.cat([torch.from_numpy(np.fromfile(
+            files[p], dtype=np.int32)) for p in paths]).to(device)
+        want = int(chain(rk.scaled_sum_reference, host, K))
+        del x, host
+        if chain_launches != K or not got == plain == want:
+            fail(f"2k (a): {chain_launches} chain launches (want {K}), "
+                 f"kernel chain {got}, plain {plain}, the files' {want}")
+        print(f"2k (a): first leader {leader_s:.3f} s after the masters "
+              f"started (m{primary}); {HA_SHARDS} x {BLOCK_BYTES >> 20} MiB "
+              f"CACHE_THROUGH in {drill['write_s']:.2f} s; epoch 1 "
+              f"{first['s']:.3f} s (consumer wait {first['wait_s']:.3f} s, "
+              f"rungs {sorted(set(first['rungs']))}); the K={K} chain "
+              f"{got} equal to the plain chain and the files'", flush=True)
+        print(f"2k (b): m{primary} SIGKILLed after {HA_KILL_AFTER} consumed "
+              f"blocks; from the kill: get_masters named {leader} after "
+              f"{w.leader_s:.3f} s, the writer's first acknowledged create "
+              f"{drill['first_ack_s']:.3f} s, the worker re-registered "
+              f"{w.registered_s:.3f} s; the loader's longest gap between "
+              f"blocks {second['max_gap_s']:.3f} s (epoch 1 "
+              f"{first['max_gap_s']:.3f} s), epoch 2 {second['s']:.3f} s "
+              f"against epoch 1 {first['s']:.3f} s; blocks by rung "
+              f"{ {r: second['rungs'].count(r) for r in set(second['rungs'])} }; "
+              f"{len(drill['off_shm'])} blocks left the SHM rung while the "
+              f"new leader knew no locations {drill['off_shm']}; "
+              f"{len(acks)} creates acknowledged at {HA_WRITE_HZ}/s, all on "
+              f"the new leader", flush=True)
+
+        # (c) standby reads against the two survivors
+        reads = metrics().counter("Client.StandbyReads")
+        reads0 = reads.count
+        routed = FsMasterClient(f"{leader},{standby}", standby_reads=True,
+                                fastpath=False)
+        strong = FsMasterClient(leader, fastpath=False)
+        for c in (routed, strong):
+            c.get_status(paths[0])  # warm-up, untimed
+        side = {"standby": [], "primary": []}
+        for i in range(HA_READS):
+            for name, c in (("standby", routed), ("primary", strong)):
+                t = time.perf_counter()
+                c.get_status(paths[i % len(paths)])
+                side[name].append((time.perf_counter() - t) * 1000.0)
+        standby_reads = reads.count - reads0
+        if standby_reads <= 0:
+            fail("2k (c): Client.StandbyReads did not move")
+        violations = 0
+        for _ in range(HA_STALE_PROBES):
+            infos, stamp = routed.list_status("/ha/acks", want_version=True)
+            violations += len(ledger.staleness_violations(
+                [i.path for i in infos], stamp))
+        if violations:
+            fail(f"2k (c): {violations} standby listings staler than their "
+                 f"md_version")
+        lat = {k: {"p50_ms": pct(sorted(v), 50), "p99_ms": pct(sorted(v), 99)}
+               for k, v in side.items()}
+        print(f"2k (c): {HA_READS} get_status a side over gRPC, alternated: "
+              f"standby {standby} p50 {lat['standby']['p50_ms']:.3f} ms p99 "
+              f"{lat['standby']['p99_ms']:.3f} ms, primary {leader} p50 "
+              f"{lat['primary']['p50_ms']:.3f} ms p99 "
+              f"{lat['primary']['p99_ms']:.3f} ms; Client.StandbyReads "
+              f"+{standby_reads}; {HA_STALE_PROBES} stamped standby "
+              f"listings, no staleness violation", flush=True)
+
+        # (d) the rejoin; the quorum rule fires, then resolves
+        meta = MetaMasterClient(leader, fastpath=False)
+        fired_s = _await_quorum_alert(meta, ("alerts",), "the kill")
+        target = _own_sequence(leader)
+        t = time.perf_counter()
+        cluster.start_master(primary)
+        killed = f"localhost:{cluster.master_ports[primary]}"
+        while True:
+            seq = _own_sequence(killed)
+            if seq is not None and seq >= target:
+                break
+            if time.perf_counter() - t > HA_DEADLINE_S:
+                fail(f"2k (d): the restarted master applied {seq} of "
+                     f"{target} within {HA_DEADLINE_S} s")
+            time.sleep(0.05)
+        t_rejoined = time.perf_counter()
+        rejoin_s = t_rejoined - t
+        web = cluster.master_web_ports[cluster.master_ports.index(
+            int(leader.rsplit(":", 1)[1]))]
+        with urllib.request.urlopen(
+                f"http://localhost:{web}/api/v1/master/masters",
+                timeout=10) as r:
+            rows = json.loads(r.read())["masters"]
+        print(f"2k (d): master-quorum-degraded firing {fired_s:.3f} s after "
+              f"(c); m{primary} restarted and applied the leader's sequence "
+              f"{target} in {rejoin_s:.3f} s; /masters rows:", flush=True)
+        for row in rows:
+            print(f"  {json.dumps(row, sort_keys=True)}", flush=True)
+        if sorted(r["address"] for r in rows) != \
+                sorted(f"localhost:{p}" for p in cluster.master_ports):
+            fail(f"2k (d): /masters rows {rows}")
+
+        # (e) a scheduled backup while the loader runs, restored into a
+        # LOCAL master; then the migration round trip on a stopped copy
+        backups = os.path.join(base, "backups")
+        want_seq = _own_sequence(leader)
+        landed = {}
+
+        def await_backup() -> None:
+            # copied out at once: the heartbeat's retention prunes the
+            # oldest backups every interval
+            t0 = time.perf_counter()
+            kept = os.path.join(base, "restore.bak")
+            while time.perf_counter() - t0 < HA_DEADLINE_S:
+                for name in os.listdir(backups):
+                    m = re.match(r"^atpu-backup-\d{8}-\d{6}-(\d+)"
+                                 r"(?:\.\d+)?\.bak$", name)
+                    if not m or int(m.group(1)) < want_seq:
+                        continue
+                    try:
+                        shutil.copyfile(os.path.join(backups, name), kept)
+                    except FileNotFoundError:
+                        continue
+                    landed.update(path=kept, name=name,
+                                  s=time.perf_counter() - t0)
+                    return
+                time.sleep(0.05)
+
+        waiter = threading.Thread(target=await_backup, daemon=True)
+        waiter.start()
+        fs = cluster.file_system()
+        third = ha_epoch(device, fs, paths)
+        fs.close()
+        waiter.join(HA_DEADLINE_S + 5)
+        if "path" not in landed or third["sums"] != first["sums"]:
+            fail(f"2k (e): backup {landed}, epoch 3 sums equal "
+                 f"{third['sums'] == first['sums']}")
+        expect = set(paths) | {p for p, _t, _s in acks}
+        live = _listing(FsMasterClient(leader, fastpath=False), "/ha")
+        ufs = os.path.join(cluster.base, "underFSStorage")
+        restored = _restore_listing(
+            "LOCAL", os.path.join(base, "restore"), ufs, "/ha",
+            **{Keys.MASTER_JOURNAL_INIT_FROM_BACKUP.name: landed["path"]})
+        if not expect <= set(restored) or restored != live:
+            fail(f"2k (e): the backup's master lists {len(restored)} paths, "
+                 f"the leader {len(live)}, missing "
+                 f"{sorted(expect - set(restored))[:5]}")
+        _await_quorum_alert(meta, ("recently_resolved",), "the rejoin")
+        resolved_s = time.perf_counter() - t_rejoined
+    finally:
+        cluster.stop()
+        alive = [p.proc.pid for p in cluster.masters + cluster.workers
+                 if p.alive]
+    if alive:
+        shutil.rmtree(base, ignore_errors=True)
+        fail(f"2k: processes {alive} outlived the cluster's stop")
+    try:
+        copy = os.path.join(base, "copy")
+        shutil.copytree(os.path.join(cluster.base, f"journal-m{primary}"),
+                        copy)
+        local = os.path.join(base, "migrated-local")
+        down = migrate.embedded_to_local(copy, local)
+        local_listing = _restore_listing("LOCAL", local, ufs, "/ha")
+        raft = os.path.join(base, "migrated-raft")
+        addr = f"127.0.0.1:{free_port()}"
+        up = migrate.local_to_embedded(local, raft, [addr])
+        raft_listing = _restore_listing(
+            "EMBEDDED", raft, ufs, "/ha",
+            **{Keys.MASTER_EMBEDDED_JOURNAL_ADDRESS.name: addr,
+               Keys.MASTER_EMBEDDED_JOURNAL_ADDRESSES.name: addr})
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    if not local_listing == raft_listing == live:
+        fail(f"2k (e): the migrated listings differ ({len(local_listing)} "
+             f"LOCAL, {len(raft_listing)} EMBEDDED, {len(live)} live)")
+    print(f"2k (e): a scheduled backup covering the writer's creates was "
+          f"on disk {landed['s']:.3f} s after epoch 3 started ({third['s']:.3f}"
+          f" s, every sum epoch 1's); a LOCAL master "
+          f"seeded from it lists all {len(restored)} paths (every shard "
+          f"and all {len(acks)} acknowledged creates); "
+          f"master-quorum-degraded seen resolved {resolved_s:.3f} s after "
+          f"the rejoin; embedded->local ({down['entries']} entries past a "
+          f"checkpoint at {down['checkpoint_seq']}) -> embedded "
+          f"({up['entries']} entries) on a stopped copy of m{primary}'s "
+          f"journal: both masters list the same {len(raft_listing)} paths",
+          flush=True)
+
+    # (f) the CLI's ha bench at the JAX defaults
+    proc = subprocess.run(STRESS_CLI + ["ha"], capture_output=True,
+                          text=True, timeout=HA_BENCH_TIMEOUT_S,
+                          env=stress_env())
+    lines = [line for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    if not lines:
+        fail(f"2k (f): the ha bench printed no row (exit "
+             f"{proc.returncode}): {proc.stderr[-3000:]}")
+    bench = json.loads(lines[-1])
+    miss = gate_miss(bench)
+    if proc.returncode != 0 and miss is None:
+        fail(f"2k (f): the ha bench failed: {json.dumps(bench)} "
+             f"{proc.stderr[-3000:]}")
+    bm = bench["metrics"]
+    print(f"2k (f): stress ha ({bench['params']['masters']} masters, "
+          f"election timeout {bench['params']['election_timeout_s']} s): "
+          f"MTTR {bm['mttr_s']} s against the gate of "
+          f"{bench['params']['mttr_budget_s']} s (two election timeouts "
+          f"plus the rank stagger){' MISSED' if miss else ''}; "
+          f"{bm['acked_writes']} acknowledged writes, {bm['lost_acked']} "
+          f"lost, {bm['staleness_violations']} staleness violations, "
+          f"standby lag p50 {bm['standby_lag_p50_us']} us p99 "
+          f"{bm['standby_lag_p99_us']} us", flush=True)
+    for e in (first, second, third):
+        for key in ("sums", "times", "blocks"):
+            e.pop(key, None)
+    out = {"keys": HA_KEYS, "settings": HA_SETTINGS,
+           "block_bytes": BLOCK_BYTES, "shards": HA_SHARDS,
+           "leader_s": leader_s, "write_s": drill["write_s"],
+           "epochs": [first, second, third], "chain": got,
+           "failover": {"leader_named_s": w.leader_s,
+                        "first_ack_s": drill["first_ack_s"],
+                        "worker_registered_s": w.registered_s,
+                        "off_shm_blocks": drill["off_shm"],
+                        "acked_creates": len(acks), "lost": 0},
+           "standby_reads": {"latency": lat, "counted": standby_reads,
+                             "staleness_violations": violations},
+           "rejoin": {"quorum_alert_fired_s": fired_s, "rejoin_s": rejoin_s,
+                      "resolved_s": resolved_s, "masters_rows": rows},
+           "backup": {"landed_s": landed["s"], "restored": len(restored),
+                      "migrate_down": down, "migrate_up": up},
+           "bench": {"metrics": bm, "params": bench["params"],
+                     "gate_miss": miss, "exit": proc.returncode},
+           "launches": rk.launches, "s": time.perf_counter() - t_phase}
+    print(f"2k: {out['s']:.1f} s, scaled_sum launched {rk.launches} times",
+          flush=True)
+    return out
+
+
 def record_files(workdir: str, num_blocks: int, block_bytes: int) -> dict:
     """``bench.py``'s e2e layout: blocks of 64x64x3 records with a 4-byte
     label, padded to the block size; returns path -> (file id, file)."""
@@ -5523,6 +6229,8 @@ def main() -> int:
         observability = observability_phase(device, main, K)
         # 2j: the master's guards on a process cluster of its own
         guards = guards_phase(device, main)
+        # 2k: master HA on a three-master process cluster of its own
+        ha = ha_phase(device, main)
     finally:
         try:
             if mp is not None:
@@ -5549,6 +6257,7 @@ def main() -> int:
     print(json.dumps({"stress": stress}), flush=True)
     print(json.dumps({"observability": observability}), flush=True)
     print(json.dumps({"guards": guards}), flush=True)
+    print(json.dumps({"ha": ha}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "scaled_sum", "route": "cuda",
         "source": "alluxio_tpu_torch/ops/csrc/reduce_kernel.cu",
@@ -5572,7 +6281,8 @@ def main() -> int:
             "mesh": mesh["kernel_launches"]["scaled_sum"],
             "stress": stress["launches"],
             "observability": observability["launches"],
-            "guards": guards["launches"]},
+            "guards": guards["launches"],
+            "ha": ha["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

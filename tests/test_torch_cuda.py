@@ -478,3 +478,33 @@ def test_lost_file_drill_on_the_card(cuda, tmp_path):
         cluster.stop()
     assert got["lost_s"] > 0 and got["recovered_s"] > 0
     assert sorted(got["sums"]) == sorted(names)
+
+
+def test_ha_failover_drill_on_the_card(cuda, tmp_path):
+    """``chip_smoke.py``'s 2k (a-b) at 4 x 1 MiB: three HA masters on
+    EMBEDDED journals and a worker, each a process; the files written
+    CACHE_THROUGH and an epoch onto the card, then a second epoch beside
+    a writer child with the primary SIGKILLed after 2 consumed blocks:
+    every block's sum the first epoch's (each launch held against the
+    plain version), every acknowledged create on the new leader."""
+    smoke = _smoke()
+    block = 1 << 20
+    files = {}
+    for i in range(4):
+        path = str(tmp_path / f"shard-{i}.blk")
+        np.random.default_rng(i).integers(
+            -2**31, 2**31 - 1, size=block // 4, dtype=np.int32).tofile(path)
+        files[f"/ha/s-{i}"] = path
+    cluster, leader_s = smoke.start_ha_cluster(str(tmp_path), block,
+                                               16 * block)
+    try:
+        before = rk.launches
+        got = smoke.failover_drill(cuda, cluster, files, 2, str(tmp_path))
+        assert rk.launches - before == 8
+    finally:
+        cluster.stop()
+    assert not any(p.alive for p in cluster.masters + cluster.workers)
+    assert leader_s > 0 and got["watch"].registered_s > 0
+    assert got["first"]["sums"] == got["second"]["sums"]
+    assert got["acks"] and got["leader"] != \
+        f"localhost:{cluster.master_ports[got['primary']]}"

@@ -1,8 +1,8 @@
 """The port's fault injector against the JAX package's, on the CPU.
 
 - The same conf and the same calls give the same decision sequence from
-  every ``take_*`` hook, the same injected tallies and the same
-  ``FaultPlan`` log in both packages.
+  every ``take_*`` hook and the four HA hooks, the same injected tallies
+  and the same ``FaultPlan`` log in both packages.
 - Every hook the port wires takes its worker or client to the next rung,
   as the JAX hook takes the JAX one: failed UFS stripes retry, then fall
   back to one whole-block read; an injected read latency lands on every
@@ -69,13 +69,34 @@ def test_take_hooks_decide_like_jax(seed):
     got = {n: _decisions(m, rates, keys) for n, m in MODULES.items()}
     decided, tallies, cleared = got["port"]
     jax_decided, jax_tallies, _ = got["jax"]
-    # The port's tallies are the JAX worker-side ones (the HA faults wait
-    # for the master); each counts alike.
     assert decided == jax_decided
-    assert tallies == {k: jax_tallies[k] for k in tallies}
+    assert tallies == jax_tallies
     assert any(decided["ufs"]) and not any(
         d for d, k in zip(decided["ufs"], keys) if k == "w2-host")
     assert all(v == 0 for v in cleared.values())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ha_hooks_decide_like_jax(seed):
+    """The four HA hooks (tailer and election freeze, the partition's
+    ``link_blocked``, the fsync countdown) answer the same sequence and
+    count the same tallies in both packages."""
+    rng = np.random.default_rng(seed)
+    nodes = [f"127.0.0.1:{p}" for p in rng.integers(5000, 5004, 32)]
+    got = {}
+    for name, mod in MODULES.items():
+        inj = mod.FaultInjector()
+        inj.set(tailer_freeze_scope="5001", election_freeze_scope="5002",
+                partitioned=["127.0.0.1:5003"], fsync_errors=3)
+        got[name] = (
+            [inj.tailer_frozen(n) for n in nodes],
+            [inj.election_frozen(n) for n in nodes],
+            [inj.link_blocked(a, b) for a, b in zip(nodes, nodes[1:])],
+            [inj.take_fsync_error() for _ in range(5)],
+            dict(inj.injected), mod.armed())
+        inj.reset()
+    assert got["port"] == got["jax"]
+    assert got["port"][3] == [True, True, True, False, False]
 
 
 def test_rate_paces_failures_deterministically():

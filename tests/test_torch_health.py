@@ -173,9 +173,11 @@ def test_rule_set_is_jax_minus_the_deferred_rules():
         [r.to_wire() for r in jax_h.default_rules()]
     assert port_h.metastore_compaction_debt_rule(7).to_wire() == \
         jax_h.metastore_compaction_debt_rule(7).to_wire()
+    assert port_h.quorum_degraded_rule(3).to_wire() == \
+        jax_h.quorum_degraded_rule(3).to_wire()
     missing = {n for n in dir(jax_h) if not n.startswith("_")} - \
         {n for n in dir(port_h) if not n.startswith("_")}
-    assert missing == {"quorum_degraded_rule"}
+    assert missing == set()
     assert port_h.SEVERITIES == jax_h.SEVERITIES
 
 

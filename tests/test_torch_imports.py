@@ -89,7 +89,10 @@ def test_importing_every_module_loads_no_jax():
               "master.remediation", "master.web", "utils.weblog",
               "utils.trace_fanout", "stress.obs_bench",
               "stress.health_bench", "stress.selfheal_bench",
-              "qos.admission", "security.audit", "stress.qos_bench"):
+              "qos.admission", "security.audit", "stress.qos_bench",
+              "journal.ha", "journal.raft", "journal.migrate",
+              "journal.tool", "master.backup", "minicluster.ha_cluster",
+              "stress.ha_bench", "shell.journal_crash"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -115,8 +118,10 @@ def test_package_import_loads_no_torch():
 
 def test_role_launchers_load_no_torch():
     """The role processes are host-only: the shell, the launchers, the
-    multi-process cluster and every module the four launchers build
-    their roles from import no torch."""
+    multi-process and HA clusters, every module the four launchers build
+    their roles from (the HA master's Raft journal, tailer and backup
+    among them), the journal tools and the HA drills import no
+    torch."""
     code = ("import sys\n"
             "import alluxio_tpu_torch.shell.main, "
             "alluxio_tpu_torch.shell.launch, "
@@ -134,7 +139,15 @@ def test_role_launchers_load_no_torch():
             "alluxio_tpu_torch.rpc.worker_service, "
             "alluxio_tpu_torch.worker.ufs_manager, "
             "alluxio_tpu_torch.security.authentication, "
-            "alluxio_tpu_torch.job.process\n"
+            "alluxio_tpu_torch.job.process, "
+            "alluxio_tpu_torch.journal.ha, "
+            "alluxio_tpu_torch.journal.raft, "
+            "alluxio_tpu_torch.journal.migrate, "
+            "alluxio_tpu_torch.journal.tool, "
+            "alluxio_tpu_torch.master.backup, "
+            "alluxio_tpu_torch.minicluster.ha_cluster, "
+            "alluxio_tpu_torch.stress.ha_bench, "
+            "alluxio_tpu_torch.shell.journal_crash\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('torch', 'jax', 'alluxio_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -246,9 +246,10 @@ def test_cross_wire(clusters, side, wt):
 def test_meta_rpcs_answer_like_jax_at_the_defaults(clusters):
     """At their defaults both masters keep the metrics history and run
     the health rules: ``get_health`` names the same rules with the same
-    status, ``get_metrics_history`` and a metrics heartbeat answer alike.
-    The meta RPCs whose component the port has not ported (the quorum
-    view, backups) answer as the JAX ones do without that component."""
+    status, ``get_metrics_history`` and a metrics heartbeat answer alike;
+    so does the quorum view of a master that is not HA (its own row),
+    and ``get_quorum_info`` refuses alike without the EMBEDDED
+    journal."""
     from alluxio_tpu_torch.utils.exceptions import FailedPreconditionError
 
     answers = {}
@@ -268,11 +269,23 @@ def test_meta_rpcs_answer_like_jax_at_the_defaults(clusters):
         }
     assert answers["port"] == answers["jax"]
     assert answers["port"]["history"][1] == [("client-x", "Client.X", 1)]
+    views = {}
+    for name, (cluster, _) in clusters.items():
+        meta = cluster.meta_client()
+        with pytest.raises(Exception) as refused:
+            meta.get_quorum_info()
+        assert type(refused.value).__name__ == "FailedPreconditionError"
+        view = meta.get_masters()
+        (row,) = view["masters"]
+        assert view["leader"] == row["address"]
+        views[name] = (sorted(view), sorted(row), row["role"],
+                       row["lag_entries"])
+    assert views["port"] == views["jax"]
+    assert views["port"][2:] == ("PRIMARY", 0)
     cluster, fs = clusters["port"]
     meta = cluster.meta_client()
-    for call in (meta.get_quorum_info, meta.get_masters, meta.backup):
-        with pytest.raises(FailedPreconditionError):
-            call()
+    with pytest.raises(FailedPreconditionError):
+        meta.get_quorum_info()
     info = meta.get_master_info()
     assert info["role"] == "PRIMARY" and not info["safe_mode"]
     assert meta.get_config_hash() == meta.get_configuration()["hash"]

@@ -13,9 +13,11 @@
 - The helpers the file master calls inline: ``AlluxioURI``, the
   authorization bits and ACLs, the path properties and the config checker,
   the metastore factory — each against its JAX counterpart.
-- The port's master process refuses the opt-in components it does not
-  have (a typed error), and the web server and remediation keys build
-  their component in both packages' master processes. (An LSM-native checkpoint restoring across
+- The port's master process refuses the opt-in component it does not
+  have (the update check, a typed error); the web server, remediation,
+  admission and scheduled-backup keys build their component in both
+  packages' master processes, and both start from a backup; the
+  EMBEDDED journal is built in both. (An LSM-native checkpoint restoring across
   packages and kinds is ``tests/test_torch_metastore.py``'s.)
 """
 
@@ -179,8 +181,7 @@ def test_metastore_factory(tmp_path, kind):
 
 
 @pytest.mark.parametrize("key", (
-    "atpu.master.update.check.enabled", "atpu.master.daily.backup.enabled",
-    "atpu.master.journal.init.from.backup",
+    "atpu.master.update.check.enabled",
 ))
 def test_master_process_refuses_unported_components(tmp_path, key):
     from alluxio_tpu_torch.conf import Configuration, Keys
@@ -189,10 +190,64 @@ def test_master_process_refuses_unported_components(tmp_path, key):
 
     conf = Configuration(load_env=False)
     conf.set(Keys.MASTER_JOURNAL_FOLDER, str(tmp_path / "journal"))
-    conf.set(key, str(tmp_path / "backup.bak")
-             if key.endswith("backup") else True)
+    conf.set(key, True)
     with pytest.raises(NotSupportedError, match=key.replace(".", r"\.")):
         MasterProcess(conf, root_ufs_uri=str(tmp_path))
+
+
+def _backup_master(pkg, folder, ufs, **keys):
+    conf_mod = mod(pkg, "conf")
+    Keys = conf_mod.Keys
+    conf = conf_mod.Configuration(load_env=False)
+    conf.set(Keys.MASTER_JOURNAL_FOLDER, os.path.join(folder, "journal"))
+    conf.set(Keys.MASTER_BACKUP_DIR, os.path.join(folder, "backups"))
+    conf.set(Keys.MASTER_RPC_PORT, 0)
+    conf.set(Keys.MASTER_FASTPATH_ENABLED, False)
+    for k, v in keys.items():
+        conf.set(k, v)
+    return mod(pkg, "master.process").MasterProcess(conf, root_ufs_uri=ufs)
+
+
+def test_master_process_runs_the_scheduled_backup(tmp_path):
+    """``atpu.master.daily.backup.enabled`` builds the scheduled backup
+    and its heartbeat in both packages' masters; its first tick lands a
+    backup of the namespace in the backup directory."""
+    for pkg in PACKAGES:
+        m = _backup_master(pkg, str(tmp_path / pkg), str(tmp_path / "ufs"),
+                           **{"atpu.master.daily.backup.enabled": True})
+        m.start()
+        try:
+            m.fs_master.create_directory("/kept")
+            assert type(m.scheduled_backup).__module__ == \
+                f"{pkg}.master.backup"
+            assert "Master.DailyBackup" in [t.name for t in m._threads]
+            assert m.scheduled_backup.heartbeat() is not None
+            assert os.listdir(tmp_path / pkg / "backups") == [
+                os.path.basename(m.scheduled_backup.last_backup_path)]
+        finally:
+            m.stop()
+
+
+def test_master_process_starts_from_a_backup(tmp_path):
+    """``atpu.master.journal.init.from.backup`` seeds an empty journal in
+    both packages' masters: the namespace of the backup is served."""
+    for pkg in PACKAGES:
+        ufs = str(tmp_path / "ufs")
+        m = _backup_master(pkg, str(tmp_path / pkg / "a"), ufs)
+        m.start()
+        try:
+            m.fs_master.create_directory("/kept")
+            backup = m.journal.write_backup(str(tmp_path / pkg / "b"))
+        finally:
+            m.stop()
+        m2 = _backup_master(
+            pkg, str(tmp_path / pkg / "c"), ufs,
+            **{"atpu.master.journal.init.from.backup": backup})
+        m2.start()
+        try:
+            assert m2.fs_master.exists("/kept")
+        finally:
+            m2.stop()
 
 
 SWITCHED_ON = (
@@ -272,11 +327,28 @@ def test_master_process_runs_the_named_metrics_sink(tmp_path):
         assert any(k.startswith("Master.") for k in row["metrics"]), pkg
 
 
-def test_embedded_journal_is_refused(tmp_path):
-    from alluxio_tpu_torch.journal import create_journal_system
+def test_embedded_journal_is_built(tmp_path):
+    """``create_journal_system("EMBEDDED")`` builds each package's Raft
+    journal; a lone member elects itself and takes a write."""
+    from tests.testutils.torch_ha import free_ports, kv_component
 
-    with pytest.raises(ValueError, match="EMBEDDED"):
-        create_journal_system("EMBEDDED", str(tmp_path))
+    for pkg in PACKAGES:
+        port = free_ports(1)[0]
+        j = mod(pkg, "journal.system").create_journal_system(
+            "EMBEDDED", str(tmp_path / pkg), address=f"127.0.0.1:{port}",
+            addresses=f"127.0.0.1:{port}")
+        kv = kv_component(pkg)
+        j.register(kv)
+        assert type(j).__module__ == f"{pkg}.journal.raft"
+        assert type(j).__name__ == "EmbeddedJournalSystem"
+        try:
+            j.gain_primacy()
+            with j.create_context() as ctx:
+                ctx.append("kv_put", {"k": "a", "v": 1})
+            assert j.sequence == 1 and j.is_primary()
+            assert kv.data == {"a": 1}
+        finally:
+            j.stop()
 
 
 # -- the reference's copied faults, repaired in the port ----------------------

@@ -13,8 +13,12 @@ the LOCAL journal, its workers, each a ``python -m <package>.shell.main
   on the out-of-process worker; every role then stops on SIGTERM with
   exit code 0;
 - ``_common_env`` is equal for the same base directory and
-  ``extra_conf``; the port refuses several masters and EMBEDDED journals
-  (HA is not ported);
+  ``extra_conf``;
+- the port's HA clusters (the HA cases of ``tests/test_multi_process.py``):
+  two masters on a shared LOCAL journal, one and three on EMBEDDED
+  journals; the primary's process is SIGKILLed and every acknowledged
+  directory is still there when another master (or the restarted one)
+  serves, which then takes writes;
 - a role child of the port has neither ``jax`` nor ``alluxio_tpu`` (nor
   ``torch``) in ``sys.modules``;
 - the worker's spans, metrics and stack samples from its own process
@@ -294,16 +298,39 @@ def test_quota_template_reaches_the_worker_conf(tmp_path, monkeypatch):
 @pytest.mark.parametrize("kw", [{"num_masters": 2},
                                 {"journal_type": "EMBEDDED"},
                                 {"num_masters": 3,
-                                 "journal_type": "EMBEDDED"}])
-def test_ha_clusters_are_refused(kw, tmp_path):
+                                 "journal_type": "EMBEDDED"}],
+                         ids=["two-local", "one-embedded", "three-embedded"])
+def test_ha_cluster_survives_the_primary_kill(kw, tmp_path):
     from alluxio_tpu_torch.minicluster.multi_process import (
         MultiProcessCluster,
     )
-    from alluxio_tpu_torch.utils.exceptions import NotSupportedError
+    from alluxio_tpu_torch.rpc.clients import FsMasterClient
 
-    with pytest.raises(NotSupportedError, match="HA"):
-        MultiProcessCluster(str(tmp_path), **kw)
-    assert not os.listdir(tmp_path)
+    c = MultiProcessCluster(str(tmp_path), num_workers=0, **kw)
+    try:
+        c.start(timeout_s=BOOT_S)
+        assert c.ha
+        # generous: elections on a contended one-core host
+        fs = FsMasterClient(c.master_addresses, retry_duration_s=120.0,
+                            fastpath_dir=c.base)
+        acked = []
+        for i in range(5):
+            fs.create_directory(f"/pre-{i}")
+            acked.append(f"/pre-{i}")
+        dead = c.primary_index(BOOT_S)
+        c.masters[dead].kill()
+        if len(c.master_ports) == 1:
+            c.start_master(dead)  # the lone member recovers its journal
+        new = c.primary_index(BOOT_S)
+        assert new != dead or len(c.master_ports) == 1
+        fs.create_directory("/post")
+        acked.append("/post")
+        survivor = FsMasterClient(f"localhost:{c.master_ports[new]}",
+                                  retry_duration_s=30.0, fastpath=False)
+        assert [p for p in acked if not survivor.exists(p)] == []
+    finally:
+        c.stop()
+    assert not any(p.alive for p in c.masters)
 
 
 _REPORT = """

@@ -16,7 +16,9 @@ off):
 
 With remediation and the web server switched on, a stalled client's
 alert pushes the retuning overlay, and the client applies it on its next
-metrics heartbeat in both; the web routes answer with the same JSON keys.
+metrics heartbeat in both; the web routes answer with the same JSON keys
+(the quorum view's ``/masters`` among them, with the same row), and the
+dashboard shows the same sections.
 
 One difference: the JAX master samples its lock-wait and journal series
 with ``Timer.percentile(0.99)`` on a percentile that takes percent, so
@@ -45,7 +47,7 @@ LOOP_CONF = {"atpu.master.remediation.enabled": True,
              "atpu.master.remediation.probation": "0s"}
 WEB_ROUTES = ("info", "capacity", "metrics", "metrics/history", "health",
               "remediation", "metastore", "mounts", "catalog", "trace",
-              "trace/profile", "profile", "logs", "browse")
+              "trace/profile", "profile", "logs", "browse", "masters")
 
 
 def _mod(pkg: str, name: str):
@@ -290,3 +292,23 @@ def test_web_routes_answer_with_the_same_keys(loops):
             keys["/"] = r.headers["Content-Type"]
         got[pkg] = keys
     assert got[PORT] == got[JAX]
+
+
+def test_masters_route_and_dashboard_section_alike(loops):
+    """The quorum view on the web server: one PRIMARY row, the leader,
+    with the same keys in both packages; the dashboard holds the same
+    sections, ``Masters`` among them."""
+    got = {}
+    for pkg, c in loops.items():
+        base = f"http://127.0.0.1:{c.master.web_port}"
+        with urllib.request.urlopen(f"{base}/api/v1/master/masters",
+                                    timeout=30) as r:
+            view = json.loads(r.read())
+        (row,) = view["masters"]
+        assert view["leader"] == row["address"]
+        with urllib.request.urlopen(f"{base}/", timeout=30) as r:
+            page = r.read().decode()
+        got[pkg] = (sorted(row), row["role"], row["lag_entries"],
+                    "Masters" in page, "j('/masters')" in page)
+    assert got[PORT] == got[JAX]
+    assert got[PORT][1:] == ("PRIMARY", 0, True, True)

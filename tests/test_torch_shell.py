@@ -5,7 +5,9 @@
   same malformed ``host:port``;
 - the JAX package's commands that the port does not have are refused
   with exit code 1 and the ROADMAP item that brings them (a deliberate
-  difference); ``stress`` runs the port's stress CLI; help and version
+  difference); ``stress`` runs the port's stress CLI (its ``ha`` bench
+  included); ``journalCrashTest`` SIGKILLs the port's master under load
+  and every acknowledged operation survives replay; help and version
   answer as in JAX;
 - ``python -m alluxio_tpu_torch.shell.main master`` serves, and stops
   with exit code 0 on SIGTERM.
@@ -74,7 +76,7 @@ def test_every_jax_command_is_dispatched_or_refused():
     from alluxio_tpu_torch.shell import main
 
     ported = {"master", "worker", "job-master", "job-worker", "version",
-              "stress"}
+              "stress", "journalCrashTest"}
     assert ported | set(main._NOT_PORTED) == _jax_commands()
     assert not ported & set(main._NOT_PORTED)
 
@@ -96,8 +98,8 @@ def test_unported_command_is_refused(cmd, capsys):
 def test_stress_dispatches_to_the_cli(capsys):
     """``stress`` runs the port's stress CLI on the arguments after it, as
     the JAX shell runs its own: a toy worker bench prints its one JSON
-    line, and a bench the port does not have is refused by the CLI with
-    its ROADMAP item."""
+    line, and the ``ha`` bench reaches its bench function with the
+    arguments after it."""
     from alluxio_tpu_torch.shell import main
 
     assert main.main(["stress", "worker", "--mode", "random", "--threads",
@@ -108,9 +110,37 @@ def test_stress_dispatches_to_the_cli(capsys):
     row = json.loads(lines[0])
     assert row["bench"] == "worker-random" and row["errors"] == 0
     assert row["params"]["master"] == "in-process"
-    assert main.main(["stress", "ha"]) == 1
-    assert "ha: not ported yet; it comes with the ROADMAP item " \
-        "'HA'" in capsys.readouterr().err
+    from alluxio_tpu_torch.stress import base, ha_bench
+
+    got = {}
+
+    def record(**kw):
+        got.update(kw)
+        return base.BenchResult(bench="ha-failover", params={},
+                                metrics={}, errors=0, duration_s=0.0)
+
+    real = ha_bench.run
+    ha_bench.run = record
+    try:
+        assert main.main(["stress", "ha", "--warmup", "0.5"]) == 0
+    finally:
+        ha_bench.run = real
+    assert got == {"masters": 3, "election_timeout_s": 2.0,
+                   "warmup_s": 0.5}
+    assert json.loads(capsys.readouterr().out)["bench"] == "ha-failover"
+
+
+def test_journal_crash_test_survives_master_kills(tmp_path, capsys):
+    """``journalCrashTest`` through the shell: the port's master in its
+    own process, SIGKILLed and restarted under create, create-delete and
+    create-rename loops; every acknowledged operation is there after
+    replay (exit 0)."""
+    from alluxio_tpu_torch.shell import main
+
+    assert main.main(["journalCrashTest", "--total-time", "5",
+                      "--max-alive", "2.5"]) == 0
+    err = capsys.readouterr().err
+    assert "crash #1" in err and "journalCrashTest: PASSED" in err
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

@@ -1,10 +1,8 @@
 """The port's stress CLI against the JAX package's, on the CPU.
 
-- ``build_parser()`` has JAX's subcommands and options, without the
-  bench the port refuses (``ha``), which is refused with exit code 1 and
-  the ROADMAP item that brings it; ``SUITE`` is JAX's without that
-  bench's row; each suite row of the ``obs``, ``health``, ``selfheal``
-  and ``qos`` benches reaches its bench function with the keyword
+- ``build_parser()`` has JAX's subcommands and options, and ``SUITE`` is
+  JAX's; each suite row of the ``obs``, ``health``, ``selfheal``,
+  ``qos`` and ``ha`` benches reaches its bench function with the keyword
   arguments JAX's CLI passes;
 - ``make_tfrecord_shard`` gives the same bytes for one seed, and
   ``render_report`` the same HTML for the same records;
@@ -21,7 +19,6 @@
 import importlib
 import json
 import os
-import re
 import subprocess
 import sys
 
@@ -33,7 +30,6 @@ pytest.importorskip("jax")
 
 PACKAGES = ("alluxio_tpu", "alluxio_tpu_torch")
 JAX, PORT = PACKAGES
-REFUSED = {"ha": "HA"}
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
 
 
@@ -60,49 +56,38 @@ def _options(sub):
             for a in sub._actions]
 
 
-# -- parser, suite and refusals -------------------------------------------------
+# -- parser and suite ------------------------------------------------------------
 def test_parser_is_jax_minus_the_refused_benches():
+    """The whole parser: every JAX bench, none refused since the ``ha``
+    bench came with HA."""
     jax_subs = _subparsers(_cli(JAX).build_parser())
     port_parser = _cli(PORT).build_parser()
     port_subs = _subparsers(port_parser)
     assert port_parser.prog == _cli(JAX).build_parser().prog
-    assert list(port_subs) == [n for n in jax_subs if n not in REFUSED]
-    assert set(REFUSED) <= set(jax_subs)
+    assert list(port_subs) == list(jax_subs)
     for name, sub in port_subs.items():
         assert _options(sub) == _options(jax_subs[name]), name
 
 
 def test_suite_is_jax_minus_the_refused_rows():
-    jax_suite = _cli(JAX).SUITE
-    port_suite = _cli(PORT).SUITE
-    assert port_suite == tuple(row for row in jax_suite
-                               if row[1][0] not in REFUSED)
-    assert {row[1][0] for row in jax_suite} - {
-        row[1][0] for row in port_suite} == set(REFUSED)
-    assert _cli(PORT)._NOT_PORTED == REFUSED
+    """The whole suite: JAX's rows, the ``ha-failover`` row included."""
+    assert _cli(PORT).SUITE == _cli(JAX).SUITE
+    assert ("ha-failover", ["ha"]) in _cli(PORT).SUITE
+    assert not hasattr(_cli(PORT), "_NOT_PORTED")
     assert _cli(PORT).HOST_CALIBRATION_BENCH == \
         _cli(JAX).HOST_CALIBRATION_BENCH
 
 
-@pytest.mark.parametrize("bench", sorted(REFUSED))
-def test_refused_bench_names_its_roadmap_item(bench, capsys):
-    assert _cli(PORT).main([bench, "--row", "x"]) == 1
-    err = capsys.readouterr().err
-    item = re.search(r"ROADMAP item '([^']+)'", err).group(1)
-    assert err.startswith(f"{bench}: not ported yet")
-    assert item == REFUSED[bench]
-    assert item in open(os.path.join(ROOT, "ROADMAP.md")).read()
-
-
 #: the suite rows of the benches ported since the CLI (the observability
-#: benches, then the QoS bench), with the module and function each
-#: dispatches to
+#: benches, the QoS bench, then the HA bench), with the module and
+#: function each dispatches to
 OBS_ROWS = {"obs-tracing-overhead": ("obs_bench", "run"),
             "obs-profile-overhead": ("obs_bench", "run_profile_overhead"),
             "obs-critical-path": ("obs_bench", "run_critical_path"),
             "health-ingest-overhead": ("health_bench", "run"),
             "selfheal-remediation": ("selfheal_bench", "run"),
-            "qos-two-tenant": ("qos_bench", "run")}
+            "qos-two-tenant": ("qos_bench", "run"),
+            "ha-failover": ("ha_bench", "run")}
 
 
 @pytest.mark.parametrize("row", sorted(OBS_ROWS))
