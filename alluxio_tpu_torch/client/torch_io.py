@@ -36,14 +36,15 @@ from alluxio_tpu_torch.client.cache.hbm_store import (HbmPageStore,
                                                       host_to_device,
                                                       order_after, side_copy)
 from alluxio_tpu_torch.client.cache.meta import PageId
+from alluxio_tpu_torch.conf import Keys
 from alluxio_tpu_torch.device import resolve_device
 from alluxio_tpu_torch.metrics import metrics
 from alluxio_tpu_torch.metrics.stall import (BUCKET_ADVICE, SIZE_BUCKETS,
                                              STALL_BUCKETS, size_bucket)
 from alluxio_tpu_torch.utils.tracing import annotate, current_span
 
-#: transfer prefetch depth when the caller passes none (the JAX client's
-#: ``atpu.tpu.prefetch.buffer.batches`` default)
+#: transfer prefetch depth when the caller passes none and ``fs`` has no
+#: conf to read ``atpu.tpu.prefetch.buffer.batches`` from (its default)
 DEFAULT_PREFETCH = 2
 
 #: live StepStats instances backing the ONE process-level
@@ -208,8 +209,9 @@ class DeviceBlockLoader:
     ``fs`` is duck-typed: ``get_status(path)`` gives ``.file_id`` and
     ``.block_ids``; ``open_file(path, info=, max_open_streams=1)
     .block_stream(i)`` gives a stream with ``numpy_view`` (short-circuit)
-    or ``read_all_view`` / ``read_all``, plus ``source_bucket()``.
-    ``device=None`` means the current CUDA device."""
+    or ``read_all_view`` / ``read_all``, plus ``source_bucket()``; its
+    ``conf``, when it has one, gives the transfer prefetch depth that the
+    caller does not pass. ``device=None`` means the current CUDA device."""
 
     def __init__(self, fs, paths: Sequence[str], *,
                  device=None, hbm_bytes: int = 0,
@@ -221,7 +223,11 @@ class DeviceBlockLoader:
         self._hbm = HbmPageStore(hbm_bytes, self._device) \
             if hbm_bytes > 0 else None
         if prefetch is None:
-            prefetch = DEFAULT_PREFETCH
+            # double-buffer depth for the zero-copy iterator
+            # (atpu.tpu.prefetch.buffer.batches, default 2)
+            conf = getattr(fs, "conf", None)
+            prefetch = DEFAULT_PREFETCH if conf is None else \
+                conf.get_int(Keys.TPU_PREFETCH_BUFFER_BATCHES)
         self._prefetch = max(0, prefetch)
         # clairvoyant prefetch service (duck-typed, optional): set, the
         # loader consumes epochs in the oracle's seeded order, registers

@@ -1,25 +1,15 @@
-"""Typed configuration property keys: a copy of the part of
-``alluxio_tpu/conf/property_key.py`` that the port reads.
+"""Typed configuration property keys: a copy of
+``alluxio_tpu/conf/property_key.py``.
 
 The machinery (typed keys, a registry with aliases, ``Template`` families
-such as the per-tier worker settings, the duration and byte parsers) is
-the JAX package's. The catalog holds only the keys the port reads — the
-``atpu.worker.*`` keys of the store, the tiers, the async cache, the RPC,
-the SHM leases, the striped cold fetch and its QoS, tier management and
-the web endpoint; the metrics sinks and the worker's metrics heartbeat;
-the authentication keys the worker's authenticator reads; the
-``atpu.debug.fault.*`` hooks; the master's RPC, journal, metastore,
-safe-mode, worker-timeout, UFS path cache, fast-path, TTL and
-lost-worker keys, the metrics history, health-rule, remediation and
-web server keys, the HA keys (standby masters and reads, the embedded
-Raft journal, the registry heartbeat), the backup keys, and the switch
-of the update check the port refuses; the permission keys; the tracing and ``atpu.profile.*``
-keys; the ``atpu.user.rpc.retry.*`` keys
-of the RPC clients, the client's file-system, metadata-cache,
-streaming chunk-size, SHM, remote-read, batch-read, native fastpath,
-standby-read and ``atpu.user.table.*`` keys, the table master's transform-monitor
-interval, and the ``atpu.prefetch.*`` keys of the prefetch service — with the JAX names, types, defaults and consistency levels, so
-one properties file configures either package.
+such as the per-tier worker settings, the duration and byte parsers, the
+credential mask of the display surfaces) is the JAX package's, and so is
+the catalog: every JAX key, with the JAX name, type, default, scope and
+consistency level, so one properties file configures either package and
+``validateConf`` accepts and refuses the same keys. The FUSE, proxy and
+log-server keys are read by nothing in the port yet, as on a JAX node
+that runs none of those processes; the keys are grouped by the layer of
+the port that reads them.
 """
 
 from __future__ import annotations
@@ -152,6 +142,10 @@ class PropertyKey:
     consistency: ConsistencyLevel = ConsistencyLevel.IGNORE
     aliases: tuple = ()
     choices: tuple = ()  # for ENUM
+    # Mirrors the reference's DisplayType.CREDENTIALS
+    # (conf/PropertyKey.java): values must be masked on every config
+    # display surface (web UI, REST, shell report).
+    credentials: bool = False
 
     def parse(self, raw: Any) -> Any:
         if raw is None:
@@ -195,6 +189,9 @@ class KeyRegistry:
     def is_valid(self, name: str) -> bool:
         return self.get(name) is not None or Template.match(name) is not None
 
+    def all_keys(self) -> Dict[str, PropertyKey]:
+        return dict(self._keys)
+
 
 REGISTRY = KeyRegistry()
 
@@ -202,11 +199,35 @@ REGISTRY = KeyRegistry()
 def _k(name: str, key_type: KeyType = KeyType.STRING, default: Any = None,
        description: str = "", scope: Scope = Scope.ALL,
        consistency: ConsistencyLevel = ConsistencyLevel.IGNORE,
-       aliases: tuple = (), choices: tuple = ()) -> PropertyKey:
+       aliases: tuple = (), choices: tuple = (),
+       credentials: bool = False) -> PropertyKey:
     return REGISTRY.register(PropertyKey(
         name=name, key_type=key_type, default=default, description=description,
         scope=scope, consistency=consistency, aliases=aliases,
-        choices=choices))
+        choices=choices, credentials=credentials))
+
+
+# Defensive net for keys minted outside the registry (templates, mount
+# options echoed into config): anything that LOOKS like a secret is
+# treated as one on display surfaces.
+_CREDENTIAL_NAME_RE = re.compile(
+    r"(?i)(password|secret|token|credential|access[._-]?key|[._-]key$)")
+
+
+def is_credential_key(name: str) -> bool:
+    """True if ``name`` must be masked on config display surfaces."""
+    pk = REGISTRY.get(name)
+    if pk is not None and pk.credentials:
+        return True
+    return _CREDENTIAL_NAME_RE.search(name) is not None
+
+
+def mask_credential(name: str, value: Any) -> Any:
+    """Value as it may appear on a display surface (web UI, REST, shell):
+    credential keys come back as ``******`` unless unset."""
+    if is_credential_key(name) and value not in (None, "", "None"):
+        return "******"
+    return value
 
 
 @dataclass(frozen=True)
@@ -604,7 +625,8 @@ class Keys:
                     "CUSTOM auth (reference: AuthenticationProvider SPI).")
     SECURITY_LOGIN_TOKEN = _k(
         "atpu.security.login.token",
-        description="Opaque credential forwarded to a CUSTOM provider.")
+        description="Opaque credential forwarded to a CUSTOM provider.",
+        credentials=True)
 
     # --- fault injection (chaos / self-healing tests; see utils/faults.py)
     DEBUG_FAULT_READ_LATENCY = _k(
@@ -913,14 +935,82 @@ class Keys:
                     "destabilize the cluster faster than any tenant "
                     "flood.")
 
-    # --- master: the opt-in component the port's master does not have yet
-    # (it refuses to start with it switched on) ---
+    # --- master: the update check ---
     MASTER_UPDATE_CHECK_ENABLED = _k(
         "atpu.master.update.check.enabled", KeyType.BOOL, default=False,
         scope=Scope.MASTER,
         description="Periodically probe for a newer release (reference "
                     "UpdateChecker.java; OFF by default here — "
                     "phone-home is opt-in).")
+    MASTER_UPDATE_CHECK_URL = _k(
+        "atpu.master.update.check.url", scope=Scope.MASTER,
+        description="JSON document with {\"latest\": \"x.y.z\"}; point "
+                    "at an internal mirror.")
+    MASTER_UPDATE_CHECK_INTERVAL = _k(
+        "atpu.master.update.check.interval", KeyType.DURATION,
+        default="1d", scope=Scope.MASTER)
+
+    # --- serving surfaces: the proxy, the log server and FUSE (read by
+    # nothing in the port yet) ---
+    PROXY_WEB_PORT = _k(
+        "atpu.proxy.web.port", KeyType.INT, default=39999,
+        scope=Scope.SERVER,
+        description="Port for the REST/S3 proxy process (reference: "
+                    "proxy/AlluxioProxy.java).")
+    LOGSERVER_PORT = _k(
+        "atpu.logserver.port", KeyType.INT, default=45600,
+        scope=Scope.ALL,
+        description="Port of the centralized log server (reference: "
+                    "logserver/AlluxioLogServer.java).")
+    LOGSERVER_HOSTNAME = _k(
+        "atpu.logserver.hostname", KeyType.STRING, default="",
+        scope=Scope.ALL,
+        description="When set, processes ship their log records to this "
+                    "log server.")
+    LOGSERVER_LOGS_DIR = _k(
+        "atpu.logserver.logs.dir", KeyType.STRING,
+        default="/var/log/alluxio-tpu", scope=Scope.SERVER)
+    LOGSERVER_BIND_HOST = _k(
+        "atpu.logserver.bind.host", KeyType.STRING, default="127.0.0.1",
+        scope=Scope.SERVER,
+        description="Bind address for the log server; the record stream "
+                    "carries no authentication, so the default is "
+                    "loopback.")
+    PROXY_BIND_HOST = _k(
+        "atpu.proxy.bind.host", KeyType.STRING, default="127.0.0.1",
+        scope=Scope.SERVER,
+        description="Bind address for the S3 proxy. The S3 dialect "
+                    "carries no authentication, so the default is "
+                    "loopback; set 0.0.0.0 only behind a trusted "
+                    "network boundary.")
+    PROXY_S3_ROOT = _k(
+        "atpu.proxy.s3.root", KeyType.STRING, default="/s3",
+        scope=Scope.SERVER,
+        description="Namespace directory whose children are S3 buckets.")
+    FUSE_MOUNT_POINT = _k(
+        "atpu.fuse.mount.point", KeyType.STRING,
+        default="/mnt/alluxio-tpu", scope=Scope.CLIENT,
+        description="Local path where the FUSE adapter mounts the "
+                    "namespace (reference: fuse/AlluxioFuse.java).")
+    FUSE_FS_ROOT = _k(
+        "atpu.fuse.fs.root", KeyType.STRING, default="/",
+        scope=Scope.CLIENT,
+        description="Namespace subtree exposed at the mount point.")
+    FUSE_MOUNT_OPTIONS = _k(
+        "atpu.fuse.mount.options", KeyType.STRING, default="",
+        scope=Scope.CLIENT,
+        description="Extra -o mount options (e.g. allow_other).")
+    USER_QOS_STRIPE_LIMIT = _k(
+        "atpu.user.qos.stripe.limit", KeyType.INT, default=0,
+        scope=Scope.CLIENT,
+        description="Per-tenant cap on concurrent remote-read stripe "
+                    "streams (including hedges) across every striped "
+                    "read this client process runs — keeps one "
+                    "tenant's DCN fan-out from monopolizing a shared "
+                    "client (FUSE mount, proxy). The frontier stripe "
+                    "of each read always proceeds, so the cap shapes "
+                    "readahead and hedging, never liveness. "
+                    "0 = unlimited (today's behavior).")
 
     # --- master: metadata backups ---
     MASTER_DAILY_BACKUP_ENABLED = _k("atpu.master.daily.backup.enabled",
@@ -1293,6 +1383,12 @@ class Keys:
     JOB_WORKER_HEARTBEAT_INTERVAL = _k("atpu.job.worker.heartbeat.interval",
                                        KeyType.DURATION, default="1s",
                                        scope=Scope.JOB_WORKER)
+
+    # --- the device loader (client/torch_io.py) ---
+    TPU_PREFETCH_BUFFER_BATCHES = _k("atpu.tpu.prefetch.buffer.batches", KeyType.INT,
+                                     default=2,
+                                     description="Device-side double-buffering depth "
+                                                 "for the zero-copy iterator.")
 
     # --- clairvoyant prefetch service (prefetch/; NoPFS arxiv 2101.08734,
     #     Hoard arxiv 1812.00669 — no reference analogue) ---

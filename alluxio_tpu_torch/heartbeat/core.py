@@ -32,6 +32,7 @@ class HeartbeatContext:
     MASTER_TABLE_TRANSFORM_MONITOR = "Master.TableTransformMonitor"
     MASTER_HEALTH_CHECK = "Master.HealthCheck"
     MASTER_METRICS_SINKS = "Master.MetricsSinks"
+    MASTER_UPDATE_CHECK = "Master.UpdateCheck"
     WORKER_METRICS_SINKS = "Worker.MetricsSinks"
     WORKER_BLOCK_SYNC = "Worker.BlockSync"
     WORKER_PIN_LIST_SYNC = "Worker.PinListSync"

@@ -36,8 +36,8 @@ master: a journal-tailing standby (serving reads when
 ``atpu.master.ha.standby.reads.enabled``) that promotes when its primary
 selector (the Raft election under the EMBEDDED journal, a file lock on
 the shared journal otherwise) grants primacy, and demotes when deposed.
-The update check comes with the host-only surfaces; a conf key that asks
-for it raises ``NotSupportedError`` rather than being ignored.
+``atpu.master.update.check.enabled`` with its URL ticks the update
+checker (``Master.UpdateCheck``); without a URL it only warns.
 
 Differences from the JAX master:
 
@@ -55,12 +55,22 @@ Differences from the JAX master:
 - a demotion also stops the web server and the job-service checkers,
   which the next promotion's serving start (or a new attach) brings
   back; the JAX demote leaves its web server bound, so its next
-  promotion cannot bind the web port again.
+  promotion cannot bind the web port again;
+- a launched master (``attach_job_service=True``, as the master role of
+  ``shell/launch.py`` builds it) attaches the replication checker and
+  the persistence scheduler itself whenever it starts serving as
+  primary: a thread waits for the job master at
+  ``atpu.job.master.hostname``:``atpu.job.master.rpc.port`` and attaches
+  both once it answers, and a master with no job master to reach serves
+  all the same and logs that the checkers wait. The JAX master attaches
+  them only in ``LocalCluster``, so on its process cluster an
+  ASYNC_THROUGH file is never persisted.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 import uuid
 from typing import TYPE_CHECKING, List, Optional
@@ -80,18 +90,16 @@ from alluxio_tpu_torch.rpc.master_service import (
 )
 from alluxio_tpu_torch.rpc.table_service import table_master_service
 from alluxio_tpu_torch.utils.clock import Clock, SystemClock
-from alluxio_tpu_torch.utils.exceptions import NotSupportedError
 
 if TYPE_CHECKING:
     from alluxio_tpu_torch.master.persistence import PersistenceScheduler
 
 LOG = logging.getLogger(__name__)
 
-#: opt-in JAX master components that are not ported yet: the conf key
-#: that switches each on, and what it would build
-_UNPORTED_OPT_INS = (
-    (Keys.MASTER_UPDATE_CHECK_ENABLED, "the update checker"),
-)
+#: how long one probe of the job master may take, and the pause between
+#: probes, while a launched master waits for its job service
+JOB_PROBE_TIMEOUT_S = 2.0
+JOB_PROBE_INTERVAL_S = 0.5
 
 
 class _Exec(HeartbeatExecutor):
@@ -105,12 +113,13 @@ class _Exec(HeartbeatExecutor):
 class MasterProcess:
     def __init__(self, conf: Configuration, *,
                  clock: Optional[Clock] = None,
-                 root_ufs_uri: Optional[str] = None) -> None:
-        for key, what in _UNPORTED_OPT_INS:
-            if conf.get_bool(key):
-                raise NotSupportedError(
-                    f"{key.name} asks for {what}, which the port's master "
-                    "does not have yet")
+                 root_ufs_uri: Optional[str] = None,
+                 attach_job_service: bool = False) -> None:
+        """``attach_job_service``: while serving as primary, reach the
+        job master at ``atpu.job.master.hostname``:``atpu.job.master.
+        rpc.port`` and attach the replication checker and the
+        persistence scheduler once it answers (a launched master; an
+        in-process cluster attaches its own job service)."""
         self._conf = conf
         self._clock = clock or SystemClock()
         jtype = str(conf.get(Keys.MASTER_JOURNAL_TYPE)).upper()
@@ -237,6 +246,11 @@ class MasterProcess:
         self._threads: List[HeartbeatThread] = []
         #: the checkers attached to a job service
         self._job_threads: List[HeartbeatThread] = []
+        self._attach_job_service = attach_job_service
+        #: (thread, stop event) of the wait for the job master
+        self._job_attach: Optional[tuple] = None
+        self._job_lock = threading.Lock()
+        self.update_checker = None
         self.cluster_id = str(uuid.uuid4())
         self.start_time_ms = 0
         self._safe_mode_until = float("inf")
@@ -689,6 +703,8 @@ class MasterProcess:
                 self, port=self._conf.get_int(Keys.MASTER_WEB_PORT),
                 bind_host=self._conf.get(Keys.MASTER_WEB_BIND_HOST))
             self.web_port = self.web_server.start()
+        if self._attach_job_service:
+            self._start_job_attach()
         return self.rpc_port
 
     def _fence_primary_reads(self) -> None:
@@ -981,6 +997,24 @@ class MasterProcess:
             self._threads.append(HeartbeatThread(
                 HeartbeatContext.MASTER_HEALTH_CHECK, _Exec(_health_tick),
                 conf.get_duration_s(Keys.MASTER_HEALTH_EVAL_INTERVAL)))
+        if conf.get_bool(Keys.MASTER_UPDATE_CHECK_ENABLED):
+            url = conf.get(Keys.MASTER_UPDATE_CHECK_URL) or ""
+            if not url:
+                LOG.warning(
+                    "%s is enabled but %s is unset — update checking "
+                    "is a no-op", Keys.MASTER_UPDATE_CHECK_ENABLED,
+                    Keys.MASTER_UPDATE_CHECK_URL)
+            else:
+                from alluxio_tpu_torch.master.update_check import (
+                    UpdateChecker,
+                )
+
+                self.update_checker = UpdateChecker(url)
+                self._threads.append(HeartbeatThread(
+                    HeartbeatContext.MASTER_UPDATE_CHECK,
+                    self.update_checker,
+                    conf.get_duration_s(
+                        Keys.MASTER_UPDATE_CHECK_INTERVAL)))
         if conf.get_bool(Keys.MASTER_DAILY_BACKUP_ENABLED):
             from alluxio_tpu_torch.master.backup import ScheduledBackup
 
@@ -1055,13 +1089,57 @@ class MasterProcess:
         self._job_threads.append(t)
         return scheduler
 
+    def _start_job_attach(self) -> None:
+        """Wait on a thread of its own for the job master the conf
+        names, then attach both checkers to it: serving never waits on
+        the job service, which may start after the master or not at
+        all."""
+        stop = threading.Event()
+        t = threading.Thread(target=self._job_attach_loop, args=(stop,),
+                             name="job-service-attach", daemon=True)
+        self._job_attach = (t, stop)
+        t.start()
+
+    def _job_attach_loop(self, stop: threading.Event) -> None:
+        from alluxio_tpu_torch.rpc.job_service import JobMasterClient
+
+        address = (f"{self._conf.get(Keys.JOB_MASTER_HOSTNAME)}:"
+                   f"{self._conf.get_int(Keys.JOB_MASTER_RPC_PORT)}")
+        probe = JobMasterClient(address, retry_duration_s=0.0)
+        logged = False
+        while not stop.is_set():
+            try:
+                probe.list_plan_types(timeout=JOB_PROBE_TIMEOUT_S)
+                break
+            except Exception as e:  # noqa: BLE001 - not serving yet
+                if not logged:
+                    LOG.info("the replication checker and the persistence "
+                             "scheduler wait for a job master at %s (%s)",
+                             address, type(e).__name__)
+                    logged = True
+            stop.wait(JOB_PROBE_INTERVAL_S)
+        with self._job_lock:
+            if stop.is_set():
+                return
+            client = JobMasterClient(address, conf=self._conf)
+            self.attach_replication_checker(client)
+            self.attach_persistence_scheduler(client)
+        LOG.info("replication checker and persistence scheduler attached "
+                 "to the job master at %s", address)
+
     def detach_job_service(self) -> None:
         """Stop and join the checkers that call the job service, before
         it goes away (a checker mid-call would otherwise retry against a
-        stopped job master until its RPC budget runs out)."""
-        for t in self._job_threads:
-            t.stop()
-        self._job_threads = []
+        stopped job master until its RPC budget runs out), and the wait
+        for a job master when one is pending."""
+        attach, self._job_attach = self._job_attach, None
+        if attach is not None:
+            attach[1].set()
+            attach[0].join()
+        with self._job_lock:
+            for t in self._job_threads:
+                t.stop()
+            self._job_threads = []
 
     def stop(self) -> None:
         if self.web_server is not None:

@@ -1,7 +1,5 @@
 """Read-only HTTP/JSON state endpoint for the master (a copy of
-``alluxio_tpu/master/web.py`` without the ``/config`` route and page,
-which walk the whole key registry: the port's catalog holds only the
-keys it reads).
+``alluxio_tpu/master/web.py``).
 
 Re-design of ``core/server/master/src/main/java/alluxio/master/meta/
 AlluxioMasterRestServiceHandler.java`` (the web UI's backing REST API)
@@ -14,6 +12,7 @@ Routes:
   GET /api/v1/master/mounts    mount table
   GET /api/v1/master/catalog   table-service databases/tables
   GET /api/v1/master/browse    ?path= namespace listing w/ tier residency
+  GET /api/v1/master/config    effective configuration + value sources
   GET /api/v1/master/metrics/history  ?name=&source=&resolution=&rate=
                                the metrics history's series
   GET /api/v1/master/health    the health rules' ranked alerts
@@ -29,8 +28,8 @@ Routes:
   GET /api/v1/master/logs      ?n=&level= recent log records (in-process
                                ring)
   GET /metrics                 Prometheus text exposition
-  GET /browse /logs            HTML pages over the routes above
-                               (reference: webui/master's browse and
+  GET /browse /config /logs    HTML pages over the routes above
+                               (reference: webui/master's browse/config/
                                logs SPA pages)
 """
 
@@ -67,7 +66,7 @@ def _dashboard_html() -> bytes:
                     "/metrics/history", "/health", "/remediation",
                     "/metastore",
                     "/mounts", "/catalog", "/trace", "/browse",
-                    "/logs"],
+                    "/config", "/logs"],
         js_body="""
     const info = await j('/info');
     const t = document.getElementById('info');
@@ -174,8 +173,9 @@ def _dashboard_html() -> bytes:
 
 
 def _page_html(page: str) -> bytes:
-    """The browse and logs pages (reference: ``webui/master``'s Browse
-    and Logs SPA pages, as self-contained HTML over the JSON routes)."""
+    """The browse/config/logs pages (reference: ``webui/master``'s
+    Browse / Configuration / Logs SPA pages, as self-contained HTML
+    over the JSON routes)."""
     from alluxio_tpu_torch.utils.statuspage import render
 
     if page == "browse":
@@ -216,6 +216,18 @@ def _page_html(page: str) -> bytes:
       } else cell.textContent = e.name;
     }
 """)
+    if page == "config":
+        return render(
+            "alluxio-tpu configuration", "/api/v1/master",
+            sections=[("Effective configuration", "conf")],
+            raw_routes=["/api/v1/master/config"],
+            js_body="""
+    const d = await j('/config');
+    const t = document.getElementById('conf');
+    row(t, ['property','value','source'], true);
+    for (const [k, v] of Object.entries(d.config))
+      row(t, [k, v.value, v.source]);
+""")
     return render(
         "alluxio-tpu logs", "/api/v1/master",
         sections=[("Recent log records", "logs")],
@@ -254,7 +266,7 @@ class MasterWebServer:
                         self._send(200, _dashboard_html(),
                                    "text/html; charset=utf-8")
                         return
-                    if route in ("/browse", "/logs"):
+                    if route in ("/browse", "/config", "/logs"):
                         self._send(200, _page_html(route[1:]),
                                    "text/html; charset=utf-8")
                         return
@@ -429,6 +441,28 @@ class MasterWebServer:
                         "group": e["group"], "mode": oct(e["mode"]),
                         "block_count": len(e["block_ids"]),
                     } for e in entries]}
+                if route == "/api/v1/master/config":
+                    from alluxio_tpu_torch.conf.property_key import (
+                        REGISTRY, mask_credential)
+
+                    conf = mp._conf
+                    # EFFECTIVE configuration: every registered key with
+                    # its default, overlaid by whatever is actually set
+                    # (reference: the webui Configuration page shows the
+                    # full resolved table, not just overrides). Values of
+                    # credential-flagged keys — and anything that LOOKS
+                    # like a secret — are masked, never serialized
+                    # (reference DisplayType.CREDENTIALS masking on the
+                    # config webUI/REST endpoint).
+                    out = {name: {"value": str(pk.default),
+                                  "source": "DEFAULT"}
+                           for name, pk in REGISTRY.all_keys().items()}
+                    for k, v in conf.to_map().items():
+                        out[k] = {"value": str(v),
+                                  "source": conf.source(k).name}
+                    for k, row in out.items():
+                        row["value"] = mask_credential(k, row["value"])
+                    return {"config": dict(sorted(out.items()))}
                 if route == "/api/v1/master/logs":
                     from alluxio_tpu_torch.utils import weblog
 

@@ -1,6 +1,7 @@
 """Job master RPC service + client (a copy of
 ``alluxio_tpu/rpc/job_service.py``: the same service name and method
-paths, so either package's client drives the other's job master).
+paths, so either package's client drives the other's job master;
+``list_plan_types`` also takes the call's deadline).
 
 Re-design of ``core/transport/src/main/proto/grpc/job_master.proto``:
 client surface (Run/Cancel/GetJobStatus/ListAll ``:165-195``) and
@@ -88,8 +89,10 @@ class JobMasterClient:
         ``fsadmin report jobservice``)."""
         return self._call("list_workers", {})["workers"]
 
-    def list_plan_types(self) -> List[str]:
-        return self._call("list_plan_types", {})["types"]
+    def list_plan_types(self, timeout: float = 30.0) -> List[str]:
+        """``timeout``: the call's deadline (a master probing for its job
+        service asks for a short one)."""
+        return self._call("list_plan_types", {}, timeout=timeout)["types"]
 
     # -- worker surface -----------------------------------------------------
     def register_worker(self, hostname: str) -> int:

@@ -1,9 +1,14 @@
-"""Command-line entry points (a subset of ``alluxio_tpu/shell``).
+"""Command-line shells (a copy of ``alluxio_tpu/shell``).
 
-``python -m alluxio_tpu_torch.shell.main <role>`` runs one of the four
-role processes (master, worker, job master, job worker) in the
-foreground until SIGINT or SIGTERM; ``shell/launch.py`` builds them from
-the configuration (``ATPU_*`` variables and ``-D key=value``). The JAX
-package's interactive shells and its other launchers are not ported
-yet: ``main`` says which ROADMAP item brings each.
+Re-design of the reference's CLI layer (``shell/src/main/java/alluxio/cli``):
+``fs`` (FileSystemShell, ~45 commands), ``fsadmin`` (FileSystemAdminShell),
+``job`` (JobShell), ``table``, the validators, ``runOperation`` and
+``format``, plus the four role launchers. Dispatch lives in
+``alluxio_tpu_torch.shell.main`` (the ``bin/alluxio`` equivalent); the
+JAX package's commands the port does not have are refused there with
+the ROADMAP item that brings each. No shell module loads torch.
 """
+
+from alluxio_tpu_torch.shell.command import Command, CommandError, ShellContext
+
+__all__ = ["Command", "CommandError", "ShellContext"]

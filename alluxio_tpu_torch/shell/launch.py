@@ -8,7 +8,10 @@ the configuration, serve until SIGINT/SIGTERM, then stop it.
 
 The four roles are host processes: none of them imports torch, and none
 touches the card. ``atpu.master.ha.enabled`` launches the HA master
-(``FaultTolerantMasterProcess``: a standby until it wins primacy). Left
+(``FaultTolerantMasterProcess``: a standby until it wins primacy). A
+launched master, HA or not, attaches the replication checker and the
+persistence scheduler to the job master its conf names whenever it
+serves as primary (the JAX master arm never does). Left
 out with the item that brings them: the proxy, log-server and FUSE
 launchers, and shipping log records to a log server.
 """
@@ -54,7 +57,7 @@ def launch_master(conf: Configuration) -> int:
             FaultTolerantMasterProcess,
         )
 
-        proc = FaultTolerantMasterProcess(conf)
+        proc = FaultTolerantMasterProcess(conf, attach_job_service=True)
         proc.start()
         banner = ("alluxio-tpu master started (HA): "
                   + ("serving" if proc.serving else "standby, tailing")
@@ -62,7 +65,7 @@ def launch_master(conf: Configuration) -> int:
         return _serve_until_signal(proc.stop, banner)
     from alluxio_tpu_torch.master.process import MasterProcess
 
-    proc = MasterProcess(conf)
+    proc = MasterProcess(conf, attach_job_service=True)
     port = proc.start()
     return _serve_until_signal(
         proc.stop, f"alluxio-tpu master serving on port {port} "

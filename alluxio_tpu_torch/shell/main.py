@@ -2,10 +2,14 @@
 <command> ...`` (a copy of ``alluxio_tpu/shell/main.py`` for the
 commands the port has).
 
-Re-design of ``bin/alluxio`` (the bash dispatcher): routes to the role
-launchers, the stress CLI and ``journalCrashTest``. Generic options: ``--master host:port``, ``--job-master
-host:port``, ``-D key=value`` config overrides. Every other command of
-the JAX package is refused with the ROADMAP item that brings it.
+Re-design of ``bin/alluxio`` (the bash dispatcher): routes to the fs,
+fsadmin, job and table shells, ``validateConf``, ``validateEnv``,
+``runOperation``, ``format``, the stress CLI, ``journalCrashTest`` and
+the role launchers. Generic options: ``--master host:port``,
+``--job-master host:port``, ``-D key=value`` config overrides. The JAX
+package's other commands (``validateHms`` and the proxy, log-server and
+FUSE launchers) are refused with the ROADMAP item that brings them. No
+command loads torch: an operator's shell builds no CUDA context.
 """
 
 from __future__ import annotations
@@ -14,13 +18,22 @@ import sys
 from typing import List
 
 from alluxio_tpu_torch.conf import Configuration, Keys
+from alluxio_tpu_torch.shell.command import ShellContext
 
 USAGE = """\
 Usage: alluxio-tpu [generic options] <command> [command args]
 
 Commands:
+  fs         file system user shell (ls/cat/cp/pin/...)
+  fsadmin    administration shell (report/doctor/journal/...)
+  job        job service shell (ls/stat/cancel)
+  table      table/catalog shell (attachdb/ls/sync/transform)
   stress     stress benchmark suite (worker/master/prefetch/table/write)
+  validateConf  sanity-check the effective configuration
+  validateEnv   pre-flight node checks (ports/dirs/ssh/native/cluster)
+  runOperation  run one fs operation N times over T threads
   journalCrashTest  crash-kill masters under load, verify replay
+  format     format master journal / worker storage
   master     run a master process
   worker     run a worker process
   job-master run a job master process
@@ -35,13 +48,9 @@ Generic options:
 
 #: the JAX package's other commands, each with the ROADMAP item (its
 #: heading in "Open items") that ports it
-_NOT_PORTED = {
-    **dict.fromkeys(
-        ("fs", "fsadmin", "job", "table", "validateConf", "validateEnv",
-         "validateHms", "runOperation", "format", "proxy", "logserver",
-         "fuse"),
-        "Host-only surfaces, last"),
-}
+_NOT_PORTED = dict.fromkeys(
+    ("validateHms", "proxy", "logserver", "fuse"),
+    "Host-only surfaces, last")
 
 
 class GenericOptionError(Exception):
@@ -98,20 +107,53 @@ def main(argv=None) -> int:
     if not argv or argv[0] in ("-h", "--help", "help"):
         print(USAGE)
         return 0
-    cmd = argv[0]
+    cmd, rest = argv[0], argv[1:]
+    ctx = ShellContext(conf)
+    if cmd == "fs":
+        from alluxio_tpu_torch.shell.fs_shell import FS_SHELL
+
+        return FS_SHELL.run(rest, ctx)
+    if cmd == "fsadmin":
+        from alluxio_tpu_torch.shell.fsadmin_shell import ADMIN_SHELL
+
+        return ADMIN_SHELL.run(rest, ctx)
+    if cmd == "job":
+        from alluxio_tpu_torch.shell.job_shell import JOB_SHELL
+
+        return JOB_SHELL.run(rest, ctx)
+    if cmd == "table":
+        from alluxio_tpu_torch.shell.table_shell import TABLE_SHELL
+
+        return TABLE_SHELL.run(rest, ctx)
+    if cmd == "stress":
+        from alluxio_tpu_torch.stress.__main__ import main as stress_main
+
+        return stress_main(rest)
+    if cmd == "validateConf":
+        from alluxio_tpu_torch.shell.validate import main as validate_main
+
+        return validate_main(rest, conf=conf)
+    if cmd == "validateEnv":
+        from alluxio_tpu_torch.shell.validate_env import main_env
+
+        return main_env(rest, conf=conf)
+    if cmd == "runOperation":
+        from alluxio_tpu_torch.shell.run_operation import main as runop_main
+
+        return runop_main(rest, conf=conf)
+    if cmd == "journalCrashTest":
+        from alluxio_tpu_torch.shell.journal_crash import main as crash_main
+
+        return crash_main(rest)
+    if cmd == "format":
+        from alluxio_tpu_torch.shell.format import main as format_main
+
+        return format_main(rest)
     if cmd == "version":
         import alluxio_tpu_torch
 
         print(alluxio_tpu_torch.__version__)
         return 0
-    if cmd == "stress":
-        from alluxio_tpu_torch.stress.__main__ import main as stress_main
-
-        return stress_main(argv[1:])
-    if cmd == "journalCrashTest":
-        from alluxio_tpu_torch.shell.journal_crash import main as crash_main
-
-        return crash_main(argv[1:])
     if cmd in ("master", "worker", "job-master", "job-worker"):
         from alluxio_tpu_torch.shell.launch import launch_process
 

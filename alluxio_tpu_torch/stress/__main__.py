@@ -382,6 +382,11 @@ def _host_calibration():
         errors=0, duration_s=round(loop_ms / 1000, 3))
 
 
+#: seconds the suite waits between two rows, for the previous row's
+#: teardown IO to drain (the JAX suite's 4 s)
+SUITE_GAP_S = 4.0
+
+
 def run_suite() -> list:
     """The five BASELINE configs + master-op samples, each in its OWN
     subprocess: a bench must not inherit the previous one's page-cache
@@ -412,7 +417,7 @@ def run_suite() -> list:
                 # page-cache writeback) drain — it measured 2-3x into
                 # the next bench's tail latencies on a 1-core host
                 os.sync()
-                time.sleep(4)
+                time.sleep(SUITE_GAP_S)
             proc = subprocess.run(
                 [sys.executable, "-m", "alluxio_tpu_torch.stress", *argv],
                 capture_output=True, text=True, timeout=600, env=env)

@@ -249,6 +249,13 @@ class BlockWorker:
         apply_profile_conf(self._conf)
         ensure_process_monitor()
         self._master_sync.register_with_master()
+        if self._meta_client is not None:
+            try:  # config consistency report (ServerConfigurationChecker)
+                self._meta_client.register_node_conf(
+                    f"worker-{self.address.host}:{self.address.rpc_port}",
+                    {k: str(v) for k, v in self._conf.to_map().items()})
+            except Exception:  # noqa: BLE001 - older master
+                LOG.debug("config report failed", exc_info=True)
         hb_interval = self._conf.get_duration_s(
             Keys.WORKER_BLOCK_HEARTBEAT_INTERVAL)
         mgmt_interval = self._conf.get_duration_s(

@@ -225,11 +225,38 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    as before, and the journal replay (from the master's banner) and the
    store's flushes, compactions and runs print; (d) ``python -m
    alluxio_tpu_torch.stress suite`` as a child process (its rows cut as
-   ``SUITE_CUTS`` says, each cut printed), its lines in the
+   ``SUITE_CUTS`` says and the pause between rows as ``SUITE_GAP_S``,
+   each cut printed), its lines in the
    work directory: it must exit 0, or 1 with each failed row failed by
    its speed gate alone (``gate_miss``: a crash, a wrong byte or count
    fails the run), every row and gate printed; ``stress report`` renders
    the lines into the work directory, and the page must name every row.
+2l. the operator's shells, on 2g's cluster after 2h b and before it
+   stops: every step is a child ``python -m alluxio_tpu_torch.shell.main
+   --master ... --job-master ...``, timed, its exit code checked. The
+   cluster's roles carry ``shell_cluster_conf`` (a job master's port, at
+   which the launched master attaches its persistence scheduler and
+   replication checker; the host's name as locality; the web server; a
+   login token), and a job master and a job worker start for the phase.
+   (a) 16 seeded 32 MiB shards (512 MiB) in a local directory go in by
+   ``fs copyFromLocal`` (ASYNC_THROUGH, the default); ``fs ls`` and
+   ``fs du -s`` must show 16 files and 512 MiB, ``fs checksum`` each
+   file's ``hashlib.md5``, and every file must reach PERSISTED (``fs ls``
+   and ``fs stat`` confirm). (b) Epoch 1 of a loader over ``/shell``:
+   every block on the SHM rung, each block's ``scaled_sum`` the plain
+   version's and numpy's over its file, the chain numpy's. (c) ``fs
+   free``, then ``fsadmin report capacity`` must show the worker's used
+   bytes fallen by at least 512 MiB; ``fs distributedLoad`` must
+   complete and ``job ls`` show it; epoch 2 on the SHM rung with epoch
+   1's sums. (d) ``fsadmin report stall`` one client metrics heartbeat
+   after the epochs: its total wait, less the one before them, must be
+   the loaders' own consumer wait; ``fsadmin trace --on``, a traced
+   epoch of 4 blocks, then ``fsadmin report readpath`` must have
+   analyzed a trace; ``fsadmin report summary``, ``doctor`` and
+   ``getConf`` exit 0. (e) ``validateConf`` on the roles' configuration
+   exits 0; ``runOperation`` creates 200 files over 4 threads; the
+   master's ``/api/v1/master/config`` lists every key of the registry,
+   the login token masked.
 2i. the observability loop, last: a ``MultiProcessCluster`` of its own
    (its master and one worker each a process, in ``/dev/shm``) with the
    metrics history, the health rules and the remediation engine on (not
@@ -329,7 +356,8 @@ line, one ``{"mesh": {...}}`` line, one ``{"suite": {...}}`` line, one
 ``{"clairvoyant": {...}}`` line, one ``{"multi_process": {...}}`` line,
 one ``{"stress": {...}}`` line, one ``{"observability": {...}}`` line,
 one ``{"guards": {...}}`` line, one ``{"ha": {...}}`` line, one
-``{"kernels": [...]}`` line,
+``{"shell": {...}}`` line, one ``{"phase_s": {...}}`` line with every
+phase's seconds, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
 exits non-zero and prints no result. All data is made from a seed.
@@ -469,6 +497,20 @@ BF16_FLOPS_PER_S = 989e12
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+#: every phase's seconds, in the order the phases ran (printed on one
+#: line at the end)
+PHASE_S: dict = {}
+
+
+def phase(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds added to ``PHASE_S[name]``."""
+    t = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - t
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -2874,20 +2916,24 @@ def start_mp_cluster(num_blocks: int) -> dict:
     the room): its master and one worker, each a process of its own
     (``python -m alluxio_tpu_torch.shell.main <role>``), blocks of
     ``BLOCK_BYTES``, a MEM tier through the level-0 quota template of
-    ``num_blocks`` blocks plus 256 MiB and room for the records and the
-    mesh's fresh shards, and its ``FileSystem``."""
+    ``num_blocks`` blocks plus 256 MiB and room for the records, the
+    mesh's fresh shards and 2l's corpus, the keys 2l needs
+    (``shell_cluster_conf``), and its ``FileSystem``."""
     from alluxio_tpu_torch.conf import Keys, Templates
     from alluxio_tpu_torch.minicluster.multi_process import (
-        MultiProcessCluster,
+        MultiProcessCluster, free_port,
     )
 
     tier = num_blocks * BLOCK_BYTES + (256 << 20) \
-        + (DECODE_BLOCKS + 2) * BLOCK_BYTES
-    base = block_dir(tier)
+        + (DECODE_BLOCKS + 2) * BLOCK_BYTES + SHELL_SHARDS * BLOCK_BYTES
+    # the UFS copy of 2l's persisted corpus lives beside the tier
+    base = block_dir(tier + SHELL_SHARDS * BLOCK_BYTES)
+    job_port = free_port()
     cluster = MultiProcessCluster(
         os.path.join(base, "cluster"), num_workers=1, extra_conf={
             Keys.USER_BLOCK_SIZE_BYTES_DEFAULT.name: str(BLOCK_BYTES),
-            Templates.WORKER_TIER_DIRS_QUOTA.format(0).name: str(tier)})
+            Templates.WORKER_TIER_DIRS_QUOTA.format(0).name: str(tier),
+            **shell_cluster_conf(job_port)})
     t0 = time.perf_counter()
     try:
         cluster.start(timeout_s=MP_BOOT_S)
@@ -2903,7 +2949,7 @@ def start_mp_cluster(num_blocks: int) -> dict:
           f"{tier} bytes by the quota template) up in {boot_s:.2f} s",
           flush=True)
     return {"cluster": cluster, "fs": fs, "base": base, "tier": tier,
-            "boot_s": boot_s, "pids": pids}
+            "boot_s": boot_s, "pids": pids, "job_port": job_port}
 
 
 def stop_mp_cluster(mp: dict) -> None:
@@ -3355,6 +3401,395 @@ def stressbench_phase(mp: dict) -> dict:
             "processes_left": 0, "s": time.perf_counter() - t_phase}
 
 
+# -- 2l: the operator's shells ------------------------------------------------
+#: 2l's corpus: 16 of the main path's 32 MiB shards (512 MiB), made from
+#: SEED in a local directory and copied in by ``fs copyFromLocal``
+SHELL_SHARDS = 16
+#: the blocks of 2l (d)'s traced epoch
+SHELL_TRACE_BLOCKS = 4
+#: 2l's cut of the client metrics heartbeat (the JAX default is 10 s), so
+#: that the stall report is read one interval after the epochs
+SHELL_METRICS_HEARTBEAT = "500ms"
+#: ``runOperation``'s operation, count and threads in 2l (e)
+SHELL_RUNOP = ("CreateFile", 200, 4)
+#: a login token in the roles' configuration, which ``/config`` masks
+SHELL_TOKEN = "2l-token-not-for-display"
+SHELL_CHILD_TIMEOUT_S = 300.0
+SHELL_PERSIST_S = 120.0
+#: the report's stalled total against the loaders' own wait: the
+#: report prints milliseconds, each sample is counted in whole us
+SHELL_STALL_TOL_S = 0.002
+_UNITS = {"B": 1, "KB": 1 << 10, "MB": 1 << 20, "GB": 1 << 30,
+          "TB": 1 << 40, "PB": 1 << 50}
+
+
+def shell_cluster_conf(job_port: int) -> dict:
+    """The keys 2l needs of the process cluster's roles: the job master's
+    port (where a launched master attaches its persistence scheduler and
+    replication checker, once a job master serves there), the host's name
+    as the workers' locality (the load plan pairs a job worker, named by
+    the host, with a block worker), the master's web server (its
+    ``/config``) and a login token (masked there)."""
+    import socket
+
+    return {"atpu.job.master.rpc.port": str(job_port),
+            "atpu.locality.identity": f"host={socket.gethostname()}",
+            "atpu.master.web.enabled": "true",
+            "atpu.security.login.token": SHELL_TOKEN}
+
+
+def wrap32(v: int) -> int:
+    return ((int(v) + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def shell_corpus(directory: str, n: int, block_bytes: int) -> dict:
+    """``n`` seeded int32 shards of ``block_bytes`` in ``directory``:
+    {namespace path: (local file, numpy's int32-wraparound sum)}."""
+    os.makedirs(directory, exist_ok=True)
+    files = {}
+    for i in range(n):
+        arr = np.random.default_rng(SEED + 16_000 + i).integers(
+            -2**31, 2**31 - 1, size=block_bytes // 4, dtype=np.int32)
+        local = os.path.join(directory, f"shard-{i:02d}.bin")
+        arr.tofile(local)
+        files[f"/shell/shard-{i:02d}.bin"] = (
+            local, wrap32(arr.sum(dtype=np.int64)))
+    return files
+
+
+def shell_run(sh: dict, name: str, argv: list, want: int = 0) -> str:
+    """One shell step: ``python -m alluxio_tpu_torch.shell.main`` as a
+    child against the cluster, timed under ``name``; fails the run unless
+    it exits ``want``. Returns its stdout."""
+    cmd = [sys.executable, "-m", "alluxio_tpu_torch.shell.main",
+           "--master", sh["master"], "--job-master", sh["job_master"],
+           "-D", f"atpu.master.fastpath.dir={sh['fastpath_dir']}", *argv]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=SHELL_CHILD_TIMEOUT_S, env=stress_env(),
+                          cwd=sh["cwd"])
+    sh["steps"][name] = sh["steps"].get(name, 0.0) \
+        + time.perf_counter() - t
+    if proc.returncode != want:
+        fail(f"2l: {' '.join(argv)} exited {proc.returncode} (want "
+             f"{want}): {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    return proc.stdout
+
+
+def human_bytes(text: str) -> "tuple[float, float]":
+    """A ``human_size`` string as (bytes, the half unit it was rounded
+    to)."""
+    m = re.fullmatch(r"([\d.]+)([KMGTP]?B)", text)
+    if not m:
+        fail(f"2l: {text!r} is not a size")
+    unit = _UNITS[m.group(2)]
+    return float(m.group(1)) * unit, 0.005 * unit if unit > 1 else 0.0
+
+
+def worker_used(report: str) -> "tuple[float, float]":
+    """The MEM tier's used bytes in ``fsadmin report capacity`` (one
+    worker)."""
+    rows = re.findall(r"\bMEM\s+(\S+)\s+(\S+)", report)
+    if len(rows) != 1:
+        fail(f"2l: report capacity shows {len(rows)} MEM rows: {report}")
+    return human_bytes(rows[0][1])
+
+
+def stall_total(report: str) -> float:
+    """``fsadmin report stall``'s total wait (0 when it has none)."""
+    if "no input-stall samples" in report:
+        return 0.0
+    m = re.search(r"of ([\d.]+)s total wait", report)
+    if not m:
+        fail(f"2l: report stall gave no total: {report}")
+    return float(m.group(1))
+
+
+def shell_epoch(name: str, device, fs, files: dict, paths: list) -> dict:
+    """One loader epoch (no device tier) over ``paths`` onto ``device``:
+    every block on the SHM rung, each block's ``scaled_sum`` held against
+    the plain version and against numpy's sum of its file."""
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    rfs = RungFS(fs)
+    loader = DeviceBlockLoader(rfs, list(paths), device=device, prefetch=2,
+                               dtype=np.int32)
+    sums = {}
+    try:
+        _sync_device(device)
+        t = time.perf_counter()
+        for path, block in zip(paths, loader.epoch()):
+            x = rk.pad_to_kernel_shape(block)
+            got = int(rk.scaled_sum(x, 1))
+            want = int(rk.scaled_sum_reference(x, 1))
+            if got != want or got != files[path][1]:
+                fail(f"2l {name}: {path}'s scaled_sum {got}, plain "
+                     f"{want}, numpy {files[path][1]}")
+            sums[path] = got
+        _sync_device(device)
+        epoch_s = time.perf_counter() - t
+        wait_s = loader.stall_report()["total_wait_s"]
+    finally:
+        loader.close()
+    if list(sums) != list(paths):
+        fail(f"2l {name}: the epoch gave {len(sums)} of {len(paths)} "
+             f"blocks")
+    rfs.check_rungs(f"2l {name}", "shm")
+    return {"sums": sums, "s": epoch_s, "wait_s": wait_s,
+            "chain": wrap32(sum(sums.values()))}
+
+
+def shell_context(cluster, job_port: int, cwd: str) -> dict:
+    return {"master": cluster.master_addresses,
+            "job_master": f"localhost:{job_port}",
+            "fastpath_dir": cluster.base, "cwd": cwd, "steps": {}}
+
+
+def shell_client(cluster):
+    """The loaders' client: the cluster's, shipping its metrics to the
+    master every ``SHELL_METRICS_HEARTBEAT``."""
+    from alluxio_tpu_torch.conf import Configuration, Keys
+
+    conf = Configuration(load_env=False)
+    conf.set(Keys.USER_METRICS_COLLECTION_ENABLED, True)
+    conf.set(Keys.USER_METRICS_HEARTBEAT_INTERVAL, SHELL_METRICS_HEARTBEAT)
+    return cluster.file_system(conf)
+
+
+def start_job_roles(cluster, job_port: int) -> list:
+    """A job master at ``job_port`` and a job worker, each a process of
+    its own with the cluster's environment, both registered."""
+    from alluxio_tpu_torch.minicluster.multi_process import ManagedProcess
+    from alluxio_tpu_torch.rpc.job_service import JobMasterClient
+
+    env = {**cluster._common_env(),
+           "ATPU_MASTER_RPC_ADDRESSES": cluster.master_addresses,
+           "ATPU_JOB_MASTER_HOSTNAME": "localhost",
+           "ATPU_JOB_MASTER_RPC_PORT": str(job_port),
+           "ATPU_JOB_WORKER_HEARTBEAT_INTERVAL": "100ms"}
+    logs = os.path.join(cluster.base, "logs")
+    roles = [ManagedProcess(role, env, os.path.join(logs, f"2l-{role}.out"))
+             for role in ("job-master", "job-worker")]
+    for role in roles:
+        role.start()
+    jc = JobMasterClient(f"localhost:{job_port}", retry_duration_s=1.0)
+    deadline = time.monotonic() + MP_BOOT_S
+    while True:
+        try:
+            if jc.list_workers():
+                return roles
+        except Exception:  # noqa: BLE001 - not serving yet
+            pass
+        if time.monotonic() > deadline:
+            stop_job_roles(roles)
+            fail("2l: the job master and worker did not come up")
+        time.sleep(0.2)
+
+
+def stop_job_roles(roles: list) -> None:
+    for role in reversed(roles):
+        role.stop()
+    alive = [r.proc.pid for r in roles if r.alive]
+    if alive:
+        fail(f"2l: job role processes {alive} outlived their stop")
+
+
+def shell_drill(device, sh: dict, fs, files: dict, corpus_dir: str,
+                block_bytes: int) -> dict:
+    """2l (a)-(c): the corpus in through the shell, persisted, epoch 1,
+    freed, loaded back by the job service, epoch 2."""
+    n, paths = len(files), list(files)
+    # (a) the corpus in, checked and persisted
+    shell_run(sh, "copyFromLocal", ["fs", "copyFromLocal", corpus_dir,
+                                    "/shell"])
+    t_written = time.perf_counter()
+    copy_s = sh["steps"]["copyFromLocal"]
+    persisted_s = None
+    deadline = time.monotonic() + SHELL_PERSIST_S
+    while persisted_s is None:
+        states = {p: fs.get_status(p).persistence_state for p in paths}
+        if set(states.values()) == {"PERSISTED"}:
+            persisted_s = time.perf_counter() - t_written
+        elif time.monotonic() > deadline:
+            fail(f"2l (a): not every file PERSISTED in {SHELL_PERSIST_S} "
+                 f"s: {states}")
+        else:
+            time.sleep(0.1)
+    listing_rows = [line.split() for line in shell_run(
+        sh, "ls", ["fs", "ls", "/shell"]).splitlines() if "/shell/" in line]
+    if sorted(r[-1] for r in listing_rows) != paths or \
+            {r[4] for r in listing_rows} != {"PERSISTED"}:
+        fail(f"2l (a): fs ls shows {listing_rows}")
+    stat = shell_run(sh, "stat", ["fs", "stat", paths[-1]])
+    if "persistence_state: PERSISTED" not in stat:
+        fail(f"2l (a): fs stat {paths[-1]}: {stat}")
+    du = shell_run(sh, "du", ["fs", "du", "-s", "/shell"]).split()
+    if du != [str(n * block_bytes), "/shell"]:
+        fail(f"2l (a): fs du -s /shell shows {du}")
+    import hashlib
+
+    sums_md5 = dict(re.findall(r"md5sum of (\S+): ([0-9a-f]{32})",
+                               shell_run(sh, "checksum",
+                                         ["fs", "checksum", *paths])))
+    for path, (local, _) in files.items():
+        with open(local, "rb") as f:
+            want = hashlib.md5(f.read()).hexdigest()
+        if sums_md5.get(path) != want:
+            fail(f"2l (a): fs checksum {path} {sums_md5.get(path)}, the "
+                 f"local file's md5 {want}")
+    # (b) epoch 1
+    epoch1 = shell_epoch("(b) epoch 1", device, fs, files, paths)
+    if epoch1["chain"] != wrap32(sum(v for _, v in files.values())):
+        fail(f"2l (b): the chain {epoch1['chain']} is not numpy's")
+    # (c) freed, then loaded back by the job service
+    used0, tol0 = worker_used(shell_run(
+        sh, "report capacity", ["fsadmin", "report", "capacity"]))
+    shell_run(sh, "free", ["fs", "free", "/shell"])
+    deadline = time.monotonic() + SHELL_PERSIST_S
+    while any(fs.get_status(p).in_memory_percentage for p in paths):
+        if time.monotonic() > deadline:
+            fail("2l (c): the freed blocks stayed on the worker")
+        time.sleep(0.1)
+    used1, tol1 = worker_used(shell_run(
+        sh, "report capacity", ["fsadmin", "report", "capacity"]))
+    if used0 - used1 < n * block_bytes - tol0 - tol1:
+        fail(f"2l (c): the worker's used bytes fell {used0 - used1:.0f}, "
+             f"want >= {n * block_bytes}")
+    load = shell_run(sh, "distributedLoad", ["fs", "distributedLoad",
+                                             "/shell"])
+    job = re.search(r"Job (\d+) COMPLETED", load)
+    if not job:
+        fail(f"2l (c): distributedLoad: {load}")
+    jobs = shell_run(sh, "job ls", ["job", "ls"])
+    if not re.search(rf"^{job.group(1)}\s+load\s+COMPLETED", jobs,
+                     re.MULTILINE):
+        fail(f"2l (c): job ls does not show load {job.group(1)} "
+             f"COMPLETED: {jobs}")
+    epoch2 = shell_epoch("(c) epoch 2", device, fs, files, paths)
+    if epoch2["sums"] != epoch1["sums"]:
+        fail("2l (c): epoch 2's sums are not epoch 1's")
+    return {"copy_s": copy_s,
+            "copy_gb_per_s": n * block_bytes / copy_s / 1e9,
+            "persisted_s": persisted_s,
+            "free_s": sh["steps"]["free"],
+            "used_drop_bytes": used0 - used1,
+            "distributed_load_s": sh["steps"]["distributedLoad"],
+            "epoch1": epoch1, "epoch2": epoch2}
+
+
+def wait_heartbeat() -> None:
+    time.sleep(3 * float(SHELL_METRICS_HEARTBEAT.rstrip("ms")) / 1e3)
+
+
+def shell_phase(device, mp: dict, workdir: str) -> dict:
+    """(2l): the operator's shells as child processes against 2g's cluster
+    (which carries ``shell_cluster_conf``), with a job master and a job
+    worker of their own, around two epochs of the H100 loader over the
+    corpus they wrote. No job role outlives the phase."""
+    import urllib.request
+
+    from alluxio_tpu_torch.conf.property_key import REGISTRY, Template
+    from alluxio_tpu_torch.utils.tracing import set_tracing_enabled
+
+    from alluxio_tpu_torch.conf import Keys
+
+    print(f"2l: cut the client metrics heartbeat {SHELL_METRICS_HEARTBEAT}"
+          f" (the default {Keys.USER_METRICS_HEARTBEAT_INTERVAL.default})",
+          flush=True)
+    t_phase = time.perf_counter()
+    cluster = mp["cluster"]
+    corpus_dir = os.path.join(workdir, "shell-corpus")
+    files = shell_corpus(corpus_dir, SHELL_SHARDS, BLOCK_BYTES)
+    sh = shell_context(cluster, mp["job_port"], workdir)
+    roles = start_job_roles(cluster, mp["job_port"])
+    fs = shell_client(cluster)
+    try:
+        wait_heartbeat()
+        stall0 = stall_total(shell_run(sh, "report stall",
+                                       ["fsadmin", "report", "stall"]))
+        drill = shell_drill(device, sh, fs, files, corpus_dir, BLOCK_BYTES)
+        # (d) the loaders' reports
+        wait_heartbeat()
+        stall_out = shell_run(sh, "report stall",
+                              ["fsadmin", "report", "stall"])
+        stall_s = stall_total(stall_out) - stall0
+        loader_s = drill["epoch1"]["wait_s"] + drill["epoch2"]["wait_s"]
+        if abs(stall_s - loader_s) > SHELL_STALL_TOL_S or \
+                "Verdict: top bottleneck" not in stall_out:
+            fail(f"2l (d): the stall report's wait {stall_s:.6f} s, the "
+                 f"loaders' {loader_s:.6f} s: {stall_out}")
+        shell_run(sh, "trace", ["fsadmin", "trace", "--on"])
+        set_tracing_enabled(True)
+        try:
+            traced = shell_epoch("(d) traced epoch", device, fs, files,
+                                 list(files)[:SHELL_TRACE_BLOCKS])
+            wait_heartbeat()
+        finally:
+            set_tracing_enabled(False)
+        readpath = shell_run(sh, "report readpath",
+                             ["fsadmin", "report", "readpath"])
+        shell_run(sh, "trace", ["fsadmin", "trace", "--off"])
+        analyzed = re.search(r"\((\d+) traces analyzed\)", readpath)
+        if not analyzed or int(analyzed.group(1)) < 1:
+            fail(f"2l (d): report readpath analyzed no trace: {readpath}")
+        shell_run(sh, "report summary", ["fsadmin", "report", "summary"])
+        shell_run(sh, "doctor", ["fsadmin", "doctor"])
+        shell_run(sh, "getConf", ["fsadmin", "getConf"])
+        # (e) the remaining tools
+        site = os.path.join(workdir, "shell-site.properties")
+        with open(site, "w") as f:
+            for key, value in cluster._extra.items():
+                f.write(f"{key}={value}\n")
+        shell_run(sh, "validateConf", ["validateConf", "--site", site])
+        op, count, threads = SHELL_RUNOP
+        runop = shell_run(sh, "runOperation", [
+            "runOperation", "-op", op, "-n", str(count), "-t", str(threads),
+            "-d", "/shell-runop"])
+        rate = re.search(rf"{op}: {count}/{count} ok in [\d.]+s "
+                         rf"\(([\d.]+) op/s\)", runop)
+        if not rate:
+            fail(f"2l (e): runOperation: {runop}")
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{cluster.master_web_ports[0]}"
+                f"/api/v1/master/config", timeout=30) as r:
+            config = json.loads(r.read())["config"]
+        named = {k for k in REGISTRY.all_keys() if Template.match(k) is None}
+        if not named <= set(config) or \
+                config["atpu.security.login.token"]["value"] != "******" \
+                or SHELL_TOKEN in json.dumps(config):
+            fail(f"2l (e): /config lacks {sorted(named - set(config))[:5]} "
+                 f"or shows the token")
+    finally:
+        fs.close()
+        stop_job_roles(roles)
+        shutil.rmtree(corpus_dir, ignore_errors=True)
+    out = {"steps_s": sh["steps"], "copy_s": drill["copy_s"],
+           "copy_gb_per_s": drill["copy_gb_per_s"],
+           "persisted_s": drill["persisted_s"], "free_s": drill["free_s"],
+           "used_drop_bytes": drill["used_drop_bytes"],
+           "distributed_load_s": drill["distributed_load_s"],
+           "epoch1_s": drill["epoch1"]["s"], "epoch2_s": drill["epoch2"]["s"],
+           "traced_epoch_s": traced["s"],
+           "stall_report_s": stall_s, "loader_wait_s": loader_s,
+           "traces_analyzed": int(analyzed.group(1)),
+           "runop_ops_per_s": float(rate.group(1)),
+           "config_keys": len(config), "s": time.perf_counter() - t_phase}
+    print(f"2l: copyFromLocal {SHELL_SHARDS} x {BLOCK_BYTES >> 20} MiB in "
+          f"{out['copy_s']:.3f} s ({out['copy_gb_per_s']:.3f} GB/s), every "
+          f"file PERSISTED {out['persisted_s']:.3f} s after; epoch 1 "
+          f"{out['epoch1_s']:.3f} s, free {out['free_s']:.3f} s (used "
+          f"-{out['used_drop_bytes'] / 2**20:.1f} MiB), distributedLoad "
+          f"{out['distributed_load_s']:.3f} s, epoch 2 {out['epoch2_s']:.3f}"
+          f" s; report stall {stall_s:.6f} s against the loaders' "
+          f"{loader_s:.6f} s; {out['traces_analyzed']} traces analyzed; "
+          f"runOperation {out['runop_ops_per_s']} op/s; /config "
+          f"{len(config)} keys; 2l {out['s']:.1f} s", flush=True)
+    print("2l steps (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sh["steps"].items()), flush=True)
+    return out
+
+
 def listing(address: str) -> list:
     """Every entry under ``/meta`` (path, folder, length), by path."""
     from alluxio_tpu_torch.rpc.clients import FsMasterClient
@@ -3550,25 +3985,34 @@ def gate_miss(row: dict) -> "str | None":
 #: script ran past its time on a slow host. The capacity row cannot show
 #: its gate at the suite's own size either (HEAP fits 1 000 000 inodes)
 SUITE_CUTS = {
-    "metadata-lsm-capacity": {"--inodes": "200000"},
+    "metadata-lsm-capacity": {"--inodes": "100000"},
     **{name: {"--duration": "2"} for name in (
         "worker-sequential", "worker-random-4k", "master-CreateFile",
         "master-GetStatus", "master-ListStatus", "master-ListStatus-large",
         "master-DeleteFile")},
 }
-#: ``stress suite`` over the rows given as JSON in its first argument
+#: 2h d's cut of the suite's pause between two rows (its 4 s let a row's
+#: teardown drain on a one-core host; the card's host has eight cores):
+#: 30 gaps of 4 s were 120 s of PR 15's 422.6 s suite
+SUITE_GAP_S = 1.0
+#: ``stress suite`` over the rows given as JSON in its first argument,
+#: with the pause between rows its second
 SUITE_CHILD = (
     "import json, sys\n"
     "import alluxio_tpu_torch.stress.__main__ as cli\n"
     "cli.SUITE = tuple((n, a) for n, a in json.loads(sys.argv[1]))\n"
+    "cli.SUITE_GAP_S = float(sys.argv[2])\n"
     "sys.exit(cli.main(['suite']))\n")
 
 
 def cut_suite() -> tuple:
     """The CLI's ``SUITE`` with ``SUITE_CUTS`` applied, each cut printed
-    beside the row's own value."""
+    beside the row's own value, and the pause between rows."""
+    from alluxio_tpu_torch.stress import __main__ as cli
     from alluxio_tpu_torch.stress.__main__ import SUITE
 
+    print(f"2h d: cut the pause between rows {SUITE_GAP_S} s (the suite's "
+          f"{cli.SUITE_GAP_S} s)", flush=True)
     rows = []
     for name, argv in SUITE:
         argv = list(argv)
@@ -3595,7 +4039,8 @@ def suite_phase(workdir: str) -> dict:
     log_path = os.path.join(workdir, "stress-suite.log")
     with open(lines_path, "w") as out, open(log_path, "w") as err:
         proc = subprocess.run([sys.executable, "-c", SUITE_CHILD,
-                               json.dumps(SUITE)], stdout=out,
+                               json.dumps(SUITE), str(SUITE_GAP_S)],
+                              stdout=out,
                               stderr=err, cwd=workdir, env=stress_env(),
                               timeout=SUITE_TIMEOUT_S)
     suite_s = time.perf_counter() - t_phase
@@ -4674,6 +5119,7 @@ HA_WRITER_CHILD = r"""
 import sys, os, time
 sys.path.insert(0, sys.argv[1])
 from alluxio_tpu_torch.rpc.clients import FsMasterClient
+from alluxio_tpu_torch.utils.exceptions import FileAlreadyExistsError
 addresses, directory, stop, out_path, hz = sys.argv[2:7]
 period = 1.0 / float(hz)
 c = FsMasterClient(addresses, retry_duration_s=60.0, max_sleep_s=0.5,
@@ -4684,7 +5130,15 @@ with open(out_path, "w") as out:
     i, t0 = 0, time.monotonic()
     while not os.path.exists(stop):
         path = f"{directory}/w{i:06d}"
-        c.create_directory(path)
+        try:
+            c.create_directory(path)
+        except FileAlreadyExistsError:
+            # the create reached the quorum, its reply died with the
+            # killed primary, and the client's retry found it on the new
+            # leader: the leader acknowledges it (the verification holds
+            # it to the same rule as every other)
+            print(f"create {path} retried onto the new leader",
+                  file=sys.stderr, flush=True)
         t_ack = time.time()
         stamp = -1
         if i % 5 == 0:
@@ -6148,47 +6602,50 @@ def main() -> int:
         return 2
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    setup()
-    kern = kernel_phase(device, NUM_BLOCKS * BLOCK_BYTES // 4)
+    phase("build", setup)
+    kern = phase("kernel", kernel_phase, device,
+                 NUM_BLOCKS * BLOCK_BYTES // 4)
     # the block files, the cluster's MEM tier, the records, the page cache
     workdir = block_dir(NUM_BLOCKS * BLOCK_BYTES
                         + (NUM_BLOCKS * BLOCK_BYTES + (256 << 20))
                         + DECODE_BLOCKS * BLOCK_BYTES + PAGE_CACHE_BYTES)
     main = mp = None
     try:
-        main = main_path(device, workdir, NUM_BLOCKS, BLOCK_BYTES, K)
+        main = phase("main", main_path, device, workdir, NUM_BLOCKS,
+                     BLOCK_BYTES, K)
         shard_files = main["files"]
-        prefetch = prefetch_phase(device, main, K)
-        master = master_phase(device, main, K)
-        suite = {"random_4k": suite_random_4k(device, main)}
+        prefetch = phase("2a", prefetch_phase, device, main, K)
+        master = phase("2d", master_phase, device, main, K)
+        suite = {"random_4k": phase("2e #2", suite_random_4k, device, main)}
         # the table read path runs no kernel of the port (JAX's config #4
         # reaches no Pallas kernel): its count is read all the same
         from alluxio_tpu_torch.ops import reduce_kernel as rk
         rk.launches = 0
-        suite["projection"] = suite_projection(device, main)
+        suite["projection"] = phase("2e #4", suite_projection, device, main)
         table_launches = rk.launches
         # the cluster's MEM tier leaves /dev/shm before 2e and 2c build
         # their own
         stop_cluster(main)
-        suite["prefetch"] = suite_prefetch(device, K)
+        suite["prefetch"] = phase("2e #3", suite_prefetch, device, K)
         rk.launches = 0
-        suite["projection_real"] = suite_projection_real(device)
-        suite["pushdown"] = suite_pushdown()
+        suite["projection_real"] = phase("2e #4", suite_projection_real,
+                                         device)
+        suite["pushdown"] = phase("2e #4", suite_pushdown)
         table_launches += rk.launches
         suite["table_launches"] = table_launches
-        suite["write_eviction"] = suite_write_eviction(main)
+        suite["write_eviction"] = phase("2e #5", suite_write_eviction, main)
         rk.launches = 0
-        clairvoyant = clairvoyant_phase(device)
+        clairvoyant = phase("2f", clairvoyant_phase, device)
         clairvoyant["launches"] = rk.launches
         print(f"table path: scaled_sum launched {table_launches} times, "
               f"clairvoyant path {clairvoyant['launches']} (neither has a "
               f"kernel of its own)", flush=True)
-        page_cache = page_cache_phase(device, workdir, main)
-        worker = worker_phase(device, workdir, main, K)
+        page_cache = phase("2b", page_cache_phase, device, workdir, main)
+        worker = phase("2c", worker_phase, device, workdir, main, K)
         # 2g: the main path again, its worker a process of its own; the
         # cluster then serves decode, train and mesh
-        mp = start_mp_cluster(NUM_BLOCKS)
-        multi = mp_phase(device, mp, main, {
+        mp = phase("2g", start_mp_cluster, NUM_BLOCKS)
+        multi = phase("2g", mp_phase, device, mp, main, {
             "cold_write_s": main["cold_write_s"],
             "epoch1_s": main["epoch1_s"],
             "consumer_wait_s": main["consumer_wait_s"],
@@ -6197,40 +6654,52 @@ def main() -> int:
             "metadata_ms": {t: master[t] for t in TRANSPORTS}}, K)
         del main["blocks"]
         files = record_files(workdir, DECODE_BLOCKS, BLOCK_BYTES)
-        write_files(mp["fs"], files)
-        decode_phase(device, mp["fs"], files, DECODE_BLOCKS, BLOCK_BYTES)
+        phase("decode", write_files, mp["fs"], files)
+        phase("decode", decode_phase, device, mp["fs"], files,
+              DECODE_BLOCKS, BLOCK_BYTES)
         # the train path runs no kernel of the port (the JAX e2e path
         # reaches no Pallas kernel): its count is read all the same
         rk.launches = 0
-        train = train_phase(device, workdir, mp["fs"], files)
+        train = phase("train", train_phase, device, workdir, mp["fs"],
+                      files)
         train["kernel_launches"] = {"scaled_sum": rk.launches}
         print(f"train path: scaled_sum launched {rk.launches} times (the "
               f"path has no kernel of its own)", flush=True)
         rk.launches = 0
-        mesh = mesh_phase(device, workdir, mp["fs"], shard_files, files)
+        mesh = phase("mesh", mesh_phase, device, workdir, mp["fs"],
+                     shard_files, files)
         mesh["kernel_launches"] = {"scaled_sum": rk.launches}
         # 2h: the stress CLI and the stressbench job on 2g's cluster, then
         # the master on LSM and the suite on clusters of their own; the
         # path has no kernel of its own, and its count is read all the same
         t_stress = time.perf_counter()
         rk.launches = 0
-        stress = {"cli": stress_cli_phase(mp, workdir),
-                  "jobs": stressbench_phase(mp)}
+        stress = {"cli": phase("2h a", stress_cli_phase, mp, workdir),
+                  "jobs": phase("2h b", stressbench_phase, mp)}
+        stress_launches = rk.launches
+        stress_s = time.perf_counter() - t_stress
+        # 2l: the operator's shells on 2g's cluster, before it stops
+        rk.launches = 0
+        shell = phase("2l", shell_phase, device, mp, workdir)
+        shell["launches"] = rk.launches
         stop_mp_cluster(mp)
         mp = None
-        stress["lsm"] = lsm_master_phase(multi["metadata_ms"])
-        stress["suite"] = suite_phase(workdir)
-        stress["launches"] = rk.launches
-        stress["s"] = time.perf_counter() - t_stress
-        print(f"stress path: scaled_sum launched {rk.launches} times (the "
-              f"path has no kernel of its own); 2h {stress['s']:.1f} s",
+        t_stress = time.perf_counter()
+        rk.launches = 0
+        stress["lsm"] = phase("2h c", lsm_master_phase,
+                              multi["metadata_ms"])
+        stress["suite"] = phase("2h d", suite_phase, workdir)
+        stress["launches"] = stress_launches + rk.launches
+        stress["s"] = stress_s + time.perf_counter() - t_stress
+        print(f"stress path: scaled_sum launched {stress['launches']} times "
+              f"(the path has no kernel of its own); 2h {stress['s']:.1f} s",
               flush=True)
         # 2i: the observability loop on a process cluster of its own
-        observability = observability_phase(device, main, K)
+        observability = phase("2i", observability_phase, device, main, K)
         # 2j: the master's guards on a process cluster of its own
-        guards = guards_phase(device, main)
+        guards = phase("2j", guards_phase, device, main)
         # 2k: master HA on a three-master process cluster of its own
-        ha = ha_phase(device, main)
+        ha = phase("2k", ha_phase, device, main)
     finally:
         try:
             if mp is not None:
@@ -6258,6 +6727,10 @@ def main() -> int:
     print(json.dumps({"observability": observability}), flush=True)
     print(json.dumps({"guards": guards}), flush=True)
     print(json.dumps({"ha": ha}), flush=True)
+    print(json.dumps({"shell": shell}), flush=True)
+    PHASE_S["total"] = time.perf_counter() - t_start
+    print(json.dumps({"phase_s": {k: round(v, 1)
+                                  for k, v in PHASE_S.items()}}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "scaled_sum", "route": "cuda",
         "source": "alluxio_tpu_torch/ops/csrc/reduce_kernel.cu",
@@ -6282,7 +6755,8 @@ def main() -> int:
             "stress": stress["launches"],
             "observability": observability["launches"],
             "guards": guards["launches"],
-            "ha": ha["launches"]},
+            "ha": ha["launches"],
+            "shell": shell["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

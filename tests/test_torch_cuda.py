@@ -508,3 +508,45 @@ def test_ha_failover_drill_on_the_card(cuda, tmp_path):
     assert got["first"]["sums"] == got["second"]["sums"]
     assert got["acks"] and got["leader"] != \
         f"localhost:{cluster.master_ports[got['primary']]}"
+
+
+def test_shells_drive_the_loader_on_the_card(cuda, tmp_path):
+    """``chip_smoke.py``'s 2l (a-c) at 4 x 1 MiB: on a process cluster
+    whose launched master reaches a job master of its own, the shells (each
+    a child process) copy the corpus in, check and persist it; an epoch
+    onto the card sums every block on the SHM rung; ``fs free`` drops it
+    from the worker, ``fs distributedLoad`` brings it back, and a second
+    epoch's sums equal the first's (each launch held against the plain
+    version and numpy)."""
+    from alluxio_tpu_torch.minicluster.multi_process import (
+        MultiProcessCluster, free_port,
+    )
+
+    smoke = _smoke()
+    block = 1 << 20
+    files = smoke.shell_corpus(str(tmp_path / "corpus"), 4, block)
+    job_port = free_port()
+    cluster = MultiProcessCluster(
+        str(tmp_path / "c"), num_workers=1, extra_conf={
+            "atpu.user.block.size.bytes.default": str(block),
+            **smoke.shell_cluster_conf(job_port)})
+    cluster.start()
+    roles = []
+    try:
+        roles = smoke.start_job_roles(cluster, job_port)
+        fs = smoke.shell_client(cluster)
+        try:
+            before = rk.launches
+            got = smoke.shell_drill(
+                cuda, smoke.shell_context(cluster, job_port, str(tmp_path)),
+                fs, files, str(tmp_path / "corpus"), block)
+            assert rk.launches - before == 8
+        finally:
+            fs.close()
+    finally:
+        smoke.stop_job_roles(roles)
+        cluster.stop()
+    assert not any(p.alive for p in cluster.masters + cluster.workers)
+    assert got["persisted_s"] >= 0 and got["used_drop_bytes"] >= 4 * block
+    assert got["epoch1"]["sums"] == got["epoch2"]["sums"]
+    assert sorted(got["epoch1"]["sums"]) == sorted(files)

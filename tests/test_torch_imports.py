@@ -92,7 +92,11 @@ def test_importing_every_module_loads_no_jax():
               "qos.admission", "security.audit", "stress.qos_bench",
               "journal.ha", "journal.raft", "journal.migrate",
               "journal.tool", "master.backup", "minicluster.ha_cluster",
-              "stress.ha_bench", "shell.journal_crash"):
+              "stress.ha_bench", "shell.journal_crash", "shell.command",
+              "shell.fs_shell", "shell.fsadmin_shell", "shell.job_shell",
+              "shell.table_shell", "shell.validate", "shell.validate_env",
+              "shell.run_operation", "shell.format",
+              "master.update_check"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -120,8 +124,8 @@ def test_role_launchers_load_no_torch():
     """The role processes are host-only: the shell, the launchers, the
     multi-process and HA clusters, every module the four launchers build
     their roles from (the HA master's Raft journal, tailer and backup
-    among them), the journal tools and the HA drills import no
-    torch."""
+    among them), the journal tools, the HA drills, the operator's
+    shells and the update check import no torch."""
     code = ("import sys\n"
             "import alluxio_tpu_torch.shell.main, "
             "alluxio_tpu_torch.shell.launch, "
@@ -147,13 +151,42 @@ def test_role_launchers_load_no_torch():
             "alluxio_tpu_torch.master.backup, "
             "alluxio_tpu_torch.minicluster.ha_cluster, "
             "alluxio_tpu_torch.stress.ha_bench, "
-            "alluxio_tpu_torch.shell.journal_crash\n"
+            "alluxio_tpu_torch.shell.journal_crash, "
+            "alluxio_tpu_torch.shell.command, "
+            "alluxio_tpu_torch.shell.fs_shell, "
+            "alluxio_tpu_torch.shell.fsadmin_shell, "
+            "alluxio_tpu_torch.shell.job_shell, "
+            "alluxio_tpu_torch.shell.table_shell, "
+            "alluxio_tpu_torch.shell.validate, "
+            "alluxio_tpu_torch.shell.validate_env, "
+            "alluxio_tpu_torch.shell.run_operation, "
+            "alluxio_tpu_torch.shell.format, "
+            "alluxio_tpu_torch.master.update_check\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('torch', 'jax', 'alluxio_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_shell_child_loads_no_torch():
+    """An operator's shell builds no CUDA context: a child that
+    dispatches every ported shell command through ``shell.main`` (each
+    shell's help, ``validateConf`` and ``format``'s usage) has loaded
+    neither torch nor JAX when it is done."""
+    code = ("import sys\n"
+            "from alluxio_tpu_torch.shell.main import main\n"
+            "for argv in (['fs', 'help'], ['fsadmin', 'help'], "
+            "['job', 'help'], ['table', 'help'], ['validateConf'], "
+            "['format', 'usage']):\n"
+            "    main(argv)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'alluxio_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 @pytest.mark.parametrize("module", [

@@ -180,19 +180,43 @@ def test_metastore_factory(tmp_path, kind):
             store.close()
 
 
-@pytest.mark.parametrize("key", (
-    "atpu.master.update.check.enabled",
-))
-def test_master_process_refuses_unported_components(tmp_path, key):
+def test_master_process_runs_the_update_check(tmp_path):
+    """``atpu.master.update.check.enabled`` with a URL builds the update
+    checker and ticks it on the ``Master.UpdateCheck`` heartbeat, as the
+    JAX master does: against a local release document it sees the newer
+    release."""
+    from tests.testutils.torch_update_check import FakeReleases
+
     from alluxio_tpu_torch.conf import Configuration, Keys
+    from alluxio_tpu_torch.heartbeat import (
+        HeartbeatContext, HeartbeatScheduler, HeartbeatThread,
+    )
     from alluxio_tpu_torch.master.process import MasterProcess
-    from alluxio_tpu_torch.utils.exceptions import NotSupportedError
 
     conf = Configuration(load_env=False)
+    conf.set(Keys.HOME, str(tmp_path))
     conf.set(Keys.MASTER_JOURNAL_FOLDER, str(tmp_path / "journal"))
-    conf.set(key, True)
-    with pytest.raises(NotSupportedError, match=key.replace(".", r"\.")):
-        MasterProcess(conf, root_ufs_uri=str(tmp_path))
+    conf.set(Keys.MASTER_RPC_PORT, 0)
+    conf.set(Keys.MASTER_FASTPATH_ENABLED, False)
+    conf.set(Keys.MASTER_UPDATE_CHECK_ENABLED, True)
+    HeartbeatThread.use_scheduled_timers(HeartbeatContext.MASTER_UPDATE_CHECK)
+    try:
+        with FakeReleases("9.9.9") as srv:
+            conf.set(Keys.MASTER_UPDATE_CHECK_URL, srv.url)
+            master = MasterProcess(conf, root_ufs_uri=str(tmp_path / "ufs"))
+            master.start()
+            try:
+                assert master.update_checker is not None
+                assert master.update_checker.latest_version is None
+                HeartbeatScheduler.execute(
+                    HeartbeatContext.MASTER_UPDATE_CHECK)
+                assert master.update_checker.latest_version == "9.9.9"
+                assert master.update_checker.update_available
+            finally:
+                master.stop()
+    finally:
+        HeartbeatThread.reset_timer_policy()
+        HeartbeatScheduler.clear()
 
 
 def _backup_master(pkg, folder, ufs, **keys):

@@ -3,6 +3,9 @@
 - ``_parse_generic`` turns the same argv into the same configuration and
   the same remaining arguments on both packages, and both refuse the
   same malformed ``host:port``;
+- the shells and tools (``fs``, ``fsadmin``, ``job``, ``table``,
+  ``validateConf``, ``validateEnv``, ``runOperation``, ``format``)
+  dispatch as in JAX: the same arguments print the same and exit alike;
 - the JAX package's commands that the port does not have are refused
   with exit code 1 and the ROADMAP item that brings them (a deliberate
   difference); ``stress`` runs the port's stress CLI (its ``ha`` bench
@@ -72,13 +75,55 @@ def _jax_commands() -> set:
     return {line.split()[0] for line in block.splitlines() if line.strip()}
 
 
+#: the commands the port dispatches, with arguments that need no cluster
+DISPATCHED = {
+    "fs": ["help"],
+    "fsadmin": ["help"],
+    "job": ["help"],
+    "table": ["help"],
+    "validateConf": ["--site", "{site}"],
+    "validateEnv": ["--help"],
+    "runOperation": ["-op", "ListStatus", "-t", "0"],
+    "format": ["bogus"],
+}
+
+
 def test_every_jax_command_is_dispatched_or_refused():
     from alluxio_tpu_torch.shell import main
 
     ported = {"master", "worker", "job-master", "job-worker", "version",
-              "stress", "journalCrashTest"}
+              "stress", "journalCrashTest", *DISPATCHED}
     assert ported | set(main._NOT_PORTED) == _jax_commands()
     assert not ported & set(main._NOT_PORTED)
+    assert set(main._NOT_PORTED) == {"validateHms", "proxy", "logserver",
+                                     "fuse"}
+    usage = [line.split()[0] for line in main.USAGE.split("Commands:")[1]
+             .split("Generic options:")[0].splitlines() if line.strip()]
+    assert set(usage) == ported
+
+
+def _dispatch(pkg, argv, capsys):
+    try:
+        code = _mod(pkg, "shell.main").main(argv)
+    except SystemExit as e:  # argparse's --help
+        code = e.code
+    out = capsys.readouterr()
+    return code, out.out, out.err
+
+
+@pytest.mark.parametrize("cmd", sorted(DISPATCHED))
+def test_ported_command_dispatches_like_jax(cmd, tmp_path, capsys):
+    """``shell.main`` routes the command to the port's module: the same
+    arguments print the same and exit alike in both packages."""
+    site = tmp_path / "site.properties"
+    site.write_text("atpu.worker.tieredstroe.levels=2\n"
+                    "atpu.master.hostname=h\n")
+    argv = ["-D", "atpu.user.rpc.retry.duration=1s", cmd] + [
+        a.format(site=site) for a in DISPATCHED[cmd]]
+    got = [_dispatch(pkg, argv, capsys) for pkg in PACKAGES]
+    assert got[1] == got[0]
+    assert "not ported yet" not in got[1][2]
+    assert got[1][1] or got[1][2]
 
 
 @pytest.mark.parametrize("cmd", sorted(

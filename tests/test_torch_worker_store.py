@@ -326,6 +326,26 @@ def test_conf_key_matches_jax(key):
         want.scope.name, want.consistency.name)
 
 
+def test_conf_registries_hold_the_same_keys():
+    """The port's catalog is JAX's whole: the same registered key names
+    (a key added to either shows here at once) and the same credential
+    flags, which the display surfaces mask by."""
+    from alluxio_tpu.conf.property_key import REGISTRY as JAX_REGISTRY
+    from alluxio_tpu_torch.conf.property_key import REGISTRY, Template
+
+    def named(registry):
+        # a template's members are minted on demand, by whatever ran
+        # before in this process: only the named keys are the catalog
+        return {n: k for n, k in registry.all_keys().items()
+                if Template.match(n) is None}
+
+    mine, theirs = named(REGISTRY), named(JAX_REGISTRY)
+    assert len(mine) >= 211
+    assert set(mine) == set(theirs)
+    assert {n for n, k in mine.items() if k.credentials} == \
+        {n for n, k in theirs.items() if k.credentials}
+
+
 def test_conf_parses_like_jax():
     from alluxio_tpu.conf import Configuration as JaxConfiguration
     from alluxio_tpu_torch.conf import Configuration, Keys, Templates
