@@ -21,6 +21,7 @@ op mid-table, so the drill exercises a real partial-write batch.
 from __future__ import annotations
 
 import os
+import time
 from typing import List, Sequence
 
 import numpy as np
@@ -28,6 +29,7 @@ import numpy as np
 from alluxio_tpu_torch import native
 from alluxio_tpu_torch.metrics import metrics
 from alluxio_tpu_torch.utils import faults
+from alluxio_tpu_torch.utils.tracing import current_span
 
 OP_COPY = native.OP_COPY
 OP_PREAD = native.OP_PREAD
@@ -88,7 +90,11 @@ def execute_table(ops, dest, *, host: str = "") -> int:
     if nops == 0:
         return 0
     ops = _maybe_poison(ops, host)
+    t0 = time.perf_counter()
     rc = native.exec_plan(ops, dest)
+    sp = current_span()
+    if sp is not None:
+        sp.phase("native_exec", (time.perf_counter() - t0) * 1000.0)
     if rc is None or rc < 0:
         note_unavailable()
         raise NativeExecError(

@@ -326,3 +326,53 @@ def exec_plan(ops, dest) -> Optional[int]:
     rc = handle.atpu_plan_exec(ops.ctypes.data, nops, dst_addr, dst_len)
     del dst_keep
     return int(rc)
+
+
+# ------------------------------------------------------------- ELF symbols
+
+def exported_symbols(path: Optional[str] = None) -> Optional[List[str]]:
+    """Defined ``atpu_*`` function symbols exported by the compiled
+    library, read from the ELF ``.dynsym`` table directly (no ``nm``
+    dependency). Builds the library first when no ``path`` is given.
+    Returns ``None`` when the .so is missing or not a 64-bit
+    little-endian ELF — used by the lint's ``native-abi`` rule to diff
+    the C++ export surface against ``_PROTOTYPES``."""
+    so = path or _build()
+    if so is None or not os.path.exists(so):
+        return None
+    try:
+        with open(so, "rb") as f:
+            data = f.read()
+        if data[:4] != b"\x7fELF" or data[4] != 2 or data[5] != 1:
+            return None  # not ELF64 little-endian
+        e_shoff, = struct.unpack_from("<Q", data, 0x28)
+        e_shentsize, e_shnum = struct.unpack_from("<HH", data, 0x3A)
+        dynsym = None
+        for i in range(e_shnum):
+            base = e_shoff + i * e_shentsize
+            sh_type, = struct.unpack_from("<I", data, base + 4)
+            sh_offset, sh_size = struct.unpack_from("<QQ", data, base + 24)
+            sh_link, = struct.unpack_from("<I", data, base + 40)
+            sh_entsize, = struct.unpack_from("<Q", data, base + 56)
+            if sh_type == 11:  # SHT_DYNSYM
+                dynsym = (sh_offset, sh_size, sh_entsize, sh_link)
+        if dynsym is None:
+            return None
+        str_base = e_shoff + dynsym[3] * e_shentsize
+        str_off, str_size = struct.unpack_from("<QQ", data, str_base + 24)
+        dynstr = data[str_off:str_off + str_size]
+        out: List[str] = []
+        off, size, entsize, _ = dynsym
+        for pos in range(off, off + size, entsize or 24):
+            st_name, st_info = struct.unpack_from("<IB", data, pos)
+            st_shndx, = struct.unpack_from("<H", data, pos + 6)
+            if (st_info & 0xF) != 2 or st_shndx == 0:  # STT_FUNC, defined
+                continue
+            end = dynstr.index(b"\0", st_name)
+            name = dynstr[st_name:end].decode("ascii", "replace")
+            if name.startswith("atpu_"):
+                out.append(name)
+        return sorted(out)
+    except Exception:  # noqa: BLE001 - malformed ELF: lint rule skips
+        LOG.debug("exported_symbols parse failed", exc_info=True)
+        return None

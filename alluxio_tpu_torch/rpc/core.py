@@ -62,7 +62,7 @@ from alluxio_tpu_torch.utils.exceptions import (
     AlluxioTpuError, ResourceExhaustedError, UnavailableError,
 )
 from alluxio_tpu_torch.utils.tracing import (
-    TRACEPARENT_KEY, bind_remote_parent, current_traceparent,
+    TRACEPARENT_KEY, bind_remote_parent, current_span, current_traceparent,
     reset_remote_parent, tracer,
 )
 
@@ -399,11 +399,13 @@ class StreamCall:
     self-cancelled stream ends iteration quietly; every other gRPC error
     is re-raised typed like :meth:`RpcChannel.call_stream`."""
 
-    __slots__ = ("_call", "cancelled")
+    __slots__ = ("_call", "cancelled", "_span", "_decode_cell")
 
-    def __init__(self, call) -> None:
+    def __init__(self, call, span=None, decode_cell=None) -> None:
         self._call = call
         self.cancelled = False
+        self._span = span
+        self._decode_cell = decode_cell
 
     def cancel(self) -> None:
         self.cancelled = True
@@ -416,6 +418,11 @@ class StreamCall:
             if self.cancelled and e.code() == grpc.StatusCode.CANCELLED:
                 return
             _raise_typed(e)
+        finally:
+            if self._span is not None and self._decode_cell is not None \
+                    and self._decode_cell[0] > 0.0:
+                self._span.phase("serialize", self._decode_cell[0])
+                self._decode_cell[0] = 0.0
 
 
 class RpcChannel:
@@ -498,12 +505,39 @@ class RpcChannel:
     def open_stream(self, service: str, method: str, request: dict,
                     timeout: Optional[float] = 300.0) -> StreamCall:
         """Like :meth:`call_stream` but returns the live call as a
-        :class:`StreamCall`, so the caller can ``cancel()`` it."""
+        :class:`StreamCall`, so the caller can ``cancel()`` it.
+
+        Under a live span the request pack and the per-chunk decodes
+        are timed into the span's ``serialize`` phase: the pack happens
+        eagerly here (grpc gets the pre-packed blob via an identity
+        serializer, so nothing is encoded twice) and decode time is
+        accumulated by the deserializer closure until the stream ends."""
+        sp = current_span()
+        if sp is None:
+            fn = self._channel.unary_stream(
+                f"/{service}/{method}", request_serializer=pack,
+                response_deserializer=unpack)
+            return StreamCall(fn(request, timeout=timeout,
+                                 metadata=self._call_metadata()))
+        clock = time.perf_counter
+        t0 = clock()
+        blob = pack(request)
+        sp.phase("serialize", (clock() - t0) * 1000.0)
+        cell = [0.0]
+
+        def _timed_unpack(data: bytes):
+            t = clock()
+            obj = unpack(data)
+            cell[0] += (clock() - t) * 1000.0
+            return obj
+
         fn = self._channel.unary_stream(
-            f"/{service}/{method}", request_serializer=pack,
-            response_deserializer=unpack)
+            f"/{service}/{method}",
+            request_serializer=lambda _r: blob,
+            response_deserializer=_timed_unpack)
         return StreamCall(fn(request, timeout=timeout,
-                             metadata=self._call_metadata()))
+                             metadata=self._call_metadata()),
+                          span=sp, decode_cell=cell)
 
     def call_stream_in(self, service: str, method: str,
                        requests: Iterator[dict],

@@ -228,6 +228,8 @@ def worker_service(worker: BlockWorker) -> ServiceDefinition:
             raise InvalidArgumentError(
                 f"read_many: {len(offsets)} offsets vs {len(sizes)} sizes")
         m = metrics()
+        sp = current_span()
+        t0 = time.perf_counter()
         lengths = []
         parts = []
         with worker.open_reader(block_id) as r:
@@ -240,6 +242,11 @@ def worker_service(worker: BlockWorker) -> ServiceDefinition:
                 served.inc(len(data))
         m.counter(f"Worker.BlocksServed.{tier}").inc()
         m.counter("Worker.BatchReadOps").inc(len(offsets))
+        if sp is not None:
+            # the whole gather is one tier_read burst; batch_read is the
+            # assembly slice the critical-path analyzer attributes to
+            # this subsystem
+            sp.phase("batch_read", (time.perf_counter() - t0) * 1000.0)
         return {"data": b"".join(parts), "lengths": lengths,
                 "source": tier}
 

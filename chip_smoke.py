@@ -502,6 +502,9 @@ def fail(msg: str) -> None:
 #: every phase's seconds, in the order the phases ran (printed on one
 #: line at the end)
 PHASE_S: dict = {}
+#: the card's name and power limit as ``nvidia-smi`` prints them, set by
+#: ``setup()``
+CARD = ""
 
 
 def phase(name: str, fn, *args, **kwargs):
@@ -545,7 +548,9 @@ def setup() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD, flush=True)
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -5752,6 +5757,333 @@ def ha_phase(device, main: dict) -> dict:
     return out
 
 
+# -- 2m: the port's lock-order auditor and lint on the card -------------------
+#: 2m's cuts, each printed beside its default: the master's history tick,
+#: the worker's metrics heartbeat and the client's metrics collection, so
+#: the history store takes samples during the audited epochs
+LOCKAUDIT_KEYS = {
+    "atpu.master.health.eval.interval": "200ms",
+    "atpu.worker.metrics.heartbeat.interval": "250ms",
+    "atpu.user.metrics.collection.enabled": "true",
+    "atpu.user.metrics.heartbeat.interval": "250ms",
+}
+LOCKAUDIT_THREADS = 4          # (b): namespace threads under /audit
+LOCKAUDIT_ASYNC_FILES = 8      # (b): ASYNC_THROUGH files, one every ...
+LOCKAUDIT_ASYNC_GAP_S = 0.2    # ... 0.2 s while the epochs run
+LOCKAUDIT_ASYNC_BYTES = 1 << 20
+LOCKAUDIT_PERSIST_S = 60.0
+LOCKAUDIT_HA_BLOCKS = 16       # (c): the HA turn's CACHE_THROUGH shards
+LINT_TIMEOUT_S = 120
+
+
+def audit_epoch(device, fs, paths: list, on_block=None) -> dict:
+    """One epoch of a fresh loader with a device tier over ``paths``
+    (every block crosses from the worker into the tier): each block's
+    ``scaled_sum`` held against ``scaled_sum_reference``; ``on_block(n)``
+    after the n-th consumed block."""
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    loader = DeviceBlockLoader(fs, paths, device=device,
+                               hbm_bytes=len(paths) * BLOCK_BYTES
+                               + (64 << 20), prefetch=2, dtype=np.int32)
+    n = 0
+    try:
+        _sync_device(device)
+        t = time.perf_counter()
+        for path, block in zip(paths, loader.epoch()):
+            x = rk.pad_to_kernel_shape(block)
+            got = int(rk.scaled_sum(x, 1))
+            want = int(rk.scaled_sum_reference(x, 1))
+            if got != want:
+                fail(f"2m: {path}'s scaled_sum {got} != plain {want}")
+            n += 1
+            if on_block is not None:
+                on_block(n)
+        _sync_device(device)
+        epoch_s = time.perf_counter() - t
+    finally:
+        loader.close()
+    if n != len(paths):
+        fail(f"2m: the epoch gave {n} blocks for {len(paths)} files")
+    return {"s": epoch_s,
+            "gb_per_s": len(paths) * BLOCK_BYTES / epoch_s / 1e9}
+
+
+class SideLoad:
+    """(2m b) what runs beside the audited epochs: ``LOCKAUDIT_THREADS``
+    threads that create, write, rename and delete under ``/audit``, and
+    one that writes ``LOCKAUDIT_ASYNC_FILES`` ASYNC_THROUGH files for the
+    persistence scheduler to persist. ``stop()`` joins them and raises
+    the first error any of them met."""
+
+    def __init__(self, fs) -> None:
+        import threading
+
+        self._fs = fs
+        self._stop = threading.Event()
+        self.ops = [0] * LOCKAUDIT_THREADS
+        self.async_files: dict = {}
+        self.errors: list = []
+        self._threads = [
+            threading.Thread(target=self._namespace, args=(n,), daemon=True,
+                             name=f"smoke-2m-ns-{n}")
+            for n in range(LOCKAUDIT_THREADS)]
+        self._threads.append(threading.Thread(
+            target=self._async_through, daemon=True, name="smoke-2m-async"))
+        for t in self._threads:
+            t.start()
+
+    def _namespace(self, n: int) -> None:
+        from alluxio_tpu_torch.client.streams import WriteType
+
+        fs, i = self._fs, 0
+        try:
+            while not self._stop.is_set():
+                d = f"/audit/t{n}/d{i}"
+                fs.create_directory(d, recursive=True)
+                fs.write_all(f"{d}/f", b"a" * 4096,
+                             write_type=WriteType.MUST_CACHE)
+                fs.rename(f"{d}/f", f"{d}/g")
+                fs.delete(d, recursive=True)
+                self.ops[n] += 4
+                i += 1
+        except Exception as e:  # noqa: BLE001 - surfaced by stop()
+            self.errors.append(e)
+
+    def _async_through(self) -> None:
+        from alluxio_tpu_torch.client.streams import WriteType
+
+        rng = np.random.default_rng(SEED + 17)
+        try:
+            for i in range(LOCKAUDIT_ASYNC_FILES):
+                path = f"/audit/async/f{i}"
+                data = rng.integers(0, 256, LOCKAUDIT_ASYNC_BYTES,
+                                    dtype=np.uint8).tobytes()
+                self._fs.write_all(path, data,
+                                   write_type=WriteType.ASYNC_THROUGH)
+                self.async_files[path] = data
+                # a stop only cuts the gaps: every file is written
+                self._stop.wait(LOCKAUDIT_ASYNC_GAP_S)
+        except Exception as e:  # noqa: BLE001 - surfaced by stop()
+            self.errors.append(e)
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(60)
+        if any(t.is_alive() for t in self._threads):
+            fail("2m: a side-load thread outlived its stop")
+        if self.errors:
+            fail(f"2m: the side load failed: {self.errors[0]!r}")
+
+
+def wait_persisted(fs, files: dict) -> float:
+    """Seconds until every file of ``files`` is PERSISTED, each UFS copy
+    then held against its bytes."""
+    t = time.perf_counter()
+    deadline = t + LOCKAUDIT_PERSIST_S
+    for path, data in files.items():
+        while not fs.get_status(path).persisted:
+            if time.perf_counter() > deadline:
+                fail(f"2m: {path} was not persisted within "
+                     f"{LOCKAUDIT_PERSIST_S:.0f} s")
+            time.sleep(0.05)
+        with open(fs.get_status(path).ufs_path, "rb") as f:
+            if f.read() != data:
+                fail(f"2m: {path}'s UFS copy differs from what was written")
+    return time.perf_counter() - t
+
+
+def lockaudit_ha_turn(device, main: dict, base: str) -> dict:
+    """(2m c) the audit over an in-process ``HaCluster`` (three masters on
+    Raft journals, one worker): ``LOCKAUDIT_HA_BLOCKS`` CACHE_THROUGH
+    shards read by the card's loader, the primary stepping down to a
+    standby when half the epoch is consumed."""
+    from alluxio_tpu_torch.client.streams import WriteType
+    from alluxio_tpu_torch.conf import Keys
+    from alluxio_tpu_torch.lint import pytest_lockaudit as pla
+    from alluxio_tpu_torch.minicluster.ha_cluster import HaCluster
+
+    paths = list(main["files"])[:LOCKAUDIT_HA_BLOCKS]
+    files = {f"/audit-ha/s{i:02d}": main["files"][p][1]
+             for i, p in enumerate(paths)}
+    cluster = HaCluster(
+        os.path.join(base, "ha"), num_masters=3, num_workers=1,
+        worker_mem_bytes=LOCKAUDIT_HA_BLOCKS * BLOCK_BYTES + (256 << 20),
+        conf_overrides={Keys.USER_BLOCK_SIZE_BYTES_DEFAULT: BLOCK_BYTES})
+    try:
+        cluster.start()
+        fs = cluster.file_system()
+        for path, block_file in files.items():
+            fs.write_all(path, np.fromfile(block_file, dtype=np.uint8),
+                         write_type=WriteType.CACHE_THROUGH)
+        before = cluster.primary_index()
+        step = {}
+
+        def step_down(n: int) -> None:
+            if n != LOCKAUDIT_HA_BLOCKS // 2:
+                return
+            target = cluster.raft_addresses[(before + 1) % 3]
+            t = time.perf_counter()
+            if not cluster.masters[before].journal.transfer_leadership(
+                    target):
+                fail("2m (c): the primary's step-down did not complete")
+            step["s"] = time.perf_counter() - t
+
+        with pla.audited() as auditor:
+            epoch = audit_epoch(device, fs, list(files), on_block=step_down)
+        after = cluster.await_primary()
+        fs.close()
+    finally:
+        cluster.stop()
+    if after == before or "s" not in step:
+        fail(f"2m (c): the primary stayed m{before}")
+    inversions = auditor.inversions()
+    if inversions:
+        fail(f"2m (c): lock-order inversions {inversions}\n"
+             f"{auditor.report()}")
+    return {"epoch_s": epoch["s"], "step_down_s": step["s"],
+            "primary": [before, after], "edges": len(auditor.edges),
+            "inversions": inversions}
+
+
+def lint_on_host() -> dict:
+    """(2m f) ``python -m alluxio_tpu_torch.lint`` on this host (g++
+    builds the port's native library, so ``native-abi`` diffs it)."""
+    import re
+
+    from alluxio_tpu_torch import native
+
+    symbols = native.exported_symbols()
+    if symbols != sorted(native._PROTOTYPES):
+        fail(f"2m (f): the native library exports {symbols}, the "
+             f"prototypes are {sorted(native._PROTOTYPES)}")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "alluxio_tpu_torch.lint"],
+                          cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=LINT_TIMEOUT_S)
+    seconds = time.perf_counter() - t
+    m = re.search(r"lint: (\d+) new finding\(s\) .*?, (\d+) suppressed, "
+                  r"(\d+) baselined, (\d+) stale .* in ([0-9.]+)s",
+                  proc.stdout)
+    if proc.returncode != 0 or m is None or int(m.group(1)) != 0:
+        fail(f"2m (f): the lint exited {proc.returncode}: "
+             f"{proc.stdout[-3000:]} {proc.stderr[-2000:]}")
+    return {"new": int(m.group(1)), "suppressed": int(m.group(2)),
+            "baselined": int(m.group(3)), "stale": int(m.group(4)),
+            "analysis_s": float(m.group(5)), "s": seconds,
+            "native_symbols": len(symbols)}
+
+
+def lockaudit_phase(device, main: dict) -> dict:
+    """(2m) the port's lock-order auditor around an in-process cluster
+    (master, one worker, the job service) while the card's loader reads
+    the main path's set: a first epoch over the freshly written blocks,
+    two audited epochs and a plain one beside the side load; then the
+    auditor around an HA cluster's step-down, and the port's lint on
+    this host. Any inversion fails the phase."""
+    from alluxio_tpu_torch.conf.property_key import REGISTRY
+    from alluxio_tpu_torch.lint import pytest_lockaudit as pla
+    from alluxio_tpu_torch.minicluster import LocalCluster
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    t_phase = time.perf_counter()
+    for key, value in LOCKAUDIT_KEYS.items():
+        print(f"2m: cut {key} = {value} (default "
+              f"{REGISTRY.get(key).default})", flush=True)
+    # (a) the classes are patched before the cluster builds its locks
+    pla.install()
+    paths = list(main["files"])
+    tier = NUM_BLOCKS * BLOCK_BYTES + (256 << 20)
+    base = block_dir(tier + LOCKAUDIT_HA_BLOCKS * BLOCK_BYTES * 2)
+    rk.launches = 0
+    cluster = LocalCluster(
+        os.path.join(base, "cluster"), num_workers=1,
+        block_size=BLOCK_BYTES, worker_mem_bytes=tier,
+        start_worker_heartbeats=True, start_job_service=True,
+        conf_overrides=LOCKAUDIT_KEYS).start()
+    try:
+        fs = cluster.file_system()
+        write_s = write_files(fs, main["files"])
+        history = cluster.master.metrics_master.history
+        samples0 = history.series_count()
+        # (b) a first epoch pays the first touch of the freshly written
+        # blocks; then two audited epochs under the side load, and a
+        # plain one
+        first = audit_epoch(device, fs, paths)
+        side = SideLoad(fs)
+        try:
+            before = rk.launches
+            with pla.audited() as auditor:
+                audited = [audit_epoch(device, fs, paths) for _ in range(2)]
+                names = pla.acquired_names()
+            audited_launches = rk.launches - before
+            plain = audit_epoch(device, fs, paths)
+        finally:
+            side.stop()
+        persist_s = wait_persisted(fs, side.async_files)
+        series = history.series_count() - samples0
+        fs.close()
+    finally:
+        cluster.stop()
+    inversions = auditor.inversions()
+    if inversions:
+        fail(f"2m (b): lock-order inversions {inversions}\n"
+             f"{auditor.report()}")
+    if audited_launches != 2 * NUM_BLOCKS:
+        fail(f"2m (b): {audited_launches} scaled_sum launches in the two "
+             f"audited epochs, want {2 * NUM_BLOCKS}")
+    must = {"InodeTree.lock", "BlockMaster._lock", "JobMaster._lock",
+            "HbmPageStore._lock", "MetricsHistory._lock",
+            "FileSystemMaster._persist_mutex"}
+    if not must <= set(names):
+        fail(f"2m (b): the audit saw no acquisition of "
+             f"{sorted(must - set(names))}")
+    print(f"2m (b): {NUM_BLOCKS} x {BLOCK_BYTES >> 20} MiB written in "
+          f"{write_s:.2f} s; the first epoch over them "
+          f"{first['s']:.3f} s; audited epochs {audited[0]['s']:.3f} s and "
+          f"{audited[1]['s']:.3f} s ({audited[1]['gb_per_s']:.2f} GB/s), "
+          f"the plain epoch {plain['s']:.3f} s "
+          f"({plain['gb_per_s']:.2f} GB/s); every block's scaled_sum the "
+          f"plain version's; beside them {sum(side.ops)} namespace ops on "
+          f"{LOCKAUDIT_THREADS} threads, {len(side.async_files)} "
+          f"ASYNC_THROUGH files persisted {persist_s:.2f} s after the "
+          f"epochs, {series} new history series; {len(names)} audited "
+          f"locks taken, {len(auditor.edges)} order edges, inversions "
+          f"{inversions}", flush=True)
+    ha = lockaudit_ha_turn(device, main, base)
+    print(f"2m (c): HA cluster (three masters, Raft journals): "
+          f"{LOCKAUDIT_HA_BLOCKS} CACHE_THROUGH shards read in "
+          f"{ha['epoch_s']:.3f} s, m{ha['primary'][0]} stepped down to "
+          f"m{ha['primary'][1]} at block {LOCKAUDIT_HA_BLOCKS // 2} "
+          f"({ha['step_down_s']:.3f} s); {ha['edges']} order edges, "
+          f"inversions {ha['inversions']}", flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+    launches = rk.launches
+    lint = lint_on_host()
+    print(f"2m (f): python -m alluxio_tpu_torch.lint exited 0 in "
+          f"{lint['s']:.2f} s ({lint['analysis_s']} s of analysis): "
+          f"{lint['new']} new, {lint['baselined']} baselined, "
+          f"{lint['suppressed']} suppressed; native-abi diffed "
+          f"{lint['native_symbols']} exported symbols", flush=True)
+    out = {"locks": len(names), "edges": len(auditor.edges),
+           "inversions": inversions,
+           "epoch_s": [(audited[0]["s"] + audited[1]["s"]) / 2, plain["s"]],
+           "audited_epochs_s": [e["s"] for e in audited],
+           "first_epoch_s": first["s"], "lock_names": names,
+           "scaled_sum_launches": audited_launches,
+           "namespace_ops": sum(side.ops),
+           "async_through": {"files": len(side.async_files),
+                             "persisted_s": persist_s},
+           "history_series": series, "ha": ha, "card": CARD,
+           "launches": launches, "lint": lint,
+           "s": time.perf_counter() - t_phase}
+    print(f"2m: {out['s']:.1f} s, scaled_sum launched {launches} times",
+          flush=True)
+    return out
+
+
 def record_files(workdir: str, num_blocks: int, block_bytes: int) -> dict:
     """``bench.py``'s e2e layout: blocks of 64x64x3 records with a 4-byte
     label, padded to the block size; returns path -> (file id, file)."""
@@ -6700,6 +7032,9 @@ def main() -> int:
         guards = phase("2j", guards_phase, device, main)
         # 2k: master HA on a three-master process cluster of its own
         ha = phase("2k", ha_phase, device, main)
+        # 2m: the port's lock-order auditor around the loader, and its
+        # lint on this host
+        lockaudit = phase("2m", lockaudit_phase, device, main)
     finally:
         try:
             if mp is not None:
@@ -6728,6 +7063,9 @@ def main() -> int:
     print(json.dumps({"guards": guards}), flush=True)
     print(json.dumps({"ha": ha}), flush=True)
     print(json.dumps({"shell": shell}), flush=True)
+    lint = lockaudit.pop("lint")
+    print(json.dumps({"lockaudit": lockaudit}), flush=True)
+    print(json.dumps({"lint": {**lint, "card": CARD}}), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_s": {k: round(v, 1)
                                   for k, v in PHASE_S.items()}}), flush=True)
@@ -6756,7 +7094,8 @@ def main() -> int:
             "observability": observability["launches"],
             "guards": guards["launches"],
             "ha": ha["launches"],
-            "shell": shell["launches"]},
+            "shell": shell["launches"],
+            "lockaudit": lockaudit["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

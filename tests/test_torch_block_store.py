@@ -30,6 +30,9 @@ from alluxio_tpu_torch.client import policy  # noqa: E402
 from alluxio_tpu_torch.client.block_store import BlockStoreClient  # noqa: E402
 from alluxio_tpu_torch.client.remote_read import RemoteReadConf  # noqa: E402
 from alluxio_tpu_torch.utils import wire  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 KB = 1024
 BLOCK = 64 * KB

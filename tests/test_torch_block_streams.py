@@ -32,6 +32,9 @@ from alluxio_tpu_torch.rpc.clients import WorkerClient  # noqa: E402
 from alluxio_tpu_torch.utils import ids  # noqa: E402
 from tests.testutils.torch_worker import (PortWorker,  # noqa: E402
                                           lease_loader_case)
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 BLOCK = 64 * 1024
 

@@ -22,6 +22,9 @@ from alluxio_tpu_torch.models import train as ttrain  # noqa: E402
 from alluxio_tpu_torch.models import transformer as tt  # noqa: E402
 from alluxio_tpu_torch.utils import bf16  # noqa: E402
 from alluxio_tpu_torch.utils.pytree import tree_leaves  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

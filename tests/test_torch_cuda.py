@@ -16,6 +16,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from alluxio_tpu_torch.ops import reduce_kernel as rk  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 _BLOCK = rk._ROWS * rk._LANES
 

@@ -12,6 +12,9 @@ jnp = pytest.importorskip("jax.numpy")
 
 from alluxio_tpu.ops import decode as jax_decode  # noqa: E402
 from alluxio_tpu_torch.ops import decode  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 
 def _bf16_bits(t):

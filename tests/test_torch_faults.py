@@ -24,6 +24,9 @@ pytest.importorskip("jax")
 
 from alluxio_tpu.utils import faults as jax_faults  # noqa: E402
 from alluxio_tpu_torch.utils import faults  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 KB = 1024
 BLOCK = 64 * KB

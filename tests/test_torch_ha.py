@@ -31,6 +31,9 @@ pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from tests.testutils.torch_ha import PACKAGES, mod, wait_for  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 
 def make_conf(pkg, tmp_path, **overrides):

@@ -39,6 +39,9 @@ pytest.importorskip("jax")
 from tests.testutils.torch_ha import (  # noqa: E402
     PACKAGES, mod, tree_view, wait_for,
 )
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 
 @pytest.fixture(autouse=True)

@@ -14,6 +14,9 @@ from alluxio_tpu.client.cache.meta import PageId as JaxPageId  # noqa: E402
 from alluxio_tpu_torch.client.cache.hbm_store import HbmPageStore  # noqa: E402
 from alluxio_tpu_torch.client.cache.meta import PageId  # noqa: E402
 from alluxio_tpu_torch.convert import hbm_store_from_numpy  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 
 def _store(capacity):

@@ -19,6 +19,9 @@ import importlib
 
 import numpy as np
 import pytest
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 pytest.importorskip("torch")
 

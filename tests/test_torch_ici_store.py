@@ -24,6 +24,9 @@ from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader  # noqa: E402
 from alluxio_tpu_torch.parallel.ici_store import MeshBlockCache  # noqa: E402
 from alluxio_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from tests.testutils.torch_dist import cpu_group, run_groups  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 BLOCK = 1024
 WORLDS = (2, 4)

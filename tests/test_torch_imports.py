@@ -8,6 +8,9 @@ import sys
 from pathlib import Path
 
 import pytest
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 torch = pytest.importorskip("torch")
 
@@ -96,7 +99,12 @@ def test_importing_every_module_loads_no_jax():
               "shell.fs_shell", "shell.fsadmin_shell", "shell.job_shell",
               "shell.table_shell", "shell.validate", "shell.validate_env",
               "shell.run_operation", "shell.format",
-              "master.update_check"):
+              "master.update_check", "utils.race", "lint", "lint.findings",
+              "lint.model", "lint.collect", "lint.conf_analyzer",
+              "lint.metrics_analyzer", "lint.phases_analyzer",
+              "lint.locks_analyzer", "lint.exceptions_analyzer",
+              "lint.native_analyzer", "lint.runner", "lint.__main__",
+              "lint.pytest_lockaudit"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -168,6 +176,28 @@ def test_role_launchers_load_no_torch():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_lint_loads_no_torch_and_no_jax(tmp_path):
+    """The port's lint is host-only: a child that runs every analyzer
+    over a seeded file, native ABI check included, has loaded neither
+    torch nor JAX nor the JAX package when it is done."""
+    (tmp_path / "seeded.py").write_text(
+        "import threading, time\n_lock = threading.Lock()\n"
+        "def f():\n    with _lock:\n        time.sleep(1)\n")
+    code = ("import sys\n"
+            "from alluxio_tpu_torch.lint.runner import run_lint\n"
+            "from alluxio_tpu_torch import native\n"
+            "native.exported_symbols()\n"
+            f"rep = run_lint({str(tmp_path)!r}, only_paths={{'seeded.py'}},"
+            " extra_py=['seeded.py'])\n"
+            "assert [f.rule for f in rep.new] == ['lock-blocking-call']\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'alluxio_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_shell_child_loads_no_torch():

@@ -33,6 +33,9 @@ from alluxio_tpu_torch.journal import format as port_format  # noqa: E402
 from tests.testutils.torch_master import (  # noqa: E402
     Masters, make_script, resolve,
 )
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 TAILS = ("clean", "short_header", "short_body", "zero_length", "bad_crc")
 

@@ -25,6 +25,9 @@ from tests.testutils.torch_ha import (  # noqa: E402
     PACKAGES, free_ports, kv_component, leader_of, mod, stop_all,
     wait_for, with_stable_leader,
 )
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 
 def _local_with_data(pkg, folder, n=30, checkpoint_at=None):

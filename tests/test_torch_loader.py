@@ -11,6 +11,9 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from alluxio_tpu.minicluster import LocalCluster  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 BLOCK = 64 * 1024
 

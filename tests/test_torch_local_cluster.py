@@ -31,6 +31,9 @@ pytest.importorskip("jax")
 from alluxio_tpu_torch.client.streams import WriteType  # noqa: E402
 from alluxio_tpu_torch.conf import Keys  # noqa: E402
 from alluxio_tpu_torch.minicluster import LocalCluster  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 KB = 1024
 BLOCK = 64 * KB

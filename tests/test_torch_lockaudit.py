@@ -1,0 +1,215 @@
+"""The port's lock-order audit of its own tests
+(``alluxio_tpu_torch/lint/pytest_lockaudit.py``): every audited lock of
+the port's table is a proxy on a live port cluster, every port test file
+pulls the audit fixtures in, and one write, rename and delete on the
+port's ``LocalCluster`` gives the same observed order edges as the same
+operations on JAX's ``LocalCluster`` under JAX's plugin."""
+
+import ast
+import contextlib
+import threading
+from pathlib import Path
+
+import pytest
+
+from alluxio_tpu_torch.lint import pytest_lockaudit as pla
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: F401
+    port_lock_order_audit, port_lockaudit_install,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+FIXTURES = ("port_lock_order_audit", "port_lockaudit_install")
+
+if not pla.ENABLED:  # pragma: no cover - env override
+    pytest.skip("ATPU_LOCK_AUDIT=0", allow_module_level=True)
+
+
+@pytest.fixture(scope="module")
+def clusters(tmp_path_factory):
+    """A port LocalCluster with its job service and a one-master HA
+    cluster (Raft journal, fault-tolerant master), both built after the
+    plugin patched the port's classes."""
+    from alluxio_tpu_torch.minicluster import LocalCluster
+    from alluxio_tpu_torch.minicluster.ha_cluster import HaCluster
+
+    lc = LocalCluster(str(tmp_path_factory.mktemp("lc")), num_workers=1,
+                      start_job_service=True).start()
+    ha = HaCluster(str(tmp_path_factory.mktemp("ha")), num_masters=1)
+    try:
+        ha.start()
+        yield {"lc": lc, "ha": ha}
+    finally:
+        ha.stop()
+        lc.stop()
+
+
+def _hbm_store():
+    from alluxio_tpu_torch.client.cache.hbm_store import HbmPageStore
+
+    return HbmPageStore(1 << 20, device="cpu")
+
+
+#: audited name -> the live object that holds it
+OWNERS = {
+    "InodeTree.lock": lambda c: c["lc"].master.fs_master.inode_tree,
+    "InodeTree.registry_lock":
+        lambda c: c["lc"].master.fs_master.inode_tree,
+    "LocalJournalSystem._lock": lambda c: c["lc"].master.journal,
+    "BlockMaster._lock": lambda c: c["lc"].master.block_master,
+    "BlockMaster._reserve_lock": lambda c: c["lc"].master.block_master,
+    "FileSystemMaster._persist_mutex": lambda c: c["lc"].master.fs_master,
+    "FileSystemMaster._listing_cache_lock":
+        lambda c: c["lc"].master.fs_master,
+    "MetricsStore._lock": lambda c: c["lc"].master.metrics_master.store,
+    "MetricsHistory._lock": lambda c: c["lc"].master.metrics_master.history,
+    "MetricsHistory._pending_lock":
+        lambda c: c["lc"].master.metrics_master.history,
+    "TieredBlockStore._alloc_lock": lambda c: c["lc"].workers[0].worker.store,
+    "BlockLockManager._meta_lock":
+        lambda c: c["lc"].workers[0].worker.store._locks,
+    "RaftNode.lock": lambda c: c["ha"].masters[0].journal.node,
+    "JobMaster._lock": lambda c: c["lc"].job_master.job_master,
+    "FaultTolerantMasterProcess._promote_lock": lambda c: c["ha"].masters[0],
+    "HbmPageStore._lock": lambda c: _hbm_store(),
+}
+
+
+def test_table_names_every_owner():
+    assert sorted(OWNERS) == sorted(e[3] for e in pla._INSTRUMENT)
+
+
+@pytest.mark.parametrize("entry", pla._INSTRUMENT, ids=lambda e: e[3])
+def test_port_class_carries_its_proxy(clusters, entry):
+    module, cls_name, attr, name = entry
+    owner = OWNERS[name](clusters)
+    assert type(owner).__name__ == cls_name
+    lock = getattr(owner, attr)
+    assert isinstance(lock, pla._LockProxy)
+    assert lock._name == name
+    assert lock._auditor is pla._DELEGATE
+
+
+@pytest.mark.parametrize("pool,name", [("lock_manager", pla.INODE_LOCK),
+                                       ("edge_lock_manager", pla.EDGE_LOCK)])
+def test_stripe_pools_hand_out_proxies(clusters, pool, name):
+    mgr = getattr(clusters["lc"].master.fs_master.inode_tree, pool)
+    key = ("lockaudit-probe", name)
+    lock = mgr.checkout(key)
+    try:
+        assert isinstance(lock, pla._LockProxy) and lock._name == name
+    finally:
+        mgr.checkin(key)
+
+
+def test_a_test_runs_under_a_current_auditor(clusters):
+    """The fixture made an auditor current for this test, and the
+    cluster's locks report to it."""
+    current = pla._DELEGATE.current
+    assert current is not None
+    clusters["lc"].file_system().create_directory("/lockaudit-probe",
+                                                  recursive=True)
+    assert "InodeTree.lock" in pla.acquired_names()
+    assert pla.observed_edges() == sorted(current.edges)
+
+
+def _imports_fixtures(tree: ast.Module) -> bool:
+    for node in tree.body:  # module level only
+        if isinstance(node, ast.ImportFrom) and \
+                node.module == "alluxio_tpu_torch.lint.pytest_lockaudit" \
+                and set(FIXTURES) <= {a.name for a in node.names}:
+            return True
+    return False
+
+
+def _opts_out(tree: ast.Module) -> bool:
+    """``pytest.mark.no_lockaudit`` anywhere (decorator or pytestmark)."""
+    return any(isinstance(n, ast.Attribute) and n.attr == "no_lockaudit"
+               for n in ast.walk(tree))
+
+
+@pytest.mark.parametrize("path", sorted(ROOT.glob("tests/test_torch_*.py")),
+                         ids=lambda p: p.name)
+def test_every_port_test_file_is_audited(path):
+    """A new port test cannot run unaudited: it must import both
+    fixtures at module level, and no port test opts out."""
+    tree = ast.parse(path.read_text())
+    assert _imports_fixtures(tree), \
+        f"{path.name} does not import {FIXTURES} from the port's plugin"
+    assert not _opts_out(tree), f"{path.name} opts a test out of the audit"
+
+
+@contextlib.contextmanager
+def _jax_audited():
+    """A fresh JAX auditor current on JAX's own plugin delegate for the
+    block (the JAX plugin's per-test auditor is restored after)."""
+    from alluxio_tpu.lint import pytest_lockaudit as jpla
+    from alluxio_tpu.utils.race import LockOrderAuditor
+
+    if not jpla._ENABLED:  # pragma: no cover - env override
+        pytest.skip("ATPU_LOCK_AUDIT=0")
+    auditor = LockOrderAuditor()
+    prev = jpla._DELEGATE.current
+    jpla._DELEGATE.current = auditor
+    try:
+        yield auditor
+    finally:
+        jpla._DELEGATE.current = prev
+
+
+def _namespace_edges(pkg, base, audited):
+    import importlib
+
+    cluster = importlib.import_module(f"{pkg}.minicluster").LocalCluster
+    with cluster(str(base), num_workers=1) as c:
+        fs = c.file_system()
+        fs.create_directory("/a", recursive=True)
+        with audited() as aud:
+            fs.write_all("/a/f", b"x" * 4096)
+            fs.rename("/a/f", "/a/g")
+            fs.delete("/a/g")
+        assert not fs.exists("/a/g")
+    return sorted(aud.edges), aud.inversions()
+
+
+def test_write_rename_delete_edges_equal_jax(tmp_path):
+    jax = _namespace_edges("alluxio_tpu", tmp_path / "jax", _jax_audited)
+    port = _namespace_edges("alluxio_tpu_torch", tmp_path / "port",
+                            pla.audited)
+    assert port == jax
+    edges, inversions = port
+    assert inversions == []
+    # the canonical order: tree lock -> inode stripes -> edge stripes ->
+    # journal -> block map
+    for edge in (("InodeTree.lock", "InodeTree.inode_lock"),
+                 ("InodeTree.inode_lock", "InodeTree.edge_lock"),
+                 ("InodeTree.edge_lock", "LocalJournalSystem._lock"),
+                 ("LocalJournalSystem._lock", "BlockMaster._lock")):
+        assert edge in edges
+
+
+def test_install_works_outside_pytest_and_reports_an_inversion():
+    """:func:`audited` is the drill's entry point: proxies report to it,
+    and two locks taken in both orders on two threads are an
+    inversion."""
+    with pla.audited() as aud:
+        a = pla._proxy(threading.Lock(), "fx.A")
+        b = pla._proxy(threading.Lock(), "fx.B")
+
+        def ab():
+            with a:
+                with b:
+                    pass
+
+        def ba():
+            with b:
+                with a:
+                    pass
+
+        for fn in (ab, ba):
+            t = threading.Thread(target=fn)
+            t.start()
+            t.join(5)
+        assert aud.inversions() == [("fx.A", "fx.B")]
+        assert pla.acquired_names() == ["fx.A", "fx.B"]
+    # the test's own auditor is current again, and never saw the pair
+    assert ("fx.A", "fx.B") not in pla._DELEGATE.current.edges

@@ -32,6 +32,9 @@ pytest.importorskip("jax")
 from tests.testutils.torch_master import (  # noqa: E402
     PACKAGES, Masters, make_script, mod, resolve,
 )
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 SEEDS = (0, 1, 2, 3)
 

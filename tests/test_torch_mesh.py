@@ -21,6 +21,9 @@ from alluxio_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from alluxio_tpu_torch.parallel.tensor_parallel import (  # noqa: E402
     copy_to_group, reduce_from_group)
 from tests.testutils.torch_dist import run_groups  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 LAYOUTS = {"replicated": tmesh.REPLICATED,
            "dim0-data": tmesh.Layout(0, "data"),

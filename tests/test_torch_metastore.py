@@ -27,6 +27,9 @@ pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from tests.testutils.torch_master import PACKAGES, mod  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 JAX, PORT = PACKAGES
 BLOCK_SIZE = 1024

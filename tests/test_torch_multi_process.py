@@ -40,6 +40,9 @@ import time
 
 import numpy as np
 import pytest
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 pytest.importorskip("torch")
 pytest.importorskip("jax")
@@ -349,9 +352,14 @@ sys.exit(main.main([sys.argv[1]]))
 
 @pytest.fixture(scope="module")
 def port_services(tmp_path_factory):
-    """A port cluster (no worker) and a job master process beside it."""
+    """A port cluster (no worker) and a job master process beside it.
+    A port ``Watchdog`` is armed around the job master wait: should the
+    wait hang again (it once ran out its 60 s under a full run's load),
+    every thread's stack is dumped to stderr at 45 s, while the wait
+    goes on. The dump is diagnostic only."""
     from alluxio_tpu_torch.minicluster.multi_process import ManagedProcess
     from alluxio_tpu_torch.rpc.job_service import JobMasterClient
+    from alluxio_tpu_torch.utils.race import Watchdog
 
     base = str(tmp_path_factory.mktemp("roles"))
     with _running(PORT, base, workers=0) as c:
@@ -365,8 +373,12 @@ def port_services(tmp_path_factory):
         try:
             jm.start()
             jc = JobMasterClient(f"localhost:{jport}")
-            _wait(lambda: _try(jc.list_plan_types), "no job master",
-                  BOOT_S)
+            wd = Watchdog(0.75 * BOOT_S).__enter__()
+            try:
+                _wait(lambda: _try(jc.list_plan_types), "no job master",
+                      BOOT_S)
+            finally:
+                wd._timer.cancel()
             yield c, env
         finally:
             jm.stop()

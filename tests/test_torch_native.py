@@ -27,6 +27,9 @@ from alluxio_tpu import native as jax_native  # noqa: E402
 from alluxio_tpu.client import fastpath as jax_fastpath  # noqa: E402
 from alluxio_tpu_torch import native  # noqa: E402
 from alluxio_tpu_torch.client import fastpath  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 KB = 1024
 DTYPES = ("uint8", "int32", "float64")

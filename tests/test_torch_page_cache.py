@@ -25,6 +25,9 @@ from alluxio_tpu_torch.client.cache.page_store import (  # noqa: E402
     LocalPageStore, MemPageStore,
 )
 from alluxio_tpu_torch.metrics import metrics  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 COUNTERS = ("Client.PageCacheHits", "Client.PageCacheMisses",
             "Client.PagesCached", "Client.PagesEvicted",

@@ -24,6 +24,9 @@ from alluxio_tpu_torch.parallel.pipeline import pipeline_apply  # noqa: E402
 from alluxio_tpu_torch.parallel.ring_attention import (  # noqa: E402
     reference_attention, ring_attention, ring_attention_local)
 from tests.testutils.torch_dist import run_groups  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 RING = (2, 32, 2, 8)                     # [B, T, H, D], T over 4 ranks
 MOE = dict(n_experts=4, d_model=16, d_ff=32)

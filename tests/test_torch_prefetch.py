@@ -19,6 +19,9 @@ from alluxio_tpu_torch.prefetch import (  # noqa: E402
     AccessOracle, BlockRef, DatasetManifest, PrefetchScheduler,
     PrefetchService, TIER_DRAM, TIER_HBM,
 )
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 BLOCK = 64 * 1024
 

@@ -16,6 +16,9 @@ import threading
 
 import numpy as np
 import pytest
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 pytest.importorskip("torch")
 

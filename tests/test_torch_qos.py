@@ -20,6 +20,9 @@ pytest.importorskip("jax")
 
 from alluxio_tpu import qos as jax_qos  # noqa: E402
 from alluxio_tpu_torch import qos  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 MODULES = {"jax": jax_qos, "port": qos}
 

@@ -31,6 +31,9 @@ from tests.testutils.torch_ha import (  # noqa: E402
     PACKAGES, free_ports, leader_of, make_member, make_quorum, mod, put,
     stop_all, wait_for, with_stable_leader,
 )
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 
 @pytest.fixture(autouse=True)

@@ -17,6 +17,9 @@ jnp = pytest.importorskip("jax.numpy")
 
 from alluxio_tpu.ops import reduce_kernel as jax_rk  # noqa: E402
 from alluxio_tpu_torch.ops import reduce_kernel as rk  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 _LANES, _ROWS = rk._LANES, rk._ROWS
 

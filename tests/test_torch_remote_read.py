@@ -31,6 +31,9 @@ from alluxio_tpu_torch.client import remote_read as rr  # noqa: E402
 from alluxio_tpu_torch.client.block_streams import BatchReadConf  # noqa: E402
 from alluxio_tpu_torch.utils.exceptions import UnavailableError  # noqa: E402
 from tests.test_remote_read import FakeSource  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 KB = 1024
 

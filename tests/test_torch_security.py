@@ -24,6 +24,9 @@ from alluxio_tpu.conf import Configuration as JaxConfiguration  # noqa: E402
 from alluxio_tpu.security import authentication as jax_auth  # noqa: E402
 from alluxio_tpu_torch.conf import Configuration  # noqa: E402
 from alluxio_tpu_torch.security import authentication as auth  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 USER_KEY = "atpu-user"
 

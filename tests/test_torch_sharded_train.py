@@ -39,6 +39,9 @@ from alluxio_tpu_torch.utils.bf16 import (numpy_to_tensor,  # noqa: E402
                                           tensor_to_numpy)
 from alluxio_tpu_torch.utils.pytree import tree_leaves  # noqa: E402
 from tests.testutils.torch_dist import run_groups  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 SMALL = dict(vocab_or_patch_dim=48, d_model=32, n_heads=4, d_ff=64,
              n_layers=2, n_classes=10, max_len=16)

@@ -24,6 +24,9 @@ pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from tests.testutils import torch_shell as ts  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 PORT, JAX = "alluxio_tpu_torch", "alluxio_tpu"
 LOCAL = np.random.default_rng(16).integers(

@@ -40,6 +40,9 @@ pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from tests.testutils import torch_shell as ts  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 PORT, JAX = "alluxio_tpu_torch", "alluxio_tpu"
 BOOT_S = 60.0

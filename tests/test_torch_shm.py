@@ -26,6 +26,9 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from tests.test_torch_worker_store import JAX, PORT, make_store  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 KB = 1024
 SESSION = 11

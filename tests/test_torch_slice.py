@@ -39,6 +39,9 @@ from alluxio_tpu_torch.models import transformer as tt  # noqa: E402
 from alluxio_tpu_torch.ops import decode  # noqa: E402
 from alluxio_tpu_torch.ops import reduce_kernel as rk  # noqa: E402
 from alluxio_tpu_torch.utils.pytree import tree_leaves  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 BLOCK = 64 * 1024
 K = 3

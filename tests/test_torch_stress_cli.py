@@ -24,6 +24,9 @@ import sys
 
 import numpy as np
 import pytest
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 pytest.importorskip("torch")
 pytest.importorskip("jax")

@@ -40,6 +40,9 @@ from alluxio_tpu_torch.utils.exceptions import (  # noqa: E402
     AlreadyExistsError, NotFoundError, NotSupportedError,
     PermissionDeniedError,
 )
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 PACKAGES = ("alluxio_tpu", "alluxio_tpu_torch")
 USER_KEY = "atpu-user"

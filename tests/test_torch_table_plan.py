@@ -20,6 +20,9 @@ from hypothesis import given, settings, strategies as st
 
 pa = pytest.importorskip("pyarrow")
 import pyarrow.parquet as pq  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 pytest.importorskip("torch")
 pytest.importorskip("jax")

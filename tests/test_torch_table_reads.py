@@ -34,6 +34,9 @@ pytest.importorskip("jax")
 from alluxio_tpu_torch.conf import Configuration, Keys  # noqa: E402
 from alluxio_tpu_torch.table import plan as tplan  # noqa: E402
 from alluxio_tpu_torch.table import reader as treader  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 PACKAGES = ("alluxio_tpu", "alluxio_tpu_torch")
 

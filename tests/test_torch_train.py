@@ -32,6 +32,9 @@ from alluxio_tpu.parallel.mesh import make_mesh  # noqa: E402
 from alluxio_tpu_torch import convert  # noqa: E402
 from alluxio_tpu_torch.models import train as ttrain  # noqa: E402
 from alluxio_tpu_torch.models import transformer as tt  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -26,6 +26,9 @@ from alluxio_tpu.models import transformer as jt  # noqa: E402
 from alluxio_tpu_torch import convert  # noqa: E402
 from alluxio_tpu_torch.models import transformer as tt  # noqa: E402
 from alluxio_tpu_torch.parallel import ring_attention as tra  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 # the JAX package's parallel/__init__ re-exports a function under the
 # module's name, so take the module itself

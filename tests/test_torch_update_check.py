@@ -18,6 +18,9 @@ pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from tests.testutils.torch_update_check import FakeReleases  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 PACKAGES = ("alluxio_tpu", "alluxio_tpu_torch")
 

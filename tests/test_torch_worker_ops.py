@@ -31,6 +31,9 @@ pytest.importorskip("jax")
 from tests.test_torch_worker_store import (  # noqa: E402
     JAX, KB, PORT, make_store, put_block,
 )
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 PREFIXES = {"jax": "alluxio_tpu", "port": "alluxio_tpu_torch"}
 

@@ -37,6 +37,9 @@ from alluxio_tpu_torch.ops import reduce_kernel as rk  # noqa: E402
 from alluxio_tpu_torch.rpc.clients import WorkerClient  # noqa: E402
 from alluxio_tpu_torch.utils import ids  # noqa: E402
 from tests.testutils.torch_worker import PortWorker  # noqa: E402
+from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
+    port_lock_order_audit, port_lockaudit_install,
+)
 
 BLOCK = 64 * 1024
 SHM_OFF = {JaxKeys.USER_SHM_ENABLED: False}
