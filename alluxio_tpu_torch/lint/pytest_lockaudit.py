@@ -66,6 +66,12 @@ The audited locks (``_INSTRUMENT``), one line each on why:
   promotion and demotion, which start and stop every master component.
 - ``HbmPageStore._lock`` (added for the port): the device page store
   the loader and the page cache share on the main path.
+- ``MemObjectStore._lock``, ``KeystoneSession._lock``,
+  ``IndexedSet._lock`` and ``DirectedAcyclicGraph._lock`` (added for the
+  port): the in-memory object store the ``mem://`` UFS reads under the
+  worker's fetch, Swift's token cache, and the two collections; and,
+  outside a constructor (``_STATIC``), the UFS registry's ``_LOCK`` and
+  ``MemObjectStore._GLOBAL_LOCK`` (the bucket table).
 """
 
 from __future__ import annotations
@@ -120,6 +126,20 @@ _INSTRUMENT: Tuple[Tuple[str, str, str, str], ...] = (
            "_promote_lock"),
     _entry("alluxio_tpu_torch.client.cache.hbm_store", "HbmPageStore",
            "_lock"),
+    _entry("alluxio_tpu_torch.underfs.object_base", "MemObjectStore",
+           "_lock"),
+    _entry("alluxio_tpu_torch.underfs.swift", "KeystoneSession", "_lock"),
+    _entry("alluxio_tpu_torch.utils.collections", "IndexedSet", "_lock"),
+    _entry("alluxio_tpu_torch.utils.collections", "DirectedAcyclicGraph",
+           "_lock"),
+)
+
+#: (module path, owner inside the module or "", lock attribute, audited
+#: name): locks made once, at import, that no constructor sets
+_STATIC: Tuple[Tuple[str, str, str, str], ...] = (
+    ("alluxio_tpu_torch.underfs.registry", "", "_LOCK", "registry._LOCK"),
+    ("alluxio_tpu_torch.underfs.object_base", "MemObjectStore",
+     "_GLOBAL_LOCK", "MemObjectStore._GLOBAL_LOCK"),
 )
 
 #: the names the two dynamic stripe pools audit under
@@ -200,6 +220,14 @@ def install() -> None:
                         setattr(self, attr, _proxy(inner, lock_name))
 
             cls.__init__ = init
+
+        for module_name, owner_name, attr, lock_name in _STATIC:
+            owner = importlib.import_module(module_name)
+            if owner_name:
+                owner = getattr(owner, owner_name)
+            inner = getattr(owner, attr)
+            if not isinstance(inner, _LockProxy):
+                setattr(owner, attr, _proxy(inner, lock_name))
 
         # Per-inode striped locks are created DYNAMICALLY by the
         # InodeLockManager pool, so attribute patching cannot reach

@@ -9,9 +9,9 @@ Differences from the reference, on purpose:
 - streams are plain Python file-like objects (``read(n)``, ``write(b)``)
   plus ``open_positioned`` for stateless positioned reads — the shape the
   zero-copy TPU read path wants (pread into a staging buffer);
-- the JAX object-store base class (``object_base.py``), which emulates
-  directories with breadcrumb markers like the reference's
-  ``ObjectUnderFileSystem``, is not ported: the port has the local UFS.
+- the object-store base class lives in ``object_base.py`` and emulates
+  directories with breadcrumb markers exactly like the reference's
+  ``ObjectUnderFileSystem``.
 """
 
 from __future__ import annotations

@@ -347,6 +347,26 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    MTTR against the gate of two election timeouts plus the rank stagger
    (a miss is recorded, not a failure).
 
+2n. the UFS connectors, last: a fake S3 server (``tests/testutils/
+   fake_s3.py``, loaded by path in a child process). (a) 16 seeded int32
+   shards of 32 MiB put into its bucket through the port's
+   ``S3UnderFileSystem`` (multipart, SigV4), the rate printed; (b) a
+   ``MultiProcessCluster`` (one worker, a MEM tier of 16 x 32 MiB +
+   256 MiB, the worker's metrics heartbeat at 200 ms) mounts
+   ``s3://bkt/data`` at ``/s3`` with the endpoint and keys as mount
+   properties and lists the 16 files with their lengths; (c) a
+   ``DeviceBlockLoader`` with a device tier reads them cold: the worker's
+   fetch counters (as the master aggregates them) must show 16 fetches,
+   16 UFS block reads, every byte once, no fallback and no failure, and
+   each block's ``scaled_sum`` must equal the plain version and numpy's
+   sum of the bucket's bytes; the epoch's seconds and GB/s beside 2c's
+   local cold rung; (d) a second epoch: 16 device-tier hits, no UFS
+   read; (e) a Parquet file of 1 Mi rows written through
+   ``arrow_file_system``, read back through it and through
+   ``AlluxioTpuFileSystem``, one column summed on the card against
+   numpy. The s3 scheme must be registered: a missing connector fails
+   the phase.
+
 It prints the card's name and power limit, whether pyarrow imports,
 one ``{"main": {...}}``
 line, one ``{"prefetch": {...}}`` line, one ``{"master": {...}}`` line,
@@ -356,7 +376,8 @@ line, one ``{"mesh": {...}}`` line, one ``{"suite": {...}}`` line, one
 ``{"clairvoyant": {...}}`` line, one ``{"multi_process": {...}}`` line,
 one ``{"stress": {...}}`` line, one ``{"observability": {...}}`` line,
 one ``{"guards": {...}}`` line, one ``{"ha": {...}}`` line, one
-``{"shell": {...}}`` line, one ``{"phase_s": {...}}`` line with every
+``{"shell": {...}}`` line, one ``{"s3": {...}}`` line, one
+``{"phase_s": {...}}`` line with every
 phase's seconds, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
@@ -6084,6 +6105,322 @@ def lockaudit_phase(device, main: dict) -> dict:
     return out
 
 
+# -- 2n: the UFS connectors: a cold epoch from a faked S3 bucket -------------
+S3_SHARDS = 16            # (a): 16 x 32 MiB = 512 MiB put into the bucket
+S3_BUCKET = "bkt"
+S3_ROOT = "data"
+S3_KEYS = {"s3.access.key": "smoke-ak", "s3.secret.key": "smoke-sk"}
+S3_BOOT_S = 30.0
+S3_DEADLINE_S = 60.0
+#: the worker's metrics heartbeat, cut so that the master's cluster
+#: counters (the worker's fetch counts) trail the epoch by 200 ms
+S3_METRICS_HEARTBEAT = "200ms"
+S3_PARQUET_ROWS = 1 << 20  # (e): one int64 and one float32 column
+#: the fake S3 server of ``tests/testutils/fake_s3.py``, loaded by path in
+#: a process of its own (its GIL is not the client's); on a machine where
+#: an installed ``tests`` package shadows the repository's, the two
+#: modules it needs are put in place first
+S3_CHILD = r"""
+import importlib.util, os, sys, types
+root = sys.argv[1]
+for name in ("tests", "tests.testutils"):
+    sys.modules[name] = types.ModuleType(name)
+def load(name, rel):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, rel))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+load("tests.testutils.httpfake", "tests/testutils/httpfake.py")
+fake = load("tests.testutils.fake_s3", "tests/testutils/fake_s3.py")
+srv = fake.FakeS3Server()
+print(srv.endpoint, flush=True)
+srv._server.serve_forever(poll_interval=0.1)
+"""
+
+
+def start_s3_child() -> tuple:
+    """The fake S3 server as a child process: (process, endpoint)."""
+    import select
+
+    proc = subprocess.Popen([sys.executable, "-c", S3_CHILD, str(ROOT)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    ready, _, _ = select.select([proc.stdout], [], [], S3_BOOT_S)
+    line = proc.stdout.readline().strip() if ready else ""
+    if not line.startswith("http://"):
+        stop_child(proc)
+        fail(f"2n: the fake S3 server did not start ({line!r}, "
+             f"{proc.stderr.read()[-1500:]!r})")
+    return proc, line
+
+
+def stop_child(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+
+
+def cluster_fetch(meta) -> dict:
+    """The worker's fetch counters as the master aggregates them from
+    the worker's metrics heartbeat (``Cluster.<name>``)."""
+    m = meta.get_metrics()
+    return {n: int(m.get(f"Cluster.{n}", 0)) for n in (
+        "UfsFetchStarted", "UfsFetchBytes", "UfsFetchCoalesced",
+        "UfsFetchFallbacks", "UfsFetchFailures", "UfsBlocksRead")}
+
+
+def settled_fetch(meta, before: dict, blocks: int) -> dict:
+    """The fetch counters' delta since ``before`` once the worker has
+    reported ``blocks`` UFS block reads and two more heartbeats brought
+    nothing new."""
+    deadline = time.monotonic() + S3_DEADLINE_S
+    last, same = None, 0
+    while same < 2:
+        now = cluster_fetch(meta)
+        d = {n: now[n] - before[n] for n in now}
+        same = same + 1 if d == last and d["UfsBlocksRead"] >= blocks \
+            else 0
+        last = d
+        if time.monotonic() > deadline:
+            fail(f"2n: the worker's fetch counters never settled at "
+                 f"{blocks} UFS block reads: {d}")
+        time.sleep(0.25)
+    return last
+
+
+def s3_epoch(name: str, device, loader, paths: list, sums: dict) -> dict:
+    """One loader epoch onto ``device``: each block's ``scaled_sum``
+    (one launch a block) against the plain version and against numpy's
+    sum of the object read straight from the bucket."""
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    got = {}
+    _sync_device(device)
+    t = time.perf_counter()
+    for path, block in zip(paths, loader.epoch()):
+        x = rk.pad_to_kernel_shape(block)
+        value = int(rk.scaled_sum(x, 1))
+        plain = int(rk.scaled_sum_reference(x, 1))
+        if value != plain or value != sums[path]:
+            fail(f"2n {name}: {path}'s scaled_sum {value}, plain {plain}, "
+                 f"the bucket's bytes {sums[path]}")
+        got[path] = value
+    _sync_device(device)
+    dt = time.perf_counter() - t
+    if list(got) != list(paths):
+        fail(f"2n {name}: the epoch gave {len(got)} of {len(paths)} blocks")
+    return {"s": dt, "gb_per_s": len(paths) * BLOCK_BYTES / dt / 1e9,
+            "wait_s": loader.stall_report()["total_wait_s"]}
+
+
+def adapters_check(device, fs) -> dict:
+    """(2n e): a Parquet file written into the cluster through the
+    port's Arrow adapter, read back through it and through the port's
+    fsspec class; one column onto the card, its sum against numpy's."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    from alluxio_tpu_torch.client.arrow_fs import arrow_file_system
+    from alluxio_tpu_torch.client.fsspec_fs import AlluxioTpuFileSystem
+
+    rng = np.random.default_rng(SEED + 18_100)
+    x = rng.integers(-2**40, 2**40, S3_PARQUET_ROWS, dtype=np.int64)
+    y = rng.standard_normal(S3_PARQUET_ROWS).astype(np.float32)
+    table = pa.table({"x": x, "y": y})
+    afs = arrow_file_system(fs=fs)
+    t = time.perf_counter()
+    afs.create_dir("/adapters")
+    pq.write_table(table, "/adapters/t.parquet", filesystem=afs)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = pq.read_table("/adapters/t.parquet", filesystem=afs)
+    arrow_s = time.perf_counter() - t
+    t = time.perf_counter()
+    via_fsspec = pq.read_table("adapters/t.parquet",
+                               filesystem=AlluxioTpuFileSystem(fs=fs),
+                               columns=["x"])
+    fsspec_s = time.perf_counter() - t
+    if not back.equals(table) or \
+            not via_fsspec.column("x").equals(table.column("x")):
+        fail("2n (e): the Parquet file read back through the adapters "
+             "differs from the table written")
+    col = torch.from_numpy(via_fsspec.column("x").to_numpy().copy()).to(
+        device)
+    card = int(col.sum())
+    want = int(x.sum())
+    if card != want:
+        fail(f"2n (e): column x sums to {card} on the card, {want} in numpy")
+    size = fs.get_status("/adapters/t.parquet").length
+    return {"rows": S3_PARQUET_ROWS, "parquet_bytes": size,
+            "arrow_write_s": write_s, "arrow_read_s": arrow_s,
+            "fsspec_read_s": fsspec_s, "column_sum": card}
+
+
+def s3_phase(device, worker: dict) -> dict:
+    """(2n): the UFS connectors on the card's path. A fake S3 server in a
+    child process; (a) ``S3_SHARDS`` seeded int32 shards of 32 MiB put
+    into its bucket through the port's ``S3UnderFileSystem`` (multipart);
+    (b) a ``MultiProcessCluster`` mounts ``s3://bkt/data`` at ``/s3`` with
+    the endpoint and keys as mount properties, and lists it; (c) a
+    ``DeviceBlockLoader`` with a device tier reads the shards cold: every
+    block crosses the worker's fetch from S3 once (the worker's counters,
+    as the master aggregates them), and each block's ``scaled_sum``
+    equals the plain version and numpy's sum of the bucket's bytes; (d) a
+    second epoch from the device tier adds no UFS read; (e) the Arrow and
+    fsspec adapters round-trip a Parquet file."""
+    import torch
+
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.conf import Keys, Templates
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.minicluster.multi_process import (
+        MultiProcessCluster,
+    )
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.rpc.clients import MetaMasterClient
+    from alluxio_tpu_torch.underfs.registry import supported_schemes
+    from alluxio_tpu_torch.underfs.s3 import S3Client, S3UnderFileSystem
+
+    if "s3" not in supported_schemes():
+        fail(f"2n: the port's registry has no s3 connector "
+             f"({supported_schemes()})")
+    n = S3_SHARDS
+    tier = n * BLOCK_BYTES + (256 << 20)
+    base = block_dir(tier + (64 << 20))
+    proc, endpoint = start_s3_child()
+    props = {"s3.endpoint": endpoint, **S3_KEYS}
+    cluster = fs = loader = None
+    try:
+        # (a) the bucket, filled through the port's connector
+        ufs = S3UnderFileSystem(f"s3://{S3_BUCKET}/{S3_ROOT}", props)
+        sums, fill_s = {}, 0.0
+        for i in range(n):
+            arr = np.random.default_rng(SEED + 18_000 + i).integers(
+                -2**31, 2**31 - 1, size=BLOCK_BYTES // 4, dtype=np.int32)
+            key = f"s3://{S3_BUCKET}/{S3_ROOT}/shard-{i:02d}.bin"
+            t = time.perf_counter()
+            with ufs.create(key) as w:
+                w.write(arr.data)
+            fill_s += time.perf_counter() - t
+            sums[f"/s3/shard-{i:02d}.bin"] = wrap32(arr.sum(dtype=np.int64))
+        ufs.close()
+        total = n * BLOCK_BYTES
+        print(f"2n (a): {n} x {BLOCK_BYTES >> 20} MiB seeded shards put "
+              f"into s3://{S3_BUCKET}/{S3_ROOT} on a fake S3 server (a "
+              f"child process, {endpoint}) through the port's "
+              f"S3UnderFileSystem, multipart at 8 MiB parts, SigV4: "
+              f"{fill_s:.3f} s ({total / fill_s / 1e9:.3f} GB/s)",
+              flush=True)
+
+        # (b) the mount, its properties the endpoint and the keys
+        cluster = MultiProcessCluster(
+            os.path.join(base, "cluster"), num_workers=1, extra_conf={
+                Keys.USER_BLOCK_SIZE_BYTES_DEFAULT.name: str(BLOCK_BYTES),
+                Templates.WORKER_TIER_DIRS_QUOTA.format(0).name: str(tier),
+                "atpu.worker.metrics.heartbeat.interval":
+                    S3_METRICS_HEARTBEAT})
+        t = time.perf_counter()
+        cluster.start(timeout_s=MP_BOOT_S)
+        fs = cluster.file_system()
+        boot_s = time.perf_counter() - t
+        meta = MetaMasterClient(cluster.master_addresses,
+                                retry_duration_s=30.0)
+        t = time.perf_counter()
+        fs.mount("/s3", f"s3://{S3_BUCKET}/{S3_ROOT}", properties=props)
+        listed = {i.path: i.length for i in fs.list_status("/s3")}
+        mount_s = time.perf_counter() - t
+        if listed != {p: BLOCK_BYTES for p in sums}:
+            fail(f"2n (b): /s3 lists {listed}, want the {n} shards of "
+                 f"{BLOCK_BYTES} bytes")
+        print(f"2n (b): MultiProcessCluster up in {boot_s:.2f} s; mount "
+              f"/s3 -> s3://{S3_BUCKET}/{S3_ROOT} and its listing "
+              f"{mount_s:.3f} s: {len(listed)} files of {BLOCK_BYTES} "
+              f"bytes", flush=True)
+
+        # (c) the cold epoch: every block through the worker's S3 fetch
+        paths = list(sums)
+        rfs = RungFS(fs)
+        before = settled_fetch(meta, {k: 0 for k in cluster_fetch(meta)}, 0)
+        hits = metrics().counter("Client.JaxHbmHits")
+        loader = DeviceBlockLoader(rfs, paths, device=device,
+                                   hbm_bytes=total + (64 << 20),
+                                   prefetch=2, dtype=np.int32)
+        rk.launches = 0
+        cold = s3_epoch("cold epoch", device, loader, paths, sums)
+        launches = rk.launches
+        d = settled_fetch(meta, before, n)
+        check_fetch("2n (c) cold epoch", d, n)
+        if launches != n:
+            fail(f"2n (c): scaled_sum launched {launches} times, want {n}")
+        # (d) the warm epoch, from the device tier
+        hits0 = hits.count
+        rk.launches = 0
+        warm = s3_epoch("warm epoch", device, loader, paths, sums)
+        launches += rk.launches
+        warm_hits = hits.count - hits0
+        d2 = settled_fetch(meta, before, n)
+        if d2 != d or warm_hits != n:
+            fail(f"2n (d): the warm epoch made {warm_hits} device-tier "
+                 f"hits (want {n}) and moved the fetch counters "
+                 f"{d} -> {d2}")
+        loader.close()
+        loader = None
+        local = {t["mode"]: t for t in worker["cold_read"]}["single"]
+        print(f"2n (c): cold epoch of {n} x {BLOCK_BYTES >> 20} MiB from "
+              f"the fake S3 bucket through the worker's fetch into the "
+              f"device tier {cold['s']:.3f} s ({cold['gb_per_s']:.3f} "
+              f"GB/s, consumer wait {cold['wait_s']:.3f} s), block opens "
+              f"by rung {rfs.rungs}, {d['UfsFetchStarted']} fetches, "
+              f"{d['UfsBlocksRead']} UFS block reads, "
+              f"{d['UfsFetchBytes']} bytes, {d['UfsFetchFallbacks']} "
+              f"fallbacks, {d['UfsFetchFailures']} failures; every "
+              f"scaled_sum == plain == the bucket's bytes; beside 2c's "
+              f"local cold rung (one stream, {local['blocks']} x "
+              f"{BLOCK_BYTES >> 20} MiB) {local['gb_per_s']:.3f} GB/s; "
+              f"(d) warm epoch {warm['s']:.4f} s, {warm_hits} device-tier "
+              f"hits, no UFS read", flush=True)
+
+        # (e) the adapters
+        adapters = adapters_check(device, fs)
+        print(f"2n (e): Parquet ({adapters['rows']} rows, "
+              f"{adapters['parquet_bytes']} bytes) written through "
+              f"arrow_file_system in {adapters['arrow_write_s']:.3f} s, "
+              f"read back through it in {adapters['arrow_read_s']:.3f} s "
+              f"and column x through AlluxioTpuFileSystem in "
+              f"{adapters['fsspec_read_s']:.3f} s; its sum on the card "
+              f"{adapters['column_sum']} == numpy", flush=True)
+        bucket = S3Client(S3_BUCKET, props)
+        keys = bucket.list_prefix(f"{S3_ROOT}/")
+        if len(keys) != n:
+            fail(f"2n: the bucket holds {keys}, want the {n} shards")
+        return {"shards": n, "bytes": total, "fill_s": fill_s,
+                "fill_gb_per_s": total / fill_s / 1e9, "boot_s": boot_s,
+                "mount_list_s": mount_s, "cold": cold, "warm": warm,
+                "warm_hits": warm_hits, "fetch": d, "rungs": rfs.rungs,
+                "local_cold_gb_per_s": local["gb_per_s"],
+                "adapters": adapters, "launches": launches}
+    finally:
+        try:
+            if loader is not None:
+                loader.close()
+            if fs is not None:
+                fs.close()
+        finally:
+            try:
+                if cluster is not None:
+                    cluster.stop()
+            finally:
+                stop_child(proc)
+                shutil.rmtree(base, ignore_errors=True)
+
+
 def record_files(workdir: str, num_blocks: int, block_bytes: int) -> dict:
     """``bench.py``'s e2e layout: blocks of 64x64x3 records with a 4-byte
     label, padded to the block size; returns path -> (file id, file)."""
@@ -7035,6 +7372,9 @@ def main() -> int:
         # 2m: the port's lock-order auditor around the loader, and its
         # lint on this host
         lockaudit = phase("2m", lockaudit_phase, device, main)
+        # 2n: a cold epoch from a faked S3 bucket through the port's
+        # connectors, and the Arrow and fsspec adapters
+        s3 = phase("2n", s3_phase, device, worker)
     finally:
         try:
             if mp is not None:
@@ -7066,6 +7406,7 @@ def main() -> int:
     lint = lockaudit.pop("lint")
     print(json.dumps({"lockaudit": lockaudit}), flush=True)
     print(json.dumps({"lint": {**lint, "card": CARD}}), flush=True)
+    print(json.dumps({"s3": {**s3, "card": CARD}}), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_s": {k: round(v, 1)
                                   for k, v in PHASE_S.items()}}), flush=True)
@@ -7095,7 +7436,8 @@ def main() -> int:
             "guards": guards["launches"],
             "ha": ha["launches"],
             "shell": shell["launches"],
-            "lockaudit": lockaudit["launches"]},
+            "lockaudit": lockaudit["launches"],
+            "s3": s3["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

@@ -104,7 +104,12 @@ def test_importing_every_module_loads_no_jax():
               "lint.metrics_analyzer", "lint.phases_analyzer",
               "lint.locks_analyzer", "lint.exceptions_analyzer",
               "lint.native_analyzer", "lint.runner", "lint.__main__",
-              "lint.pytest_lockaudit"):
+              "lint.pytest_lockaudit", "utils.httperr",
+              "underfs.object_base", "underfs.web", "underfs.s3",
+              "underfs.s3_compat", "underfs.vendor_native", "underfs.gcs",
+              "underfs.azure", "underfs.swift", "underfs.ozone",
+              "underfs.hdfs", "underfs.webhdfs", "underfs.delegating",
+              "utils.collections", "client.arrow_fs", "client.fsspec_fs"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -236,6 +241,27 @@ def test_metastore_and_capacity_bench_load_no_torch(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_connectors_and_adapters_load_no_torch():
+    """The UFS connectors, the client adapters and the collections are
+    host code that every role process may load through the registry: a
+    child that imports them all (the registry's optional connectors
+    registered) has loaded neither torch nor JAX."""
+    code = ("import sys\n"
+            "import alluxio_tpu_torch.underfs.registry as r\n"
+            "import alluxio_tpu_torch.client.arrow_fs, "
+            "alluxio_tpu_torch.client.fsspec_fs, "
+            "alluxio_tpu_torch.utils.collections, "
+            "alluxio_tpu_torch.underfs.delegating\n"
+            "assert {'s3', 'gs', 'wasb', 'webhdfs', 'mem'} <= "
+            "set(r.supported_schemes())\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'alluxio_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -7,6 +7,7 @@ operations on JAX's ``LocalCluster`` under JAX's plugin."""
 
 import ast
 import contextlib
+import importlib
 import threading
 from pathlib import Path
 
@@ -71,7 +72,34 @@ OWNERS = {
     "JobMaster._lock": lambda c: c["lc"].job_master.job_master,
     "FaultTolerantMasterProcess._promote_lock": lambda c: c["ha"].masters[0],
     "HbmPageStore._lock": lambda c: _hbm_store(),
+    "MemObjectStore._lock":
+        lambda c: _port("underfs.object_base").MemObjectStore(),
+    "KeystoneSession._lock": lambda c: _port("underfs.swift").KeystoneSession(
+        "http://127.0.0.1:1/v3", "u", "pw", "proj"),
+    "IndexedSet._lock": lambda c: _port("utils.collections").IndexedSet(
+        _port("utils.collections").FieldIndex("id", id)),
+    "DirectedAcyclicGraph._lock":
+        lambda c: _port("utils.collections").DirectedAcyclicGraph(),
 }
+
+
+def _port(name):
+    return importlib.import_module(f"alluxio_tpu_torch.{name}")
+
+
+@pytest.mark.parametrize("entry", pla._STATIC, ids=lambda e: e[3])
+def test_static_lock_carries_its_proxy(entry):
+    """The locks made at import (the UFS registry's, the mem:// bucket
+    table) are audited under their names, and a call that takes them
+    reports to the current auditor."""
+    module, owner, attr, name = entry
+    holder = _port(module.split(".", 1)[1])
+    if owner:
+        holder = getattr(holder, owner)
+    lock = getattr(holder, attr)
+    assert isinstance(lock, pla._LockProxy) and lock._name == name
+    _port("underfs.registry").create_ufs("mem://lockaudit/x")
+    assert name in pla.acquired_names()
 
 
 def test_table_names_every_owner():
@@ -210,6 +238,9 @@ def test_install_works_outside_pytest_and_reports_an_inversion():
             t.start()
             t.join(5)
         assert aud.inversions() == [("fx.A", "fx.B")]
-        assert pla.acquired_names() == ["fx.A", "fx.B"]
+        # the module's cluster runs on, and its job master's heartbeat
+        # may take that lock inside the block: no other name may show
+        assert [n for n in pla.acquired_names()
+                if n != "JobMaster._lock"] == ["fx.A", "fx.B"]
     # the test's own auditor is current again, and never saw the pair
     assert ("fx.A", "fx.B") not in pla._DELEGATE.current.edges

@@ -10,7 +10,9 @@ uptimes and the host's name are masked (``tests/testutils/
 torch_shell.py``). The clusters write MUST_CACHE by default, so that no
 asynchronous persist job takes a job id at a moment the script does not
 set (the distributed commands print theirs). Steps marked ``cross`` also
-run through the other package's shell against the same cluster.
+run through the other package's shell against the same cluster. A step
+marked ``settle`` first waits until the master's used bytes equal the
+workers' own (``settle_used_bytes``): they move with the heartbeats.
 """
 
 import importlib
@@ -132,7 +134,7 @@ SCRIPT = [
     ("fs", ["stopSync", "/ext"]),
     ("fs", ["unmount", "/ext"]),
     ("fs", ["getCapacityBytes"], "cross"),
-    ("fs", ["getUsedBytes"]),
+    ("fs", ["getUsedBytes"], "settle"),
     ("fs", ["location", "/loc"], "cross"),
     ("fs", ["free", "/warm"]),
     ("fs", ["load", "/warm"]),

@@ -29,6 +29,7 @@ import os
 import re
 import shutil
 import socket
+import time
 
 PACKAGES = ("alluxio_tpu", "alluxio_tpu_torch")
 SHELLS = {"fs": ("fs_shell", "FS_SHELL"),
@@ -142,6 +143,27 @@ def run_script(pkg: str, base: str, script, setups, *,
     return results
 
 
+def settle_used_bytes(cluster, timeout_s: float = 60.0) -> None:
+    """Wait until the master's used bytes equal the workers' own and no
+    block removal waits for a heartbeat, on two polls in a row: the used
+    bytes the master reports move with the worker heartbeats (a block
+    freed after an unmount, one cached by a read), so a step that prints
+    them reads them once both sides have caught up."""
+    bm = cluster.master.block_master
+    deadline = time.monotonic() + timeout_s
+    settled = 0
+    while settled < 2:
+        with bm._lock:
+            master = sum(bm.used_bytes_on_tiers().values())
+            pending = any(w.to_remove_blocks for w in bm._workers.values())
+        own = sum(sum(h.worker.store.store_meta()[1].values())
+                  for h in cluster.workers)
+        settled = settled + 1 if master == own and not pending else 0
+        assert time.monotonic() < deadline, \
+            f"used bytes never settled: master {master}, workers {own}"
+        time.sleep(0.1)
+
+
 def _run(pkg, cluster, base, script, setups, other, results) -> None:
     try:
         fs = cluster.file_system()
@@ -153,6 +175,8 @@ def _run(pkg, cluster, base, script, setups, other, results) -> None:
                     if got is not None:
                         results[sid] = got
                     continue
+                if "settle" in step[2:]:
+                    settle_used_bytes(cluster)
                 ports = cluster_ports(cluster)
                 argv = [a.replace(BASE, base) for a in step[1]]
                 code, out, err = run_shell(pkg, cluster, step[0], argv)
