@@ -87,10 +87,17 @@ class RemoteReadConf:
     #: memcpy into the assembly buffer; plain memoryview copy is the
     #: byte-identical fallback
     native_fastpath: bool = True
+    #: per-tenant cap on concurrent stripe streams (incl. hedges)
+    #: across every striped read in this process; 0 = unlimited.
+    #: The frontier stripe of each read bypasses the cap (liveness).
+    tenant_stripe_limit: int = 0
+    #: the tenant these reads bill against (the client's principal)
+    tenant: str = ""
 
     @classmethod
     def from_conf(cls, conf) -> "RemoteReadConf":
         from alluxio_tpu_torch.conf import Keys
+        from alluxio_tpu_torch.security.user import get_client_user
 
         return cls(
             stripe_size=max(0, conf.get_bytes(
@@ -103,6 +110,9 @@ class RemoteReadConf:
                 Keys.USER_REMOTE_READ_HEDGE_QUANTILE))),
             native_fastpath=conf.get_bool(
                 Keys.USER_NATIVE_FASTPATH_ENABLED),
+            tenant_stripe_limit=max(0, conf.get_int(
+                Keys.USER_QOS_STRIPE_LIMIT)),
+            tenant=get_client_user(conf),
         )
 
     @property
@@ -310,6 +320,10 @@ class StripedRead:
         self._active = 0
         self._dead_workers: set = set()
         self._started = False
+        #: a direct submit was denied by the tenant stripe budget; the
+        #: coordinator polls instead of waiting indefinitely (budget
+        #: frees on OTHER reads' completions, which don't notify us)
+        self._budget_deferred = False
         #: bytes (range-relative) actually served when a source's
         #: stream ended cleanly short of its range — a shrunk UFS
         #: object served truncated, mirroring the legacy reader
@@ -409,7 +423,22 @@ class StripedRead:
         return candidates[0]
 
     def _submit_locked(self, stripe: int, source: ReadSource, *,
-                       direct: bool, is_hedge: bool) -> Optional[_Attempt]:
+                       direct: bool, is_hedge: bool,
+                       force_budget: bool = False) -> Optional[_Attempt]:
+        # tenant stripe budget FIRST, before any booking: a denied
+        # submit must leave no trace so the coordinator simply retries
+        # once budget frees.  The frontier stripe (and failure
+        # re-routes) pass force_budget — the cap shapes readahead and
+        # hedging, never liveness.
+        if not self._rt.budget.acquire(self._conf.tenant,
+                                       self._conf.tenant_stripe_limit,
+                                       force=force_budget):
+            if is_hedge:
+                self._m.counter("Client.QosHedgesSuppressed").inc()
+            else:
+                self._m.counter("Client.QosStripesDeferred").inc()
+                self._budget_deferred = True
+            return None
         a = _Attempt(stripe, source, direct=direct, is_hedge=is_hedge)
         self._attempts[stripe].append(a)
         self._routed[stripe].add(id(source))
@@ -421,6 +450,7 @@ class StripedRead:
             # on a task that will never run (close() raced this read)
             self._attempts[stripe].remove(a)
             self._active -= 1
+            self._rt.budget.release(self._conf.tenant)
             if self._error is None:
                 self._error = UnavailableError(
                     f"remote-read executor unavailable: {e}")
@@ -432,6 +462,7 @@ class StripedRead:
     def _submit_eligible_locked(self) -> None:
         window = self._conf.window_bytes
         k = len(self._stripes)
+        self._budget_deferred = False
         while self._next_submit < k:
             i = self._next_submit
             if self._active >= self._conf.concurrency:
@@ -450,9 +481,12 @@ class StripedRead:
                         f"{self.block_id}")
                     self._cond.notify_all()
                 return
-            a = self._submit_locked(i, src, direct=True, is_hedge=False)
+            a = self._submit_locked(i, src, direct=True, is_hedge=False,
+                                    force_budget=(i == self._frontier))
             if a is None:
-                return  # the read just died on an executor failure
+                # budget-deferred (retry once a stream frees) or the
+                # read just died on an executor failure
+                return
             self._next_submit += 1
 
     def _fire_hedges_locked(self) -> None:
@@ -482,11 +516,25 @@ class StripedRead:
                 # coordinator awake at ~1 kHz until the stripe lands
                 self._hedged[i] = True
                 continue
+            # marked hedged either way: a budget-suppressed hedge is
+            # given up, not retried — spinning the coordinator on an
+            # overdue deadline while the tenant is at cap would burn
+            # CPU for a race the budget says we cannot afford
             self._hedged[i] = True
             a2 = self._submit_locked(i, src, direct=False, is_hedge=True)
             if a2 is not None:
                 self.hedges += 1
                 self._m.counter("Client.RemoteReadHedges").inc()
+
+    def _wait_timeout_locked(self) -> Optional[float]:
+        """Coordinator wait bound: the earliest hedge deadline, tightened
+        to a short poll while the tenant stripe budget is deferring our
+        submissions (another read's completion frees budget without
+        notifying this read's condition)."""
+        t = self._next_hedge_deadline_locked()
+        if self._budget_deferred:
+            return 0.05 if t is None else min(t, 0.05)
+        return t
 
     def _next_hedge_deadline_locked(self) -> Optional[float]:
         """Seconds until the earliest in-flight stripe becomes hedge-
@@ -623,12 +671,15 @@ class StripedRead:
 
     def _attempt_gone_locked(self, a: _Attempt) -> None:
         """Remove a finished/cancelled attempt from the live set and
-        wake the coordinator so it can resubmit within the window."""
+        wake the coordinator so it can resubmit within the window.
+        Every booked attempt holds exactly one tenant-budget unit
+        (acquired in ``_submit_locked``); it is returned here."""
         try:
             self._attempts[a.stripe].remove(a)
         except ValueError:
             pass
         self._active -= 1
+        self._rt.budget.release(self._conf.tenant)
         self._cond.notify_all()
 
     def _complete_attempt(self, a: _Attempt, src_tag: Optional[str]) -> None:
@@ -746,7 +797,11 @@ class StripedRead:
             # NOT a hedge even when the failed attempt was one — this
             # transfer races nothing, and counting it as a hedge win
             # would inflate the rate operators tune hedge.quantile by.
-            self._submit_locked(i, src, direct=True, is_hedge=False)
+            # force_budget: a budget-denied re-route would orphan the
+            # stripe forever (it is behind _next_submit and has no
+            # live attempt left to finish it) — repair beats the cap
+            self._submit_locked(i, src, direct=True, is_hedge=False,
+                                force_budget=True)
 
     # -- consumer side -------------------------------------------------------
     def _start_locked(self) -> None:
@@ -774,7 +829,7 @@ class StripedRead:
                     self._drained = self._frontier_bytes()
                     self._submit_eligible_locked()
                     self._fire_hedges_locked()
-                    self._cond.wait(self._next_hedge_deadline_locked())
+                    self._cond.wait(self._wait_timeout_locked())
                 if self._error is not None:
                     raise self._error
                 self._drained = self._n
@@ -803,9 +858,13 @@ class StripedRead:
                     while self._frontier_bytes() <= pos and \
                             pos < self._effective_n() and \
                             self._error is None:
+                        # resubmit on every wake: budget-deferred
+                        # stripes must go out the moment another
+                        # read's completion frees tenant budget (the
+                        # 50ms poll exists for exactly this)
                         self._submit_eligible_locked()
                         self._fire_hedges_locked()
-                        self._cond.wait(self._next_hedge_deadline_locked())
+                        self._cond.wait(self._wait_timeout_locked())
                     if self._error is not None:
                         raise self._error
                     upper = min(self._frontier_bytes(),
@@ -832,8 +891,15 @@ class RemoteReadRuntime:
     and the conf.  Owned (and closed) by ``BlockStoreClient``."""
 
     def __init__(self, conf: Optional[RemoteReadConf] = None) -> None:
+        from alluxio_tpu_torch.qos import StripeBudget
+
         self.conf = conf or RemoteReadConf()
         self.stats = LatencyStats()
+        #: tenant-scoped cap on concurrent stripe streams across every
+        #: striped read in this runtime (atpu.user.qos.stripe.limit);
+        #: the cap itself lives in the (swappable) conf, so retunes
+        #: apply live
+        self.budget = StripeBudget()
         self._ex: Optional[ThreadPoolExecutor] = None
         self._closed = False
         self._lock = threading.Lock()

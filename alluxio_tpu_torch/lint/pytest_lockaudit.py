@@ -72,6 +72,11 @@ The audited locks (``_INSTRUMENT``), one line each on why:
   worker's fetch, Swift's token cache, and the two collections; and,
   outside a constructor (``_STATIC``), the UFS registry's ``_LOCK`` and
   ``MemObjectStore._GLOBAL_LOCK`` (the bucket table).
+- ``LogServerProcess._lock``, ``FuseFs._lock``, ``_OpenFile.lock``,
+  ``_S3State.lock`` and ``StripeBudget._lock`` (added for the port): the
+  serving surfaces' own locks (the log server's file table, the FUSE
+  handle table and each open file, the proxy's multipart table) and the
+  client's per-tenant stripe budget, which every striped read takes.
 """
 
 from __future__ import annotations
@@ -132,6 +137,12 @@ _INSTRUMENT: Tuple[Tuple[str, str, str, str], ...] = (
     _entry("alluxio_tpu_torch.utils.collections", "IndexedSet", "_lock"),
     _entry("alluxio_tpu_torch.utils.collections", "DirectedAcyclicGraph",
            "_lock"),
+    _entry("alluxio_tpu_torch.logserver.process", "LogServerProcess",
+           "_lock"),
+    _entry("alluxio_tpu_torch.fuse.fs", "FuseFs", "_lock"),
+    _entry("alluxio_tpu_torch.fuse.fs", "_OpenFile", "lock"),
+    _entry("alluxio_tpu_torch.proxy.process", "_S3State", "lock"),
+    _entry("alluxio_tpu_torch.qos", "StripeBudget", "_lock"),
 )
 
 #: (module path, owner inside the module or "", lock attribute, audited

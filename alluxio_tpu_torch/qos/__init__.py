@@ -1,6 +1,5 @@
-"""QoS primitives (a copy of ``alluxio_tpu/qos/__init__.py`` without the
-client's per-tenant stripe budget): priority classes, token buckets and
-tenant-scoped concurrency budgets.
+"""QoS primitives (a copy of ``alluxio_tpu/qos/__init__.py``): priority
+classes, token buckets and tenant-scoped concurrency budgets.
 
 - :class:`TokenBucket` / :class:`TokenBucketSet` — per-principal rate
   limiting with a retry-after hint, used by the master's RPC admission
@@ -10,11 +9,12 @@ tenant-scoped concurrency budgets.
   per-mount UFS stripe executors); queued background work is overtaken
   by arriving on-demand work, and a queued fetch joined by an on-demand
   reader is promoted;
-- :class:`PriorityTaskQueue` — the async cache manager's bounded queue.
+- :class:`PriorityTaskQueue` — the async cache manager's bounded queue;
+- :class:`StripeBudget` — per-tenant cap on concurrent client-side
+  stripe streams (``client/remote_read.py``).
 
-With QoS off (the default) both drain in exact FIFO order with no caps.
-The client's per-tenant stripe budget (``StripeBudget``) waits for a
-client that names a tenant."""
+With QoS off (the default) both queues drain in exact FIFO order with no
+caps, and the stripe budget is unlimited."""
 
 from __future__ import annotations
 
@@ -390,3 +390,46 @@ class PriorityTaskQueue:
     def qsize(self) -> int:
         with self._lock:
             return len(self._heap)
+
+
+class StripeBudget:
+    """Per-tenant cap on concurrent remote-read stripe streams.
+
+    The client-side counterpart of the worker's tenant caps: a shared
+    multi-tenant client process (FUSE mount, REST proxy) must not let
+    one tenant's striped reads monopolize the DCN fan-out.  ``cap`` is
+    read per call so a remediation/conf overlay can retune it live;
+    ``cap <= 0`` means unlimited and costs one comparison.
+
+    ``acquire(force=True)`` always succeeds (and is still counted):
+    the frontier stripe of a read must never deadlock behind the
+    budget — the cap shapes readahead and hedges, not liveness.
+    """
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._held: Dict[str, int] = {}
+        #: denied acquires (any kind); the metrics split
+        #: deferred-stripes from suppressed-hedges at the call sites
+        self.deferred = 0
+
+    def acquire(self, tenant: str, cap: int, *, force: bool = False) -> bool:
+        with self._lock:
+            held = self._held.get(tenant, 0)
+            if not force and cap > 0 and held >= cap:
+                self.deferred += 1
+                return False
+            self._held[tenant] = held + 1
+            return True
+
+    def release(self, tenant: str) -> None:
+        with self._lock:
+            n = self._held.get(tenant, 0) - 1
+            if n > 0:
+                self._held[tenant] = n
+            else:
+                self._held.pop(tenant, None)
+
+    def held(self, tenant: str) -> int:
+        with self._lock:
+            return self._held.get(tenant, 0)

@@ -1,19 +1,22 @@
-"""Foreground role launchers (a copy of the role arms of
+"""Foreground role launchers (a copy of
 ``alluxio_tpu/shell/launch.py``).
 
 Re-design of the reference's role mains (``master/AlluxioMaster.java:35``,
-``worker/AlluxioWorker.java:44``, ``master/AlluxioJobMasterProcess.java``)
-plus ``bin/alluxio-start.sh``'s launch-process: build the process from
-the configuration, serve until SIGINT/SIGTERM, then stop it.
+``worker/AlluxioWorker.java:44``, ``master/AlluxioJobMasterProcess.java``,
+``proxy/AlluxioProxy.java:37``) plus ``bin/alluxio-start.sh``'s
+launch-process: build the process from the configuration, serve until
+SIGINT/SIGTERM, then stop it.
 
-The four roles are host processes: none of them imports torch, and none
+The roles are host processes: none of them imports torch, and none
 touches the card. ``atpu.master.ha.enabled`` launches the HA master
 (``FaultTolerantMasterProcess``: a standby until it wins primacy). A
 launched master, HA or not, attaches the replication checker and the
 persistence scheduler to the job master its conf names whenever it
-serves as primary (the JAX master arm never does). Left
-out with the item that brings them: the proxy, log-server and FUSE
-launchers, and shipping log records to a log server.
+serves as primary (the JAX master arm never does). Every role but the
+log server ships its records to the log server when
+``atpu.logserver.hostname`` is set. A FUSE launcher on a host without
+``libfuse.so.2`` or ``/dev/fuse`` also logs its refusal (the JAX arm
+only prints it), so that the log server shows why the mount is missing.
 """
 
 from __future__ import annotations
@@ -129,11 +132,70 @@ def launch_job_worker(conf: Configuration) -> int:
     return _serve_until_signal(jw.stop, "alluxio-tpu job worker running")
 
 
+def launch_proxy(conf: Configuration) -> int:
+    from alluxio_tpu_torch.proxy.process import ProxyProcess
+
+    proc = ProxyProcess(conf)
+    port = proc.start()
+    return _serve_until_signal(
+        proc.stop, f"alluxio-tpu proxy serving on port {port}")
+
+
+def launch_logserver(conf: Configuration) -> int:
+    from alluxio_tpu_torch.logserver import LogServerProcess
+
+    proc = LogServerProcess(conf.get(Keys.LOGSERVER_LOGS_DIR),
+                            port=conf.get_int(Keys.LOGSERVER_PORT),
+                            bind_host=conf.get(Keys.LOGSERVER_BIND_HOST))
+    port = proc.start()
+    return _serve_until_signal(
+        proc.stop, f"alluxio-tpu log server on port {port}")
+
+
+def launch_fuse(conf: Configuration) -> int:
+    from alluxio_tpu_torch.client.file_system import FileSystem
+    from alluxio_tpu_torch.fuse.process import (
+        AlluxioFuseMount, fuse_available,
+    )
+
+    if not fuse_available():
+        msg = "FUSE is unavailable (libfuse.so.2 or /dev/fuse missing)"
+        LOG.warning("%s", msg)  # reaches the log server, if one is set
+        print(msg)
+        return 1
+    fs = FileSystem(_master_address(conf), conf=conf)
+    mount = AlluxioFuseMount(
+        fs, conf.get(Keys.FUSE_MOUNT_POINT),
+        root=conf.get(Keys.FUSE_FS_ROOT),
+        options=conf.get(Keys.FUSE_MOUNT_OPTIONS))
+    mount.mount()
+
+    def stop() -> None:
+        mount.unmount()
+        fs.close()
+
+    return _serve_until_signal(
+        stop, f"alluxio-tpu fuse mounted at {mount.mountpoint}")
+
+
+def maybe_enable_remote_logging(conf: Configuration) -> None:
+    """Every role calls this: ships records to the log server when
+    atpu.logserver.hostname is configured."""
+    host = conf.get(Keys.LOGSERVER_HOSTNAME)
+    if host:
+        from alluxio_tpu_torch.logserver import enable_remote_logging
+
+        enable_remote_logging(host, conf.get_int(Keys.LOGSERVER_PORT))
+
+
 _LAUNCHERS = {
     "master": launch_master,
     "worker": launch_worker,
     "job-master": launch_job_master,
     "job-worker": launch_job_worker,
+    "proxy": launch_proxy,
+    "logserver": launch_logserver,
+    "fuse": launch_fuse,
 }
 
 
@@ -141,4 +203,6 @@ def launch_process(role: str, conf: Configuration) -> int:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    if role != "logserver":
+        maybe_enable_remote_logging(conf)
     return _LAUNCHERS[role](conf)

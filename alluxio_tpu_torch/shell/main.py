@@ -1,15 +1,14 @@
 """Top-level CLI dispatch: ``python -m alluxio_tpu_torch.shell.main
-<command> ...`` (a copy of ``alluxio_tpu/shell/main.py`` for the
-commands the port has).
+<command> ...`` (a copy of ``alluxio_tpu/shell/main.py``).
 
 Re-design of ``bin/alluxio`` (the bash dispatcher): routes to the fs,
 fsadmin, job and table shells, ``validateConf``, ``validateEnv``,
-``runOperation``, ``format``, the stress CLI, ``journalCrashTest`` and
-the role launchers. Generic options: ``--master host:port``,
-``--job-master host:port``, ``-D key=value`` config overrides. The JAX
-package's other commands (``validateHms`` and the proxy, log-server and
-FUSE launchers) are refused with the ROADMAP item that brings them. No
-command loads torch: an operator's shell builds no CUDA context.
+``validateHms``, ``runOperation``, ``format``, the stress CLI,
+``journalCrashTest`` and the role launchers (master, worker, job master,
+job worker, proxy, log server, FUSE). Generic options: ``--master
+host:port``, ``--job-master host:port``, ``-D key=value`` config
+overrides. No command loads torch: an operator's shell builds no CUDA
+context.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ Commands:
   stress     stress benchmark suite (worker/master/prefetch/table/write)
   validateConf  sanity-check the effective configuration
   validateEnv   pre-flight node checks (ports/dirs/ssh/native/cluster)
+  validateHms   validate a Hive metastore before table attachdb
   runOperation  run one fs operation N times over T threads
   journalCrashTest  crash-kill masters under load, verify replay
   format     format master journal / worker storage
@@ -38,6 +38,9 @@ Commands:
   worker     run a worker process
   job-master run a job master process
   job-worker run a job worker process
+  proxy      run the REST/S3 proxy process
+  logserver  run the centralized log aggregation server
+  fuse       mount the namespace via FUSE (POSIX view)
   version    print the version
 
 Generic options:
@@ -45,12 +48,6 @@ Generic options:
   --job-master host:port  job master address
   -D key=value            set a configuration property
 """
-
-#: the JAX package's other commands, each with the ROADMAP item (its
-#: heading in "Open items") that ports it
-_NOT_PORTED = dict.fromkeys(
-    ("validateHms", "proxy", "logserver", "fuse"),
-    "Host-only surfaces, last")
 
 
 class GenericOptionError(Exception):
@@ -137,6 +134,10 @@ def main(argv=None) -> int:
         from alluxio_tpu_torch.shell.validate_env import main_env
 
         return main_env(rest, conf=conf)
+    if cmd == "validateHms":
+        from alluxio_tpu_torch.shell.validate_env import main_hms
+
+        return main_hms(rest, conf=conf)
     if cmd == "runOperation":
         from alluxio_tpu_torch.shell.run_operation import main as runop_main
 
@@ -154,14 +155,11 @@ def main(argv=None) -> int:
 
         print(alluxio_tpu_torch.__version__)
         return 0
-    if cmd in ("master", "worker", "job-master", "job-worker"):
+    if cmd in ("master", "worker", "job-master", "job-worker", "proxy",
+               "logserver", "fuse"):
         from alluxio_tpu_torch.shell.launch import launch_process
 
         return launch_process(cmd, conf)
-    if cmd in _NOT_PORTED:
-        print(f"{cmd}: not ported yet; it comes with the ROADMAP item "
-              f"'{_NOT_PORTED[cmd]}'", file=sys.stderr)
-        return 1
     print(f"Unknown command: {cmd}", file=sys.stderr)
     print(USAGE, file=sys.stderr)
     return 1

@@ -11,10 +11,6 @@ TableValidation tasks): each check is a named task returning
 OK/WARNING/FAILED/SKIPPED plus advice, so an operator can vet a node
 (or a metastore) before starting processes — instead of discovering a
 bad port/dir/URI at boot.
-
-Difference from the JAX module: ``hms_tool`` refuses, and there is no
-``main_hms``, until the Hive connector is ported (the shell refuses
-``validateHms`` with the same ROADMAP item).
 """
 
 from __future__ import annotations
@@ -28,7 +24,6 @@ from typing import Callable, List, Optional
 
 from alluxio_tpu_torch.conf import Configuration, Keys
 from alluxio_tpu_torch.conf.property_key import Templates
-from alluxio_tpu_torch.utils.exceptions import NotSupportedError
 
 OK = "OK"
 WARNING = "WARNING"
@@ -223,20 +218,109 @@ def env_tool(conf: Configuration,
 
 # -- hms tasks (reference HmsValidationTool tasks) --------------------
 
-#: the ROADMAP item (its heading in "Open items") that ports the Hive
-#: connector, and with it ``validateHms``
-HMS_ITEM = "Host-only surfaces, last"
-
-
 def hms_tool(connection: str, db_name: str = "default",
              tables: str = "", fs=None,
              timeout_s: float = 10.0) -> ValidationTool:
-    """The HMS validation tool needs the Hive connector
-    (``table/hive.py``), which the port does not have yet: refused, as
-    ``table.udb.udb_factory`` refuses the hive under-database."""
-    raise NotSupportedError(
-        f"validateHms: the hive connector is not ported yet; it comes "
-        f"with the ROADMAP item '{HMS_ITEM}'")
+    from alluxio_tpu_torch.table.hive import (
+        HiveMetastoreClient, PathTranslator, mount_translations,
+        parse_thrift_uri,
+    )
+
+    tool = ValidationTool("validateHms")
+    state = {}
+
+    def uri_check() -> TaskResult:
+        try:
+            state["addr"] = parse_thrift_uri(connection)
+        except Exception as e:  # noqa: BLE001
+            return TaskResult("hms.uri", FAILED, str(e),
+                              advice="expected thrift://host:port "
+                                     "(reference UriCheckTask)")
+        return TaskResult("hms.uri", OK,
+                          "thrift://%s:%d" % state["addr"])
+
+    def connect() -> TaskResult:
+        if "addr" not in state:
+            return TaskResult("hms.connect", SKIPPED, "bad uri")
+        host, port = state["addr"]
+        try:
+            with socket.create_connection((host, port),
+                                          timeout=timeout_s):
+                pass
+        except OSError as e:
+            return TaskResult("hms.connect", FAILED, str(e),
+                              advice="metastore unreachable; check "
+                                     "host/port/firewall (reference "
+                                     "CreateHmsClientValidationTask)")
+        state["connected"] = True
+        return TaskResult("hms.connect", OK, f"{host}:{port} accepts")
+
+    def metastore() -> TaskResult:
+        if not state.get("connected"):
+            return TaskResult("hms.metastore", SKIPPED,
+                              "connect task did not pass")
+        host, port = state["addr"]
+        with HiveMetastoreClient(host, port,
+                                 timeout_s=timeout_s) as cli:
+            dbs = cli.get_all_databases()
+        state["dbs"] = dbs
+        return TaskResult("hms.metastore", OK,
+                          f"{len(dbs)} database(s) visible")
+
+    def database() -> TaskResult:
+        if "dbs" not in state:
+            return TaskResult("hms.database", SKIPPED,
+                              "metastore task did not pass")
+        if db_name not in state["dbs"]:
+            return TaskResult("hms.database", FAILED,
+                              f"database {db_name!r} not found "
+                              f"(visible: {state['dbs'][:5]})")
+        host, port = state["addr"]
+        with HiveMetastoreClient(host, port,
+                                 timeout_s=timeout_s) as cli:
+            state["db"] = cli.get_database(db_name)
+        return TaskResult("hms.database", OK, f"{db_name} readable")
+
+    def table_check() -> TaskResult:
+        if "db" not in state:
+            return TaskResult("hms.tables", SKIPPED,
+                              "database task did not pass")
+        if not tables:
+            return TaskResult("hms.tables", SKIPPED,
+                              "no tables given (-t a,b)")
+        host, port = state["addr"]
+        translator = None
+        if fs is not None:
+            translator = PathTranslator(mount_translations(fs))
+        bad, checked = [], 0
+        with HiveMetastoreClient(host, port,
+                                 timeout_s=timeout_s) as cli:
+            for t in [t.strip() for t in tables.split(",") if t.strip()]:
+                checked += 1
+                try:
+                    tbl = cli.get_table(db_name, t)
+                except Exception as e:  # noqa: BLE001
+                    bad.append(f"{t}: {type(e).__name__}")
+                    continue
+                # raw thrift struct: field 7 = StorageDescriptor,
+                # whose field 2 = location (hive_metastore.thrift)
+                loc = (tbl.get(7) or {}).get(2) or ""
+                if translator is not None and loc and \
+                        translator.translate(loc) is None:
+                    bad.append(f"{t}: location {loc} not under any "
+                               f"mount")
+        if bad:
+            return TaskResult("hms.tables", FAILED, "; ".join(bad),
+                              advice="mount the table's UFS location "
+                                     "(reference TableValidationTask)")
+        return TaskResult("hms.tables", OK, f"{checked} table(s) ok")
+
+    tool.add("hms.uri", uri_check)
+    tool.add("hms.connect", connect)
+    tool.add("hms.metastore", metastore)
+    tool.add("hms.database", database)
+    tool.add("hms.tables", table_check)
+    return tool
 
 
 # -- CLI --------------------------------------------------------------
@@ -270,3 +354,35 @@ def main_env(argv=None, conf: Optional[Configuration] = None,
     conf = conf or Configuration()
     tool = env_tool(conf, conf_dir=args.conf_dir)
     return print_results(tool.name, tool.run_all(), out=out)
+
+
+def main_hms(argv=None, conf: Optional[Configuration] = None,
+             out=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="alluxio-tpu validateHms")
+    ap.add_argument("-m", "--metastore", required=True,
+                    help="thrift://host:port")
+    ap.add_argument("-d", "--database", default="default")
+    ap.add_argument("-t", "--tables", default="",
+                    help="comma-separated table names to check")
+    ap.add_argument("--no-fs", action="store_true",
+                    help="skip mount-table location translation")
+    args = ap.parse_args(argv)
+    fs = None
+    if not args.no_fs:
+        try:
+            from alluxio_tpu_torch.client.file_system import FileSystem
+
+            c = conf or Configuration()
+            fs = FileSystem(_master_address(c), conf=c)
+            fs.list_status("/")  # probe: fall back to no-fs when down
+        except Exception:  # noqa: BLE001 cluster optional
+            fs = None
+    tool = hms_tool(args.metastore, db_name=args.database,
+                    tables=args.tables, fs=fs)
+    try:
+        return print_results(tool.name, tool.run_all(), out=out)
+    finally:
+        if fs is not None:
+            fs.close()

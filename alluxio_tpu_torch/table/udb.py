@@ -1,5 +1,5 @@
 """Under-database SPI: pluggable external catalogs (a copy of
-``alluxio_tpu/table/udb.py`` without its Hive and Glue connectors).
+``alluxio_tpu/table/udb.py``).
 
 Re-design of ``table/server/common/src/main/java/alluxio/table/common/udb/
 {UnderDatabase,UdbTable,UdbPartition}.java`` + ``PathTranslator``: a UDB
@@ -13,9 +13,7 @@ services). This environment has neither, so the in-tree connector is
 each table a subdirectory of Parquet files, partitions as nested
 ``key=value`` subdirectories, schema read from Parquet footers. That is
 the same metadata a Hive metastore would return for an external table;
-the SPI seam is where a Thrift-backed UDB would plug in. The JAX package
-has those two connectors (``table/{hive,glue}.py``); the port does not
-yet, and its factory refuses both types with ``NotSupportedError``.
+the SPI seam is where a Thrift-backed UDB would plug in.
 """
 
 from __future__ import annotations
@@ -23,7 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-from alluxio_tpu_torch.utils.exceptions import NotFoundError, NotSupportedError
+from alluxio_tpu_torch.utils.exceptions import NotFoundError
 
 
 @dataclass
@@ -168,9 +166,14 @@ def udb_factory(udb_type: str, fs, connection: str, db_name: str = "",
     """Registry keyed by udb type (reference: ServiceLoader discovery)."""
     if udb_type == "fs":
         return FsUnderDatabase(fs, connection, db_name)
-    if udb_type in ("hive", "glue"):
-        raise NotSupportedError(
-            f"under-database type {udb_type!r}: the hive and glue "
-            f"connectors are not ported yet (available: fs)")
+    if udb_type == "hive":
+        from alluxio_tpu_torch.table.hive import HiveUnderDatabase
+
+        return HiveUnderDatabase(fs, connection, db_name, options)
+    if udb_type == "glue":
+        from alluxio_tpu_torch.table.glue import GlueUnderDatabase
+
+        return GlueUnderDatabase(fs, connection, db_name, options)
     raise NotFoundError(
-        f"unknown under-database type {udb_type!r} (available: fs)")
+        f"unknown under-database type {udb_type!r} "
+        f"(available: fs, hive, glue)")

@@ -223,14 +223,18 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    workload by transport, printed beside 2g's HEAP master; the master
    restarts on the same journal and metastore, the 2 000 files must list
    as before, and the journal replay (from the master's banner) and the
-   store's flushes, compactions and runs print; (d) ``python -m
-   alluxio_tpu_torch.stress suite`` as a child process (its rows cut as
-   ``SUITE_CUTS`` says and the pause between rows as ``SUITE_GAP_S``,
-   each cut printed), its lines in the
-   work directory: it must exit 0, or 1 with each failed row failed by
-   its speed gate alone (``gate_miss``: a crash, a wrong byte or count
-   fails the run), every row and gate printed; ``stress report`` renders
-   the lines into the work directory, and the page must name every row.
+   store's flushes, compactions and runs print; (d), after 2k: ``python
+   -m alluxio_tpu_torch.stress suite`` as a child process (its rows cut
+   as ``SUITE_CUTS`` says and the pause between rows as ``SUITE_GAP_S``,
+   each cut printed) over every row but the six of ``SUITE_TAKEN``,
+   whose benches another phase already ran with the same options (five
+   of 2h a's in-process rows and 2k (f)'s ``stress ha``): their lines
+   are taken from those runs, each printed with its phase. The child's
+   lines go into the work directory: it must exit 0, or 1 with each
+   failed row failed by its speed gate alone (``gate_miss``: a crash, a
+   wrong byte or count fails the run), every row and gate printed;
+   ``stress report`` renders all the suite's rows, in its order, into
+   the work directory, and the page must name every row.
 2l. the operator's shells, on 2g's cluster after 2h b and before it
    stops: every step is a child ``python -m alluxio_tpu_torch.shell.main
    --master ... --job-master ...``, timed, its exit code checked. The
@@ -366,6 +370,34 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    ``AlluxioTpuFileSystem``, one column summed on the card against
    numpy. The s3 scheme must be registered: a missing connector fails
    the phase.
+2o. the serving surfaces, last, on a ``MultiProcessCluster`` of their own
+   whose roles ship their records to a log server that ``python -m
+   alluxio_tpu_torch.shell.main logserver`` launched; the proxy and the
+   FUSE mount are children of the same shell (``proxy``, ``fuse``), as
+   an operator starts them. (a) 16 seeded int32 shards of 32 MiB
+   written MUST_CACHE under ``/s3/corpus``; (b) FUSE, by
+   ``SERVE_FUSE_ROUTE`` (chosen once from ``tools/fuse_probe.py`` on the
+   card's host, which has no ``libfuse.so.2``: ``FuseFs``'s
+   open/read/release in process, 128 KiB reads, and the ``fuse`` child
+   must refuse with exit 1; "kernel": ``os.listdir`` and ``readinto``
+   through the child's mount): the listing equals ``list_status``, each
+   shard by path into a pinned host buffer, onto the card and scanned
+   by ``scaled_sum`` (== plain == numpy's sum of the file's bytes), a
+   seeded 32 MiB file copied in reads back equal through ``FileSystem``;
+   the epoch's seconds, GB/s and consumer wait beside the main path's
+   epoch 1; (c) the proxy: ListBuckets and ListObjectsV2 equal the
+   listing, each shard in 8 MiB ranged GETs through the port's
+   ``S3Client`` into a pinned buffer, onto the card and scanned as in
+   (b); a 4-part multipart PUT reads back equal; one REST ``get-status``
+   equals ``get_status``; (d) Hive: a Parquet table of 1 Mi seeded rows
+   written CACHE_THROUGH under the mount ``/warehouse``, a fake metastore
+   (``tests/testutils/fake_hms.py``, loaded by path in a child) naming
+   it at its UFS URI; ``validateHms`` through the shell exits 0, ``attachdb
+   hive`` through the table master lists it at ``/warehouse/events``, and
+   three columns through the planned reader go to the card (each int32
+   column's ``scaled_sum`` == plain == numpy); (e) the log server's files
+   hold the master's, the worker's, the proxy's and the FUSE child's
+   records; every role stops, none is left behind, and no mount is left.
 
 It prints the card's name and power limit, whether pyarrow imports,
 one ``{"main": {...}}``
@@ -377,6 +409,7 @@ line, one ``{"mesh": {...}}`` line, one ``{"suite": {...}}`` line, one
 one ``{"stress": {...}}`` line, one ``{"observability": {...}}`` line,
 one ``{"guards": {...}}`` line, one ``{"ha": {...}}`` line, one
 ``{"shell": {...}}`` line, one ``{"s3": {...}}`` line, one
+``{"serving": {...}}`` line, one
 ``{"phase_s": {...}}`` line with every
 phase's seconds, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -4009,31 +4042,89 @@ def gate_miss(row: dict) -> "str | None":
 
 #: 2h d's cuts of the suite's rows (PERF.md section 4), each printed: the
 #: script ran past its time on a slow host. The capacity row cannot show
-#: its gate at the suite's own size either (HEAP fits 1 000 000 inodes)
+#: its gate at the suite's own size either (HEAP fits 1 000 000 inodes).
+#: The two fixture counts (files a thread) set most of their rows' wall:
+#: 23-47 s each on the card's host for 2 s of measurement
 SUITE_CUTS = {
     "metadata-lsm-capacity": {"--inodes": "100000"},
-    **{name: {"--duration": "2"} for name in (
-        "worker-sequential", "worker-random-4k", "master-CreateFile",
-        "master-GetStatus", "master-ListStatus", "master-ListStatus-large",
-        "master-DeleteFile")},
+    "master-ListStatus-large": {"--duration": "2", "--fixed-count": "2000"},
+    "master-DeleteFile": {"--duration": "2", "--fixed-count": "500"},
+}
+#: 2h d's rows that another phase of this script already ran with the
+#: same bench and options (PERF.md section 4): suite row -> (the phase,
+#: its row). 2h d does not run them again; it takes their lines, and the
+#: report renders them with the rest
+SUITE_TAKEN = {
+    "worker-sequential": ("2h a", "worker-sequential"),
+    "worker-random-4k": ("2h a", "worker-random"),
+    "master-CreateFile": ("2h a", "master-CreateFile"),
+    "master-GetStatus": ("2h a", "master-GetStatus"),
+    "master-ListStatus": ("2h a", "master-ListStatus"),
+    "ha-failover": ("2k (f)", "ha"),
 }
 #: 2h d's cut of the suite's pause between two rows (its 4 s let a row's
 #: teardown drain on a one-core host; the card's host has eight cores):
 #: 30 gaps of 4 s were 120 s of PR 15's 422.6 s suite
 SUITE_GAP_S = 1.0
 #: ``stress suite`` over the rows given as JSON in its first argument,
-#: with the pause between rows its second
+#: with the pause between rows its second; each row's child, and the
+#: ``os.sync`` before it, timed on stderr (``[suite-wall] <what> <s>``)
 SUITE_CHILD = (
-    "import json, sys\n"
+    "import json, os, subprocess, sys, time\n"
     "import alluxio_tpu_torch.stress.__main__ as cli\n"
     "cli.SUITE = tuple((n, a) for n, a in json.loads(sys.argv[1]))\n"
     "cli.SUITE_GAP_S = float(sys.argv[2])\n"
+    "def timed(what, fn):\n"
+    "    def call(*a, **kw):\n"
+    "        t = time.perf_counter()\n"
+    "        try:\n"
+    "            return fn(*a, **kw)\n"
+    "        finally:\n"
+    "            print(f'[suite-wall] {what(a)} '\n"
+    "                  f'{time.perf_counter() - t:.3f}', file=sys.stderr,\n"
+    "                  flush=True)\n"
+    "    return call\n"
+    "subprocess.run = timed(lambda a: 'child', subprocess.run)\n"
+    "os.sync = timed(lambda a: 'sync', os.sync)\n"
     "sys.exit(cli.main(['suite']))\n")
+#: a ``[suite-wall]`` line of the suite child's stderr
+SUITE_WALL = re.compile(r"^\[suite-wall\] (child|sync) ([0-9.]+)$")
+
+
+def host_load(before: "dict | None" = None) -> dict:
+    """This process's threads, resident GiB and CPU seconds, and the
+    host's available GiB; with ``before``, the CPU seconds this process
+    spent since it (printed: a process that burns CPU while the suite's
+    children run slows them)."""
+    import resource
+
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    avail = 0
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) << 10
+    out = {"threads": len(os.listdir("/proc/self/task")),
+           "rss_gib": ru.ru_maxrss / (1 << 20),
+           "cpu_s": ru.ru_utime + ru.ru_stime,
+           "host_available_gib": avail / (1 << 30),
+           "t": time.perf_counter()}
+    if before is not None:
+        out["cpu_s_since"] = out["cpu_s"] - before["cpu_s"]
+        out["wall_s_since"] = out["t"] - before["t"]
+        print(f"2h d: this process held {before['threads']} threads (peak "
+              f"RSS {before['rss_gib']:.1f} GiB; the host had "
+              f"{before['host_available_gib']:.1f} GiB available) and used "
+              f"{out['cpu_s_since']:.1f} s of CPU in the "
+              f"{out['wall_s_since']:.1f} s the suite ran", flush=True)
+    return out
 
 
 def cut_suite() -> tuple:
     """The CLI's ``SUITE`` with ``SUITE_CUTS`` applied, each cut printed
-    beside the row's own value, and the pause between rows."""
+    beside the row's own value, and the pause between rows; the rows of
+    ``SUITE_TAKEN`` are left out, each printed with the phase whose line
+    stands in for it."""
     from alluxio_tpu_torch.stress import __main__ as cli
     from alluxio_tpu_torch.stress.__main__ import SUITE
 
@@ -4042,6 +4133,11 @@ def cut_suite() -> tuple:
     rows = []
     for name, argv in SUITE:
         argv = list(argv)
+        if name in SUITE_TAKEN:
+            where, row = SUITE_TAKEN[name]
+            print(f"2h d: take {name} from {where}'s {row} row (not run "
+                  f"again; the suite's {' '.join(argv)})", flush=True)
+            continue
         for opt, value in SUITE_CUTS.get(name, {}).items():
             i = argv.index(opt) + 1
             print(f"2h d: cut {name} {opt} {value} (the suite's "
@@ -4051,13 +4147,17 @@ def cut_suite() -> tuple:
     return tuple(rows)
 
 
-def suite_phase(workdir: str) -> dict:
+def suite_phase(workdir: str, taken: dict) -> dict:
     """(2d of 2h): ``python -m alluxio_tpu_torch.stress suite`` as a child
-    process, its lines written into ``workdir``: it must exit 0, or 1
-    with every failed row a gate miss (``gate_miss``); then ``stress
-    report`` renders them into ``workdir``, and the page must name every
-    row."""
+    process over the rows no other phase ran, its lines written into
+    ``workdir``: it must exit 0, or 1 with every failed row a gate miss
+    (``gate_miss``). ``taken`` holds the lines of the ``SUITE_TAKEN``
+    rows from the phases that ran them; every row of the CLI's suite,
+    in its order, goes into the lines that ``stress report`` renders into
+    ``workdir``, and the page must name every row."""
     import html
+
+    from alluxio_tpu_torch.stress.__main__ import SUITE as FULL
 
     SUITE = cut_suite()
     t_phase = time.perf_counter()
@@ -4070,6 +4170,11 @@ def suite_phase(workdir: str) -> dict:
                               stderr=err, cwd=workdir, env=stress_env(),
                               timeout=SUITE_TIMEOUT_S)
     suite_s = time.perf_counter() - t_phase
+    with open(log_path) as f:
+        walls = [m.groups() for m in map(SUITE_WALL.match, f) if m]
+    child_walls = [float(v) for w, v in walls if w == "child"]
+    child_s = sum(child_walls)
+    sync_s = sum(float(v) for w, v in walls if w == "sync")
     with open(lines_path) as f:
         rows = [json.loads(line) for line in f if line.startswith("{")]
     if len(rows) != 1 + len(SUITE):
@@ -4077,6 +4182,15 @@ def suite_phase(workdir: str) -> dict:
             tail = f.read()[-3000:]
         fail(f"2h d: the suite gave {len(rows)} rows, want "
              f"{1 + len(SUITE)} (exit {proc.returncode}): {tail}")
+    ran = dict(zip((name for name, _ in SUITE), rows[1:]))
+    missing = sorted(set(SUITE_TAKEN) - set(taken))
+    if missing:
+        fail(f"2h d: no line from another phase for {missing}")
+    SUITE = tuple((name, argv) for name, argv in FULL)
+    rows = rows[:1] + [ran[name] if name in ran else taken[name]
+                       for name, _ in SUITE]
+    with open(lines_path, "w") as out:
+        out.writelines(json.dumps(row) + "\n" for row in rows)
     failed, misses = [], {}
     for (name, _), row in zip((("host-calibration", None),) + SUITE, rows):
         if row["errors"] == 0:
@@ -4086,7 +4200,9 @@ def suite_phase(workdir: str) -> dict:
             failed.append((name, row))
         else:
             misses[name] = why
-    if failed or proc.returncode not in ((1,) if misses else (0,)):
+    # the child's exit code speaks for the rows it ran
+    child_missed = any(name in ran for name in misses)
+    if failed or proc.returncode not in ((1,) if child_missed else (0,)):
         fail(f"2h d: the suite exited {proc.returncode}; failed rows "
              f"{json.dumps(failed)[:3000]}")
     html_path = os.path.join(workdir, "stress-report.html")
@@ -4102,6 +4218,11 @@ def suite_phase(workdir: str) -> dict:
                if html.escape(r["bench"]) not in page]
     if unnamed:
         fail(f"2h d: the report does not name {unnamed}")
+    print(f"2h d: the suite child's rows took {child_s:.1f} s in their "
+          f"own children (wall, boots included) and {sync_s:.1f} s in "
+          f"os.sync before them; by row: "
+          + ", ".join(f"{name} {v:.1f}" for name, v
+                      in zip(ran, child_walls)), flush=True)
     print(f"2h d: stress suite, {len(rows)} rows in {suite_s:.1f} s "
           f"(exit {proc.returncode}), report {len(page)} bytes naming "
           f"every row:", flush=True)
@@ -4110,10 +4231,16 @@ def suite_phase(workdir: str) -> dict:
         shown = {k: v for k, v in m.items()
                  if not isinstance(v, (dict, str))}
         gate = f" GATE MISSED: {misses[name]}" if name in misses else ""
+        where = f", from {SUITE_TAKEN[name][0]}" \
+            if name in SUITE_TAKEN else ""
         print(f"  {name} ({row['duration_s']:.1f} s, errors "
-              f"{row['errors']}){gate}: {json.dumps(shown)}", flush=True)
+              f"{row['errors']}{where}){gate}: {json.dumps(shown)}",
+              flush=True)
     return {"rows": rows, "exit": proc.returncode, "gate_misses": misses,
-            "s": suite_s, "report_bytes": len(page)}
+            "s": suite_s, "child_s": child_s, "sync_s": sync_s,
+            "report_bytes": len(page),
+            "taken": {name: where for name, (where, _) in
+                      SUITE_TAKEN.items()}}
 
 
 # -- 2i: the observability loop -----------------------------------------------
@@ -5772,6 +5899,8 @@ def ha_phase(device, main: dict) -> dict:
                       "migrate_down": down, "migrate_up": up},
            "bench": {"metrics": bm, "params": bench["params"],
                      "gate_miss": miss, "exit": proc.returncode},
+           # the suite's ha-failover row (2h d takes it)
+           "bench_row": bench,
            "launches": rk.launches, "s": time.perf_counter() - t_phase}
     print(f"2k: {out['s']:.1f} s, scaled_sum launched {rk.launches} times",
           flush=True)
@@ -6420,6 +6549,569 @@ def s3_phase(device, worker: dict) -> dict:
                 stop_child(proc)
                 shutil.rmtree(base, ignore_errors=True)
 
+
+# -- 2o: the serving surfaces: FUSE, the S3 and REST proxy, Hive, the log server
+SERVE_SHARDS = 16          # (a): 16 x 32 MiB = 512 MiB, written MUST_CACHE
+#: (c)'s ranged GETs through the port's S3 client
+SERVE_RANGE_BYTES = 8 << 20
+#: (b)'s reads in process: the size a FUSE read callback is asked for
+#: (libfuse 2's default max_read, 128 KiB)
+SERVE_FUSE_READ_BYTES = 128 << 10
+SERVE_HIVE_ROWS = 1 << 20  # (d): a Parquet table of 1 Mi rows
+SERVE_BOOT_S = 60.0
+#: the S3 root the proxy serves, and the corpus's bucket under it
+SERVE_S3_ROOT = "/s3"
+SERVE_BUCKET = "corpus"
+#: how (b) reaches the FUSE layer, chosen once from ``tools/fuse_probe.py``
+#: on the card's host (PERF.md section 5): that host has /dev/fuse but no
+#: libfuse.so.2, so no kernel mount; the leg calls ``FuseFs``'s
+#: open/read/release in process over the same files ("kernel": through a
+#: mount by the ``fuse`` child)
+SERVE_FUSE_ROUTE = "in-process"
+#: the fake Hive metastore of ``tests/testutils/fake_hms.py``, loaded by
+#: path in a process of its own, its thrift layer the port's copy (the
+#: fake names JAX's module, which this script never imports): argv is the
+#: repository, the database, the table, its location and its columns
+HMS_CHILD = r"""
+import importlib.util, json, os, sys, types
+root = sys.argv[1]
+sys.path.insert(0, root)
+import alluxio_tpu_torch.table.thrift_proto as tp
+for name in ("tests", "tests.testutils", "alluxio_tpu", "alluxio_tpu.table"):
+    sys.modules[name] = types.ModuleType(name)
+sys.modules["alluxio_tpu.table.thrift_proto"] = tp
+spec = importlib.util.spec_from_file_location(
+    "tests.testutils.fake_hms", os.path.join(root, "tests/testutils/fake_hms.py"))
+fake = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(fake)
+srv = fake.FakeHmsServer()
+srv.add_table(sys.argv[2], fake.HmsTable(
+    sys.argv[3], sys.argv[4], cols=[tuple(c) for c in json.loads(sys.argv[5])]))
+print(srv.port, flush=True)
+srv._httpd.serve_forever(poll_interval=0.1)
+"""
+
+
+def serve_scan(name: str, device, buf, path: str, sums: dict) -> None:
+    """One block from the pinned host buffer ``buf`` onto the card: its
+    ``scaled_sum`` (one launch) against the plain version and numpy's
+    int32-wraparound sum of the file's bytes."""
+    import torch
+
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    x = rk.pad_to_kernel_shape(buf.to(device).view(torch.int32))
+    value = int(rk.scaled_sum(x, 1))
+    plain = int(rk.scaled_sum_reference(x, 1))
+    if value != plain or value != sums[path]:
+        fail(f"2o {name}: {path}'s scaled_sum {value}, plain {plain}, "
+             f"the file's bytes {sums[path]}")
+
+
+def wait_for(what: str, cond, timeout_s: float = SERVE_BOOT_S):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            fail(f"2o: {what} within {timeout_s} s")
+        time.sleep(0.05)
+
+
+def _accepts(port: int) -> bool:
+    import socket
+
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=1).close()
+        return True
+    except OSError:
+        return False
+
+
+def fuse_leg(device, fs, mnt: str, paths: list, sums: dict, base: str,
+             main: dict) -> dict:
+    """(2o b): the corpus through the FUSE layer, by ``SERVE_FUSE_ROUTE``:
+    the listing, each shard read by path into a pinned host buffer, onto
+    the card and scanned; one seeded 32 MiB file copied in, read back
+    through the port's ``FileSystem``."""
+    import torch
+
+    from alluxio_tpu_torch.fuse.fs import FuseFs
+
+    names = sorted(os.path.basename(p) for p in paths)
+    listing = sorted(i.name for i in fs.list_status(
+        f"{SERVE_S3_ROOT}/{SERVE_BUCKET}"))
+    impl = FuseFs(fs, f"{SERVE_S3_ROOT}/{SERVE_BUCKET}") \
+        if SERVE_FUSE_ROUTE == "in-process" else None
+    seen = sorted(impl.readdir("/")) if impl is not None \
+        else sorted(os.listdir(mnt))
+    if seen != listing or not set(names) <= set(seen):
+        fail(f"2o (b): the FUSE listing {seen} != list_status {listing}")
+    buf = torch.empty(BLOCK_BYTES, dtype=torch.uint8,
+                      pin_memory=device.type == "cuda")
+    host = buf.numpy()
+    wait_s = 0.0
+    _sync_device(device)
+    t = time.perf_counter()
+    for path in paths:
+        name = os.path.basename(path)
+        t_read = time.perf_counter()
+        if impl is None:
+            with open(os.path.join(mnt, name), "rb", buffering=0) as f:
+                n = f.readinto(memoryview(host))
+        else:
+            fh = impl.open(f"/{name}", write=False)
+            if fh < 0:
+                fail(f"2o (b): FuseFs.open({name}) = {fh}")
+            n = 0
+            try:
+                while n < BLOCK_BYTES:
+                    chunk = impl.read(fh, SERVE_FUSE_READ_BYTES, n)
+                    if isinstance(chunk, int):
+                        fail(f"2o (b): FuseFs.read({name}) = {chunk}")
+                    if not chunk:
+                        break
+                    host[n:n + len(chunk)] = np.frombuffer(chunk, np.uint8)
+                    n += len(chunk)
+            finally:
+                impl.release(fh)
+        wait_s += time.perf_counter() - t_read
+        if n != BLOCK_BYTES:
+            fail(f"2o (b): {name} read {n} bytes, want {BLOCK_BYTES}")
+        serve_scan("(b) FUSE", device, buf, path, sums)
+    _sync_device(device)
+    epoch_s = time.perf_counter() - t
+    # one seeded 32 MiB file copied in
+    data = np.random.default_rng(SEED + 19_001).integers(
+        0, 256, size=BLOCK_BYTES, dtype=np.uint8).tobytes()
+    src = os.path.join(base, "copy-src.bin")
+    Path(src).write_bytes(data)
+    t = time.perf_counter()
+    if impl is None:
+        shutil.copyfile(src, os.path.join(mnt, "copy.bin"))
+    else:
+        fh = impl.create("/copy.bin")
+        with open(src, "rb") as f:
+            off = 0
+            while True:
+                chunk = f.read(SERVE_FUSE_READ_BYTES)
+                if not chunk:
+                    break
+                if impl.write(fh, chunk, off) != len(chunk):
+                    fail("2o (b): FuseFs.write of copy.bin failed")
+                off += len(chunk)
+        if impl.flush(fh) != 0 or impl.release(fh) != 0:
+            fail("2o (b): FuseFs could not commit copy.bin")
+    copy_s = time.perf_counter() - t
+    back = fs.read_all(f"{SERVE_S3_ROOT}/{SERVE_BUCKET}/copy.bin")
+    if bytes(back) != data:
+        fail("2o (b): copy.bin read back through FileSystem differs")
+    if impl is not None:
+        impl.close_all()
+    total = len(paths) * BLOCK_BYTES
+    out = {"route": SERVE_FUSE_ROUTE, "s": epoch_s,
+           "gb_per_s": total / epoch_s / 1e9, "wait_s": wait_s,
+           "copy_s": copy_s, "main_epoch1_s": main["epoch1_s"],
+           "main_gb_per_s": NUM_BLOCKS * BLOCK_BYTES / main["epoch1_s"]
+           / 1e9}
+    how = ("through the kernel mount" if impl is None else
+           f"through FuseFs in process ({SERVE_FUSE_READ_BYTES >> 10} KiB "
+           f"reads; the card's host cannot mount)")
+    print(f"2o (b): FUSE {how}: the listing equals list_status; "
+          f"{len(paths)} x {BLOCK_BYTES >> 20} MiB by path into a pinned "
+          f"buffer, onto the card and scanned, every scaled_sum == plain "
+          f"== the file's bytes: {epoch_s:.3f} s "
+          f"({out['gb_per_s']:.3f} GB/s, consumer wait {wait_s:.3f} s), "
+          f"beside the main path's SHM-rung epoch 1 {main['epoch1_s']:.3f} "
+          f"s ({out['main_gb_per_s']:.3f} GB/s); a seeded 32 MiB file "
+          f"copied in ({copy_s:.3f} s) reads back equal", flush=True)
+    return out
+
+
+def proxy_leg(device, fs, pport: int, paths: list, sums: dict) -> dict:
+    """(2o c): the corpus through the S3 proxy: ListBuckets and
+    ListObjectsV2 against the listing, each shard in ranged GETs through
+    the port's ``S3Client`` into a pinned buffer, onto the card and
+    scanned; a multipart PUT read back; one REST ``get-status``."""
+    import xml.etree.ElementTree as ET
+
+    import requests
+    import torch
+
+    from alluxio_tpu_torch.underfs.s3 import S3Client
+
+    endpoint = f"http://127.0.0.1:{pport}"
+    root = ET.fromstring(requests.get(endpoint + "/", timeout=30).content)
+    buckets = sorted(e.findtext("Name") for e in root.iter("Bucket"))
+    want = sorted(i.name for i in fs.list_status(SERVE_S3_ROOT) if i.folder)
+    if buckets != want:
+        fail(f"2o (c): ListBuckets {buckets} != the listing {want}")
+    client = S3Client(SERVE_BUCKET, {"s3.endpoint": endpoint})
+    keys = sorted(client.list_prefix(""))
+    listing = sorted(i.name for i in fs.list_status(
+        f"{SERVE_S3_ROOT}/{SERVE_BUCKET}"))
+    if keys != listing:
+        fail(f"2o (c): ListObjectsV2 {keys} != the listing {listing}")
+    buf = torch.empty(BLOCK_BYTES, dtype=torch.uint8,
+                      pin_memory=device.type == "cuda")
+    host = buf.numpy()
+    wait_s, gets = 0.0, 0
+    _sync_device(device)
+    t = time.perf_counter()
+    for path in paths:
+        key = os.path.basename(path)
+        t_read = time.perf_counter()
+        for off in range(0, BLOCK_BYTES, SERVE_RANGE_BYTES):
+            part = client.get(key, off, SERVE_RANGE_BYTES)
+            if part is None or len(part) != SERVE_RANGE_BYTES:
+                fail(f"2o (c): GET {key} bytes={off}- gave "
+                     f"{None if part is None else len(part)} bytes")
+            host[off:off + SERVE_RANGE_BYTES] = np.frombuffer(part, np.uint8)
+            gets += 1
+        wait_s += time.perf_counter() - t_read
+        serve_scan("(c) proxy", device, buf, path, sums)
+    _sync_device(device)
+    epoch_s = time.perf_counter() - t
+    # a multipart PUT of one seeded object
+    data = np.random.default_rng(SEED + 19_002).integers(
+        0, 256, size=BLOCK_BYTES, dtype=np.uint8).tobytes()
+    t = time.perf_counter()
+    upload = client.initiate_multipart("multipart.bin")
+    etags = [(i + 1, client.upload_part(
+        "multipart.bin", upload, i + 1,
+        data[off:off + SERVE_RANGE_BYTES]))
+        for i, off in enumerate(range(0, len(data), SERVE_RANGE_BYTES))]
+    client.complete_multipart("multipart.bin", upload, etags)
+    put_s = time.perf_counter() - t
+    back = fs.read_all(f"{SERVE_S3_ROOT}/{SERVE_BUCKET}/multipart.bin")
+    if bytes(back) != data:
+        fail("2o (c): the multipart object read back through FileSystem "
+             "differs")
+    # one REST get-status
+    status_path = paths[0]
+    r = requests.get(f"{endpoint}/api/v1/paths{status_path}/get-status",
+                     timeout=30)
+    st = fs.get_status(status_path)
+    rest = r.json()
+    mine = {"path": st.path, "name": st.name, "folder": st.folder,
+            "length": st.length,
+            "lastModificationTimeMs": st.last_modification_time_ms}
+    if r.status_code != 200 or rest != mine:
+        fail(f"2o (c): REST get-status {r.status_code} {rest} != "
+             f"get_status {mine}")
+    total = len(paths) * BLOCK_BYTES
+    out = {"s": epoch_s, "gb_per_s": total / epoch_s / 1e9,
+           "wait_s": wait_s, "gets": gets, "multipart_put_s": put_s,
+           "multipart_parts": len(etags)}
+    print(f"2o (c): the S3 proxy (a child of the shell, {endpoint}): "
+          f"ListBuckets {buckets} and ListObjectsV2 ({len(keys)} keys) "
+          f"equal the listing; {len(paths)} x {BLOCK_BYTES >> 20} MiB in "
+          f"{gets} ranged GETs of {SERVE_RANGE_BYTES >> 20} MiB through "
+          f"the port's S3Client into a pinned buffer, onto the card and "
+          f"scanned, every scaled_sum == plain == the file's bytes: "
+          f"{epoch_s:.3f} s ({out['gb_per_s']:.3f} GB/s, consumer wait "
+          f"{wait_s:.3f} s); a {len(etags)}-part multipart PUT "
+          f"({put_s:.3f} s) reads back equal; REST get-status == "
+          f"get_status", flush=True)
+    return out
+
+
+def hive_leg(device, cluster, fs, base: str) -> dict:
+    """(2o d): a Parquet table of ``SERVE_HIVE_ROWS`` seeded rows written
+    into the cluster under a mount, named by a fake Hive metastore (a
+    child) at its UFS URI; ``validateHms`` through the shell; ``table
+    attachdb hive`` through the table master; three columns through the
+    planned reader onto the card."""
+    import io
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    from alluxio_tpu_torch.client.streams import WriteType
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.rpc.table_service import TableMasterClient
+    from alluxio_tpu_torch.table.reader import read_columns
+
+    wh = os.path.join(base, "warehouse")
+    os.makedirs(wh)
+    fs.mount("/warehouse", wh)
+    rng = np.random.default_rng(SEED + 19_003)
+    cols = {"a": rng.integers(-2**31, 2**31 - 1, SERVE_HIVE_ROWS,
+                              dtype=np.int32),
+            "b": rng.integers(-2**31, 2**31 - 1, SERVE_HIVE_ROWS,
+                              dtype=np.int32),
+            "c": rng.integers(-2**40, 2**40, SERVE_HIVE_ROWS,
+                              dtype=np.int64)}
+    sink = io.BytesIO()
+    pq.write_table(pa.table(cols), sink)
+    path = "/warehouse/events/part-0.parquet"
+    t = time.perf_counter()
+    fs.create_directory("/warehouse/events", recursive=True,
+                        allow_exists=True)
+    fs.write_all(path, sink.getvalue(), write_type=WriteType.CACHE_THROUGH)
+    write_s = time.perf_counter() - t
+    hive_cols = [["a", "int"], ["b", "int"], ["c", "bigint"]]
+    proc = subprocess.Popen(
+        [sys.executable, "-c", HMS_CHILD, str(ROOT), "smoke", "events",
+         os.path.join(wh, "events"), json.dumps(hive_cols)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        import select
+
+        ready, _, _ = select.select([proc.stdout], [], [], SERVE_BOOT_S)
+        line = proc.stdout.readline().strip() if ready else ""
+        if not line.isdigit():
+            fail(f"2o (d): the fake metastore did not start ({line!r})")
+        uri = f"thrift://127.0.0.1:{line}"
+        t = time.perf_counter()
+        v = subprocess.run(
+            [sys.executable, "-m", "alluxio_tpu_torch.shell.main",
+             "--master", cluster.master_addresses.split(",")[0],
+             "validateHms", "-m", uri, "-d", "smoke", "-t", "events"],
+            capture_output=True, text=True, timeout=120,
+            env={**os.environ, "PYTHONPATH": str(ROOT)})
+        validate_s = time.perf_counter() - t
+        if v.returncode != 0 or "hms.tables" not in v.stdout:
+            fail(f"2o (d): validateHms exited {v.returncode}: "
+                 f"{v.stdout[-1500:]} {v.stderr[-1500:]}")
+        tc = TableMasterClient(cluster.master_addresses)
+        t = time.perf_counter()
+        tc.attach_database("hive", uri, "smoke")
+        tables = tc.get_all_tables("smoke")
+        table = tc.get_table("smoke", "events")
+        attach_s = time.perf_counter() - t
+    finally:
+        stop_child(proc)
+    if tables != ["events"] or table["location"] != "/warehouse/events":
+        fail(f"2o (d): attachdb hive lists {tables} at "
+             f"{table['location']}")
+    t = time.perf_counter()
+    got = read_columns(fs, [path], ["a", "b", "c"])
+    read_s = time.perf_counter() - t
+    launches = 0
+    for name in ("a", "b"):
+        arr = got.column(name).to_numpy()
+        host = torch.from_numpy(arr.copy())
+        if device.type == "cuda":
+            host = host.pin_memory()
+        x = rk.pad_to_kernel_shape(host.to(device))
+        n0 = rk.launches
+        value = int(rk.scaled_sum(x, 1))
+        launches += rk.launches - n0
+        plain = int(rk.scaled_sum_reference(x, 1))
+        want = wrap32(cols[name].sum(dtype=np.int64))
+        if value != plain or value != want:
+            fail(f"2o (d): column {name}'s scaled_sum {value}, plain "
+                 f"{plain}, numpy {want}")
+    c = torch.from_numpy(got.column("c").to_numpy().copy()).to(device)
+    if int(c.sum()) != int(cols["c"].sum()):
+        fail("2o (d): column c's sum on the card differs from numpy's")
+    print(f"2o (d): Hive: a {SERVE_HIVE_ROWS}-row Parquet table "
+          f"({len(sink.getvalue())} bytes) written CACHE_THROUGH under "
+          f"the mount /warehouse -> {wh} ({write_s:.3f} s); a fake "
+          f"metastore (a child) names it at its UFS URI; validateHms "
+          f"through the shell exits 0 ({validate_s:.2f} s); attachdb hive "
+          f"lists {tables} at {table['location']} ({attach_s:.3f} s); "
+          f"columns a, b, c through the planned reader ({read_s:.3f} s) "
+          f"onto the card: a's and b's scaled_sum == plain == numpy, c's "
+          f"sum == numpy", flush=True)
+    return {"rows": SERVE_HIVE_ROWS, "write_s": write_s,
+            "validate_s": validate_s, "attach_s": attach_s,
+            "read_s": read_s, "launches": launches}
+
+
+#: (2o e): each role's record in the log server's files: (role, logger,
+#: the start of a message), by the FUSE route
+SERVE_LOG_RECORDS = (
+    ("master", "alluxio_tpu_torch.shell.launch",
+     "alluxio-tpu master serving"),
+    ("worker", "alluxio_tpu_torch.shell.launch",
+     "alluxio-tpu worker serving"),
+    ("proxy", "alluxio_tpu_torch.proxy.process", "S3 proxy serving"),
+)
+SERVE_FUSE_RECORD = {
+    "kernel": ("fuse", "alluxio_tpu_torch.fuse.process", "fuse: "),
+    "in-process": ("fuse", "alluxio_tpu_torch.shell.launch",
+                   "FUSE is unavailable"),
+}
+
+
+def log_records(logs: str) -> dict:
+    """role -> whether the log server's files hold its record."""
+    text = ""
+    if os.path.isdir(logs):
+        for name in sorted(os.listdir(logs)):
+            with open(os.path.join(logs, name), errors="replace") as f:
+                text += f.read()
+    lines = text.splitlines()
+    want = SERVE_LOG_RECORDS + (SERVE_FUSE_RECORD[SERVE_FUSE_ROUTE],)
+    return {role: any(f" {logger} [" in line and
+                      line.split("] ", 1)[-1].startswith(msg)
+                      for line in lines)
+            for role, logger, msg in want}
+
+
+def serving_phase(device, main: dict, h2d_gb_per_s: float) -> dict:
+    """(2o): the serving surfaces on a ``MultiProcessCluster`` of their
+    own, every role shipping its records to a log server launched by
+    the shell; the proxy and FUSE launched by the shell as an operator
+    starts them, a fake Hive metastore beside them. (a) the corpus; (b)
+    the FUSE leg; (c) the proxy leg; (d) the Hive leg; (e) the log
+    server's records, then every role stopped, none left behind. The
+    two legs' rates print beside ``h2d_gb_per_s``, the pinned
+    host->device ceiling this run measured (2c)."""
+    from alluxio_tpu_torch.client.streams import WriteType
+    from alluxio_tpu_torch.conf import Keys, Templates
+    from alluxio_tpu_torch.lint import pytest_lockaudit as pla
+    from alluxio_tpu_torch.minicluster.multi_process import (
+        ManagedProcess, MultiProcessCluster, free_port,
+    )
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    t_phase = time.perf_counter()
+    n = SERVE_SHARDS
+    tier = (n + 4) * BLOCK_BYTES + (256 << 20)
+    base = block_dir(tier + (64 << 20))
+    logs = os.path.join(base, "logserver")
+    lport, pport = free_port(), free_port()
+    mnt = os.path.join(base, "mnt")
+    os.makedirs(mnt)
+    env = {"ATPU_HOME": base, "ATPU_LOGSERVER_PORT": str(lport),
+           "ATPU_LOGSERVER_LOGS_DIR": logs}
+    logserver = ManagedProcess("logserver", env,
+                               os.path.join(base, "logserver.out"))
+    cluster = fs = proxy = fuse = None
+    roles = [logserver]
+    try:
+        logserver.start()
+        wait_for("the log server listens", lambda: _accepts(lport))
+        cluster = MultiProcessCluster(
+            os.path.join(base, "cluster"), num_workers=1, extra_conf={
+                Keys.USER_BLOCK_SIZE_BYTES_DEFAULT.name: str(BLOCK_BYTES),
+                Templates.WORKER_TIER_DIRS_QUOTA.format(0).name: str(tier),
+                "atpu.logserver.hostname": "127.0.0.1",
+                "atpu.logserver.port": str(lport)})
+        t = time.perf_counter()
+        cluster.start(timeout_s=MP_BOOT_S)
+        boot_s = time.perf_counter() - t
+        fs = cluster.file_system()
+        role_env = {**cluster._role_env(),
+                    "ATPU_MASTER_RPC_ADDRESSES": cluster.master_addresses,
+                    "ATPU_MASTER_RPC_PORT": str(cluster.master_ports[0]),
+                    "ATPU_PROXY_WEB_PORT": str(pport),
+                    "ATPU_PROXY_S3_ROOT": SERVE_S3_ROOT,
+                    "ATPU_FUSE_MOUNT_POINT": mnt,
+                    "ATPU_FUSE_FS_ROOT": f"{SERVE_S3_ROOT}/{SERVE_BUCKET}"}
+        # (a) the corpus, before the FUSE child lists it
+        sums, paths = {}, []
+        fs.create_directory(f"{SERVE_S3_ROOT}/{SERVE_BUCKET}",
+                            recursive=True, allow_exists=True)
+        t = time.perf_counter()
+        for i in range(n):
+            arr = np.random.default_rng(SEED + 19_000 + i).integers(
+                -2**31, 2**31 - 1, size=BLOCK_BYTES // 4, dtype=np.int32)
+            path = f"{SERVE_S3_ROOT}/{SERVE_BUCKET}/shard-{i:02d}.bin"
+            fs.write_all(path, arr.data, write_type=WriteType.MUST_CACHE)
+            sums[path] = wrap32(arr.sum(dtype=np.int64))
+            paths.append(path)
+        write_s = time.perf_counter() - t
+        proxy = ManagedProcess("proxy", role_env,
+                               os.path.join(base, "proxy.out"))
+        fuse = ManagedProcess("fuse", role_env,
+                              os.path.join(base, "fuse.out"))
+        roles += [proxy, fuse]
+        proxy.start()
+        fuse.start()
+        print(f"2o (a): a log server (pid {logserver.proc.pid}, port "
+              f"{lport}) and a MultiProcessCluster shipping to it, up in "
+              f"{boot_s:.2f} s; {n} x {BLOCK_BYTES >> 20} MiB seeded "
+              f"shards written MUST_CACHE under "
+              f"{SERVE_S3_ROOT}/{SERVE_BUCKET} in {write_s:.3f} s "
+              f"({n * BLOCK_BYTES / write_s / 1e9:.3f} GB/s); the proxy "
+              f"(pid {proxy.proc.pid}) and the fuse child (pid "
+              f"{fuse.proc.pid}) launched by the shell", flush=True)
+        wait_for("the proxy answers", lambda: _accepts(pport))
+        if SERVE_FUSE_ROUTE == "kernel":
+            wait_for("the fuse child mounts", lambda: os.path.ismount(mnt))
+        else:
+            wait_for("the fuse child exits",
+                     lambda: fuse.proc.poll() is not None)
+            if fuse.proc.returncode != 1:
+                fail(f"2o (b): the fuse child exited "
+                     f"{fuse.proc.returncode}, want 1 (no FUSE here)")
+        # (b)-(d) under the port's lock-order auditor (this process's
+        # locks: the in-process FUSE layer's among them)
+        with pla.audited() as auditor:
+            rk.launches = 0
+            fuse_out = fuse_leg(device, fs, mnt, paths, sums, base, main)
+            fuse_out["launches"] = rk.launches
+            rk.launches = 0
+            proxy_out = proxy_leg(device, fs, pport, paths, sums)
+            proxy_out["launches"] = rk.launches
+            rk.launches = 0
+            hive = hive_leg(device, cluster, fs, base)
+            audited = pla.acquired_names()
+        inversions = auditor.inversions()
+        if inversions:
+            fail(f"2o: lock-order inversions {inversions}\n"
+                 f"{auditor.report()}")
+        must = {"FuseFs._lock", "_OpenFile.lock"} \
+            if SERVE_FUSE_ROUTE == "in-process" else set()
+        if not must <= set(audited):
+            fail(f"2o: the audit saw no acquisition of "
+                 f"{sorted(must - set(audited))}")
+        if fuse_out["launches"] != n or proxy_out["launches"] != n or \
+                hive["launches"] != 2:
+            fail(f"2o: scaled_sum launched {fuse_out['launches']} times in "
+                 f"(b), {proxy_out['launches']} in (c), "
+                 f"{hive['launches']} in (d); want {n}, {n}, 2")
+        # (e) every role's records at the log server
+        def every_role_logged():
+            got = log_records(logs)
+            return got if all(got.values()) else None
+
+        seen = wait_for("every role's record at the log server",
+                        every_role_logged, timeout_s=15.0)
+        files = sorted(os.listdir(logs))
+    finally:
+        try:
+            if fs is not None:
+                fs.close()
+            for role in (fuse, proxy):
+                if role is not None:
+                    role.stop()
+            if cluster is not None:
+                cluster.stop()
+                roles += cluster.masters + cluster.workers
+        finally:
+            logserver.stop()
+            mounted = os.path.ismount(mnt)
+            shutil.rmtree(base, ignore_errors=True)
+    alive = [(r.role, r.proc.pid) for r in roles if r.alive]
+    if alive or mounted:
+        fail(f"2o (e): {alive} outlived the phase's stop, mount left "
+             f"{mounted}")
+    s = time.perf_counter() - t_phase
+    launches = fuse_out["launches"] + proxy_out["launches"] + \
+        hive["launches"]
+    print(f"2o: FUSE {fuse_out['gb_per_s']:.3f} GB/s and the proxy "
+          f"{proxy_out['gb_per_s']:.3f} GB/s against the pinned "
+          f"host->device ceiling {h2d_gb_per_s:.2f} GB/s (2c, this run)",
+          flush=True)
+    print(f"2o (e): the log server's files {files} hold every role's "
+          f"record ({', '.join(seen)}); every role stopped, none left "
+          f"behind, no mount left; (b)-(d) audited: {len(audited)} locks, "
+          f"{len(auditor.edges)} order edges, no inversion. 2o: {s:.1f} "
+          f"s, scaled_sum launched {launches} times", flush=True)
+    return {"shards": n, "bytes": n * BLOCK_BYTES, "boot_s": boot_s,
+            "write_s": write_s, "fuse": fuse_out, "proxy": proxy_out,
+            "hive": hive, "log_files": files,
+            "h2d_ceiling_gb_per_s": h2d_gb_per_s,
+            "audit": {"locks": audited, "edges": len(auditor.edges),
+                      "inversions": 0},
+            "launches": launches, "s": s}
 
 def record_files(workdir: str, num_blocks: int, block_bytes: int) -> dict:
     """``bench.py``'s e2e layout: blocks of 64x64x3 records with a 4-byte
@@ -7357,24 +8049,39 @@ def main() -> int:
         rk.launches = 0
         stress["lsm"] = phase("2h c", lsm_master_phase,
                               multi["metadata_ms"])
-        stress["suite"] = phase("2h d", suite_phase, workdir)
-        stress["launches"] = stress_launches + rk.launches
-        stress["s"] = stress_s + time.perf_counter() - t_stress
-        print(f"stress path: scaled_sum launched {stress['launches']} times "
-              f"(the path has no kernel of its own); 2h {stress['s']:.1f} s",
-              flush=True)
+        stress_launches += rk.launches
+        stress_s += time.perf_counter() - t_stress
         # 2i: the observability loop on a process cluster of its own
         observability = phase("2i", observability_phase, device, main, K)
         # 2j: the master's guards on a process cluster of its own
         guards = phase("2j", guards_phase, device, main)
         # 2k: master HA on a three-master process cluster of its own
         ha = phase("2k", ha_phase, device, main)
+        # 2h d: the suite, once 2h a's and 2k (f)'s lines are there
+        t_stress = time.perf_counter()
+        rk.launches = 0
+        taken = {name: stress["cli"]["rows"][row]["in_process"]
+                 for name, (where, row) in SUITE_TAKEN.items()
+                 if where == "2h a"}
+        taken["ha-failover"] = ha.pop("bench_row")
+        host0 = host_load()
+        stress["suite"] = phase("2h d", suite_phase, workdir, taken)
+        stress["suite"]["host"] = host_load(host0)
+        stress["launches"] = stress_launches + rk.launches
+        stress["s"] = stress_s + time.perf_counter() - t_stress
+        print(f"stress path: scaled_sum launched {stress['launches']} times "
+              f"(the path has no kernel of its own); 2h {stress['s']:.1f} s",
+              flush=True)
         # 2m: the port's lock-order auditor around the loader, and its
         # lint on this host
         lockaudit = phase("2m", lockaudit_phase, device, main)
         # 2n: a cold epoch from a faked S3 bucket through the port's
         # connectors, and the Arrow and fsspec adapters
         s3 = phase("2n", s3_phase, device, worker)
+        # 2o: the serving surfaces (FUSE, the proxy, Hive, the log
+        # server) on a process cluster of their own
+        serving = phase("2o", serving_phase, device, main,
+                        worker["h2d_ceiling"]["32MiB"]["gb_per_s"])
     finally:
         try:
             if mp is not None:
@@ -7407,6 +8114,7 @@ def main() -> int:
     print(json.dumps({"lockaudit": lockaudit}), flush=True)
     print(json.dumps({"lint": {**lint, "card": CARD}}), flush=True)
     print(json.dumps({"s3": {**s3, "card": CARD}}), flush=True)
+    print(json.dumps({"serving": {**serving, "card": CARD}}), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_s": {k: round(v, 1)
                                   for k, v in PHASE_S.items()}}), flush=True)
@@ -7437,7 +8145,8 @@ def main() -> int:
             "ha": ha["launches"],
             "shell": shell["launches"],
             "lockaudit": lockaudit["launches"],
-            "s3": s3["launches"]},
+            "s3": s3["launches"],
+            "serving": serving["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

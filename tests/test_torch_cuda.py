@@ -553,3 +553,21 @@ def test_shells_drive_the_loader_on_the_card(cuda, tmp_path):
     assert got["persisted_s"] >= 0 and got["used_drop_bytes"] >= 4 * block
     assert got["epoch1"]["sums"] == got["epoch2"]["sums"]
     assert sorted(got["epoch1"]["sums"]) == sorted(files)
+
+
+def test_serving_surfaces_on_the_card(cuda):
+    """``chip_smoke.py``'s 2o at 4 x 2 MiB: a log server, a process
+    cluster shipping to it, the proxy and the FUSE child launched by the
+    shell; every block read through the FUSE layer and through the
+    proxy's ranged GETs is scanned on the card (each launch held against
+    the plain version and numpy), a Hive table's int32 columns too, and
+    every role's records reach the log server."""
+    smoke = _smoke()
+    smoke.BLOCK_BYTES = 2 << 20
+    smoke.SERVE_SHARDS = 4
+    smoke.SERVE_HIVE_ROWS = 1 << 16
+    smoke.SERVE_RANGE_BYTES = 1 << 20
+    got = smoke.serving_phase(cuda, {"epoch1_s": 1.0}, 50.0)
+    assert got["launches"] == 4 + 4 + 2
+    assert got["fuse"]["launches"] == got["proxy"]["launches"] == 4
+    assert got["audit"]["inversions"] == 0

@@ -138,7 +138,9 @@ def test_role_launchers_load_no_torch():
     multi-process and HA clusters, every module the four launchers build
     their roles from (the HA master's Raft journal, tailer and backup
     among them), the journal tools, the HA drills, the operator's
-    shells and the update check import no torch."""
+    shells, the update check, and the serving surfaces (the proxy, the
+    log server, FUSE, the Hive and Glue under-databases) import no
+    torch."""
     code = ("import sys\n"
             "import alluxio_tpu_torch.shell.main, "
             "alluxio_tpu_torch.shell.launch, "
@@ -174,7 +176,15 @@ def test_role_launchers_load_no_torch():
             "alluxio_tpu_torch.shell.validate_env, "
             "alluxio_tpu_torch.shell.run_operation, "
             "alluxio_tpu_torch.shell.format, "
-            "alluxio_tpu_torch.master.update_check\n"
+            "alluxio_tpu_torch.master.update_check, "
+            "alluxio_tpu_torch.proxy.process, "
+            "alluxio_tpu_torch.logserver.process, "
+            "alluxio_tpu_torch.fuse.process, "
+            "alluxio_tpu_torch.fuse.libfuse, "
+            "alluxio_tpu_torch.table.thrift_proto, "
+            "alluxio_tpu_torch.table.hive, "
+            "alluxio_tpu_torch.table.glue, "
+            "alluxio_tpu_torch.qos\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('torch', 'jax', 'alluxio_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -208,13 +218,15 @@ def test_lint_loads_no_torch_and_no_jax(tmp_path):
 def test_shell_child_loads_no_torch():
     """An operator's shell builds no CUDA context: a child that
     dispatches every ported shell command through ``shell.main`` (each
-    shell's help, ``validateConf`` and ``format``'s usage) has loaded
+    shell's help, ``validateConf``, ``format``'s usage and
+    ``validateHms`` against an address that refuses) has loaded
     neither torch nor JAX when it is done."""
     code = ("import sys\n"
             "from alluxio_tpu_torch.shell.main import main\n"
             "for argv in (['fs', 'help'], ['fsadmin', 'help'], "
             "['job', 'help'], ['table', 'help'], ['validateConf'], "
-            "['format', 'usage']):\n"
+            "['format', 'usage'], ['validateHms', '-m', "
+            "'thrift://127.0.0.1:1', '--no-fs']):\n"
             "    main(argv)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('torch', 'jax', 'alluxio_tpu')))\n")

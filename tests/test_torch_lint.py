@@ -2,8 +2,8 @@
 package's, on the CPU:
 
 - ``python -m alluxio_tpu_torch.lint`` exits 0 on the tree inside its
-  30 s budget, its baseline holding only the eleven ``conf-dead-key``
-  entries whose readers port with ROADMAP item 5 d;
+  30 s budget with an empty baseline: the eleven keys it once held as
+  dead (FUSE, the proxy, the log server, the stripe budget) are read;
 - every seeded fixture under ``tests/testutils/lint_fixtures/`` gives the
   same ``(rule, line, anchor)`` sets under both packages' analyzers;
 - a seeded violation written under ``tmp_path`` exits 1, its clean twin 0;
@@ -34,8 +34,8 @@ FX = "tests/testutils/lint_fixtures"
 FIXTURES = sorted(p.name for p in (ROOT / FX).glob("fx_*.py"))
 PACKAGES = ("alluxio_tpu", "alluxio_tpu_torch")
 BASELINE = ROOT / "alluxio_tpu_torch/lint/baseline.json"
-#: the keys whose readers (FUSE, the proxy, the log server, the stripe
-#: budget) come with the serving surfaces
+#: the keys the baseline once held as dead, until their readers (FUSE,
+#: the proxy, the log server, the stripe budget) were ported
 DEAD_UNTIL_5D = (
     "atpu.fuse.fs.root", "atpu.fuse.mount.options", "atpu.fuse.mount.point",
     "atpu.logserver.bind.host", "atpu.logserver.hostname",
@@ -68,16 +68,19 @@ def test_port_lint_exits_zero_within_its_budget():
                   r"([0-9.]+)s", r.stdout)
     assert m, r.stdout
     new, _, baselined, stale, seconds = m.groups()
-    assert (int(new), int(baselined), int(stale)) == (0, 11, 0)
+    assert (int(new), int(baselined), int(stale)) == (0, 0, 0)
     assert float(seconds) < 30.0
 
 
 def test_baseline_is_only_the_item_5d_dead_keys():
-    entries = json.loads(BASELINE.read_text())["entries"]
-    path = "alluxio_tpu_torch/conf/property_key.py"
-    assert sorted(e["id"] for e in entries) == sorted(
-        f"conf-dead-key:{path}:{k}" for k in DEAD_UNTIL_5D)
-    assert all("ROADMAP item 5 d" in e["justification"] for e in entries)
+    """The baseline held only the eleven keys of the serving surfaces;
+    with their readers ported it holds nothing, and none of the eleven
+    is dead."""
+    assert json.loads(BASELINE.read_text())["entries"] == []
+    report = _lint(PACKAGES[1], "runner").run_lint(
+        str(ROOT), analyzers=["conf-keys"])
+    dead = {f.anchor for f in report.findings if f.rule == "conf-dead-key"}
+    assert dead.isdisjoint(DEAD_UNTIL_5D), sorted(dead)
 
 
 def test_full_tree_reports_nothing_new():
@@ -86,7 +89,7 @@ def test_full_tree_reports_nothing_new():
     assert report.ok, "\n".join(f.render() for f in
                                 report.new + report.bad_suppressions)
     assert report.stale_baseline == []
-    assert {f.rule for f in report.baselined} == {"conf-dead-key"}
+    assert report.baselined == []
     # every cataloged phase has an emit site: the three repaired phases
     assert not [f for f in report.findings if f.rule.startswith("phase-")]
     # a copied suppression stands only where JAX has the same one

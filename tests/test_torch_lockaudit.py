@@ -8,6 +8,7 @@ operations on JAX's ``LocalCluster`` under JAX's plugin."""
 import ast
 import contextlib
 import importlib
+import os
 import threading
 from pathlib import Path
 
@@ -80,7 +81,23 @@ OWNERS = {
         _port("utils.collections").FieldIndex("id", id)),
     "DirectedAcyclicGraph._lock":
         lambda c: _port("utils.collections").DirectedAcyclicGraph(),
+    "LogServerProcess._lock": lambda c: _log_server(c),
+    "FuseFs._lock": lambda c: _port("fuse.fs").FuseFs(c["lc"].file_system()),
+    "_OpenFile.lock": lambda c: _port("fuse.fs")._OpenFile(),
+    "_S3State.lock":
+        lambda c: _port("proxy.process")._S3State(None, "/s3"),
+    "StripeBudget._lock": lambda c: _port("qos").StripeBudget(),
 }
+
+
+def _log_server(c):
+    """A log server on an ephemeral loopback port, started and stopped
+    at once: the proxy is set in its constructor."""
+    srv = _port("logserver.process").LogServerProcess(
+        os.path.join(c["lc"]._base, "logserver"))
+    srv.start()
+    srv.stop()
+    return srv
 
 
 def _port(name):

@@ -385,12 +385,14 @@ def port_services(tmp_path_factory):
 
 
 @pytest.mark.parametrize("role", ["master", "worker", "job-master",
-                                  "job-worker"])
+                                  "job-worker", "proxy", "logserver",
+                                  "fuse"])
 def test_role_child_imports_no_jax_and_no_torch(role, port_services,
                                                 tmp_path):
-    """Each role child starts (the launcher builds and starts the role),
-    then reports the top-level modules it has loaded and stops: none of
-    them is ``jax``, ``alluxio_tpu`` or ``torch``."""
+    """Each role child starts (the launcher builds and starts the role:
+    the proxy serves, the log server listens, FUSE mounts), then reports
+    the top-level modules it has loaded and stops: none of them is
+    ``jax``, ``alluxio_tpu`` or ``torch``."""
     from alluxio_tpu_torch.minicluster.multi_process import (
         _PACKAGE_PARENT, free_port,
     )
@@ -408,6 +410,16 @@ def test_role_child_imports_no_jax_and_no_torch(role, port_services,
     if role == "worker":
         env.update({"ATPU_WORKER_DATA_FOLDER": str(tmp_path / "w"),
                     "ATPU_WORKER_SHM_DIR": str(tmp_path / "w" / "shm")})
+    if role in ("proxy", "fuse"):
+        env["ATPU_MASTER_RPC_PORT"] = str(c.master_ports[0])
+        env["ATPU_PROXY_WEB_PORT"] = "0"
+        env["ATPU_FUSE_MOUNT_POINT"] = str(tmp_path / "mnt")
+        if role == "fuse" and not _mod(PORT, "fuse.process") \
+                .fuse_available():
+            pytest.skip("no FUSE in this environment")
+    if role == "logserver":
+        env.update({"ATPU_LOGSERVER_PORT": "0",
+                    "ATPU_LOGSERVER_LOGS_DIR": str(tmp_path / "logs")})
     out = subprocess.run([sys.executable, "-c", _REPORT, role], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]

@@ -1,6 +1,7 @@
 """The port's worker QoS against the JAX package's, on the CPU (the
-counterparts of ``TestPriorityExecutor``, ``TestParkedPromotion`` and
-``TestWorkerQosPipeline`` in ``tests/test_qos.py``).
+counterparts of ``TestPriorityExecutor``, ``TestParkedPromotion``,
+``TestWorkerQosPipeline`` and the three ``TestStripeBudget*`` classes in
+``tests/test_qos.py``).
 
 Each case drives both packages' ``PriorityExecutor`` (or
 ``UfsBlockFetcher`` with QoS on) with the same submissions and must see
@@ -324,3 +325,159 @@ def test_tenant_cap_keeps_slots_for_victim():
     for name in MODULES:
         latency, deferred = _victim_latency(name)
         assert latency < 0.4 and deferred, (name, latency)
+
+
+# -- the client's per-tenant stripe budget ---------------------------------------
+def _budget_script(mod):
+    """JAX's ``TestStripeBudget`` and a seeded acquire/release walk."""
+    b = mod.StripeBudget()
+    out = [b.acquire("t", 2), b.acquire("t", 2), b.acquire("t", 2),
+           b.deferred, b.acquire("t", 2, force=True), b.held("t")]
+    for _ in range(3):
+        b.release("t")
+    out += [b.held("t"), b.acquire("t", 0)]
+    rng = np.random.default_rng(19)
+    for _ in range(300):
+        tenant = f"t{int(rng.integers(3))}"
+        if rng.random() < 0.55:
+            out.append(b.acquire(tenant, int(rng.integers(0, 4)),
+                                 force=bool(rng.random() < 0.1)))
+        else:
+            b.release(tenant)
+        out.append((b.held(tenant), b.deferred))
+    return out
+
+
+def test_stripe_budget_like_jax():
+    got = _both(_budget_script)
+    assert got[:8] == [True, True, False, 1, True, 3, 0, True]
+
+
+def test_stripe_budget_conf_reads_keys():
+    """``RemoteReadConf.from_conf`` reads the cap and bills the client's
+    principal, as JAX's does (``TestStripeBudgetWiring``)."""
+    import importlib
+
+    got = []
+    for pkg in ("alluxio_tpu", "alluxio_tpu_torch"):
+        c = importlib.import_module(f"{pkg}.conf")
+        conf = c.Configuration(load_env=False)
+        conf.set(c.Keys.USER_QOS_STRIPE_LIMIT, 3)
+        conf.set(c.Keys.SECURITY_LOGIN_USERNAME, "tenant-a")
+        rc = importlib.import_module(
+            f"{pkg}.client.remote_read").RemoteReadConf.from_conf(conf)
+        got.append((rc.tenant_stripe_limit, rc.tenant))
+    assert got[1] == got[0] == (3, "tenant-a")
+
+
+def _remote_read(pkg):
+    import importlib
+
+    return importlib.import_module(f"{pkg}.client.remote_read")
+
+
+def _counts():
+    from alluxio_tpu_torch.metrics import metrics
+
+    return (metrics().counter("Client.QosStripesDeferred").count,
+            metrics().counter("Client.QosHedgesSuppressed").count)
+
+
+def _reroute_at_cap(pkg):
+    from tests.test_remote_read import FakeSource
+
+    rr = _remote_read(pkg)
+    kb = 1 << 10
+    data = bytes(i % 251 for i in range(40 * kb))
+    rt = rr.RemoteReadRuntime(rr.RemoteReadConf(
+        stripe_size=10 * kb, concurrency=4, window_bytes=0,
+        hedge_quantile=0.0, tenant_stripe_limit=2, tenant="t"))
+    # another read of the same tenant holds the whole budget
+    rt.budget.acquire("t", 2, force=True)
+    rt.budget.acquire("t", 2, force=True)
+    dead = FakeSource("w-dead", data, die_after=4 * kb)
+    ok = FakeSource("w-ok", data)
+    try:
+        read = rt.read(block_id=1, sources=[dead, ok], offset=0,
+                       length=len(data), chunk_size=kb)
+        got = read.read_view().tobytes()
+        rt.budget.release("t")
+        rt.budget.release("t")
+        return got == data, read.reroutes >= 1, rt.budget.held("t")
+    finally:
+        rt.close()
+
+
+def test_reroute_forces_budget_no_hang():
+    """A worker dying mid-stripe while the tenant is pinned at its stripe
+    budget must not orphan the stripe: the failure re-route bypasses the
+    budget and the read completes (JAX's ``TestStripeBudgetUnderFailure``),
+    and every stripe's unit comes back."""
+    before = _counts()
+    got = [_reroute_at_cap(pkg) for pkg in ("alluxio_tpu",
+                                            "alluxio_tpu_torch")]
+    assert got[1] == got[0] == (True, True, 0)
+    assert _counts()[0] > before[0]  # the port's read was deferred
+
+
+def _resume_when_freed(pkg):
+    from tests.test_remote_read import FakeSource
+
+    rr = _remote_read(pkg)
+    kb = 1 << 10
+    data = bytes(i % 251 for i in range(60 * kb))
+    rt = rr.RemoteReadRuntime(rr.RemoteReadConf(
+        stripe_size=10 * kb, concurrency=4, window_bytes=0,
+        hedge_quantile=0.0, tenant_stripe_limit=1, tenant="t"))
+    rt.budget.acquire("t", 1)  # someone else holds the only unit
+    try:
+        read = rt.read(block_id=1, sources=[FakeSource("a", data)],
+                       offset=0, length=len(data))
+        out = bytearray()
+        it = read.iter_views(chunk_size=4 * kb)
+        out.extend(next(it))  # the frontier stripe (forced) streams
+        rt.budget.release("t")  # the budget frees mid-read
+        for mv in it:
+            out.extend(mv)
+        return bytes(out) == data, rt.budget.held("t")
+    finally:
+        rt.close()
+
+
+def test_iter_views_resubmits_when_budget_frees():
+    got = [_resume_when_freed(pkg) for pkg in ("alluxio_tpu",
+                                               "alluxio_tpu_torch")]
+    assert got[1] == got[0] == (True, 0)
+
+
+def _hedge_at_cap(pkg):
+    """Two replicas, hedging on, the tenant at its cap of one: the
+    frontier stripe goes out forced, and its hedge is suppressed."""
+    from tests.test_remote_read import FakeSource
+
+    rr = _remote_read(pkg)
+    kb = 1 << 10
+    data = bytes(i % 251 for i in range(10 * kb))
+    rt = rr.RemoteReadRuntime(rr.RemoteReadConf(
+        stripe_size=10 * kb, concurrency=4, window_bytes=0,
+        hedge_quantile=0.5, tenant_stripe_limit=1, tenant="t"))
+    for src in ("slow", "fast"):
+        for _ in range(20):
+            rt.stats.observe(src, 0.001)
+    slow = FakeSource("slow", data, delay=0.3)
+    fast = FakeSource("fast", data)
+    try:
+        read = rt.read(block_id=1, sources=[slow, fast], offset=0,
+                       length=len(data), chunk_size=kb)
+        ok = read.read_view().tobytes() == data
+        return ok, read.hedges, rt.budget.held("t")
+    finally:
+        rt.close()
+
+
+def test_hedge_is_suppressed_at_the_cap():
+    before = _counts()
+    got = [_hedge_at_cap(pkg) for pkg in ("alluxio_tpu",
+                                          "alluxio_tpu_torch")]
+    assert got[1] == got[0] == (True, 0, 0)
+    assert _counts()[1] > before[1]

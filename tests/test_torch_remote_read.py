@@ -94,8 +94,13 @@ def test_latency_stats_match_jax():
 def test_conf_from_keys():
     from alluxio_tpu_torch.conf import Configuration, Keys
 
+    from alluxio_tpu_torch.security.user import get_client_user
+
     conf = Configuration(load_env=False)
-    assert rr.RemoteReadConf.from_conf(conf) == rr.RemoteReadConf()
+    # the defaults, billed against the client's principal (the tenant
+    # of the stripe budget)
+    assert rr.RemoteReadConf.from_conf(conf) == rr.RemoteReadConf(
+        tenant=get_client_user(conf))
     conf.set(Keys.USER_REMOTE_READ_STRIPE_SIZE, "1MB")
     assert rr.RemoteReadConf.from_conf(conf).stripe_size == 1 << 20
     assert BatchReadConf.from_conf(conf) == BatchReadConf()

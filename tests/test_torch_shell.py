@@ -6,12 +6,17 @@
 - the shells and tools (``fs``, ``fsadmin``, ``job``, ``table``,
   ``validateConf``, ``validateEnv``, ``runOperation``, ``format``)
   dispatch as in JAX: the same arguments print the same and exit alike;
-- the JAX package's commands that the port does not have are refused
-  with exit code 1 and the ROADMAP item that brings them (a deliberate
-  difference); ``stress`` runs the port's stress CLI (its ``ha`` bench
-  included); ``journalCrashTest`` SIGKILLs the port's master under load
-  and every acknowledged operation survives replay; help and version
-  answer as in JAX;
+  every JAX command is dispatched, none refused;
+- the serving commands as in JAX: ``validateHms`` against the fake
+  metastore prints the same and exits alike (a database that is there
+  and one that is not), and the ``proxy``, ``logserver`` and ``fuse``
+  roles, each launched by each package's shell over its own package's
+  cluster and stopped with SIGTERM, print the same banner, serve the
+  same answer and exit 0;
+- ``stress`` runs the port's stress CLI (its ``ha`` bench included);
+  ``journalCrashTest`` SIGKILLs the port's master under load and every
+  acknowledged operation survives replay; help and version answer as in
+  JAX;
 - ``python -m alluxio_tpu_torch.shell.main master`` serves, and stops
   with exit code 0 on SIGTERM.
 """
@@ -24,6 +29,7 @@ import select
 import signal
 import subprocess
 import sys
+import time
 
 import pytest
 from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: F401
@@ -92,17 +98,17 @@ DISPATCHED = {
 
 
 def test_every_jax_command_is_dispatched_or_refused():
+    """Every JAX command is dispatched; the port refuses none."""
     from alluxio_tpu_torch.shell import main
 
     ported = {"master", "worker", "job-master", "job-worker", "version",
-              "stress", "journalCrashTest", *DISPATCHED}
-    assert ported | set(main._NOT_PORTED) == _jax_commands()
-    assert not ported & set(main._NOT_PORTED)
-    assert set(main._NOT_PORTED) == {"validateHms", "proxy", "logserver",
-                                     "fuse"}
+              "stress", "journalCrashTest", *DISPATCHED, *SERVING}
+    assert ported == _jax_commands()
+    assert not hasattr(main, "_NOT_PORTED")
     usage = [line.split()[0] for line in main.USAGE.split("Commands:")[1]
              .split("Generic options:")[0].splitlines() if line.strip()]
     assert set(usage) == ported
+    assert main.USAGE == _mod("alluxio_tpu", "shell.main").USAGE
 
 
 def _dispatch(pkg, argv, capsys):
@@ -129,18 +135,117 @@ def test_ported_command_dispatches_like_jax(cmd, tmp_path, capsys):
     assert got[1][1] or got[1][2]
 
 
-@pytest.mark.parametrize("cmd", sorted(
-    importlib.import_module("alluxio_tpu_torch.shell.main")._NOT_PORTED))
-def test_unported_command_is_refused(cmd, capsys):
-    from alluxio_tpu_torch.shell import main
+#: the serving commands: validateHms and the three serving roles
+SERVING = ("validateHms", "proxy", "logserver", "fuse")
 
-    assert main.main([cmd, "arg"]) == 1
-    err = capsys.readouterr().err
-    assert f"{cmd}: not ported yet" in err
-    item = re.search(r"ROADMAP item '([^']+)'", err).group(1)
-    roadmap = open(os.path.join(os.path.dirname(__file__), os.pardir,
-                                "ROADMAP.md")).read()
-    assert item in roadmap
+
+@pytest.fixture(scope="module")
+def serving_clusters(tmp_path_factory):
+    """Each package's LocalCluster, for the roles its shell launches."""
+    out = {}
+    try:
+        for pkg in PACKAGES:
+            out[pkg] = _mod(pkg, "minicluster.local_cluster").LocalCluster(
+                str(tmp_path_factory.mktemp(pkg.split("_")[-1])),
+                num_workers=1).start()
+            fs = out[pkg].file_system()
+            fs.create_directory("/s3/bucket", recursive=True,
+                                allow_exists=True)
+            fs.write_all("/s3/bucket/key.bin", b"served through the shell")
+        yield out
+    finally:
+        for c in out.values():
+            c.stop()
+
+
+def _validate_hms(pkg, uri, db, capsys):
+    code = _mod(pkg, "shell.main").main(
+        ["validateHms", "-m", uri, "-d", db, "-t", "orders", "--no-fs"])
+    out = capsys.readouterr()
+    return code, out.out, out.err
+
+
+@pytest.mark.parametrize("db", ["sales_db", "nope"])
+def test_validate_hms_dispatches_like_jax(db, capsys):
+    from tests.testutils.fake_hms import FakeHmsServer, HmsTable
+
+    with FakeHmsServer() as hms:
+        hms.add_table("sales_db", HmsTable(
+            "orders", "hdfs://nn/warehouse/orders", cols=[("id", "int")]))
+        got = [_validate_hms(pkg, hms.uri, db, capsys) for pkg in PACKAGES]
+    assert got[1] == got[0]
+    assert got[1][0] == (0 if db == "sales_db" else 1)
+    assert "hms.database" in got[1][1]
+
+
+def _serve_role(pkg, role, cluster, tmp_path):
+    """Launch ``role`` through ``pkg``'s shell over ``cluster``, ask it
+    one question, stop it: (banner, answer, exit code), ports and paths
+    masked."""
+    from tests.testutils import torch_serving as sv
+
+    work = tmp_path / f"{role}-{pkg}"
+    work.mkdir()
+    argv = ["--master", f"localhost:{cluster.master.rpc_port}",
+            "-D", "atpu.proxy.web.port=0", "-D", "atpu.logserver.port=0",
+            "-D", f"atpu.logserver.logs.dir={work / 'logs'}",
+            "-D", f"atpu.fuse.mount.point={work / 'mnt'}",
+            "-D", "atpu.fuse.fs.root=/s3", role]
+    env = sv.role_env({"ATPU_HOME": str(work)})
+    proc, banner = sv.launch(pkg, argv, env, cwd=str(work))
+    try:
+        if role == "proxy":
+            port = int(banner.rsplit(" ", 1)[1])
+            answer = sv.comparable(sv.http(port, "GET", "/bucket/key.bin"))
+        elif role == "logserver":
+            import logging.handlers
+
+            port = int(banner.rsplit(" ", 1)[1])
+            h = logging.handlers.SocketHandler("127.0.0.1", port)
+            rec = logging.LogRecord("atpu.shell.served", logging.WARNING,
+                                    __file__, 1, "to %s", ("the server",),
+                                    None)
+            h.handle(rec)
+            h.close()
+            path = work / "logs" / "127.0.0.1.log"
+            for _ in range(200):
+                if path.exists() and "the server" in path.read_text():
+                    break
+                time.sleep(0.05)
+            answer = re.sub(r"^\S+ \S+ ", "", path.read_text())
+        else:
+            mnt = str(work / "mnt")
+            answer = (sorted(os.listdir(mnt)),
+                      open(os.path.join(mnt, "bucket", "key.bin"),
+                           "rb").read())
+    finally:
+        code = sv.stop(proc)
+    if role == "fuse":
+        assert not os.path.ismount(str(work / "mnt"))
+    return (re.sub(r"\d+$", "<PORT>", banner.replace(str(work), "<W>")),
+            answer, code)
+
+
+@pytest.mark.parametrize("role", ["proxy", "logserver", "fuse"])
+def test_serving_role_launches_like_jax(role, serving_clusters, tmp_path):
+    if role == "fuse":
+        if not _mod(PACKAGES[1], "fuse.process").fuse_available():
+            pytest.skip("no FUSE in this environment")
+    got = [_serve_role(pkg, role, serving_clusters[pkg], tmp_path)
+           for pkg in PACKAGES]
+    assert got[1] == got[0]
+    banner, answer, code = got[1]
+    assert code == 0
+    if role == "proxy":
+        assert banner == "alluxio-tpu proxy serving on port <PORT>"
+        assert answer[:2] == (200, b"served through the shell")
+    elif role == "logserver":
+        assert banner == "alluxio-tpu log server on port <PORT>"
+        assert answer == ("WARNING atpu.shell.served [127.0.0.1] "
+                          "to the server\n")
+    else:
+        assert banner == "alluxio-tpu fuse mounted at <W>/mnt"
+        assert answer == (["bucket"], b"served through the shell")
 
 
 def test_stress_dispatches_to_the_cli(capsys):

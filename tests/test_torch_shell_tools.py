@@ -8,9 +8,8 @@ the three repairs that came before the shells.
   each package's ``LocalCluster`` (``tests/testutils/torch_shell.py``);
   what they print must be equal once the masked values are masked, and
   ``runOperation``'s measured seconds and rate and a directory's free
-  space too. The HMS tool refuses
-  in the port until the Hive connector is ported (a deliberate
-  difference);
+  space too (``validateHms`` is held against JAX's in
+  ``tests/test_torch_shell.py``);
 - the master web server's ``/config`` lists every key of the registry
   with credentials masked, as JAX's does;
 - repair (a): both loaders take ``atpu.tpu.prefetch.buffer.batches``
@@ -250,21 +249,6 @@ def test_env_port_and_dir_tasks_match_jax(tmp_path):
     assert [r[1] for r in seen[0][:4]] == ["OK", "WARNING", "OK",
                                            "SKIPPED"]
     assert "already serving" in seen[0][1][2]
-
-
-def test_hms_tool_refuses_until_the_hive_connector():
-    """A deliberate difference: the port has no Hive connector yet, so
-    its HMS tool refuses with the ROADMAP item that brings it, as the
-    shell refuses ``validateHms``."""
-    from alluxio_tpu_torch.shell.main import _NOT_PORTED
-    from alluxio_tpu_torch.utils.exceptions import NotSupportedError
-
-    env = _env(PORT)
-    with pytest.raises(NotSupportedError, match="not ported yet") as e:
-        env.hms_tool("thrift://127.0.0.1:9083")
-    assert env.HMS_ITEM in str(e.value)
-    assert _NOT_PORTED["validateHms"] == env.HMS_ITEM
-    assert not hasattr(env, "main_hms")
 
 
 @pytest.mark.parametrize("target", ["master", "worker", "all", "bogus"])

@@ -16,8 +16,9 @@ plan) on its LocalCluster with the job service, against the JAX package.
   detach, add and remove transform info), written by either package's
   ``TableMaster`` (with and without a checkpoint), replays in the other to
   the writer's ``snapshot()``.
-- The port's under-database factory refuses ``hive`` and ``glue`` with
-  ``NotSupportedError``.
+- The port's under-database factory builds ``hive`` and ``glue`` (each
+  attaches against its fake metastore, ``tests/testutils/fake_{hms,
+  glue}.py``) and refuses an unknown type with ``NotFoundError``.
 """
 
 import importlib
@@ -37,8 +38,7 @@ from alluxio_tpu_torch.conf import Keys  # noqa: E402
 from alluxio_tpu_torch.minicluster import LocalCluster  # noqa: E402
 from alluxio_tpu_torch.rpc.table_service import TableMasterClient  # noqa: E402
 from alluxio_tpu_torch.utils.exceptions import (  # noqa: E402
-    AlreadyExistsError, NotFoundError, NotSupportedError,
-    PermissionDeniedError,
+    AlreadyExistsError, NotFoundError, PermissionDeniedError,
 )
 from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
     port_lock_order_audit, port_lockaudit_install,
@@ -187,13 +187,24 @@ class TestCatalog:
             {p["spec"] for p in before["partitions"]}
 
     def test_unported_under_database_types_are_refused(self, cluster):
+        """``hive`` and ``glue`` attach against their fakes; only an
+        unknown type is refused."""
+        from tests.testutils.fake_glue import FakeGlueServer, GlueTable
+        from tests.testutils.fake_hms import FakeHmsServer, HmsTable
+
         tc = TableMasterClient(cluster.master.address)
-        for udb_type in ("hive", "glue"):
-            with pytest.raises(NotSupportedError, match="not ported"):
-                tc.attach_database(udb_type, "thrift://localhost:9083")
+        with FakeHmsServer() as hms, FakeGlueServer() as glue:
+            hms.add_table("hdb", HmsTable("t", "hdfs://nn/w/t",
+                                          cols=[("a", "int")]))
+            glue.add_table("gdb", GlueTable("g", "s3://w/g",
+                                            cols=[("b", "bigint")]))
+            assert tc.attach_database("hive", hms.uri, "hdb") == "hdb"
+            assert tc.attach_database("glue", glue.endpoint, "gdb") == "gdb"
+        assert tc.get_all_tables("hdb") == ["t"]
+        assert tc.get_all_tables("gdb") == ["g"]
         with pytest.raises(NotFoundError, match="unknown under-database"):
             tc.attach_database("nope", "/warehouse")
-        assert tc.get_all_databases() == []
+        assert sorted(tc.get_all_databases()) == ["gdb", "hdb"]
 
 
 class TestTransform:
