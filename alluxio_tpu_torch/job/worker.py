@@ -1,6 +1,6 @@
 """Job worker: pulls task commands on heartbeat, runs them in a bounded
-executor pool (a copy of ``alluxio_tpu/job/worker.py``; ``stop`` also
-joins every thread the worker started, and the pool has no pause).
+executor pool (a copy of ``alluxio_tpu/job/worker.py``; ``join`` waits
+for every thread the worker started, and the pool has no pause).
 
 Re-design of ``job/server/src/main/java/alluxio/worker/{job/command/
 CommandHandlingExecutor.java,job/task/{TaskExecutor.java:35,88,
@@ -58,9 +58,14 @@ class TaskExecutorManager:
             return self._active
 
     def shutdown(self) -> None:
-        """Cancel the queued tasks, let the running ones finish and join
-        every pool thread (the JAX pool returns without joining)."""
-        self._pool.shutdown(wait=True, cancel_futures=True)
+        """Cancel the queued tasks and return without waiting for the
+        running ones, as the JAX pool does."""
+        self._pool.shutdown(wait=False, cancel_futures=True)
+
+    def join(self) -> None:
+        """Wait for the running tasks to end and join every pool thread
+        (after ``shutdown``)."""
+        self._pool.shutdown(wait=True)
 
 
 class JobWorker:
@@ -91,10 +96,16 @@ class JobWorker:
         self._hb_thread.start()
 
     def stop(self) -> None:
-        """Stop the heartbeat and join it and the task pool."""
+        """Stop the heartbeat and cancel the queued tasks; a running task
+        is not waited for (as in JAX), so a worker whose task hangs on a
+        dead peer stops at once. ``join`` waits for it."""
         if self._hb_thread is not None:
             self._hb_thread.stop()
         self._executor.shutdown()
+
+    def join(self) -> None:
+        """Join the task pool's threads (after ``stop``)."""
+        self._executor.join()
 
     def register(self) -> None:
         self.worker_id = self._jm.register_worker(self.hostname)

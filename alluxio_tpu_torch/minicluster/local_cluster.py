@@ -184,11 +184,14 @@ class LocalCluster:
     def stop(self) -> None:
         """Stop the master's checkers, the job workers, the job master,
         the block workers and the master, in that order, joining every
-        thread each started."""
+        thread each started (a job worker's task pool once its running
+        tasks end)."""
         if self.master is not None:
             self.master.detach_job_service()
         for jw in self.job_workers:
             jw.stop()
+        for jw in self.job_workers:
+            jw.join()
         if self.job_master is not None:
             self.job_master.stop()
         for w in self.workers:

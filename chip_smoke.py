@@ -398,6 +398,33 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    column's ``scaled_sum`` == plain == numpy); (e) the log server's files
    hold the master's, the worker's, the proxy's and the FUSE child's
    records; every role stops, none is left behind, and no mount is left.
+2p. deployment, last: the cluster the port's YARN path stands up. (a) A
+   fake ResourceManager (``tests/testutils/fake_yarn.py``, loaded by
+   path in a child, its hosts ``localhost`` and ``127.0.0.1``) and
+   ``python -m alluxio_tpu_torch.yarn submit --workers 1 -C ...`` (the
+   roles' ports and directories under a work directory of their own,
+   the host's name as locality); the application ACCEPTED. (b) ``python
+   -m alluxio_tpu_torch.yarn.am`` as a child in its own process group:
+   through ``SubprocessLauncher`` it starts the master and one worker
+   (``env ATPU_... python -m alluxio_tpu_torch.shell.main master|worker``,
+   ``python`` a shim under ``build/`` that runs this interpreter); the
+   master must answer and the worker register. (c) A job master and a
+   job worker launched through the shell; the launched master must log
+   its checkers attached. (d) A fake Kubernetes API server
+   (``tests/testutils/fake_k8s.py`` in a child, its CRD constants the
+   port's operator's), one ``Dataset`` CR (a read-only mount of a local
+   directory of 16 seeded 32 MiB shards, ``replicas: 1``, Eager) and
+   ``python -m alluxio_tpu_torch.operator.controller --interval 0.5``
+   as a child until the CR is Bound with ``fileCount`` 16 and
+   ``cachedPercent`` 100. (e) One loader epoch over the mount onto the
+   card, one block a file at the master's default block size, every
+   block on the SHM rung, each ``scaled_sum`` the plain version's and
+   numpy's sum of the UFS file; its GB/s and consumer wait beside the
+   main path's epoch 1. (f) ``replicas: 0`` (every ``replication_min``
+   0), then the CR deleted: the operator frees and unmounts (the
+   worker's used bytes must fall by the corpus) and strips its
+   finalizer (the CR must go). (g) ``yarn kill`` leaves the application
+   KILLED; the AM's process group and the job roles stop, none left.
 
 It prints the card's name and power limit, whether pyarrow imports,
 one ``{"main": {...}}``
@@ -409,7 +436,7 @@ line, one ``{"mesh": {...}}`` line, one ``{"suite": {...}}`` line, one
 one ``{"stress": {...}}`` line, one ``{"observability": {...}}`` line,
 one ``{"guards": {...}}`` line, one ``{"ha": {...}}`` line, one
 ``{"shell": {...}}`` line, one ``{"s3": {...}}`` line, one
-``{"serving": {...}}`` line, one
+``{"serving": {...}}`` line, one ``{"deployment": {...}}`` line, one
 ``{"phase_s": {...}}`` line with every
 phase's seconds, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -4236,9 +4263,17 @@ def suite_phase(workdir: str, taken: dict) -> dict:
         print(f"  {name} ({row['duration_s']:.1f} s, errors "
               f"{row['errors']}{where}){gate}: {json.dumps(shown)}",
               flush=True)
+    drill = dict(zip((name for name, _ in SUITE), rows[1:]))[
+        "prefetch-fault-drill"]
+    detection_wait_s = drill["metrics"]["detection_wait_s"]
+    print(f"2h d: prefetch-fault-drill: detection_wait_s "
+          f"{detection_wait_s:.3f} s from the kill (the drill waits for "
+          f"its load job, then for the master to drop the killed worker), "
+          f"the row {drill['duration_s']:.1f} s", flush=True)
     return {"rows": rows, "exit": proc.returncode, "gate_misses": misses,
             "s": suite_s, "child_s": child_s, "sync_s": sync_s,
             "report_bytes": len(page),
+            "fault_drill_detection_wait_s": detection_wait_s,
             "taken": {name: where for name, (where, _) in
                       SUITE_TAKEN.items()}}
 
@@ -6269,18 +6304,22 @@ srv._server.serve_forever(poll_interval=0.1)
 """
 
 
-def start_s3_child() -> tuple:
-    """The fake S3 server as a child process: (process, endpoint)."""
+def start_http_child(name: str, what: str, code: str, *args: str,
+                     timeout_s: float) -> tuple:
+    """A fake HTTP server run by ``code`` in a child process (argv: the
+    repository, then ``args``) that prints its endpoint first: (process,
+    endpoint). Its stdin is a pipe, for a child that takes commands; the
+    run fails (phase ``name``) if no endpoint comes in ``timeout_s``."""
     import select
 
-    proc = subprocess.Popen([sys.executable, "-c", S3_CHILD, str(ROOT)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
-    ready, _, _ = select.select([proc.stdout], [], [], S3_BOOT_S)
+    proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT), *args],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    ready, _, _ = select.select([proc.stdout], [], [], timeout_s)
     line = proc.stdout.readline().strip() if ready else ""
     if not line.startswith("http://"):
         stop_child(proc)
-        fail(f"2n: the fake S3 server did not start ({line!r}, "
+        fail(f"{name}: the fake {what} did not start ({line!r}, "
              f"{proc.stderr.read()[-1500:]!r})")
     return proc, line
 
@@ -6423,7 +6462,8 @@ def s3_phase(device, worker: dict) -> dict:
     n = S3_SHARDS
     tier = n * BLOCK_BYTES + (256 << 20)
     base = block_dir(tier + (64 << 20))
-    proc, endpoint = start_s3_child()
+    proc, endpoint = start_http_child("2n", "S3 server", S3_CHILD,
+                                      timeout_s=S3_BOOT_S)
     props = {"s3.endpoint": endpoint, **S3_KEYS}
     cluster = fs = loader = None
     try:
@@ -6608,14 +6648,17 @@ def serve_scan(name: str, device, buf, path: str, sums: dict) -> None:
              f"the file's bytes {sums[path]}")
 
 
-def wait_for(what: str, cond, timeout_s: float = SERVE_BOOT_S):
+def wait_for(what: str, cond, timeout_s: float = SERVE_BOOT_S,
+             name: str = "2o"):
+    """``cond()``'s first true value, polled every 50 ms; the run fails
+    (phase ``name``) with ``what`` after ``timeout_s``."""
     deadline = time.monotonic() + timeout_s
     while True:
         got = cond()
         if got:
             return got
         if time.monotonic() > deadline:
-            fail(f"2o: {what} within {timeout_s} s")
+            fail(f"{name}: {what} within {timeout_s} s")
         time.sleep(0.05)
 
 
@@ -7112,6 +7155,498 @@ def serving_phase(device, main: dict, h2d_gb_per_s: float) -> dict:
             "audit": {"locks": audited, "edges": len(auditor.edges),
                       "inversions": 0},
             "launches": launches, "s": s}
+
+# -- 2p: deployment: a YARN-launched cluster fed by the dataset operator ------
+#: (d)'s corpus: 16 seeded int32 shards of 32 MiB (512 MiB) in a local UFS
+#: directory, mounted read-only by the operator
+DEPLOY_SHARDS = 16
+DEPLOY_DATASET = "corpus"
+DEPLOY_MOUNT = "train"
+#: the fake ResourceManager's node hosts: names that resolve on any host
+DEPLOY_RM_HOSTS = ("localhost", "127.0.0.1")
+#: the operator's reconcile interval (its default is 10 s)
+DEPLOY_INTERVAL_S = 0.5
+#: the worker's block heartbeat (the default is 1 s), as the process
+#: cluster's workers run it, so that a free shows in the used bytes soon
+DEPLOY_BLOCK_HEARTBEAT = "200ms"
+DEPLOY_BOOT_S = 60.0
+DEPLOY_DEADLINE_S = 120.0
+#: (f): the worker's used bytes must fall by at least the corpus
+DEPLOY_FREED_MIN = DEPLOY_SHARDS * BLOCK_BYTES
+#: the fake ResourceManager of ``tests/testutils/fake_yarn.py``, loaded by
+#: path in a process of its own: argv is the repository and its hosts
+RM_CHILD = r"""
+import importlib.util, os, sys, types
+root = sys.argv[1]
+for name in ("tests", "tests.testutils"):
+    sys.modules[name] = types.ModuleType(name)
+def load(name, rel):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, rel))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+load("tests.testutils.httpfake", "tests/testutils/httpfake.py")
+fake = load("tests.testutils.fake_yarn", "tests/testutils/fake_yarn.py")
+srv = fake.FakeResourceManager(sys.argv[2].split(","))
+print(srv.endpoint, flush=True)
+srv._server.serve_forever(poll_interval=0.1)
+"""
+#: the fake Kubernetes API server of ``tests/testutils/fake_k8s.py``,
+#: loaded by path in a process of its own, its CRD constants the port's
+#: operator's (the fake names JAX's module, which this script never
+#: imports); it serves on a thread and takes one JSON command a line on
+#: stdin (create, update_spec, delete, get), answering one JSON line each
+K8S_CHILD = r"""
+import copy, importlib.util, json, os, sys, threading, types
+root = sys.argv[1]
+sys.path.insert(0, root)
+import alluxio_tpu_torch.operator.controller as ctl
+for name in ("tests", "tests.testutils", "alluxio_tpu", "alluxio_tpu.operator"):
+    sys.modules[name] = types.ModuleType(name)
+sys.modules["alluxio_tpu.operator.controller"] = ctl
+def load(name, rel):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, rel))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+load("tests.testutils.httpfake", "tests/testutils/httpfake.py")
+fake = load("tests.testutils.fake_k8s", "tests/testutils/fake_k8s.py")
+srv = fake.FakeK8sApiServer()
+threading.Thread(target=srv._server.serve_forever, args=(0.1,),
+                 daemon=True).start()
+print(srv.endpoint, flush=True)
+for line in sys.stdin:
+    cmd = json.loads(line)
+    op = cmd["op"]
+    if op == "create":
+        srv.create(cmd["name"], cmd["spec"])
+    elif op == "update_spec":
+        srv.update_spec(cmd["name"], cmd["spec"])
+    elif op == "delete":
+        srv.delete(cmd["name"])
+    with srv._lock:
+        obj = copy.deepcopy(srv.objects.get(cmd["name"]))
+    print(json.dumps(obj), flush=True)
+"""
+
+
+def k8s_call(proc, op: str, name: str, spec: "dict | None" = None):
+    """One command to the fake API server's child: the CR after it (None
+    once the CR is gone)."""
+    proc.stdin.write(json.dumps({"op": op, "name": name, "spec": spec})
+                     + "\n")
+    proc.stdin.flush()
+    line = proc.stdout.readline()
+    if not line:
+        fail(f"2p: the fake API server exited ({proc.stderr.read()[-1500:]})")
+    return json.loads(line)
+
+
+def deploy_env(base: str) -> dict:
+    """The environment of 2p's children: the repository on the path, and
+    a ``python`` first on ``PATH`` that runs this interpreter (the AM's
+    plans run ``python``; a host may have only ``python3``)."""
+    shim_dir = os.path.join(ROOT, "build", "deploy_bin")
+    os.makedirs(shim_dir, exist_ok=True)
+    shim = os.path.join(shim_dir, "python")
+    with open(shim, "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(shim, 0o755)
+    env = stress_env()
+    env["PATH"] = os.pathsep.join([shim_dir, env.get("PATH", "")])
+    env["ATPU_HOME"] = base
+    return env
+
+
+def yarn_cli(env: dict, rm: str, *argv: str) -> str:
+    """``python -m alluxio_tpu_torch.yarn --rm rm argv``: its stdout, or
+    the run fails unless it exits 0."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "alluxio_tpu_torch.yarn", "--rm", rm, *argv],
+        capture_output=True, text=True, timeout=60, env=env)
+    if proc.returncode != 0:
+        fail(f"2p: yarn {' '.join(argv)} exited {proc.returncode}: "
+             f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    return proc.stdout.strip()
+
+
+def deploy_conf(base: str, mport: int, wport: int, jport: int) -> dict:
+    """The ``-C`` keys of the YARN submit: the roles' ports and
+    directories of their own under ``base``, the host's name as locality
+    (the load plan pairs a job worker, named by the host, with a block
+    worker), a MEM tier of the corpus plus 256 MiB."""
+    import socket
+
+    tier = DEPLOY_SHARDS * BLOCK_BYTES + (256 << 20)
+    return {"atpu.home": base,
+            "atpu.master.journal.folder": os.path.join(base, "journal"),
+            "atpu.master.rpc.port": str(mport),
+            "atpu.master.fastpath.dir": base,
+            "atpu.master.safemode.wait": "0s",
+            "atpu.job.master.rpc.port": str(jport),
+            "atpu.worker.rpc.port": str(wport),
+            "atpu.worker.data.folder": os.path.join(base, "worker"),
+            "atpu.worker.shm.dir": os.path.join(base, "shm"),
+            "atpu.worker.ramdisk.size": f"{tier >> 20}MB",
+            "atpu.worker.block.heartbeat.interval": DEPLOY_BLOCK_HEARTBEAT,
+            "atpu.locality.identity": f"host={socket.gethostname()}"}
+
+
+def _group_alive(pgid: int) -> bool:
+    try:
+        os.killpg(pgid, 0)
+        return True
+    except ProcessLookupError:
+        return False
+
+
+def stop_group(proc) -> None:
+    """SIGTERM the process group ``proc`` leads (the AM and the roles it
+    launched), then SIGKILL whatever is left after 20 s."""
+    import signal
+
+    if proc is None:
+        return
+    try:
+        os.killpg(proc.pid, signal.SIGTERM)
+    except ProcessLookupError:
+        pass
+    deadline = time.monotonic() + 20.0
+    while _group_alive(proc.pid) and time.monotonic() < deadline:
+        proc.poll()
+        time.sleep(0.1)
+    if _group_alive(proc.pid):
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    try:
+        proc.wait(timeout=10)
+    except subprocess.TimeoutExpired:
+        pass
+
+
+def deploy_epoch(device, fs, paths: list, sums: dict) -> dict:
+    """One loader epoch (no device tier) onto ``device`` over ``paths``:
+    every block on the SHM rung, each block's ``scaled_sum`` held against
+    the plain version and numpy's sum of the UFS file's bytes."""
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    rfs = RungFS(fs)
+    loader = DeviceBlockLoader(rfs, list(paths), device=device, prefetch=2,
+                               dtype=np.int32)
+    got = {}
+    try:
+        _sync_device(device)
+        t = time.perf_counter()
+        for path, block in zip(paths, loader.epoch()):
+            x = rk.pad_to_kernel_shape(block)
+            value = int(rk.scaled_sum(x, 1))
+            plain = int(rk.scaled_sum_reference(x, 1))
+            if value != plain or value != sums[path]:
+                fail(f"2p (e): {path}'s scaled_sum {value}, plain {plain}, "
+                     f"the UFS file's bytes {sums[path]}")
+            got[path] = value
+        _sync_device(device)
+        epoch_s = time.perf_counter() - t
+        wait_s = loader.stall_report()["total_wait_s"]
+    finally:
+        loader.close()
+    if list(got) != list(paths):
+        fail(f"2p (e): the epoch gave {len(got)} of {len(paths)} blocks")
+    rfs.check_rungs("2p (e)", "shm")
+    return {"s": epoch_s, "gb_per_s": len(paths) * BLOCK_BYTES / epoch_s
+            / 1e9, "wait_s": wait_s, "rungs": dict(rfs.rungs)}
+
+
+def deployment_phase(device, main: dict) -> dict:
+    """(2p): the cluster the port's YARN path stands up, fed by the
+    port's dataset operator, read by the loader. (a) a fake RM child and
+    ``yarn submit``; (b) the port's AM as a child in its own process
+    group launches the master and one worker through
+    ``SubprocessLauncher``; (c) a job master and a job worker launched
+    through the shell, to which the launched master attaches its
+    checkers; (d) a fake K8s API child, one ``Dataset`` CR (a read-only
+    mount of 16 seeded 32 MiB shards, ``replicas: 1``, Eager) and the
+    operator as a child until the CR is Bound and fully cached; (e) one
+    loader epoch onto the card, every block on the SHM rung; (f)
+    ``replicas: 0``, then the CR deleted: the worker's used bytes fall
+    by the corpus and the CR goes; (g) ``yarn kill``, then the AM's
+    group and the job roles stopped, none left. The epoch prints beside
+    the main path's epoch 1."""
+    from alluxio_tpu_torch.client.file_system import FileSystem
+    from alluxio_tpu_torch.conf import Configuration, Keys
+    from alluxio_tpu_torch.minicluster.multi_process import (
+        ManagedProcess, free_port,
+    )
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.rpc.clients import (
+        BlockMasterClient, MetaMasterClient,
+    )
+    from alluxio_tpu_torch.rpc.job_service import JobMasterClient
+
+    t_phase = time.perf_counter()
+    n = DEPLOY_SHARDS
+    base = block_dir(2 * n * BLOCK_BYTES + (512 << 20))
+    env = deploy_env(base)
+    mport, wport, jport = free_port(), free_port(), free_port()
+    master = f"localhost:{mport}"
+    conf = deploy_conf(base, mport, wport, jport)
+    # the master's root UFS, a directory under atpu.home that the master
+    # does not make (as a MultiProcessCluster makes it for its roles)
+    os.makedirs(os.path.join(base, "underFSStorage"))
+    steps = {}
+    rm = k8s = am = operator = fs = None
+    job_roles = []
+    try:
+        # (a) the fake RM, and the submit through the port's YARN CLI
+        rm, rm_ep = start_http_child("2p", "ResourceManager", RM_CHILD,
+                                     ",".join(DEPLOY_RM_HOSTS),
+                                     timeout_s=DEPLOY_BOOT_S)
+        t = time.perf_counter()
+        app_id = yarn_cli(env, rm_ep, "submit", "--name", "atpu-smoke",
+                          "--workers", "1",
+                          *[a for k, v in conf.items()
+                            for a in ("-C", f"{k}={v}")])
+        steps["submit"] = time.perf_counter() - t
+        state = yarn_cli(env, rm_ep, "status", app_id)
+        if state != "ACCEPTED":
+            fail(f"2p (a): {app_id} is {state}, want ACCEPTED")
+        print(f"2p (a): a fake ResourceManager (pid {rm.pid}, hosts "
+              f"{list(DEPLOY_RM_HOSTS)}); yarn submit gave {app_id} "
+              f"({state}) in {steps['submit']:.3f} s (a child "
+              f"interpreter)", flush=True)
+        print(f"2p: cut atpu.worker.block.heartbeat.interval = "
+              f"{DEPLOY_BLOCK_HEARTBEAT} (default "
+              f"{Keys.WORKER_BLOCK_HEARTBEAT_INTERVAL.default}), the "
+              f"operator's --interval = {DEPLOY_INTERVAL_S} s (default "
+              f"10 s)", flush=True)
+        # (b) the AM, in its own process group with the roles it launches
+        am_log = os.path.join(base, "am.log")
+        t = time.perf_counter()
+        with open(am_log, "ab") as log:
+            am = subprocess.Popen(
+                [sys.executable, "-m", "alluxio_tpu_torch.yarn.am",
+                 "--rm", rm_ep, "--workers", "1",
+                 *[a for k, v in conf.items() for a in ("-C", f"{k}={v}")]],
+                env=env, stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        meta = MetaMasterClient(master, fastpath=False, retry_duration_s=0.5)
+        blocks = BlockMasterClient(master, fastpath=False,
+                                   retry_duration_s=0.5)
+
+        def master_answers():
+            try:
+                return meta.get_master_info()
+            except Exception:  # noqa: BLE001 - not serving yet
+                return None
+
+        def worker_registered():
+            try:
+                return blocks.get_worker_infos()
+            except Exception:  # noqa: BLE001
+                return None
+
+        wait_for("(b) the YARN-launched master answers", master_answers,
+                 DEPLOY_BOOT_S, "2p")
+        steps["master_up"] = time.perf_counter() - t
+        workers = wait_for("(b) the YARN-launched worker registers",
+                           worker_registered, DEPLOY_BOOT_S, "2p")
+        steps["roles_up"] = time.perf_counter() - t
+        if [w.address.rpc_port for w in workers] != [wport]:
+            fail(f"2p (b): workers {[w.address for w in workers]}, want "
+                 f"one on port {wport}")
+        print(f"2p (b): the AM (pid {am.pid}, its own process group) "
+              f"launched the master ({steps['master_up']:.2f} s to answer) "
+              f"and the worker ({steps['roles_up']:.2f} s to register) "
+              f"through SubprocessLauncher", flush=True)
+        # (c) the job service, launched through the shell
+        jenv = {"ATPU_HOME": base, "ATPU_MASTER_HOSTNAME": "localhost",
+                "ATPU_MASTER_RPC_PORT": str(mport),
+                "ATPU_MASTER_FASTPATH_DIR": base,
+                "ATPU_JOB_MASTER_HOSTNAME": "localhost",
+                "ATPU_JOB_MASTER_RPC_PORT": str(jport),
+                "ATPU_JOB_WORKER_HEARTBEAT_INTERVAL": "100ms",
+                "ATPU_LOCALITY_IDENTITY":
+                    conf["atpu.locality.identity"]}
+        t = time.perf_counter()
+        job_roles = [ManagedProcess(role, jenv,
+                                    os.path.join(base, f"{role}.out"))
+                     for role in ("job-master", "job-worker")]
+        for role in job_roles:
+            role.start()
+        jc = JobMasterClient(f"localhost:{jport}", retry_duration_s=1.0)
+
+        def job_service_attached():
+            try:
+                if not jc.list_workers():
+                    return False
+            except Exception:  # noqa: BLE001 - not serving yet
+                return False
+            return _log_lines(am_log, "persistence scheduler attached") > 0
+
+        wait_for("(c) the job service up and the master's checkers "
+                 "attached", job_service_attached, DEPLOY_BOOT_S, "2p")
+        steps["job_service"] = time.perf_counter() - t
+        print(f"2p (c): a job master and a job worker through the shell, "
+              f"the launched master's checkers attached in "
+              f"{steps['job_service']:.2f} s", flush=True)
+        # (d) the corpus, the fake API server, the CR, the operator
+        ufs = os.path.join(base, "ufs")
+        os.makedirs(ufs)
+        sums, paths = {}, []
+        for i in range(n):
+            arr = np.random.default_rng(SEED + 20_000 + i).integers(
+                -2**31, 2**31 - 1, size=BLOCK_BYTES // 4, dtype=np.int32)
+            arr.tofile(os.path.join(ufs, f"shard-{i:02d}.bin"))
+            path = (f"/datasets/{DEPLOY_DATASET}/{DEPLOY_MOUNT}/"
+                    f"shard-{i:02d}.bin")
+            sums[path] = wrap32(arr.sum(dtype=np.int64))
+            paths.append(path)
+        k8s, k8s_ep = start_http_child("2p", "Kubernetes API server",
+                                       K8S_CHILD, timeout_s=DEPLOY_BOOT_S)
+        spec = {"mounts": [{"mountPoint": ufs, "name": DEPLOY_MOUNT,
+                            "readOnly": True}],
+                "replicas": 1, "prefetchStrategy": "Eager"}
+        k8s_call(k8s, "create", DEPLOY_DATASET, spec)
+        op_log = os.path.join(base, "operator.log")
+        t = time.perf_counter()
+        with open(op_log, "ab") as log:
+            operator = subprocess.Popen(
+                [sys.executable, "-m", "alluxio_tpu_torch.operator.controller",
+                 "--master", master, "--job-master", f"localhost:{jport}",
+                 "--api-server", k8s_ep, "--interval",
+                 str(DEPLOY_INTERVAL_S)],
+                env=env, stdout=log, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + DEPLOY_DEADLINE_S
+        while True:
+            status = (k8s_call(k8s, "get", DEPLOY_DATASET) or {}).get(
+                "status", {})
+            if status.get("phase") == "Bound" and "bound" not in steps:
+                steps["bound"] = time.perf_counter() - t
+            if status.get("phase") == "Bound" and \
+                    status.get("fileCount") == n and \
+                    status.get("cachedPercent") == 100:
+                steps["cached"] = time.perf_counter() - t
+                break
+            if operator.poll() is not None:
+                fail(f"2p (d): the operator exited {operator.returncode}")
+            if time.monotonic() > deadline:
+                fail(f"2p (d): the CR's status {status} after "
+                     f"{DEPLOY_DEADLINE_S} s")
+            time.sleep(0.1)
+        if status.get("ufsTotal") != str(n * BLOCK_BYTES):
+            fail(f"2p (d): ufsTotal {status.get('ufsTotal')}, want "
+                 f"{n * BLOCK_BYTES}")
+        print(f"2p (d): the operator (pid {operator.pid}) bound "
+              f"{DEPLOY_DATASET} in "
+              f"{steps['bound']:.2f} s and its Eager load reached "
+              f"cachedPercent 100 in {steps['cached']:.2f} s: {status}",
+              flush=True)
+        # (e) the card
+        fconf = Configuration(load_env=False)
+        fconf.set(Keys.MASTER_FASTPATH_DIR, base)
+        fs = FileSystem(master, conf=fconf)
+        listed = sorted(i.path for i in fs.list_status(
+            f"/datasets/{DEPLOY_DATASET}/{DEPLOY_MOUNT}"))
+        if listed != paths:
+            fail(f"2p (e): the mount lists {listed}")
+        block_counts = [len(fs.get_status(p).block_ids) for p in paths]
+        if block_counts != [1] * n:
+            fail(f"2p (e): blocks a file {block_counts}, want 1 each at "
+                 f"the master's default block size")
+        rk.launches = 0
+        epoch = deploy_epoch(device, fs, paths, sums)
+        launches = rk.launches
+        if launches != n:
+            fail(f"2p (e): scaled_sum launched {launches} times, want {n}")
+        print(f"2p (e): one epoch of {n} x {BLOCK_BYTES >> 20} MiB over "
+              f"the mount ({sum(block_counts)} blocks, one a file at the "
+              f"master's default {Keys.USER_BLOCK_SIZE_BYTES_DEFAULT.default}"
+              f" block size), every block on the SHM rung "
+              f"{epoch['rungs']}: {epoch['s']:.3f} s, "
+              f"{epoch['gb_per_s']:.3f} GB/s, the consumer waiting "
+              f"{epoch['wait_s']:.3f} s; the main path's epoch 1 "
+              f"{main['epoch1_s']:.3f} s "
+              f"({NUM_BLOCKS * BLOCK_BYTES / main['epoch1_s'] / 1e9:.3f} "
+              f"GB/s), waiting {main['consumer_wait_s']:.3f} s; "
+              f"{launches} launches, each the plain version's and numpy's",
+              flush=True)
+        # (f) teardown: replicas 0, then the CR deleted
+        t = time.perf_counter()
+        k8s_call(k8s, "update_spec", DEPLOY_DATASET, dict(spec, replicas=0))
+        wait_for("(f) every file's replication_min at 0", lambda: all(
+            i.replication_min == 0 for i in fs.list_status(
+                f"/datasets/{DEPLOY_DATASET}/{DEPLOY_MOUNT}")),
+            DEPLOY_DEADLINE_S, "2p")
+        wait_for("(f) every job done", lambda: all(
+            j.status in ("COMPLETED", "FAILED", "CANCELED")
+            for j in jc.list_jobs()), DEPLOY_DEADLINE_S, "2p")
+        used0 = blocks.get_worker_infos()[0].used_bytes
+        k8s_call(k8s, "delete", DEPLOY_DATASET)
+        wait_for("(f) the CR gone",
+                 lambda: k8s_call(k8s, "get", DEPLOY_DATASET) is None,
+                 DEPLOY_DEADLINE_S, "2p")
+
+        def freed():
+            u = blocks.get_worker_infos()[0].used_bytes
+            return used0 - u >= DEPLOY_FREED_MIN and (u,)
+
+        used, = wait_for("(f) the worker's used bytes down by the corpus",
+                         freed, DEPLOY_DEADLINE_S, "2p")
+        mounts = sorted(m.alluxio_path for m in fs.get_mount_points())
+        if any(m.startswith("/datasets") for m in mounts) or \
+                fs.exists(f"/datasets/{DEPLOY_DATASET}"):
+            fail(f"2p (f): mounts {mounts} after the teardown")
+        steps["teardown"] = time.perf_counter() - t
+        jobs = jc.list_jobs()
+        print(f"2p (f): replicas 0 (every replication_min 0), then the CR "
+              f"deleted: unmounted and freed, the worker's used bytes "
+              f"{used0} -> {used} ({(used0 - used) / 2**20:.1f} MiB freed), "
+              f"the finalizer stripped and the CR gone, in "
+              f"{steps['teardown']:.2f} s; load jobs "
+              f"{[(j.job_id, j.status) for j in jobs]}", flush=True)
+        # (g) the end
+        yarn_cli(env, rm_ep, "kill", app_id)
+        state = yarn_cli(env, rm_ep, "status", app_id)
+        if state != "KILLED":
+            fail(f"2p (g): {app_id} is {state} after yarn kill")
+    finally:
+        try:
+            if fs is not None:
+                fs.close()
+            if operator is not None:
+                stop_child(operator)
+            if k8s is not None:
+                k8s.stdin.close()
+                stop_child(k8s)
+            for role in reversed(job_roles):
+                role.stop()
+            stop_group(am)
+        finally:
+            if rm is not None:
+                stop_child(rm)
+            shutil.rmtree(base, ignore_errors=True)
+    left = [r.role for r in job_roles if r.alive]
+    if am is None or _group_alive(am.pid) or left:
+        fail(f"2p (g): role processes left: the AM's group "
+             f"{am is not None and _group_alive(am.pid)}, job roles {left}")
+    s = time.perf_counter() - t_phase
+    print(f"2p (g): {app_id} KILLED; the AM's process group and the job "
+          f"roles stopped, none left. 2p: {s:.1f} s, scaled_sum launched "
+          f"{launches} times", flush=True)
+    return {"app_id": app_id, "shards": n, "bytes": n * BLOCK_BYTES,
+            "steps_s": steps, "epoch": epoch,
+            "main_epoch1_s": main["epoch1_s"],
+            "main_consumer_wait_s": main["consumer_wait_s"],
+            "freed_bytes": used0 - used, "blocks": sum(block_counts),
+            "launches": launches, "s": s}
+
 
 def record_files(workdir: str, num_blocks: int, block_bytes: int) -> dict:
     """``bench.py``'s e2e layout: blocks of 64x64x3 records with a 4-byte
@@ -8082,6 +8617,9 @@ def main() -> int:
         # server) on a process cluster of their own
         serving = phase("2o", serving_phase, device, main,
                         worker["h2d_ceiling"]["32MiB"]["gb_per_s"])
+        # 2p: deployment: the cluster the port's YARN path stands up, fed
+        # by its dataset operator and read by the loader
+        deployment = phase("2p", deployment_phase, device, main)
     finally:
         try:
             if mp is not None:
@@ -8115,6 +8653,8 @@ def main() -> int:
     print(json.dumps({"lint": {**lint, "card": CARD}}), flush=True)
     print(json.dumps({"s3": {**s3, "card": CARD}}), flush=True)
     print(json.dumps({"serving": {**serving, "card": CARD}}), flush=True)
+    print(json.dumps({"deployment": {**deployment, "card": CARD}}),
+          flush=True)
     PHASE_S["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_s": {k: round(v, 1)
                                   for k, v in PHASE_S.items()}}), flush=True)
@@ -8146,7 +8686,8 @@ def main() -> int:
             "shell": shell["launches"],
             "lockaudit": lockaudit["launches"],
             "s3": s3["launches"],
-            "serving": serving["launches"]},
+            "serving": serving["launches"],
+            "deployment": deployment["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

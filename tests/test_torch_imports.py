@@ -109,7 +109,9 @@ def test_importing_every_module_loads_no_jax():
               "underfs.s3_compat", "underfs.vendor_native", "underfs.gcs",
               "underfs.azure", "underfs.swift", "underfs.ozone",
               "underfs.hdfs", "underfs.webhdfs", "underfs.delegating",
-              "utils.collections", "client.arrow_fs", "client.fsspec_fs"):
+              "utils.collections", "client.arrow_fs", "client.fsspec_fs",
+              "yarn", "yarn.allocator", "yarn.client", "yarn.am",
+              "yarn.__main__", "operator", "operator.controller"):
         assert f"alluxio_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -138,9 +140,10 @@ def test_role_launchers_load_no_torch():
     multi-process and HA clusters, every module the four launchers build
     their roles from (the HA master's Raft journal, tailer and backup
     among them), the journal tools, the HA drills, the operator's
-    shells, the update check, and the serving surfaces (the proxy, the
-    log server, FUSE, the Hive and Glue under-databases) import no
-    torch."""
+    shells, the update check, the serving surfaces (the proxy, the
+    log server, FUSE, the Hive and Glue under-databases), and the
+    deployment modules (the YARN client, allocator, application master
+    and CLI, the Kubernetes dataset operator) import no torch."""
     code = ("import sys\n"
             "import alluxio_tpu_torch.shell.main, "
             "alluxio_tpu_torch.shell.launch, "
@@ -184,6 +187,13 @@ def test_role_launchers_load_no_torch():
             "alluxio_tpu_torch.table.thrift_proto, "
             "alluxio_tpu_torch.table.hive, "
             "alluxio_tpu_torch.table.glue, "
+            "alluxio_tpu_torch.yarn, "
+            "alluxio_tpu_torch.yarn.allocator, "
+            "alluxio_tpu_torch.yarn.client, "
+            "alluxio_tpu_torch.yarn.am, "
+            "alluxio_tpu_torch.yarn.__main__, "
+            "alluxio_tpu_torch.operator, "
+            "alluxio_tpu_torch.operator.controller, "
             "alluxio_tpu_torch.qos\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('torch', 'jax', 'alluxio_tpu')))\n")

@@ -516,3 +516,64 @@ def test_client_drives_the_other_job_master(server, client, tmp_path):
             jc.get_status(31337)
     finally:
         _stop(env)
+
+
+# -- a job worker stops while its task blocks ---------------------------------
+class _OneRunJobMaster:
+    """A job master client whose first heartbeat hands the worker one
+    task of the ``block`` plan."""
+
+    def __init__(self, pkg):
+        self._pkg = pkg
+        self._sent = False
+
+    def register_worker(self, hostname):
+        return 1
+
+    def heartbeat(self, worker_id, health, updates):
+        if self._sent:
+            return []
+        self._sent = True
+        cmd = _mod(self._pkg, "job.wire").JobCommand(
+            kind="run", job_id=1, task_id=0, job_config={"type": "block"})
+        return [cmd.to_wire()]
+
+
+class _BlockingPlan:
+    name = "block"
+
+    def __init__(self):
+        import threading
+
+        self.started = threading.Event()
+        self.release = threading.Event()
+
+    def run_task(self, job_config, task_args, ctx):
+        self.started.set()
+        self.release.wait(30.0)
+        return None
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_job_worker_stop_returns_while_a_task_blocks(pkg):
+    """``JobWorker.stop()`` returns within 2 s while a task it runs
+    blocks (JAX's does; the port's joined its pool behind the task until
+    the task ended). The port's ``join`` then waits for the task and
+    joins the pool's threads."""
+    plan = _BlockingPlan()
+    registry = _mod(pkg, "job.plan").PlanRegistry()
+    registry.register(plan)
+    jw = _mod(pkg, "job.worker").JobWorker(
+        _OneRunJobMaster(pkg), None, "h", registry=registry,
+        heartbeat_interval_s=0.05)
+    jw.start()
+    try:
+        assert plan.started.wait(10.0), "the task never started"
+        t = time.monotonic()
+        jw.stop()
+        assert time.monotonic() - t < 2.0
+    finally:
+        plan.release.set()
+    if pkg == "alluxio_tpu_torch":
+        jw.join()
+        assert not any(th.is_alive() for th in jw._executor._pool._threads)
