@@ -10,8 +10,10 @@ Under a mesh (:func:`make_sharded_train_state`) the batch is split over
 rank takes the mean loss of its rows; the gradients are summed over the
 ``data`` group and divided by its size, the gradient of the global-batch
 mean that JAX's jit computes. AdamW runs on the local shards, so its
-state is sharded like the parameters. The JAX step's sequence-parallel
-option is not ported: it raises in the JAX package (ROADMAP).
+state is sharded like the parameters. The JAX step's ``seq_parallel``
+option raises ``NameError`` in the JAX package (ROADMAP), so this step
+has none; the sequence-parallel forward and its gradients are
+``loss_fn(..., seq_axis=...)`` (``models/transformer.py``).
 
 Also here: :func:`sgd` (``optax.sgd``), for ``bench.py``'s linear-softmax
 model.

@@ -25,14 +25,33 @@ rest whole. Each split product takes its input through
 ``copy_to_group`` and sums its partial output with
 ``reduce_from_group``. The batch is split over ``data``: each rank runs
 its own rows, and the MoE balance loss takes its means over the whole
-batch. The sequence-parallel option of the JAX package is not ported:
-its train step does not run (ROADMAP).
+batch.
+
+Sequence parallelism (``seq_axis``, as in the JAX package): ``tokens``
+is this rank's T-shard, and attention is :func:`ring_attention_local`
+over the axis's group, not causal. The forward is what the JAX one
+computes per shard inside a ``shard_map``, three oddities included,
+which are the reference's and are kept:
+
+- positions are ``pos[:t_local]`` on every shard, so each shard's
+  positions start again at 0 (``alluxio_tpu/models/transformer.py:143-144``);
+- ``pooled`` is the mean over this rank's shard only (``:157``), so the
+  logits and the loss are the shard's own;
+- the MoE balance loss is this shard's: JAX's ``load_balance_loss``
+  (``alluxio_tpu/parallel/moe.py:89``) has no collective, so no group
+  takes its means.
+
+The gradients of a shard's loss are those of JAX's ``value_and_grad``
+inside the ``shard_map``: the ring's backward brings each rank the dk
+and dv of its block from every rank's loss. The JAX train step's
+``seq_parallel`` raises ``NameError`` (ROADMAP), so the port's train
+step has no such option.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +64,8 @@ from alluxio_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
 from alluxio_tpu_torch.parallel.moe import (init_moe_params,
                                             load_balance_loss, moe_ffn,
                                             moe_param_specs)
-from alluxio_tpu_torch.parallel.ring_attention import reference_attention
+from alluxio_tpu_torch.parallel.ring_attention import (
+    reference_attention, ring_attention_local)
 from alluxio_tpu_torch.parallel.tensor_parallel import (copy_to_group,
                                                         reduce_from_group)
 from alluxio_tpu_torch.utils.pytree import tree_leaves
@@ -230,9 +250,14 @@ def _split_out(y, mesh):
         reduce_from_group(y, mesh.get_group(MODEL_AXIS))
 
 
-def _attention(x, layer: _Layer, mesh):
+def _attention(x, layer: _Layer, mesh, seq_axis: Optional[str]):
     qkv = torch.einsum("btd,dshk->sbthk", _split_in(x, mesh), layer.wqkv)
-    out = reference_attention(qkv[0], qkv[1], qkv[2], causal=False)
+    if seq_axis is not None:
+        out = ring_attention_local(qkv[0], qkv[1], qkv[2],
+                                   group=mesh.get_group(seq_axis),
+                                   causal=False)
+    else:
+        out = reference_attention(qkv[0], qkv[1], qkv[2], causal=False)
     return _split_out(torch.einsum("bthk,hkd->btd", out, layer.wo), mesh)
 
 
@@ -244,19 +269,28 @@ def _mlp(x, layer: _Layer, mesh):
     return _split_out(torch.einsum("btf,fd->btd", h, layer.w2), mesh)
 
 
-def forward_with_aux(model: Transformer, tokens):
+def forward_with_aux(model: Transformer, tokens, *,
+                     seq_axis: Optional[str] = None):
     """tokens: (B, T, vocab_or_patch_dim) float inputs (flattened patches
     from decode). Returns ((B, n_classes) float32 logits, aux) where
     ``aux`` is the summed MoE load-balance loss (0 when dense). Under a
-    mesh, ``tokens`` are this rank's rows and so are the logits."""
+    mesh, ``tokens`` are this rank's rows and so are the logits; with
+    ``seq_axis``, this rank's T-shard, and the logits and aux are the
+    shard's own (see the module docstring)."""
     cfg, mesh = model.cfg, model.mesh
-    data = None if mesh is None else mesh.get_group(DATA_AXIS)
+    if seq_axis is not None and mesh is None:
+        raise ValueError(f"seq_axis={seq_axis!r} needs a model on a mesh")
+    # the balance loss's means span the data group, as JAX's span the
+    # global batch; per shard under seq_axis, as inside JAX's shard_map
+    data = None if mesh is None or seq_axis is not None \
+        else mesh.get_group(DATA_AXIS)
     x = torch.einsum("btp,pd->btd", tokens.to(cfg.dtype), model.embed)
     t = x.shape[1]
     x = x + model.pos[:t][None]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
-        x = x + _attention(_rms_norm(x, layer.ln1["scale"]), layer, mesh)
+        x = x + _attention(_rms_norm(x, layer.ln1["scale"]), layer, mesh,
+                           seq_axis)
         ffn_in = _rms_norm(x, layer.ln2["scale"])
         if hasattr(layer, "moe"):
             aux = aux + load_balance_loss(layer.moe, ffn_in,
@@ -268,14 +302,17 @@ def forward_with_aux(model: Transformer, tokens):
     return logits, aux
 
 
-def forward(model: Transformer, tokens) -> torch.Tensor:
-    return forward_with_aux(model, tokens)[0]
+def forward(model: Transformer, tokens, *,
+            seq_axis: Optional[str] = None) -> torch.Tensor:
+    return forward_with_aux(model, tokens, seq_axis=seq_axis)[0]
 
 
-def loss_fn(model: Transformer, tokens, labels) -> torch.Tensor:
+def loss_fn(model: Transformer, tokens, labels, *,
+            seq_axis: Optional[str] = None) -> torch.Tensor:
     """Mean cross-entropy (float32) plus ``MOE_AUX_WEIGHT`` x aux; under
-    a mesh, the mean over this rank's rows."""
-    logits, aux = forward_with_aux(model, tokens)
+    a mesh, the mean over this rank's rows; with ``seq_axis``, this
+    shard's loss."""
+    logits, aux = forward_with_aux(model, tokens, seq_axis=seq_axis)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, 1, labels.long()[:, None]).mean()
     return nll + MOE_AUX_WEIGHT * aux

@@ -207,14 +207,3 @@ def ring_exchange(sends, recvs, *, to: Optional[int], frm: Optional[int],
         src = dist.get_global_rank(group, frm)
         ops += [dist.P2POp(dist.irecv, t, src, group) for t in recvs]
     return dist.batch_isend_irecv(ops) if ops else []
-
-
-def forward_only(name: str, *tensors) -> None:
-    """Raise if autograd would record through ``name``: its
-    point-to-point exchanges carry no gradient, so a backward through
-    it would be silently wrong."""
-    if torch.is_grad_enabled() and any(
-            getattr(t, "requires_grad", False) for t in tensors):
-        raise RuntimeError(f"{name} is forward only: call it under "
-                           f"torch.no_grad() on tensors that need no "
-                           f"gradient")

@@ -564,7 +564,19 @@ RING_CASES = (((64, 16, 8, 32), "bfloat16"), ((1, 8192, 8, 64), "float32"))
 #: float32 result and may round it apart
 RING_ATOL = 1e-5
 RING_BF16_TOL = 2.0 ** -7
+#: ring attention's dq, dk and dv against autograd through
+#: reference_attention are held to the same bounds: float32 within
+#: RING_ATOL, bf16 within RING_BF16_TOL of each tensor's largest
+#: |gradient| (both compute in float32 and round once to bf16)
 PIPE_SHAPE = (8, 1024, 256)
+#: (f) the sequence-parallel ViT loss and gradients against the plain
+#: loss_fn on the same weights, both bf16: the ring merges attention in
+#: another order, so a bf16 result may round apart and the rounding
+#: compounds through the layers; held as the first ViT step is, each
+#: gradient leaf within 2**-5 of its largest magnitude and the loss
+#: within 1e-3
+SEQ_TOL = FIRST_STEP_TOL
+SEQ_LOSS_ATOL = FIRST_STEP_LOSS_ATOL
 
 #: H100 SXM peaks (NVIDIA's data sheet): device-memory rate, and the
 #: CUDA-core rate (67 TFLOP/s float32; the table has no int32 entry, so
@@ -8416,9 +8428,87 @@ def ring_check(device, mesh) -> list:
     return out
 
 
+def ring_grad_check(device, mesh) -> list:
+    """(d) backward: dq, dk and dv of ring_attention over ``data``
+    against autograd through reference_attention on the same tensors
+    and upstream gradient, with each one's forward-plus-backward time
+    and the peak memory above the phase's own."""
+    import torch
+
+    from alluxio_tpu_torch.parallel.ring_attention import (
+        reference_attention, ring_attention)
+
+    def ring(q, k, v, *, causal):
+        return ring_attention(q, k, v, mesh=mesh, axis="data",
+                              causal=causal)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 8)
+    total = torch.cuda.get_device_properties(device).total_memory
+    out = []
+    for shape, dtype in RING_CASES:
+        q, k, v, up = (torch.randn(shape, generator=gen, device=device)
+                       .to(getattr(torch, dtype)) for _ in range(4))
+        for causal in (True, False):
+            def fwd_bwd(fn):
+                qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+                return torch.autograd.grad(fn(*qkv, causal=causal), qkv,
+                                           up)
+
+            peaks = {}
+            for name, fn in (("reference", reference_attention),
+                             ("ring", ring)):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                grads = fwd_bwd(fn)
+                torch.cuda.synchronize()
+                peaks[name] = torch.cuda.max_memory_allocated(device) - base
+                if name == "reference":
+                    want = grads
+            case = {"shape": list(shape), "dtype": dtype, "causal": causal,
+                    "base_gib": base / 2**30,
+                    "peak_gib": {n: b / 2**30 for n, b in peaks.items()},
+                    "card_gib": total / 2**30}
+            for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    fail(f"ring_attention {name}: {g.dtype} {tuple(g.shape)}"
+                         f" != reference {w.dtype} {tuple(w.shape)}")
+                err = float((g.float() - w.float()).abs().max())
+                scale = float(w.float().abs().max())
+                tol = RING_ATOL if dtype == "float32" \
+                    else RING_BF16_TOL * scale
+                case[name] = {"max_abs_err": err, "max_abs_ref": scale,
+                              "tol": tol}
+                if not err <= tol:
+                    fail(f"ring_attention {list(shape)} {dtype} causal="
+                         f"{causal}: {name} differs by {err} from autograd "
+                         f"through reference_attention (tolerance {tol})")
+            del grads, want
+            case["ms"] = time_ms(lambda: fwd_bwd(ring), reps=3, warmup=1)
+            case["reference_ms"] = time_ms(
+                lambda: fwd_bwd(reference_attention), reps=3, warmup=1)
+            out.append(case)
+            errs = ", ".join(f"{n} {case[n]['max_abs_err']:.3e} (tolerance "
+                             f"{case[n]['tol']:.3e})" for n in
+                             ("dq", "dk", "dv"))
+            print(f"mesh ring_attention backward {list(shape)} {dtype} "
+                  f"causal={causal}: {errs}; forward+backward "
+                  f"{case['ms']:.4f} ms, reference {case['reference_ms']:.4f}"
+                  f" ms; peak above the phase's {case['base_gib']:.2f} GiB: "
+                  f"ring {case['peak_gib']['ring']:.2f}, reference "
+                  f"{case['peak_gib']['reference']:.2f} GiB of "
+                  f"{case['card_gib']:.1f}", flush=True)
+        del q, k, v, up
+    return out
+
+
 def pipeline_check(device, mesh, shape) -> dict:
     """(e): pipeline_apply over a one-stage ``pipe`` axis against the
-    stage applied in sequence, bit for bit."""
+    stage applied in sequence, bit for bit: the outputs, then the
+    gradients of ``w``, ``b`` and the microbatches against the stage's
+    own gradients taken microbatch by microbatch in the pipeline's
+    reverse order and summed in it (the same ops)."""
     import torch
 
     from alluxio_tpu_torch.parallel.pipeline import pipeline_apply
@@ -8430,6 +8520,7 @@ def pipeline_check(device, mesh, shape) -> dict:
               * d ** -0.5,
               "b": torch.randn((1, d), generator=gen, device=device) * 0.1}
     micro = torch.randn(shape, generator=gen, device=device)
+    upstream = torch.randn(shape, generator=gen, device=device)
 
     def stage(p, x):
         return torch.tanh(x @ p["w"] + p["b"])
@@ -8439,10 +8530,92 @@ def pipeline_check(device, mesh, shape) -> dict:
                         for x in micro])
     if not same_bits(got, want):
         fail("pipeline_apply differs from the stage applied in sequence")
+
+    def fwd_bwd():
+        leaves = [params["w"].detach().requires_grad_(),
+                  params["b"].detach().requires_grad_(),
+                  micro.detach().requires_grad_()]
+        y = pipeline_apply(stage, dict(zip("wb", leaves[:2])), leaves[2],
+                           mesh=mesh)
+        return torch.autograd.grad(y, leaves, upstream)
+
+    got = fwd_bwd()
+    p0 = {k: v[0].detach().requires_grad_() for k, v in params.items()}
+    acc, d_micro = None, [None] * m
+    for j in reversed(range(m)):
+        x = micro[j].detach().requires_grad_()
+        d_micro[j], *g = torch.autograd.grad(stage(p0, x), [x, p0["w"],
+                                                            p0["b"]],
+                                             upstream[j])
+        acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+    want = [acc[0][None], acc[1][None], torch.stack(d_micro)]
+    bad = [n for n, a, b in zip(("w", "b", "microbatches"), got, want)
+           if not same_bits(a, b)]
+    if bad:
+        fail(f"pipeline_apply's gradients of {bad} differ from the stage's "
+             f"own, microbatch by microbatch")
+    ms = time_ms(fwd_bwd, reps=5, warmup=1)
     print(f"mesh pipeline_apply, 1 stage, {m} microbatches of {rows} x {d}: "
-          f"bit-identical to the stage in sequence", flush=True)
+          f"outputs and the gradients of w, b and the microbatches "
+          f"bit-identical to the stage in sequence; forward+backward "
+          f"{ms:.4f} ms", flush=True)
     return {"stages": 1, "microbatches": m, "shape": list(shape),
-            "bit_identical": True}
+            "bit_identical": True, "grads_bit_identical": True,
+            "forward_backward_ms": ms}
+
+
+def seq_parallel_check(device, mesh, cfg, batch) -> list:
+    """(f): the ViT's loss and every parameter's gradient under
+    ``seq_axis="data"`` against the plain ``loss_fn`` on the same
+    weights and decoded batch, dense then MoE, with the forward and
+    backward timed."""
+    import dataclasses
+
+    import torch
+
+    from alluxio_tpu_torch.models.transformer import Transformer, loss_fn
+
+    tokens, labels = batch
+    out = []
+    for experts in (0, MOE_EXPERTS):
+        model = Transformer(dataclasses.replace(cfg, moe_experts=experts),
+                            mesh=mesh, seed=0)
+
+        def step(seq_axis):
+            loss = loss_fn(model, tokens, labels, seq_axis=seq_axis)
+            return loss, torch.autograd.grad(loss, model.leaves())
+
+        (loss_seq, g_seq), (loss_one, g_one) = step("data"), step(None)
+        loss_seq, loss_one = loss_seq.item(), loss_one.item()
+        loss_err = abs(loss_seq - loss_one)
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(g_seq, g_one)):
+            err = float((a.float() - b.float()).abs().max())
+            scale = float(b.float().abs().max())
+            worst = max(worst, err / scale if scale else err)
+            if a.dtype != b.dtype or not err <= SEQ_TOL * scale:
+                fail(f"seq_axis (moe_experts={experts}): gradient leaf {i} "
+                     f"differs by {err} (largest {scale}, tolerance "
+                     f"{SEQ_TOL} of it) from the plain loss_fn's")
+        if not loss_err <= SEQ_LOSS_ATOL:
+            fail(f"seq_axis (moe_experts={experts}): loss {loss_seq} != "
+                 f"plain {loss_one}")
+        del g_seq, g_one
+        ms = time_ms(lambda: step("data"), reps=5, warmup=1)
+        plain_ms = time_ms(lambda: step(None), reps=5, warmup=1)
+        case = {"moe_experts": experts, "tokens": list(tokens.shape),
+                "loss": loss_seq, "plain_loss": loss_one,
+                "loss_err": loss_err, "leaves": len(model.leaves()),
+                "worst_leaf_err_over_max": worst, "tol": SEQ_TOL,
+                "forward_backward_ms": ms, "plain_ms": plain_ms}
+        out.append(case)
+        print(f"mesh seq_axis='data' ViT, moe_experts={experts}, tokens "
+              f"{list(tokens.shape)}: loss {case['loss']:.6f} against "
+              f"plain {case['plain_loss']:.6f}; {case['leaves']} gradient "
+              f"leaves, the worst {worst:.3e} of its largest magnitude "
+              f"(tolerance {SEQ_TOL:.3e}); forward+backward {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms", flush=True)
+    return out
 
 
 def mesh_phase(device, workdir: str, fs, shard_files: dict,
@@ -8478,8 +8651,17 @@ def mesh_phase(device, workdir: str, fs, shard_files: dict,
             device, mesh, dataclasses.replace(cfg, moe_experts=MOE_EXPERTS),
             batches[:MOE_STEPS], VIT_LR)
         out["ring_attention"] = ring_check(device, mesh)
-        out["pipeline"] = pipeline_check(
-            device, make_mesh({"pipe": 1}), PIPE_SHAPE)
+        print("mesh backward and sequence parallelism at one rank: no K/V "
+              "block, gradient accumulator or activation crosses a link "
+              "(the rotations are held at 2 and 4 gloo ranks on the CPU, "
+              "tests/test_torch_parallel_grad.py; over NVLink only once "
+              "four cards run)", flush=True)
+        out["ring_attention_backward"] = phase(
+            "mesh d backward", ring_grad_check, device, mesh)
+        out["pipeline"] = phase("mesh e", pipeline_check, device,
+                                make_mesh({"pipe": 1}), PIPE_SHAPE)
+        out["seq_parallel"] = phase("mesh f", seq_parallel_check, device,
+                                    mesh, cfg, batches[0])
     finally:
         dist.destroy_process_group()
     return out

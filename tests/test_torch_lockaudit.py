@@ -9,6 +9,8 @@ import ast
 import contextlib
 import importlib
 import os
+import subprocess
+import sys
 import threading
 from pathlib import Path
 
@@ -232,32 +234,54 @@ def test_write_rename_delete_edges_equal_jax(tmp_path):
         assert edge in edges
 
 
+def _outside_pytest_drill():
+    """The drill's use of :func:`audited`, run by the test below in a
+    child interpreter that starts no cluster: the outer block stands for
+    the auditor a test runs under."""
+    with pla.audited():
+        with pla.audited() as aud:
+            a = pla._proxy(threading.Lock(), "fx.A")
+            b = pla._proxy(threading.Lock(), "fx.B")
+
+            def ab():
+                with a:
+                    with b:
+                        pass
+
+            def ba():
+                with b:
+                    with a:
+                        pass
+
+            for fn in (ab, ba):
+                t = threading.Thread(target=fn)
+                t.start()
+                t.join(5)
+            assert aud.inversions() == [("fx.A", "fx.B")]
+            # the audited names acquired in the block: the child runs no
+            # cluster, so only the pair's own may show
+            assert [n for n in pla.acquired_names()
+                    if n != "JobMaster._lock"] == ["fx.A", "fx.B"]
+        # the outer auditor is current again, and never saw the pair
+        assert ("fx.A", "fx.B") not in pla._DELEGATE.current.edges
+
+
 def test_install_works_outside_pytest_and_reports_an_inversion():
     """:func:`audited` is the drill's entry point: proxies report to it,
     and two locks taken in both orders on two threads are an
-    inversion."""
-    with pla.audited() as aud:
-        a = pla._proxy(threading.Lock(), "fx.A")
-        b = pla._proxy(threading.Lock(), "fx.B")
-
-        def ab():
-            with a:
-                with b:
-                    pass
-
-        def ba():
-            with b:
-                with a:
-                    pass
-
-        for fn in (ab, ba):
-            t = threading.Thread(target=fn)
-            t.start()
-            t.join(5)
-        assert aud.inversions() == [("fx.A", "fx.B")]
-        # the module's cluster runs on, and its job master's heartbeat
-        # may take that lock inside the block: no other name may show
-        assert [n for n in pla.acquired_names()
-                if n != "JobMaster._lock"] == ["fx.A", "fx.B"]
-    # the test's own auditor is current again, and never saw the pair
-    assert ("fx.A", "fx.B") not in pla._DELEGATE.current.edges
+    inversion. The block runs in a child interpreter: :func:`audited`
+    makes its auditor current for the whole process, so a cluster of
+    this module's fixtures (its Raft node, its job master) could take an
+    audited lock inside it."""
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location("
+            f"'lockaudit_drill', {str(Path(__file__))!r})\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "mod._outside_pytest_drill()\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]

@@ -22,7 +22,7 @@ from alluxio_tpu_torch.parallel.mesh import (Layout, make_mesh,  # noqa: E402
                                              shard)
 from alluxio_tpu_torch.parallel.pipeline import pipeline_apply  # noqa: E402
 from alluxio_tpu_torch.parallel.ring_attention import (  # noqa: E402
-    reference_attention, ring_attention, ring_attention_local)
+    reference_attention, ring_attention)
 from tests.testutils.torch_dist import run_groups  # noqa: E402
 from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
     port_lock_order_audit, port_lockaudit_install,
@@ -144,12 +144,6 @@ def test_ring_attention_matches_jax(port, causal):
     np.testing.assert_allclose(got, mine, rtol=0, atol=1e-5)
 
 
-def test_ring_attention_is_forward_only():
-    q = torch.zeros(1, 2, 1, 4, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        ring_attention_local(q, q, q, group=None)
-
-
 def _jax_moe():
     import jax
     import jax.numpy as jnp
@@ -239,9 +233,3 @@ def test_pipeline_matches_jax_and_stages_in_sequence(port, stages):
         got = r[f"pipe{stages}"]
         np.testing.assert_array_equal(got, seq.numpy())
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-
-
-def test_pipeline_is_forward_only():
-    p = {"w": torch.zeros(1, 2, 2, requires_grad=True)}
-    with pytest.raises(RuntimeError, match="forward only"):
-        pipeline_apply(lambda p, x: x, p, torch.zeros(1, 2), mesh=None)
