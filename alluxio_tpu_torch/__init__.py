@@ -66,6 +66,9 @@ __version__ = "0.1.0"
 
 _LAZY = {
     "FileSystem": "alluxio_tpu_torch.client.file_system",
+    "AlluxioURI": "alluxio_tpu_torch.utils.uri",
+    "Configuration": "alluxio_tpu_torch.conf.configuration",
+    "PropertyKey": "alluxio_tpu_torch.conf.property_key",
     "LocalCluster": "alluxio_tpu_torch.minicluster.local_cluster",
     "DeviceBlockLoader": "alluxio_tpu_torch.client.torch_io",
     "batched_device_iterator": "alluxio_tpu_torch.client.torch_io",

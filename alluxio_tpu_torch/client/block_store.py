@@ -140,6 +140,11 @@ class BlockStoreClient:
             native_fastpath=conf.get_bool(Keys.USER_NATIVE_FASTPATH_ENABLED),
             **kwargs)
 
+    @property
+    def block_master(self):
+        """The block-master client (public: placement reporting etc.)."""
+        return self._bm
+
     # -- worker client cache -------------------------------------------------
     def worker_client(self, address: WorkerNetAddress) -> WorkerClient:
         key = f"{address.host}:{address.data_port or address.rpc_port}"

@@ -110,6 +110,14 @@ class BlockInStream:
         coalesce override it with the same results."""
         return [self.pread(off, n) for off, n in zip(offsets, sizes)]
 
+    def memoryview(self) -> Optional[memoryview]:
+        """Zero-copy view when the source is local; None otherwise."""
+        return None
+
+    @property
+    def source(self) -> str:
+        raise NotImplementedError
+
     def source_bucket(self) -> str:
         """The last read's serving source as an input-doctor bucket:
         ``shm``, ``remote``, ``ufs`` or ``unknown``."""
@@ -174,6 +182,9 @@ class LocalBlockInStream(BlockInStream):
         out = self._mm[offset:offset + n]
         _record_read("shm", len(out))
         return out
+
+    def memoryview(self) -> Optional[memoryview]:
+        return memoryview(self._mm) if self._mm is not None else memoryview(b"")
 
     def numpy_view(self, dtype=np.uint8) -> np.ndarray:
         """Zero-copy read-only ndarray over the mmap."""

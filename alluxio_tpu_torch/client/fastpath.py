@@ -183,8 +183,8 @@ class ReadPlan:
             ops[i] = (kind, fd, addr, soff, slen, doff, ln)
         return ops
 
-    def execute(self, dest) -> int:
-        return execute_table(self.table(), dest)
+    def execute(self, dest, *, host: str = "") -> int:
+        return execute_table(self.table(), dest, host=host)
 
     def execute_python(self, dest) -> int:
         """The reference interpreter: identical semantics to

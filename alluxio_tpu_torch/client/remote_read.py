@@ -369,11 +369,15 @@ class StripedRead:
 
     def _close_span(self) -> None:
         """Record the size-bucketed latency (``Client.ReadLatency.*``)
-        once, and finish and record this read's span."""
+        once, with this read's trace id as its exemplar when the span is
+        sampled, and finish and record this read's span."""
         if self._n > 0 and not self._latency_recorded:
             self._latency_recorded = True
+            exemplar = self._span.trace_id \
+                if self._span is not None and self._span.sampled else None
             self._m.timer(f"Client.ReadLatency.{size_bucket(self._n)}"
-                          ).update(time.perf_counter() - self._t0)
+                          ).update(time.perf_counter() - self._t0,
+                                   exemplar=exemplar)
         if self._span is None:
             return
         if self._queue_ms > 0.0:

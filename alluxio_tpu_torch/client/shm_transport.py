@@ -295,6 +295,10 @@ class ShmBlockInStream(BlockInStream):
         m.counter("Client.BlocksRead.shm").inc(offs.size)
         return fastpath.slice_out(dest, bounds.tolist())
 
+    def memoryview(self) -> Optional[memoryview]:
+        """Zero-copy view over the shared pages."""
+        return self._seg.view()
+
     def numpy_view(self, dtype=np.uint8) -> np.ndarray:
         """Zero-copy read-only ndarray over the shared pages (copy it
         into staging; ``torch.from_numpy`` refuses read-only arrays)."""

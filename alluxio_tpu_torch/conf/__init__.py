@@ -1,10 +1,9 @@
-"""Typed configuration (a copy of ``alluxio_tpu/conf``, with the keys the
-port reads)."""
+"""Typed configuration (a copy of ``alluxio_tpu/conf``)."""
 
 from alluxio_tpu_torch.conf.property_key import (  # noqa: F401
-    ConsistencyLevel, Keys, KeyType, PropertyKey, REGISTRY, Templates,
-    parse_bytes, parse_duration_s,
+    ConsistencyLevel, Keys, KeyType, PropertyKey, REGISTRY, Scope, Template,
+    Templates, parse_bytes, parse_duration_s,
 )
 from alluxio_tpu_torch.conf.configuration import (  # noqa: F401
-    Configuration, Source,
+    Configuration, Source, global_configuration, reset_global_configuration,
 )

@@ -1,7 +1,6 @@
 """Layered, typed runtime configuration: a copy of
-``alluxio_tpu/conf/configuration.py`` without the process-wide global
-configuration and the site-properties file (callers build and pass their
-own ``Configuration``).
+``alluxio_tpu/conf/configuration.py``, with its site-properties file and
+its process-wide global configuration.
 
 Re-design of the reference's ``conf/InstancedConfiguration.java:43`` +
 ``conf/AlluxioProperties.java`` + ``conf/Source.java``: values are resolved
@@ -86,6 +85,18 @@ class Configuration:
         for k, v in props.items():
             if REGISTRY.is_valid(k):
                 self._put(k, v, source)
+
+    def load_site_properties(self, path: str) -> None:
+        """Load a java-properties-style ``key=value`` file."""
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#") or "=" not in line:
+                    continue
+                k, _, v = line.partition("=")
+                k, v = k.strip(), v.strip()
+                if REGISTRY.is_valid(k):
+                    self._put(k, v, Source.SITE_PROPERTY)
 
     # -- resolution ---------------------------------------------------------
     def _resolve_key(self, key: "PropertyKey | str") -> PropertyKey:
@@ -174,3 +185,38 @@ class Configuration:
         with self._lock:
             c._values = dict(self._values)
         return c
+
+    def validate(self) -> None:
+        """Parse every set value through its key's type; raise on error."""
+        for name, value, _ in self.items():
+            pk = REGISTRY.get(name)
+            if pk is not None:
+                pk.parse(value)
+
+
+# Global process-wide configuration (reference: ServerConfiguration singleton,
+# core/server/common/.../conf/ServerConfiguration.java). Tests construct their
+# own Configuration instances instead.
+_GLOBAL: Optional[Configuration] = None
+_GLOBAL_LOCK = threading.Lock()
+
+
+def global_configuration() -> Configuration:
+    """The process-wide configuration: the environment, then the site
+    file named by ``ATPU_SITE_PROPERTIES`` (default
+    ``/etc/alluxio_tpu/site.properties``) when it exists."""
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        if _GLOBAL is None:
+            _GLOBAL = Configuration()
+            site = os.environ.get("ATPU_SITE_PROPERTIES",
+                                  "/etc/alluxio_tpu/site.properties")
+            if os.path.exists(site):
+                _GLOBAL.load_site_properties(site)
+        return _GLOBAL
+
+
+def reset_global_configuration() -> None:
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        _GLOBAL = None

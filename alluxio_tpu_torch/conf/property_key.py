@@ -6,10 +6,9 @@ such as the per-tier worker settings, the duration and byte parsers, the
 credential mask of the display surfaces) is the JAX package's, and so is
 the catalog: every JAX key, with the JAX name, type, default, scope and
 consistency level, so one properties file configures either package and
-``validateConf`` accepts and refuses the same keys. The FUSE, proxy and
-log-server keys are read by nothing in the port yet, as on a JAX node
-that runs none of those processes; the keys are grouped by the layer of
-the port that reads them.
+``validateConf`` accepts and refuses the same keys; the keys are grouped
+by the layer of the port that reads them. ``Templates`` has the JAX
+families too, the tier watermarks and mount-table options among them.
 """
 
 from __future__ import annotations
@@ -142,6 +141,7 @@ class PropertyKey:
     consistency: ConsistencyLevel = ConsistencyLevel.IGNORE
     aliases: tuple = ()
     choices: tuple = ()  # for ENUM
+    dynamic: bool = False  # may be updated at runtime (live reconfiguration)
     # Mirrors the reference's DisplayType.CREDENTIALS
     # (conf/PropertyKey.java): values must be masked on every config
     # display surface (web UI, REST, shell report).
@@ -199,12 +199,12 @@ REGISTRY = KeyRegistry()
 def _k(name: str, key_type: KeyType = KeyType.STRING, default: Any = None,
        description: str = "", scope: Scope = Scope.ALL,
        consistency: ConsistencyLevel = ConsistencyLevel.IGNORE,
-       aliases: tuple = (), choices: tuple = (),
+       aliases: tuple = (), choices: tuple = (), dynamic: bool = False,
        credentials: bool = False) -> PropertyKey:
     return REGISTRY.register(PropertyKey(
         name=name, key_type=key_type, default=default, description=description,
-        scope=scope, consistency=consistency, aliases=aliases,
-        choices=choices, credentials=credentials))
+        scope=scope, consistency=consistency, aliases=aliases, choices=choices,
+        dynamic=dynamic, credentials=credentials))
 
 
 # Defensive net for keys minted outside the registry (templates, mount
@@ -1442,6 +1442,18 @@ class Templates:
         "atpu.worker.tieredstore.level{}.dirs.quota",
         r"atpu\.worker\.tieredstore\.level(\d+)\.dirs\.quota",
         KeyType.LIST, lambda lvl: None, Scope.WORKER)
+    WORKER_TIER_HIGH_WATERMARK = _template(
+        "atpu.worker.tieredstore.level{}.watermark.high.ratio",
+        r"atpu\.worker\.tieredstore\.level(\d+)\.watermark\.high\.ratio",
+        KeyType.FLOAT, lambda lvl: 0.95, Scope.WORKER)
+    WORKER_TIER_LOW_WATERMARK = _template(
+        "atpu.worker.tieredstore.level{}.watermark.low.ratio",
+        r"atpu\.worker\.tieredstore\.level(\d+)\.watermark\.low\.ratio",
+        KeyType.FLOAT, lambda lvl: 0.7, Scope.WORKER)
+    MASTER_MOUNT_TABLE_OPTION = _template(
+        "atpu.master.mount.table.{}.option.{}",
+        r"atpu\.master\.mount\.table\.(\w+)\.option\.(.+)",
+        KeyType.STRING, lambda *_: None, Scope.MASTER)
     MASTER_IMPERSONATION_USERS = _template(
         "atpu.master.security.impersonation.{}.users",
         r"atpu\.master\.security\.impersonation\.([^.]+)\.users",

@@ -16,22 +16,26 @@ LOG = logging.getLogger(__name__)
 
 
 class HeartbeatContext:
-    """Heartbeat names, as the JAX package's catalog spells them (only
-    the ones the port runs)."""
+    """Catalog of heartbeat names, as the JAX package's catalog spells
+    them (reference: ``HeartbeatContext.java:32-63``)."""
 
     MASTER_TTL_CHECK = "Master.TtlCheck"
     MASTER_LOST_WORKER_DETECTION = "Master.LostWorkerDetection"
-    MASTER_LOST_MASTER_DETECTION = "Master.LostMasterDetection"
     MASTER_LOST_FILES_DETECTION = "Master.LostFilesDetection"
+    MASTER_LOST_MASTER_DETECTION = "Master.LostMasterDetection"
     MASTER_REPLICATION_CHECK = "Master.ReplicationCheck"
     MASTER_PERSISTENCE_SCHEDULER = "Master.PersistenceScheduler"
+    MASTER_PERSISTENCE_CHECKER = "Master.PersistenceChecker"
     MASTER_BLOCK_INTEGRITY_CHECK = "Master.BlockIntegrityCheck"
+    MASTER_METRICS_TIME_SERIES = "Master.MetricsTimeSeries"
+    MASTER_CLUSTER_METRICS_UPDATER = "Master.ClusterMetricsUpdater"
     MASTER_UFS_CLEANUP = "Master.UfsCleanup"
-    MASTER_DAILY_BACKUP = "Master.DailyBackup"
     MASTER_ACTIVE_SYNC = "Master.ActiveUfsSync"
+    MASTER_DAILY_BACKUP = "Master.DailyBackup"
+    MASTER_JOURNAL_SPACE_MONITOR = "Master.JournalSpaceMonitor"
     MASTER_TABLE_TRANSFORM_MONITOR = "Master.TableTransformMonitor"
-    MASTER_HEALTH_CHECK = "Master.HealthCheck"
     MASTER_METRICS_SINKS = "Master.MetricsSinks"
+    MASTER_HEALTH_CHECK = "Master.HealthCheck"
     MASTER_UPDATE_CHECK = "Master.UpdateCheck"
     WORKER_METRICS_SINKS = "Worker.MetricsSinks"
     WORKER_BLOCK_SYNC = "Worker.BlockSync"
@@ -39,9 +43,11 @@ class HeartbeatContext:
     WORKER_STORAGE_HEALTH = "Worker.StorageHealth"
     WORKER_CLIENT_METRICS = "Worker.ClientMetrics"
     WORKER_MANAGEMENT_TASKS = "Worker.ManagementTasks"
+    WORKER_SESSION_CLEANER = "Worker.SessionCleaner"
     JOB_MASTER_LOST_WORKER_DETECTION = "JobMaster.LostWorkerDetection"
     JOB_WORKER_COMMAND_HANDLING = "JobWorker.CommandHandling"
     CLIENT_METRICS_HEARTBEAT = "Client.MetricsHeartbeat"
+    CLIENT_CONFIG_HASH_SYNC = "Client.ConfigHashSync"
     CLIENT_PREFETCH_AGENT = "Client.PrefetchAgent"
 
 

@@ -83,7 +83,7 @@ class JobCommand:
     ``grpc/job_master.proto`` RunTaskCommand/CancelTaskCommand/
     RegisterCommand)."""
 
-    kind: str = ""  # run | cancel | register (JAX's set_throttle: unsent)
+    kind: str = ""  # run | cancel | register | set_throttle
     job_id: int = 0
     task_id: int = 0
     job_config: Optional[Dict[str, Any]] = None

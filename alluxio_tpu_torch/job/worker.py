@@ -1,6 +1,6 @@
 """Job worker: pulls task commands on heartbeat, runs them in a bounded
 executor pool (a copy of ``alluxio_tpu/job/worker.py``; ``join`` waits
-for every thread the worker started, and the pool has no pause).
+for every thread the worker started).
 
 Re-design of ``job/server/src/main/java/alluxio/worker/{job/command/
 CommandHandlingExecutor.java,job/task/{TaskExecutor.java:35,88,
@@ -29,19 +29,23 @@ LOG = logging.getLogger(__name__)
 
 
 class TaskExecutorManager:
-    """Bounded task pool (reference: ``TaskExecutorManager``). The JAX
-    pool can also pause on a ``set_throttle`` command, which no job master
-    sends; the port's has no pause."""
+    """Bounded task pool with a pause gate (reference:
+    ``TaskExecutorManager``): while paused, a task waits to start; the
+    ``set_throttle`` command pauses and resumes it (as in JAX, no job
+    master sends one yet)."""
 
     def __init__(self, width: int = 4) -> None:
         self.width = width
         self._pool = futures.ThreadPoolExecutor(
             max_workers=width, thread_name_prefix="job-task")
+        self._unpaused = threading.Event()
+        self._unpaused.set()
         self._active = 0
         self._lock = threading.Lock()
 
     def submit(self, fn, *args) -> "futures.Future":
-        def counted():
+        def gated():
+            self._unpaused.wait()
             with self._lock:
                 self._active += 1
             try:
@@ -50,7 +54,13 @@ class TaskExecutorManager:
                 with self._lock:
                     self._active -= 1
 
-        return self._pool.submit(counted)
+        return self._pool.submit(gated)
+
+    def pause(self) -> None:
+        self._unpaused.clear()
+
+    def resume(self) -> None:
+        self._unpaused.set()
 
     @property
     def num_active(self) -> int:
@@ -59,7 +69,9 @@ class TaskExecutorManager:
 
     def shutdown(self) -> None:
         """Cancel the queued tasks and return without waiting for the
-        running ones, as the JAX pool does."""
+        running ones (a paused pool is released first), as the JAX pool
+        does."""
+        self._unpaused.set()
         self._pool.shutdown(wait=False, cancel_futures=True)
 
     def join(self) -> None:
@@ -139,6 +151,11 @@ class JobWorker:
                 fut.cancel()
         elif cmd.kind == "register":
             self.register()
+        elif cmd.kind == "set_throttle":
+            if cmd.task_args == "pause":
+                self._executor.pause()
+            else:
+                self._executor.resume()
 
     # -- task execution -----------------------------------------------------
     def _run_task(self, cmd: JobCommand) -> None:

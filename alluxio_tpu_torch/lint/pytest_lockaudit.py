@@ -297,6 +297,17 @@ def observed_edges() -> List[Tuple[str, str]]:
     return sorted(a.edges) if a is not None else []
 
 
+def pytest_configure(config) -> None:
+    """The plugin hook, for a session that registers this module as a
+    plugin (``-p alluxio_tpu_torch.lint.pytest_lockaudit``): the
+    ``no_lockaudit`` marker, and the port's classes patched."""
+    config.addinivalue_line(
+        "markers",
+        "no_lockaudit: disable lock-order auditing for this test")
+    if ENABLED:
+        install()
+
+
 @pytest.fixture(scope="module", autouse=True)
 def port_lockaudit_install():
     """Patch the port's classes before the test module's own fixtures

@@ -1,5 +1,6 @@
-"""Metrics: the subset of ``alluxio_tpu.metrics`` the device data plane emits."""
+"""Metrics (a copy of ``alluxio_tpu/metrics``): the process registry of
+counters, meters, timers and gauges and its exposition."""
 
 from alluxio_tpu_torch.metrics.registry import (  # noqa: F401
-    Counter, MetricsRegistry, Timer, metrics,
+    Counter, Meter, MetricsRegistry, Timer, metrics, reset_metrics,
 )

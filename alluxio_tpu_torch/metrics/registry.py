@@ -1,14 +1,14 @@
-"""Process metrics registry: counters, timers and gauges.
+"""Process metrics registry: counters, meters, timers and gauges.
 
-A copy of the part of ``alluxio_tpu/metrics/registry.py`` that the port
-uses: the flat snapshot its sinks and the metrics heartbeat ship, and
-the Prometheus text exposition of the worker's web endpoint (counters,
-gauges and timer histograms; the JAX meters and trace exemplars are not
-copied). Names keep the JAX package's ``Instance.Name`` form and the
-loader emits the same names (``Client.JaxHbmHits``,
-``Client.JaxShortCircuitBlocks``, ``Client.JaxStreamedBlocks``,
-``Client.InputStall*``), so tools that read the JAX client's metrics read
-the port's unchanged.
+A copy of ``alluxio_tpu/metrics/registry.py``: the flat snapshot the
+sinks and the metrics heartbeat ship (a meter as its count and its
+``.rate1m``), and the Prometheus text exposition of the web endpoints
+(counters, meters, gauges and timer histograms, each bucket with the
+OpenMetrics exemplar of the last sampled trace that landed in it).
+Names keep the JAX package's ``Instance.Name`` form and the loader emits
+the same names (``Client.JaxHbmHits``, ``Client.JaxShortCircuitBlocks``,
+``Client.JaxStreamedBlocks``, ``Client.InputStall*``), so tools that
+read the JAX client's metrics read the port's unchanged.
 """
 
 from __future__ import annotations
@@ -34,10 +34,48 @@ class Counter:
         with self._lock:
             self._value += n
 
+    def dec(self, n: int = 1) -> None:
+        self.inc(-n)
+
     @property
     def count(self) -> int:
         with self._lock:
             return self._value
+
+
+class Meter:
+    """Rate meter: counts events, reports 1-minute-window rate."""
+
+    __slots__ = ("_count", "_window", "_lock")
+
+    def __init__(self) -> None:
+        self._count = 0
+        self._window: deque = deque()
+        self._lock = threading.Lock()
+
+    def mark(self, n: int = 1) -> None:
+        now = time.monotonic()
+        with self._lock:
+            self._count += n
+            self._window.append((now, n))
+            self._trim(now)
+
+    def _trim(self, now: float) -> None:
+        while self._window and now - self._window[0][0] > 60.0:
+            self._window.popleft()
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def one_minute_rate(self) -> float:
+        now = time.monotonic()
+        with self._lock:
+            self._trim(now)
+            total = sum(n for _, n in self._window)
+            return total / 60.0
 
 
 class Timer:
@@ -54,16 +92,26 @@ class Timer:
         self._count = 0
         self._total_s = 0.0
         self._bucket_counts = [0] * len(self.HISTOGRAM_BUCKETS)
+        # bucket index -> (trace_id, observed seconds, unix ts): the most
+        # recent sampled trace that landed in that bucket, so the
+        # exposition can link slow buckets straight to a trace
+        self._exemplars: Dict[int, "tuple[str, float, float]"] = {}
         self._lock = threading.Lock()
 
-    def update(self, seconds: float) -> None:
+    def update(self, seconds: float, exemplar: Optional[str] = None) -> None:
+        """One sample; ``exemplar`` (a trace id) becomes its bucket's
+        exemplar."""
         with self._lock:
             self._count += 1
             self._total_s += seconds
             self._samples.append(seconds)
+            idx = len(self.HISTOGRAM_BUCKETS)  # +Inf
             for i, le in enumerate(self.HISTOGRAM_BUCKETS):
                 if seconds <= le:
                     self._bucket_counts[i] += 1
+                    idx = min(idx, i)
+            if exemplar is not None:
+                self._exemplars[idx] = (exemplar, seconds, time.time())
 
     class _Ctx:
         def __init__(self, timer: "Timer") -> None:
@@ -81,6 +129,11 @@ class Timer:
         """A scope whose wall time is one sample."""
         return Timer._Ctx(self)
 
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
     def histogram(self) -> "tuple[List[int], float, int]":
         """Lifetime cumulative bucket counts (the last one +Inf) plus
         (sum, count)."""
@@ -88,6 +141,12 @@ class Timer:
             counts = list(self._bucket_counts)
             counts.append(self._count)
             return counts, self._total_s, self._count
+
+    def exemplars(self) -> "Dict[int, tuple[str, float, float]]":
+        """Bucket index -> (trace_id, seconds, unix_ts); index
+        ``len(HISTOGRAM_BUCKETS)`` is the +Inf bucket."""
+        with self._lock:
+            return dict(self._exemplars)
 
     def recent(self, n: int) -> List[float]:
         """The last ``n`` samples (at most the reservoir), sorted."""
@@ -123,6 +182,7 @@ class MetricsRegistry:
     def __init__(self, instance: str = "Process") -> None:
         self.instance = instance
         self._counters: Dict[str, Counter] = {}
+        self._meters: Dict[str, Meter] = {}
         self._timers: Dict[str, Timer] = {}
         self._gauges: Dict[str, Callable[[], float]] = {}
         self._lock = threading.Lock()
@@ -136,6 +196,11 @@ class MetricsRegistry:
         with self._lock:
             return self._counters.setdefault(name, Counter())
 
+    def meter(self, name: str) -> Meter:
+        name = self._name(name)
+        with self._lock:
+            return self._meters.setdefault(name, Meter())
+
     def timer(self, name: str) -> Timer:
         name = self._name(name)
         with self._lock:
@@ -147,14 +212,19 @@ class MetricsRegistry:
             self._gauges[name] = fn
 
     def snapshot(self) -> Dict[str, float]:
-        """Flat name -> value map (counters, gauges, timer summaries)."""
+        """Flat name -> value map (counters, meter counts and 1-minute
+        rates, gauges, timer summaries)."""
         out: Dict[str, float] = {}
         with self._lock:
             counters = dict(self._counters)
+            meters = dict(self._meters)
             timers = dict(self._timers)
             gauges = dict(self._gauges)
         for n, c in counters.items():
             out[n] = c.count
+        for n, m in meters.items():
+            out[n] = m.count
+            out[n + ".rate1m"] = m.one_minute_rate
         for n, t in timers.items():
             for k, v in t.snapshot().items():
                 out[f"{n}.{k}"] = v
@@ -176,9 +246,11 @@ class MetricsRegistry:
     def to_prometheus(self) -> str:
         """Prometheus text exposition format (# HELP/# TYPE preambles,
         ``_total``-suffixed counters, timer histograms with
-        bucket/sum/count), as the JAX registry writes it."""
+        bucket/sum/count and OpenMetrics exemplars), as the JAX registry
+        writes it."""
         with self._lock:
             counters = dict(self._counters)
+            meters = dict(self._meters)
             timers = dict(self._timers)
             gauges = dict(self._gauges)
         lines: List[str] = []
@@ -192,6 +264,12 @@ class MetricsRegistry:
         for name, c in sorted(counters.items()):
             metric = emit(name + "_total", "counter", f"counter {name}")
             lines.append(f"{metric} {c.count}")
+        for name, m in sorted(meters.items()):
+            metric = emit(name + "_total", "counter", f"meter {name}")
+            lines.append(f"{metric} {m.count}")
+            metric = emit(name + "_rate1m", "gauge",
+                          f"1-minute rate of {name}")
+            lines.append(f"{metric} {m.one_minute_rate}")
         for name, g in sorted(gauges.items()):
             try:
                 value = float(g())
@@ -201,14 +279,36 @@ class MetricsRegistry:
             lines.append(f"{metric} {value}")
         for name, t in sorted(timers.items()):
             counts, total, n = t.histogram()
+            ex = t.exemplars()
             metric = emit(name + "_seconds", "histogram",
                           f"latency histogram of {name}")
-            for le, cum in zip(t.HISTOGRAM_BUCKETS, counts):
-                lines.append(f'{metric}_bucket{{le="{le}"}} {cum}')
-            lines.append(f'{metric}_bucket{{le="+Inf"}} {counts[-1]}')
+
+            def bucket_line(le: str, cum: int, idx: int) -> str:
+                line = f'{metric}_bucket{{le="{le}"}} {cum}'
+                e = ex.get(idx)
+                if e is not None:
+                    # OpenMetrics exemplar: links the bucket to a
+                    # representative trace id for drill-down
+                    tid, val, ts = e
+                    line += (f' # {{trace_id="{tid}"}}'
+                             f" {val:.6f} {ts:.3f}")
+                return line
+
+            for i, (le, cum) in enumerate(
+                    zip(t.HISTOGRAM_BUCKETS, counts)):
+                lines.append(bucket_line(str(le), cum, i))
+            lines.append(bucket_line("+Inf", counts[-1],
+                                     len(t.HISTOGRAM_BUCKETS)))
             lines.append(f"{metric}_sum {total}")
             lines.append(f"{metric}_count {n}")
         return "\n".join(lines) + "\n"
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counters.clear()
+            self._meters.clear()
+            self._timers.clear()
+            self._gauges.clear()
 
 
 _default: Optional[MetricsRegistry] = None
@@ -224,3 +324,11 @@ def metrics(instance: Optional[str] = None) -> MetricsRegistry:
         elif instance is not None:
             _default.instance = instance
         return _default
+
+
+def reset_metrics() -> None:
+    """Drop the process-default registry; the next ``metrics()`` makes
+    a new one."""
+    global _default
+    with _default_lock:
+        _default = None

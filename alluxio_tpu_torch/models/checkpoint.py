@@ -10,7 +10,9 @@ and read as its raw 16-bit words under the dtype string ``"bfloat16"``.
 
 ``fs`` is duck-typed: ``write_all(path, data)``, ``read_all(path)``
 and, for :func:`latest_step`, ``list_status(path)`` whose entries have a
-``.name``.
+``.name``. ``write_type`` (a ``client.streams.WriteType``: MUST_CACHE,
+CACHE_THROUGH, THROUGH or ASYNC_THROUGH) is passed to every
+``write_all`` when given, and the client's default is used when not.
 
 Under a mesh the files hold the whole tree, in the same layout: on save
 every sharded leaf is gathered over its mesh axis and global rank 0
@@ -38,11 +40,12 @@ def _dtype_str(dtype: torch.dtype) -> str:
     return str(torch.empty((), dtype=dtype).numpy().dtype)
 
 
-def save_pytree(fs, path: str, tree) -> int:
+def save_pytree(fs, path: str, tree, *, write_type=None) -> int:
     """Serialize a tree of tensors under ``path``; returns the leaf
     count."""
     import msgpack
 
+    kwargs = {"write_type": write_type} if write_type else {}
     leaves = tree_leaves(tree)
     metas = []
     for i, leaf in enumerate(leaves):
@@ -50,7 +53,7 @@ def save_pytree(fs, path: str, tree) -> int:
         arr = tensor_to_numpy(t)
         metas.append({"dtype": _dtype_str(t.dtype),
                       "shape": list(arr.shape)})
-        fs.write_all(f"{path}/leaf-{i}.bin", arr.tobytes())
+        fs.write_all(f"{path}/leaf-{i}.bin", arr.tobytes(), **kwargs)
     blob = msgpack.packb({
         # informational only: both packages' loaders take the structure
         # from ``like``
@@ -59,7 +62,7 @@ def save_pytree(fs, path: str, tree) -> int:
         "n_leaves": len(leaves),
         "metas": metas,
     }, use_bin_type=True)
-    fs.write_all(f"{path}/tree.msgpack", blob)
+    fs.write_all(f"{path}/tree.msgpack", blob, **kwargs)
     return len(leaves)
 
 
@@ -154,7 +157,7 @@ def load_pytree(fs, path: str, *, like, mesh=None, shardings=None):
 
 
 def save_train_state(fs, path: str, params, opt_state, *, step: int,
-                     mesh=None, param_shardings=None,
+                     write_type=None, mesh=None, param_shardings=None,
                      opt_shardings=None) -> None:
     """Checkpoint (params, opt_state, step) under ``path``. With
     ``mesh``, ``params`` and ``opt_state`` are this rank's shards laid
@@ -169,9 +172,10 @@ def save_train_state(fs, path: str, params, opt_state, *, step: int,
         if dist.get_rank() != 0:
             dist.barrier()
             return
-    save_pytree(fs, f"{path}/params", params)
-    save_pytree(fs, f"{path}/opt", opt_state)
-    fs.write_all(f"{path}/STEP", str(step).encode())
+    kwargs = {"write_type": write_type} if write_type else {}
+    save_pytree(fs, f"{path}/params", params, write_type=write_type)
+    save_pytree(fs, f"{path}/opt", opt_state, write_type=write_type)
+    fs.write_all(f"{path}/STEP", str(step).encode(), **kwargs)
     if mesh is not None:
         dist.barrier()
 

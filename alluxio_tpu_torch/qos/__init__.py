@@ -27,6 +27,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 LOG = logging.getLogger(__name__)
 
+__all__ = [
+    "ON_DEMAND", "ASYNC_FILL", "PREFETCH", "PRIORITY_NAMES",
+    "priority_from_name", "TokenBucket", "TokenBucketSet",
+    "PriorityExecutor", "PriorityTaskQueue", "StripeBudget",
+]
+
 #: Priority classes, lowest number drains first.  ON_DEMAND is a reader
 #: blocked RIGHT NOW; ASYNC_FILL is a client-issued passive cache fill
 #: (the client already has the bytes); PREFETCH is speculative work for

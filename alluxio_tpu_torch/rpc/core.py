@@ -313,8 +313,9 @@ class RpcServer:
     (reference: ``GrpcServerBuilder`` + ``GrpcDataServer.java:50``)."""
 
     def __init__(self, bind_host: str = "0.0.0.0", port: int = 0,
-                 max_workers: int = 16, authenticator=None,
-                 admission=None,
+                 max_workers: int = 16,
+                 domain_socket_path: Optional[str] = None,
+                 authenticator=None, admission=None,
                  thread_name_prefix: str = "rpc-server") -> None:
         """``authenticator``: a ``security.authentication.Authenticator``;
         when set, every RPC is authenticated and the resolved user is
@@ -322,7 +323,8 @@ class RpcServer:
         ``security.authenticated_user()``. ``admission``: a
         ``qos.admission.AdmissionController``; when set, every dispatch
         passes its per-principal token bucket and over-limit calls are
-        shed with a typed retry-after. ``thread_name_prefix`` names the
+        shed with a typed retry-after. ``domain_socket_path``: also
+        serve on this Unix socket. ``thread_name_prefix`` names the
         handler threads, which ``stop`` joins."""
         self._services: Dict[str, ServiceDefinition] = {}
         self._authenticator = authenticator
@@ -337,6 +339,7 @@ class RpcServer:
         self._server = grpc.server(self._executor, options=options)
         self._bind = f"{bind_host}:{port}"
         self.port = port
+        self._domain_socket_path = domain_socket_path
         self._started = False
 
     def add_service(self, svc: ServiceDefinition) -> None:
@@ -358,6 +361,11 @@ class RpcServer:
         if self.port == 0:
             raise UnavailableError(f"cannot bind the RPC server to "
                                    f"{self._bind}")
+        if self._domain_socket_path:
+            # UDS endpoint for same-host traffic without TCP
+            # (reference: GrpcDataServer.java:72-95 Netty domain sockets)
+            self._server.add_insecure_port(
+                f"unix://{self._domain_socket_path}")
         self._server.start()
         self._started = True
         return self.port

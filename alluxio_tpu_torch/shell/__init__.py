@@ -4,9 +4,9 @@ Re-design of the reference's CLI layer (``shell/src/main/java/alluxio/cli``):
 ``fs`` (FileSystemShell, ~45 commands), ``fsadmin`` (FileSystemAdminShell),
 ``job`` (JobShell), ``table``, the validators, ``runOperation`` and
 ``format``, plus the four role launchers. Dispatch lives in
-``alluxio_tpu_torch.shell.main`` (the ``bin/alluxio`` equivalent); the
-JAX package's commands the port does not have are refused there with
-the ROADMAP item that brings each. No shell module loads torch.
+``alluxio_tpu_torch.shell.main`` (the ``bin/alluxio`` equivalent),
+which dispatches every command of the JAX package's shell. No shell
+module loads torch.
 """
 
 from alluxio_tpu_torch.shell.command import Command, CommandError, ShellContext

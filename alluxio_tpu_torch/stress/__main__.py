@@ -20,7 +20,8 @@ Benches:
   ha           HA failover drill: MTTR, acknowledged-write loss, standby
                staleness
 
-The table bench runs in-process only (``table --master`` is refused).
+The CLI runs the table bench in-process only (``table --master`` is
+refused); ``table_bench.run(master=...)`` attaches to a live cluster.
 """
 
 from __future__ import annotations

@@ -10,10 +10,10 @@ under-database, and measures a k-of-N column projection via
 ``table.reader.read_partition_columns`` — reporting projection GB/s and
 the byte selectivity vs a full scan.
 
-The port differs from the reference in two ways: without pyarrow a bench
-raises ``ImportError`` (the reference returns a skipped row), and it has
-no ``master`` argument (the port's bench cluster runs in-process only;
-``params["master"]`` says so, as the reference's does for that mode).
+The port differs from the reference in one way: without pyarrow a bench
+raises ``ImportError`` (the reference returns a skipped row). With
+``master`` a bench attaches to that live cluster (its table master over
+gRPC) instead of standing up an in-process one, as the reference's does.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ from __future__ import annotations
 import io
 import sys
 import time
+from typing import Optional
+
 import numpy as np
 
 from alluxio_tpu_torch.stress.base import BenchResult
@@ -48,10 +50,16 @@ def _make_parquet(rng: np.random.Generator, rows: int) -> bytes:
     return buf.getvalue()
 
 
-def _attach(cluster, base_path):
-    table_master = cluster.master.table_master
-    db = table_master.attach_database("fs", f"{base_path}/db")
-    return table_master.get_table(db, "store_sales")
+def _attach(fs, cluster, master, base_path):
+    if cluster is not None:
+        table_master = cluster.master.table_master
+        db = table_master.attach_database("fs", f"{base_path}/db")
+        return table_master.get_table(db, "store_sales")
+    from alluxio_tpu_torch.rpc.table_service import TableMasterClient
+
+    client = TableMasterClient(master)
+    db = client.attach_database("fs", f"{base_path}/db")
+    return client.get_table(db, "store_sales")
 
 
 class _ModeledStream:
@@ -105,7 +113,7 @@ class _ModeledFs:
         return getattr(self._fs, name)
 
 
-def run_pushdown(*, partitions: int = 4,
+def run_pushdown(*, master: Optional[str] = None, partitions: int = 4,
                  rows_per_partition: int = 40_000, repeats: int = 3,
                  min_speedup: float = 2.0, rtt_ms: float = 2.0,
                  conn_mbps: float = 1000.0,
@@ -123,7 +131,7 @@ def run_pushdown(*, partitions: int = 4,
     from alluxio_tpu_torch.table.reader import read_partition_columns
 
     rng = np.random.default_rng(1)
-    with bench_cluster(block_size=32 << 20,
+    with bench_cluster(master, block_size=32 << 20,
                        worker_mem_bytes=1 << 30) as (fs, cluster):
         total_file_bytes = 0
         for p in range(partitions):
@@ -133,7 +141,7 @@ def run_pushdown(*, partitions: int = 4,
                 f"{base_path}/db/store_sales/ss_date={2020 + p}/"
                 f"part-0.parquet",
                 data, write_type=WriteType.MUST_CACHE)
-        table_wire = _attach(cluster, base_path)
+        table_wire = _attach(fs, cluster, master, base_path)
         conf = fs.conf
         mfs = _ModeledFs(fs, rtt_ms / 1e3, conn_mbps * (1 << 20) / 8)
 
@@ -167,7 +175,7 @@ def run_pushdown(*, partitions: int = 4,
                     "columns_projected": len(_PROJECT),
                     "repeats": repeats, "min_speedup": min_speedup,
                     "rtt_ms": rtt_ms, "conn_mbps": conn_mbps,
-                    "master": "in-process"},
+                    "master": master or "in-process"},
             metrics={
                 "legacy_ms": round(legacy_wall * 1e3, 2),
                 "planned_ms": round(planned_wall * 1e3, 2),
@@ -181,7 +189,7 @@ def run_pushdown(*, partitions: int = 4,
             duration_s=(legacy_wall + planned_wall) * repeats)
 
 
-def run(*, partitions: int = 4,
+def run(*, master: Optional[str] = None, partitions: int = 4,
         rows_per_partition: int = 40_000, repeats: int = 3,
         min_speedup: float = 0.0,
         base_path: str = "/stress-table") -> BenchResult:
@@ -191,7 +199,7 @@ def run(*, partitions: int = 4,
     from alluxio_tpu_torch.table.reader import read_partition_columns
 
     rng = np.random.default_rng(0)
-    with bench_cluster(block_size=32 << 20,
+    with bench_cluster(master, block_size=32 << 20,
                        worker_mem_bytes=1 << 30) as (fs, cluster):
         total_file_bytes = 0
         for p in range(partitions):
@@ -201,7 +209,7 @@ def run(*, partitions: int = 4,
                 f"{base_path}/db/store_sales/ss_date={2020 + p}/part-0.parquet",
                 data, write_type=WriteType.MUST_CACHE)
 
-        table_wire = _attach(cluster, base_path)
+        table_wire = _attach(fs, cluster, master, base_path)
 
         # warm the footers + projected column chunks
         proj = read_partition_columns(fs, table_wire, columns=_PROJECT)
@@ -231,7 +239,7 @@ def run(*, partitions: int = 4,
                     "columns_projected": len(_PROJECT),
                     "columns_total": len(table_wire["schema"]),
                     "min_speedup": min_speedup,
-                    "master": "in-process"},
+                    "master": master or "in-process"},
             metrics={
                 "projection_mb_per_s": round(proj_bytes / proj_wall / 1e6, 2),
                 "full_scan_mb_per_s": round(full.nbytes / full_wall / 1e6, 2),

@@ -61,11 +61,17 @@ def log(*args) -> None:
     print(*args, file=sys.stderr, flush=True)
 
 
+#: merged into every row (and its DEVICE-CONFIG stderr line) — set by
+#: ``run_all(row_extra=...)`` so a run's rows are labelled at emit time
+_ROW_EXTRA: Dict = {}
+
+
 def _row(config: str, metric: str, value: float, unit: str,
          vs_baseline: float, **extra) -> Dict:
     row = {"config": config, "metric": metric,
            "value": round(value, 3), "unit": unit,
-           "vs_baseline": round(vs_baseline, 3), **extra}
+           "vs_baseline": round(vs_baseline, 3), **extra,
+           **_ROW_EXTRA}
     log("DEVICE-CONFIG " + json.dumps(row, sort_keys=True))
     return row
 
@@ -359,11 +365,14 @@ def config5_write_eviction(*, cold_write_rate: float, **params) -> Dict:
 
 
 def run_all(fs, device=None, *, shard_bytes: int, cold_write_rate: float,
-            out_path: str = "") -> List[Dict]:
+            out_path: str = "", row_extra: Optional[Dict] = None
+            ) -> List[Dict]:
     """Run configs #2, #3, #4 and #5, in the reference's order; a stage
     that raises fails the run. ``fs`` is the headline cluster's client
     (configs #2 and #4 reuse its warm worker); configs #3 and #5 provision
-    their own clusters."""
+    their own clusters. ``row_extra`` is merged into every row and its
+    stderr line."""
+    global _ROW_EXTRA
     device = resolve_device(device)
     stages: List[Callable[[], Dict]] = [
         lambda: config2_random_4k(fs, device,
@@ -373,7 +382,11 @@ def run_all(fs, device=None, *, shard_bytes: int, cold_write_rate: float,
         lambda: config4_projection(fs, device),
         lambda: config5_write_eviction(cold_write_rate=cold_write_rate),
     ]
-    rows = [stage() for stage in stages]
+    _ROW_EXTRA = dict(row_extra or {})
+    try:
+        rows = [stage() for stage in stages]
+    finally:
+        _ROW_EXTRA = {}
     if out_path:
         with open(out_path, "w") as f:
             json.dump(rows, f, indent=1, sort_keys=True)

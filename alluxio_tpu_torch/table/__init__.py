@@ -8,8 +8,9 @@ Re-design of the reference's ``table/`` module (``table/server/master/
 under-database's schemas/partitions into journaled master state; reads
 are **column projections** straight out of Parquet through the caching FS
 client (the path bench config #4 measures); the compact transform runs as
-a job-service plan. The port has the ``fs`` under-database only; the JAX
-package's Hive and Glue connectors are not ported yet.
+a job-service plan. The under-databases are the JAX package's: ``fs``,
+and the Hive metastore (``hive.py``, over ``thrift_proto.py``) and Glue
+(``glue.py``) connectors.
 """
 
 from alluxio_tpu_torch.table.master import TableMaster  # noqa: F401

@@ -13,8 +13,10 @@ module is imported when a URI of one of its schemes is first created (or
 They bring ``requests`` and ``pyarrow``, and every master makes its root
 UFS at boot: a master or worker whose mounts are local or ``mem://``
 imports none of them. What a caller observes is JAX's: the same schemes,
-and a factory registered by the caller replaces an optional one. JAX's
-per-UFS maintenance modes are not ported: nothing in the port sets one.
+and a factory registered by the caller replaces an optional one.
+``UfsManager`` keeps JAX's per-UFS maintenance modes
+(``set_ufs_mode``/``get_ufs_mode``, READ_WRITE by default); as in JAX,
+nothing in the master applies one yet.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import importlib
 import threading
 from typing import Callable, Dict, Optional, Tuple
 
-from alluxio_tpu_torch.underfs.base import UnderFileSystem
+from alluxio_tpu_torch.underfs.base import UfsMode, UnderFileSystem
 from alluxio_tpu_torch.underfs.local import LocalUnderFileSystem
 from alluxio_tpu_torch.underfs.object_base import MemUnderFileSystem
 from alluxio_tpu_torch.utils.exceptions import (NotFoundError,
@@ -123,6 +125,7 @@ class UfsManager:
 
     def __init__(self) -> None:
         self._by_mount: Dict[int, UnderFileSystem] = {}
+        self._modes: Dict[str, UfsMode] = {}  # ufs root -> mode
         self._lock = threading.RLock()
 
     def add_mount(self, mount_id: int, ufs_uri: str,
@@ -150,6 +153,15 @@ class UfsManager:
     def has(self, mount_id: int) -> bool:
         with self._lock:
             return mount_id in self._by_mount
+
+    # -- maintenance mode (reference: MasterUfsManager ufs modes) ----------
+    def set_ufs_mode(self, ufs_root: str, mode: UfsMode) -> None:
+        with self._lock:
+            self._modes[ufs_root] = mode
+
+    def get_ufs_mode(self, ufs_root: str) -> UfsMode:
+        with self._lock:
+            return self._modes.get(ufs_root, UfsMode.READ_WRITE)
 
     def close(self) -> None:
         with self._lock:

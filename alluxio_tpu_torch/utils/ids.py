@@ -88,3 +88,7 @@ def create_worker_id(host: str, port: int) -> int:
 
 def create_mount_id() -> int:
     return _rng.getrandbits(62) | 1
+
+
+def create_job_id() -> int:
+    return _rng.getrandbits(31) | 1

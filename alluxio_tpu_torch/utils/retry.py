@@ -1,7 +1,11 @@
-"""Retry policies: the part of ``alluxio_tpu/utils/retry.py`` the port's
-RPC clients use — ``ExponentialTimeBoundedRetry`` and the functional
-``retry()`` helper that understands the typed exception codes and the
-master's leader hints."""
+"""Retry policies: a copy of ``alluxio_tpu/utils/retry.py``.
+
+Iterator-style policies (``attempt()`` returns False when exhausted):
+``NoRetryPolicy``, ``CountingRetry``, ``SleepingRetry``,
+``ExponentialBackoffRetry`` and the RPC clients'
+``ExponentialTimeBoundedRetry``, plus the functional ``retry()`` helper
+that understands the typed exception codes and the master's leader
+hints (reference: ``core/common/src/main/java/alluxio/retry/``)."""
 
 from __future__ import annotations
 
@@ -27,6 +31,97 @@ class RetryPolicy:
     @property
     def attempt_count(self) -> int:
         raise NotImplementedError
+
+
+class NoRetryPolicy(RetryPolicy):
+    def __init__(self) -> None:
+        self._count = 0
+
+    def attempt(self) -> bool:
+        self._count += 1
+        return self._count <= 1
+
+    @property
+    def attempt_count(self) -> int:
+        return self._count
+
+
+class CountingRetry(RetryPolicy):
+    """N retries with no sleeping."""
+
+    def __init__(self, max_retries: int) -> None:
+        self._max = max_retries
+        self._count = 0
+
+    def attempt(self) -> bool:
+        if self._count > self._max:
+            return False
+        self._count += 1
+        return self._count <= self._max + 1
+
+    @property
+    def attempt_count(self) -> int:
+        return self._count
+
+
+class SleepingRetry(RetryPolicy):
+    """N retries, each after a fixed sleep."""
+
+    def __init__(self, max_retries: int, sleep_s: float,
+                 sleep_fn: Callable[[float], None] = time.sleep) -> None:
+        self._max = max_retries
+        self._sleep_s = sleep_s
+        self._sleep_fn = sleep_fn
+        self._count = 0
+
+    def attempt(self) -> bool:
+        if self._count == 0:
+            self._count = 1
+            return True
+        if self._count > self._max:
+            return False
+        self._sleep_fn(self._sleep_s)
+        self._count += 1
+        return True
+
+    @property
+    def attempt_count(self) -> int:
+        return self._count
+
+
+class ExponentialBackoffRetry(RetryPolicy):
+    """Exponential backoff with full jitter (a sleep uniform in ``[0,
+    backoff]``, so clients that started retrying together decorrelate),
+    bounded by retry count."""
+
+    def __init__(self, base_sleep_s: float, max_sleep_s: float,
+                 max_retries: int,
+                 sleep_fn: Callable[[float], None] = time.sleep,
+                 rng: Optional[random.Random] = None) -> None:
+        self._base = base_sleep_s
+        self._max_sleep = max_sleep_s
+        self._max_retries = max_retries
+        self._sleep_fn = sleep_fn
+        self._rng = rng or random.Random()
+        self._count = 0
+
+    def _next_sleep(self) -> float:
+        backoff = min(self._max_sleep, self._base * (2 ** (self._count - 1)))
+        return backoff * self._rng.random()
+
+    def attempt(self) -> bool:
+        if self._count == 0:
+            self._count = 1
+            return True
+        if self._count > self._max_retries:
+            return False
+        self._sleep_fn(self._next_sleep())
+        self._count += 1
+        return True
+
+    @property
+    def attempt_count(self) -> int:
+        return self._count
 
 
 class ExponentialTimeBoundedRetry(RetryPolicy):

@@ -1,6 +1,5 @@
 """In-memory ring buffer of recent log records for the web UIs (a copy
-of ``alluxio_tpu/utils/weblog.py`` without ``mark``, a helper of the
-JAX package's tests).
+of ``alluxio_tpu/utils/weblog.py``).
 
 The reference's logs pages tail log4j files; this build logs wherever
 the operator pointed ``logging`` (stderr, files, the logserver), so the
@@ -60,3 +59,9 @@ def tail(n: int = 200, level: str = "") -> List[Dict]:
                    if order.get(r["level"], 0) >= floor]
     return records[-max(1, min(n, 2000)):]
 
+
+def mark(msg: str) -> None:
+    """Convenience for tests: land one record in the ring (warning
+    level: the root logger's default level would drop INFO before any
+    handler sees it)."""
+    logging.getLogger("alluxio_tpu_torch.weblog").warning(msg)

@@ -68,6 +68,31 @@ class BlockHeartbeatReporter:
             self._removed.extend(report["removed"])
 
 
+class InProcessBlockMasterClient:
+    """Direct-call adapter over a BlockMaster (thread-level 'RPC')."""
+
+    def __init__(self, block_master) -> None:
+        self._m = block_master
+
+    def get_worker_id(self, address: WorkerNetAddress) -> int:
+        return self._m.get_worker_id(address)
+
+    def register(self, worker_id: int, capacity: Dict[str, int],
+                 used: Dict[str, int], blocks: Dict[str, List[int]],
+                 address: Optional[WorkerNetAddress] = None) -> None:
+        self._m.worker_register(worker_id, capacity, used, blocks, address)
+
+    def heartbeat(self, worker_id: int, used: Dict[str, int],
+                  added: Dict[str, List[int]], removed: List[int],
+                  metrics_snapshot: Optional[Dict[str, float]] = None) -> dict:
+        return self._m.worker_heartbeat(worker_id, used, added, removed,
+                                        metrics_snapshot)
+
+    def commit_block(self, worker_id: int, used_on_tier: int, tier: str,
+                     block_id: int, length: int) -> None:
+        self._m.commit_block(worker_id, used_on_tier, tier, block_id, length)
+
+
 class BlockMasterSync(HeartbeatExecutor):
     """Register + periodic heartbeat + command handling
     (reference: ``BlockMasterSync.java:96-189``)."""

@@ -386,6 +386,13 @@ class BlockWorker:
         return self.ufs_fetcher.fetch(ufs, desc, cache=cache,
                                       priority=priority, tenant=tenant)
 
+    def read_ufs_block(self, desc: UfsBlockDescriptor, *,
+                       cache: bool = True) -> bytes:
+        """Cold read-through, whole block at once (reference:
+        UnderFileSystemBlockReader). Rides the same striped/coalesced
+        pipeline as :meth:`open_ufs_fetch`."""
+        return self.open_ufs_fetch(desc, cache=cache).result()
+
     def persist_file(self, ufs_path: str, block_ids: List[int],
                      mount_id: int) -> str:
         """Write locally-cached blocks out as one UFS file; returns the UFS

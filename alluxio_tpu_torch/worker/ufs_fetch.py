@@ -30,9 +30,10 @@ Observability: ``Worker.UfsFetch*`` counters + ``Worker.UfsFetchTtfb``
 timer, a ``Worker.UfsFetchTime`` timer of each successful fetch's wall
 time (the reference lacks it), and an ``atpu.worker.ufs_fetch`` span per fetch under the caller's
 live span, with its ``queue_wait``, ``ufs_fetch`` and ``cache_fill``
-phases. The port's tracer records every span while it is on (the JAX
-tracer's sampling is not copied), and the span also names the starter's
-``tenant`` and the fetch's final QoS ``class`` (tags the JAX span lacks).
+phases. The span inherits its parent's sampling decision, or draws one
+from the tracer's sample rate as a new root (as JAX's does), and it also
+names the starter's ``tenant`` and the fetch's final QoS ``class`` (tags
+the JAX span lacks).
 
 QoS (``atpu.worker.qos.enabled``): every fetch carries a priority class
 (ON_DEMAND > ASYNC_FILL > PREFETCH) and a tenant (principal).  The

@@ -426,6 +426,17 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    finalizer (the CR must go). (g) ``yarn kill`` leaves the application
    KILLED; the AM's process group and the job roles stop, none left.
 
+2q. surface, right after the train phase, on 2g's cluster: the train
+   phase's bf16/AdamW ViT state saved with ``save_train_state(
+   write_type=)`` MUST_CACHE and CACHE_THROUGH (each reloaded onto the
+   card bit for bit, the CACHE_THROUGH files PERSISTED with equal UFS
+   bytes, the MUST_CACHE files not persisted, one finite step from each
+   reloaded state), then one of the main path's cached blocks through
+   the striped remote read with tracing on at sample rate 1: the read's
+   trace id must be an exemplar on a ``Client.ReadLatency`` bucket of
+   the client's exposition and a span of the tracer, and ``scaled_sum``
+   over the block on the card must equal its plain version.
+
 It prints the card's name and power limit, whether pyarrow imports,
 one ``{"main": {...}}``
 line, one ``{"prefetch": {...}}`` line, one ``{"master": {...}}`` line,
@@ -437,7 +448,7 @@ one ``{"stress": {...}}`` line, one ``{"observability": {...}}`` line,
 one ``{"guards": {...}}`` line, one ``{"ha": {...}}`` line, one
 ``{"shell": {...}}`` line, one ``{"s3": {...}}`` line, one
 ``{"serving": {...}}`` line, one ``{"deployment": {...}}`` line, one
-``{"phase_s": {...}}`` line with every
+``{"surface": {...}}`` line, one ``{"phase_s": {...}}`` line with every
 phase's seconds, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
@@ -8143,12 +8154,190 @@ def train_phase(device, workdir: str, fs, files: dict) -> dict:
         out["checkpoint"] = {"bytes": nbytes, "save_s": t1 - t0,
                              "restore_s": t2 - t1,
                              "next_step_loss": float(loss_a)}
+        # the state 2q saves through the cluster (popped before printing)
+        out["vit_state"] = {"model": model, "opt": opt, "tx": tx,
+                            "cfg": cfg, "step": vit_step, "tokens": tokens,
+                            "labels": labels, "at": at}
         print(f"checkpoint: {nbytes} bytes saved in {t1 - t0:.3f} s, "
               f"restored in {t2 - t1:.3f} s, every leaf bit-identical, "
               f"next-step loss {float(loss_a):.6f} on both", flush=True)
     finally:
         loader.close()
     return out
+
+
+# -- surface phase ------------------------------------------------------------
+def _ufs_bytes(ufs_path: str) -> bytes:
+    """A file's bytes read straight from the local UFS, not through the
+    cluster."""
+    local = ufs_path[len("file://"):] if ufs_path.startswith("file://") \
+        else ufs_path
+    return Path(local).read_bytes()
+
+
+def _files_under(fs, base: str) -> list:
+    out = []
+    for info in fs.list_status(base):
+        path = f"{base.rstrip('/')}/{info.name}"
+        out += _files_under(fs, path) if info.folder else [path]
+    return out
+
+
+def surface_phase(device, mp: dict, main: dict, vit: dict) -> dict:
+    """(2q): the parts of the JAX package's public surface that slice 22
+    ported and that touch the main path, on 2g's cluster (the main
+    path's shards on its worker) with the train phase's ViT state,
+    through the package re-exports a JAX program would import. (a) The
+    bf16/AdamW state saved with ``save_train_state(write_type=)`` once
+    MUST_CACHE and once CACHE_THROUGH; each save loaded back onto the
+    card bit for bit, the CACHE_THROUGH files PERSISTED with UFS bytes
+    equal to the cluster's, the MUST_CACHE files NOT_PERSISTED, and one
+    step from each reloaded state with a finite loss. (b) Tracing on at
+    sample rate 1, one of the main path's cached blocks read through the
+    striped remote read (short-circuit off, ``REMOTE_STRIPE_BYTES``
+    stripes): the client registry's ``to_prometheus()`` must carry the
+    read's trace id as an exemplar on a ``Client.ReadLatency`` bucket,
+    that id must be the read's span in the tracer, and ``scaled_sum``
+    on the card over the block must equal its plain version and numpy's
+    sum of the shard file."""
+    import math
+
+    import torch
+
+    from alluxio_tpu_torch.client import WriteType
+    from alluxio_tpu_torch.conf import Configuration, Keys
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.models.checkpoint import (load_train_state,
+                                                     save_train_state)
+    from alluxio_tpu_torch.models.transformer import Transformer
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.utils import tracing
+    from alluxio_tpu_torch.utils.bf16 import bits
+    from alluxio_tpu_torch.utils.pytree import tree_leaves
+
+    cluster, fs = mp["cluster"], mp["fs"]
+    model, opt, tx, cfg = vit["model"], vit["opt"], vit["tx"], vit["cfg"]
+    checks, seconds, saves = {}, {}, {}
+    t_a = time.perf_counter()
+    want = tree_leaves((model.param_tree(), opt))
+    for wt in ("MUST_CACHE", "CACHE_THROUGH"):
+        base = f"/surface/vit-{wt.lower()}/step-{vit['at']}"
+        t0 = time.perf_counter()
+        save_train_state(fs, base, model.param_tree(), opt, step=vit["at"],
+                         write_type=getattr(WriteType, wt))
+        t1 = time.perf_counter()
+        fresh = Transformer(cfg, device=device, seed=3)
+        params2, opt2, got_at = load_train_state(
+            fs, base, like_params=fresh.param_tree(),
+            like_opt=tx.init(fresh.leaves()))
+        fresh.load_param_tree(params2)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        got = tree_leaves((fresh.param_tree(), opt2))
+        if got_at != vit["at"] or len(got) != len(want) or any(
+                b.device != a.device or not torch.equal(bits(a), bits(b))
+                for a, b in zip(want, got)):
+            fail(f"2q (a) {wt}: the reloaded state (step {got_at}) is not "
+                 f"the saved one bit for bit")
+        paths = _files_under(fs, base)
+        states = {fs.get_status(p).persistence_state for p in paths}
+        if wt == "CACHE_THROUGH":
+            if states != {"PERSISTED"}:
+                fail(f"2q (a) CACHE_THROUGH: persistence states {states}")
+            differ = [p for p in paths if _ufs_bytes(
+                fs.get_status(p).ufs_path) != bytes(fs.read_all(p))]
+            if differ:
+                fail(f"2q (a) CACHE_THROUGH: UFS bytes differ for "
+                     f"{differ[:3]}")
+        elif states != {"NOT_PERSISTED"}:
+            fail(f"2q (a) MUST_CACHE: persistence states {states}")
+        _, _, loss = vit["step"](fresh, opt2, vit["tokens"], vit["labels"])
+        loss = float(loss)
+        if not math.isfinite(loss):
+            fail(f"2q (a) {wt}: the step from the reloaded state gave loss "
+                 f"{loss}")
+        nbytes = sum(fs.get_status(p).length for p in paths)
+        saves[wt] = {"files": len(paths), "bytes": nbytes,
+                     "save_s": t1 - t0, "load_s": t2 - t1,
+                     "states": sorted(states), "next_step_loss": loss}
+        del fresh, params2, opt2, got
+    checks.update({"must_cache_bitwise": True, "must_cache_not_persisted":
+                   True, "cache_through_bitwise": True,
+                   "cache_through_persisted": True,
+                   "cache_through_ufs_equal": True,
+                   "reloaded_step_finite": True})
+    seconds["a"] = time.perf_counter() - t_a
+    print(f"2q (a): ViT state ({saves['MUST_CACHE']['files']} files, "
+          f"{saves['MUST_CACHE']['bytes']} bytes) saved MUST_CACHE in "
+          f"{saves['MUST_CACHE']['save_s']:.3f} s (NOT_PERSISTED) and "
+          f"CACHE_THROUGH in {saves['CACHE_THROUGH']['save_s']:.3f} s "
+          f"(PERSISTED, UFS bytes equal); both reload bit for bit, "
+          f"next-step loss {saves['MUST_CACHE']['next_step_loss']:.6f} / "
+          f"{saves['CACHE_THROUGH']['next_step_loss']:.6f}", flush=True)
+
+    # (b) a sampled striped read of a cached block of the main path
+    t_b = time.perf_counter()
+    path = next(iter(main["files"]))
+    block_file = main["files"][path][1]
+    bid = fs.get_status(path).block_ids[0]
+    conf = Configuration(load_env=False)
+    conf.set(Keys.USER_SHORT_CIRCUIT_ENABLED, False)
+    conf.set(Keys.USER_REMOTE_READ_STRIPE_SIZE, REMOTE_STRIPE_BYTES)
+    reader = cluster.file_system(conf)
+    m = metrics()
+    stripes = m.counter("Client.RemoteReadStripes")
+    t = tracing.tracer()
+    was = (t.enabled, t.sample_rate)
+    try:
+        t.configure(sample_rate=1.0)
+        tracing.set_tracing_enabled(True)
+        s0 = stripes.count
+        data = bytes(reader.read_all(path))
+        n_stripes = stripes.count - s0
+    finally:
+        tracing.set_tracing_enabled(was[0])
+        t.configure(sample_rate=was[1])
+        reader.close()
+    if n_stripes < 2:
+        fail(f"2q (b): the read of {path} took {n_stripes} stripes")
+    if data != Path(block_file).read_bytes():
+        fail(f"2q (b): {path} read striped differs from its shard file")
+    spans = [sp for sp in t.snapshot(limit=5000,
+                                     prefix="atpu.client.remote_read")
+             if sp.get("tags", {}).get("block_id") == str(bid)]
+    if not spans:
+        fail(f"2q (b): no remote-read span for block {bid}")
+    trace_id = spans[0]["trace_id"]
+    text = m.to_prometheus()
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith("Client_ReadLatency_")
+             and f'# {{trace_id="{trace_id}"}}' in ln]
+    if not lines:
+        fail(f"2q (b): no Client.ReadLatency bucket carries trace "
+             f"{trace_id} as its exemplar")
+    x = torch.frombuffer(bytearray(data), dtype=torch.int32).to(device)
+    rk.launches = 0
+    got = int(rk.scaled_sum(x, 3))
+    launches = rk.launches
+    plain = int(rk.scaled_sum_reference(x, 3))
+    total = int((np.frombuffer(data, np.int32).astype(np.int64) * 3)
+                .sum()) & 0xFFFFFFFF
+    host = total - (1 << 32) if total >= 1 << 31 else total
+    if not got == plain == host:
+        fail(f"2q (b): scaled_sum {got}, plain {plain}, numpy {host}")
+    del x
+    checks.update({"exemplar_on_read_latency": True,
+                   "exemplar_is_the_reads_span": True,
+                   "scaled_sum_equals_plain": True})
+    seconds["b"] = time.perf_counter() - t_b
+    print(f"2q (b): {path} (block {bid}) read in {n_stripes} stripes, "
+          f"trace {trace_id} on {lines[0].split(' #')[0]}, scaled_sum "
+          f"{got} == plain == numpy", flush=True)
+    return {"checks": checks, "seconds": seconds, "saves": saves,
+            "read": {"path": path, "block_id": bid, "stripes": n_stripes,
+                     "trace_id": trace_id, "bucket": lines[0].split(
+                         " #")[0].split(" ")[0]},
+            "launches": launches}
 
 
 # -- mesh phase ---------------------------------------------------------------
@@ -8743,6 +8932,10 @@ def main() -> int:
         train["kernel_launches"] = {"scaled_sum": rk.launches}
         print(f"train path: scaled_sum launched {rk.launches} times (the "
               f"path has no kernel of its own)", flush=True)
+        # 2q: the surface slice 22 ported, on the cluster that holds the
+        # main path's shards, with the train phase's ViT state
+        surface = phase("2q", surface_phase, device, mp, main,
+                        train.pop("vit_state"))
         rk.launches = 0
         mesh = phase("mesh", mesh_phase, device, workdir, mp["fs"],
                      shard_files, files)
@@ -8837,6 +9030,7 @@ def main() -> int:
     print(json.dumps({"serving": {**serving, "card": CARD}}), flush=True)
     print(json.dumps({"deployment": {**deployment, "card": CARD}}),
           flush=True)
+    print(json.dumps({"surface": {**surface, "card": CARD}}), flush=True)
     PHASE_S["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_s": {k: round(v, 1)
                                   for k, v in PHASE_S.items()}}), flush=True)
@@ -8869,7 +9063,8 @@ def main() -> int:
             "lockaudit": lockaudit["launches"],
             "s3": s3["launches"],
             "serving": serving["launches"],
-            "deployment": deployment["launches"]},
+            "deployment": deployment["launches"],
+            "surface": surface["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

@@ -25,14 +25,14 @@ import jax.numpy as jnp  # noqa: E402
 from alluxio_tpu.models import transformer as jt  # noqa: E402
 from alluxio_tpu_torch import convert  # noqa: E402
 from alluxio_tpu_torch.models import transformer as tt  # noqa: E402
-from alluxio_tpu_torch.parallel import ring_attention as tra  # noqa: E402
 from alluxio_tpu_torch.lint.pytest_lockaudit import (  # noqa: E402,F401
     port_lock_order_audit, port_lockaudit_install,
 )
 
-# the JAX package's parallel/__init__ re-exports a function under the
-# module's name, so take the module itself
+# both packages' parallel/__init__ re-export a function under the
+# module's name, so take the modules themselves
 jra = importlib.import_module("alluxio_tpu.parallel.ring_attention")
+tra = importlib.import_module("alluxio_tpu_torch.parallel.ring_attention")
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2.0 ** -5)}

@@ -308,7 +308,8 @@ def _port_keys():
     from alluxio_tpu_torch.conf import Keys, Templates
 
     keys = [v for v in vars(Keys).values() if hasattr(v, "key_type")]
-    keys += [t.format(i) for t in vars(Templates).values()
+    keys += [t.format(*[i] * t.pattern.count("{}"))
+             for t in vars(Templates).values()
              if hasattr(t, "pattern") for i in range(3)]
     return keys
 
