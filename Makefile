@@ -26,6 +26,19 @@ native:  ## force-rebuild the C++ layer (-Wall -Werror)
 	rm -f alluxio_tpu/native/_libatpu_native.so
 	$(PY) -c "import alluxio_tpu.native as n; assert n.lib() is not None"
 
+.PHONY: lint-torch test-torch native-torch
+
+lint-torch:  ## the PyTorch port's lint over alluxio_tpu_torch/ (<30s budget)
+	$(PY) -m alluxio_tpu_torch.lint --budget-s 30
+
+test-torch:  ## the PyTorch port's CPU tests (tests/test_torch_*.py against the JAX package), skipping multi-process tests
+	@$(PY) -c "import alluxio_tpu_torch.native as n; n.lib() is None and print('native layer unavailable (no g++?): running pure-Python fallback paths only')"
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/test_torch_*.py -q -m "not slow"
+
+native-torch:  ## force-rebuild the PyTorch port's C++ layer (build/torch_native/)
+	rm -rf build/torch_native
+	$(PY) -c "import alluxio_tpu_torch.native as n; assert n.lib() is not None"
+
 bench:
 	$(PY) bench.py
 

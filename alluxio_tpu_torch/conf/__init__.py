@@ -6,4 +6,5 @@ from alluxio_tpu_torch.conf.property_key import (  # noqa: F401
 )
 from alluxio_tpu_torch.conf.configuration import (  # noqa: F401
     Configuration, Source, global_configuration, reset_global_configuration,
+    site_configuration,
 )

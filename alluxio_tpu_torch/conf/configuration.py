@@ -201,18 +201,25 @@ _GLOBAL: Optional[Configuration] = None
 _GLOBAL_LOCK = threading.Lock()
 
 
+def site_configuration() -> Configuration:
+    """A new configuration: the environment, then the site file named by
+    ``ATPU_SITE_PROPERTIES`` (default ``/etc/alluxio_tpu/site.properties``)
+    when it exists. The environment wins over the file."""
+    conf = Configuration()
+    site = os.environ.get("ATPU_SITE_PROPERTIES",
+                          "/etc/alluxio_tpu/site.properties")
+    if os.path.exists(site):
+        conf.load_site_properties(site)
+    return conf
+
+
 def global_configuration() -> Configuration:
-    """The process-wide configuration: the environment, then the site
-    file named by ``ATPU_SITE_PROPERTIES`` (default
-    ``/etc/alluxio_tpu/site.properties``) when it exists."""
+    """The process-wide configuration, made once by
+    :func:`site_configuration`."""
     global _GLOBAL
     with _GLOBAL_LOCK:
         if _GLOBAL is None:
-            _GLOBAL = Configuration()
-            site = os.environ.get("ATPU_SITE_PROPERTIES",
-                                  "/etc/alluxio_tpu/site.properties")
-            if os.path.exists(site):
-                _GLOBAL.load_site_properties(site)
+            _GLOBAL = site_configuration()
         return _GLOBAL
 
 

@@ -1287,6 +1287,25 @@ class FileSystemMaster:
         with self._persist_lock:
             self._persist_requests.add(inode_id)
 
+    def requeue_unpersisted(self) -> int:
+        """Queue a persist request for every completed file still
+        TO_BE_PERSISTED; returns how many. The queue lives in memory, so
+        what another primary, or this master before a restart or a
+        step-down, had queued and not yet persisted is gone, while the
+        journal keeps each file's state (reference: on gaining primacy,
+        ``DefaultFileSystemMaster.start`` refills ``mPersistRequests``
+        from ``InodeTree.getToBePersistedIds``). A file persisted
+        meanwhile makes its job a no-op (``persist_now``)."""
+        with self.inode_tree.registry_lock:
+            ids = list(self.inode_tree.to_be_persisted_ids)
+        ids = [i for i in ids
+               if (inode := self.inode_tree.get_inode(i)) is not None
+               and inode.completed and inode.persistence_state
+               == PersistenceState.TO_BE_PERSISTED]
+        with self._persist_lock:
+            self._persist_requests.update(ids)
+        return len(ids)
+
     def pop_persist_requests(self) -> "set[int]":
         """Drain scheduled persist work as inode IDS (consumed by the
         persistence scheduler heartbeat). Paths are deliberately NOT

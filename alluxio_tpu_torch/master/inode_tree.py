@@ -700,6 +700,9 @@ class InodeTree(Journaled):
         with self.registry_lock:
             if inode.pinned:
                 self.pinned_ids.add(inode.id)
+            # a file created to persist on completion (ASYNC_THROUGH)
+            if inode.persistence_state == PersistenceState.TO_BE_PERSISTED:
+                self.to_be_persisted_ids.add(inode.id)
             self._track_replication(inode)
 
     def _apply_update(self, p: dict) -> None:

@@ -1078,6 +1078,12 @@ class MasterProcess:
         same reason as the replication checker)."""
         from alluxio_tpu_torch.master.persistence import PersistenceScheduler
 
+        # a new scheduler starts from the journal's unpersisted files: the
+        # in-memory requests of an earlier primary or term are gone
+        requeued = self.fs_master.requeue_unpersisted()
+        if requeued:
+            LOG.info("persistence scheduler: %d unpersisted files requeued",
+                     requeued)
         scheduler = PersistenceScheduler(self.fs_master, job_client)
         t = HeartbeatThread(
             HeartbeatContext.MASTER_PERSISTENCE_SCHEDULER,

@@ -9,6 +9,12 @@ job worker, proxy, log server, FUSE). Generic options: ``--master
 host:port``, ``--job-master host:port``, ``-D key=value`` config
 overrides. No command loads torch: an operator's shell builds no CUDA
 context.
+
+Unlike JAX's shell, which reads the environment only, the port's reads
+the site file that ``ATPU_SITE_PROPERTIES`` names as well (the
+environment wins over it), so the roles that ``bin/alluxio-tpu-torch``,
+the container image and the Helm chart start take the ports and
+directories that file gives them.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ from __future__ import annotations
 import sys
 from typing import List
 
-from alluxio_tpu_torch.conf import Configuration, Keys
+from alluxio_tpu_torch.conf import Configuration, Keys, site_configuration
 from alluxio_tpu_torch.shell.command import ShellContext
 
 USAGE = """\
@@ -95,7 +101,7 @@ def _parse_generic(argv: List[str], conf: Configuration) -> List[str]:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    conf = Configuration()
+    conf = site_configuration()
     try:
         argv = _parse_generic(argv, conf)
     except GenericOptionError as e:

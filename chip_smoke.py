@@ -437,6 +437,25 @@ with ``nvcc`` (into ``build/torch_kernels/``), then:
    the client's exposition and a span of the tracer, and ``scaled_sum``
    over the block on the card must equal its plain version.
 
+2r. launchers, right after 2q: a cluster of its own in a work directory
+   of its own (its site file with free ports, its log and pid
+   directories), stood up and taken down by the port's scripts under
+   ``bin/``. (a) ``bin/alluxio-tpu-torch-start.sh local``: the master
+   must answer on the site file's port and the worker register; (b)
+   ``bin/alluxio-tpu-torch fs copyFromLocal`` of 16 seeded 32 MiB shards
+   and ``fsadmin report``, each a child interpreter; (c) two loader
+   epochs over the shards onto the card with a device tier of them all,
+   epoch 1 on the SHM rung, every block's ``scaled_sum`` the plain
+   version's and numpy's sum of its local file, epoch 2 16 of 16
+   device-tier hits; (d) the port's examples with ``--master`` as
+   children on the card: ``torch_basic_operations`` and
+   ``torch_multi_mount`` end in ``done.``, and
+   ``torch_training_pipeline``'s per-epoch losses are within
+   ``LAUNCH_LOSS_RTOL`` of the same example run in process with
+   ``--device cpu``; (e) ``bin/alluxio-tpu-torch-mount.sh Check`` reports
+   the site file's MEM tier; (f) ``bin/alluxio-tpu-torch-stop.sh all``:
+   no role process is left.
+
 It prints the card's name and power limit, whether pyarrow imports,
 one ``{"main": {...}}``
 line, one ``{"prefetch": {...}}`` line, one ``{"master": {...}}`` line,
@@ -448,8 +467,9 @@ one ``{"stress": {...}}`` line, one ``{"observability": {...}}`` line,
 one ``{"guards": {...}}`` line, one ``{"ha": {...}}`` line, one
 ``{"shell": {...}}`` line, one ``{"s3": {...}}`` line, one
 ``{"serving": {...}}`` line, one ``{"deployment": {...}}`` line, one
-``{"surface": {...}}`` line, one ``{"phase_s": {...}}`` line with every
-phase's seconds, one ``{"kernels": [...]}`` line,
+``{"surface": {...}}`` line, one ``{"launchers": {...}}`` line, one
+``{"phase_s": {...}}`` line with every phase's seconds (2r's by step
+too), one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a CUDA card, or without the repository beside it, it
 exits non-zero and prints no result. All data is made from a seed.
@@ -8340,6 +8360,404 @@ def surface_phase(device, mp: dict, main: dict, vit: dict) -> dict:
             "launches": launches}
 
 
+# -- launchers phase (2r) -----------------------------------------------------
+LAUNCH_SHARDS = 16         # (b): 2l's corpus, 512 MiB through copyFromLocal
+LAUNCH_BOOT_S = 60.0
+LAUNCH_CHILD_TIMEOUT_S = 300
+LAUNCH_STOP_S = 20.0
+LAUNCH_ROLES = ("master", "worker", "job_master", "job_worker")
+LAUNCH_EXAMPLES = ("torch_basic_operations.py", "torch_multi_mount.py",
+                   "torch_training_pipeline.py")
+#: (d): the training pipeline's per-epoch losses on the card against its
+#: in-process CPU run, relative: the card's float32 matmuls and
+#: reductions sum in another order than the CPU's; both sides print four
+#: decimals (half a unit of the last, 5e-5, is well inside)
+LAUNCH_LOSS_RTOL = 2e-3
+_EPOCH_LINE = re.compile(r"^epoch (\d+): loss ([-\d.]+) in ([\d.]+)s",
+                         re.MULTILINE)
+
+
+def launch_site(base: str, mport: int, wport: int, jport: int) -> str:
+    """The cluster's site file: every role's ports (free ones) and
+    directories under ``base``, a MEM tier of the corpus plus 256 MiB.
+    Returns its path."""
+    tier = LAUNCH_SHARDS * BLOCK_BYTES + (256 << 20)
+    props = {"atpu.home": base,
+             "atpu.master.hostname": "localhost",
+             "atpu.master.rpc.port": mport,
+             "atpu.master.journal.folder": os.path.join(base, "journal"),
+             "atpu.master.fastpath.dir": base,
+             "atpu.master.safemode.wait": "0s",
+             "atpu.job.master.hostname": "localhost",
+             "atpu.job.master.rpc.port": jport,
+             "atpu.worker.hostname": "localhost",
+             "atpu.worker.rpc.port": wport,
+             "atpu.worker.data.folder": os.path.join(base, "worker"),
+             "atpu.worker.shm.dir": os.path.join(base, "shm"),
+             "atpu.worker.ramdisk.size": f"{tier >> 20}MB",
+             # the worker's own default (``<shm dir>/mem``), named so the
+             # mount script reports it
+             "atpu.worker.tieredstore.level0.dirs.path":
+                 os.path.join(base, "shm", "mem")}
+    path = os.path.join(base, "site.properties")
+    with open(path, "w") as f:
+        f.write("".join(f"{k}={v}\n" for k, v in props.items()))
+    return path
+
+
+def launch_env(base: str, site: str) -> dict:
+    """The launchers' environment: the site file, the log and pid
+    directories under ``base``, this interpreter as ``PYTHON``."""
+    env = stress_env()
+    env.update({"ATPU_SITE_PROPERTIES": site,
+                "ALLUXIO_TPU_LOGS_DIR": os.path.join(base, "logs"),
+                "ALLUXIO_TPU_PID_DIR": os.path.join(base, "pids"),
+                "PYTHON": sys.executable})
+    return env
+
+
+def launch_run(env: dict, steps: dict, step: str, argv: list,
+               cwd: str = None) -> str:
+    """One child (a script under ``bin/`` or an example), its seconds
+    added to ``steps[step]``; the run fails unless it exits 0. Returns its
+    stdout."""
+    t = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, env=env,
+                          cwd=cwd or str(ROOT),
+                          timeout=LAUNCH_CHILD_TIMEOUT_S)
+    steps[step] = steps.get(step, 0.0) + time.perf_counter() - t
+    if proc.returncode != 0:
+        fail(f"2r ({step}): {' '.join(map(str, argv))} exited "
+             f"{proc.returncode}: {proc.stdout[-1500:]} "
+             f"{proc.stderr[-1500:]}")
+    return proc.stdout
+
+
+def pid_alive(pid: int) -> bool:
+    """True while ``pid`` runs (a zombie, which no parent has reaped yet,
+    has exited)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            state = f.read().rsplit(")", 1)[1].split()[0]
+    except (FileNotFoundError, ProcessLookupError, IndexError):
+        return False
+    return state not in ("Z", "X")
+
+
+def role_pids(pid_dir: str) -> dict:
+    """{role: pid} of the pid files that the start script wrote."""
+    pids = {}
+    for role in LAUNCH_ROLES:
+        path = os.path.join(pid_dir, f"{role}.pid")
+        if os.path.exists(path):
+            with open(path) as f:
+                pids[role] = int(f.read().strip())
+    return pids
+
+
+def kill_left(pids: dict) -> list:
+    """SIGKILL whatever of ``pids`` still runs; returns those roles."""
+    import signal
+
+    left = [r for r, p in pids.items() if pid_alive(p)]
+    for role in left:
+        try:
+            os.kill(pids[role], signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    return left
+
+
+def launch_epochs(device, fs, files: dict) -> dict:
+    """(c): two loader epochs over the shards onto ``device`` with a device
+    tier of them all: every block of epoch 1 on the SHM rung, each block's
+    ``scaled_sum`` held against the plain version and numpy's sum of its
+    local file in both epochs; epoch 2 must be all device-tier hits."""
+    from alluxio_tpu_torch.client.torch_io import DeviceBlockLoader
+    from alluxio_tpu_torch.metrics import metrics
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+
+    paths = list(files)
+    rfs = RungFS(fs)
+    hits = metrics().counter("Client.JaxHbmHits")
+    loader = DeviceBlockLoader(rfs, paths, device=device,
+                               hbm_bytes=len(paths) * BLOCK_BYTES
+                               + (64 << 20), prefetch=2, dtype=np.int32)
+    out = {}
+    try:
+        for epoch in (1, 2):
+            hits0 = hits.count
+            _sync_device(device)
+            t = time.perf_counter()
+            got = {}
+            for path, block in zip(paths, loader.epoch()):
+                x = rk.pad_to_kernel_shape(block)
+                value = int(rk.scaled_sum(x, 1))
+                plain = int(rk.scaled_sum_reference(x, 1))
+                if value != plain or value != files[path][1]:
+                    fail(f"2r (c) epoch {epoch}: {path}'s scaled_sum "
+                         f"{value}, plain {plain}, numpy {files[path][1]}")
+                got[path] = value
+            _sync_device(device)
+            s = time.perf_counter() - t
+            if list(got) != paths:
+                fail(f"2r (c) epoch {epoch}: {len(got)} of {len(paths)} "
+                     f"blocks")
+            out[f"epoch{epoch}"] = {
+                "s": s, "gb_per_s": len(paths) * BLOCK_BYTES / s / 1e9,
+                "device_hits": hits.count - hits0,
+                "wait_s": loader.stall_report()["total_wait_s"]}
+    finally:
+        loader.close()
+    rfs.check_rungs("2r (c) epoch 1", "shm")
+    if out["epoch2"]["device_hits"] != len(paths):
+        fail(f"2r (c): epoch 2 gave {out['epoch2']['device_hits']} "
+             f"device-tier hits, want {len(paths)}")
+    out["rungs"] = dict(rfs.rungs)
+    return out
+
+
+def epoch_losses(text: str) -> list:
+    return [float(m.group(2)) for m in _EPOCH_LINE.finditer(text)]
+
+
+def launch_examples(device, env: dict, master: str, steps: dict) -> dict:
+    """(d): the port's three examples with ``--master`` as children on
+    ``device``; the training pipeline's losses against the same example
+    run in this process with ``--device cpu`` (its own in-process
+    cluster), which runs while the child does."""
+    import contextlib
+    import io
+
+    outs = {}
+    for script in LAUNCH_EXAMPLES[:2]:
+        outs[script] = launch_run(
+            env, steps, f"d {script[6:-3]}",
+            [sys.executable, str(ROOT / "examples" / script),
+             "--master", master])
+        if not outs[script].rstrip().endswith("done."):
+            fail(f"2r (d): {script} did not end in 'done.': "
+                 f"{outs[script][-500:]}")
+    t = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / LAUNCH_EXAMPLES[2]),
+         "--master", master, "--device", device.type],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(ROOT))
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "torch_training_pipeline", ROOT / "examples" / LAUNCH_EXAMPLES[2])
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = example.main(["--device", "cpu"])
+        steps["d cpu"] = time.perf_counter() - t
+        card_text, err = child.communicate(timeout=LAUNCH_CHILD_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    steps[f"d {LAUNCH_EXAMPLES[2][6:-3]}"] = time.perf_counter() - t
+    if child.returncode != 0:
+        fail(f"2r (d): {LAUNCH_EXAMPLES[2]} exited {child.returncode}: "
+             f"{card_text[-1500:]} {err[-1500:]}")
+    card, cpu = epoch_losses(card_text), epoch_losses(buf.getvalue())
+    if "loader HBM stats:" not in card_text:
+        fail(f"2r (d): no loader HBM stats line: {card_text[-500:]}")
+    if rc != 0 or len(cpu) != 3 or len(card) != 3:
+        fail(f"2r (d): epochs card {card}, cpu {cpu} (exit {rc})")
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    if not all(np.isfinite(card)) or max(rel) > LAUNCH_LOSS_RTOL:
+        fail(f"2r (d): the pipeline's losses on {device.type} {card}, on "
+             f"the cpu {cpu}: relative {rel} (tolerance "
+             f"{LAUNCH_LOSS_RTOL})")
+    return {"losses": card, "cpu_losses": cpu, "max_rel": max(rel),
+            "epoch_s": [float(m.group(3))
+                        for m in _EPOCH_LINE.finditer(card_text)],
+            "rtol": LAUNCH_LOSS_RTOL}
+
+
+def launchers_phase(device, main: dict) -> dict:
+    """(2r): a cluster stood up and taken down by the port's own launchers
+    under ``bin/``, in a work directory of its own (its site file with
+    free ports, its log and pid directories), and read on the card. (a)
+    ``bin/alluxio-tpu-torch-start.sh local``: the master must answer and
+    the worker register; (b) ``bin/alluxio-tpu-torch fs copyFromLocal``
+    of 2l's seeded corpus (``LAUNCH_SHARDS`` 32 MiB shards, made by
+    ``shell_corpus``), then ``fsadmin report``,
+    each a child interpreter; (c) two loader epochs over the shards onto
+    the card, each block's ``scaled_sum`` the plain version's and numpy's,
+    epoch 2 all device-tier hits; (d) the port's examples with
+    ``--master`` as children on the card (the training pipeline's losses
+    within ``LAUNCH_LOSS_RTOL`` of its CPU run in process; the other two
+    end in ``done.``); (e) ``bin/alluxio-tpu-torch-mount.sh Check``; (f)
+    ``bin/alluxio-tpu-torch-stop.sh all``: no role process left."""
+    from alluxio_tpu_torch.client.file_system import FileSystem
+    from alluxio_tpu_torch.conf import Configuration, Keys
+    from alluxio_tpu_torch.minicluster.multi_process import free_port
+    from alluxio_tpu_torch.ops import reduce_kernel as rk
+    from alluxio_tpu_torch.rpc.clients import (
+        BlockMasterClient, MetaMasterClient,
+    )
+
+    t_phase = time.perf_counter()
+    n = LAUNCH_SHARDS
+    base = block_dir(2 * n * BLOCK_BYTES + (512 << 20))
+    mport, wport, jport = free_port(), free_port(), free_port()
+    master = f"localhost:{mport}"
+    site = launch_site(base, mport, wport, jport)
+    env = launch_env(base, site)
+    os.makedirs(os.path.join(base, "underFSStorage"))
+    bin_dir = ROOT / "bin"
+    steps, pids, stopped = {}, {}, False
+    fs = None
+    try:
+        # (a) the roles, started by the port's start script
+        t = time.perf_counter()
+        started = launch_run(env, steps, "a",
+                             ["bash", str(bin_dir / "alluxio-tpu-torch-start.sh"),
+                              "local"])
+        pids = role_pids(env["ALLUXIO_TPU_PID_DIR"])
+        if sorted(pids) != sorted(LAUNCH_ROLES):
+            fail(f"2r (a): pid files for {sorted(pids)}: {started}")
+        meta = MetaMasterClient(master, fastpath=False, retry_duration_s=0.5)
+        blocks = BlockMasterClient(master, fastpath=False,
+                                   retry_duration_s=0.5)
+
+        def master_answers():
+            try:
+                return meta.get_master_info()
+            except Exception:  # noqa: BLE001 - not serving yet
+                return None
+
+        def worker_registered():
+            try:
+                return blocks.get_worker_infos()
+            except Exception:  # noqa: BLE001
+                return None
+
+        wait_for("(a) the master answers", master_answers, LAUNCH_BOOT_S,
+                 "2r")
+        workers = wait_for("(a) the worker registers", worker_registered,
+                           LAUNCH_BOOT_S, "2r")
+        steps["a"] = time.perf_counter() - t
+        if [w.address.rpc_port for w in workers] != [wport]:
+            fail(f"2r (a): workers {[w.address for w in workers]}, want "
+                 f"one on the site file's port {wport}")
+        print(f"2r (a): bin/alluxio-tpu-torch-start.sh local started "
+              f"{pids}; the master on the site file's port {mport} "
+              f"answers and the worker on {wport} registered in "
+              f"{steps['a']:.2f} s", flush=True)
+        # (b) 2l's corpus in through the launcher, then the report
+        files = shell_corpus(os.path.join(base, "corpus"), n, BLOCK_BYTES)
+        launch_run(env, steps, "b",
+                   ["bash", str(bin_dir / "alluxio-tpu-torch"), "fs",
+                    "copyFromLocal", os.path.join(base, "corpus"),
+                    "/shell"])
+        copy_s = steps["b"]
+        report = launch_run(env, steps, "b report",
+                            ["bash", str(bin_dir / "alluxio-tpu-torch"),
+                             "fsadmin", "report"])
+        if f"Master Address: {master}" not in report or \
+                "Live Workers: 1" not in report:
+            fail(f"2r (b): fsadmin report: {report}")
+        print(f"2r (b): copyFromLocal {n} x {BLOCK_BYTES >> 20} MiB in "
+              f"{copy_s:.2f} s ({n * BLOCK_BYTES / copy_s / 1e9:.3f} GB/s, "
+              f"a child interpreter); fsadmin report in "
+              f"{steps['b report']:.2f} s: "
+              f"{[line.strip() for line in report.splitlines() if 'Live Workers' in line or 'Used Capacity' in line]}",
+              flush=True)
+        # (c) the card
+        fconf = Configuration(load_env=False)
+        fconf.set(Keys.MASTER_FASTPATH_DIR, base)
+        fs = FileSystem(master, conf=fconf)
+        if [len(fs.get_status(p).block_ids) for p in files] != [1] * n:
+            fail("2r (c): want one block a shard")
+        rk.launches = 0
+        t = time.perf_counter()
+        epochs = launch_epochs(device, fs, files)
+        steps["c"] = time.perf_counter() - t
+        launches = rk.launches
+        if launches != 2 * n:
+            fail(f"2r (c): scaled_sum launched {launches} times, want "
+                 f"{2 * n}")
+        e1, e2 = epochs["epoch1"], epochs["epoch2"]
+        print(f"2r (c): epoch 1 {e1['s']:.3f} s ({e1['gb_per_s']:.3f} "
+              f"GB/s, rungs {epochs['rungs']}, the consumer waiting "
+              f"{e1['wait_s']:.3f} s), epoch 2 {e2['s']:.4f} s "
+              f"({e2['device_hits']} of {n} device-tier hits); the main "
+              f"path's epoch 1 {main['epoch1_s']:.3f} s; {launches} "
+              f"launches, each the plain version's and numpy's", flush=True)
+        # (d) the examples
+        t = time.perf_counter()
+        examples = launch_examples(device, env, master, steps)
+        steps["d"] = time.perf_counter() - t
+        print(f"2r (d): torch_basic_operations and torch_multi_mount ended "
+              f"in 'done.'; torch_training_pipeline on {device.type} "
+              f"losses {examples['losses']} (epochs "
+              f"{examples['epoch_s']} s), in process on the cpu "
+              f"{examples['cpu_losses']}: max relative "
+              f"{examples['max_rel']:.2e} <= {LAUNCH_LOSS_RTOL}; the children "
+              f"{steps['d basic_operations']:.2f}, "
+              f"{steps['d multi_mount']:.2f} and "
+              f"{steps['d training_pipeline']:.2f} s, the cpu run beside "
+              f"the last {steps['d cpu']:.2f} s",
+              flush=True)
+        # (e) the mount script's report
+        check = launch_run(env, steps, "e",
+                           ["bash", str(bin_dir / "alluxio-tpu-torch-mount.sh"),
+                            "Check"])
+        tier = LAUNCH_SHARDS * BLOCK_BYTES + (256 << 20)
+        want = (f"tier0 (MEM): {os.path.join(base, 'shm', 'mem')} "
+                f"(want {tier} B)")
+        if want not in check:
+            fail(f"2r (e): mount Check: {check}")
+        print(f"2r (e): bin/alluxio-tpu-torch-mount.sh Check: "
+              f"{check.splitlines()[0]}", flush=True)
+        # (f) the stop script
+        fs.close()
+        fs = None
+        t = time.perf_counter()
+        out = launch_run(env, steps, "f",
+                         ["bash", str(bin_dir / "alluxio-tpu-torch-stop.sh"),
+                          "all"])
+        stopped = True
+        deadline = time.monotonic() + LAUNCH_STOP_S
+        while any(pid_alive(p) for p in pids.values()) and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+        steps["f"] = time.perf_counter() - t
+        left = kill_left(pids)
+        if left or role_pids(env["ALLUXIO_TPU_PID_DIR"]):
+            fail(f"2r (f): roles {left} outlived stop.sh all ({out})")
+        print(f"2r (f): bin/alluxio-tpu-torch-stop.sh all stopped "
+              f"{sorted(pids)}, none left, in {steps['f']:.2f} s", flush=True)
+    finally:
+        try:
+            if fs is not None:
+                fs.close()
+            if pids and not stopped:
+                subprocess.run(
+                    ["bash", str(bin_dir / "alluxio-tpu-torch-stop.sh"),
+                     "all"], env=env, capture_output=True, timeout=60)
+                deadline = time.monotonic() + LAUNCH_STOP_S
+                while any(pid_alive(p) for p in pids.values()) and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.05)
+                kill_left(pids)
+        finally:
+            shutil.rmtree(base, ignore_errors=True)
+    s = time.perf_counter() - t_phase
+    for step, v in steps.items():
+        PHASE_S[f"2r {step}"] = v
+    print(f"2r: {s:.1f} s, scaled_sum launched {launches} times", flush=True)
+    return {"shards": n, "bytes": n * BLOCK_BYTES, "steps_s": steps,
+            "copy_gb_per_s": n * BLOCK_BYTES / copy_s / 1e9,
+            "epochs": epochs, "examples": examples, "launches": launches,
+            "s": s}
+
+
 # -- mesh phase ---------------------------------------------------------------
 def same_bits(a, b) -> bool:
     import torch
@@ -8936,6 +9354,9 @@ def main() -> int:
         # main path's shards, with the train phase's ViT state
         surface = phase("2q", surface_phase, device, mp, main,
                         train.pop("vit_state"))
+        # 2r: a cluster of its own, stood up and taken down by the port's
+        # launchers under bin/, read on the card, and the port's examples
+        launchers = phase("2r", launchers_phase, device, main)
         rk.launches = 0
         mesh = phase("mesh", mesh_phase, device, workdir, mp["fs"],
                      shard_files, files)
@@ -9031,6 +9452,8 @@ def main() -> int:
     print(json.dumps({"deployment": {**deployment, "card": CARD}}),
           flush=True)
     print(json.dumps({"surface": {**surface, "card": CARD}}), flush=True)
+    print(json.dumps({"launchers": {**launchers, "card": CARD}}),
+          flush=True)
     PHASE_S["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_s": {k: round(v, 1)
                                   for k, v in PHASE_S.items()}}), flush=True)
@@ -9064,7 +9487,8 @@ def main() -> int:
             "s3": s3["launches"],
             "serving": serving["launches"],
             "deployment": deployment["launches"],
-            "surface": surface["launches"]},
+            "surface": surface["launches"],
+            "launchers": launchers["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

@@ -3,6 +3,7 @@
 its entry points run on the card unless the caller asks for the CPU."""
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -287,7 +288,8 @@ def test_connectors_and_adapters_load_no_torch():
 
 
 @pytest.mark.parametrize("path", sorted(
-    [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]),
+    [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
+     *(ROOT / "examples").glob("torch_*.py")]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import_in_source(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -383,3 +385,31 @@ def test_mesh_entry_points_do_not_fall_back(tmp_path):
             Transformer(cfg, mesh=mesh, device="cuda")
     finally:
         dist.destroy_process_group()
+
+
+#: a module reference to the JAX package (``alluxio_tpu.x``, ``-m
+#: alluxio_tpu ...``) or an import of JAX, in a script's text (a heredoc
+#: that imports Python counts)
+_SCRIPT_REFS = (re.compile(r"\balluxio_tpu[.\s]"),
+                re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax)\b",
+                           re.MULTILINE),
+                re.compile(r"\bjax\["))
+
+
+def _port_scripts():
+    yield from sorted(ROOT.glob("bin/alluxio-tpu-torch*"))
+    yield ROOT / "bin" / "cluster-fanout-torch.sh"
+    yield from sorted(p for p in (ROOT / "deploy" / "torch").rglob("*")
+                      if p.is_file() and "dist" not in p.parts)
+    yield from sorted((ROOT / "examples").glob("torch_*.py"))
+
+
+@pytest.mark.parametrize("path", list(_port_scripts()),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_scripts_reference_no_jax(path):
+    """The port's launchers, deployment assets and examples run the port
+    alone: no text of theirs names a module of the JAX package or
+    imports JAX."""
+    text = path.read_text()
+    bad = [m.group(0) for pat in _SCRIPT_REFS for m in pat.finditer(text)]
+    assert not bad, f"{path.relative_to(ROOT)} references {bad}"
