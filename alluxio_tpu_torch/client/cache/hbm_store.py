@@ -35,6 +35,8 @@ import numpy as np
 from alluxio_tpu_torch.client.cache.evictor import CacheEvictor
 from alluxio_tpu_torch.client.cache.meta import PageId
 from alluxio_tpu_torch.device import resolve_device
+from alluxio_tpu_torch.metrics import metrics
+from alluxio_tpu_torch.utils.tracing import annotate
 
 
 def host_to_device(host: np.ndarray, device):
@@ -46,15 +48,23 @@ def host_to_device(host: np.ndarray, device):
     views the short-circuit path hands out. PyTorch's pinned-memory
     allocator keeps the staging buffer until the copy has completed, so
     several copies stay in flight. On the CPU the result is a private
-    copy (the mmap under the view may be closed later)."""
+    copy (the mmap under the view may be closed later).
+
+    The staging buffer's allocation runs under ``atpu.h2d.stage_alloc``
+    and the host copy into it (the private copy on the CPU) under
+    ``atpu.h2d.stage_copy``; the launch of the device copy is the
+    caller's range."""
     import torch
 
     host = np.ascontiguousarray(host)
     if device.type == "cpu":
-        return torch.from_numpy(np.array(host, copy=True))
+        with annotate("atpu.h2d.stage_copy"):
+            return torch.from_numpy(np.array(host, copy=True))
     dtype = torch.from_numpy(np.empty(0, dtype=host.dtype)).dtype
-    staging = torch.empty(host.shape, dtype=dtype, pin_memory=True)
-    np.copyto(staging.numpy(), host)
+    with annotate("atpu.h2d.stage_alloc"):
+        staging = torch.empty(host.shape, dtype=dtype, pin_memory=True)
+    with annotate("atpu.h2d.stage_copy"):
+        np.copyto(staging.numpy(), host)
     return staging.to(device, non_blocking=True)
 
 
@@ -139,6 +149,8 @@ class HbmPageStore:
         self._lock = threading.RLock()
         self._evictor = evictor if not isinstance(evictor, str) \
             else CacheEvictor.create(evictor)
+        #: pages the policy evicted to make room (not close() or delete)
+        self._evictions = metrics().counter("Client.HbmEvictions")
 
     # -- capacity -----------------------------------------------------------
     @property
@@ -248,6 +260,7 @@ class HbmPageStore:
             if victim is None:
                 return False
             self.delete(victim)
+            self._evictions.inc()
         return True
 
     def pinned_count(self) -> int:

@@ -445,11 +445,13 @@ class DeviceBlockLoader:
                                                        generation=gen)
                         t0 = _time.monotonic()
                     with annotate("atpu.loader.host_read"):
-                        host = self._host_bytes(path, index)
+                        with annotate("atpu.loader.view"):
+                            host = self._host_bytes(path, index)
                         if host.size:
                             # pre-fault every page off the consumer's
                             # clock (natively: GIL-free, a byte a page)
-                            native.prefault(host)
+                            with annotate("atpu.loader.prefault"):
+                                native.prefault(host)
                     bucket = getattr(self._tls, "last_bucket", "unknown")
                     if ref is not None:
                         if outcome != "stale":
@@ -499,16 +501,17 @@ class DeviceBlockLoader:
             last_item_t = _time.monotonic()
             while True:
                 wait_t0 = _time.monotonic()
-                while True:
-                    try:
-                        item = q.get(timeout=0.5)
-                        break
-                    except _q.Empty:
-                        if stop.is_set():
-                            raise RuntimeError(
-                                "epoch cancelled: the loader was closed "
-                                "or a newer epoch() superseded this "
-                                "iterator")
+                with annotate("atpu.loader.queue_wait"):
+                    while True:
+                        try:
+                            item = q.get(timeout=0.5)
+                            break
+                        except _q.Empty:
+                            if stop.is_set():
+                                raise RuntimeError(
+                                    "epoch cancelled: the loader was "
+                                    "closed or a newer epoch() "
+                                    "superseded this iterator")
                 if item is SENTINEL:
                     break
                 if item[0] == "__error__":
@@ -590,14 +593,17 @@ class DeviceBlockLoader:
 
     @staticmethod
     def _put(q, stop, item) -> None:
+        """Hand ``item`` to the consumer, blocking while the queue is
+        full, under ``atpu.loader.queue_put``."""
         import queue as _q
 
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return
-            except _q.Full:
-                continue
+        with annotate("atpu.loader.queue_put"):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return
+                except _q.Full:
+                    continue
 
     def hbm_stats(self) -> dict:
         if self._hbm is None:

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from alluxio_tpu_torch.utils.tracing import annotate
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -20,19 +22,20 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 def decode_image_records(records: torch.Tensor, *, height: int, width: int,
                          channels: int = 3):
     """(batch, record_bytes) uint8 -> ((batch,H,W,C) bf16 normalized,
-    int32 labels)."""
-    b = records.to(torch.int32)
-    # int32 shifts: byte 3 << 24 wraps into the sign bit, as in JAX
-    labels = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
-    pixels = records[:, 4:4 + height * width * channels]
-    imgs = pixels.reshape(-1, height, width, channels).to(torch.float32)
-    imgs = imgs / 255.0
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
-                        device=records.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
-                       device=records.device)
-    imgs = (imgs - mean) / std
-    return imgs.to(torch.bfloat16), labels
+    int32 labels), under an ``atpu.decode.images`` range."""
+    with annotate("atpu.decode.images"):
+        b = records.to(torch.int32)
+        # int32 shifts: byte 3 << 24 wraps into the sign bit, as in JAX
+        labels = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+        pixels = records[:, 4:4 + height * width * channels]
+        imgs = pixels.reshape(-1, height, width, channels).to(torch.float32)
+        imgs = imgs / 255.0
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
+                            device=records.device)
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
+                           device=records.device)
+        imgs = (imgs - mean) / std
+        return imgs.to(torch.bfloat16), labels
 
 
 def image_record_bytes(height: int, width: int, channels: int = 3) -> int:

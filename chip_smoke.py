@@ -2450,13 +2450,14 @@ def shm_read(device, files: dict, master, worker, main: dict, k: int,
 
 def shm_phases(since_ms: float) -> dict:
     """The ``lease_wait`` and ``shm_map`` phases (ms) that the SHM
-    transport recorded in the loader's host-read spans begun after
-    ``since_ms`` (wall clock), one of each a mapped segment."""
+    transport recorded in the loader's view spans (inside its host-read
+    spans) begun after ``since_ms`` (wall clock), one of each a mapped
+    segment."""
     from alluxio_tpu_torch.utils.tracing import tracer
 
     out = {"lease_wait": [], "shm_map": []}
     for span in tracer().snapshot(limit=1 << 16):
-        if span["name"] != "atpu.loader.host_read" or \
+        if span["name"] != "atpu.loader.view" or \
                 span["start_ms"] < since_ms:
             continue
         for name, ms in span.get("phases", ()):
